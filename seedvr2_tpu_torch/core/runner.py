@@ -1,0 +1,138 @@
+"""VideoDiffusionRunner: the inference engine around the DiT and the VAE.
+
+Port of seedvr2_tpu.core.runner without mesh, OOM retry, tiling or block
+streaming: VAE encode/decode with the latent scale/shift, the SR condition,
+the timestep transform, and the plain denoise (condition concat -> NaDiT ->
+optional CFG -> Euler endpoint). DiT plans are built once per
+(latent shape, text length) and their tables uploaded once.
+"""
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from ..models.dit.nadit import (DevicePlan, NaDiT, build_dit_plan,
+                                nadit_forward, upload_plan)
+from ..models.vae.pipeline_vae import VideoVAE
+from ..utils.dtypes import COMPUTE_DTYPE
+from . import diffusion
+from .configs import RunnerConfig
+
+
+class VideoDiffusionRunner:
+    def __init__(self, dit: NaDiT, vae: VideoVAE,
+                 config: RunnerConfig = RunnerConfig(),
+                 compute_dtype=COMPUTE_DTYPE):
+        self.dit = dit
+        self.dit_cfg = dit.cfg
+        self.vae = vae
+        self.config = config
+        self.compute_dtype = compute_dtype
+        self.device = next(dit.parameters()).device
+        self.schedule = diffusion.LerpSchedule(config.diffusion.schedule_T)
+        self._plans: Dict[Tuple, DevicePlan] = {}
+
+    # ----------------------------------------------------------------- vae
+
+    @torch.no_grad()
+    def vae_encode(self, samples: List[torch.Tensor]) -> List[torch.Tensor]:
+        """samples: (T, H, W, 3) in [-1, 1] -> latents (Tl, h, w, 16) scaled
+        by the VAE scaling factor."""
+        scale = self.config.vae.scaling_factor
+        shift = self.config.vae.shifting_factor
+        out = []
+        for x in samples:
+            lat = self.vae.encode(x[None])[0]
+            out.append(((lat.float() - shift) * scale).to(self.compute_dtype))
+        return out
+
+    @torch.no_grad()
+    def vae_decode(self, latents: List[torch.Tensor]) -> List[torch.Tensor]:
+        scale = self.config.vae.scaling_factor
+        shift = self.config.vae.shifting_factor
+        return [self.vae.decode((lat.float() / scale + shift)
+                                .to(self.vae.dtype)[None])[0]
+                for lat in latents]
+
+    # ----------------------------------------------------------- condition
+
+    @staticmethod
+    def get_condition(noise: torch.Tensor, latent_blur: torch.Tensor,
+                      task: str = "sr") -> torch.Tensor:
+        """SR condition: [latent_blur | ones] channel concat."""
+        mask = torch.ones((*noise.shape[:-1], 1), dtype=noise.dtype,
+                          device=noise.device)
+        if task == "sr":
+            return torch.cat([latent_blur, mask], dim=-1)
+        raise NotImplementedError(f"task {task!r} is not ported (sr only)")
+
+    def timestep_transform(self, timesteps, latent_shapes):
+        if not self.config.diffusion.timestep_transform:
+            return timesteps
+        return diffusion.timestep_shift(
+            timesteps, latent_shapes, T=self.schedule.T,
+            temporal_down=self.config.vae.temporal_downsample_factor,
+            spatial_down=self.config.vae.spatial_downsample_factor)
+
+    # ----------------------------------------------------------- inference
+
+    def plan(self, vid_shape: Tuple[int, int, int], txt_len: int
+             ) -> DevicePlan:
+        """The device plan for one (latent T, H, W, text length), built and
+        uploaded on first use."""
+        key = (tuple(vid_shape), txt_len)
+        if key not in self._plans:
+            self._plans[key] = upload_plan(
+                build_dit_plan(self.dit_cfg, key[0], txt_len), self.dit_cfg,
+                self.device)
+        return self._plans[key]
+
+    @torch.no_grad()
+    def inference(self, noises: List[torch.Tensor],
+                  conditions: List[torch.Tensor],
+                  texts_pos: List[torch.Tensor], texts_neg: List[torch.Tensor],
+                  cfg_scale: Optional[float] = None,
+                  steps: Optional[int] = None) -> List[torch.Tensor]:
+        """One-step (or n-step) denoising of same-shape latents
+        (Tl, h, w, C), batched into one DiT call."""
+        if not noises:
+            return []
+        if cfg_scale is None:
+            cfg_scale = self.config.diffusion.cfg_scale
+        if steps is None:
+            steps = self.config.diffusion.sampling_steps
+        if len({tuple(x.shape) for x in noises}) != 1:
+            raise ValueError("mixed shapes in one inference call")
+        tl, h, w, _ = noises[0].shape
+        dt = self.compute_dtype
+        txt_pos = torch.as_tensor(texts_pos[0], dtype=dt, device=self.device)
+        txt_neg = torch.as_tensor(texts_neg[0], dtype=dt, device=self.device)
+        plan_pos = self.plan((tl, h, w), txt_pos.shape[0])
+        plan_neg = (self.plan((tl, h, w), txt_neg.shape[0])
+                    if cfg_scale != 1.0 else None)
+        noise = torch.stack(noises).to(dt)
+        cond = torch.stack(conditions).to(dt)
+        b = noise.shape[0]
+        txt_pos = txt_pos[None].expand(b, *txt_pos.shape)
+        txt_neg = txt_neg[None].expand(b, *txt_neg.shape)
+        pred_type = self.config.diffusion.prediction_type
+
+        def f(x, t):
+            vid_in = torch.cat([x, cond], dim=-1)
+            tt = torch.full((b,), t, dtype=torch.float32, device=self.device)
+            pos = nadit_forward(self.dit, vid_in, txt_pos, tt, plan_pos)
+            if cfg_scale == 1.0:
+                return pos
+            neg = nadit_forward(self.dit, vid_in, txt_neg, tt, plan_neg)
+            return diffusion.classifier_free_guidance(
+                pos, neg, cfg_scale, self.config.diffusion.cfg_rescale)
+
+        ts = [float(t) for t in
+              diffusion.trailing_timesteps(self.schedule.T, steps)]
+        x = noise
+        for t, s in zip(ts[:-1], ts[1:]):
+            x = diffusion.euler_step_to(self.schedule, f(x, t), x, t, s,
+                                        pred_type)
+        x0, _ = self.schedule.convert_from_pred(f(x, ts[-1]), pred_type, x,
+                                                ts[-1])
+        return [x0[i] for i in range(b)]

@@ -1,0 +1,550 @@
+"""NaDiT 3B denoiser, grouped window-major path.
+
+Port of seedvr2_tpu.models.dit.nadit with `build_dit_plan(..., uniform=False)`,
+the path the JAX runner serves:
+
+ - The window plan is host-side numpy (`build_dit_plan`, equal to the JAX
+   one); `upload_plan` puts its rope tables and transition indices on the
+   device once per plan.
+ - Tokens stay in *window-major* order across the block stack; each block
+   applies one composed permutation (kernel K2, `ops.gather.gather_rows`)
+   and every window shape group is one packed attention call (kernel K1,
+   `ops.flash_attention.packed_window_attention`).
+ - `NaDiT`'s state_dict keys are the reference checkpoint names
+   (blocks.{i}.attn.proj_qkv.{vid,txt,all}.weight, ...), i.e. what
+   seedvr2_tpu.core.export.to_torch_state_dict emits.
+
+Replicated quirks of the released model: 3B blocks >= mm_layers share their
+vid/txt weights ("all"); the 3B last block has no txt mlp/ada branch; the
+output modulation `vid_out_ada` reuses the blocks' attn-layer emb slices.
+"""
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ...core.configs import DiTConfig
+from ...ops.flash_attention import (packed_window_attention,
+                                    packed_window_attention_plain)
+from ...ops.gather import RowIndex, gather_rows, gather_rows_plain
+from ...ops.layers import linear, mlp_forward, rms_norm, silu, swiglu_hidden_dim
+from . import rope as rope_lib
+from .windows import build_layer_plan
+
+_LANE = 128  # window rows + text rows are padded to a multiple of this
+
+# --------------------------------------------------------------------------
+# Plans (host-side numpy, equal to the JAX package's)
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class RopedGroup:
+    shape: Tuple[int, int, int]
+    idx: np.ndarray        # (n, wlen) int32
+    # extended rope tables (wlen + txt_len, head_dim) fp32, text rope baked
+    cos: Optional[np.ndarray]
+    sin: Optional[np.ndarray]
+
+
+@dataclass(frozen=True)
+class RopedLayerPlan:
+    groups: Tuple[RopedGroup, ...]
+    inv: np.ndarray        # canonical[c] = window_major[inv[c]]
+    flat: np.ndarray       # window_major[j] = canonical[flat[j]]
+    num_windows: int
+
+
+@dataclass(frozen=True)
+class DiTPlan:
+    """Static per-(T, H, W, txt_len) window geometry."""
+
+    vid_shape: Tuple[int, int, int]   # pre-patch latent (T, H, W)
+    grid: Tuple[int, int, int]        # post-patch token grid (Tp, Hp, Wp)
+    txt_len: int
+    layer_plans: Dict[str, RopedLayerPlan]
+    transitions: Dict[Tuple[str, str], np.ndarray]
+
+    @property
+    def seq_len(self) -> int:
+        t, h, w = self.grid
+        return t * h * w
+
+
+def build_dit_plan(cfg: DiTConfig, vid_shape: Tuple[int, int, int],
+                   txt_len: int) -> DiTPlan:
+    """Plan the static window geometry for one (T, H, W, txt_len)."""
+    T, H, W = vid_shape
+    pt, ph, pw = cfg.patch_size
+    if H % ph or W % pw:
+        raise ValueError("latent H/W must be patch-divisible")
+    Tp = (T + pt - 1) // pt if T % pt != 0 or pt == 1 else T // pt
+    if pt == 1:
+        Tp = T
+    grid = (Tp, H // ph, W // pw)
+
+    layer_plans = {}
+    for method in ("window", "shifted_window"):
+        base = build_layer_plan(grid, cfg.window, method)
+        groups = []
+        for g in base.groups:
+            if cfg.rope_type == "mmrope3d":
+                cos, sin = rope_lib.mmrope3d_video_table(
+                    g.shape, txt_len, cfg.rope_dim)
+            elif cfg.rope_type == "rope3d_window":
+                cos, sin = rope_lib.rope3d_pixel_table(g.shape, cfg.rope_dim)
+            else:
+                cos = sin = None
+            if cos is not None:
+                # head_dim wide, plus rows for the appended text tokens; 3B
+                # text rope is baked into those rows so video and text rotate
+                # in one pass, 7B text rows stay identity
+                wlen = cos.shape[0]
+                cos, sin = rope_lib.extend_tables(cos, sin, cfg.head_dim,
+                                                  extra_rows=txt_len)
+                if cfg.rope_type == "mmrope3d" and txt_len > 0:
+                    tc, ts = rope_lib.mmrope3d_text_table(txt_len,
+                                                          cfg.rope_dim)
+                    cos[wlen:wlen + txt_len, :tc.shape[1]] = tc
+                    sin[wlen:wlen + txt_len, :ts.shape[1]] = ts
+            groups.append(RopedGroup(shape=g.shape, idx=g.idx, cos=cos, sin=sin))
+        flat = np.concatenate([g.idx.reshape(-1) for g in base.groups])
+        layer_plans[method] = RopedLayerPlan(
+            groups=tuple(groups), inv=base.inv, flat=flat.astype(np.int32),
+            num_windows=base.num_windows)
+
+    # composed order transitions: wm_b = wm_a[inv_a[flat_b]]
+    transitions: Dict[Tuple[str, str], np.ndarray] = {}
+    methods = ("window", "shifted_window")
+    for m in methods:
+        transitions[("canonical", m)] = layer_plans[m].flat
+        transitions[(m, "canonical")] = layer_plans[m].inv
+    for a in methods:
+        for b in methods:
+            if a != b:
+                transitions[(a, b)] = layer_plans[a].inv[
+                    layer_plans[b].flat].astype(np.int32)
+    return DiTPlan(vid_shape=vid_shape, grid=grid, txt_len=txt_len,
+                   layer_plans=layer_plans, transitions=transitions)
+
+
+@dataclass
+class DeviceGroup:
+    """One window shape group with its lane-padded tables on the device."""
+
+    n: int          # windows in the group
+    wlen: int       # tokens per window
+    skv: int        # wlen + txt_len
+    sk_pad: int     # skv padded to a multiple of 128
+    cos: torch.Tensor   # (sk_pad, head_dim) fp32, identity pad rows
+    sin: torch.Tensor
+
+
+@dataclass
+class DevicePlan:
+    plan: DiTPlan
+    groups: Dict[str, List[DeviceGroup]]
+    transitions: Dict[Tuple[str, str], RowIndex]
+    num_windows: Dict[str, int]
+
+
+def upload_plan(plan: DiTPlan, cfg: DiTConfig, device) -> DevicePlan:
+    """Put a plan's tables and transition indices on the device, once."""
+    groups: Dict[str, List[DeviceGroup]] = {}
+    for method, lp in plan.layer_plans.items():
+        out = []
+        for g in lp.groups:
+            n, wlen = g.idx.shape
+            skv = wlen + plan.txt_len
+            sk_pad = skv + (-skv) % _LANE
+            if g.cos is not None:
+                cos = np.pad(g.cos, ((0, sk_pad - skv), (0, 0)),
+                             constant_values=1.0)
+                sin = np.pad(g.sin, ((0, sk_pad - skv), (0, 0)))
+            else:
+                cos = np.ones((sk_pad, cfg.head_dim), np.float32)
+                sin = np.zeros((sk_pad, cfg.head_dim), np.float32)
+            out.append(DeviceGroup(
+                n=n, wlen=wlen, skv=skv, sk_pad=sk_pad,
+                cos=torch.as_tensor(cos, device=device),
+                sin=torch.as_tensor(sin, device=device)))
+        groups[method] = out
+    transitions = {k: RowIndex(v, device) for k, v in plan.transitions.items()}
+    return DevicePlan(plan=plan, groups=groups, transitions=transitions,
+                      num_windows={m: lp.num_windows
+                                   for m, lp in plan.layer_plans.items()})
+
+
+# --------------------------------------------------------------------------
+# Modules (state_dict keys = reference checkpoint names)
+# --------------------------------------------------------------------------
+
+
+class _Weight(nn.Module):
+    def __init__(self, dim: int, **fk):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dim, **fk))
+
+
+class _Ada(nn.Module):
+    def __init__(self, dim: int, layers=("attn", "mlp"),
+                 kinds=("shift", "scale", "gate"), **fk):
+        super().__init__()
+        for layer in layers:
+            for kind in kinds:
+                self.register_parameter(f"{layer}_{kind}",
+                                        nn.Parameter(torch.empty(dim, **fk)))
+
+
+class _Proj(nn.Module):
+    def __init__(self, d_in: int, d_out: int, **fk):
+        super().__init__()
+        self.proj = nn.Linear(d_in, d_out, **fk)
+
+
+class _TimeEmbedding(nn.Module):
+    def __init__(self, dim: int, emb_dim: int, **fk):
+        super().__init__()
+        self.proj_in = nn.Linear(256, dim, **fk)
+        self.proj_hid = nn.Linear(dim, dim, **fk)
+        self.proj_out = nn.Linear(dim, emb_dim, **fk)
+
+
+class _MLP(nn.Module):
+    """The 3B swiglu MLP."""
+
+    def __init__(self, dim: int, cfg: DiTConfig, **fk):
+        super().__init__()
+        hidden = swiglu_hidden_dim(dim, cfg.expand_ratio)
+        self.proj_in_gate = nn.Linear(dim, hidden, bias=False, **fk)
+        self.proj_in = nn.Linear(dim, hidden, bias=False, **fk)
+        self.proj_out = nn.Linear(hidden, dim, bias=False, **fk)
+
+
+def _mm_branches(cfg: DiTConfig, i: int) -> List[str]:
+    if cfg.block_shared(i):
+        return ["all"]
+    if cfg.block_vid_only(i):
+        return ["vid"]
+    return ["vid", "txt"]
+
+
+class _Attn(nn.Module):
+    def __init__(self, cfg: DiTConfig, i: int, **fk):
+        super().__init__()
+        D, inner = cfg.vid_dim, cfg.heads * cfg.head_dim
+        branches = ["all"] if cfg.block_shared(i) else ["vid", "txt"]
+        self.proj_qkv = nn.ModuleDict({b: nn.Linear(D, 3 * inner,
+                                                    bias=cfg.qk_bias, **fk)
+                                       for b in branches})
+        self.proj_out = nn.ModuleDict({b: nn.Linear(inner, D, **fk)
+                                       for b in branches})
+        self.norm_q = nn.ModuleDict({b: _Weight(cfg.head_dim, **fk)
+                                     for b in branches})
+        self.norm_k = nn.ModuleDict({b: _Weight(cfg.head_dim, **fk)
+                                     for b in branches})
+
+
+class _Block(nn.Module):
+    def __init__(self, cfg: DiTConfig, i: int, **fk):
+        super().__init__()
+        branches = _mm_branches(cfg, i)
+        self.attn = _Attn(cfg, i, **fk)
+        self.mlp = nn.ModuleDict({b: _MLP(cfg.vid_dim, cfg, **fk)
+                                  for b in branches})
+        self.ada = nn.ModuleDict({b: _Ada(cfg.vid_dim, **fk) for b in branches})
+
+
+class NaDiT(nn.Module):
+    """Parameter container of the NaDiT denoiser; `nadit_forward` runs it."""
+
+    def __init__(self, cfg: DiTConfig, device=None, dtype=None):
+        super().__init__()
+        if cfg.family != "dit_3b" or cfg.mlp_type != "swiglu":
+            raise NotImplementedError("only the 3B NaDiT family is ported; "
+                                      "7B waits")
+        fk = {"device": device, "dtype": dtype}
+        self.cfg = cfg
+        D = cfg.vid_dim
+        patch = int(np.prod(cfg.patch_size))
+        self.vid_in = _Proj(cfg.vid_in_channels * patch, D, **fk)
+        self.emb_in = _TimeEmbedding(D, cfg.emb_dim, **fk)
+        self.vid_out = _Proj(D, cfg.vid_out_channels * patch, **fk)
+        self.txt_in = (nn.Linear(cfg.txt_in_dim, D, **fk)
+                       if cfg.txt_in_dim and cfg.txt_in_dim != cfg.txt_dim
+                       else None)
+        self.blocks = nn.ModuleList(_Block(cfg, i, **fk)
+                                    for i in range(cfg.num_layers))
+        if cfg.vid_out_norm:
+            self.vid_out_norm = _Weight(D, **fk)
+            self.vid_out_ada = _Ada(D, layers=("out",), kinds=("shift", "scale"),
+                                    **fk)
+
+
+@torch.no_grad()
+def init_dit(cfg: DiTConfig, device, dtype=torch.bfloat16,
+             generator: Optional[torch.Generator] = None) -> NaDiT:
+    """Random NaDiT drawn directly on `device`, with the distributions of the
+    JAX package's init_dit_params: linears U(+-1/sqrt(fan_in)) for weight and
+    bias, qk/out norm weights 1, ada shift/gate N(0, 1/D) and ada scale
+    N(0, 1/D) + 1, each drawn in fp32 and rounded to `dtype`."""
+    with torch.device("meta"):
+        model = NaDiT(cfg, dtype=dtype)
+    model = model.to_empty(device=device)
+    D = cfg.vid_dim
+
+    def draw(p, fill):
+        tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+        fill(tmp)
+        p.copy_(tmp)
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.Linear):
+            bound = 1.0 / np.sqrt(mod.in_features)
+            for p in (mod.weight, mod.bias):
+                if p is not None:
+                    draw(p, lambda t: t.uniform_(-bound, bound,
+                                                 generator=generator))
+        elif isinstance(mod, _Weight):
+            mod.weight.fill_(1.0)
+        elif isinstance(mod, _Ada):
+            for pname, p in mod.named_parameters(recurse=False):
+                offset = 1.0 if pname.endswith("_scale") else 0.0
+                draw(p, lambda t: t.normal_(generator=generator)
+                     .div_(np.sqrt(D)).add_(offset))
+    return model
+
+
+# --------------------------------------------------------------------------
+# Forward
+# --------------------------------------------------------------------------
+
+
+def _pick(branches: nn.ModuleDict, branch: str):
+    """MMModule branch resolution: shared weights live under 'all'."""
+    return branches["all"] if "all" in branches else branches[branch]
+
+
+def _time_embedding(emb: _TimeEmbedding, timestep: torch.Tensor,
+                    dtype) -> torch.Tensor:
+    """Sinusoidal(256) -> SiLU MLP -> (B, 6*D). emb = [sin | cos], no flip."""
+    half = 128
+    exponent = -np.log(10000.0) * np.arange(half, dtype=np.float32) / half
+    freqs = torch.as_tensor(np.exp(exponent), device=timestep.device)
+    arg = timestep.float()[:, None] * freqs[None, :]
+    x = torch.cat([torch.sin(arg), torch.cos(arg)], dim=-1).to(dtype)
+    x = silu(linear(x, emb.proj_in))
+    x = silu(linear(x, emb.proj_hid))
+    return linear(x, emb.proj_out)
+
+
+def _ada_in(x, shift_a, scale_a, ada: _Ada, layer: str):
+    scale_b = getattr(ada, f"{layer}_scale").to(x.dtype)
+    shift_b = getattr(ada, f"{layer}_shift").to(x.dtype)
+    return x * (scale_a[:, None, :].to(x.dtype) + scale_b) + (
+        shift_a[:, None, :].to(x.dtype) + shift_b)
+
+
+def _norm_mod(x, shift_a, scale_a, ada: _Ada, layer: str, eps: float):
+    """rms_norm + AdaSingle modulation (dense branch)."""
+    return _ada_in(rms_norm(x, eps), shift_a, scale_a, ada, layer)
+
+
+def _ada_out(x, gate_a, ada: _Ada, layer: str):
+    gate_b = getattr(ada, f"{layer}_gate").to(x.dtype)
+    return x * (gate_a[:, None, :].to(x.dtype) + gate_b)
+
+
+def _fold_norm_tables(cos_e: torch.Tensor, sin_e: torch.Tensor, wq_v, wq_t,
+                      wk_v, wk_t, wlen: int, skv: int):
+    """Fold the qk-norm weights into per-row rope tables:
+    rope(q * w) == q * (cos * w) + rot_half(q) * (sin * perm(w)) where perm
+    swaps interleaved pairs. Video rows get the vid branch weight, text rows
+    the txt branch weight; pad rows keep 1 (their keys are masked)."""
+    rows, d = cos_e.shape
+
+    def row_w(w_vid, w_txt):
+        w = torch.ones((rows, d), dtype=torch.float32, device=cos_e.device)
+        w[:wlen] = w_vid.float()
+        w[wlen:skv] = w_txt.float()
+        return w
+
+    def perm(w):
+        return w.reshape(rows, d // 2, 2).flip(-1).reshape(rows, d)
+
+    wq = row_w(wq_v, wq_t)
+    wk = row_w(wk_v, wk_t)
+    return cos_e * wq, sin_e * perm(wq), cos_e * wk, sin_e * perm(wk)
+
+
+def _window_attention(attn: _Attn, cfg: DiTConfig, xv, xt, dplan: DevicePlan,
+                      method: str, use_kernels: bool):
+    """Joint windowed multi-modal attention for one block.
+
+    xv: (B, L, D) video tokens in this layer's window-major order (every
+    shape group is a contiguous slice); xt: (B, Ltxt, D) text. Per group the
+    packed qkv rows of its windows are joined with the packed text rows and
+    the lane pad in one copy and handed to kernel K1. Text output is the
+    mean over all windows."""
+    B = xv.shape[0]
+    Hn, Dh = cfg.heads, cfg.head_dim
+    eps = cfg.norm_eps
+    ltxt = dplan.plan.txt_len
+    attend = (packed_window_attention if use_kernels
+              else packed_window_attention_plain)
+
+    qkv_v = linear(xv, _pick(attn.proj_qkv, "vid"))   # (B, L, 3HD)
+    qkv_t = linear(xt, _pick(attn.proj_qkv, "txt"))   # (B, Lt, 3HD)
+    wq_v = _pick(attn.norm_q, "vid").weight
+    wk_v = _pick(attn.norm_k, "vid").weight
+    wq_t = _pick(attn.norm_q, "txt").weight
+    wk_t = _pick(attn.norm_k, "txt").weight
+
+    vid_chunks = []
+    txt_acc = torch.zeros((B, ltxt, Hn * Dh), dtype=torch.float32,
+                          device=xv.device)
+    offset = 0
+    for g in dplan.groups[method]:
+        size = g.n * g.wlen
+        win = qkv_v[:, offset:offset + size].reshape(B, g.n, g.wlen,
+                                                      3 * Hn * Dh)
+        offset += size
+        parts = [win, qkv_t[:, None].expand(B, g.n, ltxt, 3 * Hn * Dh)]
+        if g.sk_pad > g.skv:
+            parts.append(win.new_zeros((B, g.n, g.sk_pad - g.skv,
+                                        3 * Hn * Dh)))
+        packed = torch.cat(parts, dim=2).reshape(B * g.n, g.sk_pad,
+                                                 3 * Hn * Dh)
+        cq, sq, ck, sk = _fold_norm_tables(g.cos, g.sin, wq_v, wq_t, wk_v,
+                                           wk_t, g.wlen, g.skv)
+        out = attend(packed, Hn, Dh, cq, sq, ck, sk, eps,
+                     kv_len=g.skv).reshape(B, g.n, g.sk_pad, Hn * Dh)
+        vid_chunks.append(out[:, :, :g.wlen].reshape(B, size, Hn * Dh))
+        txt_acc = txt_acc + out[:, :, g.wlen:g.skv].float().sum(dim=1)
+
+    vid_out = torch.cat(vid_chunks, dim=1)  # stays window-major
+    txt_out = (txt_acc / dplan.num_windows[method]).to(xv.dtype)
+    vid_out = linear(vid_out, _pick(attn.proj_out, "vid"))
+    txt_out = linear(txt_out, _pick(attn.proj_out, "txt"))
+    return vid_out, txt_out
+
+
+def _block_forward(blk: _Block, cfg: DiTConfig, i: int, xv, xt, emb_attn,
+                   emb_mlp, dplan: DevicePlan, order: str, use_kernels: bool):
+    """One NaMMSRTransformerBlock. xv arrives in `order` token order and
+    leaves in this layer's window-major order (returned third)."""
+    method = cfg.window_method(i)
+    if order != method:
+        index = dplan.transitions[(order, method)]
+        xv = (gather_rows(xv, index) if use_kernels
+              else gather_rows_plain(xv, index))
+    vid_only = cfg.block_vid_only(i)
+    eps = cfg.norm_eps
+
+    sa_v, ss_v, sg_v = emb_attn[..., 0], emb_attn[..., 1], emb_attn[..., 2]
+    ma_v, ms_v, mg_v = emb_mlp[..., 0], emb_mlp[..., 1], emb_mlp[..., 2]
+    ada_v = _pick(blk.ada, "vid")
+    ada_t = _pick(blk.ada, "txt") if not vid_only else None
+
+    hv = _norm_mod(xv, sa_v, ss_v, ada_v, "attn", eps)
+    ht = rms_norm(xt, eps)
+    # 3B last layer: txt enters attention normed but unmodulated and leaves
+    # ungated
+    ht = _ada_in(ht, sa_v, ss_v, ada_t, "attn") if ada_t is not None else ht
+    hv, ht = _window_attention(blk.attn, cfg, hv, ht, dplan, method,
+                               use_kernels)
+    hv = _ada_out(hv, sg_v, ada_v, "attn")
+    ht = _ada_out(ht, sg_v, ada_t, "attn") if ada_t is not None else ht
+    xv = xv + hv
+    xt = xt + ht
+
+    hv = _norm_mod(xv, ma_v, ms_v, ada_v, "mlp", eps)
+    hv = mlp_forward(hv, _pick(blk.mlp, "vid"), cfg.mlp_type)
+    xv = xv + _ada_out(hv, mg_v, ada_v, "mlp")
+    if not vid_only:
+        ht2 = _ada_in(rms_norm(xt, eps), ma_v, ms_v, ada_t, "mlp")
+        ht2 = mlp_forward(ht2, _pick(blk.mlp, "txt"), cfg.mlp_type)
+        xt = xt + _ada_out(ht2, mg_v, ada_t, "mlp")
+    return xv, xt, method
+
+
+def patchify(vid: torch.Tensor, patch_size) -> torch.Tensor:
+    """(B, T, H, W, C) -> (B, Tp*Hp*Wp, t*h*w*C), channel order (t h w c)."""
+    pt, ph, pw = patch_size
+    B, T, H, W, C = vid.shape
+    if pt > 1 and T % pt != 1:
+        raise ValueError("temporal patching expects T % pt == 1")
+    if pt > 1:
+        vid = torch.cat([vid[:, :1].expand(B, pt - 1, H, W, C), vid], dim=1)
+        T = vid.shape[1]
+    Tp, Hp, Wp = T // pt, H // ph, W // pw
+    x = vid.reshape(B, Tp, pt, Hp, ph, Wp, pw, C)
+    x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return x.reshape(B, Tp * Hp * Wp, pt * ph * pw * C)
+
+
+def unpatchify(x: torch.Tensor, grid, patch_size, out_channels: int,
+               orig_t: int) -> torch.Tensor:
+    """(B, L, t*h*w*C) -> (B, T, H, W, C)."""
+    pt, ph, pw = patch_size
+    Tp, Hp, Wp = grid
+    B = x.shape[0]
+    x = x.reshape(B, Tp, Hp, Wp, pt, ph, pw, out_channels)
+    x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)
+    x = x.reshape(B, Tp * pt, Hp * ph, Wp * pw, out_channels)
+    if pt > 1:
+        x = x[:, Tp * pt - orig_t:]
+    return x
+
+
+def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
+                  timestep: torch.Tensor, dplan: DevicePlan,
+                  use_kernels: bool = True) -> torch.Tensor:
+    """Denoiser forward.
+
+    Args:
+        model: NaDiT parameters (random via init_dit, or a checkpoint).
+        vid: (B, T, H, W, vid_in_channels) latent+condition, pre-patch dims.
+        txt: (B, txt_len, txt_in_dim) text embeddings.
+        timestep: (B,) diffusion timesteps.
+        dplan: upload_plan(build_dit_plan(cfg, (T, H, W), txt_len), ...).
+        use_kernels: False runs the plain versions of K1 and K2 on any
+            device, the reference a kernel run is held against.
+
+    Returns:
+        (B, T, H, W, vid_out_channels) prediction (v_lerp velocity).
+    """
+    cfg = model.cfg
+    B, T = vid.shape[0], vid.shape[1]
+    x = linear(patchify(vid, cfg.patch_size), model.vid_in.proj)
+    xt = linear(txt, model.txt_in) if model.txt_in is not None else txt
+
+    emb = _time_embedding(model.emb_in, timestep, x.dtype)  # (B, 6D)
+    emb_r = emb.reshape(B, cfg.vid_dim, 2, 3).float()
+    emb_attn, emb_mlp = emb_r[..., 0, :], emb_r[..., 1, :]
+
+    order = "canonical"
+    for i, blk in enumerate(model.blocks):
+        x, xt, order = _block_forward(blk, cfg, i, x, xt, emb_attn, emb_mlp,
+                                      dplan, order, use_kernels)
+    if order != "canonical":
+        index = dplan.transitions[(order, "canonical")]
+        x = gather_rows(x, index) if use_kernels else gather_rows_plain(x,
+                                                                        index)
+
+    if cfg.vid_out_norm:
+        x = rms_norm(x, cfg.norm_eps, model.vid_out_norm.weight)
+        # the reference's cache collision: output modulation reuses the
+        # blocks' attn-layer emb slices
+        shift_a, scale_a = emb_attn[..., 0], emb_attn[..., 1]
+        scale_b = model.vid_out_ada.out_scale.to(x.dtype)
+        shift_b = model.vid_out_ada.out_shift.to(x.dtype)
+        x = x * (scale_a[:, None, :].to(x.dtype) + scale_b) + (
+            shift_a[:, None, :].to(x.dtype) + shift_b)
+
+    x = linear(x, model.vid_out.proj)
+    return unpatchify(x, dplan.plan.grid, cfg.patch_size,
+                      cfg.vid_out_channels, T)

@@ -1,0 +1,359 @@
+"""Causal video VAE (s8_c16_t4).
+
+Port of seedvr2_tpu.models.vae.model, default branches: plain causal 3D
+convs (cuDNN), per-frame group norm with fp32 statistics, the mid-block
+spatial attention as a plain matmul/softmax composition, and the decoder
+upsample in its conv-transpose form.
+
+ - The reference's mutable per-conv temporal memory is an explicit state
+   dict: every causal conv reads `state[path]` and writes `new_state[path]`,
+   so temporal slicing is (y, state) = f(model, x, state).
+ - The public cores (`encoder_core`, `decoder_core`) take and return
+   channels-last NDHWC tensors like the JAX package; inside they run in
+   PyTorch's NCDHW, the layout cuDNN's 3D convolutions take.
+ - `VideoAutoencoder`'s state_dict keys are the reference checkpoint names
+   (encoder.down_blocks.0.resnets.0.conv1.weight, ...).
+
+Causal semantics: the first slice prepends its first frame 2*pad_t times;
+later slices prepend the stored tail of the previous *extended* input
+(k_t - s_t frames). The decoder's temporal upsample duplicates frame 0, so
+the first slice drops frame 1 after it.
+"""
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...core.configs import VAEConfig
+
+State = Optional[Dict[str, torch.Tensor]]
+
+# --------------------------------------------------------------------------
+# Modules (state_dict keys = reference checkpoint names)
+# --------------------------------------------------------------------------
+
+
+def _conv(ci, co, k=(3, 3, 3), **fk):
+    return nn.Conv3d(ci, co, k, **fk)
+
+
+def _norm(c, groups, **fk):
+    return nn.GroupNorm(groups, c, **fk)
+
+
+class ResnetBlock(nn.Module):
+    def __init__(self, ci, co, groups, **fk):
+        super().__init__()
+        self.norm1 = _norm(ci, groups, **fk)
+        self.conv1 = _conv(ci, co, **fk)
+        self.norm2 = _norm(co, groups, **fk)
+        self.conv2 = _conv(co, co, **fk)
+        self.conv_shortcut = _conv(ci, co, (1, 1, 1), **fk) if ci != co else None
+
+
+class AttnBlock(nn.Module):
+    def __init__(self, c, groups, **fk):
+        super().__init__()
+        self.group_norm = _norm(c, groups, **fk)
+        self.to_q = nn.Linear(c, c, **fk)
+        self.to_k = nn.Linear(c, c, **fk)
+        self.to_v = nn.Linear(c, c, **fk)
+        self.to_out = nn.ModuleList([nn.Linear(c, c, **fk)])
+
+
+class MidBlock(nn.Module):
+    def __init__(self, c, groups, **fk):
+        super().__init__()
+        self.resnets = nn.ModuleList([ResnetBlock(c, c, groups, **fk),
+                                      ResnetBlock(c, c, groups, **fk)])
+        self.attentions = nn.ModuleList([AttnBlock(c, groups, **fk)])
+
+
+class _ConvHolder(nn.Module):
+    def __init__(self, **convs):
+        super().__init__()
+        for name, conv in convs.items():
+            self.add_module(name, conv)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, **fk):
+        super().__init__()
+        chans, g = cfg.block_out_channels, cfg.norm_num_groups
+        n = len(chans)
+        self.conv_in = _conv(cfg.in_channels, chans[0], **fk)
+        self.down_blocks = nn.ModuleList()
+        in_ch = chans[0]
+        for i, out_ch in enumerate(chans):
+            blk = nn.Module()
+            blk.resnets = nn.ModuleList(
+                ResnetBlock(in_ch if j == 0 else out_ch, out_ch, g, **fk)
+                for j in range(cfg.layers_per_block))
+            if i < n - 1:
+                kt = 3 if i >= n - cfg.temporal_scale_num - 1 else 1
+                blk.downsamplers = nn.ModuleList([_ConvHolder(
+                    conv=_conv(out_ch, out_ch, (kt, 3, 3), **fk))])
+            self.down_blocks.append(blk)
+            in_ch = out_ch
+        self.mid_block = MidBlock(chans[-1], g, **fk)
+        self.conv_norm_out = _norm(chans[-1], g, **fk)
+        self.conv_out = _conv(chans[-1], 2 * cfg.latent_channels, **fk)
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, **fk):
+        super().__init__()
+        rev, g = list(reversed(cfg.block_out_channels)), cfg.norm_num_groups
+        n = len(rev)
+        self.conv_in = _conv(cfg.latent_channels, rev[0], **fk)
+        self.mid_block = MidBlock(rev[0], g, **fk)
+        self.up_blocks = nn.ModuleList()
+        in_ch = rev[0]
+        for i, out_ch in enumerate(rev):
+            blk = nn.Module()
+            blk.resnets = nn.ModuleList(
+                ResnetBlock(in_ch if j == 0 else out_ch, out_ch, g, **fk)
+                for j in range(cfg.layers_per_block + 1))
+            if i < n - 1:
+                ratio = 4 * (2 if i < cfg.temporal_scale_num else 1)
+                blk.upsamplers = nn.ModuleList([_ConvHolder(
+                    upscale_conv=_conv(out_ch, out_ch * ratio, (1, 1, 1), **fk),
+                    conv=_conv(out_ch, out_ch, **fk))])
+            self.up_blocks.append(blk)
+            in_ch = out_ch
+        self.conv_norm_out = _norm(rev[-1], g, **fk)
+        self.conv_out = _conv(rev[-1], cfg.out_channels, **fk)
+
+
+class VideoAutoencoder(nn.Module):
+    """Parameter container of the causal VAE; the cores below run it."""
+
+    def __init__(self, cfg: VAEConfig, device=None, dtype=None):
+        super().__init__()
+        if (cfg.use_quant_conv or cfg.use_post_quant_conv
+                or not cfg.mid_attention or cfg.time_receptive_field != "full"
+                or cfg.conv_quant != "none"):
+            raise NotImplementedError(
+                "only the attn_video_vae family (VAE_V3 switches) is ported; "
+                "the legacy family and int8 convs are not")
+        fk = {"device": device, "dtype": dtype}
+        self.cfg = cfg
+        self.encoder = Encoder(cfg, **fk)
+        self.decoder = Decoder(cfg, **fk)
+
+
+# --------------------------------------------------------------------------
+# Layers (internal layout NCDHW)
+# --------------------------------------------------------------------------
+
+
+def causal_conv3d(conv: nn.Conv3d, path: str, x: torch.Tensor, state: State,
+                  new_state: State = None,
+                  stride: Tuple[int, int, int] = (1, 1, 1), t_pad: int = 0,
+                  s_pad=((0, 0), (0, 0))) -> torch.Tensor:
+    """Causal 3D convolution with functional temporal memory.
+
+    x: (B, C, T, H, W). `state` holds the previous slice's tails (None for a
+    first or unsliced call); `new_state`, if a dict, receives this slice's
+    tail under `path` for the next call."""
+    w = conv.weight
+    kt = w.shape[2]
+    cache = kt - stride[0]
+    if state is not None and path in state:
+        x_ext = torch.cat([state[path].to(x.dtype), x], dim=2)
+    elif t_pad > 0:
+        head = x[:, :, :1].expand(-1, -1, 2 * t_pad, -1, -1)
+        x_ext = torch.cat([head, x], dim=2)
+    else:
+        x_ext = x
+    if new_state is not None and cache > 0:
+        new_state[path] = x_ext[:, :, -cache:].clone()
+    (ph0, ph1), (pw0, pw1) = s_pad
+    if ph0 == ph1 and pw0 == pw1:
+        padding = (0, ph0, pw0)
+    else:
+        x_ext = F.pad(x_ext, (pw0, pw1, ph0, ph1))
+        padding = 0
+    out = F.conv3d(x_ext, w.to(x.dtype), None, stride, padding)
+    return out + conv.bias.to(x.dtype).view(1, -1, 1, 1, 1)
+
+
+def frame_group_norm(norm: nn.GroupNorm, x: torch.Tensor,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm with per-frame statistics (causal_norm_wrapper semantics):
+    x (B, C, T, H, W), statistics per (b, group, t) over (c/g, h, w) in
+    fp32 from one pass of E[x] and E[x^2]."""
+    b, c, t, h, w = x.shape
+    g = norm.num_groups
+    xr = x.reshape(b, g, c // g, t, h * w)
+    n = (c // g) * h * w
+    mean = xr.mean(dim=(2, 4), keepdim=True, dtype=torch.float32)
+    meansq = torch.linalg.vector_norm(xr, 2, dim=(2, 4), keepdim=True,
+                                      dtype=torch.float32).square() / n
+    var = torch.clamp(meansq - mean.square(), min=0.0)
+    inv = torch.rsqrt(var + eps)
+    wgt = norm.weight.float().view(1, g, c // g, 1, 1)
+    bias = norm.bias.float().view(1, g, c // g, 1, 1)
+    out = ((xr.float() - mean) * inv) * wgt + bias
+    return out.to(x.dtype).reshape(b, c, t, h, w)
+
+
+def norm_silu_conv(norm: nn.GroupNorm, conv: nn.Conv3d, path: str,
+                   x: torch.Tensor, state: State,
+                   new_state: State) -> torch.Tensor:
+    """GroupNorm -> SiLU -> causal conv; the temporal pad comes from the
+    conv's kernel depth."""
+    kt = conv.weight.shape[2]
+    h = F.silu(frame_group_norm(norm, x))
+    return causal_conv3d(conv, path, h, state, new_state,
+                         t_pad=(kt - 1) // 2, s_pad=((1, 1), (1, 1)))
+
+
+def resnet_block(blk: ResnetBlock, path: str, x: torch.Tensor, state: State,
+                 new_state: State) -> torch.Tensor:
+    h = norm_silu_conv(blk.norm1, blk.conv1, f"{path}.conv1", x, state,
+                       new_state)
+    h = norm_silu_conv(blk.norm2, blk.conv2, f"{path}.conv2", h, state,
+                       new_state)
+    if blk.conv_shortcut is not None:
+        x = causal_conv3d(blk.conv_shortcut, f"{path}.conv_shortcut", x, state,
+                          new_state)
+    return x + h
+
+
+_ATTN_Q_CHUNK = 4096  # query rows per softmax chunk
+
+
+def _spatial_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """(N, S, C) single-head attention as a plain composition: fp32 logits
+    from the operands' exact products, fp32 softmax, probabilities rounded
+    to v's dtype, fp32-accumulated p@v. Query rows go in chunks so the
+    (S, S) logits never materialise at once (a 1080p latent has S = 32400);
+    each row's softmax is still exact over every key."""
+    k32, v32 = k.float(), v.float()
+    out = torch.empty_like(q)
+    for s0 in range(0, q.shape[1], _ATTN_Q_CHUNK):
+        qc = q[:, s0:s0 + _ATTN_Q_CHUNK].float()
+        logits = torch.matmul(qc, k32.transpose(1, 2)) * scale
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        out[:, s0:s0 + _ATTN_Q_CHUNK] = torch.matmul(probs.float(), v32).to(
+            q.dtype)
+    return out
+
+
+def attn_block(blk: AttnBlock, x: torch.Tensor) -> torch.Tensor:
+    """Per-frame single-head spatial attention (UNetMidBlock3D attention):
+    group norm -> q,k,v linear -> softmax(QK^T / sqrt(C)) -> out linear ->
+    residual."""
+    b, c, t, h, w = x.shape
+    hid = frame_group_norm(blk.group_norm, x)
+    hid = hid.permute(0, 2, 3, 4, 1).reshape(b * t, h * w, c)
+
+    def lin(layer, z):
+        return torch.matmul(z, layer.weight.to(z.dtype).t()) + layer.bias.to(
+            z.dtype)
+
+    q, k, v = lin(blk.to_q, hid), lin(blk.to_k, hid), lin(blk.to_v, hid)
+    out = lin(blk.to_out[0], _spatial_attention(q, k, v, c ** -0.5))
+    return out.reshape(b, t, h, w, c).permute(0, 4, 1, 2, 3) + x
+
+
+def _mid_block(blk: MidBlock, path: str, x, state, new_state):
+    x = resnet_block(blk.resnets[0], f"{path}.resnets.0", x, state, new_state)
+    x = attn_block(blk.attentions[0], x)
+    return resnet_block(blk.resnets[1], f"{path}.resnets.1", x, state,
+                        new_state)
+
+
+def _upsample_conv_transpose(conv: nn.Conv3d, x: torch.Tensor, sr: int,
+                             tr: int) -> torch.Tensor:
+    """upscale_conv (1x1x1, ci -> c*sr*sr*tr) + pixel shuffle as ONE
+    transposed conv whose kernel equals its stride (a pure scatter):
+    out[b, c, t*tr+z, h*sr+xi, w*sr+yi] = x[b, :, t, h, w] @
+    W[((xi*sr+yi)*tr+z)*C + c, :]. The phase-dependent bias of the
+    reference's conv broadcasts over free dim splits."""
+    ci = x.shape[1]
+    c = conv.weight.shape[0] // (sr * sr * tr)
+    k = conv.weight[:, :, 0, 0, 0].to(x.dtype).reshape(sr, sr, tr, c, ci)
+    k = k.permute(4, 3, 2, 0, 1)                  # (ci, c, tr, sr, sr)
+    y = F.conv_transpose3d(x, k, stride=(tr, sr, sr))
+    b, _, t, h, wd = x.shape
+    bias = conv.bias.to(x.dtype).reshape(sr, sr, tr, c).permute(3, 2, 0, 1)
+    y = y.reshape(b, c, t, tr, h, sr, wd, sr) + bias.reshape(
+        1, c, 1, tr, 1, sr, 1, sr)
+    return y.reshape(b, c, t * tr, h * sr, wd * sr)
+
+
+def _upsample3d(up: _ConvHolder, path: str, x, state, new_state,
+                temporal_up: bool, first_slice: bool):
+    tr = 2 if temporal_up else 1
+    y = _upsample_conv_transpose(up.upscale_conv, x, 2, tr)
+    if temporal_up and first_slice:
+        # remove_head: drop the duplicated frame 1
+        y = torch.cat([y[:, :, :1], y[:, :, 2:]], dim=2)
+    return causal_conv3d(up.conv, f"{path}.conv", y, state, new_state,
+                         t_pad=1, s_pad=((1, 1), (1, 1)))
+
+
+# --------------------------------------------------------------------------
+# Encoder / decoder cores (one temporal slice; NDHWC in and out)
+# --------------------------------------------------------------------------
+
+
+def encoder_core(vae: VideoAutoencoder, x: torch.Tensor, state: State,
+                 keep_state: bool = True
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, T, H, W, 3) in [-1, 1] -> moments (B, Tl, H/8, W/8, 2*latent).
+
+    state=None means the first slice. Returns (moments, new_state); with
+    keep_state=False no tails are kept (the last or only slice)."""
+    cfg, enc = vae.cfg, vae.encoder
+    new_state: State = {} if keep_state else None
+    n_blocks = len(cfg.block_out_channels)
+    x = x.permute(0, 4, 1, 2, 3).contiguous()
+    x = causal_conv3d(enc.conv_in, "encoder.conv_in", x, state, new_state,
+                      t_pad=1, s_pad=((1, 1), (1, 1)))
+    for i, blk in enumerate(enc.down_blocks):
+        base = f"encoder.down_blocks.{i}"
+        for j, res in enumerate(blk.resnets):
+            x = resnet_block(res, f"{base}.resnets.{j}", x, state, new_state)
+        if i < n_blocks - 1:
+            temporal_down = i >= n_blocks - cfg.temporal_scale_num - 1
+            # Downsample3D: spatial stride 2 with asymmetric (0, 1) pad,
+            # temporal stride 2 causal when enabled
+            x = causal_conv3d(
+                blk.downsamplers[0].conv, f"{base}.downsamplers.0.conv", x,
+                state, new_state, stride=(2 if temporal_down else 1, 2, 2),
+                t_pad=1 if temporal_down else 0, s_pad=((0, 1), (0, 1)))
+    x = _mid_block(enc.mid_block, "encoder.mid_block", x, state, new_state)
+    x = norm_silu_conv(enc.conv_norm_out, enc.conv_out, "encoder.conv_out", x,
+                       state, new_state)
+    return x.permute(0, 2, 3, 4, 1), (new_state or {})
+
+
+def decoder_core(vae: VideoAutoencoder, z: torch.Tensor, state: State,
+                 keep_state: bool = True
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """z: (B, Tl, h, w, latent) -> (B, T, 8h, 8w, 3). state as encoder_core."""
+    cfg, dec = vae.cfg, vae.decoder
+    new_state: State = {} if keep_state else None
+    first_slice = state is None
+    n_blocks = len(cfg.block_out_channels)
+    x = z.permute(0, 4, 1, 2, 3).contiguous()
+    x = causal_conv3d(dec.conv_in, "decoder.conv_in", x, state, new_state,
+                      t_pad=1, s_pad=((1, 1), (1, 1)))
+    x = _mid_block(dec.mid_block, "decoder.mid_block", x, state, new_state)
+    for i, blk in enumerate(dec.up_blocks):
+        base = f"decoder.up_blocks.{i}"
+        for j, res in enumerate(blk.resnets):
+            x = resnet_block(res, f"{base}.resnets.{j}", x, state, new_state)
+        if i < n_blocks - 1:
+            x = _upsample3d(blk.upsamplers[0], f"{base}.upsamplers.0", x,
+                            state, new_state, i < cfg.temporal_scale_num,
+                            first_slice)
+    x = norm_silu_conv(dec.conv_norm_out, dec.conv_out, "decoder.conv_out", x,
+                       state, new_state)
+    return x.permute(0, 2, 3, 4, 1), (new_state or {})

@@ -1,0 +1,93 @@
+"""The port's CUDA kernels against their plain versions, on a GPU.
+
+Marked `cuda`: they skip where torch sees no CUDA device (the CPU test
+runs). This file imports no JAX, so it also runs on a GPU machine that has
+none:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
+
+chip_smoke.py makes the same checks at the main path's shapes."""
+
+import numpy as np
+import pytest
+import torch
+
+from seedvr2_tpu_torch.ops import flash_attention as tfa
+from seedvr2_tpu_torch.ops import gather as tg
+
+
+def _tables(rng, s, d, device):
+    out = []
+    for _ in range(2):
+        ang = rng.standard_normal((s, d // 2)).astype(np.float32)
+        out += [np.repeat(np.cos(ang), 2, axis=1),
+                np.repeat(np.sin(ang), 2, axis=1)]
+    return [torch.from_numpy(t).to(device) for t in out]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc; chip_smoke.py runs the "
+                    "kernels against their plain versions on the card")
+    # the plain versions take fp32 products: keep them out of TF32
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,kv_len", [(128, 91), (512, 463), (896, 896)])
+def test_k1_kernel_matches_plain_on_gpu(cuda_device, s, kv_len):
+    gen = torch.Generator(cuda_device).manual_seed(s)
+    h, d = 20, 128
+    qkv = torch.randn(2, s, 3 * h * d, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    tabs = _tables(np.random.default_rng(s), s, d, cuda_device)
+    out = tfa.packed_window_attention(qkv, h, d, *tabs, 1e-5, kv_len)
+    ref = tfa.packed_window_attention_plain(qkv, h, d, *tabs, 1e-5, kv_len)
+    # bf16 outputs rounded at other points: the JAX package's kernel bound
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2560, 30])
+def test_k2_kernel_matches_plain_on_gpu(cuda_device, width):
+    gen = torch.Generator(cuda_device).manual_seed(width)
+    x = torch.randn(2, 300, width, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    index = tg.RowIndex(np.random.default_rng(0).integers(0, 300, 250),
+                        cuda_device)
+    assert torch.equal(tg.gather_rows(x, index), tg.gather_rows_plain(x, index))
+
+
+@pytest.mark.cuda
+def test_dit_with_kernels_matches_plain_on_gpu(cuda_device):
+    """A 2-layer, width-256 NaDiT in bf16 (head dim 128, as in 3B): the
+    forward with K1 and K2 against the forward with their plain versions.
+    Bound: a bf16-class relative L2 error, as chip_smoke.py uses for the
+    full 32-layer model."""
+    from seedvr2_tpu_torch.core.configs import small_test_config
+    from seedvr2_tpu_torch.models.dit import nadit
+
+    cfg = small_test_config(vid_dim=256, heads=2, head_dim=128)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    model = nadit.init_dit(cfg, cuda_device, torch.bfloat16, generator=gen)
+    shape, txt_len = (2, 18, 32), 58
+    dplan = nadit.upload_plan(nadit.build_dit_plan(cfg, shape, txt_len), cfg,
+                              cuda_device)
+    vid = torch.randn(1, *shape, cfg.vid_in_channels, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    txt = torch.randn(1, txt_len, cfg.txt_in_dim, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    t = torch.full((1,), 1000.0, device=cuda_device)
+    with torch.no_grad():
+        k = nadit.nadit_forward(model, vid, txt, t, dplan).float()
+        p = nadit.nadit_forward(model, vid, txt, t, dplan,
+                                use_kernels=False).float()
+    assert torch.isfinite(k).all()
+    assert ((k - p).norm() / p.norm()).item() < 2e-2

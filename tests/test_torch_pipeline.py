@@ -1,0 +1,166 @@
+"""The port's whole 4-phase slice (cli.process_frames: encode -> DiT ->
+decode -> colour fix) against the JAX pipeline on the CPU in fp32, with the
+tiny runner of tests/test_pipeline.py, shared weights and shared noise;
+plus the pipeline's batch math and the CLI's refusal to run without a GPU."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from seedvr2_tpu.core import pipeline as jp
+from seedvr2_tpu.core.configs import DiTConfig as JDiTConfig
+from seedvr2_tpu.core.configs import RunnerConfig as JRunnerConfig
+from seedvr2_tpu.core.configs import VAEConfig as JVAEConfig
+from seedvr2_tpu.core.runner import VideoDiffusionRunner as JRunner
+from seedvr2_tpu.models.dit.nadit import init_dit_params
+from seedvr2_tpu.models.vae.pipeline_vae import VideoVAE as JVAE
+from seedvr2_tpu.models.vae.pipeline_vae import init_vae_params
+from seedvr2_tpu_torch import cli
+from seedvr2_tpu_torch.core import configs as tc
+from seedvr2_tpu_torch.core import pipeline as tp
+from seedvr2_tpu_torch.core.runner import VideoDiffusionRunner as TRunner
+from seedvr2_tpu_torch.core.weights import state_dict_from_jax
+from seedvr2_tpu_torch.models.dit.nadit import NaDiT
+from seedvr2_tpu_torch.models.vae.model import VideoAutoencoder
+from seedvr2_tpu_torch.models.vae.pipeline_vae import VideoVAE as TVAE
+
+from .test_torch_dit import random_params
+
+VAE_KW = dict(block_out_channels=(8, 8, 16, 16), layers_per_block=1,
+              latent_channels=4, norm_num_groups=4)
+DIT_KW = dict(family="dit_3b", vid_in_channels=9, vid_out_channels=4,
+              vid_dim=24, txt_in_dim=16, heads=2, head_dim=12, expand_ratio=4,
+              patch_size=(1, 2, 2), num_layers=2, mm_layers=1,
+              mlp_type="swiglu", window=(2, 2, 2), rope_type="mmrope3d",
+              rope_dim=12, vid_out_norm=True)
+
+
+@pytest.fixture(scope="module")
+def runners():
+    jv_cfg, jd_cfg = JVAEConfig(**VAE_KW), JDiTConfig(**DIT_KW)
+    vae_p = random_params(lambda k: init_vae_params(k, jv_cfg,
+                                                    dtype=jnp.float32), 2)
+    dit_p = random_params(lambda k: init_dit_params(k, jd_cfg,
+                                                    dtype=jnp.float32), 3)
+    j_runner = JRunner(dit_p, jd_cfg, JVAE(vae_p, jv_cfg, dtype=jnp.float32),
+                       JRunnerConfig(dit=jd_cfg, vae=jv_cfg),
+                       compute_dtype=jnp.float32)
+    tv_cfg, td_cfg = tc.VAEConfig(**VAE_KW), tc.DiTConfig(**DIT_KW)
+    vae = VideoAutoencoder(tv_cfg, dtype=torch.float32)
+    vae.load_state_dict(state_dict_from_jax(vae_p), strict=True)
+    dit = NaDiT(td_cfg, dtype=torch.float32)
+    dit.load_state_dict(state_dict_from_jax(dit_p), strict=True)
+    t_runner = TRunner(dit, TVAE(vae, torch.float32),
+                       tc.RunnerConfig(dit=td_cfg, vae=tv_cfg),
+                       compute_dtype=torch.float32)
+    return j_runner, t_runner
+
+
+def _jax_pipeline(j_runner, images, emb, noise, color, overlap):
+    ctx = jp.setup_generation_context()
+    ctx = jp.encode_all_batches(j_runner, ctx, images, batch_size=5,
+                                temporal_overlap=overlap, resolution=32,
+                                color_correction=color, seed=1)
+    ctx["text_embeds"] = emb
+    ctx = jp.upscale_all_batches(j_runner, ctx, seed=1, noise_override=noise)
+    ctx = jp.decode_all_batches(j_runner, ctx)
+    ctx = jp.postprocess_all_batches(ctx, color_correction=color,
+                                     temporal_overlap=overlap, batch_size=5)
+    return ctx["final_video"]
+
+
+@pytest.mark.parametrize("color", ["none", "lab"])
+def test_slice_matches_jax_pipeline(runners, color):
+    """7 frames of 24x20 to 32 px in batches of 5 with overlap 2: two
+    batches, 4n+1 padding, overlap blending. Without colour correction the
+    outputs agree to fp32 noise (1e-4); lab adds the histogram matching's
+    rank swaps (see tests/test_torch_layers.py), so there 99% of the values
+    are within 1e-4 (observed 99.85% on this small frame) and all within
+    1e-2."""
+    j_runner, t_runner = runners
+    rng = np.random.default_rng(0)
+    images = rng.uniform(0, 1, (7, 24, 20, 3)).astype(np.float32)
+    emb = {"pos": rng.standard_normal((7, 16)).astype(np.float32),
+           "neg": rng.standard_normal((9, 16)).astype(np.float32)}
+    noise = [rng.standard_normal((2, 6, 4, 4)).astype(np.float32)
+             for _ in range(2)]
+    ref = _jax_pipeline(j_runner, images, emb, noise, color, 2)
+    out, timings = cli.process_frames(
+        t_runner, images, emb, resolution=32, seed=1, batch_size=5,
+        temporal_overlap=2, color_correction=color, noise_override=noise)
+    assert out.shape == ref.shape == (7, 38, 32, 3)
+    assert set(timings) == {"encode", "dit", "decode", "postprocess"}
+    diff = np.abs(out - ref)
+    if color == "none":
+        assert diff.max() < 1e-4
+    else:
+        assert diff.max() < 1e-2 and (diff > 1e-4).mean() < 1e-2
+
+
+def test_seeded_noise_is_reproducible(runners):
+    """Without noise_override the port draws its noise from a seeded
+    torch.Generator: the same seed gives the same output."""
+    _, t_runner = runners
+    images = np.random.default_rng(2).uniform(0, 1, (1, 24, 20, 3)).astype(
+        np.float32)
+    emb = {"pos": np.ones((3, 16), np.float32),
+           "neg": np.zeros((3, 16), np.float32)}
+    a, _ = cli.process_frames(t_runner, images, emb, resolution=32, seed=5)
+    b, _ = cli.process_frames(t_runner, images, emb, resolution=32, seed=5)
+    c, _ = cli.process_frames(t_runner, images, emb, resolution=32, seed=6)
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (1, 38, 32, 3) and np.abs(a - c).max() > 1e-4
+
+
+def test_runner_condition_and_timestep_transform(runners):
+    j_runner, t_runner = runners
+    rng = np.random.default_rng(3)
+    noise, lat = (rng.standard_normal((2, 6, 4, 4)).astype(np.float32)
+                  for _ in range(2))
+    np.testing.assert_array_equal(
+        t_runner.get_condition(torch.from_numpy(noise),
+                               torch.from_numpy(lat)).numpy(),
+        np.asarray(j_runner.get_condition(jnp.asarray(noise),
+                                          jnp.asarray(lat))))
+    shapes = np.array([[2, 6, 4]], np.float32)
+    t = np.array([250.0], np.float32)
+    np.testing.assert_allclose(
+        t_runner.timestep_transform(torch.from_numpy(t),
+                                    torch.from_numpy(shapes)).numpy(),
+        np.asarray(j_runner.timestep_transform(jnp.asarray(t),
+                                               jnp.asarray(shapes))),
+        rtol=1e-6)
+
+
+@pytest.mark.parametrize("total,batch,overlap", [
+    (10, 5, 2), (10, 3, 5), (7, 5, 0), (1, 5, 0), (23, 5, 4)])
+def test_batch_math_equal(total, batch, overlap):
+    assert tp.batch_indices(total, batch, overlap) == jp.batch_indices(
+        total, batch, overlap)
+    video = np.arange(total, dtype=np.float32).reshape(total, 1, 1, 1)
+    for count, prepend in ((0, False), (2, True), (3, False), (total + 2,
+                                                               False)):
+        np.testing.assert_array_equal(
+            tp.pad_video_temporal(video, count, prepend),
+            jp.pad_video_temporal(video, count, prepend))
+    if overlap:
+        a = np.ones((overlap, 2, 2, 3), np.float32)
+        b = np.zeros((overlap, 2, 2, 3), np.float32)
+        np.testing.assert_array_equal(
+            tp.blend_overlapping_frames(a, b, overlap),
+            jp.blend_overlapping_frames(a, b, overlap))
+
+
+def test_cli_refuses_cuda_without_gpu(tmp_path, monkeypatch):
+    """--device cuda (the default) never falls back to the CPU."""
+    path = tmp_path / "in.npy"
+    np.save(path, np.zeros((1, 16, 16, 3), np.float32))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([str(path), "--resolution", "32"])
+    args = cli.parse_arguments([str(path)])
+    assert (args.resolution, args.batch_size, args.seed,
+            args.color_correction, args.device) == (1080, 5, 42, "lab",
+                                                    "cuda")
