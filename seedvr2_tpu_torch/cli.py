@@ -1,13 +1,15 @@
 """Command-line entry of the PyTorch port: upscale .npy frames.
 
     python -m seedvr2_tpu_torch.cli in.npy --output out.npy --resolution 720 \\
-        --seed 42 [--dit_model dit.safetensors --vae_model vae.safetensors]
+        --seed 42 [--dit_model dit.safetensors --vae_model vae.safetensors] \\
+        [--preset throughput]
 
 Input and output are float32 .npy arrays of frames (T, H, W, 3) in [0, 1]
 (a single (H, W, 3) image is taken as one frame). With no checkpoint given,
 the models are built with random weights on the device from --seed. Runs the
-default path of the JAX package's inference_cli.py: 3B DiT, VAE_V3 untiled,
-one step at cfg 1.0, lab colour correction.
+JAX package's inference_cli.py paths: the default (3B DiT in bf16, VAE_V3
+untiled) and `--preset throughput` (w8a8 DiT, uniform tiled VAE), one step
+at cfg 1.0, lab colour correction.
 """
 
 import argparse
@@ -19,19 +21,33 @@ import torch
 
 from .core import pipeline
 from .core.configs import DIT_3B, VAE_V3, RunnerConfig
-from .core.runner import VideoDiffusionRunner
+from .core.runner import VAETiling, VideoDiffusionRunner
 from .core.weights import load_safetensors_checkpoint
 from .models.dit.nadit import NaDiT, init_dit
 from .models.vae.model import VideoAutoencoder
 from .models.vae.pipeline_vae import VideoVAE, init_vae_params
+from .ops.int8_matmul import quantize_dit_w8a8
 from .utils.text_embeds import load_text_embeddings
 
 
+# --preset throughput: the JAX CLI's serving bundle (inference_cli.py), applied
+# only to flags left at their defaults
+THROUGHPUT_PRESET = dict(
+    quant="w8a8", tile_mode="uniform",
+    vae_encode_tiled=True, vae_decode_tiled=True,
+    vae_encode_tile_size=1536, vae_decode_tile_size=1088,
+    vae_encode_tile_overlap=32, vae_decode_tile_overlap=48)
+
+
 def make_runner(device, seed: int = 42, dit_model: str = None,
-                vae_model: str = None) -> VideoDiffusionRunner:
+                vae_model: str = None, quant: str = "none",
+                tiling: VAETiling = VAETiling()) -> VideoDiffusionRunner:
     """3B DiT + VAE_V3 in bf16 on `device`: from reference-layout
     safetensors checkpoints when given, else random weights drawn on the
-    device from `seed`."""
+    device from `seed`. quant="w8a8" converts the DiT's large linears to
+    int8 (ops.int8_matmul.quantize_dit_w8a8) after loading."""
+    if quant not in ("none", "w8a8"):
+        raise ValueError(f"quant={quant!r}: only none and w8a8 are ported")
     device = torch.device(device)
     dit_cfg, vae_cfg, dtype = DIT_3B, VAE_V3, torch.bfloat16
     gen = torch.Generator(device).manual_seed(seed)
@@ -40,6 +56,8 @@ def make_runner(device, seed: int = 42, dit_model: str = None,
             dit_model, NaDiT(dit_cfg, device=device, dtype=dtype))
     else:
         dit = init_dit(dit_cfg, device, dtype, generator=gen)
+    if quant == "w8a8":
+        dit = quantize_dit_w8a8(dit)
     if vae_model:
         vae = load_safetensors_checkpoint(
             vae_model, VideoAutoencoder(vae_cfg, device=device, dtype=dtype))
@@ -47,7 +65,7 @@ def make_runner(device, seed: int = 42, dit_model: str = None,
         vae = init_vae_params(vae_cfg, device, dtype, generator=gen)
     return VideoDiffusionRunner(dit, VideoVAE(vae, dtype),
                                 RunnerConfig(dit=dit_cfg, vae=vae_cfg),
-                                compute_dtype=dtype)
+                                compute_dtype=dtype, tiling=tiling)
 
 
 def process_frames(runner: VideoDiffusionRunner, frames: np.ndarray,
@@ -56,8 +74,8 @@ def process_frames(runner: VideoDiffusionRunner, frames: np.ndarray,
                    max_resolution: int = 0, color_correction: str = "lab",
                    prepend_frames: int = 0, noise_override=None):
     """Run the 4 phases over one in-memory frame block (T, H, W, 3) in
-    [0, 1]. Returns (frames out (T, H', W', 3) in [0, 1], per-phase wall
-    seconds)."""
+    [0, 1], with the runner's VAE tiling. Returns (frames out (T, H', W', 3)
+    in [0, 1], per-phase wall seconds)."""
     if prepend_frames > 0:
         frames = pipeline.pad_video_temporal(frames, count=prepend_frames,
                                              prepend=True)
@@ -96,7 +114,38 @@ def parse_arguments(argv=None):
                    choices=("lab", "none"))
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda requires a visible GPU")
-    return p.parse_args(argv)
+    p.add_argument("--preset", default=None, choices=("throughput",),
+                   help="flag bundle, explicit flags win: w8a8 DiT, uniform "
+                        "tiled VAE with 1536 px encode / 1088 px decode "
+                        "tiles at 32 / 48 px overlap")
+    p.add_argument("--quant", default="none", choices=("none", "w8a8"),
+                   help="DiT serving quantization: w8a8 = per-channel int8 "
+                        "weights, per-row int8 activations")
+    p.add_argument("--vae_encode_tiled", action="store_true")
+    p.add_argument("--vae_encode_tile_size", type=int, default=1024)
+    p.add_argument("--vae_encode_tile_overlap", type=int, default=128)
+    p.add_argument("--vae_decode_tiled", action="store_true")
+    p.add_argument("--vae_decode_tile_size", type=int, default=1024)
+    p.add_argument("--vae_decode_tile_overlap", type=int, default=128)
+    p.add_argument("--tile_mode", default="uniform", choices=("uniform",),
+                   help="uniform = even same-shape tile grid")
+    args = p.parse_args(argv)
+    if args.preset == "throughput":
+        for name, val in THROUGHPUT_PRESET.items():
+            if getattr(args, name) == p.get_default(name):
+                setattr(args, name, val)
+    return args
+
+
+def tiling_from_args(args) -> VAETiling:
+    return VAETiling(
+        encode_tiled=args.vae_encode_tiled,
+        encode_tile_size=(args.vae_encode_tile_size,) * 2,
+        encode_tile_overlap=(args.vae_encode_tile_overlap,) * 2,
+        decode_tiled=args.vae_decode_tiled,
+        decode_tile_size=(args.vae_decode_tile_size,) * 2,
+        decode_tile_overlap=(args.vae_decode_tile_overlap,) * 2,
+        tile_mode=args.tile_mode)
 
 
 def main(argv=None) -> str:
@@ -107,7 +156,8 @@ def main(argv=None) -> str:
     frames = np.load(args.input).astype(np.float32)
     if frames.ndim == 3:
         frames = frames[None]
-    runner = make_runner(device, args.seed, args.dit_model, args.vae_model)
+    runner = make_runner(device, args.seed, args.dit_model, args.vae_model,
+                         quant=args.quant, tiling=tiling_from_args(args))
     embeds = load_text_embeddings([args.model_dir] if args.model_dir else (),
                                   txt_dim=runner.dit_cfg.txt_in_dim)
     out, timings = process_frames(

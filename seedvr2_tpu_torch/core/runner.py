@@ -1,12 +1,15 @@
 """VideoDiffusionRunner: the inference engine around the DiT and the VAE.
 
-Port of seedvr2_tpu.core.runner without mesh, OOM retry, tiling or block
-streaming: VAE encode/decode with the latent scale/shift, the SR condition,
-the timestep transform, and the plain denoise (condition concat -> NaDiT ->
-optional CFG -> Euler endpoint). DiT plans are built once per
-(latent shape, text length) and their tables uploaded once.
+Port of seedvr2_tpu.core.runner without mesh or block streaming: VAE
+encode/decode with the latent scale/shift, uniform spatial tiling and the
+out-of-memory retry, the SR condition, the timestep transform, and the
+plain denoise (condition concat -> NaDiT -> optional CFG -> Euler
+endpoint). DiT plans are built once per (latent shape, text length) and
+their tables uploaded once.
 """
 
+import logging
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -19,10 +22,46 @@ from . import diffusion
 from .configs import RunnerConfig
 
 
+log = logging.getLogger(__name__)
+
+
+@dataclass(frozen=True)
+class VAETiling:
+    """The VAE's spatial tiling settings (pixel sizes, (h, w) pairs), the
+    JAX runner's encode_/decode_ tile arguments. Memory-probed "auto" tile
+    sizes and tile_mode="ref" are not ported."""
+
+    encode_tiled: bool = False
+    encode_tile_size: Tuple[int, int] = (512, 512)
+    encode_tile_overlap: Tuple[int, int] = (64, 64)
+    decode_tiled: bool = False
+    decode_tile_size: Tuple[int, int] = (512, 512)
+    decode_tile_overlap: Tuple[int, int] = (64, 64)
+    tile_mode: str = "uniform"
+
+    def __post_init__(self):
+        for kind in ("encode", "decode"):
+            for what in ("tile_size", "tile_overlap"):
+                v = getattr(self, f"{kind}_{what}")
+                if (not isinstance(v, tuple) or len(v) != 2
+                        or not all(isinstance(i, int) for i in v)):
+                    raise ValueError(f"{kind}_{what} must be an (h, w) pair "
+                                     f"of ints (\"auto\" is not ported), "
+                                     f"got {v!r}")
+        if self.tile_mode != "uniform":
+            raise NotImplementedError(f"tile_mode={self.tile_mode!r} is not "
+                                      "ported (uniform only)")
+
+
 class VideoDiffusionRunner:
+    # an OOM retry shrinks tiles x0.7 a side down to this many px
+    _MIN_TILE = 256
+
     def __init__(self, dit: NaDiT, vae: VideoVAE,
                  config: RunnerConfig = RunnerConfig(),
-                 compute_dtype=COMPUTE_DTYPE):
+                 compute_dtype=COMPUTE_DTYPE,
+                 tiling: VAETiling = VAETiling()):
+        self.tiling = tiling
         self.dit = dit
         self.dit_cfg = dit.cfg
         self.vae = vae
@@ -34,6 +73,34 @@ class VideoDiffusionRunner:
 
     # ----------------------------------------------------------------- vae
 
+    def _vae_call_with_oom_retry(self, kind: str, run_one):
+        """run_one(tiled, tile_size) for a VAE phase ("encode"/"decode"),
+        resilient to device out-of-memory as in the JAX runner: on
+        torch.cuda.OutOfMemoryError first engage tiling, then shrink the
+        tile (x0.7 a side, in 64 px steps, floor 256 px) until it fits. The
+        shrink sticks: later calls start from the runner's updated tiling.
+        Any other exception passes through."""
+        tiled = getattr(self.tiling, f"{kind}_tiled")
+        tile_size = getattr(self.tiling, f"{kind}_tile_size")
+        for _ in range(8):
+            try:
+                return run_one(tiled, tile_size)
+            except torch.cuda.OutOfMemoryError:
+                if tiled and min(tile_size) <= self._MIN_TILE:
+                    raise
+            # outside the except block the failed call's tensors are freed
+            torch.cuda.empty_cache()
+            if tiled:
+                tile_size = tuple(max(self._MIN_TILE, int(t * 0.7) // 64 * 64)
+                                  for t in tile_size)
+            tiled = True
+            log.warning("device OOM during VAE %s; retrying tiled %s", kind,
+                        tile_size)
+            self.tiling = replace(self.tiling, **{
+                f"{kind}_tiled": tiled, f"{kind}_tile_size": tile_size})
+        raise RuntimeError(f"VAE {kind} kept running out of memory down to "
+                           f"{tile_size}")
+
     @torch.no_grad()
     def vae_encode(self, samples: List[torch.Tensor]) -> List[torch.Tensor]:
         """samples: (T, H, W, 3) in [-1, 1] -> latents (Tl, h, w, 16) scaled
@@ -42,7 +109,11 @@ class VideoDiffusionRunner:
         shift = self.config.vae.shifting_factor
         out = []
         for x in samples:
-            lat = self.vae.encode(x[None])[0]
+            lat = self._vae_call_with_oom_retry(
+                "encode", lambda tiled, ts, x=x: self.vae.encode(
+                    x[None], tiled=tiled, tile_size=ts,
+                    tile_overlap=self.tiling.encode_tile_overlap,
+                    tile_mode=self.tiling.tile_mode))[0]
             out.append(((lat.float() - shift) * scale).to(self.compute_dtype))
         return out
 
@@ -50,9 +121,15 @@ class VideoDiffusionRunner:
     def vae_decode(self, latents: List[torch.Tensor]) -> List[torch.Tensor]:
         scale = self.config.vae.scaling_factor
         shift = self.config.vae.shifting_factor
-        return [self.vae.decode((lat.float() / scale + shift)
-                                .to(self.vae.dtype)[None])[0]
-                for lat in latents]
+        out = []
+        for lat in latents:
+            z = (lat.float() / scale + shift).to(self.vae.dtype)[None]
+            out.append(self._vae_call_with_oom_retry(
+                "decode", lambda tiled, ts, z=z: self.vae.decode(
+                    z, tiled=tiled, tile_size=ts,
+                    tile_overlap=self.tiling.decode_tile_overlap,
+                    tile_mode=self.tiling.tile_mode))[0])
+        return out
 
     # ----------------------------------------------------------- condition
 

@@ -5,7 +5,9 @@ seedvr2_tpu.core.export.to_torch_state_dict for a tree of numpy arrays: keys
 are the dotted tree paths with "w" -> "weight" (transposed (in, out) ->
 (out, in) for linears, (kt, kh, kw, ci, co) -> (co, ci, kt, kh, kw) for 3D
 convs) and "b" -> "bias". Its keys are exactly the port modules' state_dict
-keys.
+keys. w8a8 trees ({"w8a8": (K, N) int8, "ws": (N,) fp32, "b"?}, from
+quantize_dit_params_w8a8) map onto ops.int8_matmul.W8A8Linear buffers:
+"w8a8" transposed to (N, K) and kept int8, "ws" kept fp32.
 
 `load_safetensors_checkpoint` loads a reference-layout checkpoint into a
 port module with strict=True, through a small safetensors reader of this
@@ -45,13 +47,18 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
 
 def state_dict_from_jax(params, dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) -> reference-layout state dict of
-    `dtype` tensors."""
+    `dtype` tensors (integer leaves and w8a8 scales keep their types)."""
     state = {}
     for key, arr in _flatten(params).items():
         parts = key.split(".")
         if arr.dtype.name == "bfloat16":
             arr = arr.astype(np.float32)
-        if parts[-1] == "w":
+        if parts[-1] == "w8a8":
+            arr = arr.T  # (K, N) -> (N, K), int8 exact
+        elif parts[-1] == "ws":
+            state[key] = torch.from_numpy(np.array(arr, np.float32))
+            continue
+        elif parts[-1] == "w":
             parts[-1] = "weight"
             if arr.ndim == 2:
                 arr = arr.T

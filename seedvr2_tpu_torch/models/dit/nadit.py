@@ -14,6 +14,12 @@ the path the JAX runner serves:
    (blocks.{i}.attn.proj_qkv.{vid,txt,all}.weight, ...), i.e. what
    seedvr2_tpu.core.export.to_torch_state_dict emits.
 
+Served in bf16, or in the w8a8 lane after
+`ops.int8_matmul.quantize_dit_w8a8`: its int8 linears run kernel K3, and the
+video stream's norm + modulation producers fuse with the activation
+quantization (kernel K4, `_norm_mod`), the swiglu's silu*up with it (K5,
+`ops.layers.mlp_forward`).
+
 Replicated quirks of the released model: 3B blocks >= mm_layers share their
 vid/txt weights ("all"); the 3B last block has no txt mlp/ada branch; the
 output modulation `vid_out_ada` reuses the blocks' attn-layer emb slices.
@@ -29,7 +35,9 @@ from torch import nn
 from ...core.configs import DiTConfig
 from ...ops.flash_attention import (packed_window_attention,
                                     packed_window_attention_plain)
+from ...ops.fused_quant import rms_ada_quantize, rms_ada_quantize_plain
 from ...ops.gather import RowIndex, gather_rows, gather_rows_plain
+from ...ops.int8_matmul import W8A8Linear
 from ...ops.layers import linear, mlp_forward, rms_norm, silu, swiglu_hidden_dim
 from . import rope as rope_lib
 from .windows import build_layer_plan
@@ -329,16 +337,16 @@ def _pick(branches: nn.ModuleDict, branch: str):
 
 
 def _time_embedding(emb: _TimeEmbedding, timestep: torch.Tensor,
-                    dtype) -> torch.Tensor:
+                    dtype, use_kernels: bool) -> torch.Tensor:
     """Sinusoidal(256) -> SiLU MLP -> (B, 6*D). emb = [sin | cos], no flip."""
     half = 128
     exponent = -np.log(10000.0) * np.arange(half, dtype=np.float32) / half
     freqs = torch.as_tensor(np.exp(exponent), device=timestep.device)
     arg = timestep.float()[:, None] * freqs[None, :]
     x = torch.cat([torch.sin(arg), torch.cos(arg)], dim=-1).to(dtype)
-    x = silu(linear(x, emb.proj_in))
-    x = silu(linear(x, emb.proj_hid))
-    return linear(x, emb.proj_out)
+    x = silu(linear(x, emb.proj_in, use_kernels))
+    x = silu(linear(x, emb.proj_hid, use_kernels))
+    return linear(x, emb.proj_out, use_kernels)
 
 
 def _ada_in(x, shift_a, scale_a, ada: _Ada, layer: str):
@@ -348,8 +356,21 @@ def _ada_in(x, shift_a, scale_a, ada: _Ada, layer: str):
         shift_a[:, None, :].to(x.dtype) + shift_b)
 
 
-def _norm_mod(x, shift_a, scale_a, ada: _Ada, layer: str, eps: float):
-    """rms_norm + AdaSingle modulation (dense branch)."""
+def _norm_mod(x, shift_a, scale_a, ada: _Ada, layer: str, eps: float,
+              consumer=None, use_kernels: bool = True):
+    """rms_norm + AdaSingle modulation, the producer of a video-stream
+    matmul input. When the consuming projection is w8a8, the chain runs as
+    ONE fused pass that also emits the per-row int8 quantization the matmul
+    reads (kernel K4, ops.fused_quant.rms_ada_quantize): a PreQuantized.
+    Scale and shift rows are summed with the tables in fp32 first, as the
+    JAX package does."""
+    if isinstance(consumer, W8A8Linear):
+        scale = (scale_a.float()
+                 + getattr(ada, f"{layer}_scale").float()[None]).contiguous()
+        shift = (shift_a.float()
+                 + getattr(ada, f"{layer}_shift").float()[None]).contiguous()
+        fused = rms_ada_quantize if use_kernels else rms_ada_quantize_plain
+        return fused(x, scale, shift, eps)
     return _ada_in(rms_norm(x, eps), shift_a, scale_a, ada, layer)
 
 
@@ -385,7 +406,8 @@ def _window_attention(attn: _Attn, cfg: DiTConfig, xv, xt, dplan: DevicePlan,
     """Joint windowed multi-modal attention for one block.
 
     xv: (B, L, D) video tokens in this layer's window-major order (every
-    shape group is a contiguous slice); xt: (B, Ltxt, D) text. Per group the
+    shape group is a contiguous slice), or their PreQuantized form in the
+    w8a8 lane; xt: (B, Ltxt, D) text. Per group the
     packed qkv rows of its windows are joined with the packed text rows and
     the lane pad in one copy and handed to kernel K1. Text output is the
     mean over all windows."""
@@ -396,8 +418,10 @@ def _window_attention(attn: _Attn, cfg: DiTConfig, xv, xt, dplan: DevicePlan,
     attend = (packed_window_attention if use_kernels
               else packed_window_attention_plain)
 
-    qkv_v = linear(xv, _pick(attn.proj_qkv, "vid"))   # (B, L, 3HD)
-    qkv_t = linear(xt, _pick(attn.proj_qkv, "txt"))   # (B, Lt, 3HD)
+    qkv_v = linear(xv, _pick(attn.proj_qkv, "vid"),
+                   use_kernels)                        # (B, L, 3HD)
+    qkv_t = linear(xt, _pick(attn.proj_qkv, "txt"),
+                   use_kernels)                        # (B, Lt, 3HD)
     wq_v = _pick(attn.norm_q, "vid").weight
     wk_v = _pick(attn.norm_k, "vid").weight
     wq_t = _pick(attn.norm_q, "txt").weight
@@ -405,7 +429,7 @@ def _window_attention(attn: _Attn, cfg: DiTConfig, xv, xt, dplan: DevicePlan,
 
     vid_chunks = []
     txt_acc = torch.zeros((B, ltxt, Hn * Dh), dtype=torch.float32,
-                          device=xv.device)
+                          device=qkv_v.device)
     offset = 0
     for g in dplan.groups[method]:
         size = g.n * g.wlen
@@ -427,8 +451,8 @@ def _window_attention(attn: _Attn, cfg: DiTConfig, xv, xt, dplan: DevicePlan,
 
     vid_out = torch.cat(vid_chunks, dim=1)  # stays window-major
     txt_out = (txt_acc / dplan.num_windows[method]).to(xv.dtype)
-    vid_out = linear(vid_out, _pick(attn.proj_out, "vid"))
-    txt_out = linear(txt_out, _pick(attn.proj_out, "txt"))
+    vid_out = linear(vid_out, _pick(attn.proj_out, "vid"), use_kernels)
+    txt_out = linear(txt_out, _pick(attn.proj_out, "txt"), use_kernels)
     return vid_out, txt_out
 
 
@@ -449,7 +473,9 @@ def _block_forward(blk: _Block, cfg: DiTConfig, i: int, xv, xt, emb_attn,
     ada_v = _pick(blk.ada, "vid")
     ada_t = _pick(blk.ada, "txt") if not vid_only else None
 
-    hv = _norm_mod(xv, sa_v, ss_v, ada_v, "attn", eps)
+    # the video producers fuse into the w8a8 quantize of their consumer
+    hv = _norm_mod(xv, sa_v, ss_v, ada_v, "attn", eps,
+                   _pick(blk.attn.proj_qkv, "vid"), use_kernels)
     ht = rms_norm(xt, eps)
     # 3B last layer: txt enters attention normed but unmodulated and leaves
     # ungated
@@ -461,12 +487,15 @@ def _block_forward(blk: _Block, cfg: DiTConfig, i: int, xv, xt, emb_attn,
     xv = xv + hv
     xt = xt + ht
 
-    hv = _norm_mod(xv, ma_v, ms_v, ada_v, "mlp", eps)
-    hv = mlp_forward(hv, _pick(blk.mlp, "vid"), cfg.mlp_type)
+    mlp_v = _pick(blk.mlp, "vid")
+    hv = _norm_mod(xv, ma_v, ms_v, ada_v, "mlp", eps,
+                   mlp_v.proj_in_gate, use_kernels)
+    hv = mlp_forward(hv, mlp_v, cfg.mlp_type, use_kernels)
     xv = xv + _ada_out(hv, mg_v, ada_v, "mlp")
     if not vid_only:
         ht2 = _ada_in(rms_norm(xt, eps), ma_v, ms_v, ada_t, "mlp")
-        ht2 = mlp_forward(ht2, _pick(blk.mlp, "txt"), cfg.mlp_type)
+        ht2 = mlp_forward(ht2, _pick(blk.mlp, "txt"), cfg.mlp_type,
+                          use_kernels)
         xt = xt + _ada_out(ht2, mg_v, ada_t, "mlp")
     return xv, xt, method
 
@@ -511,18 +540,21 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
         txt: (B, txt_len, txt_in_dim) text embeddings.
         timestep: (B,) diffusion timesteps.
         dplan: upload_plan(build_dit_plan(cfg, (T, H, W), txt_len), ...).
-        use_kernels: False runs the plain versions of K1 and K2 on any
-            device, the reference a kernel run is held against.
+        use_kernels: False runs the plain versions of the kernels (K1, K2,
+            and K3-K5 in the w8a8 lane) on any device, the reference a
+            kernel run is held against.
 
     Returns:
         (B, T, H, W, vid_out_channels) prediction (v_lerp velocity).
     """
     cfg = model.cfg
     B, T = vid.shape[0], vid.shape[1]
-    x = linear(patchify(vid, cfg.patch_size), model.vid_in.proj)
-    xt = linear(txt, model.txt_in) if model.txt_in is not None else txt
+    x = linear(patchify(vid, cfg.patch_size), model.vid_in.proj, use_kernels)
+    xt = (linear(txt, model.txt_in, use_kernels)
+          if model.txt_in is not None else txt)
 
-    emb = _time_embedding(model.emb_in, timestep, x.dtype)  # (B, 6D)
+    emb = _time_embedding(model.emb_in, timestep, x.dtype,
+                          use_kernels)  # (B, 6D)
     emb_r = emb.reshape(B, cfg.vid_dim, 2, 3).float()
     emb_attn, emb_mlp = emb_r[..., 0, :], emb_r[..., 1, :]
 
@@ -545,6 +577,6 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
         x = x * (scale_a[:, None, :].to(x.dtype) + scale_b) + (
             shift_a[:, None, :].to(x.dtype) + shift_b)
 
-    x = linear(x, model.vid_out.proj)
+    x = linear(x, model.vid_out.proj, use_kernels)
     return unpatchify(x, dplan.plan.grid, cfg.patch_size,
                       cfg.vid_out_channels, T)

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every `*.cu` under `seedvr2_tpu_torch/csrc/` is compiled by `nvcc` for
-Hopper (`sm_90a`) into ONE shared library with a plain C interface, which
-is loaded with `ctypes`. The library lives in `build/torch_kernels/` at the
+Hopper (`sm_90a`), one `nvcc` process per source, all started together, and
+the objects are linked into ONE shared library with a plain C interface,
+which is loaded with `ctypes`. The library lives in `build/torch_kernels/` at the
 checkout root and its file name carries a hash of the sources, so an edited
 source rebuilds. The build happens at the first kernel launch in a process,
 never at import: the CPU-only test environment imports every module.
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +35,12 @@ _SIGNATURES = {
                                  _F, _F, _P],
     # x, idx, out, B, L, L2, D, stream
     "seedvr2_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # xq, wq, xs, ws, out, M, N, K, stream
+    "seedvr2_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, scale, shift, q, s, rows, L, K, eps, stream
+    "seedvr2_rms_ada_quantize": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # g, u, q, s, rows, K, row_stride, stream
+    "seedvr2_silu_mul_quantize": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -75,15 +82,30 @@ def _build() -> KernelLibrary:
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-        cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), *cu]
+        stem = f"{path.stem}.{os.getpid()}"
+        tmp = path.with_name(f"{stem}.tmp.so")
+        cu = [p for p in _sources() if p.suffix == ".cu"]
+        objs = [BUILD_DIR / f"{stem}.{p.stem}.o" for p in cu]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        try:
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(o),
+                 str(p)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True) for p, o in zip(cu, objs)]
+            log = "".join(proc.communicate()[0] for proc in procs)
+            if any(proc.returncode for proc in procs):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            res = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                                  str(tmp), *map(str, objs)],
+                                 capture_output=True, text=True)
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
+        log += res.stdout + res.stderr
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
         os.replace(tmp, path)  # atomic: a concurrent build never sees half
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():

@@ -1,9 +1,9 @@
 """Precomputed text embeddings (SeedVR2 ships no text encoder).
 
 Port of seedvr2_tpu.utils.text_embeds.load_text_embeddings for the
-safetensors and .npy forms. The published embeddings ship with the JAX
-package as bf16 safetensors (comfyui-seedvr2_tpu/assets/{pos,neg}_emb.
-safetensors); they are read here by path, as data, through the port's own
+safetensors and .npy forms. The published embeddings ship with this package
+as bf16 safetensors (seedvr2_tpu_torch/assets/{pos,neg}_emb.safetensors,
+byte-equal copies of the JAX package's) and are read through the port's own
 safetensors reader.
 """
 
@@ -16,11 +16,9 @@ from ..core.weights import read_safetensors
 
 POS_LEN, NEG_LEN, TXT_DIM = 58, 64, 5120
 
-# the JAX package's asset directory, in a checkout or in an installed layout
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-ASSET_DIRS = (os.path.join(_ROOT, "comfyui-seedvr2_tpu", "assets"),
-              os.path.join(_ROOT, "seedvr2_tpu", "assets"))
+# this package's own asset directory
+ASSET_DIRS = (os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets"),)
 
 _NAMES = {"pos": ("pos_emb.safetensors", "pos_emb.npy"),
           "neg": ("neg_emb.safetensors", "neg_emb.npy")}

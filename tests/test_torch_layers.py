@@ -200,10 +200,38 @@ def test_lab_color_transfer(seed):
 # ------------------------------------------------------------ embeddings
 
 
-def test_packaged_text_embeddings_equal():
-    """The port's own safetensors reader gives the JAX loader's values
-    bit for bit (both upcast the stored bf16 to fp32)."""
+def test_packaged_text_embeddings_equal(monkeypatch):
+    """The port ships its own copies of the published embeddings, byte-equal
+    to the JAX package's files, and its loader opens nothing outside
+    seedvr2_tpu_torch/. Its own safetensors reader gives the JAX loader's
+    values bit for bit (both upcast the stored bf16 to fp32)."""
+    import builtins
+    import os
+
+    import seedvr2_tpu
+    import seedvr2_tpu_torch
+    from seedvr2_tpu_torch.core import weights as tw
+
+    port_dir = os.path.dirname(os.path.abspath(seedvr2_tpu_torch.__file__))
+    jax_assets = os.path.join(os.path.dirname(seedvr2_tpu.__file__), "assets")
+    for name in ("pos_emb.safetensors", "neg_emb.safetensors"):
+        with open(os.path.join(port_dir, "assets", name), "rb") as f:
+            ours = f.read()
+        with open(os.path.join(jax_assets, name), "rb") as f:
+            assert ours == f.read(), name
+    assert all(os.path.abspath(d).startswith(port_dir + os.sep)
+               for d in tte.ASSET_DIRS)
+
+    opened = []
+
+    def recording_open(path, *args, **kwargs):
+        opened.append(os.path.abspath(path))
+        return builtins.open(path, *args, **kwargs)
+
+    monkeypatch.setattr(tw, "open", recording_open, raising=False)
     t = tte.load_text_embeddings()
+    assert len(opened) == 2
+    assert all(p.startswith(port_dir + os.sep) for p in opened), opened
     j = jte.load_text_embeddings([], None)
     for k in ("pos", "neg"):
         assert t[k].shape == j[k].shape and t[k].dtype == np.float32

@@ -1,7 +1,9 @@
 """The port's whole 4-phase slice (cli.process_frames: encode -> DiT ->
 decode -> colour fix) against the JAX pipeline on the CPU in fp32, with the
-tiny runner of tests/test_pipeline.py, shared weights and shared noise;
-plus the pipeline's batch math and the CLI's refusal to run without a GPU."""
+tiny runner of tests/test_pipeline.py, shared weights and shared noise: the
+default path, and the throughput lane (w8a8 DiT + uniform tiled VAE); plus
+the pipeline's batch math and the CLI's flags, preset and refusal to run
+without a GPU."""
 
 import numpy as np
 import pytest
@@ -17,12 +19,15 @@ from seedvr2_tpu.core.runner import VideoDiffusionRunner as JRunner
 from seedvr2_tpu.models.dit.nadit import init_dit_params
 from seedvr2_tpu.models.vae.pipeline_vae import VideoVAE as JVAE
 from seedvr2_tpu.models.vae.pipeline_vae import init_vae_params
+from seedvr2_tpu.ops.int8_matmul import quantize_dit_params_w8a8
 from seedvr2_tpu_torch import cli
 from seedvr2_tpu_torch.core import configs as tc
 from seedvr2_tpu_torch.core import pipeline as tp
+from seedvr2_tpu_torch.core.runner import VAETiling
 from seedvr2_tpu_torch.core.runner import VideoDiffusionRunner as TRunner
 from seedvr2_tpu_torch.core.weights import state_dict_from_jax
 from seedvr2_tpu_torch.models.dit.nadit import NaDiT
+from seedvr2_tpu_torch.ops.int8_matmul import W8A8Linear, quantize_dit_w8a8
 from seedvr2_tpu_torch.models.vae.model import VideoAutoencoder
 from seedvr2_tpu_torch.models.vae.pipeline_vae import VideoVAE as TVAE
 
@@ -55,6 +60,45 @@ def runners():
     t_runner = TRunner(dit, TVAE(vae, torch.float32),
                        tc.RunnerConfig(dit=td_cfg, vae=tv_cfg),
                        compute_dtype=torch.float32)
+    return j_runner, t_runner
+
+
+# the throughput lane at the tiny size: every DiT linear with both dims
+# multiples of 8 goes w8a8 (vid_in, 36 inputs, stays dense), and the VAE
+# tiles 24 px tiles with 8 px overlaps (latent 6x4 -> multi-tile grids)
+W8A8_MIN_DIM, W8A8_ALIGN = 8, 8
+TILE_KW = dict(tiled=True, tile_size=(24, 24), tile_overlap=(8, 8))
+
+
+@pytest.fixture(scope="module")
+def throughput_runners():
+    jv_cfg, jd_cfg = JVAEConfig(**VAE_KW), JDiTConfig(**DIT_KW)
+    vae_p = random_params(lambda k: init_vae_params(k, jv_cfg,
+                                                    dtype=jnp.float32), 2)
+    dit_p = random_params(lambda k: init_dit_params(k, jd_cfg,
+                                                    dtype=jnp.float32), 3)
+    qdit_p = quantize_dit_params_w8a8(dit_p, min_dim=W8A8_MIN_DIM,
+                                      align=W8A8_ALIGN)
+    j_runner = JRunner(
+        qdit_p, jd_cfg, JVAE(vae_p, jv_cfg, dtype=jnp.float32),
+        JRunnerConfig(dit=jd_cfg, vae=jv_cfg), compute_dtype=jnp.float32,
+        encode_tiled=True, encode_tile_size=TILE_KW["tile_size"],
+        encode_tile_overlap=TILE_KW["tile_overlap"], decode_tiled=True,
+        decode_tile_size=TILE_KW["tile_size"],
+        decode_tile_overlap=TILE_KW["tile_overlap"], tile_mode="uniform")
+    tv_cfg, td_cfg = tc.VAEConfig(**VAE_KW), tc.DiTConfig(**DIT_KW)
+    vae = VideoAutoencoder(tv_cfg, dtype=torch.float32)
+    vae.load_state_dict(state_dict_from_jax(vae_p), strict=True)
+    dit = NaDiT(td_cfg, dtype=torch.float32)
+    dit.load_state_dict(state_dict_from_jax(dit_p), strict=True)
+    dit = quantize_dit_w8a8(dit, W8A8_MIN_DIM, W8A8_ALIGN)
+    dit.load_state_dict(state_dict_from_jax(qdit_p), strict=True)
+    tiling = VAETiling(encode_tiled=True, encode_tile_size=(24, 24),
+                       encode_tile_overlap=(8, 8), decode_tiled=True,
+                       decode_tile_size=(24, 24), decode_tile_overlap=(8, 8))
+    t_runner = TRunner(dit, TVAE(vae, torch.float32),
+                       tc.RunnerConfig(dit=td_cfg, vae=tv_cfg),
+                       compute_dtype=torch.float32, tiling=tiling)
     return j_runner, t_runner
 
 
@@ -164,3 +208,60 @@ def test_cli_refuses_cuda_without_gpu(tmp_path, monkeypatch):
     assert (args.resolution, args.batch_size, args.seed,
             args.color_correction, args.device) == (1080, 5, 42, "lab",
                                                     "cuda")
+
+
+@pytest.mark.parametrize("color", ["none", "lab"])
+def test_throughput_slice_matches_jax_pipeline(throughput_runners, color):
+    """The throughput lane end to end: w8a8 DiT (the JAX-quantized tree
+    carried over by the weight bridge) and the uniform tiled VAE, against
+    the JAX runner built from the same tree with the same tile settings.
+    Tolerance: the default path's, because K3 is exact and the fp32 K4/K5
+    quantizations agree with XLA's except for +-1 flips where y / scale
+    lands within rounding noise of .5, which this small input does not hit
+    (observed max difference 2.9e-6 without colour correction); lab keeps
+    the rank-swap allowance of test_slice_matches_jax_pipeline."""
+    j_runner, t_runner = throughput_runners
+    assert isinstance(t_runner.dit.blocks[0].attn.proj_qkv["vid"],
+                      W8A8Linear)
+    rng = np.random.default_rng(5)
+    images = rng.uniform(0, 1, (7, 24, 20, 3)).astype(np.float32)
+    emb = {"pos": rng.standard_normal((7, 16)).astype(np.float32),
+           "neg": rng.standard_normal((9, 16)).astype(np.float32)}
+    noise = [rng.standard_normal((2, 6, 4, 4)).astype(np.float32)
+             for _ in range(2)]
+    ref = _jax_pipeline(j_runner, images, emb, noise, color, 2)
+    out, _ = cli.process_frames(
+        t_runner, images, emb, resolution=32, seed=1, batch_size=5,
+        temporal_overlap=2, color_correction=color, noise_override=noise)
+    assert len(t_runner.vae.last_encode_tiles) > 1
+    assert t_runner.vae.last_decode_tiles == j_runner.vae.last_decode_tiles
+    assert len(t_runner.vae.last_decode_tiles) > 1
+    assert out.shape == ref.shape == (7, 38, 32, 3)
+    diff = np.abs(out - ref)
+    if color == "none":
+        assert diff.max() < 1e-4
+    else:
+        assert diff.max() < 1e-2 and (diff > 1e-4).mean() < 1e-2
+
+
+def test_cli_throughput_preset_bundle(tmp_path):
+    """--preset throughput sets the serving bundle where a flag was left at
+    its default; explicit flags win."""
+    path = str(tmp_path / "in.npy")
+    plain = cli.parse_arguments([path])
+    assert (plain.quant, plain.vae_encode_tiled, plain.vae_decode_tiled,
+            plain.vae_decode_tile_size) == ("none", False, False, 1024)
+    args = cli.parse_arguments([path, "--preset", "throughput",
+                                "--vae_decode_tile_size", "512",
+                                "--vae_encode_tile_overlap", "16"])
+    for name, val in cli.THROUGHPUT_PRESET.items():
+        if name not in ("vae_decode_tile_size", "vae_encode_tile_overlap"):
+            assert getattr(args, name) == val, name
+    assert args.vae_decode_tile_size == 512
+    assert args.vae_encode_tile_overlap == 16
+    assert cli.tiling_from_args(args) == VAETiling(
+        encode_tiled=True, encode_tile_size=(1536, 1536),
+        encode_tile_overlap=(16, 16), decode_tiled=True,
+        decode_tile_size=(512, 512), decode_tile_overlap=(48, 48))
+    with pytest.raises(SystemExit):
+        cli.parse_arguments([path, "--quant", "q8"])
