@@ -1,15 +1,17 @@
 """Command-line entry of the PyTorch port: upscale .npy frames.
 
     python -m seedvr2_tpu_torch.cli in.npy --output out.npy --resolution 720 \\
-        --seed 42 [--dit_model dit.safetensors --vae_model vae.safetensors] \\
-        [--preset throughput]
+        --seed 42 [--dit_model dit.{safetensors,pth,gguf} \\
+        --vae_model vae.safetensors] [--preset throughput] \\
+        [--quant none|q8|q4|q4k|w8a8]
 
 Input and output are float32 .npy arrays of frames (T, H, W, 3) in [0, 1]
 (a single (H, W, 3) image is taken as one frame). With no checkpoint given,
 the models are built with random weights on the device from --seed. Runs the
-JAX package's inference_cli.py paths: the default (3B DiT in bf16, VAE_V3
-untiled) and `--preset throughput` (w8a8 DiT, uniform tiled VAE), one step
-at cfg 1.0, lab colour correction.
+JAX package's inference_cli.py paths with the 3B DiT: the default (bf16 DiT,
+VAE_V3 untiled), `--preset throughput` (w8a8 DiT, uniform tiled VAE) and the
+quantised-checkpoint lanes `--quant q8 / q4 / q4k` (core/loader.py), one
+step at cfg 1.0, lab colour correction. A 7B checkpoint is refused.
 """
 
 import argparse
@@ -21,12 +23,11 @@ import torch
 
 from .core import pipeline
 from .core.configs import DIT_3B, VAE_V3, RunnerConfig
+from .core.loader import (QUANT_MODES, load_dit_checkpoint,
+                          load_vae_checkpoint, quantize_dit)
 from .core.runner import VAETiling, VideoDiffusionRunner
-from .core.weights import load_safetensors_checkpoint
-from .models.dit.nadit import NaDiT, init_dit
-from .models.vae.model import VideoAutoencoder
+from .models.dit.nadit import init_dit
 from .models.vae.pipeline_vae import VideoVAE, init_vae_params
-from .ops.int8_matmul import quantize_dit_w8a8
 from .utils.text_embeds import load_text_embeddings
 
 
@@ -43,28 +44,25 @@ def make_runner(device, seed: int = 42, dit_model: str = None,
                 vae_model: str = None, quant: str = "none",
                 tiling: VAETiling = VAETiling()) -> VideoDiffusionRunner:
     """3B DiT + VAE_V3 in bf16 on `device`: from reference-layout
-    safetensors checkpoints when given, else random weights drawn on the
-    device from `seed`. quant="w8a8" converts the DiT's large linears to
-    int8 (ops.int8_matmul.quantize_dit_w8a8) after loading."""
-    if quant not in ("none", "w8a8"):
-        raise ValueError(f"quant={quant!r}: only none and w8a8 are ported")
+    checkpoints when given (DiT .safetensors, .pth or .gguf, VAE
+    .safetensors, through core/loader.py, which sniffs their architecture
+    and refuses a 7B DiT), else random weights drawn on the device from
+    `seed`. `quant` is the DiT's serving quantization (core/loader.py's
+    table; random weights convert as a float checkpoint does)."""
     device = torch.device(device)
-    dit_cfg, vae_cfg, dtype = DIT_3B, VAE_V3, torch.bfloat16
+    dtype = torch.bfloat16
     gen = torch.Generator(device).manual_seed(seed)
     if dit_model:
-        dit = load_safetensors_checkpoint(
-            dit_model, NaDiT(dit_cfg, device=device, dtype=dtype))
+        dit = load_dit_checkpoint(dit_model, device, dtype, quant=quant)
     else:
-        dit = init_dit(dit_cfg, device, dtype, generator=gen)
-    if quant == "w8a8":
-        dit = quantize_dit_w8a8(dit)
+        dit = quantize_dit(init_dit(DIT_3B, device, dtype, generator=gen),
+                           quant)
     if vae_model:
-        vae = load_safetensors_checkpoint(
-            vae_model, VideoAutoencoder(vae_cfg, device=device, dtype=dtype))
+        vae = load_vae_checkpoint(vae_model, device, dtype)
     else:
-        vae = init_vae_params(vae_cfg, device, dtype, generator=gen)
+        vae = init_vae_params(VAE_V3, device, dtype, generator=gen)
     return VideoDiffusionRunner(dit, VideoVAE(vae, dtype),
-                                RunnerConfig(dit=dit_cfg, vae=vae_cfg),
+                                RunnerConfig(dit=dit.cfg, vae=vae.cfg),
                                 compute_dtype=dtype, tiling=tiling)
 
 
@@ -99,7 +97,8 @@ def parse_arguments(argv=None):
     p.add_argument("--output", default=None,
                    help="output .npy (default: <input>_upscaled.npy)")
     p.add_argument("--dit_model", default=None,
-                   help="reference-layout 3B DiT .safetensors")
+                   help="reference-layout 3B DiT: .safetensors (fp16, bf16, "
+                        "fp32 or fp8), .pth / .pt, or .gguf")
     p.add_argument("--vae_model", default=None,
                    help="reference-layout VAE .safetensors")
     p.add_argument("--model_dir", default=None,
@@ -118,9 +117,16 @@ def parse_arguments(argv=None):
                    help="flag bundle, explicit flags win: w8a8 DiT, uniform "
                         "tiled VAE with 1536 px encode / 1088 px decode "
                         "tiles at 32 / 48 px overlap")
-    p.add_argument("--quant", default="none", choices=("none", "w8a8"),
-                   help="DiT serving quantization: w8a8 = per-channel int8 "
-                        "weights, per-row int8 activations")
+    p.add_argument("--quant", default="none", choices=QUANT_MODES,
+                   help="DiT serving quantization: q8 = Q8_0 int8 weights "
+                        "with per-32 scales through a dequantizing GEMM "
+                        "(GGUF files keep their Q8_0 blocks); q4k = GGUF "
+                        "Q4_K/Q5_K served in their native affine layout "
+                        "(float files: as q8); q4 = post-training 4-bit "
+                        "affine quantization of a float checkpoint (same "
+                        "kernel as q4k; stored one int8 per quant, 1.25 "
+                        "B/weight); w8a8 = per-channel int8 weights, "
+                        "per-row int8 activations")
     p.add_argument("--vae_encode_tiled", action="store_true")
     p.add_argument("--vae_encode_tile_size", type=int, default=1024)
     p.add_argument("--vae_encode_tile_overlap", type=int, default=128)

@@ -5,18 +5,26 @@ seedvr2_tpu.core.export.to_torch_state_dict for a tree of numpy arrays: keys
 are the dotted tree paths with "w" -> "weight" (transposed (in, out) ->
 (out, in) for linears, (kt, kh, kw, ci, co) -> (co, ci, kt, kh, kw) for 3D
 convs) and "b" -> "bias". Its keys are exactly the port modules' state_dict
-keys. w8a8 trees ({"w8a8": (K, N) int8, "ws": (N,) fp32, "b"?}, from
-quantize_dit_params_w8a8) map onto ops.int8_matmul.W8A8Linear buffers:
-"w8a8" transposed to (N, K) and kept int8, "ws" kept fp32.
+keys. Quantised trees map onto the buffers of the port's quantised linears,
+integers kept exact and tables kept fp32:
+ - w8a8 ({"w8a8": (K, N) int8, "ws": (N,)}, quantize_dit_params_w8a8) onto
+   ops.int8_matmul.W8A8Linear: "w8a8" transposed to (N, K);
+ - Q8_0 ({"q8": (K, N) int8, "scales": (K/32, N)}) onto
+   ops.quant_matmul.Q8Linear, both transposed;
+ - affine ({"qa": (K, N) int8, "s", "m": (K/32, N)}) onto
+   ops.quant_matmul.AffineLinear, all three transposed.
 
-`load_safetensors_checkpoint` loads a reference-layout checkpoint into a
-port module with strict=True, through a small safetensors reader of this
-package's own (an 8-byte little-endian header length, a JSON header, then
-raw little-endian bytes), so a host without the `safetensors` package can
-read the checkpoints and the packaged text embeddings.
+`should_skip` names the rope / freqs / dummy buffers the reference's modules
+save (`SKIP_PATTERNS`); the loaders (core/loader.py) drop them, as the JAX
+loader does, and recompute rope at plan time. `read_safetensors` is a small
+safetensors reader of this package's own (an 8-byte little-endian header
+length, a JSON header, then raw little-endian bytes), so a host without the
+`safetensors` package can read the checkpoints and the packaged text
+embeddings.
 """
 
 import json
+import re
 import struct
 from typing import Dict
 
@@ -30,6 +38,22 @@ _ST_DTYPES = {
     "BOOL": torch.bool, "F8_E4M3": torch.float8_e4m3fn,
     "F8_E5M2": torch.float8_e5m2,
 }
+
+# keys of the reference's rope buffers, never weights
+SKIP_PATTERNS = (
+    re.compile(r"\.rope\."),
+    re.compile(r"\.freqs$"),
+    re.compile(r"\.dummy$"),
+)
+
+# quantised leaves: name -> the leaf that marks its node; transposed
+# (K, N) -> (N, K) or (K/32, N) -> (N, K/32)
+_QUANT_LEAVES = {"w8a8": "w8a8", "q8": "q8", "scales": "q8", "qa": "qa",
+                 "s": "qa", "m": "qa"}
+
+
+def should_skip(key: str) -> bool:
+    return any(p.search(key) for p in SKIP_PATTERNS)
 
 
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
@@ -47,18 +71,25 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
 
 def state_dict_from_jax(params, dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) -> reference-layout state dict of
-    `dtype` tensors (integer leaves and w8a8 scales keep their types)."""
+    `dtype` tensors (integer leaves and quantisation tables keep their
+    types)."""
+    flat = _flatten(params)
     state = {}
-    for key, arr in _flatten(params).items():
+    for key, arr in flat.items():
         parts = key.split(".")
         if arr.dtype.name == "bfloat16":
             arr = arr.astype(np.float32)
-        if parts[-1] == "w8a8":
-            arr = arr.T  # (K, N) -> (N, K), int8 exact
-        elif parts[-1] == "ws":
+        node = key.rpartition(".")[0]
+        marker = _QUANT_LEAVES.get(parts[-1])
+        if marker is not None and f"{node}.{marker}" in flat:
+            arr = np.ascontiguousarray(arr.T)  # int8 exact, tables fp32
+            state[key] = torch.from_numpy(
+                arr if arr.dtype == np.int8 else arr.astype(np.float32))
+            continue
+        if parts[-1] == "ws":
             state[key] = torch.from_numpy(np.array(arr, np.float32))
             continue
-        elif parts[-1] == "w":
+        if parts[-1] == "w":
             parts[-1] = "weight"
             if arr.ndim == 2:
                 arr = arr.T
@@ -98,11 +129,3 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
             out[name] = t.reshape(info["shape"])
     return out
 
-
-def load_safetensors_checkpoint(path: str, module: torch.nn.Module
-                                ) -> torch.nn.Module:
-    """Load a reference-layout checkpoint into a port module (DiT or VAE):
-    every key must match (strict=True); values are cast to the module's
-    parameter dtypes on copy."""
-    module.load_state_dict(read_safetensors(path), strict=True)
-    return module

@@ -18,7 +18,9 @@ Served in bf16, or in the w8a8 lane after
 `ops.int8_matmul.quantize_dit_w8a8`: its int8 linears run kernel K3, and the
 video stream's norm + modulation producers fuse with the activation
 quantization (kernel K4, `_norm_mod`), the swiglu's silu*up with it (K5,
-`ops.layers.mlp_forward`).
+`ops.layers.mlp_forward`). In the q8 / q4 / q4k lanes
+(`ops.quant_matmul`, `core.loader`) the Q8_0 linears run K6 and the affine
+ones K7; their producers stay plain, as in the JAX package.
 
 Replicated quirks of the released model: 3B blocks >= mm_layers share their
 vid/txt weights ("all"); the 3B last block has no txt mlp/ada branch; the

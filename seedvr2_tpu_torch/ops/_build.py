@@ -41,6 +41,10 @@ _SIGNATURES = {
     "seedvr2_rms_ada_quantize": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # g, u, q, s, rows, K, row_stride, stream
     "seedvr2_silu_mul_quantize": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, q, scales, out, M, N, K, stream
+    "seedvr2_quant_matmul_q8": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, q, s, m, out, M, N, K, stream
+    "seedvr2_quant_matmul_affine": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

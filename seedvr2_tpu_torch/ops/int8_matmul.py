@@ -22,6 +22,7 @@ from torch import nn
 
 from . import _build
 from .fused_quant import PreQuantized
+from .quant_matmul import Q8Linear, dequantize_q8
 
 
 def quantize_activations(x: torch.Tensor):
@@ -114,8 +115,12 @@ class W8A8Linear(nn.Module):
         return self.w8a8.shape[0]
 
     @classmethod
-    def from_linear(cls, lin: nn.Linear) -> "W8A8Linear":
-        q, s = quantize_weight_w8a8(lin.weight.detach())
+    def from_linear(cls, lin: nn.Module) -> "W8A8Linear":
+        """From an nn.Linear, or a Q8Linear dequantized to fp32 first (the
+        Q8_0 block scales folded in before the per-channel quantization)."""
+        w = (dequantize_q8(lin.q8, lin.scales) if isinstance(lin, Q8Linear)
+             else lin.weight.detach())
+        q, s = quantize_weight_w8a8(w)
         bias = None if lin.bias is None else lin.bias.detach().clone()
         return cls(q, s, bias)
 
@@ -179,15 +184,16 @@ def w8a8_double_linear(x, a: W8A8Linear, b: W8A8Linear,
 def quantize_dit_w8a8(model: nn.Module, min_dim: int = 1024,
                       align: int = 256) -> nn.Module:
     """Post-training w8a8 conversion in place, the counterpart of the JAX
-    package's quantize_dit_params_w8a8: every nn.Linear with
+    package's quantize_dit_params_w8a8: every nn.Linear or Q8Linear with
     min(K, N) >= min_dim and K, N multiples of `align` becomes a W8A8Linear;
-    smaller and IO projections stay dense. Layers are converted one at a
-    time on their own device, so peak memory stays near the float model's.
-    Swiglu gate/up pairs that both convert are laid out as one joint weight
+    smaller and IO projections stay dense, and a Q8Linear that does not
+    convert stays Q8. Layers are converted one at a time on their own
+    device, so peak memory stays near the float model's. Swiglu gate/up
+    pairs that both convert are laid out as one joint weight
     (fuse_gate_up). Returns the model."""
     targets = []
     for name, mod in model.named_modules():
-        if isinstance(mod, nn.Linear):
+        if isinstance(mod, (nn.Linear, Q8Linear)):
             k, n = mod.in_features, mod.out_features
             if min(k, n) >= min_dim and k % align == 0 and n % align == 0:
                 targets.append(name)

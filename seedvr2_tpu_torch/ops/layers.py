@@ -1,9 +1,9 @@
 """Elementwise / normalization / linear building blocks (plain torch).
 
-Port of seedvr2_tpu.ops.layers, dense and w8a8 branches. Numerics follow
-the JAX package: fp32 statistics, products accumulated in fp32 (or int32 for
-w8a8) and rounded once to the activation dtype, bias added after the
-rounding.
+Port of seedvr2_tpu.ops.layers, dense, w8a8, Q8_0 and affine branches.
+Numerics follow the JAX package: fp32 statistics, products accumulated in
+fp32 (or int32 for w8a8) and rounded once to the activation dtype, bias
+added after the rounding.
 """
 
 from typing import Optional
@@ -14,6 +14,8 @@ import torch.nn.functional as F
 from .fused_quant import (PreQuantized, silu_mul_quantize,
                           silu_mul_quantize_plain)
 from .int8_matmul import W8A8Linear, w8a8_double_linear, w8a8_linear
+from .quant_matmul import (AffineLinear, Q8Linear, affine_quant_linear,
+                           quant_linear)
 
 
 def rms_norm(x: torch.Tensor, eps: float = 1e-5,
@@ -52,11 +54,17 @@ def linear(x, layer, use_kernels: bool = True) -> torch.Tensor:
 
     A W8A8Linear serves the int8 lane (ops/int8_matmul.w8a8_linear, kernel
     K3 unless use_kernels is False); x may then be a PreQuantized from a
-    fused producer. A PreQuantized with a float layer raises TypeError."""
+    fused producer. A Q8Linear runs kernel K6 and an AffineLinear kernel K7
+    (ops/quant_matmul.py; their plain versions without use_kernels). A
+    PreQuantized with any other layer raises TypeError."""
     if isinstance(layer, W8A8Linear):
         return w8a8_linear(x, layer, use_kernels)
     if isinstance(x, PreQuantized):
         raise TypeError("PreQuantized input requires w8a8 weights")
+    if isinstance(layer, Q8Linear):
+        return quant_linear(x, layer, use_kernels)
+    if isinstance(layer, AffineLinear):
+        return affine_quant_linear(x, layer, use_kernels)
     out = torch.matmul(x, layer.weight.to(x.dtype).t())
     if layer.bias is not None:
         out = out + layer.bias.to(x.dtype)
@@ -79,7 +87,8 @@ def mlp_forward(x, mlp, mlp_type: str, use_kernels: bool = True
     w8a8 swiglu: gate and up run as one int8 GEMM
     (w8a8_double_linear), and a w8a8 proj_out takes silu(g) * u through
     the fused quantize (kernel K5, its plain version without use_kernels).
-    x may be a PreQuantized there."""
+    x may be a PreQuantized there. Q8_0 and affine layers run each linear
+    on its own, as the JAX package does."""
     if mlp_type == "swiglu":
         gate, up, out = mlp.proj_in_gate, mlp.proj_in, mlp.proj_out
         if isinstance(gate, W8A8Linear) and isinstance(up, W8A8Linear):

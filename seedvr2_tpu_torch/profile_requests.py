@@ -1,10 +1,12 @@
 """Time and profile full-width requests of the port on one GPU.
 
     python -m seedvr2_tpu_torch.profile_requests [--preset throughput] \\
-        [--requests clip720,image1080] [--reps 3] [--trace DIR]
+        [--quant q8|q4|q4k|w8a8] [--requests clip720,image1080] [--reps 3] \\
+        [--trace DIR]
 
 Builds the 3B DiT + VAE_V3 with random weights from a seed on the card (the
-w8a8 DiT and tiled VAE with --preset throughput), then for each request:
+w8a8 DiT and tiled VAE with --preset throughput; --quant converts the DiT as
+the CLI does, and wins over the preset), then for each request:
 one warm-up, `--reps` timed repetitions (request wall seconds and the
 pipeline's phase seconds, host clock, each phase ended by a device
 synchronize), and one repetition under torch.profiler (CPU + CUDA). From
@@ -59,6 +61,7 @@ def _device_us(evt) -> float:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--preset", default=None, choices=("throughput",))
+    p.add_argument("--quant", default=None, choices=cli.QUANT_MODES)
     p.add_argument("--requests", default="clip720",
                    help="comma-separated names of " + ", ".join(REQUESTS))
     p.add_argument("--reps", type=int, default=3)
@@ -74,8 +77,9 @@ def main(argv=None) -> None:
         if n not in REQUESTS:
             raise ValueError(f"unknown request {n!r}; known: {list(REQUESTS)}")
     device = torch.device("cuda", 0)
-    flags = ["unused.npy"] + (["--preset", args.preset] if args.preset
-                              else [])
+    flags = (["unused.npy"]
+             + (["--preset", args.preset] if args.preset else [])
+             + (["--quant", args.quant] if args.quant else []))
     cargs = cli.parse_arguments(flags)
     tiling = cli.tiling_from_args(cargs)
     runner = cli.make_runner(device, seed=args.seed, quant=cargs.quant,
@@ -120,7 +124,8 @@ def main(argv=None) -> None:
                   f"x{e.count:<6d} {e.key[:110]}", flush=True)
         if args.trace:
             prof.export_chrome_trace(f"{args.trace}/{name}_"
-                                     f"{args.preset or 'default'}.json")
+                                     f"{args.preset or 'default'}_"
+                                     f"{cargs.quant}.json")
 
 
 if __name__ == "__main__":

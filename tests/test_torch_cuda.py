@@ -16,6 +16,7 @@ from seedvr2_tpu_torch.ops import flash_attention as tfa
 from seedvr2_tpu_torch.ops import fused_quant as tfq
 from seedvr2_tpu_torch.ops import gather as tg
 from seedvr2_tpu_torch.ops import int8_matmul as tim
+from seedvr2_tpu_torch.ops import quant_matmul as tqm
 
 
 def _tables(rng, s, d, device):
@@ -175,6 +176,98 @@ def test_dit_with_kernels_matches_plain_on_gpu(cuda_device):
     t = torch.full((1,), 1000.0, device=cuda_device)
     with torch.no_grad():
         k = nadit.nadit_forward(model, vid, txt, t, dplan).float()
+        p = nadit.nadit_forward(model, vid, txt, t, dplan,
+                                use_kernels=False).float()
+    assert torch.isfinite(k).all()
+    assert ((k - p).norm() / p.norm()).item() < 2e-2
+
+
+def bf16_ulps(out, ref):
+    """|out - ref| in bf16 ulps of ref, the ulp taken at max(|ref|,
+    rms(ref) / 256): below that floor the two fp32 sums' order-of-summation
+    difference (~ sqrt(K) * 2^-24 * rms) can exceed the element's own ulp."""
+    ref32, out32 = ref.float(), out.float()
+    floor = ref32.pow(2).mean().sqrt() / 256
+    _, e = torch.frexp(torch.maximum(ref32.abs(), floor))
+    return (out32 - ref32).abs() / torch.ldexp(torch.ones_like(ref32), e - 8)
+
+
+def _q8_case(gen, m, n, k, device):
+    x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
+    q = torch.randint(-127, 128, (n, k), generator=gen, device=device,
+                      dtype=torch.int8)
+    s = torch.rand(n, k // 32, generator=gen, device=device) * 0.02 / 127
+    return x, q, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(1, 15360, 2560), (58, 2560, 5120),
+                                   (300, 384, 96), (7200, 7680, 2560)])
+def test_k6_kernel_matches_plain_on_gpu(cuda_device, m, n, k):
+    """Q8_0 dequantizing GEMM: both round one fp32 sum to bf16, so within one
+    bf16 ulp of the plain version everywhere (ragged M, K % 64 == 32)."""
+    gen = torch.Generator(cuda_device).manual_seed(m + n)
+    x, q, s = _q8_case(gen, m, n, k, cuda_device)
+    before = tqm.quant_matmul_q8.launches
+    out = tqm.quant_matmul_q8(x, q, s)
+    assert tqm.quant_matmul_q8.launches == before + 1
+    ref = tqm.quant_matmul_q8_plain(x, q, s)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert bf16_ulps(out, ref).max().item() <= 1
+    with pytest.raises(ValueError):
+        tqm.quant_matmul_q8(x.float(), q, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,top", [(1, 2560, 2560, 15),
+                                       (58, 2560, 6912, 31),
+                                       (7200, 6912, 2560, 15)])
+def test_k7_kernel_matches_plain_on_gpu(cuda_device, m, n, k, top):
+    """Affine dequantizing GEMM: the min term as group sums @ m cancels
+    against the q*s term as in the JAX kernel: within one ulp in >= 99.9 %
+    of the elements, relative L2 <= 1e-3."""
+    gen = torch.Generator(cuda_device).manual_seed(m + k)
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    q = torch.randint(0, top + 1, (n, k), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    s = torch.rand(n, k // 32, generator=gen, device=cuda_device) * 0.04 / top
+    mn = torch.rand(n, k // 32, generator=gen, device=cuda_device) * 0.02
+    out = tqm.quant_matmul_affine(x, q, s, mn)
+    ref = tqm.quant_matmul_affine_plain(x, q, s, mn)
+    assert torch.isfinite(out).all()
+    assert (bf16_ulps(out, ref) <= 1).float().mean().item() >= 0.999
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["q8", "q4"])
+def test_quantised_dit_with_kernels_matches_plain_on_gpu(cuda_device, quant):
+    """The 2-layer width-256 NaDiT converted to q8 (K6) or q4 (K7) at
+    min_dim 256: kernels against their plain versions, bounded as the dense
+    model."""
+    from seedvr2_tpu_torch.core.configs import small_test_config
+    from seedvr2_tpu_torch.models.dit import nadit
+
+    cfg = small_test_config(vid_dim=256, heads=2, head_dim=128)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    convert = {"q8": tqm.quantize_dit_q8, "q4": tqm.quantize_dit_affine4}
+    model = convert[quant](nadit.init_dit(cfg, cuda_device, torch.bfloat16,
+                                          generator=gen), 256)
+    shape, txt_len = (2, 18, 32), 58
+    dplan = nadit.upload_plan(nadit.build_dit_plan(cfg, shape, txt_len), cfg,
+                              cuda_device)
+    vid = torch.randn(1, *shape, cfg.vid_in_channels, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    txt = torch.randn(1, txt_len, cfg.txt_in_dim, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    t = torch.full((1,), 1000.0, device=cuda_device)
+    wrapper = {"q8": tqm.quant_matmul_q8, "q4": tqm.quant_matmul_affine}
+    before = wrapper[quant].launches
+    with torch.no_grad():
+        k = nadit.nadit_forward(model, vid, txt, t, dplan).float()
+        assert wrapper[quant].launches > before
         p = nadit.nadit_forward(model, vid, txt, t, dplan,
                                 use_kernels=False).float()
     assert torch.isfinite(k).all()

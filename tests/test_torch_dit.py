@@ -13,8 +13,8 @@ from seedvr2_tpu.core import export as jexport
 from seedvr2_tpu.core.configs import small_test_config as j_small
 from seedvr2_tpu.models.dit import nadit as jn
 from seedvr2_tpu_torch.core.configs import small_test_config
-from seedvr2_tpu_torch.core.weights import (load_safetensors_checkpoint,
-                                            state_dict_from_jax)
+from seedvr2_tpu_torch.core.loader import load_dit_checkpoint
+from seedvr2_tpu_torch.core.weights import state_dict_from_jax
 from seedvr2_tpu_torch.models.dit import nadit as tn
 
 
@@ -105,18 +105,32 @@ def test_weight_bridge_matches_export_dit(dit_pair):
 
 def test_checkpoint_loads_strict(dit_pair, tmp_path):
     """A reference-layout fp16 checkpoint written by the JAX package loads
-    through the port's own safetensors reader with strict=True."""
+    through the port's loader (and its own safetensors reader) with
+    strict=True; a file with a key the model lacks, or without one it needs,
+    raises."""
+    import safetensors.torch
+
     cfg, params, _ = dit_pair
     path = str(tmp_path / "dit.safetensors")
     jexport.save_checkpoint(params, path)
-    model = load_safetensors_checkpoint(path, tn.NaDiT(cfg,
-                                                       dtype=torch.float32))
+    model = load_dit_checkpoint(path, "cpu", torch.float32)
+    assert model.cfg == cfg
     ref = jexport.to_torch_state_dict(params)  # fp16, as saved
+    assert model.state_dict().keys() == ref.keys()
     for k, v in model.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), ref[k].astype(np.float32))
-    bad = tn.NaDiT(small_test_config(num_layers=3), dtype=torch.float32)
-    with pytest.raises(RuntimeError):
-        load_safetensors_checkpoint(path, bad)
+    state = {k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in ref.items()}
+    dropped = "blocks.0.attn.proj_out.vid.weight"
+    for bad, msg in (
+            (dict(state, **{"blocks.0.attn.extra.weight": torch.zeros(2)}),
+             "Unexpected key"),
+            ({k: v for k, v in state.items() if k != dropped},
+             "Missing key")):
+        bad_path = str(tmp_path / "bad.safetensors")
+        safetensors.torch.save_file(bad, bad_path)
+        with pytest.raises(RuntimeError, match=msg):
+            load_dit_checkpoint(bad_path, "cpu", torch.float32)
 
 
 def test_init_dit_distributions():

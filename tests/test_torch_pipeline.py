@@ -1,9 +1,9 @@
 """The port's whole 4-phase slice (cli.process_frames: encode -> DiT ->
 decode -> colour fix) against the JAX pipeline on the CPU in fp32, with the
 tiny runner of tests/test_pipeline.py, shared weights and shared noise: the
-default path, and the throughput lane (w8a8 DiT + uniform tiled VAE); plus
-the pipeline's batch math and the CLI's flags, preset and refusal to run
-without a GPU."""
+default path, the throughput lane (w8a8 DiT + uniform tiled VAE) and the q8
+and q4 lanes; plus the pipeline's batch math and the CLI's flags, preset
+and refusal to run without a GPU."""
 
 import numpy as np
 import pytest
@@ -20,6 +20,8 @@ from seedvr2_tpu.models.dit.nadit import init_dit_params
 from seedvr2_tpu.models.vae.pipeline_vae import VideoVAE as JVAE
 from seedvr2_tpu.models.vae.pipeline_vae import init_vae_params
 from seedvr2_tpu.ops.int8_matmul import quantize_dit_params_w8a8
+from seedvr2_tpu.ops.quant_matmul import (quantize_dit_params,
+                                          quantize_dit_params_affine4)
 from seedvr2_tpu_torch import cli
 from seedvr2_tpu_torch.core import configs as tc
 from seedvr2_tpu_torch.core import pipeline as tp
@@ -28,6 +30,9 @@ from seedvr2_tpu_torch.core.runner import VideoDiffusionRunner as TRunner
 from seedvr2_tpu_torch.core.weights import state_dict_from_jax
 from seedvr2_tpu_torch.models.dit.nadit import NaDiT
 from seedvr2_tpu_torch.ops.int8_matmul import W8A8Linear, quantize_dit_w8a8
+from seedvr2_tpu_torch.ops.quant_matmul import (AffineLinear, Q8Linear,
+                                                quantize_dit_affine4,
+                                                quantize_dit_q8)
 from seedvr2_tpu_torch.models.vae.model import VideoAutoencoder
 from seedvr2_tpu_torch.models.vae.pipeline_vae import VideoVAE as TVAE
 
@@ -263,5 +268,61 @@ def test_cli_throughput_preset_bundle(tmp_path):
         encode_tiled=True, encode_tile_size=(1536, 1536),
         encode_tile_overlap=(16, 16), decode_tiled=True,
         decode_tile_size=(512, 512), decode_tile_overlap=(48, 48))
+    # an explicit --quant wins over the preset's w8a8
+    assert cli.parse_arguments([path, "--preset", "throughput", "--quant",
+                                "q4"]).quant == "q4"
     with pytest.raises(SystemExit):
-        cli.parse_arguments([path, "--quant", "q8"])
+        cli.parse_arguments([path, "--quant", "q2"])
+
+
+# the q8 / q4 lanes at the tiny size: width 32 so that K % 32 == 0 and the
+# attention, mlp and time-embedding linears convert (min_dim 16); vid_in (36
+# inputs) stays dense
+QDIT_KW = dict(DIT_KW, vid_dim=32, head_dim=16, rope_dim=16, txt_in_dim=32)
+Q_MIN_DIM = 16
+
+
+@pytest.mark.parametrize("quant", ["q8", "q4"])
+def test_quantised_slice_matches_jax_pipeline(quant):
+    """The q8 (K6) and q4 (K7) lanes end to end: the JAX runner on the
+    quantize_dit_params{,_affine4} tree, the port's runner on its own
+    conversion of the same float weights (bit-equal, tests/
+    test_torch_quant_matmul.py) with the JAX tree loaded over it. Same
+    tolerance as the default path: the plain K6/K7 versions sum the same
+    fp32 products in another order."""
+    jv_cfg, jd_cfg = JVAEConfig(**VAE_KW), JDiTConfig(**QDIT_KW)
+    vae_p = random_params(lambda k: init_vae_params(k, jv_cfg,
+                                                    dtype=jnp.float32), 2)
+    dit_p = random_params(lambda k: init_dit_params(k, jd_cfg,
+                                                    dtype=jnp.float32), 4)
+    jquant, tquant, cls = {
+        "q8": (quantize_dit_params, quantize_dit_q8, Q8Linear),
+        "q4": (quantize_dit_params_affine4, quantize_dit_affine4,
+               AffineLinear)}[quant]
+    qdit_p = jquant(dit_p, min_dim=Q_MIN_DIM)
+    j_runner = JRunner(qdit_p, jd_cfg, JVAE(vae_p, jv_cfg, dtype=jnp.float32),
+                       JRunnerConfig(dit=jd_cfg, vae=jv_cfg),
+                       compute_dtype=jnp.float32)
+    tv_cfg, td_cfg = tc.VAEConfig(**VAE_KW), tc.DiTConfig(**QDIT_KW)
+    vae = VideoAutoencoder(tv_cfg, dtype=torch.float32)
+    vae.load_state_dict(state_dict_from_jax(vae_p), strict=True)
+    dit = NaDiT(td_cfg, dtype=torch.float32)
+    dit.load_state_dict(state_dict_from_jax(dit_p), strict=True)
+    dit = tquant(dit, Q_MIN_DIM)
+    dit.load_state_dict(state_dict_from_jax(qdit_p), strict=True)
+    assert isinstance(dit.blocks[0].attn.proj_qkv["vid"], cls)
+    assert isinstance(dit.blocks[0].mlp["vid"].proj_out, cls)
+    t_runner = TRunner(dit, TVAE(vae, torch.float32),
+                       tc.RunnerConfig(dit=td_cfg, vae=tv_cfg),
+                       compute_dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    images = rng.uniform(0, 1, (5, 24, 20, 3)).astype(np.float32)
+    emb = {"pos": rng.standard_normal((7, 32)).astype(np.float32),
+           "neg": rng.standard_normal((9, 32)).astype(np.float32)}
+    noise = [rng.standard_normal((2, 6, 4, 4)).astype(np.float32)]
+    ref = _jax_pipeline(j_runner, images, emb, noise, "none", 0)
+    out, _ = cli.process_frames(
+        t_runner, images, emb, resolution=32, seed=1, batch_size=5,
+        color_correction="none", noise_override=noise)
+    assert out.shape == ref.shape == (5, 38, 32, 3)
+    assert np.abs(out - ref).max() < 1e-4
