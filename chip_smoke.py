@@ -16,9 +16,14 @@ network. In order it:
     and quantize rows); K6 (Q8_0 dequantizing GEMM) within one bf16 ulp and
     K7 (affine) within one ulp almost everywhere, at every distinct (K, N)
     of the 3B DiT's converted linears and the quantised lanes' token
-    counts, M = 1 and 58 included; times each with CUDA events after an L2
-    flush, beside its plain version, the one PyTorch call that computes the
-    same function where there is one, and its bound;
+    counts, M = 1 and 58 included; K11 (int8 implicit-GEMM conv) within one
+    bf16 ulp at every (Ci, Co, T, H, W) of the 720p clip's int8 decode (and
+    exact on the last rows of a 4K stage, whose input passes 2^31 bytes), and
+    K12 (fused norm + SiLU + causal head) within one ulp with its head frames
+    equal, at every shape of that clip's fused-norm encode and decode; times
+    each with CUDA events after an L2 flush, beside its plain version, the
+    one PyTorch call that computes the same function where there is one
+    (for K11 cuDNN's bf16 conv at the same shape), and its bound;
  3. the default path: builds the 3B DiT (32 layers, width 2560) and VAE_V3
     with random weights drawn on the card from a seed, and serves three
     requests through the port's `process_frames` (a 360x640 image to 720p,
@@ -50,13 +55,22 @@ network. In order it:
     `cli.make_runner(dit_model=..., quant="q4k")`, checks every linear's
     module and the Q8 buffers, serves one 720p request through K6 and K7
     and deletes the file;
- 9. prints the kernels' JSON record (K1-K7, launches by path), the card line
-    again, and last {"ok": true, "device": {...}}.
+ 9. the VAE's opt-in lanes: the whole int8 decode (`--vae_quant int8`) of
+    the 720p clip's latent with K11 against its plain versions (its own
+    limit, below the int8-vs-bf16 gap) and against the bf16 decode; the
+    fused-norm encode and decode (SEEDVR2_FUSED_NORM=1) against the unfused
+    ones; then serves, each twice and checked as in 7, `--vae_quant int8`
+    untiled (the 720p clip), `--preset throughput --vae_quant int8` (the
+    1080p clip) and SEEDVR2_FUSED_NORM=1 (the 720p clip);
+ 10. prints the kernels' JSON record (K1-K7, K11, K12, launches by path),
+    the card line again, and last {"ok": true, "device": {...}}.
 
 Each phase prints its seconds. Any failure ends the run with a non-zero exit and no last line. It imports
 nothing of JAX.
 """
 
+import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -103,6 +117,42 @@ K6_MAX_ULPS = 1
 # kernel, cancels against the q*s term, so a few elements move further:
 # within one ulp in >= 99.9 % of elements, relative L2 <= 1e-3.
 K7_ULP_SHARE, K7_REL_L2 = 0.999, 1e-3
+# K11 vs plain: the same exact int32 sums and the same fp32 epilogue, so
+# within one bf16 ulp everywhere and equal in at least 99.99 % of entries.
+K11_MAX_ULPS, K11_EQUAL_SHARE = 1, 0.9999
+# K12 vs plain: sigmoid's expf may differ from torch's by an fp32 ulp, which
+# can move the bf16 rounding: within one bf16 ulp; the head frames (the
+# processed frame 0, written again) equal frame 0 exactly.
+K12_MAX_ULPS = 1
+# whole int8 VAE decode of the 720p clip latent, kernels vs plain versions:
+# K11 is exact and everything else runs the same code, so any difference is
+# nondeterminism that later quantizations amplify. Its own limit sits below
+# the int8-vs-bf16 gap on the same weights (checked), and the kernels'
+# output must lie closer to the plain int8 decode than to the bf16 one.
+INT8_DECODE_REL_L2 = 1e-3
+# whole VAE encode + decode with SEEDVR2_FUSED_NORM=1 against the unfused
+# path on the same weights: K12 folds the norm into x * A + B and rounds y to
+# bf16 at another point, and every later bf16 rounding spreads such flips
+# (0.015 encode, 0.032 decode measured on the H100). So the fused path is
+# held to the fp32 VAE on the same weights: no farther from it than
+# FUSED_FP32_RATIO times the unfused bf16 path is; and to the unfused path
+# within FUSED_VAE_REL_L2.
+FUSED_VAE_REL_L2 = 5e-2
+FUSED_FP32_RATIO = 1.5
+# the (Ci, Co, T, H, W) of every int8 conv the 720p clip's decode launches
+# (2 latent frames of 90 x 160; the decoder's channels 512, 512, 256, 128)
+K11_SHAPES = ((512, 512, 2, 90, 160), (512, 512, 3, 180, 320),
+              (512, 256, 5, 360, 640), (256, 256, 5, 360, 640),
+              (256, 128, 5, 720, 1280), (128, 128, 5, 720, 1280))
+# the (C, T, H, W) of every fused norm of the 720p clip's encode (first
+# slice of 5 frames at 720 x 1280) and decode
+K12_SHAPES = ((128, 5, 720, 1280), (128, 5, 360, 640), (256, 5, 360, 640),
+              (256, 3, 180, 320), (512, 3, 180, 320), (512, 2, 90, 160),
+              (512, 5, 360, 640), (256, 5, 720, 1280))
+# the VAE lanes' requests: (label, frames, height, width, short side)
+INT8_REQUESTS = (("clip 5x360x640 -> 720", 5, 360, 640, 720),)
+INT8_FAST_REQUESTS = (("clip 5x540x960 -> 1080", 5, 540, 960, 1080),)
+FUSED_REQUESTS = (("clip 5x360x640 -> 720", 5, 360, 640, 720),)
 # the packaged positive text embedding's length (checked in phase 3)
 TXT_LEN = 58
 # the q8 lane's requests (untiled VAE) and the q4 lane's (preset tiling):
@@ -139,10 +189,15 @@ KERNELS = {
            "comfyui-seedvr2_tpu/ops/quant_matmul.py:28"),
     "K7": ("quant_matmul_affine", "seedvr2_tpu_torch/csrc/quant_matmul.cu",
            "comfyui-seedvr2_tpu/ops/quant_matmul.py:113"),
+    "K11": ("int8_conv3d", "seedvr2_tpu_torch/csrc/int8_conv.cu",
+            "comfyui-seedvr2_tpu/ops/int8_conv.py:40"),
+    "K12": ("norm_silu_head", "seedvr2_tpu_torch/csrc/fused_norm.cu",
+            "comfyui-seedvr2_tpu/ops/fused_norm.py:28"),
 }
 # the path whose launches each kernel's record reports
 MAIN_PATH = {"K1": "default", "K2": "default", "K3": "throughput",
-             "K4": "throughput", "K5": "throughput", "K6": "q8", "K7": "q4"}
+             "K4": "throughput", "K5": "throughput", "K6": "q8", "K7": "q4",
+             "K11": "vae_int8", "K12": "fused_norm"}
 
 
 def fail(msg: str) -> None:
@@ -580,6 +635,140 @@ def check_k6_k7(torch, qm, cfg, device, rows):
     return recs
 
 
+def check_k11(torch, ic, device):
+    """K11 against its plain version at every distinct (Ci, Co, T, H, W) of
+    the 720p clip's int8 decode, through the VAE's NCDHW call with a bias;
+    each timed (kernel, plain, and cuDNN's bf16 F.conv3d on the dequantized
+    operands at the same shape, what the bf16 lane runs there and the port
+    never calls for it), with its bound. The record holds the largest,
+    (128, 128) at 720 x 1280, with every shape under by_shape."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device).manual_seed(11)
+    by_shape, rec = [], None
+    for ci, co, t, h, w in K11_SHAPES:
+        wp = -(-(w + 2) // 32) * 32
+        x_ext = torch.randint(-127, 128, (t + 2, h + 2, wp, ci), generator=gen,
+                              device=device, dtype=torch.int8)
+        x_ext[:, 0] = 0
+        x_ext[:, h + 1] = 0
+        x_ext[:, :, 0] = 0
+        x_ext[:, :, w + 1:] = 0
+        wk = torch.randint(-127, 128, (co, 27 * ci), generator=gen,
+                           device=device, dtype=torch.int8)
+        xs = torch.rand(t, generator=gen, device=device) * 0.01
+        ws = torch.rand(co, generator=gen, device=device) * 0.01
+        bias = (0.1 * torch.randn(co, generator=gen, device=device)).to(
+            torch.bfloat16)
+        out = ic.int8_conv3d_ncdhw(x_ext, wk, xs, ws, bias, w)
+        torch.cuda.synchronize()
+        ref = ic.int8_conv3d_plain(x_ext, wk, xs, ws, bias, w)[None]
+        ulps = bf16_ulps(torch, out, ref)
+        worst = ulps.max().item()
+        equal = (out == ref).float().mean().item()
+        err = (out.float() - ref.float()).abs().max().item()
+        del ulps, ref
+        name = f"Ci={ci} Co={co} T={t} {h}x{w}"
+        if not torch.isfinite(out).all() or worst > K11_MAX_ULPS \
+                or equal < K11_EQUAL_SHARE:
+            fail(f"K11 {name}: {worst} bf16 ulps from the plain version, "
+                 f"{equal:.6f} equal (limits {K11_MAX_ULPS}, "
+                 f"{K11_EQUAL_SHARE})")
+        ms = kernel_ms(torch, lambda: ic.int8_conv3d_ncdhw(
+            x_ext, wk, xs, ws, bias, w), 10)
+        plain_ms = kernel_ms(torch, lambda: ic.int8_conv3d_plain(
+            x_ext, wk, xs, ws, bias, w), 2, warmup=1)
+        # the bf16 lane's conv at this shape: the same values in bf16
+        xb = x_ext.permute(3, 0, 1, 2)[None, :, :, 1:h + 1, 1:w + 1].to(
+            torch.bfloat16).contiguous()
+        wb = wk.view(co, 3, 3, 3, ci).permute(0, 4, 1, 2, 3).to(
+            torch.bfloat16).contiguous()
+        lib_ms = kernel_ms(torch, lambda: F.conv3d(xb, wb, bias, 1,
+                                                   (0, 1, 1)), 10)
+        del xb, wb, out
+        ops = 2 * 27 * t * h * w * ci * co
+        nbytes = x_ext.numel() + wk.numel() + 4 * (t + co) + 2 * co \
+            + 2 * t * h * w * co
+        bound, by = bound_ms(ops, PEAK_INT8, nbytes)
+        say(f"K11 {name}: max {worst:.3g} ulps, {equal * 100:.4f} % equal; "
+            f"kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), plain "
+            f"{plain_ms:.4f} ms, cuDNN bf16 F.conv3d {lib_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by})")
+        rec = dict(shape=name, max_abs_err=err, max_ulps=worst, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                   bound_by=by)
+        by_shape.append(rec)
+    # 64-bit offsets: a 4K frame's 128-channel stage puts x_ext past 2^31
+    # bytes; the kernel's last rows against the plain version of them
+    t, h, w, c = 1, 2160, 3840, 128
+    x_ext = torch.randint(-127, 128, (t + 2, h + 2, 3872, c), generator=gen,
+                          device=device, dtype=torch.int8)
+    wk = torch.randint(-127, 128, (c, 27 * c), generator=gen, device=device,
+                       dtype=torch.int8)
+    xs = torch.rand(t, generator=gen, device=device) * 0.01
+    ws = torch.rand(c, generator=gen, device=device) * 0.01
+    out = ic.int8_conv3d_ncdhw(x_ext, wk, xs, ws, None, w)[0, :, :, h - 8:]
+    ref = ic.int8_conv3d_plain(x_ext[:, h - 8:], wk, xs, ws, None, w)
+    if not torch.equal(out, ref):
+        fail(f"K11 4K stage ({x_ext.numel()} bytes of x_ext): the last rows "
+             "differ from the plain version")
+    say(f"K11 Ci=Co=128 T=1 2160x3840 ({x_ext.numel() / 2 ** 31:.2f} x 2^31 "
+        "bytes of x_ext): the last 8 rows equal the plain version")
+    del x_ext, out, ref
+    torch.cuda.empty_cache()
+    return {**{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by")},
+            "by_shape": by_shape}
+
+
+def check_k12(torch, fn, device):
+    """K12 against its plain version at every distinct (C, T, H, W) of the
+    720p clip's fused-norm encode and decode, each timed with its bound
+    (bytes: x read once, the T + 2 output frames written once). The record
+    holds the largest, 128 channels at 720 x 1280."""
+    gen = torch.Generator(device).manual_seed(12)
+    by_shape, rec = [], None
+    for c, t, h, w in K12_SHAPES:
+        x = torch.randn(1, c, t, h, w, generator=gen, device=device).to(
+            torch.bfloat16)
+        wt = 1 + 0.1 * torch.randn(c, generator=gen, device=device)
+        bs = 0.1 * torch.randn(c, generator=gen, device=device)
+        out = fn.norm_silu_head_ncdhw(x, wt, bs, 32)
+        torch.cuda.synchronize()
+        ref = fn.norm_silu_head_plain(x, wt, bs, 32)
+        worst = bf16_ulps(torch, out, ref).max().item()
+        err = (out.float() - ref.float()).abs().max().item()
+        head_equal = all(torch.equal(out[:, :, f], out[:, :, 2])
+                         for f in (0, 1))
+        del ref
+        name = f"C={c} T={t} {h}x{w}"
+        if not torch.isfinite(out).all() or worst > K12_MAX_ULPS \
+                or not head_equal:
+            fail(f"K12 {name}: {worst} bf16 ulps from the plain version "
+                 f"(limit {K12_MAX_ULPS}), head frames equal: {head_equal}")
+        del out
+        ms = kernel_ms(torch, lambda: fn.norm_silu_head_ncdhw(x, wt, bs, 32),
+                       10)
+        plain_ms = kernel_ms(torch, lambda: fn.norm_silu_head_plain(
+            x, wt, bs, 32), 3, warmup=1)
+        nbytes = x.numel() * 2 * (2 * t + 2) / t + 8 * c * t
+        bound, by = bound_ms(0, PEAK_FP32, nbytes)
+        say(f"K12 {name}: max {worst:.3g} ulps, head frames equal; kernel "
+            f"(moments + fused pass) {ms:.4f} ms ({nbytes / ms / 1e6:.0f} "
+            f"GB/s), plain {plain_ms:.4f} ms, library none, bound "
+            f"{bound:.4f} ms ({by})")
+        r = dict(shape=name, max_abs_err=err, max_ulps=worst, ms=ms,
+                 plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                 bound_by=by)
+        by_shape.append(r)
+        if rec is None:
+            rec = r
+    torch.cuda.empty_cache()
+    return {**{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by")},
+            "by_shape": by_shape}
+
+
 # GGUF writing (the file format's spec: a header, key/value metadata,
 # tensor infos with innermost-first dims and offsets, aligned data)
 GGUF_F32, GGUF_F16, GGUF_Q8_0, GGUF_Q4_K = 0, 1, 8, 12
@@ -781,9 +970,12 @@ def main() -> None:
     from seedvr2_tpu_torch.core import pipeline
     from seedvr2_tpu_torch.core.configs import DIT_3B, VAE_V3
     from seedvr2_tpu_torch.models.dit import nadit
+    from seedvr2_tpu_torch.models.vae.pipeline_vae import VideoVAE
     from seedvr2_tpu_torch.ops import _build, gather
     from seedvr2_tpu_torch.ops import flash_attention as fa
+    from seedvr2_tpu_torch.ops import fused_norm as fn
     from seedvr2_tpu_torch.ops import fused_quant as fq
+    from seedvr2_tpu_torch.ops import int8_conv as ic
     from seedvr2_tpu_torch.ops import int8_matmul as im
     from seedvr2_tpu_torch.ops import quant_matmul as qm
     from seedvr2_tpu_torch.profile_requests import make_frames
@@ -792,7 +984,8 @@ def main() -> None:
     wrappers = {"K1": fa.packed_window_attention, "K2": gather.gather_rows,
                 "K3": im.int8_matmul, "K4": fq.rms_ada_quantize,
                 "K5": fq.silu_mul_quantize, "K6": qm.quant_matmul_q8,
-                "K7": qm.quant_matmul_affine}
+                "K7": qm.quant_matmul_affine, "K11": ic.int8_conv3d,
+                "K12": fn.norm_silu_head}
     t_phase = [time.perf_counter()]
 
     def phase_done(label):
@@ -835,6 +1028,8 @@ def main() -> None:
                         rows_of("clip 720", 5, 360, 640, 720)]}
     say(f"quantised lanes' DiT rows {lane_rows}")
     recs.update(check_k6_k7(torch, qm, DIT_3B, device, lane_rows))
+    recs["K11"] = check_k11(torch, ic, device)
+    recs["K12"] = check_k12(torch, fn, device)
     phase_done("2 (kernels against plain versions)")
 
     # 3. the default path: three requests at full width
@@ -1019,7 +1214,7 @@ def main() -> None:
     # 7. serving: the throughput, q8 and q4 lanes
     counts = {"default": default_counts}
 
-    def lane(name, r, reqs, needed):
+    def lane(name, r, reqs, needed, phase="7"):
         requests = []
         for i, (label, t, h, w, res) in enumerate(reqs):
             frames = make_frames(t, h, w, seed=20 + i)
@@ -1028,7 +1223,7 @@ def main() -> None:
         reset_counts(wrappers)
         serve(torch, np, cli, r, requests, device, embeds)
         counts[name] = read_counts(wrappers, needed, name)
-        phase_done(f"7 ({name} lane served)")
+        phase_done(f"{phase} ({name} lane served)")
 
     requests = []
     for (label, t, h, w, res), frames in zip(FAST_REQUESTS, fast_frames):
@@ -1093,9 +1288,112 @@ def main() -> None:
     serve(torch, np, cli, gg, ((f"GGUF q4k {label}", make_frames(
         t, h, w, seed=30), res, (t, res, res * w // h, 3)),), device, embeds)
     counts["gguf"] = read_counts(wrappers, ("K1", "K2", "K6", "K7"), "gguf")
+    del gg
+    torch.cuda.empty_cache()
     phase_done("8 (GGUF lane)")
 
-    # 9. records and the contract line
+    # 9. the VAE's opt-in lanes: --vae_quant int8 and SEEDVR2_FUSED_NORM=1
+    t0 = time.perf_counter()
+    base = cli.make_runner(device, seed=0)
+    int8_vae = cli.make_runner(device, seed=0, vae_quant="int8")
+    torch.cuda.synchronize()
+    served = sum(1 for m in int8_vae.vae.model.modules() if hasattr(m, "wq"))
+    say(f"bf16 and int8-VAE runners built in {time.perf_counter() - t0:.2f} "
+        f"s; {served} decoder convs quantized to int8")
+    samples = []  # the encoder's input, kept for the fused-norm comparison
+    encode = base.vae_encode
+    base.vae_encode = lambda s: (samples.extend(s), encode(s))[1]
+    ctx = pipeline.encode_all_batches(
+        base, pipeline.setup_generation_context(device), clip, resolution=720)
+    del base.vae_encode
+    latent = ctx["all_latents"][0]
+    del ctx
+
+    def decode(r, use_kernels=True):
+        r.vae.lowering = dataclasses.replace(r.vae.lowering,
+                                             use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = r.vae_decode([latent])[0]
+        torch.cuda.synchronize()
+        r.vae.lowering = dataclasses.replace(r.vae.lowering, use_kernels=True)
+        return out, time.perf_counter() - t1
+
+    reset_counts(wrappers)
+    dec_k, sec_k = decode(int8_vae)
+    k11_n = ic.int8_conv3d.launches
+    dec_p, sec_p = decode(int8_vae, use_kernels=False)
+    dec_b, sec_b = decode(base)
+    rel = rel_l2(dec_k, dec_p)
+    to_bf16 = rel_l2(dec_k, dec_b)
+    gap = rel_l2(dec_p, dec_b)
+    say(f"whole int8 VAE decode of the 720p clip latent {tuple(latent.shape)}"
+        f" -> {tuple(dec_k.shape)}: {k11_n} K11 launches; relative L2 "
+        f"kernels vs plain {rel:.6g} (bound {INT8_DECODE_REL_L2}), kernels vs "
+        f"the bf16 decode {to_bf16:.6g}, plain int8 vs bf16 {gap:.6g}; "
+        f"decode {sec_k:.3f} s with kernels, {sec_p:.3f} s plain, bf16 "
+        f"{sec_b:.3f} s")
+    if not torch.isfinite(dec_k).all() or k11_n == 0 \
+            or rel > INT8_DECODE_REL_L2 or not INT8_DECODE_REL_L2 < gap \
+            or not rel < to_bf16:
+        fail(f"int8 decode: kernels vs plain {rel} (limit "
+             f"{INT8_DECODE_REL_L2}, which must sit below the int8-vs-bf16 "
+             f"gap {gap}; kernels vs bf16 {to_bf16})")
+    del dec_k, dec_p, dec_b
+    lane("vae_int8", int8_vae, INT8_REQUESTS, ("K1", "K2", "K11"), "9")
+    del int8_vae
+    torch.cuda.empty_cache()
+
+    args = cli.parse_arguments(["unused.npy", "--preset", "throughput",
+                                "--vae_quant", "int8"])
+    fast8 = cli.make_runner(device, seed=0, quant=args.quant,
+                            tiling=cli.tiling_from_args(args),
+                            vae_quant=args.vae_quant)
+    lane("throughput_vae_int8", fast8, INT8_FAST_REQUESTS,
+         ("K1", "K2", "K3", "K4", "K5", "K11"), "9")
+    del fast8
+    torch.cuda.empty_cache()
+
+    os.environ["SEEDVR2_FUSED_NORM"] = "1"
+    try:
+        fused = cli.make_runner(device, seed=0)
+    finally:
+        del os.environ["SEEDVR2_FUSED_NORM"]
+    if not fused.vae.lowering.fused_norm or base.vae.lowering.fused_norm:
+        fail("SEEDVR2_FUSED_NORM=1 did not reach the VAE built under it")
+    x_in = samples[0][None]
+    z = (latent.float() / VAE_V3.scaling_factor + VAE_V3.shifting_factor)[None]
+    vae32 = VideoVAE(copy.deepcopy(base.vae.model).float(), torch.float32)
+    reset_counts(wrappers)
+    with torch.no_grad():
+        outs = {"fused": (fused.vae.encode(x_in),)}
+        k12_n = fn.norm_silu_head.launches
+        outs["fused"] += (fused.vae.decode(z.to(torch.bfloat16)),)
+        k12_d = fn.norm_silu_head.launches - k12_n
+        outs["unfused"] = (base.vae.encode(x_in),
+                           base.vae.decode(z.to(torch.bfloat16)))
+        outs["fp32"] = (vae32.encode(x_in.float()), vae32.decode(z))
+    del vae32
+    bad = k12_n == 0 or k12_d == 0
+    for i, what in enumerate(("encode", "decode")):
+        f, u, t32 = (outs[k][i] for k in ("fused", "unfused", "fp32"))
+        rel, err_f, err_u = rel_l2(f, u), rel_l2(f, t32), rel_l2(u, t32)
+        say(f"fused-norm VAE {what}, 720p clip, same weights: relative L2 to "
+            f"the unfused bf16 path {rel:.6g} (bound {FUSED_VAE_REL_L2}); to "
+            f"the fp32 VAE {err_f:.6g} fused, {err_u:.6g} unfused (bound "
+            f"{FUSED_FP32_RATIO}x the unfused)")
+        bad |= rel > FUSED_VAE_REL_L2 or err_f > FUSED_FP32_RATIO * err_u
+    say(f"K12 launches: encode {k12_n}, decode {k12_d}")
+    if bad:
+        fail("fused-norm VAE: K12 not launched by encode and decode, or "
+             "beyond the limits above")
+    del outs, x_in, z, samples, base
+    torch.cuda.empty_cache()
+    lane("fused_norm", fused, FUSED_REQUESTS, ("K1", "K2", "K12"), "9")
+    del fused
+    torch.cuda.empty_cache()
+
+    # 10. records and the contract line
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
         by_path = {path: c[key] for path, c in counts.items()}

@@ -3,20 +3,24 @@
     python -m seedvr2_tpu_torch.cli in.npy --output out.npy --resolution 720 \\
         --seed 42 [--dit_model dit.{safetensors,pth,gguf} \\
         --vae_model vae.safetensors] [--preset throughput] \\
-        [--quant none|q8|q4|q4k|w8a8]
+        [--quant none|q8|q4|q4k|w8a8] [--vae_quant none|int8]
 
 Input and output are float32 .npy arrays of frames (T, H, W, 3) in [0, 1]
 (a single (H, W, 3) image is taken as one frame). With no checkpoint given,
 the models are built with random weights on the device from --seed. Runs the
 JAX package's inference_cli.py paths with the 3B DiT: the default (bf16 DiT,
 VAE_V3 untiled), `--preset throughput` (w8a8 DiT, uniform tiled VAE) and the
-quantised-checkpoint lanes `--quant q8 / q4 / q4k` (core/loader.py), one
-step at cfg 1.0, lab colour correction. A 7B checkpoint is refused.
+quantised-checkpoint lanes `--quant q8 / q4 / q4k` (core/loader.py), and
+the VAE's opt-in lanes: `--vae_quant int8` (int8 decoder resnet convs) and
+SEEDVR2_FUSED_NORM=1 in the environment (fused norm + SiLU + causal head),
+alone or with the flags above; one step at cfg 1.0, lab colour correction.
+A 7B checkpoint is refused.
 """
 
 import argparse
 import os
 import sys
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -42,13 +46,16 @@ THROUGHPUT_PRESET = dict(
 
 def make_runner(device, seed: int = 42, dit_model: str = None,
                 vae_model: str = None, quant: str = "none",
-                tiling: VAETiling = VAETiling()) -> VideoDiffusionRunner:
+                tiling: VAETiling = VAETiling(),
+                vae_quant: str = "none") -> VideoDiffusionRunner:
     """3B DiT + VAE_V3 in bf16 on `device`: from reference-layout
     checkpoints when given (DiT .safetensors, .pth or .gguf, VAE
     .safetensors, through core/loader.py, which sniffs their architecture
     and refuses a 7B DiT), else random weights drawn on the device from
     `seed`. `quant` is the DiT's serving quantization (core/loader.py's
-    table; random weights convert as a float checkpoint does)."""
+    table; random weights convert as a float checkpoint does); `vae_quant`
+    "int8" serves the VAE decoder's resnet convs in int8, for a random or a
+    loaded VAE."""
     device = torch.device(device)
     dtype = torch.bfloat16
     gen = torch.Generator(device).manual_seed(seed)
@@ -58,9 +65,11 @@ def make_runner(device, seed: int = 42, dit_model: str = None,
         dit = quantize_dit(init_dit(DIT_3B, device, dtype, generator=gen),
                            quant)
     if vae_model:
-        vae = load_vae_checkpoint(vae_model, device, dtype)
+        vae = load_vae_checkpoint(vae_model, device, dtype,
+                                  vae_quant=vae_quant)
     else:
-        vae = init_vae_params(VAE_V3, device, dtype, generator=gen)
+        vae = init_vae_params(replace(VAE_V3, conv_quant=vae_quant), device,
+                              dtype, generator=gen)
     return VideoDiffusionRunner(dit, VideoVAE(vae, dtype),
                                 RunnerConfig(dit=dit.cfg, vae=vae.cfg),
                                 compute_dtype=dtype, tiling=tiling)
@@ -127,6 +136,12 @@ def parse_arguments(argv=None):
                         "kernel as q4k; stored one int8 per quant, 1.25 "
                         "B/weight); w8a8 = per-channel int8 weights, "
                         "per-row int8 activations")
+    p.add_argument("--vae_quant", default="none", choices=("none", "int8"),
+                   help="int8: the VAE decoder's 3x3x3 resnet convs run as "
+                        "int8 convs (per-frame activation scale, "
+                        "per-channel weight scales) through a hand-written "
+                        "kernel; experimental, its speed is in PERF.md. "
+                        "--preset throughput does not set it")
     p.add_argument("--vae_encode_tiled", action="store_true")
     p.add_argument("--vae_encode_tile_size", type=int, default=1024)
     p.add_argument("--vae_encode_tile_overlap", type=int, default=128)
@@ -163,7 +178,8 @@ def main(argv=None) -> str:
     if frames.ndim == 3:
         frames = frames[None]
     runner = make_runner(device, args.seed, args.dit_model, args.vae_model,
-                         quant=args.quant, tiling=tiling_from_args(args))
+                         quant=args.quant, tiling=tiling_from_args(args),
+                         vae_quant=args.vae_quant)
     embeds = load_text_embeddings([args.model_dir] if args.model_dir else (),
                                   txt_dim=runner.dit_cfg.txt_in_dim)
     out, timings = process_frames(

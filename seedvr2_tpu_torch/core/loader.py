@@ -388,11 +388,13 @@ def quantize_dit(model: NaDiT, quant: str, from_gguf: bool = False,
     return model
 
 
-def load_vae_checkpoint(path: str, device,
-                        dtype=torch.bfloat16) -> VideoAutoencoder:
+def load_vae_checkpoint(path: str, device, dtype=torch.bfloat16,
+                        vae_quant: str = "none") -> VideoAutoencoder:
     """Load a reference-layout VAE .safetensors onto `device` in `dtype`,
     with the JAX load_vae_checkpoint's key fixups, squeeze, sniffing and
-    2D->3D inflation, then a strict load."""
+    2D->3D inflation, then a strict load. vae_quant "int8" sets the
+    config's conv_quant, as the JAX model manager does after its load (the
+    VideoVAE built on the model quantizes the served convs)."""
     fixed = {}
     for key, val in read_safetensors(path).items():
         if should_skip(key):
@@ -408,6 +410,8 @@ def load_vae_checkpoint(path: str, device,
         fixed[key] = _upcast_fp8(val, dtype)
     cfg = sniff_vae_config(fixed, VAE_V3)
     fixed = inflate_vae_2d_convs(fixed, cfg)
+    if vae_quant != "none":
+        cfg = replace(cfg, conv_quant=vae_quant)
     model = VideoAutoencoder(cfg, device="meta", dtype=dtype).to_empty(
         device=device)
     model.load_state_dict(fixed, strict=True)

@@ -1,9 +1,16 @@
 """Causal video VAE (s8_c16_t4).
 
-Port of seedvr2_tpu.models.vae.model, default branches: plain causal 3D
-convs (cuDNN), per-frame group norm with fp32 statistics, the mid-block
-spatial attention as a plain matmul/softmax composition, and the decoder
-upsample in its conv-transpose form.
+Port of seedvr2_tpu.models.vae.model: plain causal 3D convs (cuDNN),
+per-frame group norm with fp32 statistics, the mid-block spatial attention
+as a plain matmul/softmax composition, and the decoder upsample in its
+conv-transpose form; and the two opt-in lowerings of norm -> SiLU -> conv,
+in the JAX order:
+ - `conv_quant="int8"` (--vae_quant int8): the decoder's resnet convs run
+   as int8 convs (ops/int8_conv.py, kernel K11) on a fused
+   norm+SiLU+quantize of their input;
+ - `Lowering.fused_norm` (SEEDVR2_FUSED_NORM=1): a first slice's norm ->
+   SiLU -> 3x3x3 conv takes the fused norm+SiLU+head pass
+   (ops/fused_norm.py, kernel K12).
 
  - The reference's mutable per-conv temporal memory is an explicit state
    dict: every causal conv reads `state[path]` and writes `new_state[path]`,
@@ -20,6 +27,7 @@ later slices prepend the stored tail of the previous *extended* input
 the first slice drops frame 1 after it.
 """
 
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -27,8 +35,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.configs import VAEConfig
+from ...ops import fused_norm, int8_conv
 
 State = Optional[Dict[str, torch.Tensor]]
+
+
+@dataclass(frozen=True)
+class Lowering:
+    """How the cores lower norm -> SiLU -> conv, beside the config's
+    conv_quant. fused_norm: a first slice's norm -> SiLU -> 3x3x3 conv takes
+    K12's fused pass (the JAX package's SEEDVR2_FUSED_NORM=1). use_kernels:
+    False runs the plain versions of K11 and K12 on any device, to hold the
+    kernels against them."""
+
+    fused_norm: bool = False
+    use_kernels: bool = True
 
 # --------------------------------------------------------------------------
 # Modules (state_dict keys = reference checkpoint names)
@@ -133,11 +154,14 @@ class VideoAutoencoder(nn.Module):
     def __init__(self, cfg: VAEConfig, device=None, dtype=None):
         super().__init__()
         if (cfg.use_quant_conv or cfg.use_post_quant_conv
-                or not cfg.mid_attention or cfg.time_receptive_field != "full"
-                or cfg.conv_quant != "none"):
+                or not cfg.mid_attention
+                or cfg.time_receptive_field != "full"):
             raise NotImplementedError(
                 "only the attn_video_vae family (VAE_V3 switches) is ported; "
-                "the legacy family and int8 convs are not")
+                "the legacy family is not")
+        if cfg.conv_quant not in ("none", "int8"):
+            raise ValueError(f"conv_quant={cfg.conv_quant!r}; known: none, "
+                             "int8")
         fk = {"device": device, "dtype": dtype}
         self.cfg = cfg
         self.encoder = Encoder(cfg, **fk)
@@ -152,16 +176,20 @@ class VideoAutoencoder(nn.Module):
 def causal_conv3d(conv: nn.Conv3d, path: str, x: torch.Tensor, state: State,
                   new_state: State = None,
                   stride: Tuple[int, int, int] = (1, 1, 1), t_pad: int = 0,
-                  s_pad=((0, 0), (0, 0))) -> torch.Tensor:
+                  s_pad=((0, 0), (0, 0)),
+                  pre_extended: bool = False) -> torch.Tensor:
     """Causal 3D convolution with functional temporal memory.
 
     x: (B, C, T, H, W). `state` holds the previous slice's tails (None for a
     first or unsliced call); `new_state`, if a dict, receives this slice's
-    tail under `path` for the next call."""
+    tail under `path` for the next call. pre_extended: the caller already
+    prepended the causal head frames (K12's fused pass)."""
     w = conv.weight
     kt = w.shape[2]
     cache = kt - stride[0]
-    if state is not None and path in state:
+    if pre_extended:
+        x_ext = x
+    elif state is not None and path in state:
         x_ext = torch.cat([state[path].to(x.dtype), x], dim=2)
     elif t_pad > 0:
         head = x[:, :, :1].expand(-1, -1, 2 * t_pad, -1, -1)
@@ -200,23 +228,69 @@ def frame_group_norm(norm: nn.GroupNorm, x: torch.Tensor,
     return out.to(x.dtype).reshape(b, c, t, h, w)
 
 
+def _int8_norm_silu_conv(norm: nn.GroupNorm, conv: nn.Conv3d, path: str,
+                         x: torch.Tensor, state: State, new_state: State,
+                         use_kernels: bool) -> torch.Tensor:
+    """norm -> SiLU -> int8 quantize written as K11's extended input, K11
+    with the bias, for one batch element. A later slice quantizes its
+    carried bf16 tail with the same scale; the new tail (the post-SiLU last
+    two frames) goes to new_state. Weights quantized at VideoVAE
+    construction (`wq`, `ws` buffers), else here."""
+    head = state.get(path) if state is not None else None
+    # a profiler range: profile_requests reports its device time
+    with torch.profiler.record_function("seedvr2.norm_silu_quantize"):
+        x_ext, scale, tail = int8_conv.norm_silu_quantize_cthw(
+            x[0], norm.weight, norm.bias, norm.num_groups,
+            head=None if head is None else head[0],
+            with_tail=new_state is not None)
+    if new_state is not None:
+        new_state[path] = tail[None]
+    if hasattr(conv, "wq"):
+        wk, ws = conv.wq, conv.ws
+    else:
+        wk, ws = int8_conv.conv_weight_int8(conv.weight)
+    xs = scale.reshape(1).expand(x.shape[2]).contiguous()
+    if use_kernels:
+        return int8_conv.int8_conv3d_ncdhw(x_ext, wk, xs, ws, conv.bias,
+                                           x.shape[4])
+    return int8_conv.int8_conv3d_plain(x_ext, wk, xs, ws, conv.bias,
+                                       x.shape[4])[None]
+
+
 def norm_silu_conv(norm: nn.GroupNorm, conv: nn.Conv3d, path: str,
-                   x: torch.Tensor, state: State,
-                   new_state: State) -> torch.Tensor:
+                   x: torch.Tensor, state: State, new_state: State,
+                   conv_quant: str = "none",
+                   lowering: Lowering = Lowering()) -> torch.Tensor:
     """GroupNorm -> SiLU -> causal conv; the temporal pad comes from the
-    conv's kernel depth."""
+    conv's kernel depth. In the JAX order: int8 (K11) when conv_quant is
+    "int8", the batch is 1, the kernel 3 deep and the shape viable (the
+    others, conv_out's Co = 3 among them, stay bf16); otherwise, for a first
+    slice's 3-deep conv with fused_norm on, K12's fused norm+SiLU+head."""
     kt = conv.weight.shape[2]
+    if (conv_quant == "int8" and x.shape[0] == 1 and kt == 3
+            and int8_conv.int8_conv_viable(conv.in_channels,
+                                           conv.out_channels, x.shape[4])):
+        return _int8_norm_silu_conv(norm, conv, path, x, state, new_state,
+                                    lowering.use_kernels)
+    if state is None and kt == 3 and lowering.fused_norm:
+        fn = (fused_norm.norm_silu_head_ncdhw if lowering.use_kernels
+              else fused_norm.norm_silu_head_plain)
+        # the mid block's attention returns a permuted sum; K12 reads NCDHW
+        ext = fn(x.contiguous(), norm.weight, norm.bias, norm.num_groups)
+        return causal_conv3d(conv, path, ext, None, new_state, t_pad=1,
+                             s_pad=((1, 1), (1, 1)), pre_extended=True)
     h = F.silu(frame_group_norm(norm, x))
     return causal_conv3d(conv, path, h, state, new_state,
                          t_pad=(kt - 1) // 2, s_pad=((1, 1), (1, 1)))
 
 
 def resnet_block(blk: ResnetBlock, path: str, x: torch.Tensor, state: State,
-                 new_state: State) -> torch.Tensor:
+                 new_state: State, conv_quant: str = "none",
+                 lowering: Lowering = Lowering()) -> torch.Tensor:
     h = norm_silu_conv(blk.norm1, blk.conv1, f"{path}.conv1", x, state,
-                       new_state)
+                       new_state, conv_quant, lowering)
     h = norm_silu_conv(blk.norm2, blk.conv2, f"{path}.conv2", h, state,
-                       new_state)
+                       new_state, conv_quant, lowering)
     if blk.conv_shortcut is not None:
         x = causal_conv3d(blk.conv_shortcut, f"{path}.conv_shortcut", x, state,
                           new_state)
@@ -261,11 +335,13 @@ def attn_block(blk: AttnBlock, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, t, h, w, c).permute(0, 4, 1, 2, 3) + x
 
 
-def _mid_block(blk: MidBlock, path: str, x, state, new_state):
-    x = resnet_block(blk.resnets[0], f"{path}.resnets.0", x, state, new_state)
+def _mid_block(blk: MidBlock, path: str, x, state, new_state,
+               conv_quant: str, lowering: Lowering):
+    x = resnet_block(blk.resnets[0], f"{path}.resnets.0", x, state, new_state,
+                     conv_quant, lowering)
     x = attn_block(blk.attentions[0], x)
     return resnet_block(blk.resnets[1], f"{path}.resnets.1", x, state,
-                        new_state)
+                        new_state, conv_quant, lowering)
 
 
 def _upsample_conv_transpose(conv: nn.Conv3d, x: torch.Tensor, sr: int,
@@ -304,12 +380,13 @@ def _upsample3d(up: _ConvHolder, path: str, x, state, new_state,
 
 
 def encoder_core(vae: VideoAutoencoder, x: torch.Tensor, state: State,
-                 keep_state: bool = True
+                 keep_state: bool = True, lowering: Lowering = Lowering()
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, T, H, W, 3) in [-1, 1] -> moments (B, Tl, H/8, W/8, 2*latent).
 
     state=None means the first slice. Returns (moments, new_state); with
-    keep_state=False no tails are kept (the last or only slice)."""
+    keep_state=False no tails are kept (the last or only slice). The
+    encoder's convs stay bf16 under conv_quant, as in the JAX package."""
     cfg, enc = vae.cfg, vae.encoder
     new_state: State = {} if keep_state else None
     n_blocks = len(cfg.block_out_channels)
@@ -319,7 +396,8 @@ def encoder_core(vae: VideoAutoencoder, x: torch.Tensor, state: State,
     for i, blk in enumerate(enc.down_blocks):
         base = f"encoder.down_blocks.{i}"
         for j, res in enumerate(blk.resnets):
-            x = resnet_block(res, f"{base}.resnets.{j}", x, state, new_state)
+            x = resnet_block(res, f"{base}.resnets.{j}", x, state, new_state,
+                             lowering=lowering)
         if i < n_blocks - 1:
             temporal_down = i >= n_blocks - cfg.temporal_scale_num - 1
             # Downsample3D: spatial stride 2 with asymmetric (0, 1) pad,
@@ -328,32 +406,37 @@ def encoder_core(vae: VideoAutoencoder, x: torch.Tensor, state: State,
                 blk.downsamplers[0].conv, f"{base}.downsamplers.0.conv", x,
                 state, new_state, stride=(2 if temporal_down else 1, 2, 2),
                 t_pad=1 if temporal_down else 0, s_pad=((0, 1), (0, 1)))
-    x = _mid_block(enc.mid_block, "encoder.mid_block", x, state, new_state)
+    x = _mid_block(enc.mid_block, "encoder.mid_block", x, state, new_state,
+                   "none", lowering)
     x = norm_silu_conv(enc.conv_norm_out, enc.conv_out, "encoder.conv_out", x,
-                       state, new_state)
+                       state, new_state, lowering=lowering)
     return x.permute(0, 2, 3, 4, 1), (new_state or {})
 
 
 def decoder_core(vae: VideoAutoencoder, z: torch.Tensor, state: State,
-                 keep_state: bool = True
+                 keep_state: bool = True, lowering: Lowering = Lowering()
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """z: (B, Tl, h, w, latent) -> (B, T, 8h, 8w, 3). state as encoder_core."""
+    """z: (B, Tl, h, w, latent) -> (B, T, 8h, 8w, 3). state as encoder_core;
+    cfg.conv_quant reaches the mid block, the resnets and conv_out."""
     cfg, dec = vae.cfg, vae.decoder
+    cq = cfg.conv_quant
     new_state: State = {} if keep_state else None
     first_slice = state is None
     n_blocks = len(cfg.block_out_channels)
     x = z.permute(0, 4, 1, 2, 3).contiguous()
     x = causal_conv3d(dec.conv_in, "decoder.conv_in", x, state, new_state,
                       t_pad=1, s_pad=((1, 1), (1, 1)))
-    x = _mid_block(dec.mid_block, "decoder.mid_block", x, state, new_state)
+    x = _mid_block(dec.mid_block, "decoder.mid_block", x, state, new_state,
+                   cq, lowering)
     for i, blk in enumerate(dec.up_blocks):
         base = f"decoder.up_blocks.{i}"
         for j, res in enumerate(blk.resnets):
-            x = resnet_block(res, f"{base}.resnets.{j}", x, state, new_state)
+            x = resnet_block(res, f"{base}.resnets.{j}", x, state, new_state,
+                             cq, lowering)
         if i < n_blocks - 1:
             x = _upsample3d(blk.upsamplers[0], f"{base}.upsamplers.0", x,
                             state, new_state, i < cfg.temporal_scale_num,
                             first_slice)
     x = norm_silu_conv(dec.conv_norm_out, dec.conv_out, "decoder.conv_out", x,
-                       state, new_state)
+                       state, new_state, cq, lowering)
     return x.permute(0, 2, 3, 4, 1), (new_state or {})

@@ -14,11 +14,19 @@ Port of seedvr2_tpu.models.vae.pipeline_vae:
 The reference stride-sweep layout (`tile_mode="ref"`) and memory-probed
 tile sizes ("auto") are not ported yet.
 
+The VAE's opt-in lowerings are fixed at construction, as the JAX VideoVAE
+snapshots its lowering switches: with `cfg.conv_quant == "int8"` the
+decoder's resnet convs are quantized once to int8 (kernel K11's layout, as
+non-persistent buffers, so checkpoints still load strictly under the
+reference key names), and SEEDVR2_FUSED_NORM=1 in the environment turns on
+the fused norm+SiLU+head pass (kernel K12).
+
 Layout is channels-last: video (B, T, H, W, 3) in [-1, 1], latent
 (B, Tl, h, w, latent_channels).
 """
 
 import math
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -26,7 +34,8 @@ import torch
 from torch import nn
 
 from ...core.configs import VAEConfig
-from .model import VideoAutoencoder, decoder_core, encoder_core
+from ...ops.int8_conv import conv_weight_int8
+from .model import Lowering, VideoAutoencoder, decoder_core, encoder_core
 
 
 def _cos_ramp(n: int) -> np.ndarray:
@@ -111,40 +120,43 @@ def _plan_grid(h: int, w: int, cap_area: int, ov_h: int, ov_w: int,
     return _even_starts(h, th, nr), th, _even_starts(w, tw, nc), tw
 
 
-def _encode_slices(vae: VideoAutoencoder, x: torch.Tensor) -> torch.Tensor:
+def _encode_slices(vae: VideoAutoencoder, x: torch.Tensor,
+                   lowering: Lowering = Lowering()) -> torch.Tensor:
     """Temporally sliced encode; returns the (un-truncated) moments. Tails
     are kept only for slices that have a successor."""
     T = x.shape[1]
     split = vae.cfg.slicing_sample_min_size
     if (T - 1) <= split:
-        return encoder_core(vae, x, None, keep_state=False)[0]
+        return encoder_core(vae, x, None, False, lowering)[0]
     outs = []
-    moments, state = encoder_core(vae, x[:, : split + 1], None)
+    moments, state = encoder_core(vae, x[:, : split + 1], None, True,
+                                  lowering)
     outs.append(moments)
     pos = split + 1
     while pos < T:
         last = pos + split >= T
         moments, state = encoder_core(vae, x[:, pos: pos + split], state,
-                                      keep_state=not last)
+                                      not last, lowering)
         outs.append(moments)
         pos += split
     return torch.cat(outs, dim=1)
 
 
-def _decode_slices(vae: VideoAutoencoder, z: torch.Tensor) -> torch.Tensor:
+def _decode_slices(vae: VideoAutoencoder, z: torch.Tensor,
+                   lowering: Lowering = Lowering()) -> torch.Tensor:
     """Temporally sliced decode (latent frame 0 + 1, then one at a time)."""
     Tl = z.shape[1]
     split = vae.cfg.slicing_latent_min_size
     if (Tl - 1) <= split:
-        return decoder_core(vae, z, None, keep_state=False)[0]
+        return decoder_core(vae, z, None, False, lowering)[0]
     outs = []
-    out, state = decoder_core(vae, z[:, : split + 1], None)
+    out, state = decoder_core(vae, z[:, : split + 1], None, True, lowering)
     outs.append(out)
     pos = split + 1
     while pos < Tl:
         last = pos + split >= Tl
         out, state = decoder_core(vae, z[:, pos: pos + split], state,
-                                  keep_state=not last)
+                                  not last, lowering)
         outs.append(out)
         pos += split
     return torch.cat(outs, dim=1)
@@ -156,6 +168,23 @@ def _check_mode(tile_mode: str) -> None:
                                   "(uniform only)")
 
 
+def int8_served_convs(model: VideoAutoencoder):
+    """(path, conv) of every conv the int8 path serves: the decoder's
+    resnet convs (mid block and up blocks) whose channel dims are
+    multiples of 128. The upsampler convs, conv_out and the 1x1 shortcuts
+    stay bf16."""
+    dec = model.decoder
+    blocks = [("decoder.mid_block", dec.mid_block)] + [
+        (f"decoder.up_blocks.{i}", b) for i, b in enumerate(dec.up_blocks)]
+    for base, blk in blocks:
+        for j, res in enumerate(blk.resnets):
+            for name in ("conv1", "conv2"):
+                conv = getattr(res, name)
+                if (conv.weight.shape[2] == 3 and conv.in_channels % 128 == 0
+                        and conv.out_channels % 128 == 0):
+                    yield f"{base}.resnets.{j}.{name}", conv
+
+
 class VideoVAE:
     """Encode/decode front end over a VideoAutoencoder's parameters."""
 
@@ -163,6 +192,15 @@ class VideoVAE:
         self.model = model
         self.cfg: VAEConfig = model.cfg
         self.dtype = dtype
+        # the JAX VideoVAE snapshots its lowering switches at construction
+        self.lowering = Lowering(
+            fused_norm=os.environ.get("SEEDVR2_FUSED_NORM", "0") == "1")
+        if self.cfg.conv_quant == "int8":
+            with torch.no_grad():
+                for _, conv in int8_served_convs(model):
+                    wk, ws = conv_weight_int8(conv.weight)
+                    conv.register_buffer("wq", wk, persistent=False)
+                    conv.register_buffer("ws", ws, persistent=False)
         # output-space (y, x, h, w) pixel rectangles of the last tiled call
         self.last_encode_tiles = []
         self.last_decode_tiles = []
@@ -184,7 +222,7 @@ class VideoVAE:
         B, T, H, W, _ = x.shape
         lat = self.cfg.latent_channels
         if not tiled or (H <= tile_size[0] and W <= tile_size[1]):
-            return _encode_slices(self.model, x)[..., :lat]
+            return _encode_slices(self.model, x, self.lowering)[..., :lat]
         _check_mode(tile_mode)
         sf = self.cfg.spatial_downsample_factor
         lt_h = max(1, tile_size[0] // sf)
@@ -210,7 +248,8 @@ class VideoVAE:
         for (y, y_end, xx, x_end) in rects:
             crop = x[:, :, y * sf: min(y_end * sf, H),
                      xx * sf: min(x_end * sf, W)]
-            tile = _encode_slices(self.model, crop)[..., :lat].float()
+            tile = _encode_slices(self.model, crop,
+                                  self.lowering)[..., :lat].float()
             eh = min(y_end - y, tile.shape[2], H_lat - y)
             ew = min(x_end - xx, tile.shape[3], W_lat - xx)
             mask = np.outer(_fade_weights(eh, fade_h, y > 0, y_end < H_lat),
@@ -243,7 +282,7 @@ class VideoVAE:
         lt_h = max(1, tile_size[0] // sf)
         lt_w = max(1, tile_size[1] // sf)
         if not tiled or (h <= lt_h and w <= lt_w):
-            return _decode_slices(self.model, z)
+            return _decode_slices(self.model, z, self.lowering)
         _check_mode(tile_mode)
         lo_h = max(0, min(tile_overlap[0] // sf, lt_h - 1))
         lo_w = max(0, min(tile_overlap[1] // sf, lt_w - 1))
@@ -275,7 +314,8 @@ class VideoVAE:
         result = torch.zeros((B, T, H, W, 3), dtype=torch.float32,
                              device=z.device)
         for (y, y_end, xx, x_end), m in zip(rects, masks):
-            tile = _decode_slices(self.model, z[:, :, y:y_end, xx:x_end])
+            tile = _decode_slices(self.model, z[:, :, y:y_end, xx:x_end],
+                                  self.lowering)
             result[:, :, y * sf: y_end * sf, xx * sf: x_end * sf] += (
                 tile.float()
                 * torch.as_tensor(m, device=z.device)[None, None, :, :, None])

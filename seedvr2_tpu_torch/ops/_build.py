@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes. Every entry returns cudaGetLastError().
 _SIGNATURES = {
     # qkv, cos_q, sin_q, cos_k, sin_k, out, B, S, H, D, kv_len, eps, qscale,
@@ -45,6 +46,12 @@ _SIGNATURES = {
     "seedvr2_quant_matmul_q8": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, q, s, m, out, M, N, K, stream
     "seedvr2_quant_matmul_affine": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x_ext, wk, xs, ws, bias, out, T, H, Wp, C, Co, W_out, out strides
+    # (co, t, h, w), stream
+    "seedvr2_int8_conv3d": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _L, _L, _L, _L, _P],
+    # x, A, Bc, out, B, C, T, H*W, head frames, stream
+    "seedvr2_norm_silu_head": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _P],
 }
 
 

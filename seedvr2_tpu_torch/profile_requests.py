@@ -1,19 +1,22 @@
 """Time and profile full-width requests of the port on one GPU.
 
-    python -m seedvr2_tpu_torch.profile_requests [--preset throughput] \\
-        [--quant q8|q4|q4k|w8a8] [--requests clip720,image1080] [--reps 3] \\
-        [--trace DIR]
+    [SEEDVR2_FUSED_NORM=1] python -m seedvr2_tpu_torch.profile_requests \\
+        [--preset throughput] [--quant q8|q4|q4k|w8a8] [--vae_quant int8] \\
+        [--requests clip720,image1080] [--reps 3] [--trace DIR]
 
 Builds the 3B DiT + VAE_V3 with random weights from a seed on the card (the
 w8a8 DiT and tiled VAE with --preset throughput; --quant converts the DiT as
-the CLI does, and wins over the preset), then for each request:
+the CLI does, and wins over the preset; --vae_quant int8 serves the VAE
+decoder's resnet convs in int8, and SEEDVR2_FUSED_NORM=1 turns on the fused
+norm pass, as in the CLI), then for each request:
 one warm-up, `--reps` timed repetitions (request wall seconds and the
 pipeline's phase seconds, host clock, each phase ended by a device
 synchronize), and one repetition under torch.profiler (CPU + CUDA). From
 the profile it prints the device busy time (the summed device time of the
 device-side events: kernels, copies and memsets, all on one stream), the
-profiled wall time, and the device events that took the most time. Needs a
-CUDA device.
+profiled wall time, the device events that took the most time, and the
+device time of the port's named ranges (seedvr2.norm_silu_quantize: the
+int8 lane's norm + SiLU + quantize passes). Needs a CUDA device.
 """
 
 import argparse
@@ -47,10 +50,16 @@ def make_frames(t: int, h: int, w: int, seed: int) -> np.ndarray:
     return np.clip(frames, 0, 1).astype(np.float32)
 
 
+RANGE_PREFIX = "seedvr2."  # the port's named profiler ranges
+
+
 def _device_us(evt) -> float:
     """Device microseconds of a device-side event (kernel, copy, memset);
-    0 for host-side events, whose device time is their kernels'."""
-    if getattr(evt, "device_type", None) != DeviceType.CUDA:
+    0 for host-side events, whose device time is their kernels', and for
+    the device-side span of a named range, which would count its kernels
+    twice."""
+    if (getattr(evt, "device_type", None) != DeviceType.CUDA
+            or evt.key.startswith(RANGE_PREFIX)):
         return 0.0
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -62,6 +71,7 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--preset", default=None, choices=("throughput",))
     p.add_argument("--quant", default=None, choices=cli.QUANT_MODES)
+    p.add_argument("--vae_quant", default="none", choices=("none", "int8"))
     p.add_argument("--requests", default="clip720",
                    help="comma-separated names of " + ", ".join(REQUESTS))
     p.add_argument("--reps", type=int, default=3)
@@ -83,10 +93,11 @@ def main(argv=None) -> None:
     cargs = cli.parse_arguments(flags)
     tiling = cli.tiling_from_args(cargs)
     runner = cli.make_runner(device, seed=args.seed, quant=cargs.quant,
-                             tiling=tiling)
+                             tiling=tiling, vae_quant=args.vae_quant)
     embeds = load_text_embeddings(txt_dim=DIT_3B.txt_in_dim)
     print(f"device {torch.cuda.get_device_name(0)}; quant {cargs.quant}; "
-          f"{tiling}", flush=True)
+          f"vae_quant {args.vae_quant}; {runner.vae.lowering}; {tiling}",
+          flush=True)
 
     for i, name in enumerate(names):
         t, h, w, res = REQUESTS[name]
@@ -122,10 +133,17 @@ def main(argv=None) -> None:
                 break
             print(f"  {us / 1e3:10.2f} ms {100 * us / 1e6 / busy:5.1f} % "
                   f"x{e.count:<6d} {e.key[:110]}", flush=True)
+        for e in events:  # the port's named ranges: their kernels' time
+            if (e.key.startswith(RANGE_PREFIX)
+                    and getattr(e, "device_type", None) != DeviceType.CUDA):
+                us = float(getattr(e, "device_time_total", 0.0))
+                print(f"  range {e.key}: {us / 1e3:.2f} ms of device time "
+                      f"({100 * us / 1e6 / busy:.1f} %), x{e.count}",
+                      flush=True)
         if args.trace:
             prof.export_chrome_trace(f"{args.trace}/{name}_"
                                      f"{args.preset or 'default'}_"
-                                     f"{cargs.quant}.json")
+                                     f"{cargs.quant}_{args.vae_quant}.json")
 
 
 if __name__ == "__main__":

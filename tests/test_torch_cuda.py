@@ -13,8 +13,10 @@ import pytest
 import torch
 
 from seedvr2_tpu_torch.ops import flash_attention as tfa
+from seedvr2_tpu_torch.ops import fused_norm as tfn
 from seedvr2_tpu_torch.ops import fused_quant as tfq
 from seedvr2_tpu_torch.ops import gather as tg
+from seedvr2_tpu_torch.ops import int8_conv as tic
 from seedvr2_tpu_torch.ops import int8_matmul as tim
 from seedvr2_tpu_torch.ops import quant_matmul as tqm
 
@@ -272,3 +274,94 @@ def test_quantised_dit_with_kernels_matches_plain_on_gpu(cuda_device, quant):
                                 use_kernels=False).float()
     assert torch.isfinite(k).all()
     assert ((k - p).norm() / p.norm()).item() < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,h,w,c,co", [
+    (2, 6, 45, 128, 128),     # W not a multiple of the 128-pixel tile
+    (1, 3, 300, 256, 128),    # three pixel tiles, Co < C
+    (3, 4, 130, 128, 256),    # two channel tiles
+    (1, 2, 20, 32, 48)])      # C one 64-byte chunk short, Co ragged
+def test_k11_kernel_matches_plain_on_gpu(cuda_device, t, h, w, c, co):
+    """int8 implicit-GEMM conv: exact int32 sums and the same fp32
+    epilogue, so equal to the plain version bit for bit, through the VAE's
+    NCDHW call (with the bias) and the JAX-layout one."""
+    gen = torch.Generator(cuda_device).manual_seed(t * h * w + co)
+    wp = -(-(w + 2) // 32) * 32
+    x_ext = torch.randint(-127, 128, (t + 2, h + 2, wp, c), generator=gen,
+                          device=cuda_device, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (27, c, co), generator=gen,
+                       device=cuda_device, dtype=torch.int8)
+    xs = torch.rand(t, generator=gen, device=cuda_device) * 0.01
+    ws = torch.rand(co, generator=gen, device=cuda_device) * 0.01
+    bias = torch.randn(co, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    wk = tic.kernel_weight(wq)
+    before = tic.int8_conv3d.launches
+    out = tic.int8_conv3d_ncdhw(x_ext, wk, xs, ws, bias, w)
+    assert tic.int8_conv3d.launches == before + 1
+    ref = tic.int8_conv3d_plain(x_ext, wk, xs, ws, bias, w)[None]
+    assert out.shape == ref.shape == (1, co, t, h, w)
+    assert torch.equal(out, ref)
+    out = tic.int8_conv3d(x_ext, wq, xs, ws)
+    ref = tic.int8_conv3d_plain(x_ext, wk, xs, ws).permute(1, 2, 3, 0)
+    assert out.shape == (t, h, wp - 2, co) and torch.equal(out, ref)
+    with pytest.raises(ValueError):
+        tic.int8_conv3d_ncdhw(x_ext, wk, xs.double(), ws, bias, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 128, 3, 10, 16), (2, 64, 2, 7, 9)],
+                         ids=["vector", "scalar"])
+def test_k12_kernel_matches_plain_on_gpu(cuda_device, shape):
+    """Fused norm + SiLU + head: within one bf16 ulp of the plain version
+    (sigmoid's expf may differ from torch's by an fp32 ulp), the head
+    frames equal to the processed frame 0; H*W a multiple of 8 (16-byte
+    path) and not (scalar path)."""
+    gen = torch.Generator(cuda_device).manual_seed(shape[1])
+    x = torch.randn(shape, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(shape[1], generator=gen, device=cuda_device)
+    b = 0.1 * torch.randn(shape[1], generator=gen, device=cuda_device)
+    before = tfn.norm_silu_head.launches
+    out = tfn.norm_silu_head_ncdhw(x, w, b, 32)
+    assert tfn.norm_silu_head.launches == before + 1
+    ref = tfn.norm_silu_head_plain(x, w, b, 32)
+    assert out.shape == ref.shape == (shape[0], shape[1], shape[2] + 2,
+                                      *shape[3:])
+    assert bf16_ulps(out, ref).max().item() <= 1
+    for f in (0, 1):
+        assert torch.equal(out[:, :, f], out[:, :, 2])
+    pub = tfn.norm_silu_head(x.permute(0, 2, 3, 4, 1), w, b, 32)
+    assert torch.equal(pub, out.permute(0, 2, 3, 4, 1))
+
+
+@pytest.mark.cuda
+def test_vae_lanes_with_kernels_match_plain_on_gpu(cuda_device):
+    """A 128-channel VAE in bf16: the int8 decode (K11) and the fused-norm
+    encode and decode (K12) with kernels against the same lowering with the
+    plain versions: K11 is exact, K12 within an ulp, so bf16-class."""
+    from seedvr2_tpu_torch.core.configs import VAEConfig
+    from seedvr2_tpu_torch.models.vae.model import Lowering
+    from seedvr2_tpu_torch.models.vae.pipeline_vae import (VideoVAE,
+                                                           init_vae_params)
+
+    cfg = VAEConfig(block_out_channels=(128, 128, 128, 128),
+                    layers_per_block=1, latent_channels=4, conv_quant="int8")
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    vae = VideoVAE(init_vae_params(cfg, cuda_device, generator=gen))
+    z = torch.randn(1, 3, 8, 12, 4, generator=gen, device=cuda_device)
+    x = torch.rand(1, 5, 32, 48, 3, generator=gen, device=cuda_device) * 2 - 1
+
+    def run(lowering):
+        vae.lowering = lowering
+        return vae.decode(z).float(), vae.encode(x).float()
+
+    before = (tic.int8_conv3d.launches, tfn.norm_silu_head.launches)
+    dec_k, enc_k = run(Lowering(fused_norm=True))
+    assert tic.int8_conv3d.launches > before[0]
+    assert tfn.norm_silu_head.launches > before[1]
+    dec_p, enc_p = run(Lowering(fused_norm=True, use_kernels=False))
+    for a, b in ((dec_k, dec_p), (enc_k, enc_p)):
+        assert torch.isfinite(a).all()
+        assert ((a - b).norm() / b.norm()).item() < 2e-2
