@@ -62,8 +62,23 @@ network. In order it:
     ones; then serves, each twice and checked as in 7, `--vae_quant int8`
     untiled (the 720p clip), `--preset throughput --vae_quant int8` (the
     1080p clip) and SEEDVR2_FUSED_NORM=1 (the 720p clip);
- 10. prints the kernels' JSON record (K1-K7, K11, K12, launches by path),
-    the card line again, and last {"ok": true, "device": {...}}.
+ 10. prints the kernels' JSON record (K1-K12, launches by path), the card
+    line again, and last {"ok": true, "device": {...}}.
+
+The uniform window plan and the last three kernels (K8 dense flash
+attention, K9 windowed flash attention, K10 quantizing int8 GEMM) add, in
+phase 2: K8 within bf16 tolerance at the 720p clip's largest window group
+in dense form and at a cross-attention shape, driven once through the
+dispatcher `ops.attention.attention` (its "dense" path, which no product
+code takes); K9 within bf16 tolerance at every uniform layer of the 720p
+and 1080p clips' latents; K10 bit-equal at the 1080p clip's DiT linears
+and at 1 and 58 rows, then once over those linears (its "op" path); each
+timed beside its plain version, its PyTorch yardstick and its bound. And
+after phase 5 (5b): the 32-layer DiT on the uniform plan
+(`build_dit_plan(..., uniform=True)`) on both clip latents, with kernels
+against plain versions and against the grouped plan, in bf16 and with the
+w8a8 tree, its forward times beside the grouped plan's, and the launches
+of one uniform forward (32 of K9, none of K1 or K2).
 
 Each phase prints its seconds. Any failure ends the run with a non-zero exit and no last line. It imports
 nothing of JAX.
@@ -78,12 +93,17 @@ import sys
 import time
 
 # Tolerances, stated with their reasons:
-# K1 vs plain, per element: both round q/k and the probabilities to bf16 but
-# at different points (the kernel folds scale*log2e into q before the bf16
-# cast, the plain version scales fp32 logits), and the output is bf16; the
-# JAX package holds its Pallas kernel to its jnp composition at the same
-# bound (tests/test_flash_attention.py).
+# K1, K8 and K9 vs plain, per element: both round q/k and the probabilities
+# to bf16 but at different points (the kernel folds scale*log2e into q
+# before the bf16 cast, the plain version scales fp32 logits), and the
+# output is bf16; the JAX package holds its Pallas kernels to its jnp
+# composition at the same bound (tests/test_flash_attention.py).
 K1_ATOL = K1_RTOL = 2e-2
+# the whole 32-layer DiT on the uniform plan against the grouped plan, same
+# weights and input: the two plans compute the same attention with the
+# roundings in other places (the uniform plan rounds the normed q and k to
+# bf16 before K9, K1 norms inside the kernel), a bf16-class difference.
+UNIFORM_REL_L2 = 1e-2
 # K4/K5 vs plain: the row sums and rsqrt run in another order, which can move
 # y / scale across a .5 rounding boundary: q within 1 everywhere, equal in
 # at least 99.9 % of entries; scales within rtol 1e-6.
@@ -149,6 +169,13 @@ K11_SHAPES = ((512, 512, 2, 90, 160), (512, 512, 3, 180, 320),
 K12_SHAPES = ((128, 5, 720, 1280), (128, 5, 360, 640), (256, 5, 360, 640),
               (256, 3, 180, 320), (512, 3, 180, 320), (512, 2, 90, 160),
               (512, 5, 360, 640), (256, 5, 720, 1280))
+# the uniform plan's window layers: (label, latent (T, H, W)); windows of
+# (1, 15, 27) for the 720p clip (grid 2 x 45 x 80), 463 rows with the text
+UNIFORM_LATENTS = (("720p clip", (2, 90, 160)), ("1080p clip", (2, 136, 240)))
+# K10 at the 1080p clip's DiT linears (M = 16320 tokens): (label, M, N, K)
+K10_SHAPES = (("qkv", 16320, 7680, 2560), ("gate+up", 16320, 13824, 2560),
+              ("proj_out", 16320, 2560, 2560), ("mlp out", 16320, 2560, 6912),
+              ("qkv", 58, 7680, 2560), ("qkv", 1, 7680, 2560))
 # the VAE lanes' requests: (label, frames, height, width, short side)
 INT8_REQUESTS = (("clip 5x360x640 -> 720", 5, 360, 640, 720),)
 INT8_FAST_REQUESTS = (("clip 5x540x960 -> 1080", 5, 540, 960, 1080),)
@@ -189,14 +216,23 @@ KERNELS = {
            "comfyui-seedvr2_tpu/ops/quant_matmul.py:28"),
     "K7": ("quant_matmul_affine", "seedvr2_tpu_torch/csrc/quant_matmul.cu",
            "comfyui-seedvr2_tpu/ops/quant_matmul.py:113"),
+    "K8": ("flash_attention", "seedvr2_tpu_torch/csrc/flash_attention.cu",
+           "comfyui-seedvr2_tpu/ops/flash_attention.py:154"),
+    "K9": ("flash_windowed_attention",
+           "seedvr2_tpu_torch/csrc/flash_attention.cu",
+           "comfyui-seedvr2_tpu/ops/flash_attention.py:333"),
+    "K10": ("int8_matmul_qx", "seedvr2_tpu_torch/csrc/int8_matmul.cu",
+            "comfyui-seedvr2_tpu/ops/int8_matmul.py:128"),
     "K11": ("int8_conv3d", "seedvr2_tpu_torch/csrc/int8_conv.cu",
             "comfyui-seedvr2_tpu/ops/int8_conv.py:40"),
     "K12": ("norm_silu_head", "seedvr2_tpu_torch/csrc/fused_norm.cu",
             "comfyui-seedvr2_tpu/ops/fused_norm.py:28"),
 }
 # the path whose launches each kernel's record reports
+DENSE_PATH, OP_PATH = "dense (no product caller)", "op (no product caller)"
 MAIN_PATH = {"K1": "default", "K2": "default", "K3": "throughput",
              "K4": "throughput", "K5": "throughput", "K6": "q8", "K7": "q4",
+             "K8": DENSE_PATH, "K9": "uniform", "K10": OP_PATH,
              "K11": "vae_int8", "K12": "fused_norm"}
 
 
@@ -635,6 +671,185 @@ def check_k6_k7(torch, qm, cfg, device, rows):
     return recs
 
 
+def attention_core(torch, q, k, cos, sin):
+    """q and k roped as the K8/K9 plain versions rope them (fp32, rounded to
+    bf16), in SDPA's (B, H, S, D) layout; cos/sin broadcast over the rows'
+    heads ((S, D) or (B, S, D))."""
+    from seedvr2_tpu_torch.models.dit.rope import apply_rope_ext
+
+    if cos is not None:
+        q, k = apply_rope_ext(q, cos, sin), apply_rope_ext(k, cos, sin)
+    return q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous()
+
+
+def attention_case(torch, name, run, plain, sdpa, flops, nbytes):
+    """Hold one K8/K9 call against its plain version (finite, within
+    K1_ATOL/RTOL), time kernel, plain and the SDPA yardstick, print and
+    return the record."""
+    out = run()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.isfinite(out).all():
+        fail(f"{name}: non-finite output")
+    if not torch.allclose(out.float(), ref.float(), atol=K1_ATOL,
+                          rtol=K1_RTOL):
+        fail(f"{name}: max abs err {err} beyond atol/rtol {K1_ATOL}")
+    ms = kernel_ms(torch, run, 20)
+    plain_ms = kernel_ms(torch, plain, 5)
+    lib_ms = kernel_ms(torch, sdpa, 20)
+    bound, by = bound_ms(flops, PEAK_BF16, nbytes)
+    say(f"{name}: max_abs_err {err:.6g} (atol=rtol={K1_ATOL}); kernel "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of needed work), plain "
+        f"{plain_ms:.4f} ms, sdpa (attention core only) {lib_ms:.4f} ms, "
+        f"bound {bound:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by)
+
+
+def check_k8(torch, fa, nadit, cfg, device):
+    """K8 at the 720p clip's largest grouped window group in dense form (its
+    12 windows of 405 tokens + 58 text rows, S = 463, the group's real
+    extended table shared by every row, kv_len = S) and at a cross-attention
+    shape without rope (Sq = 512, Sk = 1024, kv_len = 1000). The record holds
+    the first. Returns it and the first case's operands."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device).manual_seed(8)
+    H, D = cfg.heads, cfg.head_dim
+    dplan = nadit.upload_plan(nadit.build_dit_plan(cfg, (2, 90, 160),
+                                                   TXT_LEN), cfg, device)
+    g = max((g for gs in dplan.groups.values() for g in gs),
+            key=lambda g: g.n * g.skv ** 2)
+    cos, sin = g.cos[:g.skv].contiguous(), g.sin[:g.skv].contiguous()
+    rec = first = None
+    for b, sq, sk, kv, tabs in ((g.n, g.skv, g.skv, g.skv, (cos, sin)),
+                                (4, 512, 1024, 1000, (None, None))):
+        q = torch.randn(b, sq, H, D, generator=gen, device=device).to(
+            torch.bfloat16)
+        k, v = (torch.randn(b, sk, H, D, generator=gen, device=device).to(
+            torch.bfloat16) for _ in range(2))
+        qr, kr = attention_core(torch, q, k, *tabs)
+        vr = v.transpose(1, 2).contiguous()
+        mask = None
+        if kv < sk:
+            mask = (torch.arange(sk, device=device) < kv)[None, None, None]
+        name = (f"K8 B={b} Sq={sq} Sk={sk} kv_len={kv} H={H} D={D} "
+                f"{'shared table' if tabs[0] is not None else 'no rope'}")
+        r = attention_case(
+            torch, name,
+            lambda: fa.flash_attention(q, k, v, None, *tabs, kv),
+            lambda: fa.flash_attention_plain(q, k, v, None, *tabs, kv),
+            lambda: F.scaled_dot_product_attention(qr, kr, vr,
+                                                   attn_mask=mask),
+            4 * b * H * sq * kv * D,
+            2 * (2 * q.numel() + k.numel() + v.numel())
+            + (0 if tabs[0] is None else 2 * cos.numel() * 4))
+        if rec is None:
+            rec, first = r, (q, k, v, cos, sin, g.skv)
+    return rec, first
+
+
+def check_k9(torch, fa, nadit, cfg, device):
+    """K9 at every uniform window layer of the 720p and 1080p clips'
+    latents (all windows of a forward's batch row, S = 405 + 58 = 463), with
+    the plans' real tables, masks and ids. The bound counts the work the
+    data needs: valid query rows against valid keys. The record holds the
+    720p clip's shifted layer."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device).manual_seed(9)
+    H, D = cfg.heads, cfg.head_dim
+    rec = None
+    for label, shape in UNIFORM_LATENTS:
+        dplan = nadit.upload_plan(nadit.build_dit_plan(
+            cfg, shape, TXT_LEN, uniform=True), cfg, device)
+        for method, u in dplan.uniform.items():
+            ids = u.batch_ids(1)
+            b, s = len(ids), u.cos.shape[1]
+            q, k, v = (torch.randn(b, s, H, D, generator=gen,
+                                   device=device).to(torch.bfloat16)
+                       for _ in range(3))
+            idx = ids.tensor.long()
+            qr, kr = attention_core(torch, q, k, u.cos[idx], u.sin[idx])
+            vr = v.transpose(1, 2).contiguous()
+            mask = u.valid[idx][:, None, None, :]
+            n_valid = u.valid[idx].sum(1).double()
+            flops = 4 * H * D * (n_valid ** 2).sum().item()
+            nbytes = (2 * 4 * q.numel() + 2 * 4 * u.cos.numel()
+                      + u.valid.numel() + 4 * b)
+            name = (f"K9 {label} {method} nW={b} nU={u.cos.shape[0]} S={s} "
+                    f"H={H} D={D}")
+            r = attention_case(
+                torch, name,
+                lambda: fa.flash_windowed_attention(
+                    q, k, v, None, u.cos, u.sin, ids, u.valid),
+                lambda: fa.flash_windowed_attention_plain(
+                    q, k, v, None, u.cos, u.sin, ids, u.valid),
+                lambda: F.scaled_dot_product_attention(qr, kr, vr,
+                                                       attn_mask=mask),
+                flops, nbytes)
+            say(f"  {name}: {4 * b * H * s * s * D:.4g} flop over all S x S "
+                f"slots, {flops:.4g} needed")
+            if label == "720p clip" and method == "shifted_window":
+                rec = r
+    return rec
+
+
+def check_k10(torch, im, device):
+    """K10 bit-equal to its plain version at the 1080p clip's DiT linears
+    (K10_SHAPES); each timed beside its plain version, torch._int_mm on the
+    pre-quantized operand (int32 product only, as for K3) and the two-step
+    form (the plain quantize, then K3), with its bound. The record holds the
+    qkv shape. Returns it and the shapes' operands."""
+    gen = torch.Generator(device).manual_seed(10)
+    rec, operands = None, []
+    for name, m, n, k in K10_SHAPES:
+        x = (3 * torch.randn(m, k, generator=gen, device=device)).to(
+            torch.bfloat16)
+        wq = torch.randint(-127, 128, (n, k), generator=gen, device=device,
+                           dtype=torch.int8)
+        ws = torch.rand(n, generator=gen, device=device) * 0.01
+        out = im.int8_matmul_qx(x, wq, ws)
+        torch.cuda.synchronize()
+        ref = im.int8_matmul_qx_plain(x, wq, ws)
+        if not torch.equal(out, ref):
+            fail(f"K10 {name} M={m} N={n} K={k}: {(out != ref).sum().item()}"
+                 " entries differ from the plain version")
+        ms = kernel_ms(torch, lambda: im.int8_matmul_qx(x, wq, ws), 10)
+        plain_ms = kernel_ms(torch, lambda: im.int8_matmul_qx_plain(
+            x, wq, ws), 3)
+        xq, _ = im.quantize_rows_qx(x)
+
+        def two_step():
+            q, s = im.quantize_rows_qx(x)
+            return im.int8_matmul(q, wq, s, ws)
+
+        two_ms = kernel_ms(torch, two_step, 10)
+        lib_ms = None
+        if m > 16:  # torch._int_mm takes M > 16
+            wt = wq.t()
+            try:  # a yardstick only: the port never calls it
+                lib_ms = kernel_ms(torch, lambda: torch._int_mm(xq, wt), 10)
+            except RuntimeError as e:
+                say(f"K10 {name}: torch._int_mm refused: {e}")
+        ops = 2 * m * n * k
+        bound, by = bound_ms(ops, PEAK_INT8, 2 * m * k + n * k + 4 * n
+                             + 2 * m * n)
+        say(f"K10 {name} M={m} N={n} K={k}: exact; kernel {ms:.4f} ms "
+            f"({ops / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, two-step "
+            f"(plain quantize + K3) {two_ms:.4f} ms, torch._int_mm (int32 "
+            f"product only) {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            f", bound {bound:.4f} ms ({by})")
+        if rec is None:
+            rec = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                       two_step_ms=two_ms)
+        if m == K10_SHAPES[0][1]:
+            operands.append((x, wq, ws))
+    return rec, operands
+
+
 def check_k11(torch, ic, device):
     """K11 against its plain version at every distinct (Ci, Co, T, H, W) of
     the 720p clip's int8 decode, through the VAE's NCDHW call with a bias;
@@ -947,6 +1162,65 @@ def dit_bytes(torch, im, qm, dit) -> str:
             f" total {total / 2 ** 30:.3f} GiB ({total} bytes)")
 
 
+def check_uniform(torch, nadit, cfg, device, wrappers, txt, tt, models,
+                  inputs):
+    """The whole DiT on the uniform plan (`build_dit_plan(...,
+    uniform=True)`) for each tree of `models` {"bf16", "w8a8"} on each latent
+    of UNIFORM_LATENTS, whose (DiT input, grouped plan) `inputs` holds by
+    label: the launches of one forward with kernels (32 of K9, none of K1 or
+    K2), relative L2 against the plain versions and against the grouped plan
+    on the same weights (UNIFORM_REL_L2 for bf16; the w8a8 tree's int8
+    quantizations turn bf16 flips into whole steps, so DIT_REL_L2 there),
+    and both plans' forward times. Returns the counts of the bf16 forward on
+    the 720p clip, the "uniform" path."""
+    def forward(model, vid_in, dplan, use_kernels=True):
+        with torch.no_grad():
+            return nadit.nadit_forward(model, vid_in, txt, tt, dplan,
+                                       use_kernels=use_kernels)
+
+    main = None
+    limits = {"bf16": UNIFORM_REL_L2, "w8a8": DIT_REL_L2}
+    for label, shape in UNIFORM_LATENTS:
+        vid_in, dplan_g = inputs[label]
+        if dplan_g.plan.vid_shape != shape:
+            fail(f"{label}: latent {dplan_g.plan.vid_shape} is not the "
+                 f"{shape} K9 was checked at")
+        dplan_u = nadit.upload_plan(nadit.build_dit_plan(
+            cfg, shape, txt.shape[1], uniform=True), cfg, device)
+        for tree, model in models.items():
+            limit = limits[tree]
+            path = f"uniform {tree} {label}"
+            reset_counts(wrappers)
+            out_u = forward(model, vid_in, dplan_u)
+            torch.cuda.synchronize()
+            c = read_counts(wrappers, ("K9",), path)
+            if c["K9"] != cfg.num_layers or c["K1"] or c["K2"]:
+                fail(f"{path}: {c['K9']} K9, {c['K1']} K1 and {c['K2']} K2 "
+                     f"launches in one forward (expected {cfg.num_layers}, "
+                     "0, 0)")
+            if main is None:
+                main = c
+            out_p = forward(model, vid_in, dplan_u, use_kernels=False)
+            out_g = forward(model, vid_in, dplan_g)
+            rel_p, rel_g = rel_l2(out_u, out_p), rel_l2(out_u, out_g)
+            ms_u = cuda_ms(torch, lambda: forward(model, vid_in, dplan_u), 3,
+                           warmup=1)
+            ms_g = cuda_ms(torch, lambda: forward(model, vid_in, dplan_g), 3,
+                           warmup=1)
+            say(f"whole {tree} DiT on the uniform plan, {label} latent "
+                f"{shape} ({dplan_u.plan.seq_len} tokens): relative L2 "
+                f"kernels vs plain {rel_p:.6g}, uniform vs grouped plan "
+                f"{rel_g:.6g} (bound {limit} each); forward {ms_u:.2f} ms "
+                f"uniform, {ms_g:.2f} ms grouped")
+            if not torch.isfinite(out_u).all() or rel_p > limit \
+                    or rel_g > limit:
+                fail(f"{path}: kernels vs plain {rel_p}, vs grouped {rel_g} "
+                     f"(limit {limit})")
+            del out_u, out_p, out_g
+    torch.cuda.empty_cache()
+    return main
+
+
 def rel_l2(a, b) -> float:
     a, b = a.float(), b.float()
     return ((a - b).norm() / b.norm()).item()
@@ -972,6 +1246,7 @@ def main() -> None:
     from seedvr2_tpu_torch.models.dit import nadit
     from seedvr2_tpu_torch.models.vae.pipeline_vae import VideoVAE
     from seedvr2_tpu_torch.ops import _build, gather
+    from seedvr2_tpu_torch.ops.attention import attention
     from seedvr2_tpu_torch.ops import flash_attention as fa
     from seedvr2_tpu_torch.ops import fused_norm as fn
     from seedvr2_tpu_torch.ops import fused_quant as fq
@@ -984,8 +1259,9 @@ def main() -> None:
     wrappers = {"K1": fa.packed_window_attention, "K2": gather.gather_rows,
                 "K3": im.int8_matmul, "K4": fq.rms_ada_quantize,
                 "K5": fq.silu_mul_quantize, "K6": qm.quant_matmul_q8,
-                "K7": qm.quant_matmul_affine, "K11": ic.int8_conv3d,
-                "K12": fn.norm_silu_head}
+                "K7": qm.quant_matmul_affine, "K8": fa.flash_attention,
+                "K9": fa.flash_windowed_attention, "K10": im.int8_matmul_qx,
+                "K11": ic.int8_conv3d, "K12": fn.norm_silu_head}
     t_phase = [time.perf_counter()]
 
     def phase_done(label):
@@ -1028,6 +1304,28 @@ def main() -> None:
                         rows_of("clip 720", 5, 360, 640, 720)]}
     say(f"quantised lanes' DiT rows {lane_rows}")
     recs.update(check_k6_k7(torch, qm, DIT_3B, device, lane_rows))
+    recs["K8"], k8_case = check_k8(torch, fa, nadit, DIT_3B, device)
+    recs["K9"] = check_k9(torch, fa, nadit, DIT_3B, device)
+    recs["K10"], k10_ops = check_k10(torch, im, device)
+
+    # K8's and K10's own paths, which no product code takes: the
+    # dispatcher's dense branch at K8's first shape, and the op at each
+    # 1080p linear, each driven once with the counts from 0
+    counts = {}
+    q, k, v, cos, sin, kv = k8_case
+    reset_counts(wrappers)
+    out = attention(q, k, v, rope_cos=cos, rope_sin=sin, kv_len=kv)
+    torch.cuda.synchronize()
+    counts[DENSE_PATH] = read_counts(wrappers, ("K8",), DENSE_PATH)
+    if not torch.isfinite(out).all():
+        fail("the attention dispatcher's dense path: non-finite output")
+    reset_counts(wrappers)
+    for x, wq, ws in k10_ops:
+        out = im.int8_matmul_qx(x, wq, ws)
+    torch.cuda.synchronize()
+    counts[OP_PATH] = read_counts(wrappers, ("K10",), OP_PATH)
+    del q, k, v, cos, sin, k8_case, k10_ops, x, wq, ws, out
+    torch.cuda.empty_cache()
     recs["K11"] = check_k11(torch, ic, device)
     recs["K12"] = check_k12(torch, fn, device)
     phase_done("2 (kernels against plain versions)")
@@ -1052,7 +1350,7 @@ def main() -> None:
         ("image 1x360x640 -> 720", image, 720, (1, 720, 1280, 3)),
         ("clip 5x360x640 -> 720", clip, 720, (5, 720, 1280, 3)),
         ("clip again", clip, 720, (5, 720, 1280, 3))), device, embeds)
-    default_counts = read_counts(wrappers, ("K1", "K2"), "default")
+    counts["default"] = read_counts(wrappers, ("K1", "K2"), "default")
     phase_done("3 (default path)")
 
     # 4. whole DiT, kernels against plain versions, on the clip's latent
@@ -1141,6 +1439,14 @@ def main() -> None:
              f"version ({w8_rel}) than to the bf16 DiT ({to_dense})")
     phase_done("5 (w8a8 DiT)")
 
+    # 5b. the uniform window plan: the bf16 and w8a8 DiTs above on both
+    # clip latents, against their plain versions and the grouped plan
+    counts["uniform"] = check_uniform(
+        torch, nadit, DIT_3B, device, wrappers, txt, tt,
+        {"bf16": runner.dit, "w8a8": fast.dit},
+        {"720p clip": clip_in, "1080p clip": fast_inputs[0]})
+    phase_done("5b (uniform window plan)")
+
     # 6. the q8 and q4 lanes: the same weights quantised on the card
     t0 = time.perf_counter()
     q8 = cli.make_runner(device, seed=0, quant="q8")
@@ -1212,8 +1518,6 @@ def main() -> None:
     phase_done("6 (q8 and q4 DiTs)")
 
     # 7. serving: the throughput, q8 and q4 lanes
-    counts = {"default": default_counts}
-
     def lane(name, r, reqs, needed, phase="7"):
         requests = []
         for i, (label, t, h, w, res) in enumerate(reqs):

@@ -1,4 +1,5 @@
-// w8a8 int8 GEMM with the dequantizing epilogue (kernel K3 of the port).
+// w8a8 int8 GEMM with the dequantizing epilogue (kernel K3 of the port), and
+// below it the quantizing variant K10 that takes float activations.
 //
 // Replaces: the Pallas TPU kernel `_mm_kernel` behind `int8_matmul`
 // (comfyui-seedvr2_tpu/ops/int8_matmul.py).
@@ -179,6 +180,230 @@ int8_matmul_kernel(const int8_t* __restrict__ xq,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// K10: the quantizing int8 GEMM.
+//
+// Replaces: the Pallas TPU kernel `_mm_qx_kernel` behind `int8_matmul_qx`
+// (comfyui-seedvr2_tpu/ops/int8_matmul.py).
+//
+// Computes out = (float(sum_k q[m, k] * wq[n, k]) * xs[m]) * ws[n] from bf16
+// or fp32 activations x (M, K), quantized per row inside the kernel as the
+// TPU kernel does: xs = max(amax_k |x[m, k]|, 1e-8) * (1/127) and
+// q = clip(rint(x * (1 / xs)), -127, 127), the reciprocal an IEEE division
+// and the product rounded once (no fast-math), so the result equals the
+// plain version bit for bit. Output bf16 or fp32.
+//
+// What bounds it: operations, as K3 (2*M*N*K int8 ops); the activation is
+// read once by the amax pass and once per N tile of the main loop, as bf16
+// instead of int8.
+//
+// Design: two launches. Pass 1 (`row_scale_kernel`), one warp a row, reads
+// x once and writes the row scales to a scratch vector the wrapper
+// allocates. Pass 2 is K3's kernel with its A tile staged differently:
+// each thread loads its 16-byte chunks of the next x tile into registers
+// while the tensor cores work on the current one, then quantizes them with
+// its rows' reciprocals into the other int8 shared-memory stage; the weight
+// tiles keep K3's cp.async double buffering, the mma.sync.m16n8k32 loop and
+// the epilogue are K3's.
+
+template <typename T>
+__device__ __forceinline__ float to_float(T v);
+template <>
+__device__ __forceinline__ float to_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+row_scale_kernel(const T* __restrict__ x, float* __restrict__ xs, int M,
+                 int K) {
+  constexpr int EPC = 16 / sizeof(T);
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const T* xr = x + (long long)row * K;
+  float amax = 0.f;
+  for (int c = lane * EPC; c < K; c += 32 * EPC) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
+    const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+    for (int i = 0; i < EPC; ++i) amax = fmaxf(amax, fabsf(to_float(e[i])));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if (lane == 0)
+    xs[row] = __fmul_rn(fmaxf(amax, 1e-8f), static_cast<float>(1.0 / 127.0));
+}
+
+__device__ __forceinline__ uint32_t quant_byte(float v, float inv, int shift) {
+  const float r = fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f);
+  return (uint32_t(int(r)) & 0xffu) << shift;
+}
+
+__device__ __forceinline__ void store_out(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v0,
+                                          float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(THREADS, 2)
+int8_matmul_qx_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
+                      const float* __restrict__ xs,
+                      const float* __restrict__ ws, OutT* __restrict__ out,
+                      int M, int N, int K) {
+  __shared__ __align__(16) int8_t As[2][BM * SROW];
+  __shared__ __align__(16) int8_t Bs[2][BN * SROW];
+  constexpr int EPC = 16 / sizeof(T);                // x values a chunk
+  constexpr int CPR = BK / EPC;                      // chunks a tile row
+  constexpr int XCH = BM * BK / EPC / THREADS;       // chunks a thread
+  static_assert(EPC == 4 || EPC == 8, "bf16 or fp32 activations");
+
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int g = lane / 4, t = lane % 4;
+
+  // this thread's x chunks: the same rows and columns of every K tile
+  float inv[XCH];
+#pragma unroll
+  for (int i = 0; i < XCH; ++i) {
+    const int m = m0 + (threadIdx.x + i * THREADS) / CPR;
+    inv[i] = m < M ? __fdiv_rn(1.f, xs[m]) : 0.f;
+  }
+  uint4 xr[XCH];
+  auto load_x = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < XCH; ++i) {
+      const int c = threadIdx.x + i * THREADS;
+      const int m = m0 + c / CPR, kc = k0 + (c % CPR) * EPC;
+      xr[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (m < M && kc < K)
+        xr[i] = *reinterpret_cast<const uint4*>(x + (long long)m * K + kc);
+    }
+  };
+  auto store_q = [&](int8_t* tile) {
+#pragma unroll
+    for (int i = 0; i < XCH; ++i) {
+      const int c = threadIdx.x + i * THREADS;
+      const T* e = reinterpret_cast<const T*>(&xr[i]);
+      int8_t* dst = tile + (c / CPR) * SROW + (c % CPR) * EPC;
+      uint32_t w0 = 0, w1 = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w0 |= quant_byte(to_float(e[j]), inv[i], 8 * j);
+      if constexpr (EPC == 8) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          w1 |= quant_byte(to_float(e[4 + j]), inv[i], 8 * j);
+        *reinterpret_cast<uint2*>(dst) = make_uint2(w0, w1);
+      } else {
+        *reinterpret_cast<uint32_t*>(dst) = w0;
+      }
+    }
+  };
+
+  int acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
+
+  const int ktiles = (K + BK - 1) / BK;
+  load_x(0);
+  load_tile(Bs[0], wq, n0, N, 0, K);
+  cp_async_commit();
+  store_q(As[0]);
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int st = kt & 1;
+    const bool more = kt + 1 < ktiles;
+    if (more) {
+      load_x((kt + 1) * BK);  // in flight while this tile is multiplied
+      load_tile(Bs[st ^ 1], wq, n0, N, (kt + 1) * BK, K);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const int8_t* a_s = As[st] + (wm * MI * 16 + g) * SROW + t * 4;
+    const int8_t* b_s = Bs[st] + (wn * NI * 8 + g) * SROW + t * 4;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      uint32_t a[MI][4];
+      uint32_t b[NI][2];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int8_t* p = a_s + i * 16 * SROW + kk;
+        a[i][0] = ld32(p);
+        a[i][1] = ld32(p + 8 * SROW);
+        a[i][2] = ld32(p + 16);
+        a[i][3] = ld32(p + 8 * SROW + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int8_t* p = b_s + j * 8 * SROW + kk;
+        b[j][0] = ld32(p);
+        b[j][1] = ld32(p + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+    // the other A stage was last read before the previous iteration's
+    // closing barrier
+    if (more) store_q(As[st ^ 1]);
+    __syncthreads();
+  }
+
+  // epilogue: (float(acc) * xs[m]) * ws[n], rounded once to the output type
+#pragma unroll
+  for (int j = 0; j < NI; ++j) {
+    const int n = n0 + wn * NI * 8 + j * 8 + 2 * t;
+    if (n >= N) continue;  // N % 8 == 0: both columns in or both out
+    const float w0 = ws[n], w1 = ws[n + 1];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * MI * 16 + i * 16 + g + 8 * h;
+        if (m >= M) continue;
+        const float xm = xs[m];
+        store_out(out + (long long)m * N + n,
+                  __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h]), xm), w0),
+                  __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h + 1]), xm), w1));
+      }
+    }
+  }
+}
+
+template <typename T, typename OutT>
+cudaError_t launch_qx(const void* x, const void* wq, const void* ws, void* xs,
+                      void* out, int M, int N, int K, cudaStream_t stream) {
+  row_scale_kernel<T><<<unsigned((M + 7) / 8), 256, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<float*>(xs), M, K);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(unsigned((N + BN - 1) / BN), unsigned((M + BM - 1) / BM));
+  int8_matmul_qx_kernel<T, OutT><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const int8_t*>(wq),
+      static_cast<const float*>(xs), static_cast<const float*>(ws),
+      static_cast<OutT*>(out), M, N, K);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // xq: (M, K) int8, wq: (N, K) int8, xs: (M,) fp32, ws: (N,) fp32, out:
@@ -196,4 +421,28 @@ extern "C" int seedvr2_int8_matmul(const void* xq, const void* wq,
       static_cast<const float*>(xs), static_cast<const float*>(ws),
       static_cast<__nv_bfloat16*>(out), M, N, K);
   return int(cudaGetLastError());
+}
+
+// x: (M, K) bf16 (x_f32 = 0) or fp32 (x_f32 = 1), wq: (N, K) int8, ws: (N,)
+// fp32, xs: (M,) fp32 scratch that receives the row scales, out: (M, N) bf16
+// (out_f32 = 0) or fp32; all contiguous and 16-byte aligned, K % 32 == 0,
+// N % 8 == 0, checked by the Python wrapper.
+extern "C" int seedvr2_int8_matmul_qx(const void* x, const void* wq,
+                                      const void* ws, void* xs, void* out,
+                                      int M, int N, int K, int x_f32,
+                                      int out_f32, void* stream) {
+  if (M == 0 || N == 0) return int(cudaSuccess);
+  if ((M + BM - 1) / BM > 65535) return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (x_f32)
+    err = out_f32 ? launch_qx<float, float>(x, wq, ws, xs, out, M, N, K, st)
+                  : launch_qx<float, __nv_bfloat16>(x, wq, ws, xs, out, M, N,
+                                                    K, st);
+  else
+    err = out_f32
+              ? launch_qx<__nv_bfloat16, float>(x, wq, ws, xs, out, M, N, K, st)
+              : launch_qx<__nv_bfloat16, __nv_bfloat16>(x, wq, ws, xs, out, M,
+                                                        N, K, st);
+  return int(err);
 }

@@ -1,15 +1,21 @@
-"""NaDiT 3B denoiser, grouped window-major path.
+"""NaDiT 3B denoiser.
 
-Port of seedvr2_tpu.models.dit.nadit with `build_dit_plan(..., uniform=False)`,
-the path the JAX runner serves:
+Port of seedvr2_tpu.models.dit.nadit. The window plan is host-side numpy
+(`build_dit_plan`, equal to the JAX one); `upload_plan` puts its tables and
+indices on the device once per plan. Two plans of the attention, as in the
+JAX package:
 
- - The window plan is host-side numpy (`build_dit_plan`, equal to the JAX
-   one); `upload_plan` puts its rope tables and transition indices on the
-   device once per plan.
- - Tokens stay in *window-major* order across the block stack; each block
-   applies one composed permutation (kernel K2, `ops.gather.gather_rows`)
-   and every window shape group is one packed attention call (kernel K1,
-   `ops.flash_attention.packed_window_attention`).
+ - grouped (`build_dit_plan(..., uniform=False)`, the path the runner
+   serves): tokens stay in *window-major* order across the block stack;
+   each block applies one composed permutation (kernel K2,
+   `ops.gather.gather_rows`) and every window shape group is one packed
+   attention call (kernel K1, `ops.flash_attention.packed_window_attention`).
+ - uniform (`uniform=True`, reached through this API only): every window
+   padded to one extent, so the partition is pad + reshape + permute of
+   canonical-order tokens, and one attention call per block covers every
+   window, each roped by its own deduplicated table and with its pad keys
+   masked (kernel K9, `ops.flash_attention.flash_windowed_attention`).
+   Tokens stay canonical; no gathers.
  - `NaDiT`'s state_dict keys are the reference checkpoint names
    (blocks.{i}.attn.proj_qkv.{vid,txt,all}.weight, ...), i.e. what
    seedvr2_tpu.core.export.to_torch_state_dict emits.
@@ -27,14 +33,16 @@ vid/txt weights ("all"); the 3B last block has no txt mlp/ada branch; the
 output modulation `vid_out_ada` reuses the blocks' attn-layer emb slices.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...core.configs import DiTConfig
+from ...ops.attention import attention
 from ...ops.flash_attention import (packed_window_attention,
                                     packed_window_attention_plain)
 from ...ops.fused_quant import rms_ada_quantize, rms_ada_quantize_plain
@@ -42,7 +50,7 @@ from ...ops.gather import RowIndex, gather_rows, gather_rows_plain
 from ...ops.int8_matmul import W8A8Linear
 from ...ops.layers import linear, mlp_forward, rms_norm, silu, swiglu_hidden_dim
 from . import rope as rope_lib
-from .windows import build_layer_plan
+from .windows import UniformPlan, build_layer_plan, build_uniform_plan
 
 _LANE = 128  # window rows + text rows are padded to a multiple of this
 
@@ -69,14 +77,33 @@ class RopedLayerPlan:
 
 
 @dataclass(frozen=True)
+class UniformAttnPlan:
+    """Uniform padded partition of one window method: all windows share one
+    padded extent (windows.build_uniform_plan), pad slots are masked with
+    `valid`, and per-window rope tables, deduplicated over the windows'
+    boundary patterns, are picked by `ids`."""
+
+    up: UniformPlan
+    ids: np.ndarray     # (num_windows,) int32 -> unique table/mask id
+    cos: np.ndarray     # (nU, wlen + txt_len, head_dim) fp32
+    sin: np.ndarray
+    valid: np.ndarray   # (nU, wlen + txt_len) bool
+
+
+@dataclass(frozen=True)
 class DiTPlan:
-    """Static per-(T, H, W, txt_len) window geometry."""
+    """Static per-(T, H, W, txt_len) window geometry: the grouped plan
+    (`layer_plans`, `transitions`) always, the uniform one (`uniform`) when
+    asked for."""
 
     vid_shape: Tuple[int, int, int]   # pre-patch latent (T, H, W)
     grid: Tuple[int, int, int]        # post-patch token grid (Tp, Hp, Wp)
     txt_len: int
     layer_plans: Dict[str, RopedLayerPlan]
     transitions: Dict[Tuple[str, str], np.ndarray]
+    txt_cos: Optional[np.ndarray] = None   # 3B text rope (txt_len, rope_dim)
+    txt_sin: Optional[np.ndarray] = None
+    uniform: Optional[Dict[str, UniformAttnPlan]] = None
 
     @property
     def seq_len(self) -> int:
@@ -84,9 +111,46 @@ class DiTPlan:
         return t * h * w
 
 
+def _window_table(cfg: DiTConfig, real_shape, txt_len: int):
+    """(rlen, rot) cos/sin for one real window extent (identity if no rope)."""
+    if cfg.rope_type == "mmrope3d":
+        return rope_lib.mmrope3d_video_table(real_shape, txt_len, cfg.rope_dim)
+    if cfg.rope_type == "rope3d_window":
+        return rope_lib.rope3d_pixel_table(real_shape, cfg.rope_dim)
+    rlen = int(np.prod(real_shape))
+    return (np.ones((rlen, 0), np.float32), np.zeros((rlen, 0), np.float32))
+
+
+def _build_uniform_attn_plan(cfg: DiTConfig, grid, txt_len: int,
+                             method: str) -> UniformAttnPlan:
+    up = build_uniform_plan(grid, cfg.window, method)
+    key_to_id: Dict[tuple, int] = {}
+    tabs: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+    ids = np.zeros(up.num_windows, np.int32)
+    for wdx, info in enumerate(up.win_info):
+        if info not in key_to_id:
+            real_shape = (info[0][0], info[1][0], info[2][0])
+            cr, sr = _window_table(cfg, real_shape, txt_len)
+            ce, se = rope_lib.embed_window_table(
+                cr, sr, up.wshape, info, cfg.head_dim, txt_len)
+            valid = np.concatenate(
+                [up.kv_valid[wdx], np.ones(txt_len, dtype=bool)])
+            key_to_id[info] = len(tabs)
+            tabs.append((ce, se, valid))
+        ids[wdx] = key_to_id[info]
+    return UniformAttnPlan(
+        up=up, ids=ids,
+        cos=np.stack([t[0] for t in tabs]),
+        sin=np.stack([t[1] for t in tabs]),
+        valid=np.stack([t[2] for t in tabs]),
+    )
+
+
 def build_dit_plan(cfg: DiTConfig, vid_shape: Tuple[int, int, int],
-                   txt_len: int) -> DiTPlan:
-    """Plan the static window geometry for one (T, H, W, txt_len)."""
+                   txt_len: int, uniform: bool = False) -> DiTPlan:
+    """Plan the static window geometry for one (T, H, W, txt_len).
+    uniform=True adds the uniform padded partition, which nadit_forward
+    then runs instead of the grouped one."""
     T, H, W = vid_shape
     pt, ph, pw = cfg.patch_size
     if H % ph or W % pw:
@@ -137,8 +201,16 @@ def build_dit_plan(cfg: DiTConfig, vid_shape: Tuple[int, int, int],
             if a != b:
                 transitions[(a, b)] = layer_plans[a].inv[
                     layer_plans[b].flat].astype(np.int32)
+    txt_cos = txt_sin = None
+    if cfg.rope_type == "mmrope3d":
+        txt_cos, txt_sin = rope_lib.mmrope3d_text_table(txt_len, cfg.rope_dim)
+    uniform_plans = None
+    if uniform:
+        uniform_plans = {m: _build_uniform_attn_plan(cfg, grid, txt_len, m)
+                         for m in methods}
     return DiTPlan(vid_shape=vid_shape, grid=grid, txt_len=txt_len,
-                   layer_plans=layer_plans, transitions=transitions)
+                   layer_plans=layer_plans, transitions=transitions,
+                   txt_cos=txt_cos, txt_sin=txt_sin, uniform=uniform_plans)
 
 
 @dataclass
@@ -154,15 +226,38 @@ class DeviceGroup:
 
 
 @dataclass
+class DeviceUniformPlan:
+    """A UniformAttnPlan's tables and mask on the device."""
+
+    up: UniformPlan
+    ids: np.ndarray            # (num_windows,) int32 -> table/mask id
+    cos: torch.Tensor          # (nU, wlen + txt_len, head_dim) fp32
+    sin: torch.Tensor
+    valid: torch.Tensor        # (nU, wlen + txt_len) bool
+    _batch_ids: Dict[int, RowIndex] = field(default_factory=dict)
+
+    def batch_ids(self, batch: int) -> RowIndex:
+        """The ids of B batch rows of windows, batch-major (the JAX
+        package's np.tile(ids, B)), uploaded once per batch size."""
+        if batch not in self._batch_ids:
+            self._batch_ids[batch] = RowIndex(np.tile(self.ids, batch),
+                                              self.cos.device)
+        return self._batch_ids[batch]
+
+
+@dataclass
 class DevicePlan:
     plan: DiTPlan
     groups: Dict[str, List[DeviceGroup]]
     transitions: Dict[Tuple[str, str], RowIndex]
     num_windows: Dict[str, int]
+    txt_cos: Optional[torch.Tensor] = None
+    txt_sin: Optional[torch.Tensor] = None
+    uniform: Optional[Dict[str, DeviceUniformPlan]] = None
 
 
 def upload_plan(plan: DiTPlan, cfg: DiTConfig, device) -> DevicePlan:
-    """Put a plan's tables and transition indices on the device, once."""
+    """Put a plan's tables and indices on the device, once."""
     groups: Dict[str, List[DeviceGroup]] = {}
     for method, lp in plan.layer_plans.items():
         out = []
@@ -183,9 +278,20 @@ def upload_plan(plan: DiTPlan, cfg: DiTConfig, device) -> DevicePlan:
                 sin=torch.as_tensor(sin, device=device)))
         groups[method] = out
     transitions = {k: RowIndex(v, device) for k, v in plan.transitions.items()}
+
+    def dev(a):
+        return None if a is None else torch.as_tensor(a, device=device)
+
+    uniform = None
+    if plan.uniform is not None:
+        uniform = {m: DeviceUniformPlan(up=u.up, ids=u.ids, cos=dev(u.cos),
+                                        sin=dev(u.sin), valid=dev(u.valid))
+                   for m, u in plan.uniform.items()}
     return DevicePlan(plan=plan, groups=groups, transitions=transitions,
                       num_windows={m: lp.num_windows
-                                   for m, lp in plan.layer_plans.items()})
+                                   for m, lp in plan.layer_plans.items()},
+                      txt_cos=dev(plan.txt_cos), txt_sin=dev(plan.txt_sin),
+                      uniform=uniform)
 
 
 # --------------------------------------------------------------------------
@@ -458,12 +564,98 @@ def _window_attention(attn: _Attn, cfg: DiTConfig, xv, xt, dplan: DevicePlan,
     return vid_out, txt_out
 
 
+def _to_windows(x: torch.Tensor, up: UniformPlan) -> torch.Tensor:
+    """(B, L, D) canonical raster -> (B, num_windows, window_len, D) by pad +
+    reshape + permute (layout copies only, no gathers)."""
+    B, L, D = x.shape
+    T, H, W = up.size
+    (ft, bt), (fh, bh), (fw, bw) = up.pads
+    nt, nh, nw = up.nwin
+    wt, wh, ww = up.wshape
+    x = F.pad(x.reshape(B, T, H, W, D), (0, 0, fw, bw, fh, bh, ft, bt))
+    x = x.reshape(B, nt, wt, nh, wh, nw, ww, D).permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return x.reshape(B, nt * nh * nw, wt * wh * ww, D)
+
+
+def _from_windows(xw: torch.Tensor, up: UniformPlan) -> torch.Tensor:
+    """Inverse of _to_windows (pad rows are cropped)."""
+    B, _, _, D = xw.shape
+    T, H, W = up.size
+    (ft, _), (fh, _), (fw, _) = up.pads
+    nt, nh, nw = up.nwin
+    wt, wh, ww = up.wshape
+    x = xw.reshape(B, nt, nh, nw, wt, wh, ww, D).permute(0, 1, 4, 2, 5, 3, 6, 7)
+    x = x.reshape(B, nt * wt, nh * wh, nw * ww, D)
+    return x[:, ft:ft + T, fh:fh + H, fw:fw + W].reshape(B, T * H * W, D)
+
+
+def _window_attention_uniform(attn: _Attn, cfg: DiTConfig, xv, xt,
+                              dplan: DevicePlan, uplan: DeviceUniformPlan,
+                              use_kernels: bool):
+    """Joint windowed multi-modal attention over the uniform padded
+    partition. xv: (B, L, D) video tokens in canonical order (or their
+    PreQuantized form in the w8a8 lane); xt: (B, Ltxt, D) text.
+
+    The qkv projections and qk-norms run on the unpadded tokens; q, k and v
+    are cut into windows (pad + permute), each window joined by the text
+    rows, and one attention call over every window row of the batch
+    (kernel K9 through ops.attention.attention) ropes each window with the
+    table its id picks and masks its pad keys. Pad query rows are cropped;
+    the text output is the fp32 mean over the windows."""
+    B, L = xv.shape[0], xv.shape[1]
+    Dh = cfg.head_dim
+    up = uplan.up
+
+    def qkv(x, branch):
+        out = linear(x, _pick(attn.proj_qkv, branch), use_kernels)
+        # the head count from the projection's width, as the JAX package
+        # derives it (every weight layout has its own leaves)
+        hn = out.shape[-1] // (3 * Dh)
+        out = out.reshape(*x.shape[:-1], 3, hn, Dh)
+        return out[..., 0, :, :], out[..., 1, :, :], out[..., 2, :, :]
+
+    qv, kv, vv = qkv(xv, "vid")
+    qt, kt, vt = qkv(xt, "txt")
+    Hn = qv.shape[-2]
+    eps = cfg.norm_eps
+    qv = rms_norm(qv, eps, _pick(attn.norm_q, "vid").weight)
+    kv = rms_norm(kv, eps, _pick(attn.norm_k, "vid").weight)
+    qt = rms_norm(qt, eps, _pick(attn.norm_q, "txt").weight)
+    kt = rms_norm(kt, eps, _pick(attn.norm_k, "txt").weight)
+    if dplan.txt_cos is not None:  # 3B mmrope: the text is roped too
+        qt = rope_lib.apply_rope(qt, dplan.txt_cos, dplan.txt_sin)
+        kt = rope_lib.apply_rope(kt, dplan.txt_cos, dplan.txt_sin)
+
+    nW, wlen, ltxt = up.num_windows, up.window_len, dplan.plan.txt_len
+
+    def windowed_with_txt(x, txt):
+        xw = _to_windows(x.reshape(B, L, Hn * Dh), up)
+        xw = xw.reshape(B, nW, wlen, Hn, Dh)
+        t = txt[:, None].expand(B, nW, ltxt, Hn, Dh)
+        return torch.cat([xw, t], dim=2).reshape(B * nW, wlen + ltxt, Hn, Dh)
+
+    out = attention(
+        windowed_with_txt(qv, qt), windowed_with_txt(kv, kt),
+        windowed_with_txt(vv, vt), rope_cos=uplan.cos, rope_sin=uplan.sin,
+        table_ids=uplan.batch_ids(B), kv_valid=uplan.valid,
+        use_kernels=use_kernels).reshape(B, nW, wlen + ltxt, Hn * Dh)
+
+    vid_out = _from_windows(out[:, :, :wlen], up)
+    # text coalesce: the mean over all windows
+    txt_out = out[:, :, wlen:].float().mean(dim=1).to(out.dtype)
+    vid_out = linear(vid_out, _pick(attn.proj_out, "vid"), use_kernels)
+    txt_out = linear(txt_out, _pick(attn.proj_out, "txt"), use_kernels)
+    return vid_out, txt_out
+
+
 def _block_forward(blk: _Block, cfg: DiTConfig, i: int, xv, xt, emb_attn,
                    emb_mlp, dplan: DevicePlan, order: str, use_kernels: bool):
     """One NaMMSRTransformerBlock. xv arrives in `order` token order and
-    leaves in this layer's window-major order (returned third)."""
+    leaves in this layer's window-major order on the grouped plan, in
+    canonical order on the uniform one (the order is returned third)."""
     method = cfg.window_method(i)
-    if order != method:
+    uplan = dplan.uniform[method] if dplan.uniform is not None else None
+    if uplan is None and order != method:
         index = dplan.transitions[(order, method)]
         xv = (gather_rows(xv, index) if use_kernels
               else gather_rows_plain(xv, index))
@@ -482,8 +674,12 @@ def _block_forward(blk: _Block, cfg: DiTConfig, i: int, xv, xt, emb_attn,
     # 3B last layer: txt enters attention normed but unmodulated and leaves
     # ungated
     ht = _ada_in(ht, sa_v, ss_v, ada_t, "attn") if ada_t is not None else ht
-    hv, ht = _window_attention(blk.attn, cfg, hv, ht, dplan, method,
-                               use_kernels)
+    if uplan is not None:
+        hv, ht = _window_attention_uniform(blk.attn, cfg, hv, ht, dplan,
+                                           uplan, use_kernels)
+    else:
+        hv, ht = _window_attention(blk.attn, cfg, hv, ht, dplan, method,
+                                   use_kernels)
     hv = _ada_out(hv, sg_v, ada_v, "attn")
     ht = _ada_out(ht, sg_v, ada_t, "attn") if ada_t is not None else ht
     xv = xv + hv
@@ -499,7 +695,7 @@ def _block_forward(blk: _Block, cfg: DiTConfig, i: int, xv, xt, emb_attn,
         ht2 = mlp_forward(ht2, _pick(blk.mlp, "txt"), cfg.mlp_type,
                           use_kernels)
         xt = xt + _ada_out(ht2, mg_v, ada_t, "mlp")
-    return xv, xt, method
+    return xv, xt, ("canonical" if uplan is not None else method)
 
 
 def patchify(vid: torch.Tensor, patch_size) -> torch.Tensor:
@@ -541,10 +737,13 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
         vid: (B, T, H, W, vid_in_channels) latent+condition, pre-patch dims.
         txt: (B, txt_len, txt_in_dim) text embeddings.
         timestep: (B,) diffusion timesteps.
-        dplan: upload_plan(build_dit_plan(cfg, (T, H, W), txt_len), ...).
-        use_kernels: False runs the plain versions of the kernels (K1, K2,
-            and K3-K5 in the w8a8 lane) on any device, the reference a
-            kernel run is held against.
+        dplan: upload_plan(build_dit_plan(cfg, (T, H, W), txt_len), ...)
+            runs the grouped plan (kernels K1, K2);
+            upload_plan(build_dit_plan(..., uniform=True), ...) the uniform
+            one (kernel K9), which tokens cross in canonical order.
+        use_kernels: False runs the plain versions of the kernels (K1, K2
+            or K9, and K3-K7 in the quantised lanes) on any device, the
+            reference a kernel run is held against.
 
     Returns:
         (B, T, H, W, vid_out_channels) prediction (v_lerp velocity).

@@ -2,7 +2,8 @@
 
 The table functions are host-side numpy copied unchanged from the JAX package
 (seedvr2_tpu.models.dit.rope) and pinned equal to it by
-tests/test_torch_configs.py. Only `rotate_half_full` touches tensors.
+tests/test_torch_configs.py and tests/test_torch_uniform.py. The rotations
+(`rotate_half_full`, `apply_rope_ext`, `apply_rope`) work on tensors.
 
 Two flavors:
  - 3B "mmrope3d": lang-style freqs (theta=10000), per-axis dim = rope_dim//3,
@@ -16,7 +17,7 @@ Rotation is interleaved-pair (rotate_half on (d 2) pairs), applied to the
 first `rot_dim` channels of each head; the remainder passes through.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,8 +99,56 @@ def extend_tables(cos: np.ndarray, sin: np.ndarray, head_dim: int,
     return cos_e, sin_e
 
 
+def embed_window_table(cos_r: np.ndarray, sin_r: np.ndarray,
+                       wshape: Tuple[int, int, int],
+                       win_info, head_dim: int, txt_len: int):
+    """Embed a real sub-window's (rlen, rot) table into a padded uniform
+    window (windows.py UniformPlan): real rows land at their padded slots
+    (slot_start offsets for front-clipped shifted windows), identity rows
+    (cos=1, sin=0) everywhere else: pad slots are masked kv / cropped q,
+    and the trailing txt_len identity rows pass the appended text tokens
+    through unrotated (3B text is rotated beforehand)."""
+    wt, wh, ww = wshape
+    wlen = wt * wh * ww
+    cos_e = np.ones((wlen + txt_len, head_dim), np.float32)
+    sin_e = np.zeros((wlen + txt_len, head_dim), np.float32)
+    (rt, st), (rh, sh), (rw, sw) = win_info
+    it = (st + np.arange(rt))[:, None, None]
+    ih = (sh + np.arange(rh))[None, :, None]
+    iw = (sw + np.arange(rw))[None, None, :]
+    flat = ((it * wh + ih) * ww + iw).reshape(-1)
+    rot = cos_r.shape[-1]
+    cos_e[flat, :rot] = cos_r.reshape(len(flat), rot)
+    sin_e[flat, :rot] = sin_r.reshape(len(flat), rot)
+    return cos_e, sin_e
+
+
 def rotate_half_full(x: torch.Tensor) -> torch.Tensor:
     """Interleaved-pair rotate-half over the full last dim (must be even):
     (x[2i], x[2i+1]) -> (-x[2i+1], x[2i])."""
     xr = x.reshape(*x.shape[:-1], -1, 2)
     return torch.stack([-xr[..., 1], xr[..., 0]], dim=-1).reshape(x.shape)
+
+
+def apply_rope_ext(x: torch.Tensor, cos_e: torch.Tensor,
+                   sin_e: torch.Tensor) -> torch.Tensor:
+    """Full-width rotation with extended tables, in fp32, rounded back to
+    x's dtype. x: (..., S, H, D); cos_e/sin_e: (..., S, D) fp32 (identity
+    rows and dims pass through)."""
+    x32 = x.float()
+    c = cos_e.float()[..., :, None, :]
+    s = sin_e.float()[..., :, None, :]
+    return (x32 * c + rotate_half_full(x32) * s).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: Optional[torch.Tensor],
+               sin: Optional[torch.Tensor]) -> torch.Tensor:
+    """Rotate the leading rot_dim channels of x (..., S, heads, head_dim)
+    with (S, rot_dim) fp32 tables; the remaining channels pass through."""
+    if cos is None:
+        return x
+    rot = cos.shape[-1]
+    x_rot = x[..., :rot].float()
+    rotated = (x_rot * cos[..., :, None, :]
+               + rotate_half_full(x_rot) * sin[..., :, None, :]).to(x.dtype)
+    return torch.cat([rotated, x[..., rot:]], dim=-1)

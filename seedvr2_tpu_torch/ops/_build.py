@@ -34,10 +34,15 @@ _SIGNATURES = {
     # stream
     "seedvr2_packed_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _F, _F, _P],
+    # q, k, v, cos, sin, valid, ids, out, B, Sq, Sk, H, D, kv_len,
+    # table_rows, qscale, stream
+    "seedvr2_flash_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
     # x, idx, out, B, L, L2, D, stream
     "seedvr2_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     # xq, wq, xs, ws, out, M, N, K, stream
     "seedvr2_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, wq, ws, xs (scratch), out, M, N, K, x_f32, out_f32, stream
+    "seedvr2_int8_matmul_qx": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, scale, shift, q, s, rows, L, K, eps, stream
     "seedvr2_rms_ada_quantize": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # g, u, q, s, rows, K, row_stride, stream

@@ -1,24 +1,39 @@
-"""Packed window attention (kernel K1).
+"""Flash attention kernels K1, K8 and K9.
 
-Port of seedvr2_tpu.ops.attention.packed_attention and of the Pallas TPU
-kernel it routes to, `flash_packed_attention` / `_fa_packed_kernel`. One
-call attends every window row of a shape group at once, reading q, k and v
-in place from ONE packed (B, S, 3*H*D) projection:
+Ports of the Pallas TPU kernels of seedvr2_tpu.ops.flash_attention, each
+with its plain version:
 
-  per head: fp32 RMS qk-norm, interleaved rotate-half RoPE from (S, D) fp32
-  tables that carry the qk-norm weights and the baked text rope, then
-  softmax(q k^T * scale) v with key columns >= kv_len masked.
+ - K1 `packed_window_attention` (`flash_packed_attention` /
+   `_fa_packed_kernel`, reached through ops.attention.packed_attention):
+   the grouped window plan's attention. One call attends every window row
+   of a shape group at once, reading q, k and v in place from ONE packed
+   (B, S, 3*H*D) projection: per head fp32 RMS qk-norm, interleaved
+   rotate-half RoPE from (S, D) fp32 tables that carry the qk-norm weights
+   and the baked text rope, then softmax(q k^T * scale) v with key columns
+   >= kv_len masked.
+ - K9 `flash_windowed_attention` (`_fa_rope_mask_kernel`): the uniform
+   window plan's attention over (B*nW, S, H, D) windows, each roped by the
+   table its id picks and masked by that id's key validity row.
+ - K8 `flash_attention` (`_fa_kernel` / `_fa_rope_kernel`): dense
+   attention with an optional shared rope table and a kv_len mask, Sq != Sk
+   allowed without rope; the dense branch of ops.attention.attention, which
+   no product path takes (as in the JAX package).
 
-On a CUDA tensor `packed_window_attention` launches the hand-written Hopper
-kernel `csrc/packed_attention.cu` (its header says what bounds it on an
-H100 and how it is laid out); on a CPU tensor it runs the plain version.
+On a CUDA tensor each wrapper launches its hand-written Hopper kernel
+(`csrc/packed_attention.cu`, `csrc/flash_attention.cu`; their headers say
+what bounds them on an H100 and how they are laid out) or raises on what
+it does not take; on a CPU tensor it runs the plain version.
 """
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .attention import attention_xla
-from ..models.dit.rope import rotate_half_full
+from .gather import RowIndex
+from ..models.dit.rope import apply_rope_ext, rotate_half_full
 
 _LOG2E = 1.4426950408889634
 _BLOCK_ROWS = 64  # the kernel's q and k tile height
@@ -105,3 +120,177 @@ def packed_window_attention(qkv: torch.Tensor, heads: int, d: int,
 
 
 packed_window_attention.launches = 0
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: Optional[float] = None,
+                          rope_cos: Optional[torch.Tensor] = None,
+                          rope_sin: Optional[torch.Tensor] = None,
+                          kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K8: the JAX package's composition (ops/attention.py
+    `attention`, non-kernel branch without table_ids). Tables with fewer
+    rows than S get identity rows; q and k are roped in fp32 and rounded
+    back to their dtype; key columns >= kv_len get a -inf logit bias."""
+    sk = k.shape[-3]
+    bias = None
+    if kv_len is not None and kv_len < sk:
+        col = torch.arange(sk, device=q.device)
+        bias = torch.where(col < kv_len, 0.0, float("-inf"))[None, None, :]
+    if rope_cos is not None:
+        s = q.shape[-3]
+        cos, sin = rope_cos, rope_sin
+        if cos.shape[0] < s:
+            cos = F.pad(cos, (0, 0, 0, s - cos.shape[0]), value=1.0)
+            sin = F.pad(sin, (0, 0, 0, s - sin.shape[0]))
+        q = apply_rope_ext(q, cos, sin)
+        k = apply_rope_ext(k, cos, sin)
+    return attention_xla(q, k, v, scale=scale, bias=bias)
+
+
+def flash_windowed_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, scale: Optional[float],
+                                   rope_cos: torch.Tensor,
+                                   rope_sin: torch.Tensor,
+                                   table_ids: RowIndex,
+                                   kv_valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9: the JAX package's composition (ops/attention.py
+    `attention`, non-kernel branch with table_ids): every row's tables and
+    key validity gathered by its id, q and k roped in fp32 and rounded back
+    to their dtype, invalid keys given a -inf logit bias."""
+    ids = table_ids.tensor.to(q.device).long()
+    q = apply_rope_ext(q, rope_cos[ids], rope_sin[ids])
+    k = apply_rope_ext(k, rope_cos[ids], rope_sin[ids])
+    bias = torch.where(kv_valid[ids], 0.0, float("-inf"))[:, None, None, :]
+    return attention_xla(q, k, v, scale=scale, bias=bias)
+
+
+def _check_cuda_operands(name: str, q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> None:
+    """What the K8/K9 kernel takes: contiguous bf16 q, k, v on one CUDA
+    device, head dim in _HEAD_DIMS, batch rows and heads within the grid."""
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for {q.device}")
+    for t in (q, k, v):
+        if (t.dtype != torch.bfloat16 or not t.is_contiguous()
+                or t.device != q.device):
+            raise ValueError(f"{name} kernel takes contiguous bf16 q, k, v on "
+                             f"{q.device}, got {t.dtype} on {t.device}")
+    b, _, h, d = q.shape
+    if d not in _HEAD_DIMS or b > 65535 or h > 65535:
+        raise ValueError(f"{name} kernel: head dim {d} not in {_HEAD_DIMS}, "
+                         f"or {b} rows / {h} heads beyond the grid")
+
+
+def _qscale(scale: Optional[float], d: int) -> float:
+    return float(((d ** -0.5) if scale is None else scale) * _LOG2E)
+
+
+def flash_windowed_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, scale: Optional[float],
+                             rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+                             table_ids: RowIndex,
+                             kv_valid: torch.Tensor) -> torch.Tensor:
+    """Uniform-window attention: q, k, v (B, S, H, D) with B = batch *
+    windows; rope_cos/rope_sin (nU, S, D) fp32 deduplicated per-window
+    tables; kv_valid (nU, S) bool; table_ids: B ids < nU, window row ->
+    table/mask (a RowIndex, checked on the host and uploaded once). Returns
+    (B, S, H, D); scale defaults to D**-0.5.
+
+    CPU tensors take the plain version. CUDA tensors launch kernel K9, or
+    raise on what it does not take: contiguous bf16 q/k/v and fp32 tables,
+    a bool mask, ids on the same device, D in (64, 128)."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("windowed attention is self-attention over "
+                         f"(B, S, H, D): q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    b, s, h, d = q.shape
+    n_u = rope_cos.shape[0]
+    if (rope_cos.shape != (n_u, s, d) or rope_sin.shape != rope_cos.shape
+            or kv_valid.shape != (n_u, s) or len(table_ids) != b
+            or table_ids.hi >= n_u):
+        raise ValueError(f"windowed attention: tables {tuple(rope_cos.shape)}"
+                         f" / {tuple(rope_sin.shape)}, mask "
+                         f"{tuple(kv_valid.shape)} and {len(table_ids)} ids "
+                         f"up to {table_ids.hi} do not fit {b} rows of "
+                         f"({s}, {h}, {d})")
+    if q.device.type == "cpu":
+        return flash_windowed_attention_plain(q, k, v, scale, rope_cos,
+                                              rope_sin, table_ids, kv_valid)
+    _check_cuda_operands("flash_windowed_attention", q, k, v)
+    for t, dt in ((rope_cos, torch.float32), (rope_sin, torch.float32),
+                  (kv_valid, torch.bool), (table_ids.tensor, torch.int32)):
+        if t.dtype != dt or not t.is_contiguous() or t.device != q.device:
+            raise ValueError("flash_windowed_attention kernel: tables, mask "
+                             f"and ids must be contiguous {dt} on {q.device}, "
+                             f"got {t.dtype} on {t.device}")
+    out = torch.empty_like(q)
+    err = _build.kernel_library().lib.seedvr2_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rope_cos.data_ptr(),
+        rope_sin.data_ptr(), kv_valid.data_ptr(), table_ids.tensor.data_ptr(),
+        out.data_ptr(), b, s, s, h, d, s, s, _qscale(scale, d),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "seedvr2_flash_attention")
+    flash_windowed_attention.launches += 1
+    return out
+
+
+flash_windowed_attention.launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None,
+                    rope_cos: Optional[torch.Tensor] = None,
+                    rope_sin: Optional[torch.Tensor] = None,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """Dense attention: q (..., Sq, H, D), k and v (..., Sk, H, D) ->
+    (..., Sq, H, D); scale defaults to D**-0.5. rope_cos/rope_sin: an
+    optional shared (R, D) fp32 extended table pair, R <= S, applied to q
+    and k (rows past R pass through; needs Sq == Sk). kv_len: the number of
+    real kv rows when the caller padded k/v (default Sk).
+
+    CPU tensors take the plain version. CUDA tensors launch kernel K8, or
+    raise on what it does not take: contiguous bf16 q/k/v and fp32 tables
+    on one device, D in (64, 128)."""
+    sq, sk = q.shape[-3], k.shape[-3]
+    kv_len = sk if kv_len is None else kv_len
+    if (k.shape != v.shape or q.shape[:-3] != k.shape[:-3]
+            or q.shape[-2:] != k.shape[-2:] or not 1 <= kv_len <= sk):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} and kv_len "
+                         f"{kv_len} do not fit")
+    if (rope_cos is None) != (rope_sin is None):
+        raise ValueError("flash_attention: give both rope tables or neither")
+    d = q.shape[-1]
+    if rope_cos is not None and (
+            sq != sk or rope_cos.dim() != 2 or rope_cos.shape[1] != d
+            or rope_cos.shape[0] > sq or rope_sin.shape != rope_cos.shape):
+        raise ValueError(f"flash_attention: fused rope needs Sq == Sk and "
+                         f"(R <= S, {d}) tables, got Sq={sq} Sk={sk}, "
+                         f"{tuple(rope_cos.shape)} / {tuple(rope_sin.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale, rope_cos, rope_sin,
+                                     kv_len)
+    q4, k4, v4 = (t.view(-1, *t.shape[-3:]) for t in (q, k, v))
+    _check_cuda_operands("flash_attention", q4, k4, v4)
+    table_rows = 0
+    if rope_cos is not None:
+        for t in (rope_cos, rope_sin):
+            if (t.dtype != torch.float32 or not t.is_contiguous()
+                    or t.device != q.device):
+                raise ValueError("flash_attention kernel: rope tables must "
+                                 f"be contiguous fp32 on {q.device}")
+        table_rows = rope_cos.shape[0]
+    out = torch.empty_like(q4)
+    b, _, h, _ = q4.shape
+    err = _build.kernel_library().lib.seedvr2_flash_attention(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+        None if rope_cos is None else rope_cos.data_ptr(),
+        None if rope_sin is None else rope_sin.data_ptr(), None, None,
+        out.data_ptr(), b, sq, sk, h, d, kv_len, table_rows,
+        _qscale(scale, d), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "seedvr2_flash_attention")
+    flash_attention.launches += 1
+    return out.reshape(q.shape)
+
+
+flash_attention.launches = 0

@@ -1,5 +1,6 @@
 """w8a8 serving lane: int8 x int8 -> int32 GEMM (kernel K3), the
-quantization helpers, the w8a8 linears and the DiT conversion.
+quantization helpers, the w8a8 linears and the DiT conversion; and the
+quantizing GEMM (kernel K10), an op with no caller on a serving path.
 
 Port of seedvr2_tpu.ops.int8_matmul (without tensor parallelism):
 weights are quantized per output channel once, activations per row at run
@@ -10,9 +11,10 @@ time, and
 Layout: the port stores a weight (N, K), K-contiguous (the JAX package
 stores (K, N)), the layout `mma ... row.col` reads; activations are (M, K).
 
-On a CUDA tensor `int8_matmul` launches the hand-written kernel
-`csrc/int8_matmul.cu` (its header says what bounds it and how it is laid
-out); on a CPU tensor it runs the plain version.
+On a CUDA tensor `int8_matmul` and `int8_matmul_qx` launch their
+hand-written kernels in `csrc/int8_matmul.cu` (its comments say what bounds
+them and how they are laid out); on a CPU tensor they run their plain
+versions.
 """
 
 from typing import Optional
@@ -96,6 +98,78 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor,
 
 
 int8_matmul.launches = 0
+
+
+def quantize_rows_qx(x: torch.Tensor):
+    """K10's per-row symmetric int8, as the TPU kernel _mm_qx_kernel
+    computes it: scale = max(amax, 1e-8) * (1/127) and
+    q = clip(round_half_even(x * (1 / scale)), -127, 127), the reciprocal
+    multiplied where quantize_activations divides (the two can differ by a
+    step). (..., K) -> ((..., K) int8, (...,) fp32)."""
+    x32 = x.float()
+    amax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-8) * (1.0 / 127.0)
+    q = torch.clamp(torch.round(x32 * (1.0 / scale)), -127, 127)
+    return q.to(torch.int8), scale.squeeze(-1)
+
+
+def int8_matmul_qx_plain(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                         out_dtype=None) -> torch.Tensor:
+    """Plain version of K10: quantize_rows_qx, then K3's plain product and
+    epilogue; out_dtype defaults to x's."""
+    q, s = quantize_rows_qx(x)
+    return int8_matmul_plain(q, wq, s, ws,
+                             x.dtype if out_dtype is None else out_dtype)
+
+
+def int8_matmul_qx(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                   out_dtype=None) -> torch.Tensor:
+    """x (M, K) bf16 or fp32 @ wq (N, K) int8 -> (M, N), with the per-row
+    activation quantization (quantize_rows_qx) inside the kernel, scaled by
+    the row scales and ws (N,) fp32; out_dtype (bf16 or fp32) defaults to
+    x's. An op only: the w8a8 lane runs the two-step form (a fused or plain
+    quantize, then K3), as the JAX package does.
+
+    CPU tensors take the plain version. CUDA tensors launch kernel K10, or
+    raise on what it does not take: contiguous operands on one device,
+    K % 32 == 0, K > 0, N % 8 == 0, 16-byte aligned x and wq."""
+    m, k = x.shape
+    n, k2 = wq.shape
+    if k != k2 or ws.shape != (n,):
+        raise ValueError(f"int8_matmul_qx: shapes {tuple(x.shape)} "
+                         f"{tuple(wq.shape)} {tuple(ws.shape)} do not match")
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if x.device.type == "cpu":
+        return int8_matmul_qx_plain(x, wq, ws, out_dtype)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"int8_matmul_qx: no kernel for {x.device}")
+    floats = (torch.bfloat16, torch.float32)
+    if x.dtype not in floats or out_dtype not in floats:
+        raise ValueError(f"int8_matmul_qx kernel takes and writes bf16 or "
+                         f"fp32, not {x.dtype} -> {out_dtype}")
+    for name, t, dt in (("x", x, x.dtype), ("wq", wq, torch.int8),
+                        ("ws", ws, torch.float32)):
+        if t.dtype != dt or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"int8_matmul_qx kernel: {name} must be "
+                             f"contiguous {dt} on {x.device}, got {t.dtype} "
+                             f"on {t.device}")
+    if k == 0 or k % 32 or n % 8 or x.data_ptr() % 16 or wq.data_ptr() % 16:
+        raise ValueError(f"int8_matmul_qx kernel: needs K % 32 == 0 (K={k}),"
+                         f" N % 8 == 0 (N={n}) and 16-byte aligned operands")
+    xs = torch.empty(m, dtype=torch.float32, device=x.device)  # row scales
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m and n:
+        err = _build.kernel_library().lib.seedvr2_int8_matmul_qx(
+            x.data_ptr(), wq.data_ptr(), ws.data_ptr(), xs.data_ptr(),
+            out.data_ptr(), m, n, k, int(x.dtype == torch.float32),
+            int(out_dtype == torch.float32),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(err, "seedvr2_int8_matmul_qx")
+        int8_matmul_qx.launches += 1
+    return out
+
+
+int8_matmul_qx.launches = 0
 
 
 class W8A8Linear(nn.Module):

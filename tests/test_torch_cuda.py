@@ -365,3 +365,124 @@ def test_vae_lanes_with_kernels_match_plain_on_gpu(cuda_device):
     for a, b in ((dec_k, dec_p), (enc_k, enc_p)):
         assert torch.isfinite(a).all()
         assert ((a - b).norm() / b.norm()).item() < 2e-2
+
+
+def _attention_operands(gen, b, sq, h, d, device, sk=None):
+    return [torch.randn(b, n, h, d, generator=gen, device=device).to(
+        torch.bfloat16) for n in (sq, sk or sq, sk or sq)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,d,rows,kv_len", [
+    (463, None, 128, 463, 463),     # a uniform window's length, one table
+    (200, None, 64, 150, 170),      # table shorter than S, masked keys
+    (100, 300, 128, None, 250)],    # cross-attention without rope
+    ids=["rope", "short_table", "cross"])
+def test_k8_kernel_matches_plain_on_gpu(cuda_device, sq, sk, d, rows,
+                                        kv_len):
+    """Dense flash attention at S not a multiple of 64: bf16 outputs
+    rounded at other points, the JAX package's kernel bound."""
+    gen = torch.Generator(cuda_device).manual_seed(sq + d)
+    q, k, v = _attention_operands(gen, 2, sq, 3, d, cuda_device, sk)
+    cos = sin = None
+    if rows is not None:
+        ang = torch.randn(rows, d // 2, generator=gen, device=cuda_device)
+        cos = torch.cos(ang).repeat_interleave(2, -1).contiguous()
+        sin = torch.sin(ang).repeat_interleave(2, -1).contiguous()
+    before = tfa.flash_attention.launches
+    out = tfa.flash_attention(q, k, v, None, cos, sin, kv_len)
+    assert tfa.flash_attention.launches == before + 1
+    ref = tfa.flash_attention_plain(q, k, v, None, cos, sin, kv_len)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q.float(), k.float(), v.float(), kv_len=kv_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(463, 128), (75, 64)])
+def test_k9_kernel_matches_plain_on_gpu(cuda_device, s, d):
+    """Windowed attention: window id 0's first 216 keys invalid (its first
+    three key tiles hold no valid key, as a front-clipped shifted window's
+    pad slots come first), id 1's last 30; no NaN, bf16-class agreement."""
+    gen = torch.Generator(cuda_device).manual_seed(s)
+    q, k, v = _attention_operands(gen, 4, s, 3, d, cuda_device)
+    ang = torch.randn(2, s, d // 2, generator=gen, device=cuda_device)
+    cos = torch.cos(ang).repeat_interleave(2, -1).contiguous()
+    sin = torch.sin(ang).repeat_interleave(2, -1).contiguous()
+    valid = torch.ones(2, s, dtype=torch.bool, device=cuda_device)
+    valid[0, :min(216, s - 10)] = False
+    valid[1, -30:] = False
+    ids = tg.RowIndex(np.array([0, 1, 1, 0]), cuda_device)
+    before = tfa.flash_windowed_attention.launches
+    out = tfa.flash_windowed_attention(q, k, v, None, cos, sin, ids, valid)
+    assert tfa.flash_windowed_attention.launches == before + 1
+    ref = tfa.flash_windowed_attention_plain(q, k, v, None, cos, sin, ids,
+                                             valid)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError):
+        tfa.flash_windowed_attention(q, k, v, None, cos, sin, ids,
+                                     valid.to(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,x_dtype,out_dtype", [
+    (1, 2560, 2560, torch.bfloat16, torch.bfloat16),
+    (58, 512, 6912, torch.bfloat16, torch.float32),
+    (300, 384, 96, torch.float32, torch.float32),
+    (7200, 7680, 2560, torch.bfloat16, torch.bfloat16)])
+def test_k10_kernel_exact_on_gpu(cuda_device, m, n, k, x_dtype, out_dtype):
+    """Quantizing int8 GEMM: the same reciprocal quantization, exact int32
+    sums and the same epilogue order, so equal to the plain version bit for
+    bit (M = 1, ragged M, K % 64 == 32, fp32 activations)."""
+    gen = torch.Generator(cuda_device).manual_seed(m + k)
+    x = (3 * torch.randn(m, k, generator=gen, device=cuda_device)).to(x_dtype)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device=cuda_device,
+                       dtype=torch.int8)
+    ws = torch.rand(n, generator=gen, device=cuda_device) * 0.01
+    before = tim.int8_matmul_qx.launches
+    out = tim.int8_matmul_qx(x, wq, ws, out_dtype=out_dtype)
+    assert tim.int8_matmul_qx.launches == before + 1
+    assert out.dtype == out_dtype
+    assert torch.equal(out, tim.int8_matmul_qx_plain(x, wq, ws, out_dtype))
+    with pytest.raises(ValueError):
+        tim.int8_matmul_qx(x.half(), wq, ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w8a8", [False, True], ids=["bf16", "w8a8"])
+def test_uniform_dit_with_kernels_matches_plain_on_gpu(cuda_device, w8a8):
+    """The 2-layer width-256 NaDiT on the uniform plan: K9 once a block and
+    no K1 or K2; kernels against plain versions and against the grouped
+    plan, bounded as the dense model above."""
+    from seedvr2_tpu_torch.core.configs import small_test_config
+    from seedvr2_tpu_torch.models.dit import nadit
+
+    cfg = small_test_config(vid_dim=256, heads=2, head_dim=128)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    model = nadit.init_dit(cfg, cuda_device, torch.bfloat16, generator=gen)
+    if w8a8:
+        model = tim.quantize_dit_w8a8(model, 256)
+    shape, txt_len = (2, 18, 32), 58
+    plans = {u: nadit.upload_plan(nadit.build_dit_plan(cfg, shape, txt_len,
+                                                       uniform=u),
+                                  cfg, cuda_device) for u in (True, False)}
+    vid = torch.randn(1, *shape, cfg.vid_in_channels, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    txt = torch.randn(1, txt_len, cfg.txt_in_dim, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    t = torch.full((1,), 1000.0, device=cuda_device)
+    wrappers = (tfa.flash_windowed_attention, tfa.packed_window_attention,
+                tg.gather_rows)
+    before = [w.launches for w in wrappers]
+    with torch.no_grad():
+        k = nadit.nadit_forward(model, vid, txt, t, plans[True]).float()
+        launched = [w.launches - b for w, b in zip(wrappers, before)]
+        p = nadit.nadit_forward(model, vid, txt, t, plans[True],
+                                use_kernels=False).float()
+        g = nadit.nadit_forward(model, vid, txt, t, plans[False]).float()
+    assert launched == [cfg.num_layers, 0, 0]
+    assert torch.isfinite(k).all()
+    assert ((k - p).norm() / p.norm()).item() < 2e-2
+    assert ((k - g).norm() / g.norm()).item() < 2e-2
