@@ -9,7 +9,11 @@ network. In order it:
  1. prints the card (nvidia-smi name and power limit), the torch and CUDA
     versions, and builds the hand-written kernels from csrc/ (nvcc time);
  2. holds each kernel against its plain PyTorch version at 3B shapes on the
-    card: K1 (packed window attention) within bf16 tolerance, K2 (row
+    card: K1 (packed window attention) within bf16 tolerance, its norm /
+    rope pre-pass alone within one bf16 ulp of `norm_rope_plain` (each
+    timed K1 case prints the pre-pass's time beside the whole call's and
+    PR 5's time of the earlier design; the largest window group of the
+    1080p clip's plan is timed too), K2 (row
     gather) and K3 (int8 GEMM) exactly, K4 (rms_norm + ada + quantize) and
     K5 (silu*up + quantize) within one int8 step, at the shapes of the 720p
     clip and of the throughput requests (their token counts are the GEMM
@@ -68,7 +72,8 @@ network. In order it:
 The uniform window plan and the last three kernels (K8 dense flash
 attention, K9 windowed flash attention, K10 quantizing int8 GEMM) add, in
 phase 2: K8 within bf16 tolerance at the 720p clip's largest window group
-in dense form and at a cross-attention shape, driven once through the
+in dense form (its pre-pass timed alone beside it) and at a
+cross-attention shape, both beside PR 5's times, driven once through the
 dispatcher `ops.attention.attention` (its "dense" path, which no product
 code takes); K9 within bf16 tolerance at every uniform layer of the 720p
 and 1080p clips' latents; K10 bit-equal at the 1080p clip's DiT linears
@@ -99,6 +104,11 @@ import time
 # output is bf16; the JAX package holds its Pallas kernels to its jnp
 # composition at the same bound (tests/test_flash_attention.py).
 K1_ATOL = K1_RTOL = 2e-2
+# K1/K8's pre-pass vs its plain version (normed, roped, scaled q and k in
+# bf16): the same fp32 arithmetic in another order (the norm's sum of
+# squares, fused multiply-adds), so one bf16 rounding may land one ulp
+# (<= 2^-7 of the value) apart.
+PREPASS_RTOL, PREPASS_ATOL = 2.0 ** -7, 1e-6
 # the whole 32-layer DiT on the uniform plan against the grouped plan, same
 # weights and input: the two plans compute the same attention with the
 # roundings in other places (the uniform plan rounds the normed q and k to
@@ -294,6 +304,27 @@ def kernel_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
+def device_ms(torch, fn, iters: int = 10) -> float:
+    """Mean device milliseconds of the kernels one call of fn() launches,
+    summed from a torch.profiler trace, the L2 evicted before each call as
+    in kernel_ms. Unlike CUDA events around a call of a few tens of
+    microseconds, it leaves out the host's launch overhead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kernel_ms(torch, fn, 1)  # warm-up; allocates the flush buffer
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            _FLUSH[0].zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not any(w in e.name.lower() for w in ("fill", "memset")))
+    return us / iters / 1e3
+
+
 def bound_ms(ops: float, peak_ops: float, nbytes: float):
     """(least time in ms, what bounds it): the larger of ops over the peak
     rate for their type and bytes over the memory rate."""
@@ -344,41 +375,74 @@ def latent_shape(vae_cfg, t: int, h: int, w: int, res: int):
             -(-nw // 16) * 16 // sd)
 
 
+# K1's and K8's times in PR 5, before their Hopper redesign (PERF.md,
+# "PR 5 design"): chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W, by case
+PR5_MS = {
+    "K1 S=128 kv_len=91 B=16": 0.1123, "K1 S=128 kv_len=128 B=16": 0.1144,
+    "K1 S=896 kv_len=859 B=4": 0.7412, "K1 S=896 kv_len=896 B=4": 0.7368,
+    "K1 S=3712 kv_len=3675 B=2": 6.4220, "K1 S=3712 kv_len=3712 B=2": 6.3946,
+    "K1 clip plan window n=12 wlen=405 S=512 kv_len=463": 0.7528,
+    "K1 clip plan window n=6 wlen=390 S=512 kv_len=448": 0.3911,
+    "K1 clip plan shifted_window n=4 wlen=91 S=256 kv_len=149": 0.0815,
+    "K1 clip plan shifted_window n=8 wlen=195 S=256 kv_len=253": 0.1777,
+    "K1 clip plan shifted_window n=4 wlen=104 S=256 kv_len=162": 0.0807,
+    "K1 clip plan shifted_window n=4 wlen=189 S=256 kv_len=247": 0.0997,
+    "K1 clip plan shifted_window n=8 wlen=405 S=512 kv_len=463": 0.5891,
+    "K1 clip plan shifted_window n=4 wlen=216 S=384 kv_len=274": 0.2069,
+    "K8 B=12 Sq=463 Sk=463 kv_len=463 H=20 D=128 shared table": 0.8811,
+    "K8 B=4 Sq=512 Sk=1024 kv_len=1000 H=20 D=128 no rope": 0.4879,
+}
+
+
+def pr5_note(name: str) -> str:
+    old = PR5_MS.get(name)
+    return ("PR 5 design: not timed" if old is None else
+            f"PR 5 design {old:.4f} ms (PERF.md)")
+
+
 def check_k1(torch, fa, nadit, cfg, device, path_latents):
     """K1 against its plain version: window lengths 128, 896 and 3712 with
     random tables, and every window group of the 720p clip plan with its
     real tables (all timed), then every group of the throughput requests'
-    plans `path_latents` (checked, untimed). Returns the record of the clip
-    plan's largest group."""
+    plans `path_latents` (checked; the largest group of the 1080p clip's
+    plan, the default path's 1080p clip too, timed). Each timed case prints
+    the pre-pass's time alone beside the whole call's and PR 5's time.
+    Returns the record of the 720p clip plan's largest group."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device).manual_seed(1)
     H, D, eps = cfg.heads, cfg.head_dim, cfg.norm_eps
+    qscale = D ** -0.5 * 1.4426950408889634
     worst = 0.0
     cases = []
     for s, b in ((128, 16), (896, 4), (3712, 2)):
         for kv in (s - 37, s):
             cq, sq = rope_tables(torch, gen, s, D, device)
             ck, sk = rope_tables(torch, gen, s, D, device)
-            cases.append((f"S={s} kv_len={kv} B={b}", b, s, kv,
-                          (cq, sq, ck, sk), True))
+            cases.append([f"S={s} kv_len={kv} B={b}", b, s, kv,
+                          (cq, sq, ck, sk), True])
     ones = torch.ones(D, device=device)
     main = None
     for label, shape in (("clip plan", (2, 90, 160)), *path_latents):
         timed = label == "clip plan"
         dplan = nadit.upload_plan(nadit.build_dit_plan(cfg, shape, TXT_LEN),
                                   cfg, device)
+        largest = None
         for method, groups in dplan.groups.items():
             for g in groups:
                 tabs = nadit._fold_norm_tables(g.cos, g.sin, ones, ones, ones,
                                                ones, g.wlen, g.skv)
-                case = (f"{label} {method} n={g.n} wlen={g.wlen} "
+                case = [f"{label} {method} n={g.n} wlen={g.wlen} "
                         f"S={g.sk_pad} kv_len={g.skv}", g.n, g.sk_pad, g.skv,
-                        tabs, timed)
+                        tabs, timed]
                 cases.append(case)
-                if timed and (main is None or
-                              g.n * g.sk_pad ** 2 > main[1] * main[2] ** 2):
-                    main = case
+                if largest is None or (g.n * g.sk_pad ** 2
+                                       > largest[1] * largest[2] ** 2):
+                    largest = case
+        if timed:
+            main = largest
+        elif shape == (2, 136, 240):
+            largest[5] = True
     for case in cases:
         name, b, s, kv, tabs, timed = case
         qkv = torch.randn(b, s, 3 * H * D, generator=gen, device=device).to(
@@ -398,6 +462,18 @@ def check_k1(torch, fa, nadit, cfg, device, path_latents):
             continue
         ms = kernel_ms(torch, lambda: fa.packed_window_attention(
             qkv, H, D, *tabs, eps, kv), 20)
+        x = qkv.view(b, s, 3, H, D)
+        hats = fa.attention_prepass(x[:, :, 0], x[:, :, 1], *tabs, eps,
+                                    qscale)
+        refs = (fa.norm_rope_plain(x[:, :, 0], *tabs[:2], eps, qscale),
+                fa.norm_rope_plain(x[:, :, 1], *tabs[2:], eps))
+        for side, hat, ref_hat in zip("qk", hats, refs):
+            if not torch.allclose(hat.float(), ref_hat.float(),
+                                  rtol=PREPASS_RTOL, atol=PREPASS_ATOL):
+                fail(f"K1 {name}: pre-pass {side} beyond one bf16 ulp of "
+                     "its plain version")
+        prepass_ms = device_ms(torch, lambda: fa.attention_prepass(
+            x[:, :, 0], x[:, :, 1], *tabs, eps, qscale))
         plain_ms = kernel_ms(torch, lambda: fa.packed_window_attention_plain(
             qkv, H, D, *tabs, eps, kv), 10)
         q, k, v, mask = sdpa_inputs(torch, qkv, H, D, tabs, eps, kv)
@@ -408,7 +484,9 @@ def check_k1(torch, fa, nadit, cfg, device, path_latents):
         bound, by = bound_ms(flops, PEAK_BF16, nbytes)
         say(f"K1 {name}: max_abs_err {err:.6g} (atol=rtol={K1_ATOL}); "
             f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-            f"plain {plain_ms:.4f} ms, sdpa (attention core only) "
+            f"prepass_ms {prepass_ms:.4f} of it alone (device time), "
+            f"{pr5_note('K1 ' + name)}"
+            f"; plain {plain_ms:.4f} ms, sdpa (attention core only) "
             f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
         if case is main:
             rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -682,10 +760,12 @@ def attention_core(torch, q, k, cos, sin):
     return q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous()
 
 
-def attention_case(torch, name, run, plain, sdpa, flops, nbytes):
+def attention_case(torch, name, run, plain, sdpa, flops, nbytes,
+                   prepass=None):
     """Hold one K8/K9 call against its plain version (finite, within
-    K1_ATOL/RTOL), time kernel, plain and the SDPA yardstick, print and
-    return the record."""
+    K1_ATOL/RTOL), time kernel, plain and the SDPA yardstick (and K8's
+    pre-pass alone, `prepass`, beside PR 5's time), print and return the
+    record."""
     out = run()
     torch.cuda.synchronize()
     ref = plain()
@@ -699,10 +779,16 @@ def attention_case(torch, name, run, plain, sdpa, flops, nbytes):
     plain_ms = kernel_ms(torch, plain, 5)
     lib_ms = kernel_ms(torch, sdpa, 20)
     bound, by = bound_ms(flops, PEAK_BF16, nbytes)
+    extra = ""
+    if name.startswith("K8"):
+        extra = (", no pre-pass" if prepass is None else
+                 f", prepass_ms {device_ms(torch, prepass):.4f} of it "
+                 "alone (device time)")
+        extra += f", {pr5_note(name)}"
     say(f"{name}: max_abs_err {err:.6g} (atol=rtol={K1_ATOL}); kernel "
-        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of needed work), plain "
-        f"{plain_ms:.4f} ms, sdpa (attention core only) {lib_ms:.4f} ms, "
-        f"bound {bound:.4f} ms ({by})")
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of needed work){extra}"
+        f"; plain {plain_ms:.4f} ms, sdpa (attention core only) "
+        f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound, bound_by=by)
 
@@ -736,6 +822,11 @@ def check_k8(torch, fa, nadit, cfg, device):
             mask = (torch.arange(sk, device=device) < kv)[None, None, None]
         name = (f"K8 B={b} Sq={sq} Sk={sk} kv_len={kv} H={H} D={D} "
                 f"{'shared table' if tabs[0] is not None else 'no rope'}")
+        prepass = None
+        if tabs[0] is not None:
+            def prepass(q=q, k=k, tabs=tabs):
+                return fa.attention_prepass(q, k, *tabs, *tabs, None,
+                                            D ** -0.5 * 1.4426950408889634)
         r = attention_case(
             torch, name,
             lambda: fa.flash_attention(q, k, v, None, *tabs, kv),
@@ -744,7 +835,7 @@ def check_k8(torch, fa, nadit, cfg, device):
                                                    attn_mask=mask),
             4 * b * H * sq * kv * D,
             2 * (2 * q.numel() + k.numel() + v.numel())
-            + (0 if tabs[0] is None else 2 * cos.numel() * 4))
+            + (0 if tabs[0] is None else 2 * cos.numel() * 4), prepass)
         if rec is None:
             rec, first = r, (q, k, v, cos, sin, g.skv)
     return rec, first

@@ -1,5 +1,6 @@
-// The flash-attention-2 tile step shared by the attention kernels (K1 in
-// packed_attention.cu, K8 and K9 in flash_attention.cu).
+// The flash-attention-2 tile step of K9 (windowed attention,
+// flash_attention.cu). It served K1 and K8 too until their Hopper redesign
+// (packed_attention.cu); it serves K9 alone until K9 moves onto that step.
 //
 // A block of 4 warps owns 64 query rows; each warp owns 16 of them end to
 // end. Its q rows are bf16 A fragments in registers, the scores of one
@@ -41,13 +42,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

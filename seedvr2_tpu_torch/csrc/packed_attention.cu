@@ -1,4 +1,6 @@
-// Packed window attention for NaDiT (kernel K1 of the port).
+// Packed window attention for NaDiT (kernel K1 of the port), and the Hopper
+// attention step it shares with K8 (dense flash attention,
+// flash_attention.cu).
 //
 // Replaces: the Pallas TPU kernel `_fa_packed_kernel` behind
 // `flash_packed_attention` (comfyui-seedvr2_tpu/ops/flash_attention.py).
@@ -7,180 +9,722 @@
 // rotate-half RoPE from four (S, D) fp32 tables that already carry the
 // qk-norm weights and the baked text rope, then softmax(q k^T * scale) v in
 // the exp2 domain (scale*log2e folded into q), masking key columns >= kv_len.
-// q, k and v are read in place from ONE packed (B, S, 3*H*D) bf16 operand at
-// column offsets h*D, (H+h)*D and (2H+h)*D; the output is (B, S, H*D) bf16.
+// q, k and v are read from ONE packed (B, S, 3*H*D) bf16 operand at column
+// offsets h*D, (H+h)*D and (2H+h)*D; the output is (B, S, H*D) bf16.
 //
 // What bounds it on an H100: at the 3B window sizes (S = 512..3712, D = 128)
-// the work is 4*S*S*D flops per (b, h) against 2*S*D*3 bytes of input, far
-// above the ~295 flop/byte ridge, so it is compute-bound: the tensor cores
-// and the softmax's exp2/max/sum on the CUDA cores set the time.
+// the work is 4*S*kv_len*D flops per (b, h) against about 8*S*D bytes moved,
+// so the tensor cores bound it from S ~ 1000 up; at S = 512 the card could
+// move the bytes in about the time of the flops (both ~0.03 ms at the
+// record shape). The pre-pass is bound by bytes alone. Measured on an
+// H100 80GB HBM3 (700 W; chip_smoke.py): 0.16 ms at the record shape (B=12
+// S=512 kv_len=463 H=20) against a 0.038 ms bound. What holds it there:
+// the pre-pass, about 30 % of the call (q and k read, then written and
+// read again as q-hat and k-hat), and the step's fixed cost a block (the
+// q load, the epilogue's store) against only 8 key tiles a block; at S =
+// 3712 the step reaches 430 TFLOP/s.
 //
-// Design: one block of 4 warps per (64-row q tile, head, window row). Each
-// warp owns 16 q rows end to end, flash-attention-2 style: its q fragments,
-// score fragments, softmax statistics and fp32 output accumulator all stay
-// in registers, and the products are bf16 `mma.sync.m16n8k16` with fp32
-// accumulation, whose fragment layouts let a thread rescale exactly the two
-// output rows it holds. Shared memory holds only the normalised q tile and
-// one 64-row k tile and (transposed) v tile, about 52 KB for D = 128
-// whatever S is (set through cudaFuncAttributeMaxDynamicSharedMemorySize);
-// tiles wholly past kv_len are skipped, and the rows are padded by 8 so the
-// fragment loads do not collide in shared-memory banks. The score, softmax
-// and P V step is `flash::Rows` (flash_tile.cuh), shared with K8 and K9;
-// what is K1's own is the qk-norm + rope staging. A right, simple
-// kernel first: no TMA, no wgmma, no software pipelining; those are for the
-// PRs that make it fast.
+// Design, in two launches of one call:
+//  1. `qk_prepass_kernel`: q and k are normalised and roped ONCE per
+//     (b, row, h), q times scale*log2e, rounded to bf16 into a scratch
+//     (2, B, S, H, D) the wrapper allocates. D/8 threads own a (b, row) and
+//     walk its H heads, four 16-byte loads in flight, so the row's fp32
+//     table values are read once for all heads; the norm's sum of squares
+//     is reduced by shuffles inside a head's lanes.
+//  2. `attention_kernel` (FlashAttention-3's shape): a block owns 128 q rows
+//     of one (b, h) and has three roles. One producer warp issues TMA loads
+//     (cp.async.bulk.tensor, 128-byte swizzle, boxes of 64 rows x 64
+//     columns, so D = 128 is two boxes) of q-hat once and of k-hat and v
+//     tiles of 64 keys into a 4-stage ring guarded by full / empty
+//     mbarriers; v is read in place from the packed operand through a
+//     tensor map whose row stride is 3*H*D. Two consumer warpgroups of 64
+//     q rows each compute S = q k^T with `wgmma.mma_async` (both operands
+//     from shared memory, K-major), the online softmax in registers in the
+//     exp2 domain, and O += P v with P taken from the S accumulator as bf16
+//     register A fragments and v as an MN-major (transposed) shared operand,
+//     so v is never transposed by hand. Key tiles wholly past kv_len are
+//     never loaded; the partial one is masked on the fp32 scores. The output
+//     goes through the warpgroup's spent q tile in the same swizzled layout
+//     and out by TMA stores, which clip rows past Sq.
+// K9 alone still uses the earlier mma.sync step (flash_tile.cuh).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_tile.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
-using namespace flash;
+using seedvr2::PrepassSide;
 
-// One warp normalises and ropes one row of D values: lane l owns the D/32
-// consecutive values starting at l*D/32, i.e. whole interleaved pairs.
-// out = (x_n * cos + rot(x_n) * sin) * mult with x_n = x * rsqrt(mean(x^2) +
-// eps) and rot(x)[2i] = -x[2i+1], rot(x)[2i+1] = x[2i].
+// ---------------------------------------------------------------- pre-pass
+
+constexpr int PRE_THREADS = 256;
+
+// D/8 threads own one row (b, s) of H heads, 8 consecutive values of every
+// head (whole interleaved pairs), so the row's table values are loaded once
+// for all H heads. out = bf16((x_n * cos + rot(x_n) * sin) * mult), x_n =
+// x * rsqrt(mean(x^2) + eps) over the head's D values when norm (else x),
+// rot(x)[2i] = -x[2i+1], rot(x)[2i+1] = x[2i]; no rotation without a table
+// or at rows >= table_rows. blockIdx.y picks the side (0: q, 1: k).
 template <int D>
-__device__ __forceinline__ void norm_rope_row(
-    const __nv_bfloat16* __restrict__ src, const float* __restrict__ cos_t,
-    const float* __restrict__ sin_t, float eps, float mult,
-    __nv_bfloat16* dst, int lane) {
-  constexpr int EPL = D / 32;
-  static_assert(EPL % 2 == 0, "each lane must own whole pairs");
-  const int c0 = lane * EPL;
-  float x[EPL];
-  float ss = 0.f;
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) {
-    x[e] = __bfloat162float(src[c0 + e]);
-    ss += x[e] * x[e];
+__global__ void __launch_bounds__(PRE_THREADS)
+qk_prepass_kernel(const PrepassSide q, const PrepassSide k, int B, int H,
+                  int table_rows, int norm, float eps) {
+  constexpr int TPR = D / 8;
+  constexpr int U = 4;  // heads in flight a thread
+  const bool is_q = blockIdx.y == 0;
+  const __nv_bfloat16* src =
+      static_cast<const __nv_bfloat16*>(is_q ? q.src : k.src);
+  const long long stride = is_q ? q.src_stride : k.src_stride;
+  const float* cos_t = is_q ? q.cos : k.cos;
+  const float* sin_t = is_q ? q.sin : k.sin;
+  __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(is_q ? q.dst : k.dst);
+  const int rows = is_q ? q.rows : k.rows;
+  const float mult = is_q ? q.mult : k.mult;
+
+  const long long total = (long long)B * rows;
+  long long row = (long long)blockIdx.x * (PRE_THREADS / TPR) +
+                  threadIdx.x / TPR;
+  const bool live = row < total;
+  if (!live) row = total - 1;  // keeps the row's shuffles whole
+  const int c = (threadIdx.x % TPR) * 8;
+  const int s = int(row % rows);
+  const bool rot = cos_t != nullptr && s < table_rows;
+  float cs[8], sn[8];
+  if (rot) {
+    const float4* cp =
+        reinterpret_cast<const float4*>(cos_t + (long long)s * D + c);
+    const float4* sp =
+        reinterpret_cast<const float4*>(sin_t + (long long)s * D + c);
+    const float4 c0 = cp[0], c1 = cp[1], s0 = sp[0], s1 = sp[1];
+    cs[0] = c0.x; cs[1] = c0.y; cs[2] = c0.z; cs[3] = c0.w;
+    cs[4] = c1.x; cs[5] = c1.y; cs[6] = c1.z; cs[7] = c1.w;
+    sn[0] = s0.x; sn[1] = s0.y; sn[2] = s0.z; sn[3] = s0.w;
+    sn[4] = s1.x; sn[5] = s1.y; sn[6] = s1.z; sn[7] = s1.w;
   }
-  ss = warp_sum(ss);
-  const float inv = rsqrtf(ss / float(D) + eps);
+  const __nv_bfloat16* x_row = src + row * stride + c;
+  __nv_bfloat16* y_row = dst + row * H * D + c;
+
+  for (int h0 = 0; h0 < H; h0 += U) {
+    uint4 raw[U];
 #pragma unroll
-  for (int e = 0; e < EPL; e += 2) {
-    const float a = x[e] * inv;
-    const float b = x[e + 1] * inv;
-    const float ra = a * cos_t[c0 + e] - b * sin_t[c0 + e];
-    const float rb = b * cos_t[c0 + e + 1] + a * sin_t[c0 + e + 1];
-    dst[c0 + e] = __float2bfloat16(ra * mult);
-    dst[c0 + e + 1] = __float2bfloat16(rb * mult);
+    for (int u = 0; u < U; ++u)
+      if (h0 + u < H)
+        raw[u] = *reinterpret_cast<const uint4*>(x_row + (h0 + u) * D);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (h0 + u >= H) break;  // the same for every lane
+      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&raw[u]);
+      float x[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(xp[i]);
+        x[2 * i] = f.x;
+        x[2 * i + 1] = f.y;
+      }
+      if (norm) {
+        float ss = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) ss += x[e] * x[e];
+#pragma unroll
+        for (int off = TPR / 2; off > 0; off >>= 1)
+          ss += __shfl_xor_sync(0xffffffffu, ss, off);
+        const float inv = rsqrtf(ss / float(D) + eps);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x[e] *= inv;
+      }
+      float y[8];
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        y[e] = rot ? x[e] * cs[e] - x[e + 1] * sn[e] : x[e];
+        y[e + 1] = rot ? x[e + 1] * cs[e + 1] + x[e] * sn[e + 1] : x[e + 1];
+      }
+      uint4 packed;
+      __nv_bfloat162* yp = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        yp[i] = __floats2bfloat162_rn(y[2 * i] * mult, y[2 * i + 1] * mult);
+      if (live) *reinterpret_cast<uint4*>(y_row + (h0 + u) * D) = packed;
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-packed_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
-                        const float* __restrict__ cos_q,
-                        const float* __restrict__ sin_q,
-                        const float* __restrict__ cos_k,
-                        const float* __restrict__ sin_k,
-                        __nv_bfloat16* __restrict__ out, int S, int H,
-                        int kv_len, float eps, float qscale) {
-  constexpr int QS = D + PAD;   // row stride of Qs and Ks
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + BQ * QS;
-  __nv_bfloat16* Vt = Ks + BK * QS;
+cudaError_t launch_prepass(const PrepassSide& q, const PrepassSide& k, int B,
+                           int H, int table_rows, bool norm, float eps,
+                           cudaStream_t stream) {
+  constexpr int ROWS = PRE_THREADS / (D / 8);
+  const long long total = (long long)B * (q.rows > k.rows ? q.rows : k.rows);
+  if (total == 0) return cudaSuccess;
+  const dim3 grid(unsigned((total + ROWS - 1) / ROWS), 2);
+  qk_prepass_kernel<D><<<grid, PRE_THREADS, 0, stream>>>(
+      q, k, B, H, table_rows, norm ? 1 : 0, eps);
+  return cudaGetLastError();
+}
 
-  const int q0 = blockIdx.x * BQ;
+// ----------------------------------------------------- the attention step
+
+constexpr int BM = 64;         // q rows of one consumer warpgroup
+constexpr int CONSUMERS = 2;   // consumer warpgroups a block
+constexpr int BN = 64;         // keys a tile
+constexpr int STAGES = 4;      // depth of the k / v ring
+constexpr int BOX = 64;        // rows and bf16 columns (128 bytes) of a box
+constexpr uint32_t BOX_BYTES = BOX * BOX * 2;
+constexpr int THREADS = CONSUMERS * 128 + 32;  // + one producer warp
+
+template <int D>
+constexpr size_t smem_bytes() {
+  // q tiles, the k and v rings, the barriers, 1024 bytes of alignment slack
+  return size_t(CONSUMERS + 2 * STAGES) * (D / BOX) * BOX_BYTES +
+         (2 * STAGES + 1) * 8 + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Returns once the phase of parity `parity` has completed. A wait of 2^34
+// clocks (about 9 s) means a lost arrival, never a slow tile: the kernel
+// traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// One 64 x 64 box at (column c0, row c1, batch row c2) into shared memory,
+// completing `bar`'s transaction bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand (layout
+// type 1): start address, leading and stride byte offsets, all >> 4. The
+// swizzle atoms (8 rows of 128 bytes) must start 1024-byte aligned.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(sbo >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define F8(i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d(64 x 64, fp32) (+)= A(64 x 16) B(16 x 64), both bf16 K-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d(64 x N, fp32) += A(64 x 16, bf16 registers) B(16 x N), B MN-major
+// (transposed) in shared memory; N = 64 or 128.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, "
+      "1;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef F8
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// Issues (and commits, without waiting) S = q k^T for one 64-key tile:
+// D/16 steps of 16 columns, a step 32 bytes into the 128-byte swizzled rows
+// of one 64-column panel; both operands K-major.
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&sc)[BN / 2],
+                                             uint32_t q_tile,
+                                             uint32_t k_tile) {
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+  reg_fence(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+    wgmma_ss_n64(sc, sw128_desc(q_tile + off, 16, 1024),
+                 sw128_desc(k_tile + off, 16, 1024), 1);
+  }
+  wgmma_commit();
+}
+
+// Issues (and commits) O += P v for one 64-key tile: P as register A
+// fragments, v MN-major; a 16-key step starts 16 rows (2048 bytes) further,
+// v's D columns (N) are split in panels BOX_BYTES apart (leading byte
+// offset), 8-key groups 1024 bytes apart (stride byte offset).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[BN / 16][4],
+                                         uint32_t v_tile) {
+  reg_fence(o);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < BN / 16; ++ks) {
+    const uint64_t dv = sw128_desc(v_tile + ks * 16 * 128, BOX_BYTES, 1024);
+    if constexpr (D == 128)
+      wgmma_rs_n128(o, pa[ks], dv);
+    else
+      wgmma_rs_n64(o, pa[ks], dv);
+  }
+  wgmma_commit();
+}
+
+// Online softmax over one tile of fp32 scores, exp2 domain, for the rows g
+// and g + 8 this thread holds: scores times score_scale (1 when q was
+// pre-scaled), keys at or past kv_len masked, the running max clamped at
+// -1e30 so that a row with no valid key yet leaves exp2(-inf - m) = 0 and no
+// NaN. Leaves exp2(s - m) in sc, this thread's partial sums in l, and the
+// factor O must be rescaled by in corr.
+__device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], int k0,
+                                             int kv_len, float score_scale,
+                                             int t, float (&m)[2],
+                                             float (&l)[2], float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] *= score_scale;
+  if (k0 + BN > kv_len) {
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int col = k0 + 8 * i + 2 * t;
+      if (col >= kv_len) sc[4 * i] = sc[4 * i + 2] = -INFINITY;
+      if (col + 1 >= kv_len) sc[4 * i + 1] = sc[4 * i + 3] = -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // r = 0: row g, r = 1: row g + 8
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+      mx = fmaxf(mx, fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]));
+    const float mn = fmaxf(fmaxf(m[r], quad_max(mx)), -1e30f);
+    corr[r] = exp2f(m[r] - mn);
+    m[r] = mn;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      sc[4 * i + 2 * r] = exp2f(sc[4 * i + 2 * r] - mn);
+      sc[4 * i + 2 * r + 1] = exp2f(sc[4 * i + 2 * r + 1] - mn);
+      sum += sc[4 * i + 2 * r] + sc[4 * i + 2 * r + 1];
+    }
+    l[r] = l[r] * corr[r] + sum;
+  }
+}
+
+// P rounded to bf16 as the register A fragments of four 16-key steps.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BN / 16][4],
+                                       const float (&sc)[BN / 2]) {
+#pragma unroll
+  for (int ks = 0; ks < BN / 16; ++ks) {
+    pa[ks][0] = pack_bf16(sc[8 * ks], sc[8 * ks + 1]);
+    pa[ks][1] = pack_bf16(sc[8 * ks + 2], sc[8 * ks + 3]);
+    pa[ks][2] = pack_bf16(sc[8 * ks + 4], sc[8 * ks + 5]);
+    pa[ks][3] = pack_bf16(sc[8 * ks + 6], sc[8 * ks + 7]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    o[4 * i] *= corr[0];
+    o[4 * i + 1] *= corr[0];
+    o[4 * i + 2] *= corr[1];
+    o[4 * i + 3] *= corr[1];
+  }
+}
+
+// Accumulator layout of a wgmma m64nN tile (as mma.sync m16n8 per warp):
+// thread (warp w, lane = 4g + t) holds, for each 8-column block i, d[4i],
+// d[4i+1] at row 16w + g, columns 8i + 2t, 8i + 2t + 1, and d[4i+2],
+// d[4i+3] at row 16w + g + 8. Two adjacent blocks of the score tile are the
+// register A fragment of one 16-key step of P v.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+attention_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_o, int kv_len,
+                 float score_scale) {
+  constexpr int P = D / BOX;                 // 64-column panels of a tile
+  constexpr uint32_t TILE = P * BOX_BYTES;   // one 64-row tile, D columns
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base;                       // CONSUMERS tiles
+  const uint32_t sK = sQ + CONSUMERS * TILE;      // STAGES tiles
+  const uint32_t sV = sK + STAGES * TILE;         // STAGES tiles
+  const uint32_t full = sV + STAGES * TILE;       // STAGES barriers
+  const uint32_t empty = full + 8 * STAGES;       // STAGES barriers
+  const uint32_t qbar = empty + 8 * STAGES;
+
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;    // fragment row group
-  const int t = lane % 4;    // fragment column pair
-  const int r0 = warp * 16;  // this warp's first row inside the tile
-  const size_t row_stride = size_t(3) * H * D;
-  const __nv_bfloat16* base = qkv + size_t(b) * S * row_stride;
+  const int q0 = blockIdx.x * (CONSUMERS * BM);
+  const int n_tiles = (kv_len + BN - 1) / BN;  // tiles past kv_len skipped
 
-  // q side: norm + rope + scale*log2e, staged as bf16, then held as A
-  // fragments in registers for the whole key loop
-  for (int r = r0; r < r0 + 16; ++r) {
-    const size_t row = size_t(q0 + r);
-    norm_rope_row<D>(base + row * row_stride + size_t(h) * D,
-                     cos_q + row * D, sin_q + row * D, eps, qscale,
-                     Qs + r * QS, lane);
-  }
-  __syncwarp();
-  Rows<D> rows;
-  rows.begin(Qs, r0, g, t);
-
-  const int n_tiles = (kv_len + BK - 1) / BK;  // tiles past kv_len skipped
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * BK;
-    __syncthreads();  // every warp is done with the previous k/v tile
-    for (int r = r0; r < r0 + 16; ++r) {
-      const size_t row = size_t(k0 + r);
-      norm_rope_row<D>(base + row * row_stride + size_t(H + h) * D,
-                       cos_k + row * D, sin_k + row * D, eps, 1.f,
-                       Ks + r * QS, lane);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 128);
     }
-    load_v_tile<D>(base + size_t(k0) * row_stride + size_t(2 * H + h) * D,
-                   row_stride, BK, Vt);
-    __syncthreads();
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-    float s[BK / 8][4];
-    rows.scores(s, Ks, g, t);
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // producer: one thread keeps the ring full
+    if (threadIdx.x == CONSUMERS * 128) {
+      mbar_expect_tx(qbar, CONSUMERS * TILE);
+      for (int c = 0; c < CONSUMERS; ++c)
+        for (int p = 0; p < P; ++p)
+          tma_load(sQ + c * TILE + p * BOX_BYTES, &tm_q, qbar,
+                   h * D + p * BOX, q0 + c * BM, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * TILE);
+        for (int p = 0; p < P; ++p) {
+          tma_load(sK + s * TILE + p * BOX_BYTES, &tm_k, full + 8 * s,
+                   h * D + p * BOX, j * BN, b);
+          tma_load(sV + s * TILE + p * BOX_BYTES, &tm_v, full + 8 * s,
+                   h * D + p * BOX, j * BN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const uint32_t q_tile = sQ + wg * TILE;
+
+  float o[D / 2];
 #pragma unroll
-    for (int nb = 0; nb < BK / 8; ++nb) {
-      const int col = k0 + nb * 8 + 2 * t;
-      if (col >= kv_len) s[nb][0] = s[nb][2] = -INFINITY;
-      if (col + 1 >= kv_len) s[nb][1] = s[nb][3] = -INFINITY;
-    }
-    rows.update(s, Vt, g, t);
-  }
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8
+  float l[2] = {0.f, 0.f};              // this thread's partial sums
+  float corr[2];
+  float sc[BN / 2];
+  uint32_t pa[BN / 16][4];
 
-  const int lo = q0 + r0 + g;
-  rows.store(out + (size_t(b) * S + lo) * H * D + size_t(h) * D + 2 * t,
-             size_t(H) * D, lo, S);
+  // Tile j's scores are issued together with tile j - 1's P v, and tile j's
+  // softmax runs while that P v is still on the tensor cores; O is rescaled
+  // once it has landed.
+  mbar_wait(qbar, 0);
+  mbar_wait(full, 0);
+  issue_scores<D>(sc, q_tile, sK);
+  wgmma_wait<0>();
+  reg_fence(sc);
+  softmax_tile(sc, 0, kv_len, score_scale, t, m, l, corr);
+  pack_p(pa, sc);
+  for (int j = 1; j < n_tiles; ++j) {
+    const int s = j % STAGES;
+    const int sp = (j - 1) % STAGES;
+    mbar_wait(full + 8 * s, (j / STAGES) & 1);
+    issue_scores<D>(sc, q_tile, sK + s * TILE);
+    issue_pv<D>(o, pa, sV + sp * TILE);
+    wgmma_wait<1>();  // the scores have landed
+    reg_fence(sc);
+    softmax_tile(sc, j * BN, kv_len, score_scale, t, m, l, corr);
+    wgmma_wait<0>();  // P v has landed
+    reg_fence(o);
+    mbar_arrive(empty + 8 * sp);  // this thread is done with stage sp
+    rescale<D>(o, corr);
+    pack_p(pa, sc);
+  }
+  issue_pv<D>(o, pa, sV + ((n_tiles - 1) % STAGES) * TILE);
+  wgmma_wait<0>();
+  reg_fence(o);
+
+  // out = O / max(l, 1e-30) as bf16, written into the warpgroup's spent q
+  // tile in the TMA box layout (16-byte chunk c of row r at chunk c ^ (r %
+  // 8)), then stored by TMA, which drops rows past Sq
+  const float d_lo = fmaxf(quad_sum(l[0]), 1e-30f);
+  const float d_hi = fmaxf(quad_sum(l[1]), 1e-30f);
+  unsigned char* out_tile = smem_raw + (q_tile - raw);
+  const int r_lo = warp * 16 + g;  // r_lo % 8 == (r_lo + 8) % 8 == g
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const uint32_t off =
+        (i / 8) * BOX_BYTES + r_lo * 128 + (((i % 8) ^ g) * 16) + 4 * t;
+    *reinterpret_cast<__nv_bfloat162*>(out_tile + off) =
+        __floats2bfloat162_rn(o[4 * i] / d_lo, o[4 * i + 1] / d_lo);
+    *reinterpret_cast<__nv_bfloat162*>(out_tile + off + 8 * 128) =
+        __floats2bfloat162_rn(o[4 * i + 2] / d_hi, o[4 * i + 3] / d_hi);
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+  if (tid == 0) {
+    for (int p = 0; p < P; ++p)
+      tma_store(&tm_o, q_tile + p * BOX_BYTES, h * D + p * BOX, q0 + wg * BM,
+                b);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &res);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &res);
+#endif
+    return res == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                              : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of B batch rows of `rows` rows of H*D bf16 (row stride
+// `row_stride` elements), boxes of 64 x 64 with the 128-byte swizzle; reads
+// past a batch row's last row are zero-filled, writes there dropped.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int rows, int H,
+              int D, long long row_stride) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(H) * D, cuuint64_t(rows),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[2] = {cuuint64_t(row_stride) * 2,
+                                 cuuint64_t(row_stride) * 2 * rows};
+  const cuuint32_t box[3] = {BOX, BOX, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
-cudaError_t launch(const void* qkv, const void* cos_q, const void* sin_q,
-                   const void* cos_k, const void* sin_k, void* out, int B,
-                   int S, int H, int kv_len, float eps, float qscale,
-                   cudaStream_t stream) {
+cudaError_t launch_attention(const CUtensorMap& q, const CUtensorMap& k,
+                             const CUtensorMap& v, const CUtensorMap& o,
+                             int B, int Sq, int H, int kv_len,
+                             float score_scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      packed_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(S / BQ, H, B);
-  packed_attention_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv),
-      static_cast<const float*>(cos_q), static_cast<const float*>(sin_q),
-      static_cast<const float*>(cos_k), static_cast<const float*>(sin_k),
-      static_cast<__nv_bfloat16*>(out), S, H, kv_len, eps, qscale);
+  const dim3 grid((Sq + CONSUMERS * BM - 1) / (CONSUMERS * BM), H, B);
+  attention_kernel<D><<<grid, THREADS, smem, stream>>>(q, k, v, o, kv_len,
+                                                       score_scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shapes are validated by the Python wrapper
-// (seedvr2_tpu_torch/ops/flash_attention.py): S % 64 == 0, 1 <= kv_len <= S,
-// D in {64, 128}, contiguous bf16 qkv/out and fp32 (S, D) tables.
+namespace seedvr2 {
+
+cudaError_t qk_prepass(int D, const PrepassSide& q, const PrepassSide& k,
+                       int B, int H, int table_rows, bool norm, float eps,
+                       cudaStream_t stream) {
+  if (D == 128)
+    return launch_prepass<128>(q, k, B, H, table_rows, norm, eps, stream);
+  if (D == 64)
+    return launch_prepass<64>(q, k, B, H, table_rows, norm, eps, stream);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t attention_sm90(const void* q, long long q_stride, const void* k,
+                           long long k_stride, const void* v,
+                           long long v_stride, void* out, int B, int Sq,
+                           int Sk, int H, int D, int kv_len,
+                           float score_scale, cudaStream_t stream) {
+  if (B == 0 || Sq == 0) return cudaSuccess;
+  if ((D != 64 && D != 128) || kv_len < 1 || kv_len > Sk)
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, to;
+  if (!make_map(&tq, q, B, Sq, H, D, q_stride) ||
+      !make_map(&tk, k, B, Sk, H, D, k_stride) ||
+      !make_map(&tv, v, B, Sk, H, D, v_stride) ||
+      !make_map(&to, out, B, Sq, H, D, (long long)H * D))
+    return cudaErrorInvalidValue;
+  return D == 128 ? launch_attention<128>(tq, tk, tv, to, B, Sq, H, kv_len,
+                                          score_scale, stream)
+                  : launch_attention<64>(tq, tk, tv, to, B, Sq, H, kv_len,
+                                         score_scale, stream);
+}
+
+}  // namespace seedvr2
+
+// qkv (B, S, 3*H*D) bf16, tables (S, D) fp32, scratch (2, B, S, H, D) bf16
+// (q-hat, k-hat), out (B, S, H*D) bf16; all contiguous and 16-byte aligned,
+// 1 <= kv_len <= S, D in {64, 128}: checked by the Python wrapper
+// (seedvr2_tpu_torch/ops/flash_attention.py). Launches the pre-pass, then
+// the attention step.
 extern "C" int seedvr2_packed_attention(const void* qkv, const void* cos_q,
                                         const void* sin_q, const void* cos_k,
-                                        const void* sin_k, void* out, int B,
-                                        int S, int H, int D, int kv_len,
-                                        float eps, float qscale,
+                                        const void* sin_k, void* scratch,
+                                        void* out, int B, int S, int H, int D,
+                                        int kv_len, float eps, float qscale,
                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 128) {
-    err = launch<128>(qkv, cos_q, sin_q, cos_k, sin_k, out, B, S, H, kv_len,
-                      eps, qscale, st);
-  } else if (D == 64) {
-    err = launch<64>(qkv, cos_q, sin_q, cos_k, sin_k, out, B, S, H, kv_len,
-                     eps, qscale, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return int(err);
+  const long long hd = (long long)H * D;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(qkv);
+  __nv_bfloat16* q_hat = static_cast<__nv_bfloat16*>(scratch);
+  __nv_bfloat16* k_hat = q_hat + (long long)B * S * hd;
+  const PrepassSide q{x, 3 * hd, static_cast<const float*>(cos_q),
+                      static_cast<const float*>(sin_q), q_hat, S, qscale};
+  const PrepassSide k{x + hd, 3 * hd, static_cast<const float*>(cos_k),
+                      static_cast<const float*>(sin_k), k_hat, S, 1.f};
+  cudaError_t err = seedvr2::qk_prepass(D, q, k, B, H, S, true, eps, st);
+  if (err != cudaSuccess) return int(err);
+  return int(seedvr2::attention_sm90(q_hat, hd, k_hat, hd, x + 2 * hd, 3 * hd,
+                                     out, B, S, S, H, D, kv_len, 1.f, st));
+}
+
+// The pre-pass alone: q_src (B, Sq, H, D) and k_src (B, Sk, H, D) bf16 at row
+// strides q_stride / k_stride elements (heads and D contiguous), tables
+// (table_rows, D) fp32 or null, q_dst / k_dst contiguous bf16; checked by
+// the Python wrapper.
+extern "C" int seedvr2_qk_prepass(const void* q_src, long long q_stride,
+                                  const void* k_src, long long k_stride,
+                                  const void* cos_q, const void* sin_q,
+                                  const void* cos_k, const void* sin_k,
+                                  void* q_dst, void* k_dst, int B, int Sq,
+                                  int Sk, int H, int D, int table_rows,
+                                  int norm, float eps, float qscale,
+                                  void* stream) {
+  const PrepassSide q{q_src, q_stride, static_cast<const float*>(cos_q),
+                      static_cast<const float*>(sin_q), q_dst, Sq, qscale};
+  const PrepassSide k{k_src, k_stride, static_cast<const float*>(cos_k),
+                      static_cast<const float*>(sin_k), k_dst, Sk, 1.f};
+  return int(seedvr2::qk_prepass(D, q, k, B, H, table_rows, norm != 0, eps,
+                                 static_cast<cudaStream_t>(stream)));
 }

@@ -30,13 +30,16 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C entry points: name -> argtypes. Every entry returns cudaGetLastError().
 _SIGNATURES = {
-    # qkv, cos_q, sin_q, cos_k, sin_k, out, B, S, H, D, kv_len, eps, qscale,
-    # stream
-    "seedvr2_packed_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _F, _F, _P],
-    # q, k, v, cos, sin, valid, ids, out, B, Sq, Sk, H, D, kv_len,
+    # qkv, cos_q, sin_q, cos_k, sin_k, scratch, out, B, S, H, D, kv_len, eps,
+    # qscale, stream
+    "seedvr2_packed_attention": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
+    # q_src, q_stride, k_src, k_stride, cos_q, sin_q, cos_k, sin_k, q_dst,
+    # k_dst, B, Sq, Sk, H, D, table_rows, norm, eps, qscale, stream
+    "seedvr2_qk_prepass": [_P, _L, _P, _L] + [_P] * 6 + [_I] * 7
+                          + [_F, _F, _P],
+    # q, k, v, cos, sin, valid, ids, scratch, out, B, Sq, Sk, H, D, kv_len,
     # table_rows, qscale, stream
-    "seedvr2_flash_attention": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "seedvr2_flash_attention": [_P] * 9 + [_I] * 7 + [_F, _P],
     # x, idx, out, B, L, L2, D, stream
     "seedvr2_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     # xq, wq, xs, ws, out, M, N, K, stream

@@ -22,7 +22,10 @@ with its plain version:
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (`csrc/packed_attention.cu`, `csrc/flash_attention.cu`; their headers say
 what bounds them on an H100 and how they are laid out) or raises on what
-it does not take; on a CPU tensor it runs the plain version.
+it does not take; on a CPU tensor it runs the plain version. K1 and K8
+share one Hopper attention step, fed by a pre-pass that normalises (K1)
+and ropes q and k once (`attention_prepass`, plainly `norm_rope_plain`);
+one counted call launches both.
 """
 
 from typing import Optional
@@ -36,8 +39,31 @@ from .gather import RowIndex
 from ..models.dit.rope import apply_rope_ext, rotate_half_full
 
 _LOG2E = 1.4426950408889634
-_BLOCK_ROWS = 64  # the kernel's q and k tile height
 _HEAD_DIMS = (64, 128)
+
+
+def norm_rope_plain(x: torch.Tensor, cos: Optional[torch.Tensor],
+                    sin: Optional[torch.Tensor], eps: Optional[float] = None,
+                    mult: float = 1.0) -> torch.Tensor:
+    """Plain version of the K1/K8 pre-pass: x (B, S, H, D) in fp32,
+    RMS-normed over D when eps is given, rotated by interleaved rotate-half
+    RoPE with (R, D) fp32 tables (R <= S: rows at or past R pass through
+    unrotated; no rotation without tables), times mult, rounded back to x's
+    dtype. The plain attention functions take it with mult = 1 and scale
+    their fp32 logits; the kernels fold mult = scale*log2e into q."""
+    z = x.float()
+    if eps is not None:
+        z = z * torch.rsqrt(torch.mean(z * z, dim=-1, keepdim=True) + eps)
+    if cos is not None:
+        s = z.shape[-3]
+        if cos.shape[0] < s:
+            cos = F.pad(cos, (0, 0, 0, s - cos.shape[0]), value=1.0)
+            sin = F.pad(sin, (0, 0, 0, s - sin.shape[0]))
+        z = (z * cos.float()[:, None, :]
+             + rotate_half_full(z) * sin.float()[:, None, :])
+    if mult != 1.0:
+        z = z * mult
+    return z.to(x.dtype)
 
 
 def packed_window_attention_plain(qkv: torch.Tensor, heads: int, d: int,
@@ -48,20 +74,9 @@ def packed_window_attention_plain(qkv: torch.Tensor, heads: int, d: int,
     d**-0.5."""
     b, s, _ = qkv.shape
     x = qkv.reshape(b, s, 3, heads, d)
-    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
-
-    def norm(z):
-        z32 = z.float()
-        return z32 * torch.rsqrt(torch.mean(z32 * z32, dim=-1, keepdim=True)
-                                 + eps)
-
-    def rope(z, cos, sin):
-        c = cos.float()[:, None, :]
-        sn = sin.float()[:, None, :]
-        return z * c + rotate_half_full(z) * sn
-
-    q = rope(norm(q), cos_q, sin_q).to(qkv.dtype)
-    k = rope(norm(k), cos_k, sin_k).to(qkv.dtype)
+    q = norm_rope_plain(x[:, :, 0], cos_q, sin_q, eps)
+    k = norm_rope_plain(x[:, :, 1], cos_k, sin_k, eps)
+    v = x[:, :, 2]
     bias = None
     if kv_len < s:
         col = torch.arange(s, device=qkv.device)
@@ -73,10 +88,78 @@ def packed_window_attention_plain(qkv: torch.Tensor, heads: int, d: int,
 
 def _check_table(t: torch.Tensor, s: int, d: int, device) -> None:
     if (t.dtype != torch.float32 or t.shape != (s, d)
-            or not t.is_contiguous() or t.device != device):
-        raise ValueError(f"rope tables must be contiguous fp32 ({s}, {d}) on "
-                         f"{device}, got {tuple(t.shape)} {t.dtype} "
-                         f"on {t.device}")
+            or not t.is_contiguous() or t.device != device
+            or t.data_ptr() % 16):
+        raise ValueError(f"rope tables must be contiguous, 16-byte aligned "
+                         f"fp32 ({s}, {d}) on {device}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The tensor maps and the pre-pass's 16-byte loads need 16-byte aligned
+    operands (every tensor the allocator hands out is)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} kernel takes 16-byte aligned operands")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def attention_prepass(q: torch.Tensor, k: torch.Tensor,
+                      cos_q: Optional[torch.Tensor],
+                      sin_q: Optional[torch.Tensor],
+                      cos_k: Optional[torch.Tensor],
+                      sin_k: Optional[torch.Tensor],
+                      eps: Optional[float] = None, mult: float = 1.0):
+    """The K1/K8 pre-pass alone: (norm_rope_plain(q, cos_q, sin_q, eps,
+    mult), norm_rope_plain(k, cos_k, sin_k, eps)) as contiguous tensors.
+    q (B, Sq, H, D), k (B, Sk, H, D); their rows may be strided (K1's q and
+    k columns of the packed operand). Tables: (R, D) fp32 with one R <= S
+    for both sides, or None for both.
+
+    CPU tensors take the plain version. CUDA tensors launch the pre-pass
+    kernel, the one K1's and K8's wrappers launch before their attention
+    step (so chip_smoke.py can time it alone), or raise on what it does not
+    take: bf16 q, k with heads and D contiguous, D in (64, 128)."""
+    if q.device.type == "cpu":
+        return (norm_rope_plain(q, cos_q, sin_q, eps, mult),
+                norm_rope_plain(k, cos_k, sin_k, eps))
+    if q.device.type != "cuda":
+        raise RuntimeError(f"attention pre-pass: no kernel for {q.device}")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    for t in (q, k):
+        if (t.dtype != torch.bfloat16 or t.dim() != 4 or t.shape[0] != b
+                or t.shape[2:] != (h, d) or t.stride(3) != 1
+                or t.stride(2) != d or t.stride(0) != t.shape[1] * t.stride(1)
+                or t.stride(1) % 8 or t.device != q.device):
+            raise ValueError("attention pre-pass kernel takes bf16 (B, S, H, "
+                             "D) q and k with heads and D contiguous")
+    if d not in _HEAD_DIMS or (cos_q is None) != (cos_k is None):
+        raise ValueError(f"attention pre-pass kernel: head dim {d} not in "
+                         f"{_HEAD_DIMS}, or tables for one side only")
+    rows = 0
+    if cos_q is not None:
+        rows = cos_q.shape[0]
+        if rows > min(sq, sk):
+            raise ValueError(f"attention pre-pass: {rows} table rows > S")
+        for t in (cos_q, sin_q, cos_k, sin_k):
+            _check_table(t, rows, d, q.device)
+    _check_aligned("attention pre-pass", q, k)
+    q_hat = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    k_hat = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _build.kernel_library().lib.seedvr2_qk_prepass(
+        q.data_ptr(), q.stride(1), k.data_ptr(), k.stride(1), ptr(cos_q),
+        ptr(sin_q), ptr(cos_k), ptr(sin_k), q_hat.data_ptr(),
+        k_hat.data_ptr(), b, sq, sk, h, d, rows, int(eps is not None),
+        float(eps or 0.0), float(mult), _stream(q))
+    _build.check(err, "seedvr2_qk_prepass")
+    return q_hat, k_hat
 
 
 def packed_window_attention(qkv: torch.Tensor, heads: int, d: int,
@@ -85,9 +168,9 @@ def packed_window_attention(qkv: torch.Tensor, heads: int, d: int,
                             eps: float, kv_len: int) -> torch.Tensor:
     """qkv (B, S, 3*H*D), tables (S, D) fp32 -> (B, S, H*D).
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel, or
-    raise on what it does not take: qkv must be contiguous bf16 with
-    S % 64 == 0 and D in (64, 128); 1 <= kv_len <= S."""
+    CPU tensors take the plain version. CUDA tensors launch the kernel (its
+    pre-pass, then its attention step), or raise on what it does not take:
+    qkv must be contiguous bf16 with D in (64, 128); 1 <= kv_len <= S."""
     if qkv.device.type == "cpu":
         return packed_window_attention_plain(qkv, heads, d, cos_q, sin_q,
                                              cos_k, sin_k, eps, kv_len)
@@ -100,20 +183,23 @@ def packed_window_attention(qkv: torch.Tensor, heads: int, d: int,
     if width != 3 * heads * d or d not in _HEAD_DIMS:
         raise ValueError(f"packed attention kernel: width {width} != 3*{heads}"
                          f"*{d} or head dim not in {_HEAD_DIMS}")
-    if s % _BLOCK_ROWS or not 1 <= kv_len <= s:
-        raise ValueError(f"packed attention kernel: S={s} must be a multiple "
-                         f"of {_BLOCK_ROWS} and 1 <= kv_len={kv_len} <= S")
+    if not 1 <= kv_len <= s:
+        raise ValueError(f"packed attention kernel: 1 <= kv_len={kv_len} <= "
+                         f"S={s} does not hold")
     if b > 65535 or heads > 65535:
         raise ValueError("packed attention kernel: grid too large")
     for t in (cos_q, sin_q, cos_k, sin_k):
         _check_table(t, s, d, qkv.device)
+    _check_aligned("packed attention", qkv)
+    # q-hat and k-hat: normed, roped (q times scale*log2e) bf16
+    scratch = torch.empty((2, b, s, heads, d), dtype=qkv.dtype,
+                          device=qkv.device)
     out = torch.empty((b, s, heads * d), dtype=qkv.dtype, device=qkv.device)
     lib = _build.kernel_library().lib
     err = lib.seedvr2_packed_attention(
         qkv.data_ptr(), cos_q.data_ptr(), sin_q.data_ptr(), cos_k.data_ptr(),
-        sin_k.data_ptr(), out.data_ptr(), b, s, heads, d, kv_len, float(eps),
-        float(d ** -0.5 * _LOG2E),
-        torch.cuda.current_stream(qkv.device).cuda_stream)
+        sin_k.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, s, heads, d,
+        kv_len, float(eps), float(d ** -0.5 * _LOG2E), _stream(qkv))
     _build.check(err, "seedvr2_packed_attention")
     packed_window_attention.launches += 1
     return out
@@ -137,13 +223,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         col = torch.arange(sk, device=q.device)
         bias = torch.where(col < kv_len, 0.0, float("-inf"))[None, None, :]
     if rope_cos is not None:
-        s = q.shape[-3]
-        cos, sin = rope_cos, rope_sin
-        if cos.shape[0] < s:
-            cos = F.pad(cos, (0, 0, 0, s - cos.shape[0]), value=1.0)
-            sin = F.pad(sin, (0, 0, 0, s - sin.shape[0]))
-        q = apply_rope_ext(q, cos, sin)
-        k = apply_rope_ext(k, cos, sin)
+        q = norm_rope_plain(q, rope_cos, rope_sin)
+        k = norm_rope_plain(k, rope_cos, rope_sin)
     return attention_xla(q, k, v, scale=scale, bias=bias)
 
 
@@ -179,6 +260,7 @@ def _check_cuda_operands(name: str, q: torch.Tensor, k: torch.Tensor,
     if d not in _HEAD_DIMS or b > 65535 or h > 65535:
         raise ValueError(f"{name} kernel: head dim {d} not in {_HEAD_DIMS}, "
                          f"or {b} rows / {h} heads beyond the grid")
+    _check_aligned(name, q, k, v)
 
 
 def _qscale(scale: Optional[float], d: int) -> float:
@@ -227,8 +309,8 @@ def flash_windowed_attention(q: torch.Tensor, k: torch.Tensor,
     err = _build.kernel_library().lib.seedvr2_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rope_cos.data_ptr(),
         rope_sin.data_ptr(), kv_valid.data_ptr(), table_ids.tensor.data_ptr(),
-        out.data_ptr(), b, s, s, h, d, s, s, _qscale(scale, d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        None, out.data_ptr(), b, s, s, h, d, s, s, _qscale(scale, d),
+        _stream(q))
     _build.check(err, "seedvr2_flash_attention")
     flash_windowed_attention.launches += 1
     return out
@@ -248,9 +330,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and k (rows past R pass through; needs Sq == Sk). kv_len: the number of
     real kv rows when the caller padded k/v (default Sk).
 
-    CPU tensors take the plain version. CUDA tensors launch kernel K8, or
-    raise on what it does not take: contiguous bf16 q/k/v and fp32 tables
-    on one device, D in (64, 128)."""
+    CPU tensors take the plain version. CUDA tensors launch kernel K8 (with
+    a table, its pre-pass, then its attention step), or raise on what it
+    does not take: contiguous bf16 q/k/v and fp32 tables on one device,
+    D in (64, 128)."""
     sq, sk = q.shape[-3], k.shape[-3]
     kv_len = sk if kv_len is None else kv_len
     if (k.shape != v.shape or q.shape[:-3] != k.shape[:-3]
@@ -272,22 +355,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      kv_len)
     q4, k4, v4 = (t.view(-1, *t.shape[-3:]) for t in (q, k, v))
     _check_cuda_operands("flash_attention", q4, k4, v4)
-    table_rows = 0
-    if rope_cos is not None:
-        for t in (rope_cos, rope_sin):
-            if (t.dtype != torch.float32 or not t.is_contiguous()
-                    or t.device != q.device):
-                raise ValueError("flash_attention kernel: rope tables must "
-                                 f"be contiguous fp32 on {q.device}")
-        table_rows = rope_cos.shape[0]
-    out = torch.empty_like(q4)
     b, _, h, _ = q4.shape
+    table_rows, scratch = 0, None
+    if rope_cos is not None:
+        table_rows = rope_cos.shape[0]
+        for t in (rope_cos, rope_sin):
+            _check_table(t, table_rows, d, q.device)
+        # q-hat and k-hat: roped (q times scale*log2e) bf16
+        scratch = torch.empty((2, *q4.shape), dtype=q4.dtype,
+                              device=q.device)
+    out = torch.empty_like(q4)
     err = _build.kernel_library().lib.seedvr2_flash_attention(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
         None if rope_cos is None else rope_cos.data_ptr(),
         None if rope_sin is None else rope_sin.data_ptr(), None, None,
-        out.data_ptr(), b, sq, sk, h, d, kv_len, table_rows,
-        _qscale(scale, d), torch.cuda.current_stream(q.device).cuda_stream)
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(), b,
+        sq, sk, h, d, kv_len, table_rows, _qscale(scale, d), _stream(q))
     _build.check(err, "seedvr2_flash_attention")
     flash_attention.launches += 1
     return out.reshape(q.shape)

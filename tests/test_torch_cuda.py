@@ -59,6 +59,75 @@ def test_k1_kernel_matches_plain_on_gpu(cuda_device, s, kv_len):
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
 
 
+# K1's edges: short, record and long windows, kv_len at 1, one row short
+# of a key tile, one tile, S - 37 and S
+_K1_EDGES = [(s, kv) for s in (128, 512, 3712)
+             for kv in (1, 63, 64, s - 37, s)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,kv_len", _K1_EDGES,
+                         ids=[f"S{s}-kv{kv}" for s, kv in _K1_EDGES])
+def test_k1_kernel_edges_on_gpu(cuda_device, s, kv_len):
+    """Key tiles wholly past kv_len skipped, the partial one masked, q
+    tiles of 128 rows over S = 128 .. 3712: finite, within the JAX
+    package's kernel bound of the plain version."""
+    gen = torch.Generator(cuda_device).manual_seed(s + kv_len)
+    h, d = 4, 128
+    qkv = torch.randn(2, s, 3 * h * d, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    tabs = _tables(np.random.default_rng(s + kv_len), s, d, cuda_device)
+    before = tfa.packed_window_attention.launches
+    out = tfa.packed_window_attention(qkv, h, d, *tabs, 1e-5, kv_len)
+    assert tfa.packed_window_attention.launches == before + 1
+    ref = tfa.packed_window_attention_plain(qkv, h, d, *tabs, 1e-5, kv_len)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,kv_len", [(256, 200), (192, 64)])
+def test_k1_kernel_head_dim_64_on_gpu(cuda_device, s, kv_len):
+    """D = 64: one 64-column box a tile, wgmma N = 64 for P v."""
+    gen = torch.Generator(cuda_device).manual_seed(s)
+    h, d = 3, 64
+    qkv = torch.randn(2, s, 3 * h * d, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    tabs = _tables(np.random.default_rng(s), s, d, cuda_device)
+    out = tfa.packed_window_attention(qkv, h, d, *tabs, 1e-5, kv_len)
+    ref = tfa.packed_window_attention_plain(qkv, h, d, *tabs, 1e-5, kv_len)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,rows", [(128, None), (64, None), (128, 300)],
+                         ids=["k1_d128", "k1_d64", "k8_short_table"])
+def test_attention_prepass_kernel_matches_plain_on_gpu(cuda_device, d, rows):
+    """The pre-pass alone: K1's form (strided q and k columns of the packed
+    operand, qk-norm, one table a side) and K8's (no norm, one table shorter
+    than S for both sides). The same fp32 arithmetic in another order, so
+    one bf16 rounding may land one ulp (<= 2^-7 of the value) apart."""
+    gen = torch.Generator(cuda_device).manual_seed(d)
+    b, s, h = 2, 463, 3
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    x = qkv.view(b, s, 3, h, d)
+    q, k = x[:, :, 0], x[:, :, 1]
+    if rows is None:
+        cq, sq, ck, sk = _tables(np.random.default_rng(d), s, d, cuda_device)
+        eps = 1e-5
+    else:
+        cq, sq = _tables(np.random.default_rng(d), rows, d, cuda_device)[:2]
+        ck, sk, eps = cq, sq, None
+    q_hat, k_hat = tfa.attention_prepass(q, k, cq, sq, ck, sk, eps, 0.127)
+    for hat, ref in ((q_hat, tfa.norm_rope_plain(q, cq, sq, eps, 0.127)),
+                     (k_hat, tfa.norm_rope_plain(k, ck, sk, eps))):
+        assert hat.is_contiguous() and hat.shape == (b, s, h, d)
+        torch.testing.assert_close(hat.float(), ref.float(), atol=1e-6,
+                                   rtol=2.0 ** -7)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [2560, 30])
 def test_k2_kernel_matches_plain_on_gpu(cuda_device, width):
@@ -397,6 +466,32 @@ def test_k8_kernel_matches_plain_on_gpu(cuda_device, sq, sk, d, rows,
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
     with pytest.raises(ValueError):
         tfa.flash_attention(q.float(), k.float(), v.float(), kv_len=kv_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,d,rows,kv_len", [
+    (463, None, 128, 463, 400),     # Sq not a multiple of 64, masked keys
+    (463, 700, 128, None, 650),     # Sq != Sk without rope
+    (463, None, 128, 300, 463),     # rows past table_rows unrotated
+    (300, None, 128, None, 1),      # one valid key: 4 of 5 tiles skipped
+    (200, 500, 64, None, 64)],      # exactly one key tile, D = 64
+    ids=["sq463_table", "sq463_cross", "short_table", "kv1", "kv64_d64"])
+def test_k8_kernel_edges_on_gpu(cuda_device, sq, sk, d, rows, kv_len):
+    """The Hopper step's edges in K8's dense form: TMA zero fill past S,
+    clipped stores past Sq, key tiles wholly past kv_len never loaded."""
+    gen = torch.Generator(cuda_device).manual_seed(sq + kv_len)
+    q, k, v = _attention_operands(gen, 3, sq, 2, d, cuda_device, sk)
+    cos = sin = None
+    if rows is not None:
+        ang = torch.randn(rows, d // 2, generator=gen, device=cuda_device)
+        cos = torch.cos(ang).repeat_interleave(2, -1).contiguous()
+        sin = torch.sin(ang).repeat_interleave(2, -1).contiguous()
+    before = tfa.flash_attention.launches
+    out = tfa.flash_attention(q, k, v, None, cos, sin, kv_len)
+    assert tfa.flash_attention.launches == before + 1
+    ref = tfa.flash_attention_plain(q, k, v, None, cos, sin, kv_len)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda
