@@ -20,9 +20,11 @@ network. In order it:
     and quantize rows); K6 (Q8_0 dequantizing GEMM) within one bf16 ulp and
     K7 (affine) within one ulp almost everywhere, at every distinct (K, N)
     of the 3B DiT's converted linears and the quantised lanes' token
-    counts, M = 1 and 58 included; K11 (int8 implicit-GEMM conv) within one
-    bf16 ulp at every (Ci, Co, T, H, W) of the 720p clip's int8 decode (and
-    exact on the last rows of a 4K stage, whose input passes 2^31 bytes), and
+    counts, M = 1 and 58 included (each beside the earlier mma.sync
+    design's time, its fold floor and, for K7, its pre-pass);
+    K11 (int8 implicit-GEMM conv) within one bf16 ulp at every (Ci, Co, T,
+    H, W) of the 720p clip's int8 decode (and exact on the last rows of a
+    4K stage, whose input passes 2^31 bytes), and
     K12 (fused norm + SiLU + causal head) within one ulp with its head frames
     equal, at every shape of that clip's fused-norm encode and decode; times
     each with CUDA events after an L2 flush, beside its plain version, the
@@ -375,29 +377,51 @@ def latent_shape(vae_cfg, t: int, h: int, w: int, res: int):
             -(-nw // 16) * 16 // sd)
 
 
-# K1's and K8's times in PR 5, before their Hopper redesign (PERF.md,
-# "PR 5 design"): chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W, by case
-PR5_MS = {
-    "K1 S=128 kv_len=91 B=16": 0.1123, "K1 S=128 kv_len=128 B=16": 0.1144,
-    "K1 S=896 kv_len=859 B=4": 0.7412, "K1 S=896 kv_len=896 B=4": 0.7368,
-    "K1 S=3712 kv_len=3675 B=2": 6.4220, "K1 S=3712 kv_len=3712 B=2": 6.3946,
-    "K1 clip plan window n=12 wlen=405 S=512 kv_len=463": 0.7528,
-    "K1 clip plan window n=6 wlen=390 S=512 kv_len=448": 0.3911,
-    "K1 clip plan shifted_window n=4 wlen=91 S=256 kv_len=149": 0.0815,
-    "K1 clip plan shifted_window n=8 wlen=195 S=256 kv_len=253": 0.1777,
-    "K1 clip plan shifted_window n=4 wlen=104 S=256 kv_len=162": 0.0807,
-    "K1 clip plan shifted_window n=4 wlen=189 S=256 kv_len=247": 0.0997,
-    "K1 clip plan shifted_window n=8 wlen=405 S=512 kv_len=463": 0.5891,
-    "K1 clip plan shifted_window n=4 wlen=216 S=384 kv_len=274": 0.2069,
-    "K8 B=12 Sq=463 Sk=463 kv_len=463 H=20 D=128 shared table": 0.8811,
-    "K8 B=4 Sq=512 Sk=1024 kv_len=1000 H=20 D=128 no rope": 0.4879,
-}
+# Times of the redesigned kernels in their earlier design, by row name:
+# (design, ms). K1 and K8 on the mma.sync tile step, K6 and K7 on mma.sync
+# m16n8k16 with one 32-group a cp.async stage; each timed by this script on
+# the tree before its Hopper redesign (PERF.md: the kernel table and the
+# K6 / K7 by_shape table), NVIDIA H100 80GB HBM3, 700.00 W.
+EARLIER_MS = {name: (design, ms) for design, times in (
+    ("mma.sync step design", {
+        "K1 S=128 kv_len=91 B=16": 0.1123, "K1 S=128 kv_len=128 B=16": 0.1144,
+        "K1 S=896 kv_len=859 B=4": 0.7412, "K1 S=896 kv_len=896 B=4": 0.7368,
+        "K1 S=3712 kv_len=3675 B=2": 6.4220,
+        "K1 S=3712 kv_len=3712 B=2": 6.3946,
+        "K1 clip plan window n=12 wlen=405 S=512 kv_len=463": 0.7528,
+        "K1 clip plan window n=6 wlen=390 S=512 kv_len=448": 0.3911,
+        "K1 clip plan shifted_window n=4 wlen=91 S=256 kv_len=149": 0.0815,
+        "K1 clip plan shifted_window n=8 wlen=195 S=256 kv_len=253": 0.1777,
+        "K1 clip plan shifted_window n=4 wlen=104 S=256 kv_len=162": 0.0807,
+        "K1 clip plan shifted_window n=4 wlen=189 S=256 kv_len=247": 0.0997,
+        "K1 clip plan shifted_window n=8 wlen=405 S=512 kv_len=463": 0.5891,
+        "K1 clip plan shifted_window n=4 wlen=216 S=384 kv_len=274": 0.2069,
+        "K8 B=12 Sq=463 Sk=463 kv_len=463 H=20 D=128 shared table": 0.8811,
+        "K8 B=4 Sq=512 Sk=1024 kv_len=1000 H=20 D=128 no rope": 0.4879,
+    }),
+    ("mma.sync design", {
+        "K6 image 1080 qkv": 1.8952, "K6 image 1080 attn out": 0.6451,
+        "K6 image 1080 gate/up": 1.6963, "K6 image 1080 mlp out": 1.6751,
+        "K6 clip 720 qkv": 1.6586, "K6 clip 720 attn out": 0.594,
+        "K6 clip 720 gate/up": 1.521, "K6 clip 720 mlp out": 1.5257,
+        "K6 txt_in": 0.1777, "K6 text qkv": 0.0907,
+        "K6 text mlp out": 0.2266, "K6 emb proj_hid": 0.0862,
+        "K6 emb proj_out": 0.0889, "K7 clip 1080 qkv": 5.4306,
+        "K7 clip 1080 attn out": 1.9501, "K7 clip 1080 gate/up": 4.8024,
+        "K7 clip 1080 mlp out": 4.934, "K7 clip 720 qkv": 2.3719,
+        "K7 clip 720 attn out": 0.858, "K7 clip 720 gate/up": 2.2234,
+        "K7 clip 720 mlp out": 2.2082, "K7 txt_in": 0.2538,
+        "K7 text qkv": 0.1234, "K7 text mlp out": 0.3111,
+        "K7 emb proj_hid": 0.1185, "K7 emb proj_out": 0.1215,
+    })) for name, ms in times.items()}
 
 
-def pr5_note(name: str) -> str:
-    old = PR5_MS.get(name)
-    return ("PR 5 design: not timed" if old is None else
-            f"PR 5 design {old:.4f} ms (PERF.md)")
+def earlier_note(name: str) -> str:
+    """The earlier design's time of row `name` (EARLIER_MS), for a print."""
+    if name not in EARLIER_MS:
+        return "earlier design: not timed"
+    design, ms = EARLIER_MS[name]
+    return f"{design} {ms:.4f} ms (PERF.md)"
 
 
 def check_k1(torch, fa, nadit, cfg, device, path_latents):
@@ -485,7 +509,7 @@ def check_k1(torch, fa, nadit, cfg, device, path_latents):
         say(f"K1 {name}: max_abs_err {err:.6g} (atol=rtol={K1_ATOL}); "
             f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
             f"prepass_ms {prepass_ms:.4f} of it alone (device time), "
-            f"{pr5_note('K1 ' + name)}"
+            f"{earlier_note('K1 ' + name)}"
             f"; plain {plain_ms:.4f} ms, sdpa (attention core only) "
             f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
         if case is main:
@@ -668,11 +692,17 @@ def check_k6_k7(torch, qm, cfg, device, rows):
     count (`rows` = {"K6": [(label, M)], "K7": [...]}), the text stream's at
     58 rows (txt_in 5120 -> 2560 among them), the time embedding's at one.
     Random Q8_0 weights of a linear's magnitude for K6, affine ones with
-    quants in [0, 15] for K7. Each shape timed (kernel, plain, and
-    torch.matmul on the weight dequantized once to bf16, which the port
-    never calls), with its bound. The record holds the q8 lane's 1080p-image
-    qkv (K6) and the q4 lane's 1080p-clip gate/up (K7), with every shape
-    under by_shape."""
+    quants in [0, 15] for K7. Each shape timed (kernel, the earlier
+    mma.sync design's time from EARLIER_MS, plain, and torch.matmul on the
+    weight dequantized once to bf16, which the port never calls), with its
+    bound (operations and bytes apart), the exact fold's FMA floor, the
+    token width and K split the wrapper planned, at M <= 58 the call's
+    device time (profiler: events around a call of tens of microseconds
+    also hold the host's launch cost), and for K7 its pre-pass kernel
+    alone (device time). The record holds the q8 lane's 1080p-image qkv
+    (K6) and the q4 lane's 1080p-clip gate/up (K7), with every shape under
+    by_shape: this run's measurements and the bound only (the earlier
+    design's time, the fold floor and the plan are printed, not recorded)."""
     D, hidden = cfg.vid_dim, 6912
     video = (("qkv", 3 * D, D), ("attn out", D, D), ("gate/up", hidden, D),
              ("mlp out", D, hidden))
@@ -730,16 +760,36 @@ def check_k6_k7(torch, qm, cfg, device, rows):
             plain_ms = kernel_ms(torch, lambda: plain(x, q, *tabs), 3)
             lib_ms = kernel_ms(torch, lambda: torch.matmul(x, wb.t()), 10)
             ops = 2 * m * n * k
-            bound, by = bound_ms(ops, PEAK_BF16, m * k * 2 + wbytes
-                                 + m * n * 2)
-            say(f"{key} {name} M={m} N={n} K={k}: max {worst:.3g} ulps, "
-                f"{share * 100:.4f} % within one, rel L2 {rel:.3g}; kernel "
-                f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), plain "
-                f"{plain_ms:.4f} ms, torch.matmul on the dequantized bf16 "
-                f"weight {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+            nbytes = m * k * 2 + wbytes + m * n * 2
+            bound, by = bound_ms(ops, PEAK_BF16, nbytes)
+            # the exact fold's own floor on the CUDA cores: one fp32 FMA a
+            # (row, column, group); K7's min term runs on the tensor cores
+            fold_ms = 2 * m * n * (k // 32) / PEAK_FP32 * 1e3
+            bt, splits = qm.plan_tiles(m, n, k)
+            extra = ""
+            prepass = dev = None
+            if m <= TXT_LEN:  # a call of tens of microseconds: device time
+                dev = device_ms(torch, lambda: run(x, q, *tabs))
+                extra = f", {dev:.4f} ms device time"
+            if key == "K7":
+                prepass = device_ms(torch, lambda: qm.k7_prepass(x, tabs[1]))
+                extra += (f", pre-pass (xg and -m planes) {prepass:.4f} of "
+                          "it (device time)")
+            key_name = f"{key} {name}"
+            say(f"{key_name} M={m} N={n} K={k} (tokens {bt}, splits "
+                f"{splits}): max {worst:.3g} ulps, {share * 100:.4f} % within "
+                f"one, rel L2 {rel:.3g}; kernel {ms:.4f} ms "
+                f"({ops / ms / 1e9:.1f} TFLOP/s){extra}, "
+                f"{earlier_note(key_name)}"
+                f"; plain {plain_ms:.4f} ms, torch.matmul on the dequantized "
+                f"bf16 weight {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+                f"ops {ops / PEAK_BF16 * 1e3:.4f}, bytes "
+                f"{nbytes / PEAK_BYTES * 1e3:.4f}), fold floor "
+                f"{fold_ms:.4f} ms")
             rec = dict(shape=name, m=m, n=n, k=k, max_abs_err=err,
                        max_ulps=worst, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                       library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                       device_ms=dev, prepass_ms=prepass)
             by_shape.append(rec)
             if name == main[key]:
                 recs[key] = {k2: rec[k2] for k2 in (
@@ -784,7 +834,7 @@ def attention_case(torch, name, run, plain, sdpa, flops, nbytes,
         extra = (", no pre-pass" if prepass is None else
                  f", prepass_ms {device_ms(torch, prepass):.4f} of it "
                  "alone (device time)")
-        extra += f", {pr5_note(name)}"
+        extra += f", {earlier_note(name)}"
     say(f"{name}: max_abs_err {err:.6g} (atol=rtol={K1_ATOL}); kernel "
         f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of needed work){extra}"
         f"; plain {plain_ms:.4f} ms, sdpa (attention core only) "

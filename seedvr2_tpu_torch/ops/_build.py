@@ -50,10 +50,14 @@ _SIGNATURES = {
     "seedvr2_rms_ada_quantize": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # g, u, q, s, rows, K, row_stride, stream
     "seedvr2_silu_mul_quantize": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # x, q, scales, out, M, N, K, stream
-    "seedvr2_quant_matmul_q8": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # x, q, s, m, out, M, N, K, stream
-    "seedvr2_quant_matmul_affine": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, q, scales, ws, out, M, N, K, G4, bt, splits, stream
+    "seedvr2_quant_matmul_q8": [_P] * 5 + [_I] * 6 + [_P],
+    # x, q, s, m, xg, mnp, ws, out, M, N, K, G4, XW, bt, splits, stream
+    "seedvr2_quant_matmul_affine": [_P] * 8 + [_I] * 7 + [_P],
+    # x, xg, m, mnp, M, N, K, G4, XW, stream
+    "seedvr2_k7_prepass": [_P] * 4 + [_I] * 5 + [_P],
+    # ws, out, pairs, splits, stream
+    "seedvr2_split_reduce": [_P, _P, _L, _I, _P],
     # x_ext, wk, xs, ws, bias, out, T, H, Wp, C, Co, W_out, out strides
     # (co, t, h, w), stream
     "seedvr2_int8_conv3d": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -11,15 +11,18 @@ K:
    w = q * s - m, q in [0, 15] (PTQ) or [0, 31] (Q5_K).
 
 Layout: the port stores a weight (N, K) = (out, in), K-contiguous, with its
-tables (N, K/32): the GGUF's own order and the one `mma ... row.col` reads
-(the JAX package stores (K, N) and (K/32, N)).
+tables (N, K/32): the GGUF's own order, in which the weights are the
+kernels' register A operand and x their K-major B operand (the JAX package
+stores (K, N) and (K/32, N)).
 
 On a CUDA tensor `quant_matmul_q8` and `quant_matmul_affine` launch the
 hand-written kernels of `csrc/quant_matmul.cu` (its header says what bounds
-them and how they keep the fp32 arithmetic exact); on a CPU tensor they run
-the plain versions, the JAX package's non-TPU emulation.
+them and how they keep the fp32 arithmetic exact), with the token width and
+K split `plan_tiles` picks; on a CPU tensor they run the plain versions,
+the JAX package's non-TPU emulation.
 """
 
+import functools
 from typing import Optional
 
 import torch
@@ -92,6 +95,50 @@ def quant_matmul_affine_plain(x: torch.Tensor, q: torch.Tensor,
                         dequantize_affine(q, s, m).t()).to(x.dtype)
 
 
+def group_sums_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7's pre-pass on x: xg (M, K/32) fp32, the sum of
+    each row's 32 values of every group, as the JAX kernel forms it."""
+    m, k = x.shape
+    return x.float().reshape(m, k // GROUP, GROUP).sum(dim=2)
+
+
+def min_planes_plain(m: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7's pre-pass on the min table m (N, K/32) fp32:
+    -m split into bf16 planes (2, N, K/32), hi = bf16(-m) and lo = bf16(-m
+    - hi), so that hi + lo is within 2^-16 of -m relative (the kernel's
+    min term takes hi*hi + hi*lo + lo*hi of these and of xg's planes)."""
+    hi = (-m).to(torch.bfloat16)
+    return torch.stack([hi, (-m - hi.float()).to(torch.bfloat16)])
+
+
+# the card's SMs: a split K keeps at least this many blocks streaming the
+# weights where the token tiles alone would leave SMs idle
+SMS = 132
+# groups a stage of the kernels' ring holds; a split starts on a stage
+STAGE_GROUPS = 4
+# least groups a split takes (two stages)
+MIN_SPLIT_GROUPS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def plan_tiles(m: int, n: int, k: int):
+    """(token width, K splits) of K6/K7 for an (M, N, K) product: tokens are
+    the wgmma N (8 for M <= 8, 64 for M <= 64, else 128); where the grid
+    of 128-row weight tiles by token tiles has fewer than SMS blocks, K is
+    split in the fewest parts that fill the card, each a divisor of K/32
+    into whole stages of at least MIN_SPLIT_GROUPS groups."""
+    groups = k // GROUP
+    bt = 8 if m <= 8 else 64 if m <= 64 else 128
+    blocks = -(-n // 128) * -(-m // bt)
+    splits = 1
+    for d in range(2, groups // MIN_SPLIT_GROUPS + 1):
+        if blocks * splits >= SMS:
+            break
+        if groups % d == 0 and (groups // d) % STAGE_GROUPS == 0:
+            splits = d
+    return bt, splits
+
+
 def _check(name: str, x: torch.Tensor, q: torch.Tensor, tables) -> None:
     m, k = x.shape
     n, k2 = q.shape
@@ -103,10 +150,8 @@ def _check(name: str, x: torch.Tensor, q: torch.Tensor, tables) -> None:
                          f"(K % {GROUP} == 0)")
 
 
-def _launch(name: str, fn: str, x, q, tables) -> torch.Tensor:
-    """Check what the kernel takes, allocate the output, launch on the
-    current stream and raise on a launch error."""
-    m, k = x.shape
+def _check_kernel(name: str, x, q, tables) -> None:
+    """Raise on what the kernels do not take."""
     n = q.shape[0]
     for label, t, dt in (("x", x, torch.bfloat16), ("q", q, torch.int8),
                          *((f"table {i}", t, torch.float32)
@@ -114,16 +159,134 @@ def _launch(name: str, fn: str, x, q, tables) -> torch.Tensor:
         if t.dtype != dt or not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"{name} kernel: {label} must be contiguous {dt} "
                              f"on {x.device}, got {t.dtype} on {t.device}")
-    if n % 2 or x.data_ptr() % 16 or q.data_ptr() % 16:
+    if n % 2 or any(t.data_ptr() % 16 for t in (x, q, *tables)):
         raise ValueError(f"{name} kernel: needs N % 2 == 0 (N={n}) and "
-                         "16-byte aligned x and q")
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+                         "16-byte aligned operands")
+
+
+def _tables_g4(tables):
+    """The tables with their K/32 columns zero-padded to a multiple of 4
+    (16-byte rows, as the kernels' TMA loads need); as they are when
+    already so."""
+    g = tables[0].shape[1]
+    pad = -g % 4
+    if not pad:
+        return tables, g
+    return [torch.nn.functional.pad(t, (0, pad)) for t in tables], g + pad
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _xg_width(k: int) -> int:
+    """Columns of K7's pre-pass planes (xg and -m): K/32 rounded up to 8
+    (16-byte rows for the kernel's TMA loads)."""
+    return -(-k // (8 * GROUP)) * 8
+
+
+def k7_prepass(x: torch.Tensor, m: torch.Tensor):
+    """K7's pre-pass kernel alone, one launch as K7 makes it: the bf16 hi
+    and lo planes (2, M, XW) of the group sums of x (M, K) bf16 and (2, N,
+    XW) of -m, m (N, K/32) fp32; XW = K/32 rounded up to 8, zeros past
+    K/32. CPU tensors take the plain versions."""
+    rows, k = x.shape
+    n, g = m.shape
+    if k % GROUP or g != k // GROUP:
+        raise ValueError(f"k7_prepass: x {tuple(x.shape)} and m "
+                         f"{tuple(m.shape)} do not match (K % {GROUP} == 0)")
+    xw = _xg_width(k)
+    if x.device.type == "cpu":
+        sums = group_sums_plain(x)
+        hi = sums.to(torch.bfloat16)
+        planes = (torch.stack([hi, (sums - hi.float()).to(torch.bfloat16)]),
+                  min_planes_plain(m))
+        return tuple(torch.nn.functional.pad(p, (0, xw - g)) for p in planes)
+    if (x.dtype != torch.bfloat16 or not x.is_contiguous()
+            or x.data_ptr() % 16 or m.dtype != torch.float32
+            or not m.is_contiguous() or m.device != x.device):
+        raise ValueError("k7_prepass kernel: needs x contiguous 16-byte "
+                         "aligned bf16 and m contiguous fp32 on one device, "
+                         f"got {x.dtype}, {m.dtype}")
+    xg = torch.empty((2, rows, xw), dtype=torch.bfloat16, device=x.device)
+    mnp = torch.empty((2, n, xw), dtype=torch.bfloat16, device=x.device)
+    if (rows or n) and k:
+        _build.check(_build.kernel_library().lib.seedvr2_k7_prepass(
+            x.data_ptr(), xg.data_ptr(), m.data_ptr(), mnp.data_ptr(), rows,
+            n, k, g, xw, _stream(x)), "seedvr2_k7_prepass")
+    return xg, mnp
+
+
+def group_sums(x: torch.Tensor) -> torch.Tensor:
+    """The group sums xg (M, K/32) fp32 of x (M, K) bf16 through K7's
+    pre-pass kernel, read back from its bf16 hi + lo planes (within 2^-17
+    of the fp32 sums). CPU tensors take the plain version."""
+    m, k = x.shape
+    if k % GROUP:
+        raise ValueError(f"group_sums: K={k} is not a multiple of {GROUP}")
+    if x.device.type == "cpu":
+        return group_sums_plain(x)
+    xg, _ = k7_prepass(x, torch.empty((0, k // GROUP), device=x.device))
+    return (xg[0].float() + xg[1].float())[:, :k // GROUP]
+
+
+def split_reduce_plain(ws: torch.Tensor) -> torch.Tensor:
+    """Plain version of the split-K reduction: ws (splits, M, N) fp32 summed
+    over the splits in order, rounded to bf16."""
+    acc = ws[0].clone()
+    for part in ws[1:]:
+        acc += part
+    return acc.to(torch.bfloat16)
+
+
+def split_reduce(ws: torch.Tensor) -> torch.Tensor:
+    """The split-K reduction kernel alone (CPU tensors take the plain
+    version); bit-equal to split_reduce_plain."""
+    if ws.device.type == "cpu":
+        return split_reduce_plain(ws)
+    splits, m, n = ws.shape
+    if (ws.dtype != torch.float32 or not ws.is_contiguous() or n % 2
+            or ws.data_ptr() % 16):
+        raise ValueError("split_reduce kernel: ws must be contiguous fp32 "
+                         "(splits, M, N), N even")
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=ws.device)
     if m and n:
-        err = getattr(_build.kernel_library().lib, fn)(
-            x.data_ptr(), q.data_ptr(), *(t.data_ptr() for t in tables),
-            out.data_ptr(), m, n, k,
-            torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(err, fn)
+        _build.check(_build.kernel_library().lib.seedvr2_split_reduce(
+            ws.data_ptr(), out.data_ptr(), m * n // 2, splits,
+            _stream(ws)), "seedvr2_split_reduce")
+    return out
+
+
+def _launch(name: str, x, q, tables) -> torch.Tensor:
+    """Check what the kernel takes, plan its tiles, allocate the output and
+    scratch, launch on the current stream and raise on a launch error."""
+    _check_kernel(name, x, q, tables)
+    m, k = x.shape
+    n = q.shape[0]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    if not (m and n):
+        return out
+    tables, g4 = _tables_g4(tables)
+    bt, splits = plan_tiles(m, n, k)
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    ws_ptr = None if ws is None else ws.data_ptr()
+    lib = _build.kernel_library().lib
+    if len(tables) == 1:
+        fn = "seedvr2_quant_matmul_q8"
+        err = lib.seedvr2_quant_matmul_q8(
+            x.data_ptr(), q.data_ptr(), tables[0].data_ptr(), ws_ptr,
+            out.data_ptr(), m, n, k, g4, bt, splits, _stream(x))
+    else:
+        fn = "seedvr2_quant_matmul_affine"
+        xw = _xg_width(k)
+        xg = torch.empty((2, m, xw), dtype=torch.bfloat16, device=x.device)
+        mnp = torch.empty((2, n, xw), dtype=torch.bfloat16, device=x.device)
+        err = lib.seedvr2_quant_matmul_affine(
+            x.data_ptr(), q.data_ptr(), tables[0].data_ptr(),
+            tables[1].data_ptr(), xg.data_ptr(), mnp.data_ptr(), ws_ptr,
+            out.data_ptr(), m, n, k, g4, xw, bt, splits, _stream(x))
+    _build.check(err, fn)
     return out
 
 
@@ -133,15 +296,14 @@ def quant_matmul_q8(x: torch.Tensor, q: torch.Tensor,
     (M, N) in x's dtype, fp32 accumulation.
 
     CPU tensors take the plain version. CUDA tensors launch K6, or raise on
-    what it does not take: bf16 x, contiguous operands on one device,
-    K % 32 == 0, N even."""
+    what it does not take: bf16 x, contiguous 16-byte aligned operands on
+    one device, K % 32 == 0, N even."""
     _check("quant_matmul_q8", x, q, (scales,))
     if x.device.type == "cpu":
         return quant_matmul_q8_plain(x, q, scales)
     if x.device.type != "cuda":
         raise RuntimeError(f"quant_matmul_q8: no kernel for {x.device}")
-    out = _launch("quant_matmul_q8", "seedvr2_quant_matmul_q8", x, q,
-                  (scales,))
+    out = _launch("quant_matmul_q8", x, q, (scales,))
     quant_matmul_q8.launches += 1
     return out
 
@@ -155,15 +317,15 @@ def quant_matmul_affine(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     (N, K) int8 raw quants, s and m (N, K/32) fp32. The min term is taken as
     group_sums(x) @ m, as in the JAX kernel.
 
-    CPU tensors take the plain version; CUDA tensors launch K7 or raise (as
+    CPU tensors take the plain version; CUDA tensors launch K7 (its
+    pre-pass first: the group sums and -m as bf16 planes) or raise (as
     quant_matmul_q8)."""
     _check("quant_matmul_affine", x, q, (s, m))
     if x.device.type == "cpu":
         return quant_matmul_affine_plain(x, q, s, m)
     if x.device.type != "cuda":
         raise RuntimeError(f"quant_matmul_affine: no kernel for {x.device}")
-    out = _launch("quant_matmul_affine", "seedvr2_quant_matmul_affine", x, q,
-                  (s, m))
+    out = _launch("quant_matmul_affine", x, q, (s, m))
     quant_matmul_affine.launches += 1
     return out
 

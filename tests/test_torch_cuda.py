@@ -345,6 +345,157 @@ def test_quantised_dit_with_kernels_matches_plain_on_gpu(cuda_device, quant):
     assert ((k - p).norm() / p.norm()).item() < 2e-2
 
 
+# the edges of K6/K7's Hopper design: token widths 8 / 64 / 128 and their
+# ragged edges (M), ragged and tiny N (a 128-row weight tile cut short), K
+# not a multiple of the 128-deep stage (96) and the DiT's K; each N and
+# each K once, at every M. The epilogue's routes: TMA stores clipped at N
+# (136: one warpgroup's box wholly past N; 4: the fp32 workspace of a
+# split K) and the threads' own stores where rows are not 16-byte
+# multiples (2, 130).
+EDGE_M = (1, 8, 57, 58, 64, 65, 129)
+EDGE_NK = ((2, 96), (130, 6912), (2560, 5120), (7680, 2560), (136, 96),
+           (4, 2560))
+
+
+def _affine_case(gen, m, n, k, top, device):
+    x = torch.randn(m, k, generator=gen, device=device).to(torch.bfloat16)
+    q = torch.randint(0, top + 1, (n, k), generator=gen, device=device,
+                      dtype=torch.int8)
+    s = torch.rand(n, k // 32, generator=gen, device=device) * 0.04 / top
+    mn = torch.rand(n, k // 32, generator=gen, device=device) * 0.02
+    return x, q, s, mn
+
+
+def _assert_k7_close(out, ref):
+    """K7's limits (see test_k7_kernel_matches_plain_on_gpu)."""
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert (bf16_ulps(out, ref) <= 1).float().mean().item() >= 0.999
+    rel = ((out.float() - ref.float()).norm()
+           / ref.float().norm().clamp_min(1e-30)).item()
+    assert rel <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", EDGE_NK)
+@pytest.mark.parametrize("m", EDGE_M)
+def test_k6_kernel_edges_on_gpu(cuda_device, m, n, k):
+    """K6 within one bf16 ulp of its plain version at the design's edges,
+    the split-K path (small M) included."""
+    gen = torch.Generator(cuda_device).manual_seed(m * 7 + n + k)
+    x, q, s = _q8_case(gen, m, n, k, cuda_device)
+    out = tqm.quant_matmul_q8(x, q, s)
+    ref = tqm.quant_matmul_q8_plain(x, q, s)
+    assert out.shape == (m, n) and torch.isfinite(out).all()
+    assert bf16_ulps(out, ref).max().item() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", EDGE_NK)
+@pytest.mark.parametrize("m", EDGE_M)
+def test_k7_kernel_edges_on_gpu(cuda_device, m, n, k):
+    """K7 against its plain version at the design's edges (Q5_K quants)."""
+    gen = torch.Generator(cuda_device).manual_seed(m * 11 + n + k)
+    x, q, s, mn = _affine_case(gen, m, n, k, 31, cuda_device)
+    _assert_k7_close(tqm.quant_matmul_affine(x, q, s, mn),
+                     tqm.quant_matmul_affine_plain(x, q, s, mn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 58, 300])
+def test_k6_k7_extreme_quants_on_gpu(cuda_device, m):
+    """Quants at their extremes (K6 all +127, all -127 and alternating; K7
+    all 0 and all 31) and zero scales: the widening is exact there too."""
+    n, k = 384, 2560
+    gen = torch.Generator(cuda_device).manual_seed(m)
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    s = torch.rand(n, k // 32, generator=gen, device=cuda_device) * 1e-3
+    sign = torch.ones(n, k, device=cuda_device)
+    sign[:, 1::2] = -1
+    for q in (torch.full((n, k), 127, dtype=torch.int8, device=cuda_device),
+              torch.full((n, k), -127, dtype=torch.int8, device=cuda_device),
+              (sign * 127).to(torch.int8)):
+        out = tqm.quant_matmul_q8(x, q, s)
+        assert bf16_ulps(out, tqm.quant_matmul_q8_plain(x, q, s)).max() <= 1
+    zero = torch.zeros_like(s)
+    assert torch.equal(tqm.quant_matmul_q8(x, q, zero),
+                       torch.zeros(m, n, dtype=torch.bfloat16,
+                                   device=cuda_device))
+    mn = torch.rand(n, k // 32, generator=gen, device=cuda_device) * 0.02
+    for top in (0, 31):
+        q = torch.full((n, k), top, dtype=torch.int8, device=cuda_device)
+        for ss in (s, zero):
+            _assert_k7_close(tqm.quant_matmul_affine(x, q, ss, mn),
+                             tqm.quant_matmul_affine_plain(x, q, ss, mn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(1, 96), (58, 2560), (1000, 6912)])
+def test_group_sums_kernel_matches_plain_on_gpu(cuda_device, m, k):
+    """K7's pre-pass: 31 fp32 additions per group in another order than the
+    plain version's, so both lie within 31 * 2^-24 * sum|x| of the exact
+    group sum (float64); the kernel's bf16 hi + lo planes hold its fp32 sum
+    within a further 2^-17 of the sum."""
+    gen = torch.Generator(cuda_device).manual_seed(m + k)
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    xg = tqm.group_sums(x)
+    exact = x.double().reshape(m, k // 32, 32).sum(-1)
+    bound = 31 * 2.0 ** -24 * x.double().abs().reshape(m, k // 32, 32).sum(-1)
+    assert xg.shape == (m, k // 32)
+    plain = tqm.group_sums_plain(x).double()
+    assert ((plain - exact).abs() <= bound).all()
+    assert ((xg.double() - exact).abs()
+            <= bound + 2.0 ** -17 * exact.abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(6, 96), (2560, 6912)])
+def test_min_planes_kernel_matches_plain_on_gpu(cuda_device, n, k):
+    """K7's pre-pass on the min table: bit-equal to its plain version, alone
+    and in one launch with the group sums (as K7 makes it), where the
+    group sums come out as alone."""
+    gen = torch.Generator(cuda_device).manual_seed(n + k)
+    m = torch.rand(n, k // 32, generator=gen, device=cuda_device) * 0.02
+    x = torch.randn(37, k, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    for rows in (x[:0], x):
+        xg, mnp = tqm.k7_prepass(rows, m)
+        assert torch.equal(mnp[:, :, :k // 32], tqm.min_planes_plain(m))
+        assert not mnp[:, :, k // 32:].any()
+    assert torch.equal((xg[0].float() + xg[1].float())[:, :k // 32],
+                       tqm.group_sums(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 58, 300])
+def test_k7_kernel_takes_long_k_on_gpu(cuda_device, m):
+    """K7's min term streams through the ring a 64-group panel at a time,
+    so K has no limit of its own: K = 16384 (512 groups, 8 panels)."""
+    gen = torch.Generator(cuda_device).manual_seed(m)
+    x, q, s, mn = _affine_case(gen, m, 256, 16384, 15, cuda_device)
+    _assert_k7_close(tqm.quant_matmul_affine(x, q, s, mn),
+                     tqm.quant_matmul_affine_plain(x, q, s, mn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(1, 2560, 2560), (58, 2560, 6912)])
+def test_split_k_is_deterministic_on_gpu(cuda_device, m, n, k):
+    """The split-K path (planned for these shapes) gives bit-equal results
+    on two runs, and its reduction is bit-equal to its plain version."""
+    bt, splits = tqm.plan_tiles(m, n, k)
+    assert splits > 1
+    gen = torch.Generator(cuda_device).manual_seed(k)
+    x, q, s = _q8_case(gen, m, n, k, cuda_device)
+    assert torch.equal(tqm.quant_matmul_q8(x, q, s),
+                       tqm.quant_matmul_q8(x, q, s))
+    x, q, s, mn = _affine_case(gen, m, n, k, 15, cuda_device)
+    assert torch.equal(tqm.quant_matmul_affine(x, q, s, mn),
+                       tqm.quant_matmul_affine(x, q, s, mn))
+    ws = torch.randn(splits, m, n, generator=gen, device=cuda_device)
+    assert torch.equal(tqm.split_reduce(ws), tqm.split_reduce_plain(ws))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,h,w,c,co", [
     (2, 6, 45, 128, 128),     # W not a multiple of the 128-pixel tile

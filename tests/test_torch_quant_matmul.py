@@ -129,6 +129,140 @@ def test_wrappers_refuse_bad_shapes():
                                 torch.zeros(8, 2), torch.zeros(8, 3))
 
 
+def test_kernel_checks_refuse_what_the_kernels_do_not_take():
+    """The checks the wrappers make before a launch (pure Python, so they
+    run here on CPU tensors): bf16 x, int8 q, fp32 tables, contiguous,
+    N even, every operand 16-byte aligned; and the pre-pass's K % 32."""
+    x = torch.zeros(4, 64, dtype=torch.bfloat16)
+    q = torch.zeros(8, 64, dtype=torch.int8)
+    s = torch.zeros(8, 2)
+    tqm._check_kernel("k6", x, q, (s,))  # what the kernels take
+    with pytest.raises(ValueError, match="contiguous"):
+        tqm._check_kernel("k6", x.float(), q, (s,))
+    with pytest.raises(ValueError, match="contiguous"):
+        tqm._check_kernel("k6", x, q, (s.t().contiguous().t(),))
+    with pytest.raises(ValueError, match="N % 2"):
+        tqm._check_kernel("k6", x, torch.zeros(7, 64, dtype=torch.int8),
+                          (torch.zeros(7, 2),))
+    shifted = torch.zeros(4 * 64 + 1, dtype=torch.bfloat16)[1:].view(4, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        tqm._check_kernel("k6", shifted, q, (s,))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tqm.group_sums(torch.zeros(2, 48))
+
+
+def _dit_3b_products():
+    """Every (N, K) of the 3B DiT's linears the q8 / q4 conversion picks
+    (min(K, N) >= 1024, K % 32 == 0), from the model built on the meta
+    device."""
+    from seedvr2_tpu_torch.core.configs import DIT_3B
+
+    model = tn.NaDiT(DIT_3B, device="meta")
+    return sorted({(m.out_features, m.in_features) for m in model.modules()
+                   if isinstance(m, nn.Linear)
+                   and min(m.in_features, m.out_features) >= 1024
+                   and m.in_features % 32 == 0})
+
+
+# the token counts the quantised lanes give K6/K7: the time embedding, the
+# text rows, and the video rows of 720p / 1080p clips, a 1080p image and a
+# 4K image
+LANE_ROWS = (1, 58, 7200, 8160, 16320, 32400)
+
+
+def test_tile_planner_covers_every_3b_product():
+    """plan_tiles at every (M, N, K) the 3B DiT's converted linears see:
+    the token width is the least of 8 / 64 / 128 that holds M (128 above);
+    splits divide K/32 into whole 4-group stages, at least
+    MIN_SPLIT_GROUPS groups each (a split's table boxes start 16-byte
+    aligned); a
+    split is taken only where the grid alone leaves SMs idle, and then the
+    fewest that fill the card (or the most the rule allows)."""
+    products = _dit_3b_products()
+    assert {(7680, 2560), (2560, 2560), (6912, 2560), (2560, 6912),
+            (2560, 5120), (15360, 2560)} <= set(products)
+    for m in LANE_ROWS:
+        for n, k in products:
+            bt, splits = tqm.plan_tiles(m, n, k)
+            groups = k // 32
+            assert bt == (8 if m <= 8 else 64 if m <= 64 else 128)
+            assert bt >= m or bt == 128
+            assert groups % splits == 0
+            blocks = -(-n // 128) * -(-m // bt)
+            allowed = [d for d in range(1, groups + 1) if d == 1 or (
+                groups % d == 0 and groups // d >= tqm.MIN_SPLIT_GROUPS
+                and (groups // d) % tqm.STAGE_GROUPS == 0)]
+            if blocks >= tqm.SMS:
+                assert splits == 1, (m, n, k)
+            else:
+                filling = [d for d in allowed if blocks * d >= tqm.SMS]
+                assert splits == (min(filling) if filling else max(allowed))
+            if m >= 7200:
+                assert (bt, splits) == (128, 1)
+    # the bytes-bound rows spread over the card
+    assert tqm.plan_tiles(1, 2560, 2560) == (8, 10)
+    assert tqm.plan_tiles(58, 7680, 2560) == (64, 4)
+    assert tqm.plan_tiles(58, 2560, 6912) == (64, 9)
+
+
+def test_min_planes_plain_splits_minus_m_exactly():
+    """K7's pre-pass on the min table (plain version): hi is -m rounded to
+    bf16, lo the bf16 rounding of what hi leaves, so hi + lo is within
+    2^-16 of -m relative (2^-8 of hi's half-ulp); zeros stay zeros. The
+    pre-pass wrapper on CPU tensors gives these planes and xg's."""
+    rng = np.random.default_rng(7)
+    m = _t(rng.standard_normal((6, 10)).astype(np.float32) * 0.03)
+    m[0, 0] = 0.0
+    planes = tqm.min_planes_plain(m)
+    assert planes.shape == (2, 6, 10) and planes.dtype == torch.bfloat16
+    hi, lo = planes.float()
+    assert torch.equal(hi, (-m).to(torch.bfloat16).float())
+    assert torch.equal(lo, (-m - hi).to(torch.bfloat16).float())
+    assert ((hi + lo + m).abs() <= 2.0 ** -16 * m.abs()).all()
+    assert hi[0, 0] == 0 and lo[0, 0] == 0
+    # the wrapper on CPU tensors, both jobs as K7 launches them: rows
+    # padded to 8 groups
+    x = _t(rng.standard_normal((3, 320)).astype(np.float32)).to(
+        torch.bfloat16)
+    xg, mnp = tqm.k7_prepass(x, m)
+    assert xg.shape == (2, 3, 16) and mnp.shape == (2, 6, 16)
+    assert torch.equal(mnp[:, :, :10], tqm.min_planes_plain(m))
+    assert not mnp[:, :, 10:].any() and not xg[:, :, 10:].any()
+    sums = tqm.group_sums_plain(x)
+    assert torch.equal(xg[0, :, :10], sums.to(torch.bfloat16))
+    assert ((xg[0, :, :10].float() + xg[1, :, :10].float() - sums).abs()
+            <= 2.0 ** -16 * sums.abs()).all()
+
+
+@pytest.mark.parametrize("m,k", [(1, 96), (58, 2560), (33, 6912)])
+def test_group_sums_plain_matches_jax_kernel_arithmetic(m, k):
+    """K7's pre-pass (plain version, and the wrapper on a CPU tensor)
+    against the group sums the JAX kernel forms, x.reshape(bm, bk // 32,
+    32).sum(axis=2) in fp32: the same 32 fp32 additions in another order,
+    atol 1e-5 at |x| ~ 1."""
+    rng = np.random.default_rng(m + k)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    ref = np.asarray(jnp.asarray(x).reshape(m, k // 32, 32).sum(axis=2))
+    for got in (tqm.group_sums_plain(_t(x)), tqm.group_sums(_t(x))):
+        assert got.shape == (m, k // 32) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-6)
+
+
+def test_tables_padded_to_whole_16_byte_rows():
+    """Tables of K/32 % 4 != 0 groups are zero-padded to whole 16-byte
+    rows for the kernels' TMA loads; others pass as they are; the split-K
+    reduction's plain version sums the splits in order."""
+    s = torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    (p,), g4 = tqm._tables_g4([s])
+    assert g4 == 4 and torch.equal(p[:, :3], s) and not p[:, 3].any()
+    t = torch.ones(2, 8)
+    (same,), g4 = tqm._tables_g4((t,))
+    assert g4 == 8 and same is t
+    ws = torch.randn(3, 4, 6)
+    assert torch.equal(tqm.split_reduce(ws),
+                       (ws[0] + ws[1] + ws[2]).to(torch.bfloat16))
+
+
 # ----------------------------------------------------------------- linears
 
 
