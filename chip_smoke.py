@@ -78,14 +78,17 @@ in dense form (its pre-pass timed alone beside it) and at a
 cross-attention shape, both beside PR 5's times, driven once through the
 dispatcher `ops.attention.attention` (its "dense" path, which no product
 code takes); K9 within bf16 tolerance at every uniform layer of the 720p
-and 1080p clips' latents; K10 bit-equal at the 1080p clip's DiT linears
-and at 1 and 58 rows, then once over those linears (its "op" path); each
-timed beside its plain version, its PyTorch yardstick and its bound. And
-after phase 5 (5b): the 32-layer DiT on the uniform plan
-(`build_dit_plan(..., uniform=True)`) on both clip latents, with kernels
-against plain versions and against the grouped plan, in bf16 and with the
-w8a8 tree, its forward times beside the grouped plan's, and the launches
-of one uniform forward (32 of K9, none of K1 or K2).
+and 1080p clips' latents (its pre-pass with the windows' tables within one
+bf16 ulp and timed alone, the key tiles its step walks and skips); K10
+bit-equal at the 1080p clip's DiT linears and at 1 and 58 rows (device
+time with its quantize pass's share, the tiles planned), then once over
+those linears (its "op" path); each timed beside the earlier design's
+time, its plain version, its PyTorch yardstick and its bound. And after
+phase 5 (5b): the 32-layer DiT on the uniform plan (`build_dit_plan(...,
+uniform=True)`) on both clip latents, with kernels against plain versions
+and against the grouped plan, in bf16 and with the w8a8 tree, its forward
+times and peak memory beside the grouped plan's, and the launches of one
+uniform forward (32 of K9, none of K1 or K2).
 
 Each phase prints its seconds. Any failure ends the run with a non-zero exit and no last line. It imports
 nothing of JAX.
@@ -240,6 +243,24 @@ KERNELS = {
     "K12": ("norm_silu_head", "seedvr2_tpu_torch/csrc/fused_norm.cu",
             "comfyui-seedvr2_tpu/ops/fused_norm.py:28"),
 }
+# the design each kernel's record names
+DESIGN = {
+    "K1": "norm/rope pre-pass + Hopper step (TMA ring, wgmma)",
+    "K2": "row gather, 16-byte copies",
+    "K3": "mma.sync m16n8k32 s8, cp.async double buffer",
+    "K4": "fused rms_norm + ada + per-row quantize",
+    "K5": "fused silu * up + per-row quantize",
+    "K6": "int8 weights widened as wgmma's register A, TMA ring, exact "
+          "per-group fold, split K at small M",
+    "K7": "K6's body, min term after the K loop as wgmma SS",
+    "K8": "K1's pre-pass + Hopper step",
+    "K9": "pre-pass with per-window tables + Hopper step over each window's "
+          "live key tiles",
+    "K10": "row-quantize pass once + TMA ring / wgmma s8 GEMM (128 x 256 "
+           "tiles; 128 weights x 8 / 64 tokens at M <= 64)",
+    "K11": "implicit GEMM, mma.sync m16n8k32 s8",
+    "K12": "fused norm + SiLU + causal head",
+}
 # the path whose launches each kernel's record reports
 DENSE_PATH, OP_PATH = "dense (no product caller)", "op (no product caller)"
 MAIN_PATH = {"K1": "default", "K2": "default", "K3": "throughput",
@@ -306,11 +327,12 @@ def kernel_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def device_ms(torch, fn, iters: int = 10) -> float:
-    """Mean device milliseconds of the kernels one call of fn() launches,
-    summed from a torch.profiler trace, the L2 evicted before each call as
-    in kernel_ms. Unlike CUDA events around a call of a few tens of
-    microseconds, it leaves out the host's launch overhead."""
+def device_ms(torch, fn, iters: int = 10, only: str = "") -> float:
+    """Mean device milliseconds of the kernels one call of fn() launches
+    (those whose name holds `only`, when given), summed from a
+    torch.profiler trace, the L2 evicted before each call as in kernel_ms.
+    Unlike CUDA events around a call of a few tens of microseconds, it
+    leaves out the host's launch overhead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -322,7 +344,7 @@ def device_ms(torch, fn, iters: int = 10) -> float:
             fn()
         torch.cuda.synchronize()
     us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == DeviceType.CUDA
+             if e.device_type == DeviceType.CUDA and only in e.name
              and not any(w in e.name.lower() for w in ("fill", "memset")))
     return us / iters / 1e3
 
@@ -378,10 +400,13 @@ def latent_shape(vae_cfg, t: int, h: int, w: int, res: int):
 
 
 # Times of the redesigned kernels in their earlier design, by row name:
-# (design, ms). K1 and K8 on the mma.sync tile step, K6 and K7 on mma.sync
-# m16n8k16 with one 32-group a cp.async stage; each timed by this script on
-# the tree before its Hopper redesign (PERF.md: the kernel table and the
-# K6 / K7 by_shape table), NVIDIA H100 80GB HBM3, 700.00 W.
+# (design, ms). K1, K8 and K9 on the mma.sync tile step, K6 and K7 on
+# mma.sync m16n8k16 with one 32-group a cp.async stage, K10 on K3's
+# mma.sync tile quantizing its x tile in every block; each timed by this
+# script on a tree before its Hopper redesign (PERF.md: the kernel table,
+# its notes and the K6 / K7 by_shape table; K10's "mlp out" and M = 1 rows,
+# which PERF.md did not keep, from a later run of the same K10 code),
+# NVIDIA H100 80GB HBM3, 700.00 W.
 EARLIER_MS = {name: (design, ms) for design, times in (
     ("mma.sync step design", {
         "K1 S=128 kv_len=91 B=16": 0.1123, "K1 S=128 kv_len=128 B=16": 0.1144,
@@ -398,6 +423,18 @@ EARLIER_MS = {name: (design, ms) for design, times in (
         "K1 clip plan shifted_window n=4 wlen=216 S=384 kv_len=274": 0.2069,
         "K8 B=12 Sq=463 Sk=463 kv_len=463 H=20 D=128 shared table": 0.8811,
         "K8 B=4 Sq=512 Sk=1024 kv_len=1000 H=20 D=128 no rope": 0.4879,
+        "K9 720p clip window nW=18 nU=2 S=463 H=20 D=128": 0.9404,
+        "K9 720p clip shifted_window nW=32 nU=9 S=463 H=20 D=128": 1.5498,
+        "K9 1080p clip window nW=50 nU=4 S=463 H=20 D=128": 2.4687,
+        "K9 1080p clip shifted_window nW=60 nU=9 S=463 H=20 D=128": 2.9231,
+    }),
+    ("mma.sync per-block-quantize design", {
+        "K10 qkv M=16320 N=7680 K=2560": 2.3483,
+        "K10 gate+up M=16320 N=13824 K=2560": 4.1528,
+        "K10 proj_out M=16320 N=2560 K=2560": 0.8846,
+        "K10 mlp out M=16320 N=2560 K=6912": 2.1322,
+        "K10 qkv M=58 N=7680 K=2560": 0.0739,
+        "K10 qkv M=1 N=7680 K=2560": 0.0671,
     }),
     ("mma.sync design", {
         "K6 image 1080 qkv": 1.8952, "K6 image 1080 attn out": 0.6451,
@@ -813,9 +850,9 @@ def attention_core(torch, q, k, cos, sin):
 def attention_case(torch, name, run, plain, sdpa, flops, nbytes,
                    prepass=None):
     """Hold one K8/K9 call against its plain version (finite, within
-    K1_ATOL/RTOL), time kernel, plain and the SDPA yardstick (and K8's
-    pre-pass alone, `prepass`, beside PR 5's time), print and return the
-    record."""
+    K1_ATOL/RTOL), time kernel, plain and the SDPA yardstick (and the
+    pre-pass alone, `prepass`, beside the earlier design's time), print and
+    return the record."""
     out = run()
     torch.cuda.synchronize()
     ref = plain()
@@ -830,7 +867,7 @@ def attention_case(torch, name, run, plain, sdpa, flops, nbytes,
     lib_ms = kernel_ms(torch, sdpa, 20)
     bound, by = bound_ms(flops, PEAK_BF16, nbytes)
     extra = ""
-    if name.startswith("K8"):
+    if name.startswith(("K8", "K9")):
         extra = (", no pre-pass" if prepass is None else
                  f", prepass_ms {device_ms(torch, prepass):.4f} of it "
                  "alone (device time)")
@@ -894,13 +931,16 @@ def check_k8(torch, fa, nadit, cfg, device):
 def check_k9(torch, fa, nadit, cfg, device):
     """K9 at every uniform window layer of the 720p and 1080p clips'
     latents (all windows of a forward's batch row, S = 405 + 58 = 463), with
-    the plans' real tables, masks and ids. The bound counts the work the
-    data needs: valid query rows against valid keys. The record holds the
-    720p clip's shifted layer."""
+    the plans' real tables, masks and ids; its pre-pass alone within one
+    bf16 ulp of its plain version, and timed. Prints the key tiles the step
+    walks (`live_key_tiles`) and skips per layer. The bound counts the work
+    the data needs: valid query rows against valid keys. The record holds
+    the 720p clip's shifted layer."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device).manual_seed(9)
     H, D = cfg.heads, cfg.head_dim
+    qscale = D ** -0.5 * 1.4426950408889634
     rec = None
     for label, shape in UNIFORM_LATENTS:
         dplan = nadit.upload_plan(nadit.build_dit_plan(
@@ -921,6 +961,17 @@ def check_k9(torch, fa, nadit, cfg, device):
                       + u.valid.numel() + 4 * b)
             name = (f"K9 {label} {method} nW={b} nU={u.cos.shape[0]} S={s} "
                     f"H={H} D={D}")
+            hats = fa.attention_prepass(q, k, u.cos, u.sin, u.cos, u.sin,
+                                        None, qscale, ids)
+            refs = (fa.norm_rope_plain(q, u.cos, u.sin, None, qscale,
+                                       ids.tensor),
+                    fa.norm_rope_plain(k, u.cos, u.sin, ids=ids.tensor))
+            for side, hat, ref_hat in zip("qk", hats, refs):
+                if not torch.allclose(hat.float(), ref_hat.float(),
+                                      rtol=PREPASS_RTOL, atol=PREPASS_ATOL):
+                    fail(f"{name}: pre-pass {side} beyond one bf16 ulp of "
+                         "its plain version")
+            del hats, refs
             r = attention_case(
                 torch, name,
                 lambda: fa.flash_windowed_attention(
@@ -929,9 +980,15 @@ def check_k9(torch, fa, nadit, cfg, device):
                     q, k, v, None, u.cos, u.sin, ids, u.valid),
                 lambda: F.scaled_dot_product_attention(qr, kr, vr,
                                                        attn_mask=mask),
-                flops, nbytes)
+                flops, nbytes,
+                lambda: fa.attention_prepass(q, k, u.cos, u.sin, u.cos,
+                                             u.sin, None, qscale, ids))
+            tiles = fa.live_key_tiles(u.valid)
+            live = tiles[idx].sum().item()
             say(f"  {name}: {4 * b * H * s * s * D:.4g} flop over all S x S "
-                f"slots, {flops:.4g} needed")
+                f"slots, {flops:.4g} needed; key tiles walked {live} of "
+                f"{b * tiles.shape[1]} a head ({b * tiles.shape[1] - live} "
+                "wholly masked, skipped)")
             if label == "720p clip" and method == "shifted_window":
                 rec = r
     return rec
@@ -939,10 +996,11 @@ def check_k9(torch, fa, nadit, cfg, device):
 
 def check_k10(torch, im, device):
     """K10 bit-equal to its plain version at the 1080p clip's DiT linears
-    (K10_SHAPES); each timed beside its plain version, torch._int_mm on the
-    pre-quantized operand (int32 product only, as for K3) and the two-step
-    form (the plain quantize, then K3), with its bound. The record holds the
-    qkv shape. Returns it and the shapes' operands."""
+    (K10_SHAPES); each timed (events, and device time with pass 1's share)
+    beside the earlier design's time, its plain version, torch._int_mm on
+    the pre-quantized operand (int32 product only, as for K3) and the
+    two-step form (the plain quantize, then K3), with its bound. The record
+    holds the qkv shape. Returns it and the shapes' operands."""
     gen = torch.Generator(device).manual_seed(10)
     rec, operands = None, []
     for name, m, n, k in K10_SHAPES:
@@ -958,6 +1016,9 @@ def check_k10(torch, im, device):
             fail(f"K10 {name} M={m} N={n} K={k}: {(out != ref).sum().item()}"
                  " entries differ from the plain version")
         ms = kernel_ms(torch, lambda: im.int8_matmul_qx(x, wq, ws), 10)
+        dev_ms = device_ms(torch, lambda: im.int8_matmul_qx(x, wq, ws))
+        pass1_ms = device_ms(torch, lambda: im.int8_matmul_qx(x, wq, ws),
+                             only="quantize_rows")
         plain_ms = kernel_ms(torch, lambda: im.int8_matmul_qx_plain(
             x, wq, ws), 3)
         xq, _ = im.quantize_rows_qx(x)
@@ -977,11 +1038,16 @@ def check_k10(torch, im, device):
         ops = 2 * m * n * k
         bound, by = bound_ms(ops, PEAK_INT8, 2 * m * k + n * k + 4 * n
                              + 2 * m * n)
-        say(f"K10 {name} M={m} N={n} K={k}: exact; kernel {ms:.4f} ms "
-            f"({ops / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, two-step "
-            f"(plain quantize + K3) {two_ms:.4f} ms, torch._int_mm (int32 "
-            f"product only) {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-            f", bound {bound:.4f} ms ({by})")
+        row = f"K10 {name} M={m} N={n} K={k}"
+        swap, bt = im.plan_qx(m)
+        say(f"{row}: exact; kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s; "
+            f"device {dev_ms:.4f}, pass 1 (quantize) {pass1_ms:.4f} of it; "
+            f"tiles {'128 weights x ' if swap else '128 x '}{bt}"
+            f"{' tokens' if swap else ' weights'}), {earlier_note(row)}; "
+            f"plain {plain_ms:.4f} ms, two-step (plain quantize + K3) "
+            f"{two_ms:.4f} ms, torch._int_mm (int32 product only) "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{bound:.4f} ms ({by})")
         if rec is None:
             rec = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound, bound_by=by,
@@ -1344,20 +1410,33 @@ def check_uniform(torch, nadit, cfg, device, wrappers, txt, tt, models,
             out_p = forward(model, vid_in, dplan_u, use_kernels=False)
             out_g = forward(model, vid_in, dplan_g)
             rel_p, rel_g = rel_l2(out_u, out_p), rel_l2(out_u, out_g)
+            del out_p, out_g
             ms_u = cuda_ms(torch, lambda: forward(model, vid_in, dplan_u), 3,
                            warmup=1)
             ms_g = cuda_ms(torch, lambda: forward(model, vid_in, dplan_g), 3,
                            warmup=1)
+            peak = {}  # a forward's peak above what is resident before it
+            for plan_name, dp in (("uniform", dplan_u), ("grouped", dplan_g)):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                forward(model, vid_in, dp)
+                torch.cuda.synchronize()
+                peak[plan_name] = (torch.cuda.max_memory_allocated()
+                                   - base) / 2 ** 30
             say(f"whole {tree} DiT on the uniform plan, {label} latent "
                 f"{shape} ({dplan_u.plan.seq_len} tokens): relative L2 "
                 f"kernels vs plain {rel_p:.6g}, uniform vs grouped plan "
                 f"{rel_g:.6g} (bound {limit} each); forward {ms_u:.2f} ms "
-                f"uniform, {ms_g:.2f} ms grouped")
+                f"uniform, {ms_g:.2f} ms grouped; a forward's peak device "
+                f"memory above the resident {base / 2 ** 30:.3f} GiB: "
+                f"{peak['uniform']:.3f} GiB uniform, {peak['grouped']:.3f} "
+                "GiB grouped")
             if not torch.isfinite(out_u).all() or rel_p > limit \
                     or rel_g > limit:
                 fail(f"{path}: kernels vs plain {rel_p}, vs grouped {rel_g} "
                      f"(limit {limit})")
-            del out_u, out_p, out_g
+            del out_u
     torch.cuda.empty_cache()
     return main
 
@@ -1418,7 +1497,8 @@ def main() -> None:
     lib = _build.kernel_library()
     say(f"kernels built in {lib.build_seconds:.2f} s -> {lib.path.name}")
     for line in lib.ptxas_log.splitlines():  # per-kernel resource report
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
+        if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                   "(C75")):
             say(f"  {line.strip()}")
 
     # 2. kernels against their plain versions at 3B shapes, among them the
@@ -1844,6 +1924,7 @@ def main() -> None:
         by_path = {path: c[key] for path, c in counts.items()}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
+            design=DESIGN[key],
             launches=by_path[MAIN_PATH[key]], launches_by_path=by_path,
             **recs[key]))
     say(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 // Packed window attention for NaDiT (kernel K1 of the port), and the Hopper
-// attention step it shares with K8 (dense flash attention,
-// flash_attention.cu).
+// attention step it shares with K8 (dense flash attention) and K9 (windowed
+// flash attention), both in flash_attention.cu.
 //
 // Replaces: the Pallas TPU kernel `_fa_packed_kernel` behind
 // `flash_packed_attention` (comfyui-seedvr2_tpu/ops/flash_attention.py).
@@ -30,7 +30,8 @@
 //     (2, B, S, H, D) the wrapper allocates. D/8 threads own a (b, row) and
 //     walk its H heads, four 16-byte loads in flight, so the row's fp32
 //     table values are read once for all heads; the norm's sum of squares
-//     is reduced by shuffles inside a head's lanes.
+//     is reduced by shuffles inside a head's lanes. K9 gives it ids: batch
+//     row b then takes table ids[b] of (nU, S, D) tables.
 //  2. `attention_kernel` (FlashAttention-3's shape): a block owns 128 q rows
 //     of one (b, h) and has three roles. One producer warp issues TMA loads
 //     (cp.async.bulk.tensor, 128-byte swizzle, boxes of 64 rows x 64
@@ -43,10 +44,13 @@
 //     exp2 domain, and O += P v with P taken from the S accumulator as bf16
 //     register A fragments and v as an MN-major (transposed) shared operand,
 //     so v is never transposed by hand. Key tiles wholly past kv_len are
-//     never loaded; the partial one is masked on the fp32 scores. The output
-//     goes through the warpgroup's spent q tile in the same swizzled layout
-//     and out by TMA stores, which clip rows past Sq.
-// K9 alone still uses the earlier mma.sync step (flash_tile.cuh).
+//     never loaded; the partial one is masked on the fp32 scores. K9's
+//     variant (template flag MASKED) takes its keys from a per-window
+//     validity row picked by ids[b]: the block stages it as one 64-bit word
+//     a key tile and walks only the tiles that hold a valid key, masking a
+//     partly valid one on the fp32 scores. The output goes through the
+//     warpgroup's spent q tile in the same swizzled layout and out by TMA
+//     stores, which clip rows past Sq.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -71,7 +75,8 @@ constexpr int PRE_THREADS = 256;
 // for all H heads. out = bf16((x_n * cos + rot(x_n) * sin) * mult), x_n =
 // x * rsqrt(mean(x^2) + eps) over the head's D values when norm (else x),
 // rot(x)[2i] = -x[2i+1], rot(x)[2i+1] = x[2i]; no rotation without a table
-// or at rows >= table_rows. blockIdx.y picks the side (0: q, 1: k).
+// or at rows >= table_rows; with ids, batch row b's table is ids[b]'s.
+// blockIdx.y picks the side (0: q, 1: k).
 template <int D>
 __global__ void __launch_bounds__(PRE_THREADS)
 qk_prepass_kernel(const PrepassSide q, const PrepassSide k, int B, int H,
@@ -84,6 +89,8 @@ qk_prepass_kernel(const PrepassSide q, const PrepassSide k, int B, int H,
   const long long stride = is_q ? q.src_stride : k.src_stride;
   const float* cos_t = is_q ? q.cos : k.cos;
   const float* sin_t = is_q ? q.sin : k.sin;
+  const int* ids = is_q ? q.ids : k.ids;
+  const long long t_stride = is_q ? q.table_stride : k.table_stride;
   __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(is_q ? q.dst : k.dst);
   const int rows = is_q ? q.rows : k.rows;
   const float mult = is_q ? q.mult : k.mult;
@@ -98,10 +105,11 @@ qk_prepass_kernel(const PrepassSide q, const PrepassSide k, int B, int H,
   const bool rot = cos_t != nullptr && s < table_rows;
   float cs[8], sn[8];
   if (rot) {
-    const float4* cp =
-        reinterpret_cast<const float4*>(cos_t + (long long)s * D + c);
-    const float4* sp =
-        reinterpret_cast<const float4*>(sin_t + (long long)s * D + c);
+    // K9: the batch row's own table, picked by its id
+    const long long t0 = (ids != nullptr ? ids[row / rows] * t_stride : 0) +
+                         (long long)s * D + c;
+    const float4* cp = reinterpret_cast<const float4*>(cos_t + t0);
+    const float4* sp = reinterpret_cast<const float4*>(sin_t + t0);
     const float4 c0 = cp[0], c1 = cp[1], s0 = sp[0], s1 = sp[1];
     cs[0] = c0.x; cs[1] = c0.y; cs[2] = c0.z; cs[3] = c0.w;
     cs[4] = c1.x; cs[5] = c1.y; cs[6] = c1.z; cs[7] = c1.w;
@@ -195,6 +203,18 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+__device__ __forceinline__ uint64_t lds64(uint32_t addr) {
+  uint64_t v;
+  asm volatile("ld.shared.u64 %0, [%1];" : "=l"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ int lds32(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared.s32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&p);
@@ -240,17 +260,30 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
 
 // Online softmax over one tile of fp32 scores, exp2 domain, for the rows g
 // and g + 8 this thread holds: scores times score_scale (1 when q was
-// pre-scaled), keys at or past kv_len masked, the running max clamped at
-// -1e30 so that a row with no valid key yet leaves exp2(-inf - m) = 0 and no
-// NaN. Leaves exp2(s - m) in sc, this thread's partial sums in l, and the
-// factor O must be rescaled by in corr.
+// pre-scaled), keys at or past kv_len masked (MASKED: the keys whose bit in
+// the tile's validity word `bits` is 0), the running max clamped at -1e30 so
+// that a row with no valid key yet leaves exp2(-inf - m) = 0 and no NaN.
+// Leaves exp2(s - m) in sc, this thread's partial sums in l, and the factor
+// O must be rescaled by in corr.
+template <bool MASKED>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], int k0,
-                                             int kv_len, float score_scale,
-                                             int t, float (&m)[2],
-                                             float (&l)[2], float (&corr)[2]) {
+                                             int kv_len, uint64_t bits,
+                                             float score_scale, int t,
+                                             float (&m)[2], float (&l)[2],
+                                             float (&corr)[2]) {
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) sc[i] *= score_scale;
-  if (k0 + BN > kv_len) {
+  if constexpr (MASKED) {
+    if (~bits != 0) {
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const int col = 8 * i + 2 * t;
+        if (!((bits >> col) & 1)) sc[4 * i] = sc[4 * i + 2] = -INFINITY;
+        if (!((bits >> (col + 1)) & 1))
+          sc[4 * i + 1] = sc[4 * i + 3] = -INFINITY;
+      }
+    }
+  } else if (k0 + BN > kv_len) {
 #pragma unroll
     for (int i = 0; i < BN / 8; ++i) {
       const int col = k0 + 8 * i + 2 * t;
@@ -307,13 +340,23 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2],
 // d[4i+1] at row 16w + g, columns 8i + 2t, 8i + 2t + 1, and d[4i+2],
 // d[4i+3] at row 16w + g + 8. Two adjacent blocks of the score tile are the
 // register A fragment of one 16-key step of P v.
-template <int D>
+//
+// MASKED (K9): batch row b's keys are those that row ids[b] of key_valid
+// ((nU, Sk) bytes) marks. The block first stages that row as one 64-bit
+// validity word a key tile, then the list of the tiles whose word is not 0,
+// both in shared memory behind a barrier: the producer and both consumer
+// warpgroups walk that one list, so their mbarrier phases agree, and a tile
+// with no valid key is never loaded or multiplied (each of its keys would
+// add exp2(-inf) = 0).
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  const __grid_constant__ CUtensorMap tm_o, int kv_len,
-                 float score_scale) {
+                 float score_scale,
+                 const unsigned char* __restrict__ key_valid,
+                 const int* __restrict__ ids, int Sk) {
   constexpr int P = D / BOX;                 // 64-column panels of a tile
   constexpr uint32_t TILE = P * BOX_BYTES;   // one 64-row tile, D columns
   extern __shared__ unsigned char smem_raw[];
@@ -329,7 +372,12 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * (CONSUMERS * BM);
-  const int n_tiles = (kv_len + BN - 1) / BN;  // tiles past kv_len skipped
+  // MASKED: after the barriers, the key tiles' validity words; then, in
+  // order, the live tiles' words and indices, and their count
+  const int all_tiles = MASKED ? (Sk + BN - 1) / BN : 0;
+  const uint32_t live_words = qbar + 8 + 8 * all_tiles;
+  const uint32_t live_tiles = live_words + 8 * all_tiles;
+  uint64_t* words = reinterpret_cast<uint64_t*>(smem_raw + (qbar + 8 - raw));
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -339,7 +387,35 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  if constexpr (MASKED) {
+    // warp w stages tiles w, w + 9, ...: lane l's keys l and l + 32
+    const unsigned char* row = key_valid + (long long)ids[b] * Sk;
+    const int lane = threadIdx.x % 32;
+    for (int j = threadIdx.x / 32; j < all_tiles; j += THREADS / 32) {
+      const int c = j * BN + lane;
+      const uint32_t lo = __ballot_sync(0xffffffffu, c < Sk && row[c] != 0);
+      const uint32_t hi =
+          __ballot_sync(0xffffffffu, c + 32 < Sk && row[c + 32] != 0);
+      if (lane == 0) words[j] = lo | (uint64_t(hi) << 32);
+    }
+  }
   __syncthreads();
+  int n_tiles = (kv_len + BN - 1) / BN;  // tiles past kv_len skipped
+  if constexpr (MASKED) {
+    if (threadIdx.x == 0) {
+      uint64_t* lw = words + all_tiles;
+      int* lt = reinterpret_cast<int*>(lw + all_tiles);
+      int n = 0;
+      for (int j = 0; j < all_tiles; ++j)
+        if (words[j] != 0) {
+          lw[n] = words[j];
+          lt[n++] = j;
+        }
+      lt[all_tiles] = n;
+    }
+    __syncthreads();
+    n_tiles = lds32(live_tiles + 4 * all_tiles);
+  }
 
   const int wg = threadIdx.x / 128;
   if (wg == CONSUMERS) {
@@ -352,13 +428,14 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
                    h * D + p * BOX, q0 + c * BM, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES;
+        const int k0 = (MASKED ? lds32(live_tiles + 4 * j) : j) * BN;
         mbar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
         mbar_expect_tx(full + 8 * s, 2 * TILE);
         for (int p = 0; p < P; ++p) {
           tma_load(sK + s * TILE + p * BOX_BYTES, &tm_k, full + 8 * s,
-                   h * D + p * BOX, j * BN, b);
+                   h * D + p * BOX, k0, b);
           tma_load(sV + s * TILE + p * BOX_BYTES, &tm_v, full + 8 * s,
-                   h * D + p * BOX, j * BN, b);
+                   h * D + p * BOX, k0, b);
         }
       }
     }
@@ -382,34 +459,43 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
   float sc[BN / 2];
   uint32_t pa[BN / 16][4];
 
+  // tile j's validity word (MASKED)
+  auto bits = [&](int j) {
+    return MASKED ? lds64(live_words + 8 * j) : ~uint64_t(0);
+  };
+
   // Tile j's scores are issued together with tile j - 1's P v, and tile j's
   // softmax runs while that P v is still on the tensor cores; O is rescaled
-  // once it has landed.
+  // once it has landed. A row with no live tile (MASKED) writes zeros, as
+  // the TPU kernel's 0 / max(0, 1e-30).
   mbar_wait(qbar, 0);
-  mbar_wait(full, 0);
-  issue_scores<D>(sc, q_tile, sK);
-  wgmma_wait<0>();
-  reg_fence(sc);
-  softmax_tile(sc, 0, kv_len, score_scale, t, m, l, corr);
-  pack_p(pa, sc);
-  for (int j = 1; j < n_tiles; ++j) {
-    const int s = j % STAGES;
-    const int sp = (j - 1) % STAGES;
-    mbar_wait(full + 8 * s, (j / STAGES) & 1);
-    issue_scores<D>(sc, q_tile, sK + s * TILE);
-    issue_pv<D>(o, pa, sV + sp * TILE);
-    wgmma_wait<1>();  // the scores have landed
+  if (n_tiles > 0) {
+    mbar_wait(full, 0);
+    issue_scores<D>(sc, q_tile, sK);
+    wgmma_wait<0>();
     reg_fence(sc);
-    softmax_tile(sc, j * BN, kv_len, score_scale, t, m, l, corr);
-    wgmma_wait<0>();  // P v has landed
-    reg_fence(o);
-    mbar_arrive(empty + 8 * sp);  // this thread is done with stage sp
-    rescale<D>(o, corr);
+    softmax_tile<MASKED>(sc, 0, kv_len, bits(0), score_scale, t, m, l, corr);
     pack_p(pa, sc);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int s = j % STAGES;
+      const int sp = (j - 1) % STAGES;
+      mbar_wait(full + 8 * s, (j / STAGES) & 1);
+      issue_scores<D>(sc, q_tile, sK + s * TILE);
+      issue_pv<D>(o, pa, sV + sp * TILE);
+      wgmma_wait<1>();  // the scores have landed
+      reg_fence(sc);
+      softmax_tile<MASKED>(sc, j * BN, kv_len, bits(j), score_scale, t, m, l,
+                           corr);
+      wgmma_wait<0>();  // P v has landed
+      reg_fence(o);
+      mbar_arrive(empty + 8 * sp);  // this thread is done with stage sp
+      rescale<D>(o, corr);
+      pack_p(pa, sc);
+    }
+    issue_pv<D>(o, pa, sV + ((n_tiles - 1) % STAGES) * TILE);
+    wgmma_wait<0>();
+    reg_fence(o);
   }
-  issue_pv<D>(o, pa, sV + ((n_tiles - 1) % STAGES) * TILE);
-  wgmma_wait<0>();
-  reg_fence(o);
 
   // out = O / max(l, 1e-30) as bf16, written into the warpgroup's spent q
   // tile in the TMA box layout (16-byte chunk c of row r at chunk c ^ (r %
@@ -457,19 +543,24 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int rows, int H,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, bool MASKED>
 cudaError_t launch_attention(const CUtensorMap& q, const CUtensorMap& k,
                              const CUtensorMap& v, const CUtensorMap& o,
-                             int B, int Sq, int H, int kv_len,
-                             float score_scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+                             int B, int Sq, int Sk, int H, int kv_len,
+                             float score_scale,
+                             const unsigned char* key_valid, const int* ids,
+                             cudaStream_t stream) {
+  // MASKED: two validity words and a list entry a key tile, and the count
+  const size_t smem =
+      smem_bytes<D>() + (MASKED ? size_t((Sk + BN - 1) / BN) * 20 + 16 : 0);
+  if (smem > 232448) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      attention_kernel<D, MASKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + CONSUMERS * BM - 1) / (CONSUMERS * BM), H, B);
-  attention_kernel<D><<<grid, THREADS, smem, stream>>>(q, k, v, o, kv_len,
-                                                       score_scale);
+  attention_kernel<D, MASKED><<<grid, THREADS, smem, stream>>>(
+      q, k, v, o, kv_len, score_scale, key_valid, ids, Sk);
   return cudaGetLastError();
 }
 
@@ -491,9 +582,12 @@ cudaError_t attention_sm90(const void* q, long long q_stride, const void* k,
                            long long k_stride, const void* v,
                            long long v_stride, void* out, int B, int Sq,
                            int Sk, int H, int D, int kv_len,
-                           float score_scale, cudaStream_t stream) {
+                           float score_scale, cudaStream_t stream,
+                           const unsigned char* key_valid, const int* ids) {
   if (B == 0 || Sq == 0) return cudaSuccess;
-  if ((D != 64 && D != 128) || kv_len < 1 || kv_len > Sk)
+  const bool masked = key_valid != nullptr;
+  if ((D != 64 && D != 128) || (masked && ids == nullptr) ||
+      (!masked && (kv_len < 1 || kv_len > Sk)))
     return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, to;
   if (!make_map(&tq, q, B, Sq, H, D, q_stride) ||
@@ -501,10 +595,19 @@ cudaError_t attention_sm90(const void* q, long long q_stride, const void* k,
       !make_map(&tv, v, B, Sk, H, D, v_stride) ||
       !make_map(&to, out, B, Sq, H, D, (long long)H * D))
     return cudaErrorInvalidValue;
-  return D == 128 ? launch_attention<128>(tq, tk, tv, to, B, Sq, H, kv_len,
-                                          score_scale, stream)
-                  : launch_attention<64>(tq, tk, tv, to, B, Sq, H, kv_len,
-                                         score_scale, stream);
+  if (masked)
+    return D == 128 ? launch_attention<128, true>(tq, tk, tv, to, B, Sq, Sk,
+                                                  H, kv_len, score_scale,
+                                                  key_valid, ids, stream)
+                    : launch_attention<64, true>(tq, tk, tv, to, B, Sq, Sk, H,
+                                                 kv_len, score_scale,
+                                                 key_valid, ids, stream);
+  return D == 128 ? launch_attention<128, false>(tq, tk, tv, to, B, Sq, Sk, H,
+                                                 kv_len, score_scale, nullptr,
+                                                 nullptr, stream)
+                  : launch_attention<64, false>(tq, tk, tv, to, B, Sq, Sk, H,
+                                                kv_len, score_scale, nullptr,
+                                                nullptr, stream);
 }
 
 }  // namespace seedvr2
@@ -537,20 +640,25 @@ extern "C" int seedvr2_packed_attention(const void* qkv, const void* cos_q,
 
 // The pre-pass alone: q_src (B, Sq, H, D) and k_src (B, Sk, H, D) bf16 at row
 // strides q_stride / k_stride elements (heads and D contiguous), tables
-// (table_rows, D) fp32 or null, q_dst / k_dst contiguous bf16; checked by
-// the Python wrapper.
+// (table_rows, D) fp32 or null, or with ids (B int32, K9) (nU, table_rows,
+// D) tables of which batch row b takes ids[b]'s, q_dst / k_dst contiguous
+// bf16; checked by the Python wrapper.
 extern "C" int seedvr2_qk_prepass(const void* q_src, long long q_stride,
                                   const void* k_src, long long k_stride,
                                   const void* cos_q, const void* sin_q,
                                   const void* cos_k, const void* sin_k,
-                                  void* q_dst, void* k_dst, int B, int Sq,
-                                  int Sk, int H, int D, int table_rows,
-                                  int norm, float eps, float qscale,
-                                  void* stream) {
+                                  const void* ids, void* q_dst, void* k_dst,
+                                  int B, int Sq, int Sk, int H, int D,
+                                  int table_rows, int norm, float eps,
+                                  float qscale, void* stream) {
+  const int* id = static_cast<const int*>(ids);
+  const long long t_stride = (long long)table_rows * D;
   const PrepassSide q{q_src, q_stride, static_cast<const float*>(cos_q),
-                      static_cast<const float*>(sin_q), q_dst, Sq, qscale};
+                      static_cast<const float*>(sin_q), q_dst, Sq, qscale,
+                      id, t_stride};
   const PrepassSide k{k_src, k_stride, static_cast<const float*>(cos_k),
-                      static_cast<const float*>(sin_k), k_dst, Sk, 1.f};
+                      static_cast<const float*>(sin_k), k_dst, Sk, 1.f, id,
+                      t_stride};
   return int(seedvr2::qk_prepass(D, q, k, B, H, table_rows, norm != 0, eps,
                                  static_cast<cudaStream_t>(stream)));
 }

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels:
-// K1/K8's attention step (packed_attention.cu) and K6/K7's dequantizing
-// GEMMs (quant_matmul.cu). Shared-memory addresses are 32-bit `.shared`
-// addresses (smem_u32).
+// K1/K8/K9's attention step (packed_attention.cu), K6/K7's dequantizing
+// GEMMs (quant_matmul.cu) and K10's s8 GEMM (int8_matmul.cu).
+// Shared-memory addresses are 32-bit `.shared` addresses (smem_u32).
 
 #pragma once
 
@@ -218,9 +218,60 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "r"(accumulate), "n"(TRANS_B));
 }
 
+#define SEEDVR2_R8(i)                                                 \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),         \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define SEEDVR2_D128                                                    \
+  SEEDVR2_D64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, " \
+              "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "   \
+              "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, "   \
+              "%97, %98, %99, %100, %101, %102, %103, %104, %105, %106, " \
+              "%107, %108, %109, %110, %111, %112, %113, %114, %115, "    \
+              "%116, %117, %118, %119, %120, %121, %122, %123, %124, "    \
+              "%125, %126, %127"
+
+// d(64 x N, s32) (+)= A(64 x 32) B(32 x N), both s8 and K-major in shared
+// memory (the only layout 8-bit wgmma takes), N = 8, 64 or 256; a k32 step
+// is 32 bytes, as a bf16 k16 step, so the descriptors are the same. The
+// int32 sums are exact. d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_s8(uint32_t (&d)[4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8(uint32_t (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" SEEDVR2_D32
+      "}, %32, %33, p;\n}\n"
+      : SEEDVR2_R8(0), SEEDVR2_R8(8), SEEDVR2_R8(16), SEEDVR2_R8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8(uint32_t (&d)[128], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" SEEDVR2_D128
+      "}, %128, %129, p;\n}\n"
+      : SEEDVR2_R8(0), SEEDVR2_R8(8), SEEDVR2_R8(16), SEEDVR2_R8(24),
+        SEEDVR2_R8(32), SEEDVR2_R8(40), SEEDVR2_R8(48), SEEDVR2_R8(56),
+        SEEDVR2_R8(64), SEEDVR2_R8(72), SEEDVR2_R8(80), SEEDVR2_R8(88),
+        SEEDVR2_R8(96), SEEDVR2_R8(104), SEEDVR2_R8(112), SEEDVR2_R8(120)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #undef SEEDVR2_F8
+#undef SEEDVR2_R8
 #undef SEEDVR2_D32
 #undef SEEDVR2_D64
+#undef SEEDVR2_D128
 
 // ------------------------------------------------------------ host side
 

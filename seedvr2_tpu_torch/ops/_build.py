@@ -33,9 +33,9 @@ _SIGNATURES = {
     # qkv, cos_q, sin_q, cos_k, sin_k, scratch, out, B, S, H, D, kv_len, eps,
     # qscale, stream
     "seedvr2_packed_attention": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
-    # q_src, q_stride, k_src, k_stride, cos_q, sin_q, cos_k, sin_k, q_dst,
-    # k_dst, B, Sq, Sk, H, D, table_rows, norm, eps, qscale, stream
-    "seedvr2_qk_prepass": [_P, _L, _P, _L] + [_P] * 6 + [_I] * 7
+    # q_src, q_stride, k_src, k_stride, cos_q, sin_q, cos_k, sin_k, ids,
+    # q_dst, k_dst, B, Sq, Sk, H, D, table_rows, norm, eps, qscale, stream
+    "seedvr2_qk_prepass": [_P, _L, _P, _L] + [_P] * 7 + [_I] * 7
                           + [_F, _F, _P],
     # q, k, v, cos, sin, valid, ids, scratch, out, B, Sq, Sk, H, D, kv_len,
     # table_rows, qscale, stream
@@ -44,8 +44,9 @@ _SIGNATURES = {
     "seedvr2_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     # xq, wq, xs, ws, out, M, N, K, stream
     "seedvr2_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x, wq, ws, xs (scratch), out, M, N, K, x_f32, out_f32, stream
-    "seedvr2_int8_matmul_qx": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, wq, ws, xs, xq (scratch), out, M, N, K, x_f32, out_f32, swap, bt,
+    # stream
+    "seedvr2_int8_matmul_qx": [_P] * 6 + [_I] * 7 + [_P],
     # x, scale, shift, q, s, rows, L, K, eps, stream
     "seedvr2_rms_ada_quantize": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # g, u, q, s, rows, K, row_stride, stream

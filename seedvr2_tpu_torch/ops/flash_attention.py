@@ -22,10 +22,12 @@ with its plain version:
 On a CUDA tensor each wrapper launches its hand-written Hopper kernel
 (`csrc/packed_attention.cu`, `csrc/flash_attention.cu`; their headers say
 what bounds them on an H100 and how they are laid out) or raises on what
-it does not take; on a CPU tensor it runs the plain version. K1 and K8
+it does not take; on a CPU tensor it runs the plain version. K1, K8 and K9
 share one Hopper attention step, fed by a pre-pass that normalises (K1)
-and ropes q and k once (`attention_prepass`, plainly `norm_rope_plain`);
-one counted call launches both.
+and ropes q and k once (`attention_prepass`, plainly `norm_rope_plain`;
+K9's rows each by the table their id picks); one counted call launches
+both. K9's step walks only the key tiles that hold a valid key
+(`live_key_tiles`).
 """
 
 from typing import Optional
@@ -44,23 +46,29 @@ _HEAD_DIMS = (64, 128)
 
 def norm_rope_plain(x: torch.Tensor, cos: Optional[torch.Tensor],
                     sin: Optional[torch.Tensor], eps: Optional[float] = None,
-                    mult: float = 1.0) -> torch.Tensor:
-    """Plain version of the K1/K8 pre-pass: x (B, S, H, D) in fp32,
+                    mult: float = 1.0,
+                    ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the K1/K8/K9 pre-pass: x (B, S, H, D) in fp32,
     RMS-normed over D when eps is given, rotated by interleaved rotate-half
     RoPE with (R, D) fp32 tables (R <= S: rows at or past R pass through
     unrotated; no rotation without tables), times mult, rounded back to x's
-    dtype. The plain attention functions take it with mult = 1 and scale
-    their fp32 logits; the kernels fold mult = scale*log2e into q."""
+    dtype. With ids (B integer ids, K9) the tables are (nU, R, D) and batch
+    row b takes table ids[b]. The plain attention functions take it with
+    mult = 1 and scale their fp32 logits; the kernels fold mult =
+    scale*log2e into q."""
     z = x.float()
     if eps is not None:
         z = z * torch.rsqrt(torch.mean(z * z, dim=-1, keepdim=True) + eps)
     if cos is not None:
-        s = z.shape[-3]
-        if cos.shape[0] < s:
-            cos = F.pad(cos, (0, 0, 0, s - cos.shape[0]), value=1.0)
-            sin = F.pad(sin, (0, 0, 0, s - sin.shape[0]))
-        z = (z * cos.float()[:, None, :]
-             + rotate_half_full(z) * sin.float()[:, None, :])
+        if ids is not None:
+            ids = ids.to(cos.device).long()
+            cos, sin = cos[ids], sin[ids]
+        s, rows = z.shape[-3], cos.shape[-2]
+        if rows < s:
+            cos = F.pad(cos, (0, 0, 0, s - rows), value=1.0)
+            sin = F.pad(sin, (0, 0, 0, s - rows))
+        z = (z * cos.float().unsqueeze(-2)
+             + rotate_half_full(z) * sin.float().unsqueeze(-2))
     if mult != 1.0:
         z = z * mult
     return z.to(x.dtype)
@@ -86,13 +94,24 @@ def packed_window_attention_plain(qkv: torch.Tensor, heads: int, d: int,
     return out.reshape(b, s, heads * d)
 
 
-def _check_table(t: torch.Tensor, s: int, d: int, device) -> None:
-    if (t.dtype != torch.float32 or t.shape != (s, d)
+def _check_table(t: torch.Tensor, shape, device) -> None:
+    if (t.dtype != torch.float32 or t.shape != shape
             or not t.is_contiguous() or t.device != device
             or t.data_ptr() % 16):
         raise ValueError(f"rope tables must be contiguous, 16-byte aligned "
-                         f"fp32 ({s}, {d}) on {device}, got "
+                         f"fp32 {tuple(shape)} on {device}, got "
                          f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _check_ids(ids: RowIndex, b: int, n_u: int, device) -> None:
+    """K9's window ids as its kernels take them: B int32 ids < nU on the
+    operands' device."""
+    t = ids.tensor
+    if (len(ids) != b or ids.hi >= n_u or t.dtype != torch.int32
+            or not t.is_contiguous() or t.device != device):
+        raise ValueError(f"window ids must be {b} contiguous int32 ids < "
+                         f"{n_u} on {device}, got {len(ids)} up to {ids.hi} "
+                         f"({t.dtype} on {t.device})")
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
@@ -111,20 +130,26 @@ def attention_prepass(q: torch.Tensor, k: torch.Tensor,
                       sin_q: Optional[torch.Tensor],
                       cos_k: Optional[torch.Tensor],
                       sin_k: Optional[torch.Tensor],
-                      eps: Optional[float] = None, mult: float = 1.0):
-    """The K1/K8 pre-pass alone: (norm_rope_plain(q, cos_q, sin_q, eps,
-    mult), norm_rope_plain(k, cos_k, sin_k, eps)) as contiguous tensors.
-    q (B, Sq, H, D), k (B, Sk, H, D); their rows may be strided (K1's q and
-    k columns of the packed operand). Tables: (R, D) fp32 with one R <= S
-    for both sides, or None for both.
+                      eps: Optional[float] = None, mult: float = 1.0,
+                      ids: Optional[RowIndex] = None):
+    """The K1/K8/K9 pre-pass alone: (norm_rope_plain(q, cos_q, sin_q, eps,
+    mult, ids), norm_rope_plain(k, cos_k, sin_k, eps, ids=ids)) as
+    contiguous tensors. q (B, Sq, H, D), k (B, Sk, H, D); their rows may be
+    strided (K1's q and k columns of the packed operand). Tables: (R, D)
+    fp32 with one R <= S for both sides, or None for both; with ids (K9: B
+    window ids, a RowIndex) (nU, R, D) tables of which row b takes ids[b]'s.
 
     CPU tensors take the plain version. CUDA tensors launch the pre-pass
-    kernel, the one K1's and K8's wrappers launch before their attention
-    step (so chip_smoke.py can time it alone), or raise on what it does not
-    take: bf16 q, k with heads and D contiguous, D in (64, 128)."""
+    kernel, the one K1's, K8's and K9's wrappers launch before their
+    attention step (so chip_smoke.py can time it alone), or raise on what
+    it does not take: bf16 q, k with heads and D contiguous, D in (64,
+    128)."""
+    if ids is not None and cos_q is None:
+        raise ValueError("attention pre-pass: window ids without tables")
+    id_t = None if ids is None else ids.tensor
     if q.device.type == "cpu":
-        return (norm_rope_plain(q, cos_q, sin_q, eps, mult),
-                norm_rope_plain(k, cos_k, sin_k, eps))
+        return (norm_rope_plain(q, cos_q, sin_q, eps, mult, id_t),
+                norm_rope_plain(k, cos_k, sin_k, eps, ids=id_t))
     if q.device.type != "cuda":
         raise RuntimeError(f"attention pre-pass: no kernel for {q.device}")
     b, sq, h, d = q.shape
@@ -141,11 +166,15 @@ def attention_prepass(q: torch.Tensor, k: torch.Tensor,
                          f"{_HEAD_DIMS}, or tables for one side only")
     rows = 0
     if cos_q is not None:
-        rows = cos_q.shape[0]
+        rows = cos_q.shape[-2]
         if rows > min(sq, sk):
             raise ValueError(f"attention pre-pass: {rows} table rows > S")
+        shape = (rows, d)
+        if ids is not None:
+            shape = (cos_q.shape[0], rows, d)
+            _check_ids(ids, b, shape[0], q.device)
         for t in (cos_q, sin_q, cos_k, sin_k):
-            _check_table(t, rows, d, q.device)
+            _check_table(t, shape, q.device)
     _check_aligned("attention pre-pass", q, k)
     q_hat = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     k_hat = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
@@ -155,7 +184,7 @@ def attention_prepass(q: torch.Tensor, k: torch.Tensor,
 
     err = _build.kernel_library().lib.seedvr2_qk_prepass(
         q.data_ptr(), q.stride(1), k.data_ptr(), k.stride(1), ptr(cos_q),
-        ptr(sin_q), ptr(cos_k), ptr(sin_k), q_hat.data_ptr(),
+        ptr(sin_q), ptr(cos_k), ptr(sin_k), ptr(id_t), q_hat.data_ptr(),
         k_hat.data_ptr(), b, sq, sk, h, d, rows, int(eps is not None),
         float(eps or 0.0), float(mult), _stream(q))
     _build.check(err, "seedvr2_qk_prepass")
@@ -189,7 +218,7 @@ def packed_window_attention(qkv: torch.Tensor, heads: int, d: int,
     if b > 65535 or heads > 65535:
         raise ValueError("packed attention kernel: grid too large")
     for t in (cos_q, sin_q, cos_k, sin_k):
-        _check_table(t, s, d, qkv.device)
+        _check_table(t, (s, d), qkv.device)
     _check_aligned("packed attention", qkv)
     # q-hat and k-hat: normed, roped (q times scale*log2e) bf16
     scratch = torch.empty((2, b, s, heads, d), dtype=qkv.dtype,
@@ -278,9 +307,11 @@ def flash_windowed_attention(q: torch.Tensor, k: torch.Tensor,
     table/mask (a RowIndex, checked on the host and uploaded once). Returns
     (B, S, H, D); scale defaults to D**-0.5.
 
-    CPU tensors take the plain version. CUDA tensors launch kernel K9, or
-    raise on what it does not take: contiguous bf16 q/k/v and fp32 tables,
-    a bool mask, ids on the same device, D in (64, 128)."""
+    CPU tensors take the plain version. CUDA tensors launch kernel K9 (its
+    pre-pass with the windows' tables, then the attention step over each
+    window's live key tiles), or raise on what it does not take: contiguous
+    bf16 q/k/v and fp32 tables, a bool mask, ids on the same device, D in
+    (64, 128)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("windowed attention is self-attention over "
                          f"(B, S, H, D): q {tuple(q.shape)}, k "
@@ -305,18 +336,34 @@ def flash_windowed_attention(q: torch.Tensor, k: torch.Tensor,
             raise ValueError("flash_windowed_attention kernel: tables, mask "
                              f"and ids must be contiguous {dt} on {q.device}, "
                              f"got {t.dtype} on {t.device}")
+    _check_aligned("flash_windowed_attention", rope_cos, rope_sin)
+    # q-hat and k-hat: each window roped by its table (q times
+    # scale*log2e), bf16
+    scratch = torch.empty((2, b, s, h, d), dtype=q.dtype, device=q.device)
     out = torch.empty_like(q)
     err = _build.kernel_library().lib.seedvr2_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rope_cos.data_ptr(),
         rope_sin.data_ptr(), kv_valid.data_ptr(), table_ids.tensor.data_ptr(),
-        None, out.data_ptr(), b, s, s, h, d, s, s, _qscale(scale, d),
-        _stream(q))
+        scratch.data_ptr(), out.data_ptr(), b, s, s, h, d, s, s,
+        _qscale(scale, d), _stream(q))
     _build.check(err, "seedvr2_flash_attention")
     flash_windowed_attention.launches += 1
     return out
 
 
 flash_windowed_attention.launches = 0
+
+KEY_TILE = 64  # keys a tile of the Hopper attention step
+
+
+def live_key_tiles(kv_valid: torch.Tensor) -> torch.Tensor:
+    """(nU, S) key validity -> (nU, ceil(S / 64)) bool: the 64-key tiles of
+    each window id that hold at least one valid key, the tiles K9's step
+    loads and multiplies (in order) for every window row with that id."""
+    n_u, s = kv_valid.shape
+    pad = -s % KEY_TILE
+    v = F.pad(kv_valid.bool(), (0, pad), value=False)
+    return v.reshape(n_u, -1, KEY_TILE).any(dim=-1)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -360,7 +407,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rope_cos is not None:
         table_rows = rope_cos.shape[0]
         for t in (rope_cos, rope_sin):
-            _check_table(t, table_rows, d, q.device)
+            _check_table(t, (table_rows, d), q.device)
         # q-hat and k-hat: roped (q times scale*log2e) bf16
         scratch = torch.empty((2, *q4.shape), dtype=q4.dtype,
                               device=q.device)

@@ -113,6 +113,18 @@ def quantize_rows_qx(x: torch.Tensor):
     return q.to(torch.int8), scale.squeeze(-1)
 
 
+def plan_qx(m: int):
+    """K10's tiles for M token rows: (swap, bt). At the video rows a
+    block takes 128 tokens by bt = 256 weight rows; at M <= 64 the roles
+    swap, 128 weight rows by bt = 8 or 64 tokens (at least M), so N/128
+    blocks stream the weights where N/256 would leave most SMs idle."""
+    if m <= 8:
+        return True, 8
+    if m <= 64:
+        return True, 64
+    return False, 256
+
+
 def int8_matmul_qx_plain(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
                          out_dtype=None) -> torch.Tensor:
     """Plain version of K10: quantize_rows_qx, then K3's plain product and
@@ -125,14 +137,16 @@ def int8_matmul_qx_plain(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
 def int8_matmul_qx(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
                    out_dtype=None) -> torch.Tensor:
     """x (M, K) bf16 or fp32 @ wq (N, K) int8 -> (M, N), with the per-row
-    activation quantization (quantize_rows_qx) inside the kernel, scaled by
-    the row scales and ws (N,) fp32; out_dtype (bf16 or fp32) defaults to
-    x's. An op only: the w8a8 lane runs the two-step form (a fused or plain
-    quantize, then K3), as the JAX package does.
+    activation quantization (quantize_rows_qx), scaled by the row scales
+    and ws (N,) fp32; out_dtype (bf16 or fp32) defaults to x's. An op only:
+    the w8a8 lane runs the two-step form (a fused or plain quantize, then
+    K3), as the JAX package does.
 
-    CPU tensors take the plain version. CUDA tensors launch kernel K10, or
-    raise on what it does not take: contiguous operands on one device,
-    K % 32 == 0, K > 0, N % 8 == 0, 16-byte aligned x and wq."""
+    CPU tensors take the plain version. CUDA tensors launch kernel K10 (its
+    quantize pass into an (M, K) int8 scratch, then its s8 GEMM on the
+    tiles `plan_qx` picks), or raise on what it does not take: contiguous
+    operands on one device, K % 32 == 0, K > 0, N % 8 == 0, 16-byte
+    aligned x and wq."""
     m, k = x.shape
     n, k2 = wq.shape
     if k != k2 or ws.shape != (n,):
@@ -156,14 +170,17 @@ def int8_matmul_qx(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
     if k == 0 or k % 32 or n % 8 or x.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError(f"int8_matmul_qx kernel: needs K % 32 == 0 (K={k}),"
                          f" N % 8 == 0 (N={n}) and 16-byte aligned operands")
-    xs = torch.empty(m, dtype=torch.float32, device=x.device)  # row scales
+    # the quantize pass's row scales and int8 rows
+    xs = torch.empty(m, dtype=torch.float32, device=x.device)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m and n:
+        swap, bt = plan_qx(m)
         err = _build.kernel_library().lib.seedvr2_int8_matmul_qx(
             x.data_ptr(), wq.data_ptr(), ws.data_ptr(), xs.data_ptr(),
-            out.data_ptr(), m, n, k, int(x.dtype == torch.float32),
-            int(out_dtype == torch.float32),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            xq.data_ptr(), out.data_ptr(), m, n, k,
+            int(x.dtype == torch.float32), int(out_dtype == torch.float32),
+            int(swap), bt, torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(err, "seedvr2_int8_matmul_qx")
         int8_matmul_qx.launches += 1
     return out

@@ -1,10 +1,11 @@
-"""The plain version of the K1/K8 pre-pass (`norm_rope_plain`: q and k
-RMS-normed (K1), roped and scaled, rounded to the operands' dtype) against
-the JAX package on the CPU, alone and as the input of attention in the exp2
-domain, the way the Hopper attention step consumes it (q-hat carries
-scale*log2e, so softmax2(q-hat k-hat^T) = softmax(q k^T * scale)). The
-pre-pass kernel itself runs only on a GPU: tests/test_torch_cuda.py and
-chip_smoke.py hold it to this plain version on the card."""
+"""The plain version of the K1/K8/K9 pre-pass (`norm_rope_plain`: q and k
+RMS-normed (K1), roped (K9: each window row by the table its id picks) and
+scaled, rounded to the operands' dtype) against the JAX package on the CPU,
+alone and as the input of attention in the exp2 domain, the way the Hopper
+attention step consumes it (q-hat carries scale*log2e, so softmax2(q-hat
+k-hat^T) = softmax(q k^T * scale)). The pre-pass kernel itself runs only on
+a GPU: tests/test_torch_cuda.py and chip_smoke.py hold it to this plain
+version on the card."""
 
 import math
 
@@ -165,3 +166,103 @@ def test_attention_prepass_routes_cpu_to_plain():
     meta = x.to("meta")
     with pytest.raises(RuntimeError):
         tfa.attention_prepass(meta[:, :, 0], meta[:, :, 1], *tabs, 1e-5, 0.5)
+
+
+def _windows_case(rng, b=5, s=100, h=2, d=16, n_u=3):
+    """B window rows of (S, H, D), nU (S, D) tables, every id used, and a
+    key validity row per id (id 0 its first 70 keys invalid, id 1 its
+    middle 30)."""
+    q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32)
+               for _ in range(3))
+    ang = rng.standard_normal((n_u, s, d // 2)).astype(np.float32)
+    cos = np.repeat(np.cos(ang), 2, axis=-1)
+    sin = np.repeat(np.sin(ang), 2, axis=-1)
+    ids = np.array([2, 0, 1, 1, 0][:b], np.int32)
+    valid = np.ones((n_u, s), bool)
+    valid[0, :70] = False
+    valid[1, 40:70] = False
+    return q, k, v, cos, sin, ids, valid
+
+
+@pytest.mark.parametrize("mult", [16 ** -0.5 * _LOG2E, 1.0],
+                         ids=["k9_q", "k9_k"])
+def test_norm_rope_plain_with_window_ids_matches_jax_fp32(mult):
+    """K9's pre-pass: each batch row roped by the (S, D) table its id picks,
+    against the JAX package's composition on the gathered tables
+    (ops/attention.py `attention` with table_ids: apply_rope_ext(x,
+    cos[ids], sin[ids])), times mult. fp32, the same operation order:
+    1e-5."""
+    rng = np.random.default_rng(21)
+    x, _, _, cos, sin, ids, _ = _windows_case(rng)
+    out = tfa.norm_rope_plain(torch.from_numpy(x), torch.from_numpy(cos),
+                              torch.from_numpy(sin), None, mult,
+                              torch.from_numpy(ids))
+    ref = np.asarray(jr.apply_rope_ext(jnp.asarray(x), jnp.asarray(cos)[ids],
+                                       jnp.asarray(sin)[ids]) * mult)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def _k9_from_prepass(q, k, v, cos, sin, ids, valid):
+    """K9's composition as the kernels run it: the pre-pass's q-hat (times
+    scale*log2e) and k-hat, each row by its id's table, then attention in
+    the exp2 domain over the keys its id's validity row marks."""
+    d = q.shape[-1]
+    ids_t = torch.from_numpy(ids)
+    q_hat = tfa.norm_rope_plain(q, cos, sin, None, d ** -0.5 * _LOG2E, ids_t)
+    k_hat = tfa.norm_rope_plain(k, cos, sin, ids=ids_t)
+    bias = torch.where(valid[ids_t.long()], 0.0, float("-inf"))
+    return attention_xla(q_hat, k_hat, v, scale=math.log(2.0),
+                         bias=bias[:, None, None, :])
+
+
+def test_window_prepass_attention_matches_jax_fp32():
+    """Through the JAX package's `attention` with table_ids and kv_valid
+    (XLA branch): fp32, 1e-5."""
+    rng = np.random.default_rng(22)
+    q, k, v, cos, sin, ids, valid = _windows_case(rng)
+    out = _k9_from_prepass(*(torch.from_numpy(a) for a in
+                             (q, k, v, cos, sin)), ids,
+                           torch.from_numpy(valid))
+    ref = np.asarray(jattn.attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), rope_cos=cos,
+        rope_sin=sin, table_ids=ids, kv_valid=valid))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_window_prepass_attention_matches_pallas_interpret_bf16():
+    """bf16 q-hat and k-hat against `flash_windowed_attention`
+    (`_fa_rope_mask_kernel`) in interpret mode, at the JAX package's kernel
+    tolerance."""
+    rng = np.random.default_rng(23)
+    q, k, v, cos, sin, ids, valid = _windows_case(rng, s=128, d=128)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    ref = np.asarray(jfa.flash_windowed_attention(
+        jq, jk, jv, None, cos, sin, ids, valid,
+        interpret=True).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out = _k9_from_prepass(tq, tk, tv, torch.from_numpy(cos),
+                           torch.from_numpy(sin), ids,
+                           torch.from_numpy(valid))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=2e-2, rtol=2e-2)
+
+
+def test_attention_prepass_with_window_ids_routes_cpu_to_plain():
+    """The pre-pass wrapper with window ids is its plain version on the CPU;
+    ids need tables."""
+    from seedvr2_tpu_torch.ops.gather import RowIndex
+
+    rng = np.random.default_rng(24)
+    q, k, _, cos, sin, ids, _ = _windows_case(rng)
+    tq, tk, tc, ts = (torch.from_numpy(a) for a in (q, k, cos, sin))
+    index = RowIndex(ids, "cpu")
+    q_hat, k_hat = tfa.attention_prepass(tq, tk, tc, ts, tc, ts, None, 0.5,
+                                         index)
+    ids_t = torch.from_numpy(ids)
+    assert torch.equal(q_hat, tfa.norm_rope_plain(tq, tc, ts, None, 0.5,
+                                                  ids_t))
+    assert torch.equal(k_hat, tfa.norm_rope_plain(tk, tc, ts, ids=ids_t))
+    meta = tq.to("meta")
+    with pytest.raises(ValueError):
+        tfa.attention_prepass(meta, meta, None, None, None, None, None, 0.5,
+                              index)

@@ -101,15 +101,23 @@ def test_k1_kernel_head_dim_64_on_gpu(cuda_device, s, kv_len):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,rows", [(128, None), (64, None), (128, 300)],
-                         ids=["k1_d128", "k1_d64", "k8_short_table"])
+@pytest.mark.parametrize("d,rows", [(128, None), (64, None), (128, 300),
+                                    (128, "windows"), (64, "windows")],
+                         ids=["k1_d128", "k1_d64", "k8_short_table",
+                              "k9_d128", "k9_d64"])
 def test_attention_prepass_kernel_matches_plain_on_gpu(cuda_device, d, rows):
     """The pre-pass alone: K1's form (strided q and k columns of the packed
-    operand, qk-norm, one table a side) and K8's (no norm, one table shorter
-    than S for both sides). The same fp32 arithmetic in another order, so
-    one bf16 rounding may land one ulp (<= 2^-7 of the value) apart."""
+    operand, qk-norm, one table a side), K8's (no norm, one table shorter
+    than S for both sides) and K9's (no norm, each batch row roped by the
+    (S, D) table its id picks of three). The same fp32 arithmetic in
+    another order, so one bf16 rounding may land one ulp (<= 2^-7 of the
+    value) apart."""
     gen = torch.Generator(cuda_device).manual_seed(d)
     b, s, h = 2, 463, 3
+    ids = None
+    if rows == "windows":
+        b = 5
+        ids = tg.RowIndex(np.array([2, 0, 1, 1, 2]), cuda_device)
     qkv = torch.randn(b, s, 3 * h * d, generator=gen,
                       device=cuda_device).to(torch.bfloat16)
     x = qkv.view(b, s, 3, h, d)
@@ -117,12 +125,21 @@ def test_attention_prepass_kernel_matches_plain_on_gpu(cuda_device, d, rows):
     if rows is None:
         cq, sq, ck, sk = _tables(np.random.default_rng(d), s, d, cuda_device)
         eps = 1e-5
+    elif ids is not None:
+        ang = torch.randn(3, s, d // 2, generator=gen, device=cuda_device)
+        cq = torch.cos(ang).repeat_interleave(2, -1).contiguous()
+        sq = torch.sin(ang).repeat_interleave(2, -1).contiguous()
+        ck, sk, eps = cq, sq, None
     else:
         cq, sq = _tables(np.random.default_rng(d), rows, d, cuda_device)[:2]
         ck, sk, eps = cq, sq, None
-    q_hat, k_hat = tfa.attention_prepass(q, k, cq, sq, ck, sk, eps, 0.127)
-    for hat, ref in ((q_hat, tfa.norm_rope_plain(q, cq, sq, eps, 0.127)),
-                     (k_hat, tfa.norm_rope_plain(k, ck, sk, eps))):
+    q_hat, k_hat = tfa.attention_prepass(q, k, cq, sq, ck, sk, eps, 0.127,
+                                         ids)
+    id_t = None if ids is None else ids.tensor
+    for hat, ref in ((q_hat, tfa.norm_rope_plain(q, cq, sq, eps, 0.127,
+                                                 id_t)),
+                     (k_hat, tfa.norm_rope_plain(k, ck, sk, eps,
+                                                 ids=id_t))):
         assert hat.is_contiguous() and hat.shape == (b, s, h, d)
         torch.testing.assert_close(hat.float(), ref.float(), atol=1e-6,
                                    rtol=2.0 ** -7)
@@ -645,21 +662,49 @@ def test_k8_kernel_edges_on_gpu(cuda_device, sq, sk, d, rows, kv_len):
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
 
 
+def _k9_valid(pattern, s, device):
+    """Three windows' key validity (nU = 3, every window's last key valid,
+    as the text tail always is):
+     - front_back: id 0's first 216 keys invalid (its first three key tiles
+       hold no valid key, as a front-clipped shifted window's pad slots come
+       first), id 1's last 30, id 2 all valid;
+     - text_tail: id 0's only valid keys are its last 58 (the text rows),
+       id 1's the last 58 and key 0, id 2 a random 70 %;
+     - middle: pads inside the window, not at its ends: id 0 its middle
+       half, id 1 every other 16 keys, id 2 the whole second key tile."""
+    valid = torch.ones(3, s, dtype=torch.bool)
+    if pattern == "front_back":
+        valid[0, :min(216, s - 10)] = False
+        valid[1, -30:] = False
+    elif pattern == "text_tail":
+        tail = min(58, s // 2)
+        valid[0, :-tail] = False
+        valid[1, 1:-tail] = False
+        valid[2] = torch.from_numpy(
+            np.random.default_rng(s).random(s) < 0.7)
+    else:
+        valid[0, s // 4:3 * s // 4] = False
+        valid[1] = (torch.arange(s) // 16) % 2 == 0
+        valid[2, 64:128] = False
+    valid[:, -1] = True
+    return valid.to(device)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,d", [(463, 128), (75, 64)])
-def test_k9_kernel_matches_plain_on_gpu(cuda_device, s, d):
-    """Windowed attention: window id 0's first 216 keys invalid (its first
-    three key tiles hold no valid key, as a front-clipped shifted window's
-    pad slots come first), id 1's last 30; no NaN, bf16-class agreement."""
+@pytest.mark.parametrize("pattern", ["front_back", "text_tail", "middle"])
+@pytest.mark.parametrize("s,d", [(463, 128), (75, 64), (463, 64), (75, 128)])
+def test_k9_kernel_matches_plain_on_gpu(cuda_device, s, d, pattern):
+    """Windowed attention on the Hopper step with its key-tile list, every
+    id used: wholly masked key tiles skipped, partly masked ones masked on
+    the scores (_k9_valid), S not a multiple of 64, D = 64 and 128; no NaN,
+    bf16-class agreement."""
     gen = torch.Generator(cuda_device).manual_seed(s)
-    q, k, v = _attention_operands(gen, 4, s, 3, d, cuda_device)
-    ang = torch.randn(2, s, d // 2, generator=gen, device=cuda_device)
+    q, k, v = _attention_operands(gen, 6, s, 3, d, cuda_device)
+    ang = torch.randn(3, s, d // 2, generator=gen, device=cuda_device)
     cos = torch.cos(ang).repeat_interleave(2, -1).contiguous()
     sin = torch.sin(ang).repeat_interleave(2, -1).contiguous()
-    valid = torch.ones(2, s, dtype=torch.bool, device=cuda_device)
-    valid[0, :min(216, s - 10)] = False
-    valid[1, -30:] = False
-    ids = tg.RowIndex(np.array([0, 1, 1, 0]), cuda_device)
+    valid = _k9_valid(pattern, s, cuda_device)
+    ids = tg.RowIndex(np.array([0, 1, 2, 2, 1, 0]), cuda_device)
     before = tfa.flash_windowed_attention.launches
     out = tfa.flash_windowed_attention(q, k, v, None, cos, sin, ids, valid)
     assert tfa.flash_windowed_attention.launches == before + 1
@@ -673,15 +718,49 @@ def test_k9_kernel_matches_plain_on_gpu(cuda_device, s, d):
 
 
 @pytest.mark.cuda
+def test_k9_kernel_window_without_valid_keys_on_gpu(cuda_device):
+    """A window whose validity row marks no key has no live key tile: the
+    step walks none and writes zeros, the TPU kernel's 0 / max(0, 1e-30)
+    (the plain composition's softmax over only -inf logits is NaN there);
+    the other windows of the call are unaffected."""
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    s, d = 200, 128
+    q, k, v = _attention_operands(gen, 3, s, 2, d, cuda_device)
+    ang = torch.randn(2, s, d // 2, generator=gen, device=cuda_device)
+    cos = torch.cos(ang).repeat_interleave(2, -1).contiguous()
+    sin = torch.sin(ang).repeat_interleave(2, -1).contiguous()
+    valid = torch.ones(2, s, dtype=torch.bool, device=cuda_device)
+    valid[1] = False
+    ids = tg.RowIndex(np.array([0, 1, 0]), cuda_device)
+    out = tfa.flash_windowed_attention(q, k, v, None, cos, sin, ids, valid)
+    ref = tfa.flash_windowed_attention_plain(q, k, v, None, cos, sin, ids,
+                                             valid)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    keep = torch.tensor([0, 2], device=cuda_device)
+    torch.testing.assert_close(out[keep].float(), ref[keep].float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,n,k,x_dtype,out_dtype", [
     (1, 2560, 2560, torch.bfloat16, torch.bfloat16),
     (58, 512, 6912, torch.bfloat16, torch.float32),
     (300, 384, 96, torch.float32, torch.float32),
-    (7200, 7680, 2560, torch.bfloat16, torch.bfloat16)])
+    (7200, 7680, 2560, torch.bfloat16, torch.bfloat16),
+    (16320, 2560, 2560, torch.bfloat16, torch.bfloat16),
+    (63, 8, 32, torch.bfloat16, torch.bfloat16),
+    (64, 264, 96, torch.float32, torch.bfloat16),
+    (65, 2560, 32, torch.bfloat16, torch.float32),
+    (58, 7680, 2560, torch.float32, torch.float32),
+    (1, 8, 6912, torch.float32, torch.bfloat16),
+    (7200, 264, 6912, torch.bfloat16, torch.bfloat16)])
 def test_k10_kernel_exact_on_gpu(cuda_device, m, n, k, x_dtype, out_dtype):
     """Quantizing int8 GEMM: the same reciprocal quantization, exact int32
     sums and the same epilogue order, so equal to the plain version bit for
-    bit (M = 1, ragged M, K % 64 == 32, fp32 activations)."""
+    bit: M = 1, 58, 63, 64 (the swapped tiles of 8 and 64 tokens), 65, 300,
+    7200, 16320 (128 x 256 tiles, ragged M); N = 8 and ragged N (264, 384:
+    a part of a 256-row tile); K = 32, 96 (K % 128 != 0), 2560, 6912;
+    fp32 activations and fp32 output."""
     gen = torch.Generator(cuda_device).manual_seed(m + k)
     x = (3 * torch.randn(m, k, generator=gen, device=cuda_device)).to(x_dtype)
     wq = torch.randint(-127, 128, (n, k), generator=gen, device=cuda_device,

@@ -319,6 +319,25 @@ def test_k8_plain_matches_pallas_interpret(rope, kv_len, sk):
     np.testing.assert_allclose(_f32(out), _f32(ref), atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("shape", [(2, 90, 160), (2, 136, 240)],
+                         ids=["clip720", "clip1080"])
+def test_live_key_tiles_match_brute_force_on_3b_plans(shape):
+    """The key tiles K9's step walks (`live_key_tiles`) on the 3B uniform
+    plans of the 720p and 1080p clips' latents, every window method, against
+    a loop over each id's validity row: a 64-key tile is live when it holds
+    a valid key. Exact."""
+    plan = tn.build_dit_plan(tc.DIT_3B, shape, 58, uniform=True)
+    for method, u in plan.uniform.items():
+        live = tfa.live_key_tiles(_t(u.valid)).numpy()
+        n_u, s = u.valid.shape
+        want = np.zeros((n_u, -(-s // 64)), bool)
+        for i in range(n_u):
+            for c in range(s):
+                want[i, c // 64] |= bool(u.valid[i, c])
+        np.testing.assert_array_equal(live, want, err_msg=method)
+        assert live[:, -1].all()  # the text rows close every window
+
+
 def test_attention_wrappers_check_shapes():
     """On the CPU the K8/K9 wrappers run their plain versions; shapes the
     kernels do not take raise on every device."""
@@ -373,3 +392,21 @@ def test_k10_plain_bit_equal_to_pallas(m, k, n, x_dtype, out_dtype):
         assert tim.int8_matmul_qx(xt, _t(wq.T), _t(ws)).dtype == torch.bfloat16
     with pytest.raises(ValueError):
         tim.int8_matmul_qx(xt, _t(wq.T[:, :-32]), _t(ws))
+
+
+def test_k10_plan_covers_every_3b_shape():
+    """plan_qx gives every 3B DiT linear at every token count of the served
+    requests a plan the kernel takes: swapped tiles (8 or 64 tokens) that
+    hold all M rows, else 128 x 256 tiles; grid rows within 65535."""
+    # (N, K): qkv, joint swiglu gate+up, attention out, mlp out, the
+    # embedding's proj_out, txt_in
+    linears = [(7680, 2560), (13824, 2560), (2560, 2560), (2560, 6912),
+               (15360, 2560), (2560, 5120)]
+    for m in (1, 8, 9, 58, 64, 65, 7200, 8160, 16320, 32400):
+        for n, k in linears:
+            swap, bt = tim.plan_qx(m)
+            assert k % 32 == 0 and n % 8 == 0
+            if swap:
+                assert bt in (8, 64) and m <= bt and -(-n // 128) <= 65535
+            else:
+                assert bt == 256 and m > 64 and -(-m // 128) <= 65535
