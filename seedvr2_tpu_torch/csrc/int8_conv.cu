@@ -1,5 +1,6 @@
 // int8 3x3x3 convolution of the VAE's --vae_quant int8 lane (kernel K11 of
-// the port).
+// the port), an implicit GEMM on Hopper's TMA and `wgmma` (helpers in
+// sm90.cuh).
 //
 // Replaces: the Pallas TPU kernel `_conv_kernel` behind `int8_conv3d`
 // (comfyui-seedvr2_tpu/ops/int8_conv.py).
@@ -22,232 +23,251 @@
 // 4.08e12 int8 ops (2.06 ms at 1979 TOP/s dense) against about 2.0 GB moved
 // (0.6 ms at 3.35 TB/s).
 //
-// Design, a right and simple first version: an implicit GEMM. A block owns
-// 128 output pixels along w of one (t, h) and 128 output channels; 8 warps of
-// 64 x 32 keep int32 accumulators in registers. K = 27*C is walked as the
-// nine (dt, dh) rows of the window times C in 64-byte chunks: each stage
-// loads, with `cp.async` (2 stages), the (128 + 2) x 64 strip of x that the
-// three dw taps share and the three taps' 128 x 64 weight chunks. A dw tap is
-// a row offset of 0, 1 or 2 into the strip, so x is read once per (dt, dh),
-// not three times (the TPU body's lane concatenation and sublane rolls are
-// layout tricks of the TPU and are not carried over). Products by
-// `mma.sync.aligned.m16n8k32` s8 x s8 -> s32 as in K3; smem rows padded from
-// 64 to 80 bytes so that the fragment loads fall in distinct banks. Columns
-// past Wp and channels past C or Co are zero-filled on load. The epilogue
-// writes the bf16 tile to shared memory and stores it along whichever of w
-// and co has unit stride, so NCDHW stores are coalesced. Offsets into x and
-// the output are 64-bit (a 4K decoder stage holds more than 2^31 bytes). No
-// TMA, no wgmma: those are for the PRs that make it fast.
+// Design. GEMM rows (wgmma's M) are output channels, columns (N) output
+// pixels, K = 27*C walked as the nine (dt, dh) rows of the window times C in
+// 64-channel chunks, each stage serving the three dw taps.
+//  - Pixels. A frame's output positions are numbered p = h*Wp + w over the
+//    padded width, so x_ext[t+dt, h+dh, w+dw] is row p + dh*Wp + dw of the
+//    frame's (H+2)*Wp rows: a tile takes 256 consecutive positions, the rows
+//    of h it spans included, and the (dt, dh) strip of 258 rows serves all
+//    three dw taps. The positions at w >= W_out are computed and not stored:
+//    2.4 % of the work at 720 x 1280 (Wp = 1312), 17 % at 90 x 160 (Wp =
+//    192), where 128-pixel tiles along w alone idle 37.5 %. `plan_conv`
+//    (ops/int8_conv.py) counts the tiles.
+//  - Loads. One producer warp keeps a ring of 4 mbarrier-guarded stages
+//    full with TMA loads: the strip as boxes of 256 and 8 rows by 64
+//    channels (64-byte swizzle) through a 3-D map over x_ext, and the three
+//    dw taps' weights as 128-row boxes of 64 bytes of K (64-byte swizzle)
+//    through a 2-D map over wk. Channels past C, rows past the frame and
+//    output channels past Co are zero-filled.
+//  - One strip for three taps. The swizzle is a function of the shared
+//    address's bits, so a descriptor of the strip may start at row dw, 64
+//    or 128 bytes into a 512-byte swizzle atom, with the base-offset field
+//    0: the taps read one strip (bit-equal on the card; setting the field
+//    to (addr >> 7) & 7 gave wrong sums). Two layouts measured slower at
+//    the record shape in development builds: a strip without swizzle,
+//    written by TMA in 16-byte rows (dims (16 channels, row, C/16, frame))
+//    so that a descriptor could start at any row (many small TMA
+//    requests), and three 64-byte-swizzled boxes at w0, w0+1, w0+2 (three
+//    times the strip's bytes). So was N = 128 against N = 256, within
+//    noise, and a persistent grid storing from the registers.
+//  - Products. Two consumer warpgroups, 64 output channels each, issue
+//    `wgmma.mma_async.m64n256k32.s32.s8.s8` over the tile's 256 pixels: per
+//    stage 2 k32 steps x 3 taps, int32 accumulators in registers (128 a
+//    thread), one stage's products in flight while the stage before is
+//    handed back to the producer.
+//  - Bytes. A stage reads 16.9 KB of strip and 24.6 KB of weights from L2
+//    for 2*256*128*192 = 12.6 M operations: 13.8 GB at the record shape
+//    (18 stages in each of 18450 tiles), below the tensor bound at ~8 TB/s.
+//  - Bank conflicts. wgmma reads 64-byte-swizzled atoms (conflict-free by
+//    the swizzle); the epilogue's staging rows are padded by 16 bytes, so
+//    a warp's pair stores fall in 32 distinct banks and its 16-byte reads
+//    are contiguous.
+//  - Epilogue. Persistent blocks, one an SM: while a warpgroup scales,
+//    rounds (with the bias) and stores a tile, the producer already loads
+//    the next tile's stages. Each warpgroup stages half a tile at a time
+//    (64 channels x 128 pixels, bf16) in its own rows, then stores it along
+//    w: 16-byte stores of 8 pixels where the output row allows it (unit w
+//    stride, 16-byte aligned, all 8 stored), elsewhere one element a
+//    thread; other strides (the JAX layout) store one element a thread
+//    along co. Output and x_ext offsets are 64-bit (a 4K decoder stage
+//    holds more than 2^31 bytes).
+// Requirements (checked by the wrapper): C % 16 == 0, Co % 8 == 0, T and H
+// <= 65535, W_out <= Wp - 2, x_ext and wk 16-byte aligned.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 64;
-constexpr int WARPS_M = 2, WARPS_N = 4;          // warp tile 64 x 32
-constexpr int THREADS = WARPS_M * WARPS_N * 32;  // 256
-constexpr int MI = BM / WARPS_M / 16;            // 4 m16 tiles per warp
-constexpr int NI = BN / WARPS_N / 8;             // 4 n8 tiles per warp
-constexpr int SROW = BK + 16;                    // padded smem row, bytes
-constexpr int AROWS = BM + 2;                    // strip rows: 2 halo columns
-constexpr int A_BYTES = AROWS * SROW;
-constexpr int B_BYTES = 3 * BN * SROW;           // the three dw taps
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;   // 41120, a multiple of 16
-constexpr int STAGES = 2;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
-constexpr int OROW = BM + 8;                     // epilogue tile row, bf16
-static_assert(BN * OROW * 2 <= SMEM_BYTES, "epilogue tile fits");
-static_assert(STAGE_BYTES % 16 == 0, "stages stay 16-byte aligned");
+using namespace seedvr2::sm90;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
+constexpr int PIX = 256;                       // output positions a tile
+constexpr int HALF = 128;                      // positions a staged half
+constexpr int CK = 64;                         // channels a stage
+constexpr int CO_T = 128;                      // output channels a tile
+constexpr int CONSUMERS = 2;                   // warpgroups of 64 channels
+constexpr int THREADS = CONSUMERS * 128 + 32;  // + one producer warp
+constexpr uint32_t X_ROWS = PIX + 8;           // strip rows: two boxes
+constexpr uint32_t X_REGION = X_ROWS * CK;     // 16896, 512-aligned boxes
+constexpr uint32_t W_TAP = CO_T * CK;          // one dw tap's weight box
+constexpr uint32_t STAGE = (X_REGION + 3 * W_TAP + 1023) / 1024 * 1024;
+constexpr uint32_t STAGE_TX = X_REGION + 3 * W_TAP;  // bytes TMA brings
+constexpr int STAGES = 4;
+constexpr uint32_t SROW = HALF * 2 + 16;       // staging row, bytes
+constexpr uint32_t SWG = 64 * SROW;            // a warpgroup's staging
+constexpr size_t SMEM =
+    size_t(STAGES) * STAGE + CONSUMERS * SWG + 2 * STAGES * 8 + 1024;
+static_assert(SMEM <= 232448, "shared memory");
+static_assert(X_REGION % 512 == 0 && PIX * CK % 512 == 0, "swizzle atoms");
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// D(16x8, s32) += A(16x32, s8, row) * B(32x8, s8, col); fragments as in K3
-// (csrc/int8_matmul.cu).
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// One stage: the x strip x[row, w0 .. w0+BM+2, c0 .. c0+BK] (`xrow` points at
-// x[t+dt, h+dh, 0, 0]) and the weight chunks wk[n0 .. n0+BN, tap*C + c0 ..]
-// of the three dw taps of this (dt, dh) (`wtap` = wk + (dt*3+dh)*3*C).
-__device__ __forceinline__ void load_stage(int8_t* stage,
-                                           const int8_t* __restrict__ xrow,
-                                           const int8_t* __restrict__ wtap,
-                                           int w0, int Wp, int C, int c0,
-                                           int n0, int Co, long long K) {
-  int8_t* As = stage;
-  int8_t* Bs = stage + A_BYTES;
-  constexpr int KC = BK / 16;
-  for (int i = threadIdx.x; i < AROWS * KC; i += THREADS) {
-    const int r = i / KC, kc = (i % KC) * 16;
-    const bool valid = w0 + r < Wp && c0 + kc < C;
-    const int8_t* g = valid ? xrow + (long long)(w0 + r) * C + c0 + kc : xrow;
-    cp_async16(As + r * SROW + kc, g, valid ? 16 : 0);
-  }
-#pragma unroll
-  for (int j = 0; j < 3 * BN * KC / THREADS; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    const int dw = i / (BN * KC), rem = i % (BN * KC);
-    const int n = rem / KC, kc = (rem % KC) * 16;
-    const bool valid = n0 + n < Co && c0 + kc < C;
-    const int8_t* g =
-        valid ? wtap + (long long)(n0 + n) * K + dw * C + c0 + kc : wtap;
-    cp_async16(Bs + (dw * BN + n) * SROW + kc, g, valid ? 16 : 0);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS, 2)
-int8_conv3d_kernel(const int8_t* __restrict__ x,
-                   const int8_t* __restrict__ wk,
+// grid = min(tiles, SMs); block b takes tiles b, b + grid, ... (tile =
+// (frame * pix_tiles + pixel tile) * co_tiles + co tile, co tiles fastest so
+// the blocks that share a strip run together). The ring's stage count runs
+// on across tiles, so the producer fills the next tile's stages while the
+// consumers store the last one's outputs.
+__global__ void __launch_bounds__(THREADS, 1)
+int8_conv3d_kernel(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_xh,
+                   const __grid_constant__ CUtensorMap tm_w,
                    const float* __restrict__ xs, const float* __restrict__ ws,
                    const __nv_bfloat16* __restrict__ bias,
                    __nv_bfloat16* __restrict__ out, int H, int Wp, int C,
-                   int Co, int W_out, long long sc, long long st,
-                   long long sh, long long sw) {
-  extern __shared__ __align__(16) int8_t smem[];
+                   int Co, int W_out, int pix_tiles, int co_tiles, int T,
+                   long long sc, long long st, long long sh, long long sw) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t full = base + STAGES * STAGE + CONSUMERS * SWG;
+  const uint32_t empty = full + 8 * STAGES;
+  const int tiles = T * pix_tiles * co_tiles;
+  const int nck = (C + CK - 1) / CK;
+  const int n_st = 9 * nck;
 
-  const int n_tiles = (Co + BN - 1) / BN;
-  const int n0 = (blockIdx.x % n_tiles) * BN;
-  const int w0 = (blockIdx.x / n_tiles) * BM;
-  const int h = blockIdx.y, t = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int g = lane / 4, q = lane % 4;
-  const long long K = 27LL * C;
-  const long long frame = (long long)(H + 2) * Wp * C;
-  const long long row = (long long)Wp * C;
-
-  int acc[MI][NI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
-
-  const int kchunks = (C + BK - 1) / BK;
-  const int iters = 9 * kchunks;
-  auto issue = [&](int it, int stage) {
-    const int tap9 = it / kchunks, c0 = (it % kchunks) * BK;
-    const int dt = tap9 / 3, dh = tap9 % 3;
-    load_stage(smem + stage * STAGE_BYTES,
-               x + (t + dt) * frame + (h + dh) * row, wk + tap9 * 3LL * C, w0,
-               Wp, C, c0, n0, Co, K);
-    cp_async_commit();
-  };
-
-  issue(0, 0);
-  for (int it = 0; it < iters; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < iters) {
-      issue(it + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 128);
     }
-    __syncthreads();
-
-    const int8_t* As = smem + stage * STAGE_BYTES;
-    const int8_t* Bs = As + A_BYTES;
-#pragma unroll
-    for (int dw = 0; dw < 3; ++dw) {
-      const int8_t* a_s = As + (wm * MI * 16 + g + dw) * SROW + q * 4;
-      const int8_t* b_s = Bs + (dw * BN + wn * NI * 8 + g) * SROW + q * 4;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 32) {
-        uint32_t a[MI][4];
-        uint32_t b[NI][2];
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          const int8_t* p = a_s + i * 16 * SROW + kk;
-          a[i][0] = ld32(p);
-          a[i][1] = ld32(p + 8 * SROW);
-          a[i][2] = ld32(p + 16);
-          a[i][3] = ld32(p + 8 * SROW + 16);
-        }
-#pragma unroll
-        for (int j = 0; j < NI; ++j) {
-          const int8_t* p = b_s + j * 8 * SROW + kk;
-          b[j][0] = ld32(p);
-          b[j][1] = ld32(p + 16);
-        }
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-          for (int j = 0; j < NI; ++j)
-            mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's load
-  }
-
-  // epilogue: bf16(float(acc) * (xs[t] * ws[co])) [+ bias, rounded again]
-  // into a [BN][OROW] smem tile (the stages are free after the last sync)
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  const float xst = xs[t];
-#pragma unroll
-  for (int j = 0; j < NI; ++j) {
-#pragma unroll
-    for (int c2 = 0; c2 < 2; ++c2) {
-      const int nl = wn * NI * 8 + j * 8 + 2 * q + c2;
-      const int n = n0 + nl;
-      const float s = n < Co ? __fmul_rn(xst, ws[n]) : 0.f;
-      const float bv =
-          (bias != nullptr && n < Co) ? __bfloat162float(bias[n]) : 0.f;
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-#pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2) {
-          const int ml = wm * MI * 16 + i * 16 + g + 8 * h2;
-          __nv_bfloat16 r = __float2bfloat16_rn(
-              __fmul_rn(__int2float_rn(acc[i][j][2 * h2 + c2]), s));
-          if (bias != nullptr)
-            r = __float2bfloat16_rn(__fadd_rn(__bfloat162float(r), bv));
-          tile[nl * OROW + ml] = r;
-        }
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  __nv_bfloat16* base = out + (long long)t * st + (long long)h * sh;
-  if (sw == 1) {  // NCDHW: consecutive threads along w
-    for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
-      const int nl = idx / BM, ml = idx % BM;
-      const int w = w0 + ml, n = n0 + nl;
-      if (w < W_out && n < Co) base[(long long)n * sc + w] = tile[nl * OROW + ml];
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // producer: one thread keeps the ring full, tile after tile
+    if (threadIdx.x == CONSUMERS * 128) {
+      int it = 0;  // stages filled so far
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int co0 = (tile % co_tiles) * CO_T;
+        const int rest = tile / co_tiles;
+        const int p0 = (rest % pix_tiles) * PIX, t = rest / pix_tiles;
+        for (int j = 0; j < n_st; ++j, ++it) {
+          const int s = it % STAGES;
+          const uint32_t stg = base + s * STAGE, bar = full + 8 * s;
+          const int tap9 = j / nck, c0 = (j % nck) * CK;
+          const int row = p0 + (tap9 % 3) * Wp, frame = t + tap9 / 3;
+          mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(bar, STAGE_TX);
+          tma_load(stg, &tm_x, bar, c0, row, frame);
+          tma_load(stg + PIX * CK, &tm_xh, bar, c0, row + PIX, frame);
+#pragma unroll
+          for (int dw = 0; dw < 3; ++dw)
+            tma_load_2d(stg + X_REGION + dw * W_TAP, &tm_w, bar,
+                        (tap9 * 3 + dw) * C + c0, co0);
+        }
+      }
     }
-  } else {  // channels-last: consecutive threads along co
-    for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
-      const int ml = idx / BN, nl = idx % BN;
-      const int w = w0 + ml, n = n0 + nl;
-      if (w < W_out && n < Co)
-        base[(long long)w * sw + (long long)n * sc] = tile[nl * OROW + ml];
+    return;
+  }
+
+  // consumers: warpgroup wg owns output channels co0 + 64 wg .. + 63
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  // pixel columns 8i + 2q, 8i + 2q + 1 in acc[4i ..], rows g, g + 8
+  uint32_t acc[128];  // the first product of a tile overwrites it
+  int it = 0;         // stages consumed so far
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int co0 = (tile % co_tiles) * CO_T;
+    const int rest = tile / co_tiles;
+    const int p0 = (rest % pix_tiles) * PIX, t = rest / pix_tiles;
+    for (int j = 0; j < n_st; ++j, ++it) {
+      const int s = it % STAGES;
+      const uint32_t stg = base + s * STAGE;
+      mbar_wait(full + 8 * s, (it / STAGES) & 1);
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CK / 32; ++kk)
+#pragma unroll
+        for (int dw = 0; dw < 3; ++dw)
+          // the strip from row dw: the swizzle follows the address bits,
+          // so a descriptor may start at any 64-byte row of an atom
+          wgmma_s8(acc,
+                   sw64_desc(stg + X_REGION + dw * W_TAP + wg * 64 * CK +
+                                 kk * 32,
+                             512),
+                   sw64_desc(stg + dw * CK + kk * 32, 512),
+                   j > 0 || kk > 0 || dw > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      reg_fence(acc);
+      if (j > 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+    }
+    wgmma_wait<0>();
+    reg_fence(acc);
+    mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+
+    // epilogue: bf16(float(acc) * (xs[t] * ws[co])) [+ bias, rounded
+    // again], staged a half tile (64 channels x 128 pixels) at a time in
+    // this warpgroup's [co][pixel] rows, then stored along w
+    const float xst = xs[t];
+    float scl[2], bv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int co = co0 + wg * 64 + warp * 16 + g + 8 * r;
+      scl[r] = co < Co ? __fmul_rn(xst, ws[co]) : 0.f;
+      bv[r] = (bias != nullptr && co < Co) ? __bfloat162float(bias[co]) : 0.f;
+    }
+    unsigned char* stg_out = smem_raw + (base - raw) + STAGES * STAGE +
+                             wg * SWG;
+    __nv_bfloat16* frame_out = out + (long long)t * st;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int i = 0; i < HALF / 8; ++i) {
+          __nv_bfloat16 v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            v[e] = __float2bfloat16_rn(__fmul_rn(
+                __int2float_rn(int(acc[4 * (hf * HALF / 8 + i) + 2 * r + e])),
+                scl[r]));
+            if (bias != nullptr)
+              v[e] = __float2bfloat16_rn(
+                  __fadd_rn(__bfloat162float(v[e]), bv[r]));
+          }
+          *reinterpret_cast<__nv_bfloat162*>(
+              stg_out + (warp * 16 + g + 8 * r) * SROW + (8 * i + 2 * q) * 2) =
+              __halves2bfloat162(v[0], v[1]);
+        }
+      asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+      const int pb = p0 + hf * HALF;
+      if (sw == 1) {  // a thread 8 pixels, 16 threads a channel's 128
+        for (int idx = tid; idx < 64 * (HALF / 8); idx += 128) {
+          const int cl = idx / (HALF / 8), pp = (idx % (HALF / 8)) * 8;
+          const int co = co0 + wg * 64 + cl, p = pb + pp;
+          const int h = p / Wp, w = p - h * Wp;  // Wp % 8 == 0: one row
+          if (co >= Co || h >= H || w >= W_out) continue;
+          const unsigned char* src = stg_out + cl * SROW + pp * 2;
+          __nv_bfloat16* dst =
+              frame_out + (long long)co * sc + (long long)h * sh + w;
+          if (w + 8 <= W_out && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+            *reinterpret_cast<uint4*>(dst) =
+                *reinterpret_cast<const uint4*>(src);
+          } else {
+            for (int e = 0; e < 8 && w + e < W_out; ++e)
+              dst[e] = reinterpret_cast<const __nv_bfloat16*>(src)[e];
+          }
+        }
+      } else {  // any other strides: one element a thread, along co
+        for (int idx = tid; idx < 64 * HALF; idx += 128) {
+          const int cl = idx % 64, p = pb + idx / 64;
+          const int co = co0 + wg * 64 + cl, h = p / Wp, w = p - h * Wp;
+          if (co >= Co || h >= H || w >= W_out) continue;
+          frame_out[(long long)co * sc + (long long)h * sh +
+                    (long long)w * sw] =
+              *reinterpret_cast<const __nv_bfloat16*>(stg_out + cl * SROW +
+                                                      (p - pb) * 2);
+        }
+      }
     }
   }
 }
@@ -256,32 +276,50 @@ int8_conv3d_kernel(const int8_t* __restrict__ x,
 
 // x: (T+2, H+2, Wp, C) int8, wk: (Co, 27*C) int8, xs: (T,) fp32, ws: (Co,)
 // fp32, bias: (Co,) bf16 or null; out: bf16 addressed by the element strides
-// sc, st, sh, sw of (co, t, h, w), w < W_out <= Wp - 2. Inputs contiguous and
-// 16-byte aligned, C % 16 == 0, T and H <= 65535: checked by the Python
-// wrapper (seedvr2_tpu_torch/ops/int8_conv.py).
+// sc, st, sh, sw of (co, t, h, w), w < W_out <= Wp - 2. pix_tiles and
+// co_tiles: the tiles `plan_conv` counts (256 positions: a frame's
+// ceil(H*Wp / 256); 128 channels: ceil(Co / 128)). Inputs contiguous and
+// 16-byte aligned, C % 16 == 0, Wp % 8 == 0, T and H <= 65535: checked by
+// the Python wrapper (seedvr2_tpu_torch/ops/int8_conv.py).
 extern "C" int seedvr2_int8_conv3d(const void* x, const void* wk,
                                    const void* xs, const void* ws,
                                    const void* bias, void* out, int T, int H,
                                    int Wp, int C, int Co, int W_out,
                                    long long sc, long long st, long long sh,
-                                   long long sw, void* stream) {
+                                   long long sw, int pix_tiles, int co_tiles,
+                                   void* stream) {
   if (T == 0 || H == 0 || W_out <= 0 || Co == 0) return int(cudaSuccess);
-  if (T > 65535 || H > 65535 || W_out > Wp - 2)
+  if (T > 65535 || H > 65535 || W_out > Wp - 2 || C <= 0 || C % 16 ||
+      Wp % 8 || (long long)pix_tiles * PIX < (long long)H * Wp ||
+      (long long)(pix_tiles - 1) * PIX >= (long long)H * Wp ||
+      (long long)co_tiles * CO_T < Co || (co_tiles - 1) * CO_T >= Co)
     return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_conv3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+  const long long tiles = (long long)T * pix_tiles * co_tiles;
+  if (tiles > 0x7fffffffll) return int(cudaErrorInvalidValue);
+  const uint64_t rows = uint64_t(H + 2) * Wp;
+  // x_ext as (channel, row, frame): boxes of 64 channels by 256 and 8 rows
+  CUtensorMap tx, txh, tw;
+  if (!make_map_3d(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, C, rows, T + 2, C,
+                   rows * C, CK, PIX, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !make_map_3d(&txh, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, C, rows, T + 2, C,
+                   rows * C, CK, X_ROWS - PIX, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !make_map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, wk, 27ull * C, Co,
+                   27ull * C, CK, CO_T, CU_TENSOR_MAP_SWIZZLE_64B))
+    return int(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(int8_conv3d_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(SMEM));
   if (err != cudaSuccess) return int(err);
-  const long long gx =
-      (long long)((Co + BN - 1) / BN) * ((W_out + BM - 1) / BM);
-  if (gx > 2147483647LL) return int(cudaErrorInvalidValue);
-  const dim3 grid{static_cast<unsigned>(gx), static_cast<unsigned>(H),
-                  static_cast<unsigned>(T)};
-  int8_conv3d_kernel<<<grid, THREADS, SMEM_BYTES,
+  int8_conv3d_kernel<<<unsigned(tiles < sms ? tiles : sms), THREADS, SMEM,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wk),
-      static_cast<const float*>(xs), static_cast<const float*>(ws),
-      static_cast<const __nv_bfloat16*>(bias),
-      static_cast<__nv_bfloat16*>(out), H, Wp, C, Co, W_out, sc, st, sh, sw);
+      tx, txh, tw, static_cast<const float*>(xs),
+      static_cast<const float*>(ws), static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(out), H, Wp, C, Co, W_out, pix_tiles,
+      co_tiles, T, sc, st, sh, sw);
   return int(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels:
 // K1/K8/K9's attention step (packed_attention.cu), K6/K7's dequantizing
-// GEMMs (quant_matmul.cu) and K10's s8 GEMM (int8_matmul.cu).
+// GEMMs (quant_matmul.cu), K3/K10's s8 GEMM (int8_matmul.cu) and K11's
+// implicit-GEMM conv (int8_conv.cu).
 // Shared-memory addresses are 32-bit `.shared` addresses (smem_u32).
 
 #pragma once
@@ -102,6 +103,15 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
          (uint64_t(sbo >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// The same for a 64-byte-swizzled operand (layout type 2): rows of 64
+// bytes in atoms of 8 rows that TMA writes 512-byte aligned. The swizzle
+// follows the shared address's bits, so a descriptor may start at any row
+// of an atom (base offset 0).
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(sbo >> 4) << 32) | (uint64_t(2) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -42,8 +42,8 @@ _SIGNATURES = {
     "seedvr2_flash_attention": [_P] * 9 + [_I] * 7 + [_F, _P],
     # x, idx, out, B, L, L2, D, stream
     "seedvr2_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # xq, wq, xs, ws, out, M, N, K, stream
-    "seedvr2_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # xq, wq, xs, ws, out, M, N, K, swap, bt, stream
+    "seedvr2_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],
     # x, wq, ws, xs, xq (scratch), out, M, N, K, x_f32, out_f32, swap, bt,
     # stream
     "seedvr2_int8_matmul_qx": [_P] * 6 + [_I] * 7 + [_P],
@@ -60,9 +60,8 @@ _SIGNATURES = {
     # ws, out, pairs, splits, stream
     "seedvr2_split_reduce": [_P, _P, _L, _I, _P],
     # x_ext, wk, xs, ws, bias, out, T, H, Wp, C, Co, W_out, out strides
-    # (co, t, h, w), stream
-    "seedvr2_int8_conv3d": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _L, _L, _L, _L, _P],
+    # (co, t, h, w), pixel tiles, channel tiles, stream
+    "seedvr2_int8_conv3d": [_P] * 6 + [_I] * 6 + [_L] * 4 + [_I] * 2 + [_P],
     # x, A, Bc, out, B, C, T, H*W, head frames, stream
     "seedvr2_norm_silu_head": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _P],
 }

@@ -23,7 +23,8 @@ The public functions keep the JAX layouts: x_ext (T+2, H+2, Wp, C) int8, w
    gives, with the conv's bias added, so the VAE gets (1, Co, T, H, W) bf16
    with no permute pass (`int8_conv3d_ncdhw`).
 On a CUDA tensor the conv launches csrc/int8_conv.cu (its header says what
-bounds it and how it is laid out); on a CPU tensor it runs the plain version.
+bounds it and how it is laid out) on the tiles `plan_conv` counts; on a CPU
+tensor it runs the plain version.
 """
 
 import torch
@@ -223,6 +224,23 @@ def int8_conv3d_plain(x_ext: torch.Tensor, wk: torch.Tensor,
     return out.contiguous()
 
 
+# K11's tiles: PIX_TILE consecutive output positions p = h * Wp + w of one
+# frame (the rows of h they span included) by CO_TILE output channels
+PIX_TILE, CO_TILE = 256, 128
+
+
+def plan_conv(t: int, h: int, wp: int, w_out: int, co: int):
+    """K11's tiles for a (T, H, Wp) x_ext, W_out columns and Co channels:
+    (pixel tiles a frame, channel tiles, busy share). A frame's H * Wp
+    positions over the padded width are cut into tiles of PIX_TILE, so a
+    tile spans rows of h and a narrow frame idles only its pad columns;
+    the busy share is the stored outputs over the positions computed."""
+    pix_tiles = -(-h * wp // PIX_TILE)
+    co_tiles = -(-co // CO_TILE)
+    busy = (h * w_out * co) / (pix_tiles * PIX_TILE * co_tiles * CO_TILE)
+    return pix_tiles, co_tiles, busy
+
+
 def _launch(x_ext, wk, xs, ws, bias, out, w_out: int) -> None:
     """K11 into `out`, a (Co, T, H, >= w_out) bf16 view of any strides."""
     tp, hp, wp, c = x_ext.shape
@@ -247,11 +265,12 @@ def _launch(x_ext, wk, xs, ws, bias, out, w_out: int) -> None:
                          f"Co % 8 == 0 (Co={co}), T and H <= 65535 and "
                          "16-byte aligned operands")
     sc, st, sh, sw = out.stride()
+    pix_tiles, co_tiles, _ = plan_conv(tp - 2, hp - 2, wp, w_out, co)
     err = _build.kernel_library().lib.seedvr2_int8_conv3d(
         x_ext.data_ptr(), wk.data_ptr(), xs.data_ptr(), ws.data_ptr(),
         0 if bias is None else bias.data_ptr(), out.data_ptr(),
-        tp - 2, hp - 2, wp, c, co, w_out, sc, st, sh, sw,
-        torch.cuda.current_stream(x_ext.device).cuda_stream)
+        tp - 2, hp - 2, wp, c, co, w_out, sc, st, sh, sw, pix_tiles,
+        co_tiles, torch.cuda.current_stream(x_ext.device).cuda_stream)
     _build.check(err, "seedvr2_int8_conv3d")
     int8_conv3d.launches += 1
 

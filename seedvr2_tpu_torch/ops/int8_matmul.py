@@ -9,12 +9,13 @@ time, and
     out[m, n] = bf16((float(sum_k xq[m, k] * wq[n, k]) * xs[m]) * ws[n])
 
 Layout: the port stores a weight (N, K), K-contiguous (the JAX package
-stores (K, N)), the layout `mma ... row.col` reads; activations are (M, K).
+stores (K, N)), as 8-bit `wgmma` reads both operands; activations are
+(M, K).
 
 On a CUDA tensor `int8_matmul` and `int8_matmul_qx` launch their
-hand-written kernels in `csrc/int8_matmul.cu` (its comments say what bounds
-them and how they are laid out); on a CPU tensor they run their plain
-versions.
+hand-written kernels in `csrc/int8_matmul.cu`, one s8 GEMM body on the
+tiles `plan_qx` picks (its comments say what bounds them and how they are
+laid out); on a CPU tensor they run their plain versions.
 """
 
 from typing import Optional
@@ -62,9 +63,11 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor,
     """xq (M, K) int8 @ wq (N, K) int8 -> (M, N), scaled by xs (M,) and
     ws (N,) fp32.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel, or
-    raise on what it does not take: contiguous operands on one device,
-    bf16 output, K % 32 == 0, K > 0, N % 8 == 0."""
+    CPU tensors take the plain version. CUDA tensors launch the kernel (the
+    s8 GEMM on the tiles `plan_qx` picks), or raise on what it does not
+    take: contiguous operands on one device, bf16 output, K % 32 == 0,
+    K > 0, N % 8 == 0, 16-byte aligned xq and wq (what its TMA loads
+    need; an operand that is not is refused, never copied)."""
     m, k = xq.shape
     n, k2 = wq.shape
     if k != k2 or xs.shape != (m,) or ws.shape != (n,):
@@ -87,10 +90,11 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor,
         raise ValueError(f"int8_matmul kernel: needs K % 32 == 0 (K={k}), "
                          f"N % 8 == 0 (N={n}) and 16-byte aligned operands")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
-    if m:
+    if m and n:
+        swap, bt = plan_qx(m)
         err = _build.kernel_library().lib.seedvr2_int8_matmul(
             xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-            out.data_ptr(), m, n, k,
+            out.data_ptr(), m, n, k, int(swap), bt,
             torch.cuda.current_stream(xq.device).cuda_stream)
         _build.check(err, "seedvr2_int8_matmul")
         int8_matmul.launches += 1
@@ -114,10 +118,11 @@ def quantize_rows_qx(x: torch.Tensor):
 
 
 def plan_qx(m: int):
-    """K10's tiles for M token rows: (swap, bt). At the video rows a
-    block takes 128 tokens by bt = 256 weight rows; at M <= 64 the roles
-    swap, 128 weight rows by bt = 8 or 64 tokens (at least M), so N/128
-    blocks stream the weights where N/256 would leave most SMs idle."""
+    """The s8 GEMM's tiles for M token rows, for K3 and K10 alike: (swap,
+    bt). At the video rows a block takes 128 tokens by bt = 256 weight
+    rows; at M <= 64 the roles swap, 128 weight rows by bt = 8 or 64
+    tokens (at least M), so N/128 blocks stream the weights where N/256
+    would leave most SMs idle."""
     if m <= 8:
         return True, 8
     if m <= 64:

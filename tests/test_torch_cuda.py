@@ -158,10 +158,17 @@ def test_k2_kernel_matches_plain_on_gpu(cuda_device, width):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,k", [(1, 2560, 2560), (58, 2560, 5120),
-                                   (300, 384, 96), (7200, 13824, 2560)])
+                                   (300, 384, 96), (7200, 13824, 2560),
+                                   (1, 384, 96), (8, 2568, 96),
+                                   (9, 384, 5120), (64, 384, 96),
+                                   (65, 2568, 5120), (300, 2568, 96)])
 def test_k3_kernel_exact_on_gpu(cuda_device, m, n, k):
     """int8 GEMM: exact int32 sums and the same epilogue order, so equal to
-    the plain version bit for bit (ragged M and K % 64 == 32 included)."""
+    the plain version bit for bit: M = 1, 8 (tiles of 8 tokens), 9, 58, 64
+    (of 64), 65, 300, 7200 (128 x 256 tiles, ragged M); N = 384 and 2568
+    (a part of a 256-row tile); K = 96 (K % 128 != 0), 2560, 5120. An
+    operand TMA cannot load (K % 32 != 0, or not 16-byte aligned) is
+    refused."""
     gen = torch.Generator(cuda_device).manual_seed(m)
     xq = torch.randint(-127, 128, (m, k), generator=gen, device=cuda_device,
                        dtype=torch.int8)
@@ -174,6 +181,9 @@ def test_k3_kernel_exact_on_gpu(cuda_device, m, n, k):
     with pytest.raises(ValueError):
         tim.int8_matmul(xq[:, :k - 16].contiguous(), wq[:, :k - 16]
                         .contiguous(), xs, ws)
+    shifted = torch.empty(m * k + 8, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):  # contiguous, 8 bytes off alignment
+        tim.int8_matmul(shifted[8:].view(m, k), wq, xs, ws)
 
 
 def _q_close(out, ref):
@@ -515,14 +525,18 @@ def test_split_k_is_deterministic_on_gpu(cuda_device, m, n, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,h,w,c,co", [
-    (2, 6, 45, 128, 128),     # W not a multiple of the 128-pixel tile
-    (1, 3, 300, 256, 128),    # three pixel tiles, Co < C
+    (2, 6, 45, 128, 128),     # odd W: output rows not 16-byte multiples
+    (1, 3, 300, 256, 128),    # tiles spanning rows of h, Co < C
     (3, 4, 130, 128, 256),    # two channel tiles
-    (1, 2, 20, 32, 48)])      # C one 64-byte chunk short, Co ragged
+    (1, 2, 20, 32, 48),       # C one 64-byte chunk short, Co ragged
+    (2, 4, 160, 512, 512),    # a slice of the 90 x 160 stage
+    (3, 4, 320, 512, 512),    # a slice of the 180 x 320 stage
+    (1, 3, 64, 128, 384)])    # three channel tiles
 def test_k11_kernel_matches_plain_on_gpu(cuda_device, t, h, w, c, co):
     """int8 implicit-GEMM conv: exact int32 sums and the same fp32
     epilogue, so equal to the plain version bit for bit, through the VAE's
-    NCDHW call (with the bias) and the JAX-layout one."""
+    NCDHW call (with the bias; 16-byte stores along w, or one element a
+    thread where W_out * 2 % 16 != 0: W = 45, 20) and the JAX-layout one."""
     gen = torch.Generator(cuda_device).manual_seed(t * h * w + co)
     wp = -(-(w + 2) // 32) * 32
     x_ext = torch.randint(-127, 128, (t + 2, h + 2, wp, c), generator=gen,

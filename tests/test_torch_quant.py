@@ -77,6 +77,37 @@ def test_int8_matmul_plain_exact(m, k, n):
         jnp.float32)))
 
 
+def test_k3_plan_covers_every_3b_w8a8_shape():
+    """K3 and K10 share one s8 GEMM and its tile plan (plan_qx). Every
+    linear that quantize_dit_w8a8 converts in the 3B DiT (and the joint
+    gate+up), at every token count K3 meets on the served requests (the
+    time embedding's 1 row, the 58 text rows, the 720p clip, the 1080p
+    image and clip, the 4K image), gets tiles the kernel takes: K % 32 ==
+    0 and N % 8 == 0, swapped tiles of 8 or 64 tokens holding all M rows,
+    else 128 x 256 tiles, a grid within 2^31 blocks."""
+    from seedvr2_tpu_torch.core.configs import DIT_3B
+
+    with torch.device("meta"):
+        model = tn.NaDiT(DIT_3B, dtype=torch.bfloat16)
+    shapes = {(mod.out_features, mod.in_features)
+              for mod in model.modules() if isinstance(mod, nn.Linear)
+              and min(mod.in_features, mod.out_features) >= 1024
+              and mod.in_features % 256 == 0 and mod.out_features % 256 == 0}
+    shapes.add((2 * 6912, DIT_3B.vid_dim))  # fuse_gate_up's joint weight
+    assert (7680, 2560) in shapes and (2560, 6912) in shapes
+    for m in (1, 8, 9, 58, 64, 65, 7200, 8160, 16320, 32400):
+        swap, bt = tim.plan_qx(m)
+        for n, k in shapes:
+            assert k % 32 == 0 and n % 8 == 0
+            if swap:
+                assert bt in (8, 64) and m <= bt and m <= 64
+                blocks = -(-n // 128)
+            else:
+                assert bt == 256 and m > 64
+                blocks = -(-m // 128) * -(-n // 256)
+            assert blocks < 2 ** 31
+
+
 def test_quantize_helpers_equal():
     """Activation and weight quantization: int8 values and scales equal to
     the JAX package's (the port's weight is the (N, K) transpose)."""

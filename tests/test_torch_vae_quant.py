@@ -159,6 +159,86 @@ def test_int8_conv3d_plain_matches_interpret_kernel(T, H, Wp, C, Co):
     assert bf16_ulps(out.float().numpy(), ref).max() <= 1
 
 
+# the (Ci, Co, T, H, W) of every int8 conv of the 720p clip's decode (latent
+# 2 x 90 x 160, untiled), as chip_smoke.py's K11_SHAPES
+K11_SHAPES = ((512, 512, 2, 90, 160), (512, 512, 3, 180, 320),
+              (512, 256, 5, 360, 640), (256, 256, 5, 360, 640),
+              (256, 128, 5, 720, 1280), (128, 128, 5, 720, 1280))
+
+
+def _decode_shapes(th, tw):
+    """The int8 convs' (Ci, Co, T, H, W) for a 2-frame latent tile of th x
+    tw: the decoder's four stages at 1x, 2x, 4x and 8x the latent size."""
+    return ((512, 512, 2, th, tw), (512, 512, 3, 2 * th, 2 * tw),
+            (512, 256, 5, 4 * th, 4 * tw), (256, 256, 5, 4 * th, 4 * tw),
+            (256, 128, 5, 8 * th, 8 * tw), (128, 128, 5, 8 * th, 8 * tw))
+
+
+def test_k11_plan_covers_served_shapes():
+    """plan_conv over every K11 shape of the 720p clip's decode and of the
+    throughput preset's tiled 1080p clip decode (latent 2 x 136 x 240, its
+    tiles as the VAE plans them): the tiles cover every output position of
+    a frame and no tile lies wholly past it, the channel tiles cover Co
+    exactly, the grid stays within 2^31 blocks, and no shape idles a third
+    of the positions it computes, nor more than 128-pixel tiles along w
+    would where W % 128 != 0 (they idle 37.5 % at W = 160)."""
+    assert _decode_shapes(90, 160) == K11_SHAPES
+    sf, size, ov = 8, 1088, 48  # cli.THROUGHPUT_PRESET's decode tiles
+    ys, th, xs, tw = tv._plan_grid(136, 240, (size // sf) ** 2, ov // sf,
+                                   ov // sf, cost="aspect")
+    shapes = set(K11_SHAPES) | set(_decode_shapes(th, tw))
+    assert len(shapes) == 12
+    for ci, co, t, h, w in shapes:
+        wp = -(-(w + 2) // tic.SUBLANE) * tic.SUBLANE
+        pix, cot, busy = tic.plan_conv(t, h, wp, w, co)
+        assert (pix - 1) * tic.PIX_TILE < h * wp <= pix * tic.PIX_TILE
+        assert (cot - 1) * tic.CO_TILE < co <= cot * tic.CO_TILE
+        assert t * pix * cot < 2 ** 31
+        assert busy == h * w * co / (pix * tic.PIX_TILE * cot * tic.CO_TILE)
+        assert busy > 2 / 3
+        if w % 128:  # where 128-pixel tiles along w leave a ragged tile
+            assert busy >= w / (-(-w // 128) * 128)
+
+
+@pytest.mark.parametrize("t,h,w,c,co", [(1, 5, 20, 16, 8), (2, 3, 45, 32, 24),
+                                        (1, 9, 62, 16, 16)])
+def test_k11_position_tiles_match_plain(t, h, w, c, co):
+    """The index arithmetic of K11's tiles, in numpy: a tile of PIX_TILE
+    positions p = h * Wp + w of a frame reads, for window row (dt, dh),
+    the x_ext rows p + dh * Wp + dw of frame t + dt (three dw taps of one
+    strip; rows past the frame are zero) and stores the positions with h <
+    H and w < W_out. Assembled over all tiles, the exact sums equal the
+    plain version's."""
+    rng = np.random.default_rng(t * h * w + c)
+    wp = -(-(w + 2) // tic.SUBLANE) * tic.SUBLANE
+    x_ext = rng.integers(-127, 128, (t + 2, h + 2, wp, c)).astype(np.int64)
+    wq = rng.integers(-127, 128, (27, c, co)).astype(np.int64)
+    pix, _, _ = tic.plan_conv(t, h, wp, w, co)
+    rows = x_ext.reshape(t + 2, (h + 2) * wp, c)
+    rows = np.concatenate([rows, np.zeros((t + 2, 2 * wp + 2 + pix
+                                           * tic.PIX_TILE, c), np.int64)], 1)
+    acc = np.zeros((t, h, w, co), np.int64)
+    for f in range(t):
+        for tile in range(pix):
+            p0 = tile * tic.PIX_TILE
+            s = np.zeros((tic.PIX_TILE, co), np.int64)
+            for tap in range(27):
+                dt, dh, dw = tap // 9, tap // 3 % 3, tap % 3
+                r0 = p0 + dh * wp + dw
+                s += rows[f + dt, r0:r0 + tic.PIX_TILE] @ wq[tap]
+            p = p0 + np.arange(tic.PIX_TILE)
+            keep = (p // wp < h) & (p % wp < w)
+            acc[f, p[keep] // wp, p[keep] % wp] = s[keep]
+    xs = np.ones(t, np.float32)
+    ws = np.ones(co, np.float32)
+    ref = tic.int8_conv3d_plain(
+        _t(x_ext.astype(np.int8)), tic.kernel_weight(_t(wq.astype(np.int8))),
+        _t(xs), _t(ws), w_out=w)
+    np.testing.assert_array_equal(
+        torch.from_numpy(acc.astype(np.float32)).permute(3, 0, 1, 2)
+        .to(torch.bfloat16).float().numpy(), ref.float().numpy())
+
+
 @pytest.mark.parametrize("carried", [False, True])
 def test_int8_causal_conv3d_matches_jax(carried):
     """The drop-in int8 causal conv, with and without a carried head: the
