@@ -25,8 +25,11 @@ network. In order it:
     K11 (int8 implicit-GEMM conv) within one bf16 ulp at every (Ci, Co, T,
     H, W) of the 720p clip's int8 decode (and exact on the last rows of a
     4K stage, whose input passes 2^31 bytes), and
-    K12 (fused norm + SiLU + causal head) within one ulp with its head frames
-    equal, at every shape of that clip's fused-norm encode and decode; times
+    K12 (fused norm + SiLU + causal head) at every shape of that clip's
+    fused-norm encode and decode, its two kernels held apart (the apply
+    kernel on the plain moments within one ulp, head frames equal; the
+    moments kernel's A and Bc against fp64 moments) and together (one ulp
+    almost everywhere, a few at most), each kernel's device time apart; times
     each with CUDA events after an L2 flush, beside its plain version, the
     one PyTorch call that computes the same function where there is one
     (for K11 cuDNN's bf16 conv at the same shape), and its bound;
@@ -152,10 +155,21 @@ K6_MAX_ULPS = 1
 # kernel, cancels against the q*s term, so a few elements move further:
 # within one ulp in >= 99.9 % of elements, relative L2 <= 1e-3.
 K7_ULP_SHARE, K7_REL_L2 = 0.999, 1e-3
-# K12 vs plain: sigmoid's expf may differ from torch's by an fp32 ulp, which
+# K12's apply kernel vs its plain version on the same (A, Bc) (the plain
+# `_fold`'s): sigmoid's expf may differ from torch's by an fp32 ulp, which
 # can move the bf16 rounding: within one bf16 ulp; the head frames (the
 # processed frame 0, written again) equal frame 0 exactly.
 K12_MAX_ULPS = 1
+# K12's moments kernel: its sums run in another order than torch's, so A
+# and Bc may lie up to K12_FOLD_RATIO times as far from fp64 moments as the
+# plain `_fold`'s, plus K12_FOLD_ULPS fp32 ulps of the largest value (where
+# `_fold` happens to land exactly).
+K12_FOLD_RATIO, K12_FOLD_ULPS = 2, 4
+# the whole K12 vs plain: the moments' fp32 ulps move some y = x * A + Bc
+# across a bf16 rounding boundary, and one ulp of y is up to ~3.4 ulps of
+# silu(y) in its negative lobe (y ~ -4): >= 99.9 % of elements within one
+# bf16 ulp, none beyond 8, relative L2 <= 1e-3; head frames exact.
+K12_ULP_SHARE, K12_WHOLE_MAX_ULPS, K12_REL_L2 = 0.999, 8, 1e-3
 # whole int8 VAE decode of the 720p clip latent, kernels vs plain versions:
 # K11 is exact and everything else runs the same code, so any difference is
 # nondeterminism that later quantizations amplify. Its own limit sits below
@@ -246,7 +260,9 @@ DESIGN = {
     "K2": "row gather, 16-byte copies",
     "K3": "K10's TMA ring / wgmma s8 GEMM on the pre-quantized rows (128 x "
           "256 tiles; 128 weights x 8 / 64 tokens at M <= 64)",
-    "K4": "fused rms_norm + ada + per-row quantize",
+    "K4": "persistent blocks, a row a step; each thread's two 8-column "
+          "chunks of scale / shift in registers; cp.async ring of the next "
+          "3 rows; one barrier a reduction",
     "K5": "fused silu * up + per-row quantize",
     "K6": "int8 weights widened as wgmma's register A, TMA ring, exact "
           "per-group fold, split K at small M",
@@ -259,7 +275,9 @@ DESIGN = {
     "K11": "implicit GEMM, persistent: TMA ring with one 64-byte-swizzled "
            "strip for the three dw taps, wgmma m64n256k32 s8 (256 positions "
            "x 128 channels a tile), staged 16-byte stores",
-    "K12": "fused norm + SiLU + causal head",
+    "K12": "moments kernel (one read in 64 KB pieces, partials folded by "
+           "each group's last block in fixed order) + the earlier apply "
+           "pass, 16 KB pieces from the plan",
 }
 # the path whose launches each kernel's record reports
 DENSE_PATH, OP_PATH = "dense (no product caller)", "op (no product caller)"
@@ -408,8 +426,20 @@ def latent_shape(vae_cfg, t: int, h: int, w: int, res: int):
 # which PERF.md did not keep, from a later run of the same K10 code). K3
 # (mma.sync m16n8k32 tiles) and K11 (mma.sync implicit GEMM): the mean of
 # the two parent turns of seedvr2_tpu_torch/ab_int8.py on the tree before
-# their redesign, timed the same way. NVIDIA H100 80GB HBM3, 700.00 W.
+# their redesign, timed the same way. K4 (one block a row) and K12
+# (plain-torch moments + one pass): this script's final run on the tree
+# before their redesign (946e4a5). NVIDIA H100 80GB HBM3, 700.00 W.
 EARLIER_MS = {name: (design, ms) for design, times in (
+    ("one-block-a-row design", {
+        "K4 rows=16320 K=2560": 0.0971, "K4 rows=32400 K=2560": 0.1756,
+        "K4 rows=58 K=2560": 0.0126,
+    }),
+    ("torch-moments + one-pass design", {
+        "K12 C=128 T=5 720x1280": 2.7714, "K12 C=128 T=5 360x640": 0.7580,
+        "K12 C=256 T=5 360x640": 1.4353, "K12 C=256 T=3 180x320": 0.3289,
+        "K12 C=512 T=3 180x320": 0.4977, "K12 C=512 T=2 90x160": 0.1645,
+        "K12 C=512 T=5 360x640": 2.7586, "K12 C=256 T=5 720x1280": 5.4437,
+    }),
     ("mma.sync step design", {
         "K1 S=128 kv_len=91 B=16": 0.1123, "K1 S=128 kv_len=128 B=16": 0.1144,
         "K1 S=896 kv_len=859 B=4": 0.7412, "K1 S=896 kv_len=896 B=4": 0.7368,
@@ -709,16 +739,19 @@ def check_k4_k5(torch, fq, cfg, device, path_rows):
         ref = fq.rms_ada_quantize_plain(x, scale, shift, cfg.norm_eps)
         worst, equal = q_error(torch, out, ref, f"K4 L={l}")
         ms = kernel_ms(torch, lambda: fq.rms_ada_quantize(
-            x, scale, shift, cfg.norm_eps), 50)
+            x, scale, shift, cfg.norm_eps), 50, warmup=20)
         plain_ms = kernel_ms(torch, lambda: fq.rms_ada_quantize_plain(
             x, scale, shift, cfg.norm_eps), 20)
         m = l
         nbytes = m * D * 2 + 2 * D * 4 + m * D + 4 * m
         bound, by = bound_ms(K4_OPS_PER_ELEM * m * D, PEAK_FP32, nbytes)
+        dev = "" if l != TXT_LEN else " (device {:.4f} ms)".format(device_ms(
+            torch, lambda: fq.rms_ada_quantize(x, scale, shift,
+                                               cfg.norm_eps)))
         say(f"K4 rows={m} K={D}: q max diff {worst}, {equal * 100:.4f} % "
-            f"equal; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s), "
-            f"plain {plain_ms:.4f} ms, library none, bound {bound:.4f} ms "
-            f"({by})")
+            f"equal; kernel {ms:.4f} ms{dev} ({nbytes / ms / 1e6:.0f} GB/s),"
+            f" plain {plain_ms:.4f} ms, library none, bound {bound:.4f} ms "
+            f"({by}); {earlier_note(f'K4 rows={m} K={D}')}")
         recs.setdefault("K4", dict(
             max_abs_err=float(worst), ms=ms, plain_ms=plain_ms,
             library_ms=None, bound_ms=bound, bound_by=by))
@@ -736,8 +769,10 @@ def check_k4_k5(torch, fq, cfg, device, path_rows):
         m = l
         nbytes = 2 * m * hidden * 2 + m * hidden + 4 * m
         bound, by = bound_ms(K5_OPS_PER_ELEM * m * hidden, PEAK_FP32, nbytes)
+        dev = "" if l != TXT_LEN else " (device {:.4f} ms)".format(device_ms(
+            torch, lambda: fq.silu_mul_quantize(g, u)))
         say(f"K5 rows={m} K={hidden}: q max diff {worst}, "
-            f"{equal * 100:.4f} % equal; kernel {ms:.4f} ms "
+            f"{equal * 100:.4f} % equal; kernel {ms:.4f} ms{dev} "
             f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, "
             f"library none, bound {bound:.4f} ms ({by})")
         recs.setdefault("K5", dict(
@@ -1177,52 +1212,142 @@ def check_k11(torch, ic, device):
             "by_shape": by_shape}
 
 
+def k12_moments_error(torch, got, fold, truth):
+    """(max |got - truth|, its limit): K12_FOLD_RATIO times the plain
+    `_fold`'s own distance from the fp64 truth plus K12_FOLD_ULPS fp32 ulps
+    of the truth's largest magnitude."""
+    err = (got.double() - truth).abs().max().item()
+    ref = (fold.double() - truth).abs().max().item()
+    _, e = torch.frexp(truth.abs().max().float())
+    return err, K12_FOLD_RATIO * ref + K12_FOLD_ULPS * 2.0 ** (e.item() - 24)
+
+
+def check_k12_split(torch, fn, x, wt, bs, groups, name):
+    """K12's two kernels held apart and together at one shape (the
+    tolerances above), failing beyond them; returns what was measured."""
+    eps = 1e-6
+    a, bc = fn._fold(x, wt, bs, groups, eps)
+    out = fn.norm_silu_apply(x, a, bc, 2)
+    apply_ulps = bf16_ulps(torch, out, fn.norm_silu_apply_plain(
+        x, a, bc, 2)).max().item()
+    apply_head = all(torch.equal(out[:, :, f], out[:, :, 2]) for f in (0, 1))
+    del out
+    xr = x.double().reshape(x.shape[0], groups, x.shape[1] // groups,
+                            x.shape[2], -1)
+    mean = xr.mean(dim=(2, 4))[:, :, None]
+    var = (xr.square().mean(dim=(2, 4))[:, :, None] - mean.square())
+    del xr
+    inv = torch.rsqrt(var.clamp_min(0) + eps)
+    w64 = wt.double().view(1, groups, -1, 1)
+    truth = ((inv * w64).reshape(a.shape),
+             (bs.double().view(1, groups, -1, 1) - mean * inv * w64)
+             .reshape(a.shape))
+    moments = [k12_moments_error(torch, got, fold, want) for got, fold, want
+               in zip(fn.norm_moments(x, wt, bs, groups, eps), (a, bc),
+                      truth)]
+    out = fn.norm_silu_head_ncdhw(x, wt, bs, groups, eps)
+    torch.cuda.synchronize()
+    ref = fn.norm_silu_head_plain(x, wt, bs, groups, eps)
+    ulps = bf16_ulps(torch, out, ref)
+    share = (ulps <= 1).float().mean().item()
+    worst = ulps.max().item()
+    del ulps
+    rel = rel_l2(out, ref)
+    err = (out.float() - ref.float()).abs().max().item()
+    head = all(torch.equal(out[:, :, f], out[:, :, 2]) for f in (0, 1))
+    finite = bool(torch.isfinite(out).all())
+    del out, ref
+    say(f"K12 {name}: apply on the plain moments max {apply_ulps:.3g} ulps "
+        f"(limit {K12_MAX_ULPS}), head frames equal {apply_head}; moments "
+        f"A {moments[0][0]:.3g} (limit {moments[0][1]:.3g}), Bc "
+        f"{moments[1][0]:.3g} (limit {moments[1][1]:.3g}) from fp64; whole "
+        f"{share * 100:.4f} % within 1 ulp (limit {K12_ULP_SHARE * 100} %), "
+        f"max {worst:.3g} ulps (limit {K12_WHOLE_MAX_ULPS}), rel L2 "
+        f"{rel:.3g} (limit {K12_REL_L2}), head frames equal {head}")
+    if (apply_ulps > K12_MAX_ULPS or not apply_head
+            or any(e > lim for e, lim in moments) or share < K12_ULP_SHARE
+            or worst > K12_WHOLE_MAX_ULPS or rel > K12_REL_L2 or not head
+            or not finite):
+        fail(f"K12 {name}: beyond the limits above (finite {finite})")
+    return dict(max_abs_err=err, max_ulps=worst, ulp_share=share,
+                rel_l2=rel, apply_max_ulps=apply_ulps,
+                moments_err=[e for e, _ in moments],
+                moments_limit=[lim for _, lim in moments])
+
+
 def check_k12(torch, fn, device):
     """K12 against its plain version at every distinct (C, T, H, W) of the
-    720p clip's fused-norm encode and decode, each timed with its bound
-    (bytes: x read once, the T + 2 output frames written once). The record
-    holds the largest, 128 channels at 720 x 1280."""
-    gen = torch.Generator(device).manual_seed(12)
-    by_shape, rec = [], None
-    for c, t, h, w in K12_SHAPES:
+    720p clip's fused-norm encode and decode (`check_k12_split`), each
+    timed whole with its bound (bytes: x read once, the T + 2 output frames
+    written once) and each kernel's device time apart. All shapes are timed
+    before any is checked, each after 20 warm-up calls: in a development
+    run on the H100, the kernels measured ~17 % slower right after the
+    checks' fp64 passes and an empty_cache. The record holds the largest,
+    128 channels at 720 x 1280."""
+    def inputs(i, c, t, h, w):
+        gen = torch.Generator(device).manual_seed(12 + i)
         x = torch.randn(1, c, t, h, w, generator=gen, device=device).to(
             torch.bfloat16)
-        wt = 1 + 0.1 * torch.randn(c, generator=gen, device=device)
-        bs = 0.1 * torch.randn(c, generator=gen, device=device)
-        out = fn.norm_silu_head_ncdhw(x, wt, bs, 32)
-        torch.cuda.synchronize()
-        ref = fn.norm_silu_head_plain(x, wt, bs, 32)
-        worst = bf16_ulps(torch, out, ref).max().item()
-        err = (out.float() - ref.float()).abs().max().item()
-        head_equal = all(torch.equal(out[:, :, f], out[:, :, 2])
-                         for f in (0, 1))
-        del ref
-        name = f"C={c} T={t} {h}x{w}"
-        if not torch.isfinite(out).all() or worst > K12_MAX_ULPS \
-                or not head_equal:
-            fail(f"K12 {name}: {worst} bf16 ulps from the plain version "
-                 f"(limit {K12_MAX_ULPS}), head frames equal: {head_equal}")
-        del out
-        ms = kernel_ms(torch, lambda: fn.norm_silu_head_ncdhw(x, wt, bs, 32),
-                       10)
-        plain_ms = kernel_ms(torch, lambda: fn.norm_silu_head_plain(
-            x, wt, bs, 32), 3, warmup=1)
+        return (x, 1 + 0.1 * torch.randn(c, generator=gen, device=device),
+                0.1 * torch.randn(c, generator=gen, device=device))
+
+    by_shape = []
+    for i, (c, t, h, w) in enumerate(K12_SHAPES):
+        x, wt, bs = inputs(i, c, t, h, w)
+
+        def call():
+            return fn.norm_silu_head_ncdhw(x, wt, bs, 32)
+
         nbytes = x.numel() * 2 * (2 * t + 2) / t + 8 * c * t
         bound, by = bound_ms(0, PEAK_FP32, nbytes)
-        say(f"K12 {name}: max {worst:.3g} ulps, head frames equal; kernel "
-            f"(moments + fused pass) {ms:.4f} ms ({nbytes / ms / 1e6:.0f} "
-            f"GB/s), plain {plain_ms:.4f} ms, library none, bound "
-            f"{bound:.4f} ms ({by})")
-        r = dict(shape=name, max_abs_err=err, max_ulps=worst, ms=ms,
-                 plain_ms=plain_ms, library_ms=None, bound_ms=bound,
-                 bound_by=by)
-        by_shape.append(r)
-        if rec is None:
-            rec = r
-    torch.cuda.empty_cache()
+        by_shape.append(dict(
+            shape=f"C={c} T={t} {h}x{w}", key=(c, t, h, w),
+            ms=kernel_ms(torch, call, 10, warmup=20),
+            moments_ms=device_ms(torch, call, 5, only="k12_moments"),
+            apply_ms=device_ms(torch, call, 5, only="k12_apply"),
+            library_ms=None, bound_ms=bound, bound_by=by, nbytes=nbytes))
+        del x
+    for i, ((c, t, h, w), r) in enumerate(zip(K12_SHAPES, by_shape)):
+        x, wt, bs = inputs(i, c, t, h, w)
+        r.update(check_k12_split(torch, fn, x, wt, bs, 32, r["shape"]))
+        torch.cuda.empty_cache()
+        r["plain_ms"] = kernel_ms(torch, lambda: fn.norm_silu_head_plain(
+            x, wt, bs, 32), 3, warmup=1)
+        del x
+        torch.cuda.empty_cache()
+        say(f"K12 {r['shape']}: kernel (moments + apply) {r['ms']:.4f} ms "
+            f"({r['nbytes'] / r['ms'] / 1e6:.0f} GB/s), device time moments "
+            f"{r['moments_ms']:.4f} + apply {r['apply_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library none, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); "
+            f"{earlier_note('K12 ' + r['shape'])}")
+    rec = by_shape[0]
     return {**{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "library_ms", "bound_ms", "bound_by")},
             "by_shape": by_shape}
+
+
+def k12_request_sum(k12_rec, launches):
+    """K12's time in one fused-norm request: each shape's launches
+    {(C, T, H, W): (encode, decode)} times its measured ms and bound;
+    fails on a launched shape that check_k12 did not time."""
+    timed = {r["key"]: r for r in k12_rec["by_shape"]}
+    missing = sorted(set(launches) - set(timed))
+    if missing:
+        fail(f"K12 launched at shapes K12_SHAPES lacks: {missing}")
+    total = {"encode": [0.0, 0.0], "decode": [0.0, 0.0]}
+    for key, (n_enc, n_dec) in sorted(launches.items()):
+        r = timed[key]
+        say(f"K12 {r['shape']}: launches a request encode {n_enc}, decode "
+            f"{n_dec}; {r['ms']:.4f} ms each (bound {r['bound_ms']:.4f})")
+        for what, n in (("encode", n_enc), ("decode", n_dec)):
+            total[what][0] += n * r["ms"]
+            total[what][1] += n * r["bound_ms"]
+    say(f"K12 a fused-norm 720p clip request: encode {total['encode'][0]:.2f}"
+        f" ms (bound {total['encode'][1]:.2f}), decode "
+        f"{total['decode'][0]:.2f} ms (bound {total['decode'][1]:.2f}), sum "
+        f"{total['encode'][0] + total['decode'][0]:.2f} ms (bound "
+        f"{total['encode'][1] + total['decode'][1]:.2f})")
 
 
 # GGUF writing (the file format's spec: a header, key/value metadata,
@@ -1924,11 +2049,24 @@ def main() -> None:
     z = (latent.float() / VAE_V3.scaling_factor + VAE_V3.shifting_factor)[None]
     vae32 = VideoVAE(copy.deepcopy(base.vae.model).float(), torch.float32)
     reset_counts(wrappers)
+    k12_shapes = {}  # (C, T, H, W) -> [encode, decode] launches
+    k12_call, stage = fn.norm_silu_head_ncdhw, [0]
+
+    def k12_recorded(x, *args, **kwargs):
+        k12_shapes.setdefault(tuple(x.shape[1:]), [0, 0])[stage[0]] += 1
+        return k12_call(x, *args, **kwargs)
+
+    fn.norm_silu_head_ncdhw = k12_recorded
+    try:
+        with torch.no_grad():
+            outs = {"fused": (fused.vae.encode(x_in),)}
+            k12_n = fn.norm_silu_head.launches
+            stage[0] = 1
+            outs["fused"] += (fused.vae.decode(z.to(torch.bfloat16)),)
+            k12_d = fn.norm_silu_head.launches - k12_n
+    finally:
+        fn.norm_silu_head_ncdhw = k12_call
     with torch.no_grad():
-        outs = {"fused": (fused.vae.encode(x_in),)}
-        k12_n = fn.norm_silu_head.launches
-        outs["fused"] += (fused.vae.decode(z.to(torch.bfloat16)),)
-        k12_d = fn.norm_silu_head.launches - k12_n
         outs["unfused"] = (base.vae.encode(x_in),
                            base.vae.decode(z.to(torch.bfloat16)))
         outs["fp32"] = (vae32.encode(x_in.float()), vae32.decode(z))
@@ -1943,6 +2081,7 @@ def main() -> None:
             f"{FUSED_FP32_RATIO}x the unfused)")
         bad |= rel > FUSED_VAE_REL_L2 or err_f > FUSED_FP32_RATIO * err_u
     say(f"K12 launches: encode {k12_n}, decode {k12_d}")
+    k12_request_sum(recs["K12"], k12_shapes)
     if bad:
         fail("fused-norm VAE: K12 not launched by encode and decode, or "
              "beyond the limits above")

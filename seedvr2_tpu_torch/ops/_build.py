@@ -47,8 +47,10 @@ _SIGNATURES = {
     # x, wq, ws, xs, xq (scratch), out, M, N, K, x_f32, out_f32, swap, bt,
     # stream
     "seedvr2_int8_matmul_qx": [_P] * 6 + [_I] * 7 + [_P],
-    # x, scale, shift, q, s, rows, L, K, eps, stream
-    "seedvr2_rms_ada_quantize": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # x, scale, shift, q, s, rows, L, K, eps, threads, grid, stream
+    "seedvr2_rms_ada_quantize": [_P] * 5 + [_L, _I, _I, _F, _I, _I, _P],
+    # threads, out: resident K4 blocks on the device
+    "seedvr2_rms_ada_quantize_resident": [_I, _P],
     # g, u, q, s, rows, K, row_stride, stream
     "seedvr2_silu_mul_quantize": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, q, scales, ws, out, M, N, K, G4, bt, splits, stream
@@ -62,8 +64,12 @@ _SIGNATURES = {
     # x_ext, wk, xs, ws, bias, out, T, H, Wp, C, Co, W_out, out strides
     # (co, t, h, w), pixel tiles, channel tiles, stream
     "seedvr2_int8_conv3d": [_P] * 6 + [_I] * 6 + [_L] * 4 + [_I] * 2 + [_P],
-    # x, A, Bc, out, B, C, T, H*W, head frames, stream
-    "seedvr2_norm_silu_head": [_P, _P, _P, _P, _I, _I, _I, _L, _I, _P],
+    # x, weight, bias, weight/bias bf16, partials, counters, A, Bc, B, C, T,
+    # G, H*W, pieces, piece, eps, stream
+    "seedvr2_k12_moments": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 4
+                           + [_L, _I, _L, _F, _P],
+    # x, A, Bc, out, B, C, T, H*W, head frames, pieces, piece, stream
+    "seedvr2_k12_apply": [_P] * 4 + [_I] * 3 + [_L, _I, _I, _L, _P],
 }
 
 

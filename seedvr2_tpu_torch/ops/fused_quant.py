@@ -22,6 +22,7 @@ same function; the port's kernels take every L (text rows, L = 58, go
 through them too), so that routing is not copied.
 """
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
@@ -70,6 +71,51 @@ def silu_mul_quantize_plain(g: torch.Tensor, u: torch.Tensor) -> PreQuantized:
     return PreQuantized(q, sc[..., 0], g.dtype)
 
 
+# K4's persistent grid: a thread owns K4_CPT chunks of 8 columns, a block
+# one row at a time and at most K4_MAX_THREADS threads
+K4_CPT, K4_MAX_THREADS = 2, 512
+K4_MAX_K = K4_CPT * 8 * K4_MAX_THREADS
+
+
+class K4Plan(NamedTuple):
+    threads: int   # a block, a multiple of 32
+    grid: int      # persistent blocks, each walking rows grid apart
+
+
+def plan_k4(rows: int, k: int, resident) -> K4Plan:
+    """K4's launch for `rows` rows of K values: K / 16 threads a block
+    rounded up to whole warps, and as many blocks as the card holds at once
+    (`resident(threads)`), no more than there are rows. Raises on a K the
+    kernel does not take (K % 8, K > K4_MAX_K)."""
+    if k <= 0 or k % 8 or k > K4_MAX_K:
+        raise ValueError(f"rms_ada_quantize kernel takes K a multiple of 8 "
+                         f"up to {K4_MAX_K}, got {k}")
+    threads = -(-k // (8 * K4_CPT * 32)) * 32
+    return K4Plan(threads, max(1, min(rows, resident(threads))))
+
+
+_RESIDENT = {}
+
+
+def _resident(device: torch.device):
+    """resident(threads) for `device`: the K4 blocks it holds at once."""
+    def resident(threads: int) -> int:
+        key = (device, threads)
+        if key not in _RESIDENT:
+            out = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                err = _build.kernel_library().lib.\
+                    seedvr2_rms_ada_quantize_resident(threads,
+                                                      ctypes.byref(out))
+            _build.check(err, "seedvr2_rms_ada_quantize_resident")
+            if out.value <= 0:
+                raise RuntimeError(f"rms_ada_quantize: no block of {threads} "
+                                   f"threads fits {device}")
+            _RESIDENT[key] = out.value
+        return _RESIDENT[key]
+    return resident
+
+
 def _check_rows(name: str, t: torch.Tensor) -> None:
     if t.dtype != torch.bfloat16 or t.dim() != 3 or t.stride(-1) != 1:
         raise ValueError(f"{name} kernel takes (B, L, K) bf16 rows with unit "
@@ -97,7 +143,8 @@ def rms_ada_quantize(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     per-channel tables already added. Returns q (B, L, K) int8 and
     s (B, L) fp32. CPU tensors take the plain version; CUDA tensors launch
     K4, or raise on what it does not take (x contiguous bf16 with
-    K % 8 == 0, contiguous fp32 scale/shift on the same device)."""
+    K % 8 == 0 and K <= K4_MAX_K, contiguous fp32 scale/shift on the same
+    device)."""
     if x.device.type == "cpu":
         return rms_ada_quantize_plain(x, scale, shift, eps)
     if x.device.type != "cuda":
@@ -114,11 +161,12 @@ def rms_ada_quantize(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                              f"contiguous 16-byte aligned fp32 ({b}, {k}) on "
                              f"{x.device}, got {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}")
+    plan = plan_k4(b * l, k, _resident(x.device))
     q, s = _outputs(b, l, k, x.device)
     if q.numel():
         err = _build.kernel_library().lib.seedvr2_rms_ada_quantize(
             x.data_ptr(), scale.data_ptr(), shift.data_ptr(), q.data_ptr(),
-            s.data_ptr(), b * l, l, k, float(eps),
+            s.data_ptr(), b * l, l, k, float(eps), plan.threads, plan.grid,
             torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(err, "seedvr2_rms_ada_quantize")
         rms_ada_quantize.launches += 1
