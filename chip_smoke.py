@@ -71,7 +71,27 @@ network. In order it:
     ones; then serves, each twice and checked as in 7, `--vae_quant int8`
     untiled (the 720p clip), `--preset throughput --vae_quant int8` (the
     1080p clip) and SEEDVR2_FUSED_NORM=1 (the 720p clip);
- 10. prints the kernels' JSON record (K1-K12, launches by path), the card
+ 10. the VAE's lowering switches: VideoVAEs built under
+    SEEDVR2_UPSAMPLE_CONVT=0, SEEDVR2_HEAD_CORRECTION=1 and
+    SEEDVR2_CONV_IM2COL=1, each alone, encode and decode the 720p clip
+    against the default lowering and the fp32 VAE; then the default 3B
+    path serves the 5-frame 540x960 clip to 1080p under the pixel-shuffle
+    upsample and under the default transposed conv: wall, phases, peak
+    memory, and a profiled decode's device time, peak memory and top
+    kernels;
+ 11. the 7B family at full width (36 blocks, D = 3072, 24 heads, random
+    weights from a seed), after every 3B model is freed: K1-K4, K6 and K7
+    against their plain versions at the 7B's shapes (timed, bound, library
+    call); the whole bf16 DiT with kernels against plain versions on the
+    720p and 1080p clips' latents; the default path served (the 720p clip
+    and a 540x960 image to 1080p, each twice; K1, K2); the w8a8 DiT
+    against its plain versions and the bf16 DiT, and `--preset throughput`
+    serving the 1080p clip (K1-K4, K5 never); a full-size 7B Q4_K_M-like
+    GGUF written (free disk checked first), loaded through
+    `cli.make_runner(quant="q4k")` with every linear checked, served on the
+    720p clip (K1, K2, K6, K7) and deleted;
+ 12. prints the kernels' JSON record (K1-K12, launches by path, the 7B
+    paths included, and each 7B kernel's record under "7b"), the card
     line again, and last {"ok": true, "device": {...}}.
 
 The uniform window plan and the last three kernels (K8 dense flash
@@ -185,6 +205,31 @@ INT8_DECODE_REL_L2 = 1e-3
 # within FUSED_VAE_REL_L2.
 FUSED_VAE_REL_L2 = 5e-2
 FUSED_FP32_RATIO = 1.5
+# whole VAE encode and decode of the 720p clip with one lowering switch set
+# (SEEDVR2_UPSAMPLE_CONVT=0, SEEDVR2_HEAD_CORRECTION=1,
+# SEEDVR2_CONV_IM2COL=1) against the default lowering, same bf16 weights:
+# the same function with its bf16 roundings at other points (the matmul's
+# output rounded before the bias where the transposed conv rounds once; the
+# head frames' partial convs rounded apart and summed in bf16; the patch
+# matmul's fp32 sums in another order), which later bf16 roundings spread
+# as they spread K12's (FUSED_VAE_REL_L2). JAX holds the fp32 forms to
+# 2e-5 of each other, as the CPU tests hold the port's. Held as the fused
+# path is: within FUSED_VAE_REL_L2 of the default, and no farther from the
+# fp32 VAE than FUSED_FP32_RATIO times the default bf16 path is.
+LOWERING_SWITCHES = (("SEEDVR2_UPSAMPLE_CONVT", "0", "upsample_convt"),
+                     ("SEEDVR2_HEAD_CORRECTION", "1", "head_correction"),
+                     ("SEEDVR2_CONV_IM2COL", "1", "im2col_max_k"))
+# the 1080p clip served under both upsample forms (default 3B path)
+UPSAMPLE_AB_REQUEST = ("clip 5x540x960 -> 1080", 5, 540, 960, 1080)
+# the 7B's requests: the default path (bf16) and its throughput and GGUF
+# lanes: (label, frames, height, width, short side)
+DIT7B_REQUESTS = (("clip 5x360x640 -> 720", 5, 360, 640, 720),
+                  ("image 1x540x960 -> 1080", 1, 540, 960, 1080))
+DIT7B_FAST_REQUESTS = (("clip 5x540x960 -> 1080", 5, 540, 960, 1080),)
+DIT7B_GGUF_REQUESTS = (("clip 5x360x640 -> 720", 5, 360, 640, 720),)
+# free disk the 7B GGUF phase needs before it writes (the file is ~2.7x the
+# 3B's 2.37 GiB, so this leaves room for twice its size)
+GGUF_7B_FREE_BYTES = 14 << 30
 # the (Ci, Co, T, H, W) of every int8 conv the 720p clip's decode launches
 # (2 latent frames of 90 x 160; the decoder's channels 512, 512, 256, 128)
 K11_SHAPES = ((512, 512, 2, 90, 160), (512, 512, 3, 180, 320),
@@ -514,14 +559,17 @@ def earlier_note(name: str) -> str:
     return f"{design} {ms:.4f} ms (PERF.md)"
 
 
-def check_k1(torch, fa, nadit, cfg, device, path_latents):
+def check_k1(torch, fa, nadit, cfg, device, path_latents, tag="",
+             random_tables=True):
     """K1 against its plain version: window lengths 128, 896 and 3712 with
-    random tables, and every window group of the 720p clip plan with its
-    real tables (all timed), then every group of the throughput requests'
-    plans `path_latents` (checked; the largest group of the 1080p clip's
-    plan, the default path's 1080p clip too, timed). Each timed case prints
-    the pre-pass's time alone beside the whole call's and PR 5's time.
-    Returns the record of the 720p clip plan's largest group."""
+    random tables (when `random_tables`), and every window group of
+    `cfg`'s 720p clip plan with its real tables (all timed), then every
+    group of the requests' plans `path_latents` (checked; the largest
+    group of the 1080p clip's plan, the default path's 1080p clip too,
+    timed). Each timed case prints the pre-pass's time alone beside the
+    whole call's and the earlier design's time. Rows are named after `tag`
+    (the 7B's "7B "). Returns the record of the 720p clip plan's largest
+    group."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device).manual_seed(1)
@@ -529,7 +577,7 @@ def check_k1(torch, fa, nadit, cfg, device, path_latents):
     qscale = D ** -0.5 * 1.4426950408889634
     worst = 0.0
     cases = []
-    for s, b in ((128, 16), (896, 4), (3712, 2)):
+    for s, b in ((128, 16), (896, 4), (3712, 2)) if random_tables else ():
         for kv in (s - 37, s):
             cq, sq = rope_tables(torch, gen, s, D, device)
             ck, sk = rope_tables(torch, gen, s, D, device)
@@ -546,7 +594,7 @@ def check_k1(torch, fa, nadit, cfg, device, path_latents):
             for g in groups:
                 tabs = nadit._fold_norm_tables(g.cos, g.sin, ones, ones, ones,
                                                ones, g.wlen, g.skv)
-                case = [f"{label} {method} n={g.n} wlen={g.wlen} "
+                case = [f"{tag}{label} {method} n={g.n} wlen={g.wlen} "
                         f"S={g.sk_pad} kv_len={g.skv}", g.n, g.sk_pad, g.skv,
                         tabs, timed]
                 cases.append(case)
@@ -607,7 +655,7 @@ def check_k1(torch, fa, nadit, cfg, device, path_latents):
                        library_ms=lib_ms, bound_ms=bound, bound_by=by)
     say(f"K1 worst max_abs_err over all cases {worst:.6g}; the record "
         f"below holds {main[0]}")
-    return rec
+    return dict(rec, shape=main[0], heads=H)
 
 
 def check_k2(torch, gather, nadit, cfg, device, path_latents):
@@ -637,30 +685,50 @@ def check_k2(torch, gather, nadit, cfg, device, path_latents):
     warm_ms = cuda_ms(torch, lambda: gather.gather_rows(x, index), 50)
     nbytes = 2 * x.numel() * 2 + len(index) * 4
     bound, by = bound_ms(0, PEAK_BF16, nbytes)
-    say(f"K2 timing: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s), "
+    say(f"K2 timing, L={plan.seq_len} D={cfg.vid_dim}: kernel {ms:.4f} ms "
+        f"({nbytes / ms / 1e6:.0f} GB/s), "
         f"plain {plain_ms:.4f} ms, torch.index_select {lib_ms:.4f} ms, "
         f"bound {bound:.4f} ms ({by}); back-to-back warm-L2 loop "
         f"{warm_ms:.4f} ms")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                shape=f"L={plan.seq_len} D={cfg.vid_dim}")
 
 
-def check_k3(torch, im, cfg, device, path_rows):
-    """K3 bit-exact against its plain version at every shape the 3B w8a8
+def mlp_dims(cfg, joined):
+    """(name, N, hidden) of the MLP's input product: the 3B's swiglu gate
+    and up, one gate+up product of N = 2 * hidden when `joined` (the w8a8
+    lane joins them) and two gate/up products of N = hidden otherwise; the
+    7B's proj_in."""
+    from seedvr2_tpu_torch.ops.layers import swiglu_hidden_dim
+
+    if cfg.mlp_type == "swiglu":
+        hidden = swiglu_hidden_dim(cfg.vid_dim, cfg.expand_ratio)
+        return ("gate+up", 2 * hidden, hidden) if joined else (
+            "gate/up", hidden, hidden)
+    hidden = cfg.vid_dim * cfg.expand_ratio
+    return "mlp in", hidden, hidden
+
+
+def check_k3(torch, im, cfg, device, path_rows, tag=""):
+    """K3 bit-exact against its plain version at every shape `cfg`'s w8a8
     DiT gives it on the throughput path: the video GEMMs at each request's
     token count `path_rows` [(label, M)], the text rows and the time
     embedding's single row; each timed (events, and device time at M <=
     58, where events carry the host's launch cost) beside the earlier
-    design's time. The record holds the first request's gate+up."""
-    D, hidden = cfg.vid_dim, 6912
+    design's time. The record holds the first request's MLP input product
+    (the 3B's gate+up, the 7B's proj_in)."""
+    D = cfg.vid_dim
+    mlp_in, n_in, hidden = mlp_dims(cfg, joined=True)
     shapes = []
     for label, m in path_rows:
-        shapes += [(f"{label} qkv", m, 3 * D, D),
-                   (f"{label} gate+up", m, 2 * hidden, D),
-                   (f"{label} mlp out", m, D, hidden),
-                   (f"{label} attn out", m, D, D)]
-    shapes += [("txt_in", TXT_LEN, D, 5120), ("emb proj_hid", 1, D, D),
-               ("emb proj_out", 1, 6 * D, D)]
+        shapes += [(f"{tag}{label} qkv", m, 3 * D, D),
+                   (f"{tag}{label} {mlp_in}", m, n_in, D),
+                   (f"{tag}{label} mlp out", m, D, hidden),
+                   (f"{tag}{label} attn out", m, D, D)]
+    shapes += [(f"{tag}txt_in", TXT_LEN, D, cfg.txt_in_dim),
+               (f"{tag}emb proj_hid", 1, D, D),
+               (f"{tag}emb proj_out", 1, 6 * D, D)]
     gen = torch.Generator(device).manual_seed(3)
     rec = None
     for name, m, n, k in shapes:
@@ -702,9 +770,10 @@ def check_k3(torch, im, cfg, device, path_rows):
             f"plain {plain_ms:.4f} ms, torch._int_mm (int32 product only, no "
             f"epilogue) {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
             f"bound {bound:.4f} ms ({by})")
-        if rec is None and name.endswith("gate+up"):
+        if rec is None and name.endswith(mlp_in):
             rec = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                       library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                       shape=f"{name} M={m} N={n} K={k}")
     return rec
 
 
@@ -722,11 +791,12 @@ def q_error(torch, out, ref, name):
 
 
 def check_k4_k5(torch, fq, cfg, device, path_rows):
-    """K4 on 2560-wide rows and K5 on 6912-wide halves of a gate+up
-    product, at the text length and at each throughput request's token
-    count `path_rows` [(label, M)]; the records hold the first request."""
+    """K4 on D-wide rows (2560 in the 3B, 3072 in the 7B) and, for a swiglu
+    MLP (the 3B), K5 on the hidden-wide halves of a gate+up product, at the
+    text length and at each throughput request's token count `path_rows`
+    [(label, M)]; the records hold the first request."""
     gen = torch.Generator(device).manual_seed(4)
-    D, hidden = cfg.vid_dim, 6912
+    D, hidden = cfg.vid_dim, mlp_dims(cfg, joined=True)[2]
     lengths = [m for _, m in path_rows]
     recs = {}
     for l in lengths + [TXT_LEN]:
@@ -754,8 +824,9 @@ def check_k4_k5(torch, fq, cfg, device, path_rows):
             f"({by}); {earlier_note(f'K4 rows={m} K={D}')}")
         recs.setdefault("K4", dict(
             max_abs_err=float(worst), ms=ms, plain_ms=plain_ms,
-            library_ms=None, bound_ms=bound, bound_by=by))
-    for l in lengths + [TXT_LEN]:
+            library_ms=None, bound_ms=bound, bound_by=by,
+            shape=f"rows={m} K={D}"))
+    for l in (lengths + [TXT_LEN]) if cfg.mlp_type == "swiglu" else ():
         gu = torch.randn(1, l, 2 * hidden, generator=gen, device=device).to(
             torch.bfloat16)
         g, u = gu[..., :hidden], gu[..., hidden:]
@@ -790,11 +861,11 @@ def bf16_ulps(torch, out, ref):
     return (out32 - ref32).abs() / torch.ldexp(torch.ones_like(ref32), e - 8)
 
 
-def check_k6_k7(torch, qm, cfg, device, rows):
+def check_k6_k7(torch, qm, cfg, device, rows, main=None, tag=""):
     """K6 and K7 against their plain versions at every distinct (K, N) of
-    the 3B DiT's converted linears: the video linears at each lane's token
+    `cfg`'s converted linears: the video linears at each lane's token
     count (`rows` = {"K6": [(label, M)], "K7": [...]}), the text stream's at
-    58 rows (txt_in 5120 -> 2560 among them), the time embedding's at one.
+    58 rows (txt_in 5120 -> D among them), the time embedding's at one.
     Random Q8_0 weights of a linear's magnitude for K6, affine ones with
     quants in [0, 15] for K7. Each shape timed (kernel, the earlier
     mma.sync design's time from EARLIER_MS, plain, and torch.matmul on the
@@ -803,17 +874,20 @@ def check_k6_k7(torch, qm, cfg, device, rows):
     token width and K split the wrapper planned, at M <= 58 the call's
     device time (profiler: events around a call of tens of microseconds
     also hold the host's launch cost), and for K7 its pre-pass kernel
-    alone (device time). The record holds the q8 lane's 1080p-image qkv
-    (K6) and the q4 lane's 1080p-clip gate/up (K7), with every shape under
-    by_shape: this run's measurements and the bound only (the earlier
-    design's time, the fold floor and the plan are printed, not recorded)."""
-    D, hidden = cfg.vid_dim, 6912
-    video = (("qkv", 3 * D, D), ("attn out", D, D), ("gate/up", hidden, D),
+    alone (device time). The record holds the shapes `main` names (the q8
+    lane's 1080p-image qkv (K6) and the q4 lane's 1080p-clip gate/up (K7)
+    by default), with every shape under by_shape: this run's measurements
+    and the bound only (the earlier design's time, the fold floor and the
+    plan are printed, not recorded). Rows are named after `tag`."""
+    D = cfg.vid_dim
+    mlp_in, n_in, hidden = mlp_dims(cfg, joined=False)
+    video = (("qkv", 3 * D, D), ("attn out", D, D), (mlp_in, n_in, D),
              ("mlp out", D, hidden))
-    other = [("txt_in", TXT_LEN, D, 5120), ("text qkv", TXT_LEN, 3 * D, D),
+    other = [("txt_in", TXT_LEN, D, cfg.txt_in_dim),
+             ("text qkv", TXT_LEN, 3 * D, D),
              ("text mlp out", TXT_LEN, D, hidden),
              ("emb proj_hid", 1, D, D), ("emb proj_out", 1, 6 * D, D)]
-    main = {"K6": "image 1080 qkv", "K7": "clip 1080 gate/up"}
+    main = main or {"K6": "image 1080 qkv", "K7": "clip 1080 gate/up"}
     gen = torch.Generator(device).manual_seed(6)
     recs = {}
     for key in ("K6", "K7"):
@@ -879,7 +953,7 @@ def check_k6_k7(torch, qm, cfg, device, rows):
                 prepass = device_ms(torch, lambda: qm.k7_prepass(x, tabs[1]))
                 extra += (f", pre-pass (xg and -m planes) {prepass:.4f} of "
                           "it (device time)")
-            key_name = f"{key} {name}"
+            key_name = f"{key} {tag}{name}"
             say(f"{key_name} M={m} N={n} K={k} (tokens {bt}, splits "
                 f"{splits}): max {worst:.3g} ulps, {share * 100:.4f} % within "
                 f"one, rel L2 {rel:.3g}; kernel {ms:.4f} ms "
@@ -890,7 +964,7 @@ def check_k6_k7(torch, qm, cfg, device, rows):
                 f"ops {ops / PEAK_BF16 * 1e3:.4f}, bytes "
                 f"{nbytes / PEAK_BYTES * 1e3:.4f}), fold floor "
                 f"{fold_ms:.4f} ms")
-            rec = dict(shape=name, m=m, n=n, k=k, max_abs_err=err,
+            rec = dict(shape=tag + name, m=m, n=n, k=k, max_abs_err=err,
                        max_ulps=worst, ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound, bound_by=by,
                        device_ms=dev, prepass_ms=prepass)
@@ -898,7 +972,7 @@ def check_k6_k7(torch, qm, cfg, device, rows):
             if name == main[key]:
                 recs[key] = {k2: rec[k2] for k2 in (
                     "max_abs_err", "ms", "plain_ms", "library_ms",
-                    "bound_ms", "bound_by")}
+                    "bound_ms", "bound_by", "shape")}
         recs[key]["by_shape"] = by_shape
     return recs
 
@@ -1405,7 +1479,8 @@ def q4k_random_blocks(torch, n_blocks, gen, device):
 
 
 def gguf_from_q8_runner(torch, qm, dit, path, device):
-    """Write `dit` (a q8-converted 3B NaDiT) as a Q4_K_M-like GGUF file:
+    """Write `dit` (a q8-converted 3B or 7B NaDiT) as a Q4_K_M-like GGUF
+    file:
     its attention Q8Linears as Q8_0 (the int8 quants as they are, scales
     stored as f16), random Q4_K blocks for its MLP linears, every other
     linear F16 (dequantized where converted) and vectors F32, all under the
@@ -1603,6 +1678,331 @@ def check_uniform(torch, nadit, cfg, device, wrappers, txt, tt, models,
 def rel_l2(a, b) -> float:
     a, b = a.float(), b.float()
     return ((a - b).norm() / b.norm()).item()
+
+
+def env_set(name, value):
+    """Set (value) or clear (None) an environment variable; returns its
+    earlier value."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    return old
+
+
+def top_device_kernels(torch, fn, n=3):
+    """Run fn() once under torch.profiler: its device busy seconds, the
+    peak device memory of that run above what was allocated before it, and
+    its `n` device events that took the most time [(name, ms)]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from seedvr2_tpu_torch.profile_requests import _device_us
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    events = prof.key_averages()
+    busy = sum(_device_us(e) for e in events) / 1e6
+    top = sorted(events, key=_device_us, reverse=True)[:n]
+    return busy, peak, [(e.key, _device_us(e) / 1e3) for e in top]
+
+
+def check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, vae_cfg, device,
+                        embeds, clip):
+    """Phase 10. VideoVAEs built under each lowering switch alone (the
+    environment read at construction, over the default runner's VAE
+    weights): encode and decode of the 720p clip against the default
+    lowering and against the fp32 VAE (LOWERING_SWITCHES' bounds). Then the
+    default 3B path serves the 1080p clip under SEEDVR2_UPSAMPLE_CONVT=0
+    and under the default (the transposed conv): request wall and phases,
+    the request's peak memory, and a profiled decode of its latent (device
+    seconds, the decode's peak memory, its top device kernels)."""
+    import copy
+
+    from seedvr2_tpu_torch.profile_requests import make_frames
+
+    t0 = time.perf_counter()
+    base = cli.make_runner(device, seed=0)
+    model = base.vae.model
+    default = base.vae
+    if default.lowering != type(default.lowering)():
+        fail(f"the default VAE lowering is {default.lowering}, not JAX's "
+             "defaults")
+    samples = []
+    encode = base.vae_encode
+    base.vae_encode = lambda s: (samples.extend(s), encode(s))[1]
+    ctx = pipeline.encode_all_batches(
+        base, pipeline.setup_generation_context(device), clip, resolution=720)
+    del base.vae_encode
+    x_in = samples[0][None]
+    latent = ctx["all_latents"][0]
+    z = (latent.float() / vae_cfg.scaling_factor
+         + vae_cfg.shifting_factor)[None]
+    del ctx, samples
+
+    def both(vae, dtype=torch.bfloat16):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            enc = vae.encode(x_in.to(dtype))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            dec = vae.decode(z.to(dtype))
+            torch.cuda.synchronize()
+        return enc, dec, t2 - t1, time.perf_counter() - t2
+
+    ref = both(default)
+    vae32 = VideoVAE(copy.deepcopy(model).float(), torch.float32)
+    truth = both(vae32, torch.float32)[:2]
+    del vae32
+    err_default = [rel_l2(ref[i], truth[i]) for i in range(2)]
+    say(f"VAE lowerings built in {time.perf_counter() - t0:.2f} s; default "
+        f"{default.lowering}: encode {ref[2]:.3f} s, decode {ref[3]:.3f} s "
+        f"(720p clip), relative L2 to the fp32 VAE {err_default[0]:.6g} / "
+        f"{err_default[1]:.6g}")
+    vaes = {}
+    for env, value, field in LOWERING_SWITCHES:
+        old = env_set(env, value)
+        try:
+            vae = VideoVAE(model, torch.bfloat16)
+        finally:
+            env_set(env, old)
+        if getattr(vae.lowering, field) == getattr(default.lowering, field):
+            fail(f"{env}={value} did not reach the VAE built under it")
+        if VideoVAE(model, torch.bfloat16).lowering != default.lowering:
+            fail(f"{env} leaked into a VAE built after it was cleared")
+        vaes[env] = vae
+        out = both(vae)
+        bad = False
+        for i, what in enumerate(("encode", "decode")):
+            rel, err = rel_l2(out[i], ref[i]), rel_l2(out[i], truth[i])
+            say(f"{env}={value} {what}, 720p clip: relative L2 to the "
+                f"default lowering {rel:.6g} (bound {FUSED_VAE_REL_L2}), to "
+                f"the fp32 VAE {err:.6g} (bound {FUSED_FP32_RATIO}x the "
+                f"default's {err_default[i]:.6g}); {out[2 + i]:.3f} s "
+                f"(default {ref[2 + i]:.3f} s)")
+            bad |= (not torch.isfinite(out[i]).all()
+                    or rel > FUSED_VAE_REL_L2
+                    or err > FUSED_FP32_RATIO * err_default[i])
+        if bad:
+            fail(f"{env}={value}: the VAE beyond the limits above")
+        del out
+    del ref, truth, x_in, z
+    torch.cuda.empty_cache()
+
+    label, t, h, w, res = UPSAMPLE_AB_REQUEST
+    frames = make_frames(t, h, w, seed=40)
+    expect = (t, res, res * w // h, 3)
+    outs = {}
+    for form, vae in (("SEEDVR2_UPSAMPLE_CONVT=0 (matmul + pixel shuffle)",
+                       vaes["SEEDVR2_UPSAMPLE_CONVT"]),
+                      ("default (transposed conv)", default)):
+        base.vae = vae
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device) / 2 ** 30
+        t1 = time.perf_counter()
+        out, timings = cli.process_frames(base, frames, embeds,
+                                          resolution=res, seed=42)
+        wall = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        if out.shape != expect or not np.isfinite(out).all():
+            fail(f"{form} {label}: expected finite {expect}, got "
+                 f"{out.shape}")
+        ctx = pipeline.encode_all_batches(
+            base, pipeline.setup_generation_context(device), frames,
+            resolution=res)
+        lat = ctx["all_latents"][0]
+        del ctx
+        busy, dec_peak, top = top_device_kernels(
+            torch, lambda: base.vae_decode([lat]))
+        say(f"{form}, {label} (default 3B path): wall {wall:.3f} s, phases "
+            + ", ".join(f"{k} {v:.4f} s" for k, v in timings.items())
+            + f"; request peak {peak:.2f} GiB ({held:.2f} held before it: "
+            f"the runner's models); profiled decode: device {busy:.3f} s, "
+            f"decode peak {dec_peak:.2f} GiB above the memory held before "
+            f"it, top kernels "
+            + "; ".join(f"{ms:.1f} ms {name[:90]}" for name, ms in top))
+        outs[form] = out
+        del lat
+    a, b = outs.values()
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    say(f"1080p clip, pixel-shuffle output against the transposed conv's: "
+        f"relative L2 {rel:.6g} (bound {FUSED_VAE_REL_L2})")
+    if rel > FUSED_VAE_REL_L2:
+        fail("the two upsample forms disagree on the 1080p clip")
+    del base, default, vaes, outs, encode
+    torch.cuda.empty_cache()
+
+
+def check_7b_kernels(torch, fa, gather, im, fq, qm, nadit, device):
+    """Phase 11a. The kernels of the 7B's lanes against their plain versions
+    at its shapes (24 heads, D = 3072, MLP 3072 -> 12288 with bias), timed
+    with bound and library call as at the 3B's: K1 at every window group of
+    the 720p clip's plan and the 1080p clip's largest; K2 on both clips'
+    transitions; K3 and K4 at the throughput lane's 1080p clip (16320
+    rows); K6 and K7 at the GGUF lane's 720p clip (7200 rows). Returns
+    {kernel: record} with each kernel's record at its 7B path's main
+    shape (K6 and K7 with every shape under by_shape)."""
+    from seedvr2_tpu_torch.core.configs import DIT_7B, VAE_V3
+
+    lat = {label: latent_shape(VAE_V3, t, h, w, res)
+           for label, t, h, w, res in DIT7B_FAST_REQUESTS}
+    rows = [(label, nadit.build_dit_plan(DIT_7B, shape, TXT_LEN).seq_len)
+            for label, shape in lat.items()]
+    (_, t, h, w, res), = DIT7B_GGUF_REQUESTS
+    gguf_rows = [("clip 720", nadit.build_dit_plan(DIT_7B, latent_shape(
+        VAE_V3, t, h, w, res), TXT_LEN).seq_len)]
+    say(f"7B kernel checks: throughput rows {rows}, GGUF rows {gguf_rows}")
+    recs = {"K1": check_k1(torch, fa, nadit, DIT_7B, device,
+                           [("1080p clip", s) for s in lat.values()],
+                           tag="7B ", random_tables=False),
+            "K2": check_k2(torch, gather, nadit, DIT_7B, device,
+                           list(lat.items())),
+            "K3": check_k3(torch, im, DIT_7B, device, rows, tag="7B ")}
+    recs.update(check_k4_k5(torch, fq, DIT_7B, device, rows))
+    recs.update(check_k6_k7(torch, qm, DIT_7B, device,
+                            {"K6": gguf_rows, "K7": gguf_rows},
+                            main={"K6": "clip 720 qkv",
+                                  "K7": "clip 720 mlp in"}, tag="7B "))
+    return recs
+
+
+def run_7b(torch, cli, nadit, im, qm, device, txt, tt, dit_inputs, dit_runs,
+           lane, counts, phase_done):
+    """Phase 11. The full-width 7B (36 blocks, D = 3072, 24 heads) with
+    random weights from a seed: the bf16 DiT's forward with kernels against
+    plain versions on the 720p and 1080p clips' latents (DIT_REL_L2); the
+    default path served (K1, K2); the same weights in w8a8, its forward on
+    the 1080p latent (W8A8_DIT_REL_L2, closer to its plain version than to
+    the bf16 DiT) and `--preset throughput` served (K1-K4, no K5: the 7B
+    MLP has no gate); a full-size 7B Q4_K_M-like GGUF file written, loaded
+    through cli.make_runner(quant="q4k") with every linear the module its
+    type calls for, and served (K1, K2, K6, K7). `lane` records each
+    lane's launches in `counts`."""
+    import shutil
+    import tempfile
+
+    from seedvr2_tpu_torch.core.configs import DIT_7B, VAE_V3
+    from seedvr2_tpu_torch.profile_requests import make_frames
+
+    t0 = time.perf_counter()
+    r7 = cli.make_runner(device, seed=0, dit_cfg=DIT_7B)
+    torch.cuda.synchronize()
+    cfg = r7.dit.cfg
+    n_dit = sum(p.numel() for p in r7.dit.parameters())
+    if (cfg != DIT_7B or len(r7.dit.blocks) != 36 or cfg.vid_dim != 3072
+            or cfg.heads != 24):
+        fail(f"the 7B runner's DiT is not the full-width 7B: {cfg}")
+    say(f"7B DiT built on the card in {time.perf_counter() - t0:.2f} s: "
+        f"{n_dit / 1e9:.3f} B params ({cfg.num_layers} blocks, width "
+        f"{cfg.vid_dim}, {cfg.heads} heads), {dit_bytes(torch, im, qm, r7.dit)}")
+    inputs = {}
+    for label, t, h, w, res in (DIT7B_REQUESTS[0], DIT7B_FAST_REQUESTS[0]):
+        inputs[label] = dit_inputs(r7, make_frames(t, h, w, seed=50), res)
+        if inputs[label][1].plan.vid_shape != latent_shape(VAE_V3, t, h, w,
+                                                           res):
+            fail(f"7B {label}: latent {inputs[label][1].plan.vid_shape}")
+        dit_runs(r7.dit, f"7B bf16 ({label})", *inputs[label], DIT_REL_L2)
+    phase_done("11b (whole 7B bf16 DiT)")
+    lane("7b_default", r7, DIT7B_REQUESTS, ("K1", "K2"), "11c")
+
+    args = cli.parse_arguments(["unused.npy", "--preset", "throughput"])
+    t0 = time.perf_counter()
+    fast7 = cli.make_runner(device, seed=0, quant=args.quant,
+                            tiling=cli.tiling_from_args(args),
+                            dit_cfg=DIT_7B)
+    torch.cuda.synchronize()
+    w8 = [m for m in fast7.dit.modules() if isinstance(m, im.W8A8Linear)]
+    say(f"7B w8a8 DiT built and converted in {time.perf_counter() - t0:.2f}"
+        f" s: {dit_bytes(torch, im, qm, fast7.dit)}")
+    if any(hasattr(m, "gate_up_w8a8") for m in w8) or not all(
+            isinstance(b.mlp[br].proj_in, im.W8A8Linear)
+            and b.mlp[br].proj_in.bias is not None
+            for b in fast7.dit.blocks for br in ("vid", "txt")):
+        fail("7B w8a8: the MLP linears are not biased w8a8 linears on their "
+             "own")
+    vid_in, dplan = inputs[DIT7B_FAST_REQUESTS[0][0]]
+    outs, w8_rel = dit_runs(fast7.dit, "7B w8a8", vid_in, dplan,
+                            W8A8_DIT_REL_L2)
+    with torch.no_grad():
+        dense = nadit.nadit_forward(r7.dit, vid_in, txt, tt, dplan)
+    to_dense = rel_l2(outs[True], dense)
+    say(f"7B w8a8 against the 7B bf16 DiT, same weights, 1080p clip latent: "
+        f"relative L2 {to_dense:.6g}; w8a8 kernels vs plain {w8_rel:.6g} "
+        f"must be the smaller")
+    if not w8_rel < to_dense:
+        fail(f"the 7B w8a8 DiT with kernels is no closer to its plain "
+             f"version ({w8_rel}) than to the bf16 DiT ({to_dense})")
+    del r7, outs, dense, inputs, vid_in, dplan
+    torch.cuda.empty_cache()
+    lane("7b_throughput", fast7, DIT7B_FAST_REQUESTS,
+         ("K1", "K2", "K3", "K4"), "11d")
+    if counts["7b_throughput"]["K5"] != 0:
+        fail("K5 launched on the 7B w8a8 lane, whose MLP has no gate")
+    del fast7, w8
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    q8 = cli.make_runner(device, seed=0, quant="q8", dit_cfg=DIT_7B)
+    torch.cuda.synchronize()
+    say(f"7B q8 DiT built in {time.perf_counter() - t0:.2f} s (the GGUF "
+        f"file's source): {dit_bytes(torch, im, qm, q8.dit)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        say(f"free disk at {tmp}: {free / 2 ** 30:.1f} GiB (needs "
+            f"{GGUF_7B_FREE_BYTES / 2 ** 30:.0f})")
+        if free < GGUF_7B_FREE_BYTES:
+            fail("not enough free disk for the 7B GGUF file")
+        path = os.path.join(tmp, "seedvr2_ema_7b-Q4_K_M.gguf")
+        t0 = time.perf_counter()
+        expect = gguf_from_q8_runner(torch, qm, q8.dit, path, device)
+        size = os.path.getsize(path)
+        say(f"7B GGUF written in {time.perf_counter() - t0:.2f} s: "
+            f"{size / 2 ** 30:.3f} GiB, "
+            f"{sum(v == 'q8' for v in expect.values())} Q8_0, "
+            f"{sum(v == 'affine' for v in expect.values())} Q4_K and "
+            f"{sum(v == 'dense' for v in expect.values())} F16 linears")
+        t0 = time.perf_counter()
+        gg = cli.make_runner(device, seed=0, dit_model=path, quant="q4k")
+        torch.cuda.synchronize()
+        say(f"7B GGUF loaded through cli.make_runner(quant='q4k') in "
+            f"{time.perf_counter() - t0:.2f} s: "
+            f"{dit_bytes(torch, im, qm, gg.dit)}")
+        os.remove(path)
+    if gg.dit.cfg != DIT_7B:
+        fail(f"the 7B GGUF loaded as {gg.dit.cfg}")
+    kinds = {qm.Q8Linear: "q8", qm.AffineLinear: "affine",
+             torch.nn.Linear: "dense"}
+    got = {name: kinds.get(type(m)) for name, m in gg.dit.named_modules()
+           if type(m) in kinds}
+    if got != expect:
+        bad = sorted(k for k in expect if got.get(k) != expect[k])[:5]
+        fail(f"7B GGUF: linears not the modules their types call for: "
+             f"{[(k, expect[k], got.get(k)) for k in bad]}")
+    q8_mods = dict(q8.dit.named_modules())
+    for name, kind in expect.items():
+        a = gg.dit.get_submodule(name)
+        if kind == "q8" and not (torch.equal(a.q8, q8_mods[name].q8)
+                                 and torch.equal(a.scales, q8_mods[name]
+                                                 .scales.half().float())):
+            fail(f"7B GGUF: {name}'s Q8 buffers differ from the q8 DiT's")
+        if kind == "affine" and a.bias is None:
+            fail(f"7B GGUF: {name} lost its bias")
+    say(f"7B GGUF: every linear is the module its type calls for; "
+        f"{sum(v == 'q8' for v in expect.values())} Q8 layers equal the q8 "
+        f"DiT's with f16 scales; the MLP linears keep their biases")
+    del q8, q8_mods
+    torch.cuda.empty_cache()
+    lane("7b_gguf", gg, DIT7B_GGUF_REQUESTS, ("K1", "K2", "K6", "K7"), "11e")
+    del gg
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -1893,7 +2293,8 @@ def main() -> None:
         fail(f"the q4 DiT with kernels is no closer to its plain q4 version "
              f"({q4_rel}) than to the bf16 DiT ({q4_to_dense})")
     del runner, fast_inputs, vid_in, dplan, w8_outs, q8_outs, q4_outs, dense
-    del dense_plain, clip_in, lin, qlin, x, out_k, out_p, out_d
+    del dense_plain, clip_in, lin, qlin, x, out_k, out_p, out_d, to_plain
+    del to_dense, w8  # w8 holds the w8a8 DiT's linears
     torch.cuda.empty_cache()
     phase_done("6 (q8 and q4 DiTs)")
 
@@ -1965,7 +2366,7 @@ def main() -> None:
     say(f"GGUF lane: every linear is the module its type calls for; the "
         f"{sum(v == 'q8' for v in expect.values())} Q8 layers equal the q8 "
         f"lane's with f16 scales")
-    del q8
+    del q8, q8_mods
     torch.cuda.empty_cache()
     label, t, h, w, res = Q8_REQUESTS[1]
     reset_counts(wrappers)
@@ -2085,21 +2486,46 @@ def main() -> None:
     if bad:
         fail("fused-norm VAE: K12 not launched by encode and decode, or "
              "beyond the limits above")
-    del outs, x_in, z, samples, base
+    del outs, x_in, z, samples, base, encode
     torch.cuda.empty_cache()
     lane("fused_norm", fused, FUSED_REQUESTS, ("K1", "K2", "K12"), "9")
     del fused
     torch.cuda.empty_cache()
 
-    # 10. records and the contract line
+    # 10. the VAE's lowering switches, each set alone, against the default
+    check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, VAE_V3, device,
+                        embeds, clip)
+    phase_done("10 (VAE lowering switches)")
+
+    # 11. the 7B family at full width, with no 3B model left on the card
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(device) / 2 ** 30
+    say(f"device memory held before the 7B phase: {held:.3f} GiB")
+    if held > 1.0:
+        big = sorted((o.numel() * o.element_size(), tuple(o.shape), o.dtype)
+                     for o in gc.get_objects() if torch.is_tensor(o)
+                     and o.is_cuda)[-8:]
+        fail(f"a 3B model is still on the card before the 7B phase; the "
+             f"largest device tensors alive: {big}")
+    recs_7b = check_7b_kernels(torch, fa, gather, im, fq, qm, nadit, device)
+    torch.cuda.empty_cache()
+    phase_done("11a (kernels at 7B shapes)")
+    run_7b(torch, cli, nadit, im, qm, device, txt, tt, dit_inputs, dit_runs,
+           lane, counts, phase_done)
+
+    # 12. records and the contract line
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
         by_path = {path: c[key] for path, c in counts.items()}
+        extra = {"7b": recs_7b[key]} if key in recs_7b else {}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             design=DESIGN[key],
             launches=by_path[MAIN_PATH[key]], launches_by_path=by_path,
-            **recs[key]))
+            **recs[key], **extra))
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {

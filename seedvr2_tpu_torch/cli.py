@@ -7,26 +7,30 @@
 
 Input and output are float32 .npy arrays of frames (T, H, W, 3) in [0, 1]
 (a single (H, W, 3) image is taken as one frame). With no checkpoint given,
-the models are built with random weights on the device from --seed. Runs the
-JAX package's inference_cli.py paths with the 3B DiT: the default (bf16 DiT,
-VAE_V3 untiled), `--preset throughput` (w8a8 DiT, uniform tiled VAE) and the
+the models are built with random weights on the device from --seed (the 3B
+DiT). Runs the JAX package's inference_cli.py paths with the 3B or the 7B
+DiT (the family comes from the checkpoint): the default (bf16 DiT, VAE_V3
+untiled), `--preset throughput` (w8a8 DiT, uniform tiled VAE) and the
 quantised-checkpoint lanes `--quant q8 / q4 / q4k` (core/loader.py), and
 the VAE's opt-in lanes: `--vae_quant int8` (int8 decoder resnet convs) and
 SEEDVR2_FUSED_NORM=1 in the environment (fused norm + SiLU + causal head),
 alone or with the flags above; one step at cfg 1.0, lab colour correction.
-A 7B checkpoint is refused.
+The VAE's lowering switches SEEDVR2_UPSAMPLE_CONVT, SEEDVR2_HEAD_CORRECTION
+and SEEDVR2_CONV_IM2COL are read from the environment as in the JAX
+package, once, when the VAE is built.
 """
 
 import argparse
 import os
 import sys
 from dataclasses import replace
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .core import pipeline
-from .core.configs import DIT_3B, VAE_V3, RunnerConfig
+from .core.configs import DIT_3B, VAE_V3, DiTConfig, RunnerConfig
 from .core.loader import (QUANT_MODES, load_dit_checkpoint,
                           load_vae_checkpoint, quantize_dit)
 from .core.runner import VAETiling, VideoDiffusionRunner
@@ -47,23 +51,25 @@ THROUGHPUT_PRESET = dict(
 def make_runner(device, seed: int = 42, dit_model: str = None,
                 vae_model: str = None, quant: str = "none",
                 tiling: VAETiling = VAETiling(),
-                vae_quant: str = "none") -> VideoDiffusionRunner:
-    """3B DiT + VAE_V3 in bf16 on `device`: from reference-layout
-    checkpoints when given (DiT .safetensors, .pth or .gguf, VAE
-    .safetensors, through core/loader.py, which sniffs their architecture
-    and refuses a 7B DiT), else random weights drawn on the device from
-    `seed`. `quant` is the DiT's serving quantization (core/loader.py's
-    table; random weights convert as a float checkpoint does); `vae_quant`
-    "int8" serves the VAE decoder's resnet convs in int8, for a random or a
-    loaded VAE."""
+                vae_quant: str = "none",
+                dit_cfg: Optional[DiTConfig] = None) -> VideoDiffusionRunner:
+    """DiT + VAE_V3 in bf16 on `device`: from reference-layout checkpoints
+    when given (DiT .safetensors, .pth or .gguf of the 3B or 7B family, VAE
+    .safetensors, through core/loader.py, which sniffs their architecture;
+    a missing file raises), else random weights drawn on the device from
+    `seed`, the DiT of `dit_cfg` (DIT_7B for the 7B; the 3B when None; used
+    only without `dit_model`). `quant` is the DiT's serving quantization
+    (core/loader.py's table; random weights convert as a float checkpoint
+    does); `vae_quant` "int8" serves the VAE decoder's resnet convs in
+    int8, for a random or a loaded VAE."""
     device = torch.device(device)
     dtype = torch.bfloat16
     gen = torch.Generator(device).manual_seed(seed)
     if dit_model:
         dit = load_dit_checkpoint(dit_model, device, dtype, quant=quant)
     else:
-        dit = quantize_dit(init_dit(DIT_3B, device, dtype, generator=gen),
-                           quant)
+        dit = quantize_dit(init_dit(dit_cfg or DIT_3B, device, dtype,
+                                    generator=gen), quant)
     if vae_model:
         vae = load_vae_checkpoint(vae_model, device, dtype,
                                   vae_quant=vae_quant)
@@ -106,8 +112,9 @@ def parse_arguments(argv=None):
     p.add_argument("--output", default=None,
                    help="output .npy (default: <input>_upscaled.npy)")
     p.add_argument("--dit_model", default=None,
-                   help="reference-layout 3B DiT: .safetensors (fp16, bf16, "
-                        "fp32 or fp8), .pth / .pt, or .gguf")
+                   help="reference-layout 3B or 7B DiT: .safetensors (fp16, "
+                        "bf16, fp32, fp8 or the 7B fp8-mixed file), .pth / "
+                        ".pt, or .gguf")
     p.add_argument("--vae_model", default=None,
                    help="reference-layout VAE .safetensors")
     p.add_argument("--model_dir", default=None,

@@ -29,8 +29,10 @@ loaders of seedvr2_tpu.core.model_manager), numpy/torch only:
    (`sniff_vae_config`), 2D-stored convs inflated to 3D (`tail` mode), then
    a strict load.
 
-Only the 3B family is ported: a 7B checkpoint raises, whether its file name
-or its structure (`sniff_family`) says 7B.
+Both families load: the base config is the file name's family
+(`dit_config_for`, as in the JAX loader), or the 7B when the name says
+nothing of it but the structure does (`sniff_family`: no SwiGLU gate in the
+MLPs), so a 7B file under a neutral name is not built as a 3B.
 """
 
 import os
@@ -66,13 +68,6 @@ _VAE_KEY_FIXUPS = [
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 
 
-def refuse_7b(family: str, what: str) -> None:
-    if family != "dit_3b":
-        raise NotImplementedError(
-            f"{what}: the {family} family is not ported yet (ROADMAP.md "
-            "queue 1, '7B family'); only 3B checkpoints load")
-
-
 def sniff_family(state: Dict) -> str:
     """The family a DiT state's structure shows, from its key names only (so
     quantised leaves are read too): the 7B's MLP is a plain proj_in /
@@ -93,10 +88,9 @@ def _is_array(v) -> bool:
 
 def sniff_dit_config(state: Dict, base: DiTConfig) -> DiTConfig:
     """Infer the architecture dims from checkpoint tensor shapes (the JAX
-    sniff_dit_config, for the 3B family, the only one ported): `base`
-    supplies what shapes cannot express (rope/window flavour, patch size).
-    Falls back to `base` unchanged when a required tensor is absent or a
-    quantised dict leaf."""
+    sniff_dit_config, both families): `base` supplies what shapes cannot
+    express (family, rope/window flavour, patch size). Falls back to `base`
+    unchanged when a required tensor is absent or a quantised dict leaf."""
     def get(*keys):
         for k in keys:
             v = state.get(k)
@@ -155,9 +149,15 @@ def sniff_dit_config(state: Dict, base: DiTConfig) -> DiTConfig:
         mlp_type="swiglu" if swiglu else "normal",
         vid_out_norm="vid_out_norm.weight" in state,
         upscaler=any(k.startswith("emb_scale.") for k in state),
-        mm_layers=len(txt_blocks),
-        rope_dim=head_dim,
     )
+    if base.family == "dit_3b":
+        kwargs["mm_layers"] = len(txt_blocks)
+        kwargs["rope_dim"] = head_dim
+    else:
+        kwargs["shared_qkv"] = not txt_blocks
+        kwargs["shared_mlp"] = not any(
+            re.match(r"^blocks\.\d+\.mlp\.txt\.", k) for k in state)
+        kwargs["rope_dim"] = head_dim // 2
     return replace(base, **kwargs)
 
 
@@ -341,16 +341,16 @@ def _model_state(model: nn.Module, state: Dict) -> Dict[str, torch.Tensor]:
 def load_dit_checkpoint(path: str, device, dtype=torch.bfloat16,
                         quant: str = "none", min_dim: int = 1024,
                         align: int = 256) -> NaDiT:
-    """Load a reference-layout 3B DiT checkpoint (.safetensors, .pth, .pt or
-    .gguf) onto `device` in `dtype`, quantised for serving per `quant` (the
-    table in the module docstring). min_dim / align are the conversions'
-    size rules (tests shrink them for tiny configs)."""
+    """Load a reference-layout 3B or 7B DiT checkpoint (.safetensors, .pth,
+    .pt or .gguf) onto `device` in `dtype`, quantised for serving per
+    `quant` (the table in the module docstring). min_dim / align are the
+    conversions' size rules (tests shrink them for tiny configs)."""
     if quant not in QUANT_MODES:
         raise ValueError(f"quant={quant!r}; known: {QUANT_MODES}")
     base = dit_config_for(os.path.basename(path))
-    refuse_7b(base.family, path)
     state = read_dit_state(path, quant, dtype)
-    refuse_7b(sniff_family(state), path)
+    if base.family == "dit_3b" and sniff_family(state) == "dit_7b":
+        base = dit_config_for("dit_7b")  # a 7B under a neutral name
     cfg = sniff_dit_config(state, base)
     with torch.device("meta"):
         model = NaDiT(cfg, dtype=dtype)

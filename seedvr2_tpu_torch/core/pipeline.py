@@ -8,7 +8,9 @@ one preallocated host buffer with Hann-window temporal overlap blending.
 Batch index math matches the JAX package (and the reference) exactly.
 
 Every phase records its wall time, ended by a device synchronise, in
-ctx["timings"].
+ctx["timings"], and runs inside a profiler range `seedvr2.<phase>` that
+ends after that synchronise (profile_requests attributes device time to
+phases by it).
 """
 
 import time
@@ -93,12 +95,14 @@ def setup_generation_context(device) -> Dict[str, Any]:
 
 @contextmanager
 def _phase(ctx: Dict[str, Any], name: str):
-    """Wall time of one phase, ended by a device synchronise."""
-    t0 = time.perf_counter()
-    yield
-    if ctx["device"].type == "cuda":
-        torch.cuda.synchronize(ctx["device"])
-    ctx["timings"][name] = time.perf_counter() - t0
+    """Wall time of one phase, ended by a device synchronise, inside the
+    profiler range `seedvr2.<name>`."""
+    with torch.profiler.record_function(f"seedvr2.{name}"):
+        t0 = time.perf_counter()
+        yield
+        if ctx["device"].type == "cuda":
+            torch.cuda.synchronize(ctx["device"])
+        ctx["timings"][name] = time.perf_counter() - t0
 
 
 def _transform_batch(ctx: Dict[str, Any], rgb: np.ndarray) -> torch.Tensor:

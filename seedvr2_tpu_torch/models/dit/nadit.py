@@ -1,4 +1,4 @@
-"""NaDiT 3B denoiser.
+"""NaDiT denoiser, the 3B and the 7B families.
 
 Port of seedvr2_tpu.models.dit.nadit. The window plan is host-side numpy
 (`build_dit_plan`, equal to the JAX one); `upload_plan` puts its tables and
@@ -28,9 +28,13 @@ quantization (kernel K4, `_norm_mod`), the swiglu's silu*up with it (K5,
 (`ops.quant_matmul`, `core.loader`) the Q8_0 linears run K6 and the affine
 ones K7; their producers stay plain, as in the JAX package.
 
-Replicated quirks of the released model: 3B blocks >= mm_layers share their
+Replicated quirks of the released models: 3B blocks >= mm_layers share their
 vid/txt weights ("all"); the 3B last block has no txt mlp/ada branch; the
 output modulation `vid_out_ada` reuses the blocks' attn-layer emb slices.
+The 7B family: vid and txt weights in every block, qk norms never shared, a
+plain MLP with biases (gelu-tanh, `ops.layers.mlp_forward`), rope3d on the
+video rows only, no output norm, and with `cfg.upscaler` the `emb_scale`
+time embedding of a downscale factor.
 """
 
 from dataclasses import dataclass, field
@@ -330,14 +334,20 @@ class _TimeEmbedding(nn.Module):
 
 
 class _MLP(nn.Module):
-    """The 3B swiglu MLP."""
+    """The 3B swiglu MLP (no biases), or the 7B "normal" one: proj_in
+    D -> D * expand_ratio and proj_out back, both with bias."""
 
     def __init__(self, dim: int, cfg: DiTConfig, **fk):
         super().__init__()
-        hidden = swiglu_hidden_dim(dim, cfg.expand_ratio)
-        self.proj_in_gate = nn.Linear(dim, hidden, bias=False, **fk)
-        self.proj_in = nn.Linear(dim, hidden, bias=False, **fk)
-        self.proj_out = nn.Linear(hidden, dim, bias=False, **fk)
+        if cfg.mlp_type == "swiglu":
+            hidden = swiglu_hidden_dim(dim, cfg.expand_ratio)
+            self.proj_in_gate = nn.Linear(dim, hidden, bias=False, **fk)
+            self.proj_in = nn.Linear(dim, hidden, bias=False, **fk)
+            self.proj_out = nn.Linear(hidden, dim, bias=False, **fk)
+        else:
+            hidden = dim * cfg.expand_ratio
+            self.proj_in = nn.Linear(dim, hidden, **fk)
+            self.proj_out = nn.Linear(hidden, dim, **fk)
 
 
 def _mm_branches(cfg: DiTConfig, i: int) -> List[str]:
@@ -353,15 +363,18 @@ class _Attn(nn.Module):
         super().__init__()
         D, inner = cfg.vid_dim, cfg.heads * cfg.head_dim
         branches = ["all"] if cfg.block_shared(i) else ["vid", "txt"]
+        # 3B qk norms follow the qkv branches; 7B ones are never shared
+        norm_branches = (branches if cfg.family == "dit_3b"
+                         else ["vid", "txt"])
         self.proj_qkv = nn.ModuleDict({b: nn.Linear(D, 3 * inner,
                                                     bias=cfg.qk_bias, **fk)
                                        for b in branches})
         self.proj_out = nn.ModuleDict({b: nn.Linear(inner, D, **fk)
                                        for b in branches})
         self.norm_q = nn.ModuleDict({b: _Weight(cfg.head_dim, **fk)
-                                     for b in branches})
+                                     for b in norm_branches})
         self.norm_k = nn.ModuleDict({b: _Weight(cfg.head_dim, **fk)
-                                     for b in branches})
+                                     for b in norm_branches})
 
 
 class _Block(nn.Module):
@@ -379,9 +392,6 @@ class NaDiT(nn.Module):
 
     def __init__(self, cfg: DiTConfig, device=None, dtype=None):
         super().__init__()
-        if cfg.family != "dit_3b" or cfg.mlp_type != "swiglu":
-            raise NotImplementedError("only the 3B NaDiT family is ported; "
-                                      "7B waits")
         fk = {"device": device, "dtype": dtype}
         self.cfg = cfg
         D = cfg.vid_dim
@@ -392,6 +402,9 @@ class NaDiT(nn.Module):
         self.txt_in = (nn.Linear(cfg.txt_in_dim, D, **fk)
                        if cfg.txt_in_dim and cfg.txt_in_dim != cfg.txt_dim
                        else None)
+        # NaDiTUpscaler: a second time embedding of the downscale factor
+        self.emb_scale = (_TimeEmbedding(D, cfg.emb_dim, **fk)
+                          if cfg.upscaler else None)
         self.blocks = nn.ModuleList(_Block(cfg, i, **fk)
                                     for i in range(cfg.num_layers))
         if cfg.vid_out_norm:
@@ -687,7 +700,8 @@ def _block_forward(blk: _Block, cfg: DiTConfig, i: int, xv, xt, emb_attn,
 
     mlp_v = _pick(blk.mlp, "vid")
     hv = _norm_mod(xv, ma_v, ms_v, ada_v, "mlp", eps,
-                   mlp_v.proj_in_gate, use_kernels)
+                   getattr(mlp_v, "proj_in_gate", mlp_v.proj_in),
+                   use_kernels)
     hv = mlp_forward(hv, mlp_v, cfg.mlp_type, use_kernels)
     xv = xv + _ada_out(hv, mg_v, ada_v, "mlp")
     if not vid_only:
@@ -729,7 +743,8 @@ def unpatchify(x: torch.Tensor, grid, patch_size, out_channels: int,
 
 def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
                   timestep: torch.Tensor, dplan: DevicePlan,
-                  use_kernels: bool = True) -> torch.Tensor:
+                  use_kernels: bool = True,
+                  downscale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Denoiser forward.
 
     Args:
@@ -744,6 +759,9 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
         use_kernels: False runs the plain versions of the kernels (K1, K2
             or K9, and K3-K7 in the quantised lanes) on any device, the
             reference a kernel run is held against.
+        downscale: (B,) downscale factor of the NaDiTUpscaler variant
+            (`cfg.upscaler`): emb += emb_scale(downscale). The runner never
+            passes one, as in the JAX package.
 
     Returns:
         (B, T, H, W, vid_out_channels) prediction (v_lerp velocity).
@@ -756,6 +774,9 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
 
     emb = _time_embedding(model.emb_in, timestep, x.dtype,
                           use_kernels)  # (B, 6D)
+    if model.emb_scale is not None and downscale is not None:
+        emb = emb + _time_embedding(model.emb_scale, downscale, x.dtype,
+                                    use_kernels)
     emb_r = emb.reshape(B, cfg.vid_dim, 2, 3).float()
     emb_attn, emb_mlp = emb_r[..., 0, :], emb_r[..., 1, :]
 

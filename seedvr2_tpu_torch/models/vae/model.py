@@ -2,9 +2,11 @@
 
 Port of seedvr2_tpu.models.vae.model: plain causal 3D convs (cuDNN),
 per-frame group norm with fp32 statistics, the mid-block spatial attention
-as a plain matmul/softmax composition, and the decoder upsample in its
-conv-transpose form; and the two opt-in lowerings of norm -> SiLU -> conv,
-in the JAX order:
+as a plain matmul/softmax composition; the JAX package's three lowering
+switches (`Lowering`: the decoder upsample as a transposed conv, the
+default, or as a matmul plus pixel shuffle; the causal head as a
+correction conv; small convs as an im2col matmul); and the two opt-in
+lowerings of norm -> SiLU -> conv, in the JAX order:
  - `conv_quant="int8"` (--vae_quant int8): the decoder's resnet convs run
    as int8 convs (ops/int8_conv.py, kernel K11) on a fused
    norm+SiLU+quantize of their input;
@@ -42,14 +44,26 @@ State = Optional[Dict[str, torch.Tensor]]
 
 @dataclass(frozen=True)
 class Lowering:
-    """How the cores lower norm -> SiLU -> conv, beside the config's
-    conv_quant. fused_norm: a first slice's norm -> SiLU -> 3x3x3 conv takes
-    K12's fused pass (the JAX package's SEEDVR2_FUSED_NORM=1). use_kernels:
-    False runs the plain versions of K11 and K12 on any device, to hold the
-    kernels against them."""
+    """How the cores lower their convs, beside the config's conv_quant; the
+    defaults are the JAX package's.
+
+    fused_norm: a first slice's norm -> SiLU -> 3x3x3 conv takes K12's fused
+    pass (SEEDVR2_FUSED_NORM=1). use_kernels: False runs the plain versions
+    of K11 and K12 on any device, to hold the kernels against them.
+    upsample_convt: the decoder upsample as one transposed conv
+    (SEEDVR2_UPSAMPLE_CONVT, on by default); off, a 1x1x1 conv as a matmul
+    plus the pixel shuffle. head_correction: a causal conv whose head frames
+    come from the state or the first frame runs over x zero-padded at the
+    front of T, plus a conv over the head added onto the first kt - 1
+    output frames (SEEDVR2_HEAD_CORRECTION=1). im2col_max_k: stride-1 convs
+    with kt*kh*kw*ci <= this run as a tap-major patch matmul
+    (SEEDVR2_CONV_IM2COL=1 sets 128; 0 is off)."""
 
     fused_norm: bool = False
     use_kernels: bool = True
+    upsample_convt: bool = True
+    head_correction: bool = False
+    im2col_max_k: int = 0
 
 # --------------------------------------------------------------------------
 # Modules (state_dict keys = reference checkpoint names)
@@ -173,20 +187,81 @@ class VideoAutoencoder(nn.Module):
 # --------------------------------------------------------------------------
 
 
+def _conv3d(x: torch.Tensor, w: torch.Tensor, stride, s_pad,
+            t_pad=(0, 0)) -> torch.Tensor:
+    """F.conv3d with the spatial pads `s_pad` and the temporal pads `t_pad`
+    (front, back) applied as given (F.conv3d pads each axis symmetrically,
+    so uneven pads are written out)."""
+    (ph0, ph1), (pw0, pw1) = s_pad
+    if ph0 == ph1 and pw0 == pw1 and t_pad[0] == t_pad[1]:
+        return F.conv3d(x, w, None, stride, (t_pad[0], ph0, pw0))
+    return F.conv3d(F.pad(x, (pw0, pw1, ph0, ph1, *t_pad)), w, None, stride)
+
+
+def _conv3d_im2col(x_ext: torch.Tensor, w: torch.Tensor,
+                   s_pad) -> torch.Tensor:
+    """A stride-1 3D conv as the JAX package's tap-major patch matmul: the
+    same taps, the products summed in fp32 by the matmul and rounded once
+    to x's dtype. x_ext (B, Ci, T, H, W), w (Co, Ci, kt, kh, kw)."""
+    co, ci, kt, kh, kw = w.shape
+    (ph0, ph1), (pw0, pw1) = s_pad
+    xp = F.pad(x_ext, (pw0, pw1, ph0, ph1)).permute(0, 2, 3, 4, 1)
+    T = xp.shape[1] - (kt - 1)
+    H = xp.shape[2] - (kh - 1)
+    W = xp.shape[3] - (kw - 1)
+    taps = [xp[:, dt:dt + T, dh:dh + H, dw:dw + W, :]
+            for dt in range(kt) for dh in range(kh) for dw in range(kw)]
+    m = torch.stack(taps, dim=-2).reshape(xp.shape[0], T, H, W,
+                                          kt * kh * kw * ci)
+    wk = w.permute(2, 3, 4, 1, 0).reshape(kt * kh * kw * ci, co)
+    return torch.matmul(m, wk).permute(0, 4, 1, 2, 3)
+
+
 def causal_conv3d(conv: nn.Conv3d, path: str, x: torch.Tensor, state: State,
                   new_state: State = None,
                   stride: Tuple[int, int, int] = (1, 1, 1), t_pad: int = 0,
                   s_pad=((0, 0), (0, 0)),
-                  pre_extended: bool = False) -> torch.Tensor:
+                  pre_extended: bool = False,
+                  lowering: Lowering = Lowering()) -> torch.Tensor:
     """Causal 3D convolution with functional temporal memory.
 
     x: (B, C, T, H, W). `state` holds the previous slice's tails (None for a
     first or unsliced call); `new_state`, if a dict, receives this slice's
     tail under `path` for the next call. pre_extended: the caller already
-    prepended the causal head frames (K12's fused pass)."""
-    w = conv.weight
+    prepended the causal head frames (K12's fused pass), so the head
+    correction never applies. `lowering` picks the head correction and the
+    im2col form, in the JAX order."""
+    w = conv.weight.to(x.dtype)
     kt = w.shape[2]
     cache = kt - stride[0]
+    bias = conv.bias.to(x.dtype).view(1, -1, 1, 1, 1)
+    if (lowering.head_correction and not pre_extended
+            and tuple(stride) == (1, 1, 1) and kt > 1
+            and x.shape[2] >= cache):
+        head = None
+        if state is not None and path in state:
+            head = state[path].to(x.dtype)
+        elif t_pad > 0:
+            head = x[:, :, :1].expand(-1, -1, 2 * t_pad, -1, -1)
+        if head is not None and head.shape[2] == kt - 1:
+            if new_state is not None and cache > 0:
+                new_state[path] = x[:, :, -cache:].clone()
+            # JAX's conv over x zero-padded at the front of T, without the
+            # padded copy of x: frames kt - 1 on are a conv over x unpadded,
+            # the first kt - 1 one over x's first kt - 1 frames padded at
+            # the front, onto which the conv over the head alone, padded at
+            # the back so its taps line up, is added; both written with
+            # the bias into one output
+            n = kt - 1
+            first = (_conv3d(x[:, :, :n], w, stride, s_pad, (n, 0))
+                     + _conv3d(head, w, stride, s_pad, (0, n)))
+            out = first.new_empty(first.shape[:2] + (x.shape[2],)
+                                  + first.shape[3:])
+            torch.add(first, bias, out=out[:, :, :n])
+            if x.shape[2] > n:
+                torch.add(_conv3d(x, w, stride, s_pad), bias,
+                          out=out[:, :, n:])
+            return out
     if pre_extended:
         x_ext = x
     elif state is not None and path in state:
@@ -198,14 +273,10 @@ def causal_conv3d(conv: nn.Conv3d, path: str, x: torch.Tensor, state: State,
         x_ext = x
     if new_state is not None and cache > 0:
         new_state[path] = x_ext[:, :, -cache:].clone()
-    (ph0, ph1), (pw0, pw1) = s_pad
-    if ph0 == ph1 and pw0 == pw1:
-        padding = (0, ph0, pw0)
-    else:
-        x_ext = F.pad(x_ext, (pw0, pw1, ph0, ph1))
-        padding = 0
-    out = F.conv3d(x_ext, w.to(x.dtype), None, stride, padding)
-    return out + conv.bias.to(x.dtype).view(1, -1, 1, 1, 1)
+    if (w[0].numel() <= lowering.im2col_max_k
+            and tuple(stride) == (1, 1, 1)):
+        return _conv3d_im2col(x_ext, w, s_pad) + bias
+    return _conv3d(x_ext, w, stride, s_pad) + bias
 
 
 def frame_group_norm(norm: nn.GroupNorm, x: torch.Tensor,
@@ -278,10 +349,12 @@ def norm_silu_conv(norm: nn.GroupNorm, conv: nn.Conv3d, path: str,
         # the mid block's attention returns a permuted sum; K12 reads NCDHW
         ext = fn(x.contiguous(), norm.weight, norm.bias, norm.num_groups)
         return causal_conv3d(conv, path, ext, None, new_state, t_pad=1,
-                             s_pad=((1, 1), (1, 1)), pre_extended=True)
+                             s_pad=((1, 1), (1, 1)), pre_extended=True,
+                             lowering=lowering)
     h = F.silu(frame_group_norm(norm, x))
     return causal_conv3d(conv, path, h, state, new_state,
-                         t_pad=(kt - 1) // 2, s_pad=((1, 1), (1, 1)))
+                         t_pad=(kt - 1) // 2, s_pad=((1, 1), (1, 1)),
+                         lowering=lowering)
 
 
 def resnet_block(blk: ResnetBlock, path: str, x: torch.Tensor, state: State,
@@ -293,7 +366,7 @@ def resnet_block(blk: ResnetBlock, path: str, x: torch.Tensor, state: State,
                        new_state, conv_quant, lowering)
     if blk.conv_shortcut is not None:
         x = causal_conv3d(blk.conv_shortcut, f"{path}.conv_shortcut", x, state,
-                          new_state)
+                          new_state, lowering=lowering)
     return x + h
 
 
@@ -363,15 +436,35 @@ def _upsample_conv_transpose(conv: nn.Conv3d, x: torch.Tensor, sr: int,
     return y.reshape(b, c, t * tr, h * sr, wd * sr)
 
 
+def _upsample_pixel_shuffle(conv: nn.Conv3d, x: torch.Tensor, sr: int,
+                            tr: int) -> torch.Tensor:
+    """upscale_conv (1x1x1, ci -> c*sr*sr*tr) as one matmul with fp32
+    accumulation, the bias, then the MAGViT pixel shuffle with channel
+    group order (x, y, z, c): out[b, c, t*tr+z, h*sr+xi, w*sr+yi] =
+    y[b, ((xi*sr+yi)*tr+z)*C + c, t, h, w], the JAX package's
+    `_pixel_shuffle_3d` in NCDHW."""
+    b, ci, t, h, wd = x.shape
+    o = conv.weight.shape[0]
+    c = o // (sr * sr * tr)
+    y = torch.matmul(conv.weight[:, :, 0, 0, 0].to(x.dtype),
+                     x.reshape(b, ci, t * h * wd))
+    y.add_(conv.bias.to(x.dtype).view(1, o, 1))
+    y = y.view(b, sr, sr, tr, c, t, h, wd).permute(0, 4, 5, 3, 6, 1, 7, 2)
+    return y.reshape(b, c, t * tr, h * sr, wd * sr)
+
+
 def _upsample3d(up: _ConvHolder, path: str, x, state, new_state,
-                temporal_up: bool, first_slice: bool):
+                temporal_up: bool, first_slice: bool,
+                lowering: Lowering = Lowering()):
     tr = 2 if temporal_up else 1
-    y = _upsample_conv_transpose(up.upscale_conv, x, 2, tr)
+    form = (_upsample_conv_transpose if lowering.upsample_convt
+            else _upsample_pixel_shuffle)
+    y = form(up.upscale_conv, x, 2, tr)
     if temporal_up and first_slice:
         # remove_head: drop the duplicated frame 1
         y = torch.cat([y[:, :, :1], y[:, :, 2:]], dim=2)
     return causal_conv3d(up.conv, f"{path}.conv", y, state, new_state,
-                         t_pad=1, s_pad=((1, 1), (1, 1)))
+                         t_pad=1, s_pad=((1, 1), (1, 1)), lowering=lowering)
 
 
 # --------------------------------------------------------------------------
@@ -392,7 +485,7 @@ def encoder_core(vae: VideoAutoencoder, x: torch.Tensor, state: State,
     n_blocks = len(cfg.block_out_channels)
     x = x.permute(0, 4, 1, 2, 3).contiguous()
     x = causal_conv3d(enc.conv_in, "encoder.conv_in", x, state, new_state,
-                      t_pad=1, s_pad=((1, 1), (1, 1)))
+                      t_pad=1, s_pad=((1, 1), (1, 1)), lowering=lowering)
     for i, blk in enumerate(enc.down_blocks):
         base = f"encoder.down_blocks.{i}"
         for j, res in enumerate(blk.resnets):
@@ -405,7 +498,8 @@ def encoder_core(vae: VideoAutoencoder, x: torch.Tensor, state: State,
             x = causal_conv3d(
                 blk.downsamplers[0].conv, f"{base}.downsamplers.0.conv", x,
                 state, new_state, stride=(2 if temporal_down else 1, 2, 2),
-                t_pad=1 if temporal_down else 0, s_pad=((0, 1), (0, 1)))
+                t_pad=1 if temporal_down else 0, s_pad=((0, 1), (0, 1)),
+                lowering=lowering)
     x = _mid_block(enc.mid_block, "encoder.mid_block", x, state, new_state,
                    "none", lowering)
     x = norm_silu_conv(enc.conv_norm_out, enc.conv_out, "encoder.conv_out", x,
@@ -425,7 +519,7 @@ def decoder_core(vae: VideoAutoencoder, z: torch.Tensor, state: State,
     n_blocks = len(cfg.block_out_channels)
     x = z.permute(0, 4, 1, 2, 3).contiguous()
     x = causal_conv3d(dec.conv_in, "decoder.conv_in", x, state, new_state,
-                      t_pad=1, s_pad=((1, 1), (1, 1)))
+                      t_pad=1, s_pad=((1, 1), (1, 1)), lowering=lowering)
     x = _mid_block(dec.mid_block, "decoder.mid_block", x, state, new_state,
                    cq, lowering)
     for i, blk in enumerate(dec.up_blocks):
@@ -436,7 +530,7 @@ def decoder_core(vae: VideoAutoencoder, z: torch.Tensor, state: State,
         if i < n_blocks - 1:
             x = _upsample3d(blk.upsamplers[0], f"{base}.upsamplers.0", x,
                             state, new_state, i < cfg.temporal_scale_num,
-                            first_slice)
+                            first_slice, lowering)
     x = norm_silu_conv(dec.conv_norm_out, dec.conv_out, "decoder.conv_out", x,
                        state, new_state, cq, lowering)
     return x.permute(0, 2, 3, 4, 1), (new_state or {})

@@ -18,8 +18,11 @@ The VAE's opt-in lowerings are fixed at construction, as the JAX VideoVAE
 snapshots its lowering switches: with `cfg.conv_quant == "int8"` the
 decoder's resnet convs are quantized once to int8 (kernel K11's layout, as
 non-persistent buffers, so checkpoints still load strictly under the
-reference key names), and SEEDVR2_FUSED_NORM=1 in the environment turns on
-the fused norm+SiLU+head pass (kernel K12).
+reference key names), and the environment's switches, read once here,
+set the `Lowering`: SEEDVR2_FUSED_NORM=1 the fused norm+SiLU+head pass
+(kernel K12), SEEDVR2_UPSAMPLE_CONVT=0 the matmul + pixel-shuffle
+upsample, SEEDVR2_HEAD_CORRECTION=1 the causal head as a correction conv,
+SEEDVR2_CONV_IM2COL=1 the im2col form of convs with K <= 128.
 
 Layout is channels-last: video (B, T, H, W, 3) in [-1, 1], latent
 (B, Tl, h, w, latent_channels).
@@ -192,9 +195,15 @@ class VideoVAE:
         self.model = model
         self.cfg: VAEConfig = model.cfg
         self.dtype = dtype
-        # the JAX VideoVAE snapshots its lowering switches at construction
+        # the JAX VideoVAE snapshots its lowering switches at construction,
+        # with these defaults and string tests
+        env = os.environ.get
         self.lowering = Lowering(
-            fused_norm=os.environ.get("SEEDVR2_FUSED_NORM", "0") == "1")
+            fused_norm=env("SEEDVR2_FUSED_NORM", "0") == "1",
+            upsample_convt=env("SEEDVR2_UPSAMPLE_CONVT", "1") == "1",
+            head_correction=env("SEEDVR2_HEAD_CORRECTION", "0") == "1",
+            im2col_max_k=128 if env("SEEDVR2_CONV_IM2COL", "0") == "1"
+            else 0)
         if self.cfg.conv_quant == "int8":
             with torch.no_grad():
                 for _, conv in int8_served_convs(model):

@@ -1,10 +1,12 @@
 """Time and profile full-width requests of the port on one GPU.
 
     [SEEDVR2_FUSED_NORM=1] python -m seedvr2_tpu_torch.profile_requests \\
-        [--preset throughput] [--quant q8|q4|q4k|w8a8] [--vae_quant int8] \\
+        [--family dit_3b|dit_7b] [--preset throughput] \\
+        [--quant q8|q4|q4k|w8a8] [--vae_quant int8] \\
         [--requests clip720,image1080] [--reps 3] [--trace DIR]
 
-Builds the 3B DiT + VAE_V3 with random weights from a seed on the card (the
+Builds the DiT of --family (the 3B by default, or the full-width 7B) +
+VAE_V3 with random weights from a seed on the card (the
 w8a8 DiT and tiled VAE with --preset throughput; --quant converts the DiT as
 the CLI does, and wins over the preset; --vae_quant int8 serves the VAE
 decoder's resnet convs in int8, and SEEDVR2_FUSED_NORM=1 turns on the fused
@@ -14,9 +16,11 @@ pipeline's phase seconds, host clock, each phase ended by a device
 synchronize), and one repetition under torch.profiler (CPU + CUDA). From
 the profile it prints the device busy time (the summed device time of the
 device-side events: kernels, copies and memsets, all on one stream), the
-profiled wall time, the device events that took the most time, and the
-device time of the port's named ranges (seedvr2.norm_silu_quantize: the
-int8 lane's norm + SiLU + quantize passes). Needs a CUDA device.
+profiled wall time, the device events that took the most time, the
+device time of the port's named ranges (the pipeline's phases
+seedvr2.encode / dit / decode / postprocess, and seedvr2.norm_silu_quantize:
+the int8 lane's norm + SiLU + quantize passes), and for each phase the
+device events that took the most of its time. Needs a CUDA device.
 """
 
 import argparse
@@ -27,7 +31,7 @@ import torch
 from torch.autograd import DeviceType
 
 from . import cli
-from .core.configs import DIT_3B
+from .core.configs import dit_config_for
 from .utils.text_embeds import load_text_embeddings
 
 # name -> (frames, height, width, target short side)
@@ -67,8 +71,36 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+PHASES = ("encode", "dit", "decode", "postprocess")
+PHASE_TOP = 15  # device events listed for each phase
+
+
+def phase_breakdown(events, device_us=_device_us):
+    """{phase: {event name: device us}} over the device events that start
+    inside a phase's range. `events` is the profile's event list
+    (`prof.events()`); the pipeline's phase ranges end after a device
+    synchronise and the phases run one after another, so a phase's kernels
+    start and end inside its range on the profile's common clock."""
+    spans = [(e.key[len(RANGE_PREFIX):], e.time_range.start,
+              e.time_range.end) for e in events
+             if e.key.startswith(RANGE_PREFIX)
+             and getattr(e, "device_type", None) != DeviceType.CUDA
+             and e.key[len(RANGE_PREFIX):] in PHASES]
+    out = {name: {} for name, _, _ in spans}
+    for e in events:
+        us = device_us(e)
+        if us <= 0:
+            continue
+        for name, a, b in spans:
+            if a <= e.time_range.start <= b:
+                out[name][e.key] = out[name].get(e.key, 0.0) + us
+                break
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--family", default="dit_3b", choices=("dit_3b", "dit_7b"))
     p.add_argument("--preset", default=None, choices=("throughput",))
     p.add_argument("--quant", default=None, choices=cli.QUANT_MODES)
     p.add_argument("--vae_quant", default="none", choices=("none", "int8"))
@@ -93,9 +125,11 @@ def main(argv=None) -> None:
     cargs = cli.parse_arguments(flags)
     tiling = cli.tiling_from_args(cargs)
     runner = cli.make_runner(device, seed=args.seed, quant=cargs.quant,
-                             tiling=tiling, vae_quant=args.vae_quant)
-    embeds = load_text_embeddings(txt_dim=DIT_3B.txt_in_dim)
-    print(f"device {torch.cuda.get_device_name(0)}; quant {cargs.quant}; "
+                             tiling=tiling, vae_quant=args.vae_quant,
+                             dit_cfg=dit_config_for(args.family))
+    embeds = load_text_embeddings(txt_dim=runner.dit_cfg.txt_in_dim)
+    print(f"device {torch.cuda.get_device_name(0)}; {args.family}; "
+          f"quant {cargs.quant}; "
           f"vae_quant {args.vae_quant}; {runner.vae.lowering}; {tiling}",
           flush=True)
 
@@ -140,8 +174,16 @@ def main(argv=None) -> None:
                 print(f"  range {e.key}: {us / 1e3:.2f} ms of device time "
                       f"({100 * us / 1e6 / busy:.1f} %), x{e.count}",
                       flush=True)
+        for phase, by_name in phase_breakdown(prof.events()).items():
+            total = sum(by_name.values())
+            print(f"  phase {phase}: {total / 1e3:.2f} ms of device time in "
+                  f"{len(by_name)} distinct events; the most:", flush=True)
+            for key, us in sorted(by_name.items(), key=lambda kv: -kv[1])[
+                    :PHASE_TOP]:
+                print(f"    {us / 1e3:10.2f} ms {100 * us / total:5.1f} % "
+                      f"{key[:110]}", flush=True)
         if args.trace:
-            prof.export_chrome_trace(f"{args.trace}/{name}_"
+            prof.export_chrome_trace(f"{args.trace}/{name}_{args.family}_"
                                      f"{args.preset or 'default'}_"
                                      f"{cargs.quant}_{args.vae_quant}.json")
 

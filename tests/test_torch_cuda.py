@@ -897,3 +897,182 @@ def test_uniform_dit_with_kernels_matches_plain_on_gpu(cuda_device, w8a8):
     assert torch.isfinite(k).all()
     assert ((k - p).norm() / p.norm()).item() < 2e-2
     assert ((k - g).norm() / g.norm()).item() < 2e-2
+
+
+# ------------------------------------------------------------ 7B widths
+# The 7B family's shapes (D = 3072, 24 heads of 128, MLP 3072 -> 12288 with
+# bias) on the kernels of its lanes, at the 720p clip's (2 x 90 x 160
+# latent, 7200 tokens) and the 1080p clip's (2 x 136 x 240, 16320 tokens)
+# plans; the bounds are the 3B cases' above.
+LAT_7B = {"720p": (2, 90, 160), "1080p": (2, 136, 240)}
+
+
+def _plan_7b(latent):
+    from seedvr2_tpu_torch.core.configs import DIT_7B
+    from seedvr2_tpu_torch.models.dit import nadit
+
+    return DIT_7B, nadit, nadit.build_dit_plan(DIT_7B, latent, 58)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", list(LAT_7B))
+def test_k1_kernel_7b_tables_on_gpu(cuda_device, clip):
+    """K1 at H = 24 on the 7B's largest window group of the clip's plan:
+    its rope3d tables (text rows identity) with qk-norm weights folded in
+    as the forward folds them, four windows of the group."""
+    cfg, nadit, plan = _plan_7b(LAT_7B[clip])
+    dplan = nadit.upload_plan(plan, cfg, cuda_device)
+    g = max(dplan.groups["window"], key=lambda g: g.wlen)
+    gen = torch.Generator(cuda_device).manual_seed(g.wlen)
+    wts = [1 + 0.1 * torch.randn(cfg.head_dim, generator=gen,
+                                 device=cuda_device) for _ in range(4)]
+    tabs = nadit._fold_norm_tables(g.cos, g.sin, *wts, g.wlen, g.skv)
+    h, d = cfg.heads, cfg.head_dim
+    qkv = torch.randn(4, g.sk_pad, 3 * h * d, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    before = tfa.packed_window_attention.launches
+    out = tfa.packed_window_attention(qkv, h, d, *tabs, 1e-5, g.skv)
+    assert tfa.packed_window_attention.launches == before + 1
+    ref = tfa.packed_window_attention_plain(qkv, h, d, *tabs, 1e-5, g.skv)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", list(LAT_7B))
+def test_k2_kernel_7b_width_on_gpu(cuda_device, clip):
+    """K2 at D = 3072 on the clip plan's window -> shifted transition."""
+    cfg, nadit, plan = _plan_7b(LAT_7B[clip])
+    idx = plan.transitions[("window", "shifted_window")]
+    gen = torch.Generator(cuda_device).manual_seed(len(idx))
+    x = torch.randn(1, plan.seq_len, cfg.vid_dim, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    index = tg.RowIndex(idx, cuda_device)
+    assert torch.equal(tg.gather_rows(x, index), tg.gather_rows_plain(x, index))
+
+
+# the 7B's converted products (N, K) at the token counts of its requests
+PRODUCTS_7B = [(16320, 9216, 3072), (16320, 3072, 3072),
+               (16320, 12288, 3072), (16320, 3072, 12288),
+               (7200, 3072, 12288), (58, 9216, 3072), (58, 3072, 12288),
+               (1, 3072, 3072), (1, 18432, 3072)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", PRODUCTS_7B)
+def test_k3_kernel_exact_7b_on_gpu(cuda_device, m, n, k):
+    gen = torch.Generator(cuda_device).manual_seed(m + n + k)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=cuda_device,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device=cuda_device,
+                       dtype=torch.int8)
+    xs = torch.rand(m, generator=gen, device=cuda_device) * 0.01
+    ws = torch.rand(n, generator=gen, device=cuda_device) * 0.01
+    assert torch.equal(tim.int8_matmul(xq, wq, xs, ws),
+                       tim.int8_matmul_plain(xq, wq, xs, ws))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l", [(1, 16320), (1, 7200), (1, 58), (1, 1)])
+def test_k4_kernel_7b_width_on_gpu(cuda_device, b, l):
+    gen = torch.Generator(cuda_device).manual_seed(l)
+    x = torch.randn(b, l, 3072, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(b, 3072, generator=gen, device=cuda_device)
+    shift = 0.1 * torch.randn(b, 3072, generator=gen, device=cuda_device)
+    _q_close(tfq.rms_ada_quantize(x, scale, shift, 1e-5),
+             tfq.rms_ada_quantize_plain(x, scale, shift, 1e-5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", PRODUCTS_7B)
+def test_k6_kernel_7b_on_gpu(cuda_device, m, n, k):
+    gen = torch.Generator(cuda_device).manual_seed(m + n + k)
+    x, q, s = _q8_case(gen, m, n, k, cuda_device)
+    out = tqm.quant_matmul_q8(x, q, s)
+    assert torch.isfinite(out).all()
+    assert bf16_ulps(out, tqm.quant_matmul_q8_plain(x, q, s)).max().item() \
+        <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", PRODUCTS_7B)
+def test_k7_kernel_7b_on_gpu(cuda_device, m, n, k):
+    """K = 12288 is K7's longest group-sum pre-pass on a served path."""
+    gen = torch.Generator(cuda_device).manual_seed(m + n + k)
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    q = torch.randint(0, 16, (n, k), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    s = torch.rand(n, k // 32, generator=gen, device=cuda_device) * 0.04 / 15
+    mn = torch.rand(n, k // 32, generator=gen, device=cuda_device) * 0.02
+    out = tqm.quant_matmul_affine(x, q, s, mn)
+    ref = tqm.quant_matmul_affine_plain(x, q, s, mn)
+    assert torch.isfinite(out).all()
+    assert (bf16_ulps(out, ref) <= 1).float().mean().item() >= 0.999
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", list(LAT_7B))
+def test_k9_kernel_7b_uniform_layer_on_gpu(cuda_device, clip):
+    """K9 at H = 24 on the 7B's shifted uniform layer of the clip: its
+    per-window rope3d tables and key masks, two batch rows of windows."""
+    from seedvr2_tpu_torch.core.configs import DIT_7B
+    from seedvr2_tpu_torch.models.dit import nadit
+
+    plan = nadit.build_dit_plan(DIT_7B, LAT_7B[clip], 58, uniform=True)
+    u = nadit.upload_plan(plan, DIT_7B, cuda_device).uniform["shifted_window"]
+    n_w, s = len(u.ids), u.cos.shape[1]
+    gen = torch.Generator(cuda_device).manual_seed(s)
+    q, k, v = _attention_operands(gen, 2 * n_w, s, DIT_7B.heads,
+                                  DIT_7B.head_dim, cuda_device)
+    ids = u.batch_ids(2)
+    out = tfa.flash_windowed_attention(q, k, v, None, u.cos, u.sin, ids,
+                                       u.valid)
+    ref = tfa.flash_windowed_attention_plain(q, k, v, None, u.cos, u.sin, ids,
+                                             u.valid)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", ["bf16", "w8a8", "q8", "q4"])
+def test_7b_dit_with_kernels_matches_plain_on_gpu(cuda_device, lane):
+    """A 2-layer width-256 7B-family NaDiT (plain MLP with biases, unshared
+    qk norms, rope3d) in each lane: the kernels of the lane launched and
+    held to their plain versions as the 3B model above."""
+    from seedvr2_tpu_torch.core.configs import small_test_config
+    from seedvr2_tpu_torch.models.dit import nadit
+
+    cfg = small_test_config(family="dit_7b", vid_dim=256, heads=2,
+                            head_dim=128)
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    model = nadit.init_dit(cfg, cuda_device, torch.bfloat16, generator=gen)
+    convert = {"bf16": lambda m: m,
+               "w8a8": lambda m: tim.quantize_dit_w8a8(m, 256),
+               "q8": lambda m: tqm.quantize_dit_q8(m, 256),
+               "q4": lambda m: tqm.quantize_dit_affine4(m, 256)}
+    model = convert[lane](model)
+    wrappers = {"bf16": [tfa.packed_window_attention, tg.gather_rows],
+                "w8a8": [tim.int8_matmul, tfq.rms_ada_quantize],
+                "q8": [tqm.quant_matmul_q8], "q4": [tqm.quant_matmul_affine]}
+    shape, txt_len = (2, 18, 32), 58
+    dplan = nadit.upload_plan(nadit.build_dit_plan(cfg, shape, txt_len), cfg,
+                              cuda_device)
+    vid = torch.randn(1, *shape, cfg.vid_in_channels, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    txt = torch.randn(1, txt_len, cfg.txt_in_dim, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    t = torch.full((1,), 1000.0, device=cuda_device)
+    before = [w.launches for w in wrappers[lane]]
+    k5 = tfq.silu_mul_quantize.launches
+    with torch.no_grad():
+        k = nadit.nadit_forward(model, vid, txt, t, dplan).float()
+        assert all(w.launches > b for w, b in zip(wrappers[lane], before))
+        assert tfq.silu_mul_quantize.launches == k5  # no gate in a 7B MLP
+        p = nadit.nadit_forward(model, vid, txt, t, dplan,
+                                use_kernels=False).float()
+    assert torch.isfinite(k).all()
+    assert ((k - p).norm() / p.norm()).item() < 2e-2

@@ -10,7 +10,10 @@ load_vae_checkpoint) on synthetic reference-layout files:
    --quant, and a mixed GGUF file under every --quant, each equal to the JAX
    tree (through state_dict_from_jax) key for key and bit for bit;
  - the config sniffing (and its fallback to the base config on quantised
-   leaves), the 7B refusal by name and by structure, the model registry;
+   leaves), the model registry;
+ - the 7B family: fp16, fp8-mixed and .pth files and a Q4_K_M-like GGUF
+   under every --quant, each loaded equal to the JAX loader's tree and
+   forward; its sniffing; a 7B under a neutral name; the CLI's runner;
  - tiny NaDiT forwards of the q8, q4 and q4k lanes against the JAX forward
    of the same tree: fp32 on both sides, 1e-4 as for the dense forward
    (tests/test_torch_dit.py; the plain K6/K7 sum in another order).
@@ -34,6 +37,7 @@ from seedvr2_tpu.core import export as jexport
 from seedvr2_tpu.core import loader as jloader
 from seedvr2_tpu.core import model_manager as jmm
 from seedvr2_tpu.core.configs import DIT_3B as JDIT_3B
+from seedvr2_tpu.core.configs import DIT_7B as JDIT_7B
 from seedvr2_tpu.core.configs import VAEConfig as JVAEConfig
 from seedvr2_tpu.core.configs import small_test_config as j_small
 from seedvr2_tpu.models.dit import nadit as jn
@@ -328,43 +332,186 @@ def test_sniff_falls_back_on_quantised_leaves(tiny, tmp_path):
         _port_load(path, "q8")
 
 
-def test_7b_checkpoint_is_refused(tmp_path):
-    """A file the registry's naming maps to the 7B family raises before it
-    is read, naming the ROADMAP item; it never builds a 3B."""
-    from seedvr2_tpu_torch import cli
+# ------------------------------------------------------------ the 7B family
 
-    for name in ("seedvr2_ema_7b_fp16.safetensors",
-                 "seedvr2_ema_7b-Q4_K_M.gguf"):
-        with pytest.raises(NotImplementedError, match="7B family"):
-            tl.load_dit_checkpoint(str(tmp_path / name), "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.make_runner("cpu", dit_model=str(tmp_path / name))
+@pytest.fixture(scope="module")
+def tiny7b(tmp_path_factory):
+    """A tiny 7B-family tree and the same weights as fp16 .safetensors (a
+    rope buffer too), fp32 .pth, and the fp8-mixed layout of
+    seedvr2_ema_7b_fp8_e4m3fn_mixed_block35_fp16 (the last block and every
+    vector fp16, every other tensor fp8_e4m3fn), as the JAX package's
+    tests/test_checkpoint_contract.py writes it."""
+    import safetensors.torch
+
+    jcfg = j_small("dit_7b")
+    params = random_params(lambda k: jn.init_dit_params(
+        k, jcfg, dtype=jnp.float32), 23)
+    d = tmp_path_factory.mktemp("dit7b")
+    state = jexport.to_torch_state_dict(params, dtype=np.float32)
+    last = f"blocks.{jcfg.num_layers - 1}."
+    files = {"st": str(d / "seedvr2_ema_7b_fp16.safetensors"),
+             "pth": str(d / "seedvr2_ema_7b.pth"),
+             "fp8_mixed": str(
+                 d / "seedvr2_ema_7b_fp8_e4m3fn_mixed_block1_fp16.safetensors")}
+    safetensors.torch.save_file(
+        {k: torch.from_numpy(v).half() for k, v in {
+            **state, "blocks.0.attn.rope.freqs": np.arange(
+                8, dtype=np.float32)}.items()}, files["st"])
+    torch.save({k: torch.from_numpy(v) for k, v in state.items()},
+               files["pth"])
+    safetensors.torch.save_file(
+        {k: (torch.from_numpy(v).half() if k.startswith(last) or v.ndim < 2
+             else torch.from_numpy(v).to(torch.float8_e4m3fn))
+         for k, v in state.items()}, files["fp8_mixed"])
+    return params, files
+
+
+@pytest.mark.parametrize("fmt", ["st", "fp8_mixed", "pth"])
+def test_7b_float_file_loads_and_forwards_as_jax(tiny7b, fmt):
+    """Each 7B float format loads strictly into the 7B config JAX sniffs
+    (fp8 widened per tensor, the fp16 block kept fp16-exact), equal to the
+    JAX loader's tree bit for bit, and forwards as the JAX loader's model
+    does."""
+    _, files = tiny7b
+    jparams, jcfg = _jax_load(files[fmt], "none")
+    model = _port_load(files[fmt], "none")
+    _same_cfg(model.cfg, jcfg)
+    assert model.cfg.family == "dit_7b" and model.cfg.mlp_type == "normal"
+    assert model.cfg == tc.small_test_config(family="dit_7b")
+    assert_state_equal(model, jparams)
+    out, ref = _forward_pair(model, jparams, jcfg)
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def gguf_7b_file(tmp_path_factory):
+    """A Q4_K_M-like file of a 1024-wide 7B (so the K-quant serving paths
+    engage): Q8_0 attention linears (block 0's video qkv F32 so the config
+    sniff reads it), Q4_K mlp proj_in, Q5_K mlp proj_out, F16 dense
+    linears, F32 vectors (the MLP biases among them)."""
+    cfg = j_small("dit_7b", **WIDE)  # plain MLP 1024 -> 4096 -> 1024
+    params = random_params(lambda k: jn.init_dit_params(
+        k, cfg, dtype=jnp.float32), 24)
+    state = jexport.to_torch_state_dict(params, dtype=np.float32)
+    tensors = []
+    for i, (name, v) in enumerate(sorted(state.items())):
+        if name == "blocks.0.attn.proj_qkv.vid.weight" or v.ndim == 1:
+            qt, raw = tg.F32, v.tobytes()
+        elif ".attn.proj_" in name:
+            qt, raw = tg.Q8_0, _q8_0_bytes(v)
+        elif ".mlp." in name:
+            qt = tg.Q5_K if "proj_out" in name else tg.Q4_K
+            raw = _kquant_bytes(qt, v.shape, i)
+        else:
+            qt, raw = tg.F16, v.astype(np.float16).tobytes()
+        tensors.append(("model.diffusion_model." + name, v.shape, qt, raw,
+                        None))
+    path = tmp_path_factory.mktemp("gguf7b") / "seedvr2_wide_7b-Q4_K_M.gguf"
+    write_gguf(path, tensors)
+    return str(path)
+
+
+@pytest.mark.parametrize("quant", ["none", "q8", "q4", "q4k"])
+def test_7b_gguf_routes_match_jax(gguf_7b_file, quant):
+    """The 7B GGUF under each --quant, exactly as the 3B's: dense (none),
+    Q8_0 kept and the K-quants requantized to Q8_0 (q8, q4), native Q4_K /
+    Q5_K as affine (q4k); the tree equal to the JAX loader's and the
+    forward equal to the JAX loader's model's."""
+    jparams, jcfg = _jax_load(gguf_7b_file, quant)
+    model = _port_load(gguf_7b_file, quant)
+    _same_cfg(model.cfg, jcfg)
+    assert model.cfg.family == "dit_7b"
+    assert_state_equal(model, jparams)
+    qkv = model.blocks[1].attn.proj_qkv["vid"]
+    mlp = model.blocks[1].mlp["txt"]
+    want = {"none": (torch.nn.Linear, torch.nn.Linear),
+            "q8": (Q8Linear, Q8Linear), "q4": (Q8Linear, Q8Linear),
+            "q4k": (Q8Linear, AffineLinear)}[quant]
+    assert (type(qkv), type(mlp.proj_in)) == want
+    assert type(mlp.proj_out) is want[1] and mlp.proj_out.bias is not None
+    out, ref = _forward_pair(model, jparams, jcfg, shape=(1, 6, 6))
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_7b_sniffing_matches_jax(tiny7b):
+    """sniff_family reads the 7B off its key names (also of quantised
+    leaves), the 3B stays 3B; sniff_dit_config gives JAX's 7B config
+    (heads from qkv, expand_ratio from proj_in, rope_dim head_dim / 2, the
+    sharing flags) and reads the upscaler off emb_scale keys."""
+    params, _ = tiny7b
+    state = jexport.to_torch_state_dict(params, dtype=np.float32)
+    assert tl.sniff_family(state) == "dit_7b"
+    assert tl.sniff_family({k: {"q8": None} for k in state}) == "dit_7b"
+    three = jexport.to_torch_state_dict(random_params(
+        lambda k: jn.init_dit_params(k, j_small(), dtype=jnp.float32), 1),
+        dtype=np.float32)
+    assert tl.sniff_family(three) == "dit_3b"
+    _same_cfg(tl.sniff_dit_config(state, tc.DIT_7B),
+              jloader.sniff_dit_config(state, JDIT_7B))
+    assert tl.sniff_dit_config(state, tc.DIT_7B) == tc.small_test_config(
+        family="dit_7b")
+    up = dict(state, **{"emb_scale.proj_in.weight": np.zeros((64, 256),
+                                                             np.float32)})
+    _same_cfg(tl.sniff_dit_config(up, tc.DIT_7B),
+              jloader.sniff_dit_config(up, JDIT_7B))
+    assert tl.sniff_dit_config(up, tc.DIT_7B).upscaler
 
 
 @pytest.mark.parametrize("fmt", ["safetensors", "gguf"])
-def test_7b_structure_is_refused(tmp_path, fmt):
-    """A 7B-shaped state (plain proj_in / proj_out MLPs, no SwiGLU gate)
-    under a neutral file name raises as the 7B names do: the structure, not
-    only the name, decides the family, also when the file's linears are
-    quantised leaves."""
+def test_7b_under_a_neutral_name_loads_as_7b(tiny7b, tmp_path, fmt):
+    """A 7B-shaped state under a name that says nothing of its family loads
+    as the 7B (its structure decides, also with quantised linears), equal
+    to what the JAX loader makes of the same file under a 7B name."""
+    import shutil
+
     import safetensors.torch
 
-    params = random_params(lambda k: jn.init_dit_params(
-        k, j_small("dit_7b"), dtype=jnp.float32), 14)
+    params, _ = tiny7b
     state = jexport.to_torch_state_dict(params, dtype=np.float32)
     path = str(tmp_path / f"dit.{fmt}")
     if fmt == "gguf":
-        write_gguf(path, [(k, v.shape, tg.Q8_0, _q8_0_bytes(v), None)
-                          if v.ndim == 2 else
-                          (k, v.shape, tg.F32, v.tobytes(), None)
-                          for k, v in state.items()])
+        # the blocks' linears Q8_0 but block 0's video qkv, which the
+        # config sniff reads, as in gguf_file
+        write_gguf(path, [
+            (k, v.shape, tg.Q8_0, _q8_0_bytes(v), None)
+            if k.startswith("blocks.") and v.ndim == 2
+            and k != "blocks.0.attn.proj_qkv.vid.weight"
+            else (k, v.shape, tg.F32, v.tobytes(), None)
+            for k, v in state.items()])
     else:
         safetensors.torch.save_file(
             {k: torch.from_numpy(np.ascontiguousarray(v))
              for k, v in state.items()}, path)
-    assert tl.sniff_family(tl.read_dit_state(path, "q8")) == "dit_7b"
-    with pytest.raises(NotImplementedError, match="7B family"):
-        tl.load_dit_checkpoint(path, "cpu", quant="q8")
+    named = str(tmp_path / f"dit_7b.{fmt}")
+    shutil.copy(path, named)
+    jparams, jcfg = _jax_load(named, "q8")
+    model = _port_load(path, "q8", min_dim=MIN_DIM)
+    _same_cfg(model.cfg, jcfg)
+    assert model.cfg.family == "dit_7b"
+    if fmt == "gguf":
+        assert_state_equal(model, jparams)
+
+
+def test_cli_make_runner_takes_7b(tiny7b, tmp_path, monkeypatch):
+    """cli.make_runner loads a 7B file, builds random weights of the family
+    it is given (the 3B when none), and raises on a missing --dit_model
+    file rather than drawing random weights."""
+    from seedvr2_tpu_torch import cli
+
+    _, files = tiny7b
+    monkeypatch.setattr(cli, "VAE_V3", tc.VAEConfig(**VAE_KW))
+    monkeypatch.setattr(cli, "DIT_3B", tc.small_test_config())
+    runner = cli.make_runner("cpu", dit_model=files["st"])
+    assert runner.dit_cfg == tc.small_test_config(family="dit_7b")
+    small7 = tc.small_test_config(family="dit_7b")
+    runner = cli.make_runner("cpu", seed=0, dit_cfg=small7, quant="w8a8")
+    assert runner.dit_cfg == small7 and runner.config.dit == small7
+    assert cli.make_runner("cpu", seed=0).dit_cfg == tc.small_test_config()
+    with pytest.raises(FileNotFoundError):
+        cli.make_runner("cpu", dit_model=str(tmp_path / "seedvr2_ema_7b_"
+                                             "fp16.safetensors"))
 
 
 def test_model_registry_equal():

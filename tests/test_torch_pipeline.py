@@ -326,3 +326,27 @@ def test_quantised_slice_matches_jax_pipeline(quant):
         color_correction="none", noise_override=noise)
     assert out.shape == ref.shape == (5, 38, 32, 3)
     assert np.abs(out - ref).max() < 1e-4
+
+
+def test_phase_ranges_attribute_events_to_phases():
+    """Each pipeline phase runs inside its profiler range, and
+    profile_requests' phase_breakdown gives every event that starts inside
+    a range to that phase: here a CPU op stands for a phase's kernels."""
+    from seedvr2_tpu_torch import profile_requests as pr
+
+    ctx = tp.setup_generation_context("cpu")
+    a = torch.ones(8, 8)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tp._phase(ctx, "encode"):
+            torch.mm(a, a)
+        with tp._phase(ctx, "dit"):
+            torch.mm(a, a)
+            torch.mm(a, a)
+            torch.addmm(a, a, a)
+        torch.mm(a, a)  # outside every phase
+    assert set(ctx["timings"]) == {"encode", "dit"}
+    by_phase = pr.phase_breakdown(
+        prof.events(), lambda e: float(e.key in ("aten::mm", "aten::addmm")))
+    assert by_phase == {"encode": {"aten::mm": 1.0},
+                        "dit": {"aten::mm": 2.0, "aten::addmm": 1.0}}
