@@ -40,6 +40,18 @@ network. In order it:
     finiteness and that K1 and K2 were launched by that path;
  4. runs the whole 32-layer DiT once with the kernels and once with their
     plain versions on the clip's latent and bounds the relative L2 error;
+ 4b. the rest of the request surface on that runner: two RGBA requests
+    (7x360x640x4 to 720p, batch 5, overlap 2, uniform batches, input and
+    latent noise, wavelet_adaptive; a mostly 0 / 1 alpha and a soft one)
+    checked for shape, range and K1 / K2 launches equal to the same request
+    in RGB; the 720p clip served with each colour method; the six colour
+    methods at 5x720x1280 and 5x1080x1920 and process_alpha_for_batch on
+    one 720p batch with TF32 at torch's defaults, timed on the card with
+    their peak memory and held against the same functions on the CPU; the
+    clip's latent decoded with ref-mode tiles (512 px, 64 px overlap)
+    against the planner and the untiled and uniform decodes, and the clip
+    served with tile_debug="decode" (the overlay on the recorded tiles);
+    one DiT forward under each of the t2v and i2v conditions;
  5. the throughput path (`--preset throughput`): the same weights converted
     to w8a8; on the 1080p clip's latent the whole w8a8 DiT with kernels
     against plain versions (bound) and against the bf16 DiT (it must lie
@@ -77,8 +89,9 @@ network. In order it:
     against the default lowering and the fp32 VAE; then the default 3B
     path serves the 5-frame 540x960 clip to 1080p under the pixel-shuffle
     upsample and under the default transposed conv: wall, phases, peak
-    memory, and a profiled decode's device time, peak memory and top
-    kernels;
+    memory, and for the pixel-shuffle form a profiled decode's device time,
+    peak memory and top kernels (the transposed conv's profile, PR 11's,
+    left out to make room for phase 4b);
  11. the 7B family at full width (36 blocks, D = 3072, 24 heads, random
     weights from a seed), after every 3B model is freed: K1-K4, K6 and K7
     against their plain versions at the 7B's shapes (timed, bound, library
@@ -117,6 +130,7 @@ Each phase prints its seconds. Any failure ends the run with a non-zero exit and
 nothing of JAX.
 """
 
+import concurrent.futures
 import copy
 import dataclasses
 import json
@@ -261,6 +275,32 @@ Q4_REQUESTS = (("clip 5x540x960 -> 1080", 5, 540, 960, 1080),)
 # the throughput path's requests: (label, frames, height, width, short side)
 FAST_REQUESTS = (("clip 5x540x960 -> 1080", 5, 540, 960, 1080),
                  ("image 1x1080x1920 -> 2160", 1, 1080, 1920, 2160))
+
+# phase 4b, the rest of the request surface on the default 3B runner: the
+# RGBA request (frames, height, width, short side) and its options, the
+# colour methods' clip shapes, the ref-mode decode tiles (px)
+RGBA_REQUEST = (7, 360, 640, 720)
+RGBA_OPTIONS = dict(batch_size=5, temporal_overlap=2, uniform_batch_size=True,
+                    input_noise_scale=0.3, latent_noise_scale=0.1,
+                    color_correction="wavelet_adaptive")
+COLOUR_SHAPES = ((5, 720, 1280), (5, 1080, 1920))
+REF_TILE, REF_OVERLAP = 512, 64
+# colour methods and alpha, card against the CPU, same fp32 function, TF32
+# at torch's defaults: adain and wavelet reduce and fuse multiply-adds in
+# another order (max abs COLOUR_EXACT_ABS); lab's pow may differ by an ulp
+# and swap two ranks, moving each by a gap between neighbouring sorted
+# values (the CPU tests' lab allowance: max LAB_MAX_ABS, at most
+# BINNED_SHARE of values beyond 1e-4); hsv, wavelet_adaptive and the alpha's
+# binary cascade decide by bins and thresholds, and a value an ulp away can
+# take the neighbouring bin or the other side: at most BINNED_SHARE of
+# values beyond 1e-4.
+COLOUR_EXACT_ABS, LAB_MAX_ABS, BINNED_SHARE = 1e-5, 1e-2, 1e-3
+# the ref-mode tiled decode against the untiled one: both tilings blend the
+# same overlap with the same fades, but the stride sweep's edge tiles are
+# narrower (34 and 48 latents at 720p against ~50), so their seams sit
+# nearer the frame's edge: within REF_TILED_RATIO times the uniform grid's
+# relative L2 distance to the untiled decode at the same tile and overlap.
+REF_TILED_RATIO = 2.0
 
 # H100 SXM data-sheet peaks (dense), for the bounds
 PEAK_BF16 = 989e12
@@ -1721,8 +1761,9 @@ def check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, vae_cfg, device,
     lowering and against the fp32 VAE (LOWERING_SWITCHES' bounds). Then the
     default 3B path serves the 1080p clip under SEEDVR2_UPSAMPLE_CONVT=0
     and under the default (the transposed conv): request wall and phases,
-    the request's peak memory, and a profiled decode of its latent (device
-    seconds, the decode's peak memory, its top device kernels)."""
+    the request's peak memory, and under SEEDVR2_UPSAMPLE_CONVT=0 a
+    profiled decode of its latent (device seconds, the decode's peak
+    memory, its top device kernels)."""
     import copy
 
     from seedvr2_tpu_torch.profile_requests import make_frames
@@ -1815,22 +1856,26 @@ def check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, vae_cfg, device,
         if out.shape != expect or not np.isfinite(out).all():
             fail(f"{form} {label}: expected finite {expect}, got "
                  f"{out.shape}")
-        ctx = pipeline.encode_all_batches(
-            base, pipeline.setup_generation_context(device), frames,
-            resolution=res)
-        lat = ctx["all_latents"][0]
-        del ctx
-        busy, dec_peak, top = top_device_kernels(
-            torch, lambda: base.vae_decode([lat]))
+        profiled = ""
+        if vae is not default:  # the transposed conv's was profiled in PR 11
+            ctx = pipeline.encode_all_batches(
+                base, pipeline.setup_generation_context(device), frames,
+                resolution=res)
+            lat = ctx["all_latents"][0]
+            del ctx
+            busy, dec_peak, top = top_device_kernels(
+                torch, lambda: base.vae_decode([lat]))
+            del lat
+            profiled = (
+                f"; profiled decode: device {busy:.3f} s, decode peak "
+                f"{dec_peak:.2f} GiB above the memory held before it, top "
+                "kernels " + "; ".join(f"{ms:.1f} ms {name[:90]}"
+                                       for name, ms in top))
         say(f"{form}, {label} (default 3B path): wall {wall:.3f} s, phases "
             + ", ".join(f"{k} {v:.4f} s" for k, v in timings.items())
             + f"; request peak {peak:.2f} GiB ({held:.2f} held before it: "
-            f"the runner's models); profiled decode: device {busy:.3f} s, "
-            f"decode peak {dec_peak:.2f} GiB above the memory held before "
-            f"it, top kernels "
-            + "; ".join(f"{ms:.1f} ms {name[:90]}" for name, ms in top))
+            f"the runner's models)" + profiled)
         outs[form] = out
-        del lat
     a, b = outs.values()
     rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
     say(f"1080p clip, pixel-shuffle output against the transposed conv's: "
@@ -1872,6 +1917,290 @@ def check_7b_kernels(torch, fa, gather, im, fq, qm, nadit, device):
                             main={"K6": "clip 720 qkv",
                                   "K7": "clip 720 mlp in"}, tag="7B "))
     return recs
+
+
+def rgba_frames(np, make_frames, t, h, w, seed, soft):
+    """RGB from make_frames plus an alpha: a hard-edged disc (mostly 0 / 1,
+    the binary path) or a soft diagonal ramp (the gradient path)."""
+    yy, xx = np.mgrid[:h, :w] / max(h, w)
+    if soft:
+        alpha = np.clip(xx + 0.5 * yy - 0.2, 0.0, 1.0)
+    else:
+        alpha = ((yy - 0.28) ** 2 + (xx - 0.5) ** 2 < 0.04).astype(np.float32)
+    alpha = np.broadcast_to(alpha[None, :, :, None], (t, h, w, 1))
+    return np.concatenate([make_frames(t, h, w, seed), alpha],
+                          -1).astype(np.float32)
+
+
+def check_request_surface(torch, np, cli, pipeline, nadit, runner, device,
+                          embeds, txt, tt, clip, wrappers):
+    """Phase 4b on the default 3B runner. (a) RGBA requests (RGBA_REQUEST
+    with RGBA_OPTIONS: uniform batches, both noise scales,
+    wavelet_adaptive), binary and soft alpha, and the same request in RGB:
+    shapes, ranges, K1 / K2 launches equal; each colour method on the 720p
+    clip (the postprocess phase per method). (b) The six colour methods at
+    COLOUR_SHAPES and process_alpha_for_batch on one 720p batch, with TF32
+    at torch's defaults: card time (CUDA events, warm), peak memory above
+    the inputs, held against the same function on the CPU. (c) The 720p
+    clip's latent decoded tiled in ref mode, against the planner and the
+    untiled and uniform decodes; the clip served with tile_debug="decode".
+    (d) One DiT forward under each of the t2v and i2v conditions. Returns
+    the RGBA request's launch counts and finish(), which holds (b)'s card
+    results against the CPU's: those run in a worker thread, beside (c),
+    (d) and the phases after this one."""
+    from dataclasses import replace
+
+    from seedvr2_tpu_torch.core import alpha as talpha
+    from seedvr2_tpu_torch.models.vae import pipeline_vae
+    from seedvr2_tpu_torch.profile_requests import make_frames
+    from seedvr2_tpu_torch.utils import color_fix
+
+    t, h, w, res = RGBA_REQUEST
+    expect = (t, res, res * w // h, 4)
+    post_peak = []  # the postprocess phase's peak above what it found
+    postprocess = pipeline.postprocess_all_batches
+
+    def measured_postprocess(*args, **kwargs):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = postprocess(*args, **kwargs)
+        post_peak.append((torch.cuda.max_memory_allocated(device) - base)
+                         / 2 ** 30)
+        return out
+
+    def request(label, frames, **options):
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        out, timings = cli.process_frames(runner, frames, embeds,
+                                          resolution=res, seed=42, **options)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        finite = bool(np.isfinite(out).all())
+        say(f"request {label}: out {out.shape} finite={finite} rgb range "
+            f"[{out[..., :3].min():.4f}, {out[..., :3].max():.4f}]; wall "
+            f"{wall:.3f} s phases " + ", ".join(
+                f"{k} {v:.4f} s" for k, v in timings.items())
+            + f"; peak device memory {peak:.2f} GiB (postprocess "
+            f"{post_peak[-1]:.2f} GiB above what it found)")
+        if not finite or out.min() < 0.0 or out.max() > 1.0 \
+                or out[..., :3].std() < 1e-3:
+            fail(f"request {label}: not finite, outside [0, 1] or degenerate")
+        return out
+
+    # (a) RGBA requests, and the same request in RGB
+    pipeline.postprocess_all_batches = measured_postprocess
+    try:
+        launches = {}
+        for soft in (False, True):
+            frames = rgba_frames(np, make_frames, t, h, w, 40, soft)
+            label = (f"RGBA {'soft' if soft else 'binary'} alpha "
+                     f"{t}x{h}x{w} -> {res}")
+            reset_counts(wrappers)
+            out = request(label, frames, **RGBA_OPTIONS)
+            launches[label] = {k: wr.launches for k, wr in wrappers.items()}
+            a = out[..., 3]
+            share = float(((a < 0.01) | (a > 0.99)).mean())
+            say(f"  alpha: range [{a.min():.4f}, {a.max():.4f}], "
+                f"{share * 100:.2f} % of pixels within 0.01 of 0 or 1")
+            if out.shape != expect or (share > 0.5) == soft:
+                fail(f"{label}: shape {out.shape} (expected {expect}) or "
+                     f"alpha not on its path ({share} near 0 / 1)")
+        counts = launches[next(iter(launches))]
+        reset_counts(wrappers)
+        request(f"RGB {t}x{h}x{w} -> {res}", frames[..., :3], **RGBA_OPTIONS)
+        rgb_counts = {k: wr.launches for k, wr in wrappers.items()}
+        say(f"launches during the request_surface path: {counts}; the RGB "
+            f"request's {rgb_counts}")
+        if counts["K1"] == 0 or counts["K2"] == 0 or any(
+                c[k] != rgb_counts[k] for c in launches.values()
+                for k in ("K1", "K2")):
+            fail("RGBA requests: K1 / K2 not launched, or not as often as "
+                 "by the same request in RGB")
+        for method in color_fix.METHODS:
+            request(f"clip 5x360x640 -> 720, {method}", clip,
+                    color_correction=method)
+    finally:
+        pipeline.postprocess_all_batches = postprocess
+
+    # (b) the colour methods and alpha, TF32 at torch's defaults, on the
+    # card; the same functions on the CPU run in a worker thread beside
+    # the phases that follow (finish() compares)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    jobs = []  # (label, kind, CPU function, its inputs, the card's output)
+    try:
+        for shape in COLOUR_SHAPES:
+            gen = torch.Generator(device).manual_seed(sum(shape))
+            content = torch.rand(*shape, 3, generator=gen,
+                                 device=device) * 2 - 1
+            style = (torch.rand(*shape, 3, generator=gen, device=device)
+                     * 1.6 - 0.7).clamp(-1, 1)
+            c_cpu, s_cpu = content.cpu(), style.cpu()
+            for method in color_fix.METHODS:
+                def fn(c, s, method=method):
+                    return color_fix.apply_color_correction(method, c, s)
+                ms = cuda_ms(torch, lambda: fn(content, style), 3, warmup=1)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                out = fn(content, style)
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated(device)
+                        - base) / 2 ** 30
+                label = f"colour {method} at {shape}"
+                say(f"{label}: {ms:.3f} ms on the card, peak {peak:.3f} GiB "
+                    "above the inputs")
+                if not torch.isfinite(out).all():
+                    fail(f"{label}: non-finite output")
+                jobs.append((label, method, fn, (c_cpu, s_cpu), out.cpu()))
+                del out
+            del content, style
+        t1, h1, w1 = COLOUR_SHAPES[0]
+        gen = torch.Generator(device).manual_seed(7)
+        rgb_up = torch.rand(t1, h1, w1, 3, generator=gen,
+                            device=device) * 2 - 1
+        for soft in (False, True):
+            alpha = rgba_frames(np, make_frames, t1, h1 // 2, w1 // 2, 41,
+                                soft)[..., 3:]
+            ms = cuda_ms(torch, lambda: talpha.process_alpha_for_batch(
+                rgb_up, alpha), 3, warmup=1)
+            out = talpha.process_alpha_for_batch(rgb_up, alpha)
+            label = (f"alpha ({'gradient' if soft else 'binary'} path) at "
+                     f"{tuple(rgb_up.shape)}")
+            say(f"{label}: {ms:.3f} ms on the card")
+            if not torch.isfinite(out).all():
+                fail(f"{label}: non-finite output")
+            jobs.append((label, "alpha", talpha.process_alpha_for_batch,
+                         (rgb_up.cpu(), alpha), out.cpu()))
+        del rgb_up, out
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+    def cpu_references():
+        rows = []
+        for label, kind, fn, args, got in jobs:
+            t0 = time.perf_counter()
+            diff = (got - fn(*args)).abs()
+            rows.append((label, kind, time.perf_counter() - t0,
+                         diff.max().item(),
+                         (diff > 1e-4).float().mean().item()))
+        return rows
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    pending = pool.submit(cpu_references)
+
+    def finish():
+        """Hold the card's colour and alpha results against the CPU's."""
+        try:
+            rows = pending.result(timeout=900)
+        finally:
+            pool.shutdown()
+        bad = []
+        for label, kind, cpu_s, worst, share in rows:
+            ok = {"adain": worst <= COLOUR_EXACT_ABS,
+                  "wavelet": worst <= COLOUR_EXACT_ABS,
+                  "none": worst == 0.0,
+                  "lab": worst <= LAB_MAX_ABS and share <= BINNED_SHARE,
+                  }.get(kind, share <= BINNED_SHARE)
+            say(f"{label} against the CPU ({cpu_s:.2f} s there): max abs "
+                f"{worst:.3g}, {share * 100:.4f} % beyond 1e-4")
+            if not ok:
+                bad.append(label)
+        if bad:
+            fail(f"{bad}: the card's result is not the CPU's within the "
+                 "stated tolerance")
+        jobs.clear()
+
+    # (c) ref-mode tiles on the 720p clip's latent
+    ctx = pipeline.encode_all_batches(
+        runner, pipeline.setup_generation_context(device), clip,
+        resolution=res)
+    latent = ctx["all_latents"][0]
+    del ctx
+    z = (latent.float() / runner.config.vae.scaling_factor
+         + runner.config.vae.shifting_factor).to(torch.bfloat16)[None]
+    sf = runner.config.vae.spatial_downsample_factor
+    lt, lo = REF_TILE // sf, REF_OVERLAP // sf
+    plan = [(y * sf, x * sf, (ye - y) * sf, (xe - x) * sf)
+            for y, ye, x, xe in pipeline_vae._plan_ref(
+                z.shape[2], z.shape[3], lt, lt, lo, lo)]
+    kw = dict(tiled=True, tile_size=(REF_TILE,) * 2,
+              tile_overlap=(REF_OVERLAP,) * 2)
+    with torch.no_grad():
+        whole = runner.vae.decode(z)
+        uniform = runner.vae.decode(z, tile_mode="uniform", **kw)
+        uni_tiles = list(runner.vae.last_decode_tiles)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = runner.vae.decode(z, tile_mode="ref", **kw)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+    tiles = list(runner.vae.last_decode_tiles)
+    d_ref, d_uni = rel_l2(ref, whole), rel_l2(uniform, whole)
+    say(f"ref-mode decode of latent {tuple(z.shape)} at {REF_TILE} px tiles, "
+        f"{REF_OVERLAP} px overlap: {len(tiles)} tiles (y, x, h, w) "
+        f"{tiles[:3]} .. {tiles[-1]}, shapes "
+        f"{sorted({(t_[2], t_[3]) for t_ in tiles})}, in "
+        f"{ref_s:.3f} s; relative L2 to the untiled decode {d_ref:.6g}, the "
+        f"uniform grid's ({grid_of(uni_tiles)}) {d_uni:.6g} (bound "
+        f"{REF_TILED_RATIO}x)")
+    if tiles != plan or len({(t_[2], t_[3]) for t_ in tiles}) < 2 \
+            or not torch.isfinite(ref).all() \
+            or d_ref > REF_TILED_RATIO * d_uni:
+        fail("ref-mode decode: tiles not the planner's, no edge tile of "
+             "another shape, or farther from the untiled decode than the "
+             "bound")
+    del whole, uniform, ref
+    tiling = runner.tiling
+    runner.tiling = replace(tiling, decode_tiled=True,
+                            decode_tile_size=(REF_TILE,) * 2,
+                            decode_tile_overlap=(REF_OVERLAP,) * 2,
+                            tile_mode="ref")
+    try:
+        pipeline.postprocess_all_batches = measured_postprocess
+        out = request("clip 5x360x640 -> 720, ref tiles, tile_debug=decode",
+                      clip, tile_debug="decode")
+    finally:
+        pipeline.postprocess_all_batches = postprocess
+        runner.tiling = tiling
+    colour = np.array([1.0, 0.2, 0.2], np.float32)
+    on_lines = True
+    for (y, x, th, tw) in runner.vae.last_decode_tiles:
+        y2 = min(y + th, out.shape[1]) - 1
+        x2 = min(x + tw, out.shape[2]) - 1
+        for px in (out[:, y:y2 + 1, x], out[:, y:y2 + 1, x2],
+                   out[:, y, x:x2 + 1], out[:, y2, x:x2 + 1]):
+            on_lines &= bool((px == colour).all())
+    if runner.vae.last_decode_tiles != plan or not on_lines:
+        fail("tile_debug=decode: the overlay is not on the recorded ref "
+             "tiles")
+    say(f"tile_debug=decode: the overlay lies on all {len(plan)} recorded "
+        "tile outlines")
+
+    # (d) the t2v and i2v conditions, one forward each
+    gen = torch.Generator(device).manual_seed(42)
+    noise = torch.randn(latent.shape, generator=gen, device=device).to(
+        torch.bfloat16)
+    dplan = runner.plan(tuple(latent.shape[:3]), txt.shape[1])
+    for task in ("t2v", "i2v"):
+        cond = runner.get_condition(noise, latent, task)
+        with torch.no_grad():
+            pred = nadit.nadit_forward(runner.dit, torch.cat([noise, cond],
+                                                             -1)[None],
+                                       txt, tt, dplan)
+        say(f"{task} condition: DiT forward on latent {tuple(latent.shape)} "
+            f"-> {tuple(pred.shape)}, finite="
+            f"{bool(torch.isfinite(pred).all())}, std "
+            f"{pred.float().std().item():.4f}")
+        if not torch.isfinite(pred).all() or pred.shape[1:] != noise.shape:
+            fail(f"{task} condition: DiT output not finite or misshapen")
+    del latent, z, noise, cond, pred, out
+    torch.cuda.empty_cache()
+    return counts, finish
 
 
 def run_7b(torch, cli, nadit, im, qm, device, txt, tt, dit_inputs, dit_runs,
@@ -2178,6 +2507,13 @@ def main() -> None:
     clip_in = (vid_in, dplan)
     phase_done("4 (whole bf16 DiT)")
 
+    # 4b. the rest of the request surface: RGBA, the colour methods, ref
+    # tiles with the tile_debug overlay, the t2v / i2v conditions
+    counts["request_surface"], finish_surface = check_request_surface(
+        torch, np, cli, pipeline, nadit, runner, device, embeds, txt, tt,
+        clip, wrappers)
+    phase_done("4b (request surface)")
+
     # 5. the throughput path: the same weights in w8a8, tiled VAE
     args = cli.parse_arguments(["unused.npy", "--preset", "throughput"])
     tiling = cli.tiling_from_args(args)
@@ -2297,6 +2633,8 @@ def main() -> None:
     del to_dense, w8  # w8 holds the w8a8 DiT's linears
     torch.cuda.empty_cache()
     phase_done("6 (q8 and q4 DiTs)")
+    finish_surface()  # phase 4b's CPU references, run beside phases 4b-6
+    phase_done("4b's CPU references (the wait left after phase 6)")
 
     # 7. serving: the throughput, q8 and q4 lanes
     def lane(name, r, reqs, needed, phase="7"):

@@ -3,18 +3,24 @@
     python -m seedvr2_tpu_torch.cli in.npy --output out.npy --resolution 720 \\
         --seed 42 [--dit_model dit.{safetensors,pth,gguf} \\
         --vae_model vae.safetensors] [--preset throughput] \\
-        [--quant none|q8|q4|q4k|w8a8] [--vae_quant none|int8]
+        [--quant none|q8|q4|q4k|w8a8] [--vae_quant none|int8] \\
+        [--color_correction lab|wavelet|wavelet_adaptive|hsv|adain|none] \\
+        [--input_noise_scale S] [--latent_noise_scale S] \\
+        [--uniform_batch_size] [--tile_mode uniform|ref] \\
+        [--tile_debug false|encode|decode]
 
-Input and output are float32 .npy arrays of frames (T, H, W, 3) in [0, 1]
-(a single (H, W, 3) image is taken as one frame). With no checkpoint given,
-the models are built with random weights on the device from --seed (the 3B
-DiT). Runs the JAX package's inference_cli.py paths with the 3B or the 7B
-DiT (the family comes from the checkpoint): the default (bf16 DiT, VAE_V3
-untiled), `--preset throughput` (w8a8 DiT, uniform tiled VAE) and the
-quantised-checkpoint lanes `--quant q8 / q4 / q4k` (core/loader.py), and
-the VAE's opt-in lanes: `--vae_quant int8` (int8 decoder resnet convs) and
-SEEDVR2_FUSED_NORM=1 in the environment (fused norm + SiLU + causal head),
-alone or with the flags above; one step at cfg 1.0, lab colour correction.
+Input and output are float32 .npy arrays of frames (T, H, W, 3) in [0, 1],
+or (T, H, W, 4) RGBA, whose alpha is upscaled edge-guided and comes out as
+the fourth channel (a single (H, W, C) image is taken as one frame). With
+no checkpoint given, the models are built with random weights on the
+device from --seed (the 3B DiT). Runs the JAX package's inference_cli.py
+paths with the 3B or the 7B DiT (the family comes from the checkpoint):
+the default (bf16 DiT, VAE_V3 untiled), `--preset throughput` (w8a8 DiT,
+uniform tiled VAE) and the quantised-checkpoint lanes `--quant q8 / q4 /
+q4k` (core/loader.py), and the VAE's opt-in lanes: `--vae_quant int8`
+(int8 decoder resnet convs) and SEEDVR2_FUSED_NORM=1 in the environment
+(fused norm + SiLU + causal head), alone or with the flags above; one step
+at cfg 1.0, lab colour correction by default.
 The VAE's lowering switches SEEDVR2_UPSAMPLE_CONVT, SEEDVR2_HEAD_CORRECTION
 and SEEDVR2_CONV_IM2COL are read from the environment as in the JAX
 package, once, when the VAE is built.
@@ -35,7 +41,8 @@ from .core.loader import (QUANT_MODES, load_dit_checkpoint,
                           load_vae_checkpoint, quantize_dit)
 from .core.runner import VAETiling, VideoDiffusionRunner
 from .models.dit.nadit import init_dit
-from .models.vae.pipeline_vae import VideoVAE, init_vae_params
+from .models.vae.pipeline_vae import TILE_MODES, VideoVAE, init_vae_params
+from .utils import color_fix
 from .utils.text_embeds import load_text_embeddings
 
 
@@ -85,20 +92,27 @@ def process_frames(runner: VideoDiffusionRunner, frames: np.ndarray,
                    text_embeds, resolution: int = 1080, seed: int = 42,
                    batch_size: int = 5, temporal_overlap: int = 0,
                    max_resolution: int = 0, color_correction: str = "lab",
-                   prepend_frames: int = 0, noise_override=None):
-    """Run the 4 phases over one in-memory frame block (T, H, W, 3) in
-    [0, 1], with the runner's VAE tiling. Returns (frames out (T, H', W', 3)
-    in [0, 1], per-phase wall seconds)."""
+                   prepend_frames: int = 0, noise_override=None,
+                   uniform_batch_size: bool = False,
+                   input_noise_scale: float = 0.0,
+                   latent_noise_scale: float = 0.0,
+                   tile_debug: str = "false"):
+    """Run the 4 phases over one in-memory frame block (T, H, W, 3 or 4) in
+    [0, 1], with the runner's VAE tiling. Returns (frames out (T, H', W',
+    3 or 4) in [0, 1], per-phase wall seconds)."""
     if prepend_frames > 0:
         frames = pipeline.pad_video_temporal(frames, count=prepend_frames,
                                              prepend=True)
-    ctx = pipeline.setup_generation_context(runner.device)
+    ctx = pipeline.setup_generation_context(runner.device,
+                                            tile_debug=tile_debug)
     ctx["text_embeds"] = text_embeds
     ctx = pipeline.encode_all_batches(
         runner, ctx, frames, batch_size=batch_size,
+        uniform_batch_size=uniform_batch_size, seed=seed,
         temporal_overlap=temporal_overlap, resolution=resolution,
-        max_resolution=max_resolution)
+        max_resolution=max_resolution, input_noise_scale=input_noise_scale)
     ctx = pipeline.upscale_all_batches(runner, ctx, seed=seed,
+                                       latent_noise_scale=latent_noise_scale,
                                        noise_override=noise_override)
     ctx = pipeline.decode_all_batches(runner, ctx)
     ctx = pipeline.postprocess_all_batches(
@@ -108,7 +122,8 @@ def process_frames(runner: VideoDiffusionRunner, frames: np.ndarray,
 
 def parse_arguments(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("input", help=".npy frames (T, H, W, 3) in [0, 1]")
+    p.add_argument("input", help=".npy frames (T, H, W, 3) in [0, 1], or "
+                                 "(T, H, W, 4) RGBA")
     p.add_argument("--output", default=None,
                    help="output .npy (default: <input>_upscaled.npy)")
     p.add_argument("--dit_model", default=None,
@@ -122,11 +137,19 @@ def parse_arguments(argv=None):
     p.add_argument("--resolution", type=int, default=1080)
     p.add_argument("--max_resolution", type=int, default=0)
     p.add_argument("--batch_size", type=int, default=5)
+    p.add_argument("--uniform_batch_size", action="store_true",
+                   help="pad a short trailing batch to --batch_size frames")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--temporal_overlap", type=int, default=0)
     p.add_argument("--prepend_frames", type=int, default=0)
     p.add_argument("--color_correction", default="lab",
-                   choices=("lab", "none"))
+                   choices=color_fix.METHODS)
+    p.add_argument("--input_noise_scale", type=float, default=0.0,
+                   help="blend N(0, 0.05) noise into the input with weight "
+                        "scale / 2 before encoding")
+    p.add_argument("--latent_noise_scale", type=float, default=0.0,
+                   help="move the condition latent to the shifted timestep "
+                        "1000 * scale before the DiT")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda requires a visible GPU")
     p.add_argument("--preset", default=None, choices=("throughput",),
@@ -155,8 +178,13 @@ def parse_arguments(argv=None):
     p.add_argument("--vae_decode_tiled", action="store_true")
     p.add_argument("--vae_decode_tile_size", type=int, default=1024)
     p.add_argument("--vae_decode_tile_overlap", type=int, default=128)
-    p.add_argument("--tile_mode", default="uniform", choices=("uniform",),
-                   help="uniform = even same-shape tile grid")
+    p.add_argument("--tile_debug", default="false",
+                   choices=pipeline.TILE_DEBUG,
+                   help="draw the last tiled encode's or decode's tile "
+                        "outlines over the output")
+    p.add_argument("--tile_mode", default="uniform", choices=TILE_MODES,
+                   help="uniform = even same-shape tile grid; ref = the "
+                        "reference's stride-sweep layout")
     args = p.parse_args(argv)
     if args.preset == "throughput":
         for name, val in THROUGHPUT_PRESET.items():
@@ -194,7 +222,11 @@ def main(argv=None) -> str:
         batch_size=args.batch_size, temporal_overlap=args.temporal_overlap,
         max_resolution=args.max_resolution,
         color_correction=args.color_correction,
-        prepend_frames=args.prepend_frames)
+        prepend_frames=args.prepend_frames,
+        uniform_batch_size=args.uniform_batch_size,
+        input_noise_scale=args.input_noise_scale,
+        latent_noise_scale=args.latent_noise_scale,
+        tile_debug=args.tile_debug)
     out_path = args.output or os.path.splitext(args.input)[0] + "_upscaled.npy"
     np.save(out_path, out)
     print(f"wrote {out_path} {out.shape}; phase seconds: "

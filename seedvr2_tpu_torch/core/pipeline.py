@@ -1,11 +1,17 @@
 """4-phase generation pipeline: encode-all -> upscale-all -> decode-all ->
 postprocess-all.
 
-Port of seedvr2_tpu.core.pipeline, RGB only, without a device mesh: frames
-live in host numpy, each padded batch is moved to the device for its phase,
-latents stay on the device between phases, and the output is assembled in
-one preallocated host buffer with Hann-window temporal overlap blending.
-Batch index math matches the JAX package (and the reference) exactly.
+Port of seedvr2_tpu.core.pipeline without a device mesh: frames (RGB or
+RGBA) live in host numpy, each padded batch is moved to the device for its
+phase, latents stay on the device between phases, and the output is
+assembled in one preallocated host buffer with Hann-window temporal overlap
+blending. Batch index math matches the JAX package (and the reference)
+exactly: step = batch_size - temporal_overlap, optional uniform padding of
+the trailing batch, 4n+1 padding with reversed frames, per-batch
+`ori_length` trimming, prepend-frame removal at the end. The phases take
+the JAX phases' options: input and latent noise (seeded as utils/seed.py
+says), uniform batches, progress and interrupt callbacks, alpha, every
+colour method and the tile_debug overlay.
 
 Every phase records its wall time, ended by a device synchronise, in
 ctx["timings"], and runs inside a profiler range `seedvr2.<phase>` that
@@ -15,12 +21,14 @@ phases by it).
 
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..utils import color_fix, transforms
+from ..utils.seed import input_noise_generator, noise_generator
+from .alpha import process_alpha_for_batch
 from .runner import VideoDiffusionRunner
 
 # ------------------------------------------------------------ temporal ops
@@ -84,13 +92,39 @@ def batch_indices(total_frames: int, batch_size: int, temporal_overlap: int):
     return out, temporal_overlap
 
 
+def calculate_optimal_batch_params(total_frames, batch_size, temporal_overlap):
+    step = batch_size - temporal_overlap
+    if step <= 0:
+        step, temporal_overlap = batch_size, 0
+    valid = [i for i in range(1, total_frames + 1) if i % 4 == 1]
+    return {"step": step, "temporal_overlap": temporal_overlap,
+            "best_batch": max(valid) if valid else 1}
+
+
 # ------------------------------------------------------------------ phases
 
+# tile_debug: the phase whose tiles the overlay draws, and its colour
+_TILE_DEBUG_COLOR = {"encode": (0.2, 1.0, 0.2), "decode": (1.0, 0.2, 0.2)}
+TILE_DEBUG = ("false", *_TILE_DEBUG_COLOR)
 
-def setup_generation_context(device) -> Dict[str, Any]:
-    return {"device": torch.device(device), "text_embeds": None,
+
+def setup_generation_context(device, interrupt_fn: Optional[Callable] = None,
+                             tile_debug: str = "false") -> Dict[str, Any]:
+    """A request's context. interrupt_fn is called at the start of every
+    batch of every phase and aborts the request by raising; tile_debug
+    ("encode" or "decode") draws that phase's last tiles over the output."""
+    if tile_debug not in TILE_DEBUG:
+        raise ValueError(f"tile_debug must be one of {TILE_DEBUG}, got "
+                         f"{tile_debug!r}")
+    return {"device": torch.device(device), "interrupt_fn": interrupt_fn,
+            "tile_debug": tile_debug, "text_embeds": None,
             "all_latents": [], "all_upscaled_latents": [],
             "final_video": None, "timings": {}}
+
+
+def _check_interrupt(ctx: Dict[str, Any]) -> None:
+    if ctx["interrupt_fn"] is not None:
+        ctx["interrupt_fn"]()
 
 
 @contextmanager
@@ -113,127 +147,231 @@ def _transform_batch(ctx: Dict[str, Any], rgb: np.ndarray) -> torch.Tensor:
                                     ctx["max_resolution"])
 
 
-def _prepare_batch(images: np.ndarray, start: int, end: int) -> np.ndarray:
-    return pad_video_temporal(images[start:end])  # 4n+1
+def _prepare_batch(images: np.ndarray, start: int, end: int,
+                   uniform_padding: int) -> np.ndarray:
+    video = images[start:end]
+    if uniform_padding > 0:
+        video = pad_video_temporal(video, count=uniform_padding)
+    return pad_video_temporal(video)  # 4n+1
 
 
 @torch.no_grad()
 def encode_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
                        images: np.ndarray, batch_size: int = 5,
+                       uniform_batch_size: bool = False, seed: int = 42,
+                       progress_callback: Optional[Callable] = None,
                        temporal_overlap: int = 0, resolution: int = 1080,
-                       max_resolution: int = 0) -> Dict[str, Any]:
-    """Phase 1: VAE-encode all batches. images: (T, H, W, 3) in [0, 1]."""
-    if images.ndim != 4 or images.shape[-1] != 3:
-        raise ValueError("the port's pipeline takes RGB frames (T, H, W, 3); "
-                         f"got {images.shape}")
+                       max_resolution: int = 0,
+                       input_noise_scale: float = 0.0,
+                       input_noise_override: Optional[list] = None
+                       ) -> Dict[str, Any]:
+    """Phase 1: VAE-encode all batches. images: (T, H, W, 3 or 4) in
+    [0, 1]; with 4 channels each padded batch's alpha is kept on the host
+    for phase 4 and only the RGB is encoded.
+
+    uniform_batch_size pads a short trailing batch to batch_size frames.
+    input_noise_scale > 0 blends N(0, 1) * 0.05 noise into the transformed
+    batch with weight scale / 2, drawn from input_noise_generator(seed, bi);
+    input_noise_override replaces those per-batch N(0, 1) draws."""
+    if images.ndim != 4 or images.shape[-1] not in (3, 4):
+        raise ValueError("the pipeline takes RGB or RGBA frames (T, H, W, 3 "
+                         f"or 4); got {images.shape}")
     with _phase(ctx, "encode"):
+        dev = ctx["device"]
         total = len(images)
         ctx.update(input_images=images, total_frames=total,
-                   resolution=resolution, max_resolution=max_resolution)
+                   resolution=resolution, max_resolution=max_resolution,
+                   is_rgba=images.shape[-1] == 4)
         ctx["true_target_dims"] = transforms.compute_target_dims(
             images.shape[1], images.shape[2], resolution, max_resolution)
         batches, actual_overlap = batch_indices(total, batch_size,
                                                 temporal_overlap)
         ctx["actual_temporal_overlap"] = actual_overlap
-        ctx["batches"] = batches
-        ctx["all_latents"] = []
-        for start, end in batches:
-            x = _transform_batch(ctx, _prepare_batch(images, start, end))
+        ctx.update(all_latents=[], all_ori_lengths=[], batch_metadata=[],
+                   all_alpha_channels=[])
+        for bi, (start, end) in enumerate(batches):
+            _check_interrupt(ctx)
+            ori_length = end - start
+            uniform_pad = (batch_size - ori_length
+                           if uniform_batch_size and ori_length < batch_size
+                           else 0)
+            video = _prepare_batch(images, start, end, uniform_pad)
+            ctx["all_ori_lengths"].append(ori_length)
+            ctx["batch_metadata"].append((start, end, uniform_pad))
+            if ctx["is_rgba"]:
+                ctx["all_alpha_channels"].append(video[..., 3:4].copy())
+                video = video[..., :3]
+            x = _transform_batch(ctx, video)
+            if input_noise_scale > 0:
+                if input_noise_override is not None:
+                    noise = torch.as_tensor(input_noise_override[bi],
+                                            dtype=torch.float32, device=dev)
+                else:
+                    noise = torch.randn(
+                        x.shape, generator=input_noise_generator(seed, bi,
+                                                                 dev),
+                        dtype=torch.float32, device=dev)
+                blend = input_noise_scale * 0.5
+                x = x * (1 - blend) + (x + noise * 0.05) * blend
             ctx["all_latents"].append(
                 runner.vae_encode([x.to(runner.compute_dtype)])[0])
+            ctx["encode_tile_boundaries"] = list(runner.vae.last_encode_tiles)
+            if progress_callback:
+                progress_callback(bi + 1, len(batches), ori_length,
+                                  "Phase 1: Encoding")
     return ctx
 
 
 @torch.no_grad()
 def upscale_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
-                        seed: int = 42, noise_override: Optional[list] = None
+                        progress_callback: Optional[Callable] = None,
+                        seed: int = 42, latent_noise_scale: float = 0.0,
+                        noise_override: Optional[list] = None,
+                        aug_noise_override: Optional[list] = None
                         ) -> Dict[str, Any]:
     """Phase 2: one-step DiT upscaling (cfg 1.0, one step), conditioned on
     ctx["text_embeds"] ({"pos", "neg"} arrays).
 
-    The base noise of every batch comes from a torch.Generator seeded with
-    `seed` (same seed -> same noise per batch, as in the reference);
-    noise_override replaces it with given per-batch arrays, so a test can
-    feed the JAX pipeline and the port the same noise."""
+    Every batch's base noise is the first draw of noise_generator(seed), so
+    every batch sees the same noise. latent_noise_scale > 0 moves the
+    condition's latent along the schedule to the shifted timestep of
+    1000 * scale, towards base * 0.1 + N(0, 1) * 0.05, N the generator's
+    second draw. noise_override / aug_noise_override replace the base and
+    the second draw with given per-batch arrays, so a test can feed the JAX
+    pipeline and the port the same noise."""
     with _phase(ctx, "dit"):
         dev, dt = ctx["device"], runner.compute_dtype
+        n = len(ctx["all_latents"])
         results = []
         for bi, latent in enumerate(ctx["all_latents"]):
+            _check_interrupt(ctx)
+            gen = noise_generator(seed, dev)
+            # drawn even when overridden: the augmentation is the second draw
+            base = torch.randn(latent.shape, generator=gen,
+                               dtype=torch.float32, device=dev)
             if noise_override is not None:
-                noise = torch.as_tensor(noise_override[bi],
+                base = torch.as_tensor(noise_override[bi],
+                                       dtype=torch.float32, device=dev)
+            blurred = latent
+            if latent_noise_scale > 0:
+                if aug_noise_override is not None:
+                    extra = torch.as_tensor(aug_noise_override[bi],
+                                            dtype=torch.float32, device=dev)
+                else:
+                    extra = torch.randn(latent.shape, generator=gen,
                                         dtype=torch.float32, device=dev)
-            else:
-                gen = torch.Generator(dev).manual_seed(seed)
-                noise = torch.randn(latent.shape, generator=gen,
-                                    dtype=torch.float32, device=dev)
-            noise = noise.to(dt)
-            cond = runner.get_condition(noise, latent.to(dt))
+                aug = base * 0.1 + extra * 0.05
+                t = runner.timestep_transform(
+                    torch.tensor([1000.0 * latent_noise_scale]),
+                    torch.tensor([latent.shape[:3]]))
+                blurred = runner.schedule.forward(latent.float(), aug, t[0])
+            noise = base.to(dt)
+            cond = runner.get_condition(noise, blurred.to(dt))
             results.append(runner.inference(
                 noises=[noise], conditions=[cond],
                 texts_pos=[ctx["text_embeds"]["pos"]],
                 texts_neg=[ctx["text_embeds"]["neg"]],
                 cfg_scale=1.0, steps=1)[0])
             ctx["all_latents"][bi] = None
+            if progress_callback:
+                progress_callback(bi + 1, n, 1, "Phase 2: Upscaling")
         ctx["all_upscaled_latents"] = results
         ctx["all_latents"] = []
     return ctx
 
 
 @torch.no_grad()
-def decode_all_batches(runner: VideoDiffusionRunner,
-                       ctx: Dict[str, Any]) -> Dict[str, Any]:
-    """Phase 3: VAE decode into a preallocated host buffer with overlap
-    blending."""
+def decode_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
+                       progress_callback: Optional[Callable] = None
+                       ) -> Dict[str, Any]:
+    """Phase 3: VAE decode into a preallocated host buffer (4 channels for
+    RGBA, the alpha filled in phase 4) with overlap blending."""
     with _phase(ctx, "decode"):
         true_h, true_w = ctx["true_target_dims"]
-        final = np.zeros((ctx["total_frames"], true_h, true_w, 3),
+        channels = 4 if ctx["is_rgba"] else 3
+        final = np.zeros((ctx["total_frames"], true_h, true_w, channels),
                          dtype=np.float32)
         overlap = ctx.get("actual_temporal_overlap", 0)
         write_idx = 0
         ctx["decode_batch_info"] = []
+        n = len(ctx["all_upscaled_latents"])
         for bi, latent in enumerate(ctx["all_upscaled_latents"]):
-            lo, hi = ctx["batches"][bi]
-            sample = runner.vae_decode([latent])[0][:hi - lo, :true_h, :true_w]
+            _check_interrupt(ctx)
+            ori = ctx["all_ori_lengths"][bi]
+            sample = runner.vae_decode([latent])[0][:ori, :true_h, :true_w]
             sample = sample.float().cpu().numpy()
             if bi > 0 and 0 < overlap < sample.shape[0] \
                     and write_idx >= overlap:
-                prev_tail = final[write_idx - overlap: write_idx]
-                final[write_idx - overlap: write_idx] = \
+                prev_tail = final[write_idx - overlap: write_idx, :, :, :3]
+                final[write_idx - overlap: write_idx, :, :, :3] = \
                     blend_overlapping_frames(prev_tail, sample[:overlap],
                                              overlap)
                 sample = sample[overlap:]
             end = write_idx + sample.shape[0]
-            final[write_idx:end] = sample
-            ctx["decode_batch_info"].append((write_idx, end, bi))
+            final[write_idx:end, :, :, :3] = sample
+            ctx["decode_batch_info"].append((write_idx, end, bi, ori))
             write_idx = end
             ctx["all_upscaled_latents"][bi] = None
+            if progress_callback:
+                progress_callback(bi + 1, n, 1, "Phase 3: Decoding")
         ctx["final_video"] = final[:write_idx]
         ctx["all_upscaled_latents"] = []
+        ctx["decode_tile_boundaries"] = list(runner.vae.last_decode_tiles)
     return ctx
 
 
+def draw_tile_boundaries(final: np.ndarray, tiles, color) -> None:
+    """Draw each (y, x, h, w) rectangle's outline, cut at the frame, into
+    the RGB channels of (T, H, W, C) frames in place."""
+    for (y, x, h, w) in tiles:
+        y2 = min(y + h, final.shape[1]) - 1
+        x2 = min(x + w, final.shape[2]) - 1
+        final[:, y:y2 + 1, [x, x2], :3] = color
+        final[:, [y, y2], x:x2 + 1, :3] = color
+
+
 @torch.no_grad()
-def postprocess_all_batches(ctx: Dict[str, Any], color_correction: str = "lab",
+def postprocess_all_batches(ctx: Dict[str, Any],
+                            progress_callback: Optional[Callable] = None,
+                            color_correction: str = "wavelet",
                             prepend_frames: int = 0) -> Dict[str, Any]:
-    """Phase 4: colour correction against the re-transformed input,
-    [-1, 1] -> [0, 1]."""
+    """Phase 4, per batch with one upload of its decoded RGB: the alpha of
+    an RGBA request (edge-guided upscale of the batch's alpha, guided by the
+    decoded RGB in [-1, 1], before the colour fix), colour correction
+    against the re-transformed input RGB, [-1, 1] -> [0, 1]; then the
+    tile_debug overlay and the prepend-frame trim."""
     with _phase(ctx, "postprocess"):
+        dev = ctx["device"]
         final = ctx["final_video"]
         true_h, true_w = ctx["true_target_dims"]
         overlap = ctx.get("actual_temporal_overlap", 0)
-        for ws, we, bi in ctx["decode_batch_info"]:
-            sample = final[ws:we]
+        info = ctx["decode_batch_info"]
+        for step, (ws, we, bi, _) in enumerate(info):
+            _check_interrupt(ctx)
+            sample = torch.as_tensor(final[ws:we, :, :, :3], device=dev)
+            if ctx["is_rgba"]:
+                alpha = process_alpha_for_batch(
+                    sample, ctx["all_alpha_channels"][bi])
+                final[ws:we, :, :, 3:4] = alpha[:we - ws].cpu().numpy()
             if color_correction != "none":
-                ref = _transform_batch(ctx, _prepare_batch(
-                    ctx["input_images"], *ctx["batches"][bi]))
+                ref = _prepare_batch(ctx["input_images"],
+                                     *ctx["batch_metadata"][bi])
+                ref = _transform_batch(ctx, ref[..., :3])
                 if bi > 0 and overlap > 0:
                     ref = ref[overlap:]
                 ref = ref[: sample.shape[0], :true_h, :true_w]
-                sample = color_fix.apply_color_correction(
-                    color_correction, torch.as_tensor(sample,
-                                                      device=ctx["device"]),
-                    ref).cpu().numpy()
-            final[ws:we] = np.clip(sample, -1.0, 1.0) * 0.5 + 0.5
+                sample = color_fix.apply_color_correction(color_correction,
+                                                          sample, ref)
+            final[ws:we, :, :, :3] = (torch.clamp(sample, -1.0, 1.0) * 0.5
+                                      + 0.5).cpu().numpy()
+            if progress_callback:
+                progress_callback(step + 1, len(info), 1,
+                                  "Phase 4: Post-processing")
+        tile_debug = ctx["tile_debug"]
+        if tile_debug != "false":
+            draw_tile_boundaries(
+                final, ctx.get(f"{tile_debug}_tile_boundaries") or [],
+                np.array(_TILE_DEBUG_COLOR[tile_debug], np.float32))
         if 0 < prepend_frames < final.shape[0]:
             final = final[prepend_frames:]
         ctx["final_video"] = final

@@ -1,8 +1,9 @@
 """VideoDiffusionRunner: the inference engine around the DiT and the VAE.
 
 Port of seedvr2_tpu.core.runner without mesh or block streaming: VAE
-encode/decode with the latent scale/shift, uniform spatial tiling and the
-out-of-memory retry, the SR condition, the timestep transform, and the
+encode/decode with the latent scale/shift, spatial tiling (uniform grid or
+the reference's stride sweep) and the out-of-memory retry, the sr / t2v /
+i2v conditions, the timestep transform, and the
 plain denoise (condition concat -> NaDiT -> optional CFG -> Euler
 endpoint). DiT plans are built once per (latent shape, text length) and
 their tables uploaded once.
@@ -16,7 +17,7 @@ import torch
 
 from ..models.dit.nadit import (DevicePlan, NaDiT, build_dit_plan,
                                 nadit_forward, upload_plan)
-from ..models.vae.pipeline_vae import VideoVAE
+from ..models.vae.pipeline_vae import TILE_MODES, VideoVAE
 from ..utils.dtypes import COMPUTE_DTYPE
 from . import diffusion
 from .configs import RunnerConfig
@@ -28,8 +29,9 @@ log = logging.getLogger(__name__)
 @dataclass(frozen=True)
 class VAETiling:
     """The VAE's spatial tiling settings (pixel sizes, (h, w) pairs), the
-    JAX runner's encode_/decode_ tile arguments. Memory-probed "auto" tile
-    sizes and tile_mode="ref" are not ported."""
+    JAX runner's encode_/decode_ tile arguments. tile_mode "uniform" is the
+    even same-shape grid, "ref" the reference's stride sweep. Memory-probed
+    "auto" tile sizes are not ported."""
 
     encode_tiled: bool = False
     encode_tile_size: Tuple[int, int] = (512, 512)
@@ -48,9 +50,9 @@ class VAETiling:
                     raise ValueError(f"{kind}_{what} must be an (h, w) pair "
                                      f"of ints (\"auto\" is not ported), "
                                      f"got {v!r}")
-        if self.tile_mode != "uniform":
-            raise NotImplementedError(f"tile_mode={self.tile_mode!r} is not "
-                                      "ported (uniform only)")
+        if self.tile_mode not in TILE_MODES:
+            raise ValueError(f"tile_mode must be one of {TILE_MODES}, got "
+                             f"{self.tile_mode!r}")
 
 
 class VideoDiffusionRunner:
@@ -136,12 +138,21 @@ class VideoDiffusionRunner:
     @staticmethod
     def get_condition(noise: torch.Tensor, latent_blur: torch.Tensor,
                       task: str = "sr") -> torch.Tensor:
-        """SR condition: [latent_blur | ones] channel concat."""
+        """The DiT's condition channels for (Tl, h, w, C) latents. sr:
+        [latent_blur | 1]; t2v: zeros; i2v: zeros but for the first latent
+        frame, [noise | 1]."""
         mask = torch.ones((*noise.shape[:-1], 1), dtype=noise.dtype,
                           device=noise.device)
         if task == "sr":
             return torch.cat([latent_blur, mask], dim=-1)
-        raise NotImplementedError(f"task {task!r} is not ported (sr only)")
+        if task not in ("t2v", "i2v"):
+            raise ValueError(f"task must be sr, t2v or i2v, got {task!r}")
+        cond = torch.zeros((*latent_blur.shape[:-1], latent_blur.shape[-1]
+                            + 1), dtype=latent_blur.dtype,
+                           device=latent_blur.device)
+        if task == "i2v":
+            cond[:1] = torch.cat([noise[:1], mask[:1]], dim=-1)
+        return cond
 
     def timestep_transform(self, timesteps, latent_shapes):
         if not self.config.diffusion.timestep_transform:

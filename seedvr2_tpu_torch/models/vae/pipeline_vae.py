@@ -1,5 +1,5 @@
-"""VideoVAE: temporal slicing and uniform spatial tiling over the
-encoder/decoder cores.
+"""VideoVAE: temporal slicing and spatial tiling over the encoder/decoder
+cores.
 
 Port of seedvr2_tpu.models.vae.pipeline_vae:
  - temporal slicing: frame 0 plus 4-frame groups (latent: 2 then 1), with
@@ -9,10 +9,11 @@ Port of seedvr2_tpu.models.vae.pipeline_vae:
    equal by test) blended with separable cosine-ramp fades; each tile is
    encoded/decoded alone and accumulated into ONE fp32 output buffer, so
    peak memory is one tile's workspace plus the output;
+ - `tile_mode="ref"`: the reference's stride sweep (`_plan_ref`, sliver
+   edge tiles of other shapes included), blended the same way;
  - latent = posterior mode = the first `latent_channels` channels of the
    encoder moments.
-The reference stride-sweep layout (`tile_mode="ref"`) and memory-probed
-tile sizes ("auto") are not ported yet.
+Memory-probed tile sizes ("auto") are not ported yet.
 
 The VAE's opt-in lowerings are fixed at construction, as the JAX VideoVAE
 snapshots its lowering switches: with `cfg.conv_quant == "int8"` the
@@ -123,6 +124,28 @@ def _plan_grid(h: int, w: int, cap_area: int, ov_h: int, ov_w: int,
     return _even_starts(h, th, nr), th, _even_starts(w, tw, nc), tw
 
 
+TILE_MODES = ("uniform", "ref")
+
+
+def _check_mode(tile_mode: str) -> None:
+    if tile_mode not in TILE_MODES:
+        raise ValueError(f"tile_mode must be one of {TILE_MODES}, got "
+                         f"{tile_mode!r}")
+
+
+def _plan_ref(h: int, w: int, lt_h: int, lt_w: int, lo_h: int, lo_w: int):
+    """The reference's stride sweep over an h x w latent: tiles of at most
+    lt_h x lt_w every (lt - lo), cut at the edge, an edge tile kept only if
+    it reaches more than the overlap past its start. Returns
+    [(y, y_end, x, x_end)]."""
+    stride_h, stride_w = max(1, lt_h - lo_h), max(1, lt_w - lo_w)
+    rows = [(y, min(y + lt_h, h)) for y in range(0, h, stride_h)
+            if y == 0 or min(y + lt_h, h) - y > lo_h]
+    cols = [(x, min(x + lt_w, w)) for x in range(0, w, stride_w)
+            if x == 0 or min(x + lt_w, w) - x > lo_w]
+    return [(y, y_end, x, x_end) for y, y_end in rows for x, x_end in cols]
+
+
 def _encode_slices(vae: VideoAutoencoder, x: torch.Tensor,
                    lowering: Lowering = Lowering()) -> torch.Tensor:
     """Temporally sliced encode; returns the (un-truncated) moments. Tails
@@ -163,12 +186,6 @@ def _decode_slices(vae: VideoAutoencoder, z: torch.Tensor,
         outs.append(out)
         pos += split
     return torch.cat(outs, dim=1)
-
-
-def _check_mode(tile_mode: str) -> None:
-    if tile_mode != "uniform":
-        raise NotImplementedError(f"tile_mode={tile_mode!r} is not ported "
-                                  "(uniform only)")
 
 
 def int8_served_convs(model: VideoAutoencoder):
@@ -223,10 +240,11 @@ class VideoVAE:
         """x: (B, T, H, W, 3) in [-1, 1], T % 4 == 1 -> latent mode
         (B, (T-1)/4+1, H/8, W/8, latent_channels).
 
-        tiled: encode an even grid of same-shape tiles of at most
-        tile_size px area (`_plan_grid`, or exactly tile_grid=(rows, cols))
-        overlapping by at least tile_overlap px, blended with cosine fades.
-        A frame no larger than one tile is encoded untiled."""
+        tiled: with tile_mode "uniform" encode an even grid of same-shape
+        tiles of at most tile_size px area (`_plan_grid`, or exactly
+        tile_grid=(rows, cols)) overlapping by at least tile_overlap px;
+        with "ref" the reference's stride sweep (`_plan_ref`); blended with
+        cosine fades. A frame no larger than one tile is encoded untiled."""
         x = x.to(self.dtype)
         B, T, H, W, _ = x.shape
         lat = self.cfg.latent_channels
@@ -242,11 +260,15 @@ class VideoVAE:
         W_lat = (W + sf - 1) // sf
         Tl = (T - 1) // self.cfg.temporal_downsample_factor + 1
 
-        ys, th, xs, tw = _plan_grid(H_lat, W_lat, lt_h * lt_w, lo_h, lo_w,
-                                    force_grid=tile_grid)
-        fade_h = min(lo_h, _min_overlap(ys, th)) or lo_h
-        fade_w = min(lo_w, _min_overlap(xs, tw)) or lo_w
-        rects = [(y, y + th, xx, xx + tw) for y in ys for xx in xs]
+        if tile_mode == "ref":
+            rects = _plan_ref(H_lat, W_lat, lt_h, lt_w, lo_h, lo_w)
+            fade_h, fade_w = lo_h, lo_w
+        else:
+            ys, th, xs, tw = _plan_grid(H_lat, W_lat, lt_h * lt_w, lo_h,
+                                        lo_w, force_grid=tile_grid)
+            fade_h = min(lo_h, _min_overlap(ys, th)) or lo_h
+            fade_w = min(lo_w, _min_overlap(xs, tw)) or lo_w
+            rects = [(y, y + th, xx, xx + tw) for y in ys for xx in xs]
         self.last_encode_tiles = [
             (y * sf, xx * sf, (y_end - y) * sf, (x_end - xx) * sf)
             for (y, y_end, xx, x_end) in rects]
@@ -279,9 +301,10 @@ class VideoVAE:
                tile_grid: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """z: (B, Tl, h, w, latent) -> (B, (Tl-1)*4+1, 8h, 8w, 3).
 
-        tiled: decode an even grid of same-shape latent tiles (the area cap
-        is tile_size px, planned by the fitted decode-time model, or exactly
-        tile_grid), fades in output space with the pixel overlap. The tiles
+        tiled: with tile_mode "uniform" decode an even grid of same-shape
+        latent tiles (the area cap is tile_size px, planned by the fitted
+        decode-time model, or exactly tile_grid), with "ref" the reference's
+        stride sweep; fades in output space with the pixel overlap. The tiles
         are decoded one after another into one fp32 output buffer with
         host-built masks and 1 / count, as the JAX package's tiled-decode
         scan does."""
@@ -298,13 +321,17 @@ class VideoVAE:
         T = (Tl - 1) * self.cfg.temporal_downsample_factor + 1
         H, W = h * sf, w * sf
 
-        ys, th, xs, tw = _plan_grid(h, w, lt_h * lt_w, lo_h, lo_w,
-                                    force_grid=tile_grid, cost="aspect")
-        fade_h = min(tile_overlap[0], _min_overlap(ys, th) * sf) \
-            or tile_overlap[0]
-        fade_w = min(tile_overlap[1], _min_overlap(xs, tw) * sf) \
-            or tile_overlap[1]
-        rects = [(y, y + th, xx, xx + tw) for y in ys for xx in xs]
+        if tile_mode == "ref":
+            rects = _plan_ref(h, w, lt_h, lt_w, lo_h, lo_w)
+            fade_h, fade_w = tile_overlap
+        else:
+            ys, th, xs, tw = _plan_grid(h, w, lt_h * lt_w, lo_h, lo_w,
+                                        force_grid=tile_grid, cost="aspect")
+            fade_h = min(tile_overlap[0], _min_overlap(ys, th) * sf) \
+                or tile_overlap[0]
+            fade_w = min(tile_overlap[1], _min_overlap(xs, tw) * sf) \
+                or tile_overlap[1]
+            rects = [(y, y + th, xx, xx + tw) for y in ys for xx in xs]
         self.last_decode_tiles = [
             (y * sf, xx * sf, (y_end - y) * sf, (x_end - xx) * sf)
             for (y, y_end, xx, x_end) in rects]

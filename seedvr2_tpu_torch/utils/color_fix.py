@@ -1,17 +1,36 @@
-"""Colour correction, `lab` and `none` methods.
+"""Colour correction: lab, wavelet, wavelet_adaptive, hsv, adain and none.
 
-Port of seedvr2_tpu.utils.color_fix (lab_color_transfer and the wavelet
-reconstruction it starts from). Tensors are channels-last video
+Port of seedvr2_tpu.utils.color_fix. Tensors are channels-last video
 (T, H, W, 3) in [-1, 1]; all math is fp32. The dilated blur is written as
 nine shifted weighted adds and the colour-space matrices as explicit
-channel sums, so no convolution or matmul can drop to TF32 on a GPU.
-wavelet, wavelet_adaptive, hsv and adain wait for a later port.
+channel sums, so no convolution or matmul can drop to TF32 on a GPU. The
+HSV method's 1024-bin histograms are integer counts (an int32 `index_add_`,
+no float atomics) summed in int64, so its CDFs equal the JAX package's
+exactly while a bin holds fewer than 2^24 pixels.
 """
 
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+METHODS = ("lab", "wavelet", "wavelet_adaptive", "hsv", "adain", "none")
+
+
+def adaptive_instance_normalization(content: torch.Tensor,
+                                    style: torch.Tensor) -> torch.Tensor:
+    """Per-frame, per-channel mean / std transfer (population variance,
+    eps 1e-5 inside the square root, as jnp.var)."""
+    def stats(x):
+        x32 = x.float()
+        var, mean = torch.var_mean(x32, dim=(1, 2), keepdim=True,
+                                   correction=0)
+        return mean, torch.sqrt(var + 1e-5)
+
+    c_mean, c_std = stats(content)
+    s_mean, s_std = stats(style)
+    out = (content.float() - c_mean) / c_std * s_std + s_mean
+    return out.to(content.dtype)
 
 _KERNEL = ((0.0625, 0.125, 0.0625),
            (0.125, 0.25, 0.125),
@@ -138,12 +157,164 @@ def lab_color_transfer(content: torch.Tensor,
     return out * 2.0 - 1.0
 
 
+# ------------------------------------------------------------------- hsv
+
+
+def _rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    rangec = maxc - minc
+    live = rangec > 1e-10
+    safe = torch.where(live, rangec, 1.0)
+    # Python-style remainder, as jnp's `%`
+    h = torch.where((maxc == r) & live, torch.remainder((g - b) / safe, 6.0),
+                    torch.where((maxc == g) & live, (b - r) / safe + 2.0,
+                                torch.where((maxc == b) & live,
+                                            (r - g) / safe + 4.0, 0.0)))
+    h = h / 6.0
+    s = torch.where(maxc > 1e-10, rangec / torch.clamp(maxc, min=1e-10), 0.0)
+    return torch.stack([h, s, maxc], dim=-1)
+
+
+def _hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+    h, s, v = hsv[..., 0] * 6.0, hsv[..., 1], hsv[..., 2]
+    i = torch.remainder(torch.floor(h).to(torch.int32), 6)
+    f = h - torch.floor(h)
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+
+    def select(*vals):  # jnp.select over i == 0 .. 5
+        out = torch.zeros_like(v)
+        for k in range(5, -1, -1):
+            out = torch.where(i == k, vals[k], out)
+        return out
+
+    return torch.stack([select(v, q, p, p, t, v), select(t, v, v, q, p, p),
+                        select(p, p, t, v, q, v)], dim=-1)
+
+
+_NUM_HUE_BINS = 12
+_NUM_CDF_BINS = 1024
+_MIN_PIXELS = 100
+
+
+def _cdf_bins(vals: torch.Tensor) -> torch.Tensor:
+    """Each value's CDF bin on [0, 1] (int64, truncated as jnp's astype)."""
+    return torch.clamp((vals * _NUM_CDF_BINS).to(torch.int32), 0,
+                       _NUM_CDF_BINS - 1).reshape(-1).long()
+
+
+def _masked_cdf(bins: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The 1024-bin CDF of the values whose mask is set: integer counts
+    (masked-out values land in an overflow bin), an int64 cumulative sum,
+    then one fp32 division by the clipped total, which rounds the exact
+    integer quotient as JAX's fp32 sums of the same counts do."""
+    key = torch.where(mask.reshape(-1), bins, _NUM_CDF_BINS)
+    hist = torch.zeros(_NUM_CDF_BINS + 1, dtype=torch.int32,
+                       device=bins.device)
+    hist.index_add_(0, key, torch.ones((), dtype=torch.int32,
+                                       device=bins.device).expand(key.shape))
+    cum = torch.cumsum(hist[:_NUM_CDF_BINS].long(), 0)
+    total = torch.clamp(cum[-1:], min=1)
+    return cum.float() / total.float()
+
+
+def _masked_cdf_match(src_bins: torch.Tensor, src_mask: torch.Tensor,
+                      ref_bins: torch.Tensor, ref_mask: torch.Tensor
+                      ) -> torch.Tensor:
+    """Histogram-match the masked source values to the masked reference
+    through binned CDFs: a value in source bin i maps to the centre of the
+    first reference bin whose CDF reaches src_cdf[i]. Returns the 1024
+    matched values, one per source bin (the JAX function evaluates the
+    same lookup per pixel)."""
+    src_cdf = _masked_cdf(src_bins, src_mask)
+    ref_cdf = _masked_cdf(ref_bins, ref_mask)
+    inv = torch.clamp(torch.searchsorted(ref_cdf, src_cdf), 0,
+                      _NUM_CDF_BINS - 1)
+    return (inv.float() + 0.5) / _NUM_CDF_BINS
+
+
+def _hue_mask(h: torch.Tensor, b: int) -> torch.Tensor:
+    bin_w = 1.0 / _NUM_HUE_BINS
+    lo, hi = b * bin_w, (b + 1) * bin_w
+    if b == 0:  # red wraps round: [0, hi) and [1 - bin_w, ...)
+        return ((h >= 0) & (h < hi)) | (h >= 1.0 - bin_w)
+    return (h >= lo) & (h < hi)
+
+
+def hsv_saturation_histogram_match(content: torch.Tensor,
+                                   style: torch.Tensor) -> torch.Tensor:
+    """Hue-conditional saturation matching: 12 hue bins (bin 0 wraps round
+    red, so it overlaps bin 11, which is applied after it), the saturation
+    CDF matched per bin where both masks count more than 100 pixels, hue
+    and value kept. One mask pair is alive at a time."""
+    c01 = torch.clamp((content.float() + 1.0) * 0.5, 0.0, 1.0)
+    s01 = torch.clamp((style.float() + 1.0) * 0.5, 0.0, 1.0)
+    c_hsv = _rgb_to_hsv(c01)
+    s_hsv = _rgb_to_hsv(s01)
+    del c01, s01
+    ch, cs, cv = c_hsv[..., 0], c_hsv[..., 1], c_hsv[..., 2]
+    sh = s_hsv[..., 0]
+    c_bins, s_bins = _cdf_bins(cs), _cdf_bins(s_hsv[..., 1])
+    matched = cs
+    for b in range(_NUM_HUE_BINS):
+        c_mask, s_mask = _hue_mask(ch, b), _hue_mask(sh, b)
+        enough = ((c_mask.sum() > _MIN_PIXELS)
+                  & (s_mask.sum() > _MIN_PIXELS))
+        lut = _masked_cdf_match(c_bins, c_mask, s_bins, s_mask)
+        m = lut[c_bins].reshape(cs.shape)
+        matched = torch.where(c_mask & enough, m, matched)
+    out = _hsv_to_rgb(torch.stack([ch, matched, cv], dim=-1))
+    out = torch.clamp(out, 0.0, 1.0) * 2.0 - 1.0
+    return out.to(content.dtype)
+
+
+# ------------------------------------------------------- wavelet adaptive
+
+
+def _saturation_map(x: torch.Tensor) -> torch.Tensor:
+    rgb = torch.clamp((x.float() + 1.0) * 0.5, 0.0, 1.0)
+    maxc = rgb.amax(dim=-1, keepdim=True)
+    minc = rgb.amin(dim=-1, keepdim=True)
+    return torch.where(maxc > 1e-10,
+                       (maxc - minc) / torch.clamp(maxc, min=1e-10), 0.0)
+
+
+def wavelet_adaptive_color_correction(content: torch.Tensor,
+                                      style: torch.Tensor) -> torch.Tensor:
+    """Wavelet base, with the HSV correction blended in only where the
+    content is oversaturated against the style and the wavelet base still
+    is."""
+    content32, style32 = content.float(), style.float()
+    wave = wavelet_reconstruction(content32, style32).float()
+    hsv = hsv_saturation_histogram_match(content32, style32).float()
+    s_sat = _saturation_map(style32)
+    threshold, sharpness = 0.15, 5.0
+    blend = torch.sigmoid(sharpness * ((_saturation_map(content32) - s_sat)
+                                       - threshold))
+    still_over = ((_saturation_map(wave) - s_sat)
+                  > threshold * 0.5).float()
+    blend = torch.clamp(blend * still_over, 0.0, 1.0)
+    out = wave * (1.0 - blend) + hsv * blend
+    return out.to(content.dtype)
+
+
 def apply_color_correction(method: str, sample: torch.Tensor,
                            reference: torch.Tensor) -> torch.Tensor:
     """Dispatch used by phase 4. sample/reference: (T, H, W, 3) in [-1, 1]."""
     if method == "lab":
         return lab_color_transfer(sample, reference)
+    if method == "wavelet":
+        return wavelet_reconstruction(sample, reference)
+    if method == "wavelet_adaptive":
+        return wavelet_adaptive_color_correction(sample, reference)
+    if method == "hsv":
+        return hsv_saturation_histogram_match(sample, reference)
+    if method == "adain":
+        return adaptive_instance_normalization(sample, reference)
     if method == "none":
         return sample
-    raise ValueError(f"colour correction {method!r} is not ported yet "
-                     "(ported: lab, none)")
+    raise ValueError(f"unknown colour correction {method!r}; the methods "
+                     f"are {', '.join(METHODS)}")

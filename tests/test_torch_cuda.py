@@ -1076,3 +1076,78 @@ def test_7b_dit_with_kernels_matches_plain_on_gpu(cuda_device, lane):
                                 use_kernels=False).float()
     assert torch.isfinite(k).all()
     assert ((k - p).norm() / p.norm()).item() < 2e-2
+
+
+# ------------------------------------------- colour methods and alpha
+
+
+@pytest.fixture
+def cuda_default_tf32():
+    """A GPU with TF32 at torch's defaults (cuDNN convolutions may use it,
+    matmuls not): the colour and alpha functions must not depend on it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU; chip_smoke.py runs the colour "
+                    "methods and alpha on the card")
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    yield torch.device("cuda")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _colour_pair(seed, shape=(5, 48, 64, 3)):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-1, 1, shape).astype(np.float32)
+    b = np.clip(rng.uniform(-1, 1, shape) * 0.8 + 0.1, -1, 1).astype(
+        np.float32)
+    return torch.from_numpy(a), torch.from_numpy(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["lab", "wavelet", "wavelet_adaptive",
+                                    "hsv", "adain"])
+def test_colour_method_on_gpu_matches_cpu(cuda_default_tf32, method):
+    """The same fp32 function on the card and on the CPU. adain and wavelet:
+    reductions and fused multiply-adds in another order, within 1e-5. lab:
+    a pow that differs by an ulp can swap two ranks (the CPU tests' lab
+    allowance). hsv and wavelet_adaptive: a value moved across a hue or CDF
+    bin edge takes another mapping: at most 0.1 % of values beyond 1e-4."""
+    from seedvr2_tpu_torch.utils import color_fix as tcf
+
+    a, b = _colour_pair(0)
+    cpu = tcf.apply_color_correction(method, a, b)
+    gpu = tcf.apply_color_correction(method, a.to(cuda_default_tf32),
+                                     b.to(cuda_default_tf32)).cpu()
+    diff = (gpu - cpu).abs()
+    if method in ("adain", "wavelet"):
+        assert diff.max().item() <= 1e-5
+    elif method == "lab":
+        assert diff.max().item() < 1e-2
+        assert (diff > 1e-4).float().mean().item() < 1e-3
+    else:
+        assert (diff > 1e-4).float().mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("soft", [False, True])
+def test_alpha_on_gpu_matches_cpu(cuda_default_tf32, soft):
+    """process_alpha_for_batch on the card against the CPU, binary and
+    gradient paths: the same fp32 arithmetic in another order, within 1e-5
+    but where a binary-path threshold flips (at most 0.1 % of pixels)."""
+    from seedvr2_tpu_torch.core import alpha as ta
+
+    rng = np.random.default_rng(1)
+    rgb = torch.from_numpy(rng.uniform(-1, 1, (3, 64, 96, 3)).astype(
+        np.float32))
+    yy, xx = np.mgrid[:32, :48]
+    alpha = ((yy - 16) ** 2 + (xx - 24) ** 2 < 100).astype(np.float32)
+    if soft:
+        alpha = alpha * 0.5 + xx / 188.0
+    alpha = np.repeat(alpha[None, :, :, None], 5, 0).astype(np.float32)
+    cpu = ta.process_alpha_for_batch(rgb, alpha)
+    gpu = ta.process_alpha_for_batch(rgb.to(cuda_default_tf32), alpha)
+    assert gpu.device.type == "cuda"
+    diff = (gpu.cpu() - cpu).abs()
+    assert (diff > 1e-5).float().mean().item() <= 1e-3

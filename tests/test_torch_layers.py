@@ -193,8 +193,8 @@ def test_lab_color_transfer(seed):
     assert (diff > 1e-4).mean() < 1e-3
     x = torch.from_numpy(a)
     assert tcf.apply_color_correction("none", x, x) is x
-    with pytest.raises(ValueError):
-        tcf.apply_color_correction("wavelet_adaptive", x, x)
+    with pytest.raises(ValueError, match="unknown colour correction"):
+        tcf.apply_color_correction("sepia", x, x)
 
 
 # ------------------------------------------------------------ embeddings

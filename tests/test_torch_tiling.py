@@ -125,9 +125,9 @@ def test_small_input_stays_untiled(vae_pair):
         -1, 1, (1, 1, 16, 16, 3)).astype(np.float32))
     assert torch.equal(tvae.encode(x, tiled=True, tile_size=(24, 24)),
                        tvae.encode(x))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="tile_mode"):
         tvae.encode(torch.zeros(1, 1, 48, 48, 3), tiled=True,
-                    tile_size=(24, 24), tile_mode="ref")
+                    tile_size=(24, 24), tile_mode="grid")
 
 
 # ------------------------------------------------------------ OOM retry
@@ -202,5 +202,6 @@ def test_oom_retry_passes_other_errors_and_stops_at_floor():
     assert stub.calls == [(True, (256, 256))]
     with pytest.raises(ValueError):
         VAETiling(decode_tile_size="auto")
-    with pytest.raises(NotImplementedError):
-        VAETiling(tile_mode="ref")
+    with pytest.raises(ValueError, match="tile_mode"):
+        VAETiling(tile_mode="grid")
+    assert VAETiling(tile_mode="ref").tile_mode == "ref"
