@@ -65,44 +65,64 @@ network. In order it:
     versions and against the bf16 DiT on the 1080p clip's latent;
  7. serves, checking shapes, range and that every kernel of the lane was
     launched by it: the throughput lane with the preset's VAE tiling (a
-    5-frame 540x960 clip to 1080p, a 1080x1920 image to 4K, each twice); the
-    q8 lane untiled (a 540x960 image to 1080p, the 5-frame 360x640 clip to
-    720p, each twice); the q4 lane with the preset's tiling (the 1080p clip,
-    twice);
+    5-frame 540x960 clip to 1080p, a 1080x1920 image to 4K); the q8 lane
+    untiled (a 540x960 image to 1080p, the 5-frame 360x640 clip to 720p);
+    the q4 lane with the preset's tiling (the 1080p clip); each request
+    once;
  8. the GGUF lane: writes a full-size 3B GGUF file laid out as a Q4_K_M
     file is (the q8 lane's attention linears as Q8_0 with f16 scales,
-    random valid Q4_K blocks for the MLP linears, F16/F32 for the rest)
+    random valid Q4_K blocks for the MLP linears but random Q6_K for the
+    first and last blocks' MLP output projections, F16/F32 for the rest)
     with a small writer of its own, loads it through
-    `cli.make_runner(dit_model=..., quant="q4k")`, checks every linear's
-    module and the Q8 buffers, serves one 720p request through K6 and K7
-    and deletes the file;
+    `cli.make_runner(dit_model=..., quant="q4k")` with the host library
+    and again with the numpy dequantizers (seconds side by side, the DiTs
+    equal), checks every linear's module and the Q8 buffers, serves one
+    720p request through K6 and K7, the same request through the numpy-
+    loaded DiT (equal output), holds every Q8_0 / Q4_K / Q6_K tensor of
+    the file bit for bit to numpy in four host threads meanwhile, and
+    deletes the file;
  9. the VAE's opt-in lanes: the whole int8 decode (`--vae_quant int8`) of
     the 720p clip's latent with K11 against its plain versions (its own
     limit, below the int8-vs-bf16 gap) and against the bf16 decode; the
     fused-norm encode and decode (SEEDVR2_FUSED_NORM=1) against the unfused
-    ones; then serves, each twice and checked as in 7, `--vae_quant int8`
-    untiled (the 720p clip), `--preset throughput --vae_quant int8` (the
-    1080p clip) and SEEDVR2_FUSED_NORM=1 (the 720p clip);
+    ones; then serves, checked as in 7, `--vae_quant int8` untiled (the
+    720p clip), `--preset throughput --vae_quant int8` (the 1080p clip)
+    and SEEDVR2_FUSED_NORM=1 (the 720p clip);
  10. the VAE's lowering switches: VideoVAEs built under
     SEEDVR2_UPSAMPLE_CONVT=0, SEEDVR2_HEAD_CORRECTION=1 and
     SEEDVR2_CONV_IM2COL=1, each alone, encode and decode the 720p clip
     against the default lowering and the fp32 VAE; then the default 3B
     path serves the 5-frame 540x960 clip to 1080p under the pixel-shuffle
-    upsample and under the default transposed conv: wall, phases, peak
-    memory, and for the pixel-shuffle form a profiled decode's device time,
-    peak memory and top kernels (the transposed conv's profile, PR 11's,
-    left out to make room for phase 4b);
+    upsample: wall, phases, peak memory, a profiled decode's device time,
+    peak memory and top kernels (the same request under the transposed
+    conv, whose rows PERF.md keeps, is left out to make room for 10b-10c);
+ 10b. the legacy VAE family at VAE_V3's widths (conv2 (1, 3, 3), no mid
+    attention, quant convs; random, written as an fp16 .safetensors and
+    loaded through `load_vae_checkpoint`, its sniffed config checked): the
+    5x720x1280 clip encoded and decoded in the default, int8 and fused-norm
+    lanes (seconds, peaks; int8 against its plain versions, fused against
+    the fp32 VAE; K11 / K12 launches against the module list's
+    prediction), and a 720p clip request in each lane beside the 3B DiT
+    (K1 / K2 as a VAE_V3 request);
+ 10c. `--vae_encode_tile_size auto --vae_decode_tile_size auto` on the
+    1080p clip under SEEDVR2_UPSAMPLE_CONVT=0: untiled on the whole card;
+    tiled under a memory fraction emulating a 24 GiB card, with no
+    out-of-memory retry, the peak within the limit and the output equal to
+    the same tiles given as ints; a second resolution from the probe cache
+    with no run; every probe's seconds, bytes and fragmentation;
  11. the 7B family at full width (36 blocks, D = 3072, 24 heads, random
     weights from a seed), after every 3B model is freed: K1-K4, K6 and K7
     against their plain versions at the 7B's shapes (timed, bound, library
     call); the whole bf16 DiT with kernels against plain versions on the
     720p and 1080p clips' latents; the default path served (the 720p clip
-    and a 540x960 image to 1080p, each twice; K1, K2); the w8a8 DiT
-    against its plain versions and the bf16 DiT, and `--preset throughput`
-    serving the 1080p clip (K1-K4, K5 never); a full-size 7B Q4_K_M-like
-    GGUF written (free disk checked first), loaded through
-    `cli.make_runner(quant="q4k")` with every linear checked, served on the
-    720p clip (K1, K2, K6, K7) and deleted;
+    and a 540x960 image to 1080p; K1, K2); the w8a8 DiT against its plain
+    versions and the bf16 DiT, and `--preset throughput` serving the 1080p
+    clip (K1-K4, K5 never); a full-size 7B Q4_K_M-like GGUF written (free
+    disk checked first), loaded through `cli.make_runner(quant="q4k")`
+    with every linear checked, served on the 720p clip (K1, K2, K6, K7),
+    loaded and served again through numpy and checked block by block as
+    the 3B file in 8, and deleted; the whole DiTs' plain forwards are
+    timed once;
  12. prints the kernels' JSON record (K1-K12, launches by path, the 7B
     paths included, and each 7B kernel's record under "7b"), the card
     line again, and last {"ok": true, "device": {...}}.
@@ -233,6 +253,21 @@ FUSED_FP32_RATIO = 1.5
 LOWERING_SWITCHES = (("SEEDVR2_UPSAMPLE_CONVT", "0", "upsample_convt"),
                      ("SEEDVR2_HEAD_CORRECTION", "1", "head_correction"),
                      ("SEEDVR2_CONV_IM2COL", "1", "im2col_max_k"))
+# phase 10b: the legacy VAE family's switches (VAE_V3's widths otherwise),
+# the clip it encodes and decodes (frames, height, width), the request it
+# serves, and the K1 / K2 launches of that request: a 5-frame 720p clip
+# request's on the default path (PERF.md: 384 K1 / 99 K2 over three such
+# requests, 256 / 66 for a two-batch RGBA one)
+LEGACY_SWITCHES = dict(time_receptive_field="half", mid_attention=False,
+                       use_quant_conv=True, use_post_quant_conv=True)
+LEGACY_CLIP = (5, 720, 1280)
+LEGACY_REQUEST = ("clip 5x360x640 -> 720", 5, 360, 640, 720)
+LEGACY_K1_K2 = (128, 33)
+# values a piece in the GGUF files' bit-for-bit check of the host library
+GGUF_CHECK_VALUES = 1 << 20
+# phase 10c: the auto-tiled request and the emulated smaller card's memory
+AUTO_REQUEST = ("clip 5x540x960 -> 1080", 5, 540, 960, 1080)
+AUTO_EMULATED_BYTES = 24 << 30
 # the 1080p clip served under both upsample forms (default 3B path)
 UPSAMPLE_AB_REQUEST = ("clip 5x540x960 -> 1080", 5, 540, 960, 1080)
 # the 7B's requests: the default path (bf16) and its throughput and GGUF
@@ -1466,14 +1501,15 @@ def k12_request_sum(k12_rec, launches):
 
 # GGUF writing (the file format's spec: a header, key/value metadata,
 # tensor infos with innermost-first dims and offsets, aligned data)
-GGUF_F32, GGUF_F16, GGUF_Q8_0, GGUF_Q4_K = 0, 1, 8, 12
+GGUF_F32, GGUF_F16, GGUF_Q8_0, GGUF_Q4_K, GGUF_Q6_K = 0, 1, 8, 12, 14
 GGUF_BLOCK = {GGUF_F32: (4, 1), GGUF_F16: (2, 1), GGUF_Q8_0: (34, 32),
-              GGUF_Q4_K: (144, 256)}
+              GGUF_Q4_K: (144, 256), GGUF_Q6_K: (210, 256)}
 
 
 def write_gguf(path, infos, data):
     """infos: [(name, torch shape, type)]; data(i) -> the bytes of tensor i,
-    made one at a time so the file is never held in memory."""
+    made one at a time so the file is never held in memory. Returns
+    [(name, type, file offset, bytes)]."""
     import struct
 
     def s(b):
@@ -1496,6 +1532,10 @@ def write_gguf(path, infos, data):
             f.write(struct.pack("<IQ", qt, off))
             off += size + (-size) % 32
         f.write(b"\0" * ((-f.tell()) % 32))
+        layout, at = [], f.tell()
+        for (name, _, qt), size in zip(infos, sizes):
+            layout.append((name, qt, at, size))
+            at += size + (-size) % 32
         for i, size in enumerate(sizes):
             raw = data(i)
             if len(raw) != size:
@@ -1503,6 +1543,7 @@ def write_gguf(path, infos, data):
                      f"bytes, expected {size}")
             f.write(raw)
             f.write(b"\0" * ((-size) % 32))
+    return layout
 
 
 def q4k_random_blocks(torch, n_blocks, gen, device):
@@ -1518,14 +1559,31 @@ def q4k_random_blocks(torch, n_blocks, gen, device):
     return blocks
 
 
+def q6k_random_blocks(torch, n_blocks, gen, device):
+    """Random valid Q6_K blocks (210 bytes: 128 bytes of low and 64 of high
+    quant bits, 16 int8 scales, f16 d) with a small positive d, so the
+    weights have a linear's magnitude."""
+    blocks = torch.randint(0, 256, (n_blocks, 210), generator=gen,
+                           device=device, dtype=torch.uint8)
+    d = (4e-6 + 8e-6 * torch.rand(n_blocks, 1, generator=gen,
+                                  device=device)).half()
+    blocks[:, 208:210] = d.view(torch.uint8)
+    return blocks
+
+
 def gguf_from_q8_runner(torch, qm, dit, path, device):
     """Write `dit` (a q8-converted 3B or 7B NaDiT) as a Q4_K_M-like GGUF
     file:
     its attention Q8Linears as Q8_0 (the int8 quants as they are, scales
-    stored as f16), random Q4_K blocks for its MLP linears, every other
-    linear F16 (dequantized where converted) and vectors F32, all under the
-    `model.diffusion_model.` prefix. Returns {layer: "q8" | "affine" |
-    "dense"}, what the q4k lane must make of each linear."""
+    stored as f16), random Q4_K blocks for its MLP linears but the output
+    projections of the first and the last block, which are random Q6_K (a
+    Q4_K_M file keeps its outermost feed-forward down projections in
+    Q6_K), every
+    other linear F16 (dequantized where converted) and vectors F32, all
+    under the `model.diffusion_model.` prefix. Returns ({layer: "q8" |
+    "affine" | "q6k" | "dense"}, what the q4k lane must make of each linear
+    ("q6k": a Q8 linear requantized on the host), and write_gguf's
+    layout)."""
     prefix = "model.diffusion_model."
     infos, makers, expect = [], [], {}
     gen = torch.Generator(device).manual_seed(8)
@@ -1540,6 +1598,15 @@ def gguf_from_q8_runner(torch, qm, dit, path, device):
                 sc = mod.scales.half().reshape(-1, 1).view(torch.uint8)
                 qs = mod.q8.reshape(n * k // 32, 32).view(torch.uint8)
                 return torch.cat([sc, qs], 1).cpu().numpy().tobytes()
+        elif (isinstance(mod, qm.Q8Linear) and ".mlp." in name
+              and name.endswith(".proj_out")
+              and int(name.split(".")[1]) in (0, len(dit.blocks) - 1)):
+            kind, qt = "q6k", GGUF_Q6_K
+
+            def make(mod=mod):
+                n, k = mod.q8.shape
+                return q6k_random_blocks(torch, n * k // 256, gen,
+                                         device).cpu().numpy().tobytes()
         elif isinstance(mod, qm.Q8Linear) and ".mlp." in name:
             kind, qt = "affine", GGUF_Q4_K
 
@@ -1569,8 +1636,43 @@ def gguf_from_q8_runner(torch, qm, dit, path, device):
                                           else t.half()).cpu().numpy()
                       .tobytes())
     with torch.no_grad():
-        write_gguf(path, infos, lambda i: makers[i]())
-    return expect
+        layout = write_gguf(path, infos, lambda i: makers[i]())
+    return expect, layout
+
+
+def gguf_kinds(expect) -> str:
+    n = {k: sum(v == k for v in expect.values())
+         for k in ("q8", "affine", "q6k", "dense")}
+    return (f"{n['q8']} Q8_0, {n['affine']} Q4_K, {n['q6k']} Q6_K and "
+            f"{n['dense']} F16 linears")
+
+
+def check_gguf_modules(torch, qm, dit, q8_dit, expect, label):
+    """Every linear of the q4k-loaded GGUF DiT is the module its type calls
+    for (a Q6_K one a Q8 linear requantized on the host), the Q8_0 layers'
+    buffers equal the q8 DiT's with f16 scales, and biased linears keep
+    their biases."""
+    kinds = {qm.Q8Linear: "q8", qm.AffineLinear: "affine",
+             torch.nn.Linear: "dense"}
+    got = {name: kinds.get(type(m)) for name, m in dit.named_modules()
+           if type(m) in kinds}
+    want = {k: "q8" if v == "q6k" else v for k, v in expect.items()}
+    if got != want:
+        bad = sorted(k for k in want if got.get(k) != want[k])[:5]
+        fail(f"{label} GGUF: linears not the modules their types call for: "
+             f"{[(k, want[k], got.get(k)) for k in bad]}")
+    src = dict(q8_dit.named_modules())
+    for name, kind in expect.items():
+        a, b = dit.get_submodule(name), src[name]
+        if kind == "q8" and not (torch.equal(a.q8, b.q8) and torch.equal(
+                a.scales, b.scales.half().float())):
+            fail(f"{label} GGUF: {name}'s Q8 buffers differ from the q8 "
+                 "DiT's with f16-rounded scales")
+        if getattr(b, "bias", None) is not None and a.bias is None:
+            fail(f"{label} GGUF: {name} lost its bias")
+    say(f"{label} GGUF: every linear is the module its type calls for "
+        f"({gguf_kinds(expect)}); the Q8_0 layers equal the q8 DiT's with "
+        f"f16 scales; biases kept")
 
 
 def grid_of(tiles):
@@ -1759,11 +1861,12 @@ def check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, vae_cfg, device,
     environment read at construction, over the default runner's VAE
     weights): encode and decode of the 720p clip against the default
     lowering and against the fp32 VAE (LOWERING_SWITCHES' bounds). Then the
-    default 3B path serves the 1080p clip under SEEDVR2_UPSAMPLE_CONVT=0
-    and under the default (the transposed conv): request wall and phases,
-    the request's peak memory, and under SEEDVR2_UPSAMPLE_CONVT=0 a
-    profiled decode of its latent (device seconds, the decode's peak
-    memory, its top device kernels)."""
+    default 3B path serves the 1080p clip under SEEDVR2_UPSAMPLE_CONVT=0:
+    request wall and phases, the request's peak memory, and a profiled
+    decode of its latent (device seconds, the decode's peak memory, its
+    top device kernels). The same request under the transposed conv (10 s
+    of one int64 cuDNN kernel, rows kept in PERF.md) is left out to
+    make room for phases 10b-10c."""
     import copy
 
     from seedvr2_tpu_torch.profile_requests import make_frames
@@ -1840,10 +1943,8 @@ def check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, vae_cfg, device,
     label, t, h, w, res = UPSAMPLE_AB_REQUEST
     frames = make_frames(t, h, w, seed=40)
     expect = (t, res, res * w // h, 3)
-    outs = {}
     for form, vae in (("SEEDVR2_UPSAMPLE_CONVT=0 (matmul + pixel shuffle)",
-                       vaes["SEEDVR2_UPSAMPLE_CONVT"]),
-                      ("default (transposed conv)", default)):
+                       vaes["SEEDVR2_UPSAMPLE_CONVT"]),):
         base.vae = vae
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
@@ -1857,7 +1958,7 @@ def check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, vae_cfg, device,
             fail(f"{form} {label}: expected finite {expect}, got "
                  f"{out.shape}")
         profiled = ""
-        if vae is not default:  # the transposed conv's was profiled in PR 11
+        if vae is not default:
             ctx = pipeline.encode_all_batches(
                 base, pipeline.setup_generation_context(device), frames,
                 resolution=res)
@@ -1875,14 +1976,7 @@ def check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, vae_cfg, device,
             + ", ".join(f"{k} {v:.4f} s" for k, v in timings.items())
             + f"; request peak {peak:.2f} GiB ({held:.2f} held before it: "
             f"the runner's models)" + profiled)
-        outs[form] = out
-    a, b = outs.values()
-    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
-    say(f"1080p clip, pixel-shuffle output against the transposed conv's: "
-        f"relative L2 {rel:.6g} (bound {FUSED_VAE_REL_L2})")
-    if rel > FUSED_VAE_REL_L2:
-        fail("the two upsample forms disagree on the 1080p clip")
-    del base, default, vaes, outs, encode
+    del base, default, vaes, encode, out
     torch.cuda.empty_cache()
 
 
@@ -2203,8 +2297,8 @@ def check_request_surface(torch, np, cli, pipeline, nadit, runner, device,
     return counts, finish
 
 
-def run_7b(torch, cli, nadit, im, qm, device, txt, tt, dit_inputs, dit_runs,
-           lane, counts, phase_done):
+def run_7b(torch, np, cli, nadit, im, qm, gguf, native, device, txt, tt,
+           embeds, dit_inputs, dit_runs, lane, counts, phase_done):
     """Phase 11. The full-width 7B (36 blocks, D = 3072, 24 heads) with
     random weights from a seed: the bf16 DiT's forward with kernels against
     plain versions on the 720p and 1080p clips' latents (DIT_REL_L2); the
@@ -2213,8 +2307,11 @@ def run_7b(torch, cli, nadit, im, qm, device, txt, tt, dit_inputs, dit_runs,
     the bf16 DiT) and `--preset throughput` served (K1-K4, no K5: the 7B
     MLP has no gate); a full-size 7B Q4_K_M-like GGUF file written, loaded
     through cli.make_runner(quant="q4k") with every linear the module its
-    type calls for, and served (K1, K2, K6, K7). `lane` records each
-    lane's launches in `counts`."""
+    type calls for, and served (K1, K2, K6, K7); loaded again through the
+    numpy dequantizers (seconds side by side, the same DiT, the same
+    output) while every Q8_0 / Q4_K / Q6_K tensor is held bit for bit to
+    numpy in host threads. `lane` records each lane's launches in
+    `counts`."""
     import shutil
     import tempfile
 
@@ -2291,47 +2388,570 @@ def run_7b(torch, cli, nadit, im, qm, device, txt, tt, dit_inputs, dit_runs,
             fail("not enough free disk for the 7B GGUF file")
         path = os.path.join(tmp, "seedvr2_ema_7b-Q4_K_M.gguf")
         t0 = time.perf_counter()
-        expect = gguf_from_q8_runner(torch, qm, q8.dit, path, device)
+        expect, layout = gguf_from_q8_runner(torch, qm, q8.dit, path, device)
         size = os.path.getsize(path)
         say(f"7B GGUF written in {time.perf_counter() - t0:.2f} s: "
-            f"{size / 2 ** 30:.3f} GiB, "
-            f"{sum(v == 'q8' for v in expect.values())} Q8_0, "
-            f"{sum(v == 'affine' for v in expect.values())} Q4_K and "
-            f"{sum(v == 'dense' for v in expect.values())} F16 linears")
+            f"{size / 2 ** 30:.3f} GiB, {gguf_kinds(expect)}")
+        gg, gg_np, _ = gguf_loads(torch, cli, gguf, native, path, device,
+                                  "7B")
+        say(f"7B GGUF DiT on the card: {dit_bytes(torch, im, qm, gg.dit)}")
+        finish = gguf_block_check(np, gguf, native, path, layout)
+        if gg.dit.cfg != DIT_7B:
+            fail(f"the 7B GGUF loaded as {gg.dit.cfg}")
+        check_gguf_modules(torch, qm, gg.dit, q8.dit, expect, "7B")
+        del q8
+        torch.cuda.empty_cache()
+        lane("7b_gguf", gg, DIT7B_GGUF_REQUESTS, ("K1", "K2", "K6", "K7"),
+             "11e")
+        label, t, h, w, res = DIT7B_GGUF_REQUESTS[0]
+        same_request(torch, np, cli, (gg, gg_np),
+                     make_frames(t, h, w, seed=20), res, embeds,
+                     f"7B GGUF q4k {label}")
+        del gg, gg_np
+        torch.cuda.empty_cache()
+        finish("7B")
+
+
+def write_safetensors(torch, path, tensors):
+    """A .safetensors file of `tensors` (name -> tensor) in fp16, written
+    one tensor at a time (an 8-byte header length, the JSON header padded
+    to 8 bytes, then the raw little-endian data)."""
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * 2
+        header[name] = {"dtype": "F16", "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header).encode()
+    raw += b" " * ((-len(raw)) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for t in tensors.values():
+            f.write(t.detach().half().cpu().numpy().tobytes())
+
+
+def legacy_k12_prediction(model):
+    """K12 launches of a first slice's encode and decode, from the module
+    list: every resnet conv that is 3 frames deep, and conv_out."""
+    def count(part):
+        return 1 + sum(m.weight.shape[2] == 3
+                       for name, m in part.named_modules()
+                       if name.endswith((".conv1", ".conv2")))
+    return count(model.encoder), count(model.decoder)
+
+
+def legacy_vae_lanes(torch, np, cli, VideoVAE, vae_cfg, device, embeds,
+                     make_frames, wrappers, fn, ic):
+    """Phase 10b (a). A legacy-layout VAE at VAE_V3's widths (random from a
+    seed, written as a reference-layout fp16 .safetensors) loaded through
+    load_vae_checkpoint by cli.make_runner beside the 3B DiT; the
+    5x720x1280 clip encoded and decoded in each lane (default,
+    --vae_quant int8, SEEDVR2_FUSED_NORM=1) with seconds and peak; the int8
+    decode held to its plain versions and the fused one to the fp32 VAE as
+    phase 9 holds VAE_V3's; K11 / K12 launches against the module list's
+    prediction; the 720p clip request served in each lane (K1 / K2 as a
+    VAE_V3 request). Returns {path: launches}."""
+    import tempfile
+
+    from seedvr2_tpu_torch.core.loader import load_vae_checkpoint
+    from seedvr2_tpu_torch.core.runner import VideoDiffusionRunner
+    from seedvr2_tpu_torch.models.vae.pipeline_vae import (init_vae_params,
+                                                           int8_served_convs)
+
+    cfg = dataclasses.replace(vae_cfg, **LEGACY_SWITCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "legacy_video_vae_fp16.safetensors")
+        gen = torch.Generator(device).manual_seed(11)
         t0 = time.perf_counter()
-        gg = cli.make_runner(device, seed=0, dit_model=path, quant="q4k")
+        src = init_vae_params(cfg, device, torch.float32, generator=gen)
+        write_safetensors(torch, path, src.state_dict())
+        del src
+        size = os.path.getsize(path)
+        runner = cli.make_runner(device, seed=0, vae_model=path)
+        int8_model = load_vae_checkpoint(path, device, torch.bfloat16,
+                                         vae_quant="int8")
+    torch.cuda.synchronize()
+    model = runner.vae.model
+    n = sum(p.numel() for p in model.parameters())
+    say(f"legacy VAE written ({size / 2 ** 20:.1f} MiB fp16, {n / 1e6:.1f} M "
+        f"params) and loaded beside the 3B DiT in "
+        f"{time.perf_counter() - t0:.2f} s; sniffed {model.cfg}")
+    if model.cfg != cfg or hasattr(model.encoder.mid_block, "attentions"):
+        fail(f"the legacy VAE was sniffed as {model.cfg}, not {cfg}")
+    k11_pred = len(dict(int8_served_convs(int8_model)))
+    k12_pred = legacy_k12_prediction(model)
+    say(f"predicted from the module list: K11 {k11_pred} a one-slice "
+        f"decode (the decoder's conv1s; every conv2 is (1, 3, 3)), K12 "
+        f"{k12_pred[0]} encode + {k12_pred[1]} decode (the 3-deep resnet "
+        f"convs and conv_out of a first slice); K1 / K2 {LEGACY_K1_K2} a "
+        f"720p clip request, as with VAE_V3")
+    lanes = {"default": runner.vae,
+             "int8": VideoVAE(int8_model, torch.bfloat16)}
+    env = env_set("SEEDVR2_FUSED_NORM", "1")
+    try:
+        lanes["fused"] = VideoVAE(model, torch.bfloat16)
+    finally:
+        env_set("SEEDVR2_FUSED_NORM", env)
+    if not lanes["fused"].lowering.fused_norm or any(
+            lanes[k].lowering.fused_norm for k in ("default", "int8")):
+        fail("SEEDVR2_FUSED_NORM=1 did not reach the legacy VAE built "
+             "under it")
+    t, h, w = LEGACY_CLIP
+    x_in = (torch.from_numpy(make_frames(t, h, w, seed=60)).to(device)
+            * 2 - 1).to(torch.bfloat16)[None]
+
+    def run(vae, z=None):
+        """encode x_in, decode z (else the encoding): outputs, seconds,
+        peak above the models, K11 launches, K12 launches (enc, dec)."""
         torch.cuda.synchronize()
-        say(f"7B GGUF loaded through cli.make_runner(quant='q4k') in "
-            f"{time.perf_counter() - t0:.2f} s: "
-            f"{dit_bytes(torch, im, qm, gg.dit)}")
-        os.remove(path)
-    if gg.dit.cfg != DIT_7B:
-        fail(f"the 7B GGUF loaded as {gg.dit.cfg}")
-    kinds = {qm.Q8Linear: "q8", qm.AffineLinear: "affine",
-             torch.nn.Linear: "dense"}
-    got = {name: kinds.get(type(m)) for name, m in gg.dit.named_modules()
-           if type(m) in kinds}
-    if got != expect:
-        bad = sorted(k for k in expect if got.get(k) != expect[k])[:5]
-        fail(f"7B GGUF: linears not the modules their types call for: "
-             f"{[(k, expect[k], got.get(k)) for k in bad]}")
-    q8_mods = dict(q8.dit.named_modules())
-    for name, kind in expect.items():
-        a = gg.dit.get_submodule(name)
-        if kind == "q8" and not (torch.equal(a.q8, q8_mods[name].q8)
-                                 and torch.equal(a.scales, q8_mods[name]
-                                                 .scales.half().float())):
-            fail(f"7B GGUF: {name}'s Q8 buffers differ from the q8 DiT's")
-        if kind == "affine" and a.bias is None:
-            fail(f"7B GGUF: {name} lost its bias")
-    say(f"7B GGUF: every linear is the module its type calls for; "
-        f"{sum(v == 'q8' for v in expect.values())} Q8 layers equal the q8 "
-        f"DiT's with f16 scales; the MLP linears keep their biases")
-    del q8, q8_mods
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        reset_counts(wrappers)
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            enc = vae.encode(x_in)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            peak_enc = torch.cuda.max_memory_allocated(device) - held
+            torch.cuda.reset_peak_memory_stats(device)
+            held_dec = torch.cuda.memory_allocated(device)
+            k12_enc = fn.norm_silu_head.launches
+            dec = vae.decode(enc if z is None else z)
+            torch.cuda.synchronize()
+        peak_dec = torch.cuda.max_memory_allocated(device) - held_dec
+        return dict(enc=enc, dec=dec, s_enc=t2 - t1,
+                    s_dec=time.perf_counter() - t2,
+                    peak=(peak_enc / 2 ** 30, peak_dec / 2 ** 30),
+                    k11=ic.int8_conv3d.launches,
+                    k12=(k12_enc, fn.norm_silu_head.launches - k12_enc))
+
+    run(lanes["default"])  # warm-up: the first call's cuDNN set-up
+    outs = {"default": run(lanes["default"])}
+    z = outs["default"]["enc"]
+    outs["int8"] = run(lanes["int8"], z)
+    outs["fused"] = run(lanes["fused"], z)
+    for lane, o in outs.items():
+        say(f"legacy VAE {lane} lane, {t}x{h}x{w} clip: encode "
+            f"{o['s_enc']:.3f} s (peak {o['peak'][0]:.2f} GiB above what "
+            f"it found), decode {o['s_dec']:.3f} s (peak "
+            f"{o['peak'][1]:.2f} GiB); K11 {o['k11']}, K12 {o['k12'][0]} + "
+            f"{o['k12'][1]}")
+    if outs["int8"]["k11"] != k11_pred or outs["fused"]["k12"] != k12_pred \
+            or outs["default"]["k11"] or sum(outs["default"]["k12"]):
+        fail("legacy VAE: K11 / K12 launches differ from the module list's "
+             "prediction")
+    lanes["int8"].lowering = dataclasses.replace(lanes["int8"].lowering,
+                                                 use_kernels=False)
+    with torch.no_grad():
+        dec_plain = lanes["int8"].decode(z)
+    lanes["int8"].lowering = dataclasses.replace(lanes["int8"].lowering,
+                                                 use_kernels=True)
+    dec_b, dec_k = outs["default"]["dec"], outs["int8"]["dec"]
+    rel, to_bf16, gap = (rel_l2(dec_k, dec_plain), rel_l2(dec_k, dec_b),
+                         rel_l2(dec_plain, dec_b))
+    say(f"legacy int8 decode: kernels vs plain {rel:.6g} (bound "
+        f"{INT8_DECODE_REL_L2}), kernels vs the bf16 decode {to_bf16:.6g}, "
+        f"plain int8 vs bf16 {gap:.6g}")
+    if not torch.isfinite(dec_k).all() or rel > INT8_DECODE_REL_L2 \
+            or not INT8_DECODE_REL_L2 < gap or not rel < to_bf16:
+        fail("legacy int8 decode beyond the limits above")
+    vae32 = VideoVAE(copy.deepcopy(model).float(), torch.float32)
+    with torch.no_grad():
+        truth = (vae32.encode(x_in.float()), vae32.decode(z.float()))
+    del vae32
+    bad = False
+    for what in ("enc", "dec"):
+        f, u, t32 = outs["fused"][what], outs["default"][what], truth[
+            what == "dec"]
+        rel, err_f, err_u = rel_l2(f, u), rel_l2(f, t32), rel_l2(u, t32)
+        say(f"legacy fused-norm {what}ode: relative L2 to the default lane "
+            f"{rel:.6g} (bound {FUSED_VAE_REL_L2}); to the fp32 VAE "
+            f"{err_f:.6g} fused, {err_u:.6g} default (bound "
+            f"{FUSED_FP32_RATIO}x the default)")
+        bad |= (not torch.isfinite(f).all() or rel > FUSED_VAE_REL_L2
+                or err_f > FUSED_FP32_RATIO * err_u)
+    if bad:
+        fail("legacy fused-norm VAE beyond the limits above")
+    del outs, truth, dec_plain, dec_b, dec_k, x_in, z
     torch.cuda.empty_cache()
-    lane("7b_gguf", gg, DIT7B_GGUF_REQUESTS, ("K1", "K2", "K6", "K7"), "11e")
-    del gg
+
+    counts = {}
+    label, t, h, w, res = LEGACY_REQUEST
+    frames = make_frames(t, h, w, seed=61)
+    for lane, extra in (("default", {}), ("int8", {"K11": k11_pred}),
+                        ("fused", {"K12": sum(k12_pred)})):
+        r = VideoDiffusionRunner(runner.dit, lanes[lane], runner.config,
+                                 compute_dtype=runner.compute_dtype)
+        reset_counts(wrappers)
+        serve(torch, np, cli, r, ((f"legacy VAE {lane} lane, {label}",
+                                   frames, res, (t, res, res * w // h, 3)),),
+              device, embeds)
+        name = f"legacy_vae_{lane}"
+        counts[name] = read_counts(wrappers, ("K1", "K2", *extra), name)
+        want = dict(zip(("K1", "K2"), LEGACY_K1_K2), **extra)
+        got = {k: counts[name][k] for k in want}
+        if got != want:
+            fail(f"legacy {lane} request: launches {got}, predicted {want}")
+        del r
+    del runner, lanes, model, int8_model
     torch.cuda.empty_cache()
+    return counts
+
+
+def auto_tile_phase(torch, np, cli, device, embeds, make_frames):
+    """Phase 10c (b). `--vae_encode_tile_size auto --vae_decode_tile_size
+    auto` (tiled flags on) on the default 3B path under
+    SEEDVR2_UPSAMPLE_CONVT=0, the 5x540x960 -> 1080p request: (b1) on the
+    whole card the plan is untiled; (b2) under a per-process memory
+    fraction emulating a 24 GiB card the decode plan is tiled, the
+    request's peak stays within the limit, the out-of-memory retry never
+    fires, and the output equals the same request served with the resolved
+    sizes as ints; (b3) a fresh runner resolves the same shapes from the
+    probe cache with no run. Prints every probe (seconds, bytes, the
+    fragmentation it keeps), each request's allocator gap (reserved beyond
+    the allocated peak) and the planner's verdicts, and (b1) runs the
+    untiled decode once more with little room (`untiled_under_pressure`).
+    The probe cache is a fresh file; the fraction is restored."""
+    import logging
+    import tempfile
+
+    from seedvr2_tpu_torch.core.runner import VAETiling, VideoDiffusionRunner
+    from seedvr2_tpu_torch.utils import memplan
+
+    args = cli.parse_arguments([
+        "unused.npy", "--vae_encode_tiled", "--vae_decode_tiled",
+        "--vae_encode_tile_size", "auto", "--vae_decode_tile_size", "auto"])
+    tiling = cli.tiling_from_args(args)
+    handler = logging.StreamHandler(sys.stdout)
+    loggers = [logging.getLogger(n) for n in (
+        "seedvr2_tpu_torch.utils.memplan", "seedvr2_tpu_torch.core.runner")]
+    for lg in loggers:  # the planner's verdicts and the runner's plans
+        lg.addHandler(handler)
+        lg.setLevel(logging.INFO)
+    old = env_set("SEEDVR2_UPSAMPLE_CONVT", "0")
+    try:
+        runner = cli.make_runner(device, seed=0, tiling=tiling)
+    finally:
+        env_set("SEEDVR2_UPSAMPLE_CONVT", old)
+    if runner.vae.lowering.upsample_convt:
+        fail("SEEDVR2_UPSAMPLE_CONVT=0 did not reach the VAE")
+    probes, real_probe = [], memplan.probe_tile_bytes
+    stage = ["b1"]  # the whole card, then (b2) the emulated smaller one
+    gaps = {"b1": [], "b2": []}  # (gap bytes, allocated peak bytes)
+
+    def recorded(vae, kind, batch, frames, th, tw):
+        runs = memplan.probe_runs
+        t0 = time.perf_counter()
+        try:
+            nbytes = real_probe(vae, kind, batch, frames, th, tw)
+        except torch.cuda.OutOfMemoryError:
+            nbytes = None
+        gap = memplan.fragmentation(vae, kind, batch, frames, th, tw)
+        ran = memplan.probe_runs > runs
+        probes.append((kind, frames, th, tw, nbytes,
+                       time.perf_counter() - t0, gap if ran else None, ran))
+        if ran and nbytes is not None:
+            gaps[stage[0]].append((gap, nbytes))
+        say(f"  probe {kind} {frames} frames {th}x{tw} latent: "
+            + ("out of memory" if nbytes is None else f"{nbytes / 2 ** 30:.3f}"
+               " GiB") + f", {probes[-1][5]:.3f} s"
+            + (f", fragmentation {gap / 2 ** 20:.1f} MiB" if ran
+               else ", from the cache"))
+        if nbytes is None:
+            raise torch.cuda.OutOfMemoryError(f"probe {kind} {th}x{tw}")
+        return nbytes
+
+    label, t, h, w, res = AUTO_REQUEST
+    frames = make_frames(t, h, w, seed=70)
+    expect = (t, res, res * w // h, 3)
+
+    def request(r, name):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        out, timings = cli.process_frames(r, frames, embeds, resolution=res,
+                                          seed=42)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device)
+        gap = torch.cuda.max_memory_reserved(device) - peak
+        gaps[stage[0]].append((gap, peak))
+        say(f"{name}: wall {wall:.3f} s, phases " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in timings.items())
+            + f"; encode tiles {grid_of(r.vae.last_encode_tiles)}, decode "
+            f"tiles {grid_of(r.vae.last_decode_tiles)}; peak "
+            f"{peak / 2 ** 30:.2f} GiB, reserved - allocated at the peak "
+            f"{gap / 2 ** 20:.1f} MiB; plans {r._auto_tile_cache}; OOM "
+            f"retries {r.oom_retries}")
+        if out.shape != expect or not np.isfinite(out).all():
+            fail(f"{name}: expected finite {expect}, got {out.shape}")
+        return out, peak
+
+    cache_env = os.environ.get("SEEDVR2_MEMPROBE_CACHE")
+    memplan.probe_tile_bytes = recorded
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["SEEDVR2_MEMPROBE_CACHE"] = os.path.join(tmp, "mp.json")
+        memplan.reset_cache_for_tests()
+        try:
+            total = memplan.memory_limit(device)
+            say(f"(b1) whole card: limit {total / 2 ** 30:.2f} GiB, "
+                f"{torch.cuda.memory_allocated(device) / 2 ** 30:.2f} GiB "
+                f"held (the 3B runner)")
+            request(runner, f"auto tiles, whole card, {label}")
+            if any(tiled for tiled, _ in runner._auto_tile_cache.values()):
+                fail("(b1) auto resolved to a tiled plan on the whole card")
+            untiled_under_pressure(torch, memplan, runner, device, total)
+            frac = AUTO_EMULATED_BYTES / total
+            torch.cuda.set_per_process_memory_fraction(frac, device)
+            stage[0] = "b2"
+            limit = memplan.memory_limit(device)
+            r2 = VideoDiffusionRunner(runner.dit, runner.vae, runner.config,
+                                      compute_dtype=runner.compute_dtype,
+                                      tiling=tiling)
+            say(f"(b2) memory fraction {frac:.4f}: limit "
+                f"{limit / 2 ** 30:.2f} GiB")
+            out2, peak2 = request(r2, f"auto tiles, {AUTO_EMULATED_BYTES / 2 ** 30:.0f}"
+                                  f" GiB card, {label}")
+            plans = dict(r2._auto_tile_cache)
+            dec_plan = [v for (kind, _), v in plans.items()
+                        if kind == "decode"]
+            if (not dec_plan or not dec_plan[0][0] or peak2 > limit
+                    or r2.oom_retries):
+                fail(f"(b2) plans {plans}, peak {peak2} > limit {limit} or "
+                     f"{r2.oom_retries} OOM retries")
+            (enc_t, enc_s), = [v for (k, _), v in plans.items()
+                               if k == "encode"]
+            ints = VAETiling(encode_tiled=enc_t, encode_tile_size=enc_s,
+                             encode_tile_overlap=tiling.encode_tile_overlap,
+                             decode_tiled=dec_plan[0][0],
+                             decode_tile_size=dec_plan[0][1],
+                             decode_tile_overlap=tiling.decode_tile_overlap)
+            r3 = VideoDiffusionRunner(runner.dit, runner.vae, runner.config,
+                                      compute_dtype=runner.compute_dtype,
+                                      tiling=ints)
+            out3, _ = request(r3, f"the same request, tiles given as ints "
+                                  f"{ints}")
+            diff = float(np.abs(out2 - out3).max())
+            say(f"(b2) auto output against the ints' output: max abs "
+                f"difference {diff:.6g} (must be 0)")
+            if diff != 0.0:
+                fail("(b2) the auto plan's output differs from the same "
+                     "tiles given as ints")
+            runs = memplan.probe_runs
+            memplan.reset_cache_for_tests()  # re-read the file
+            r4 = VideoDiffusionRunner(runner.dit, runner.vae, runner.config,
+                                      compute_dtype=runner.compute_dtype,
+                                      tiling=tiling)
+            t0 = time.perf_counter()
+            again = {key: r4._resolve_tile(key[0], torch.empty(key[1]))
+                     for key in plans}
+            say(f"(b3) the same shapes resolved again in "
+                f"{time.perf_counter() - t0:.3f} s with "
+                f"{memplan.probe_runs - runs} probe runs: {again}")
+            if again != plans or memplan.probe_runs != runs:
+                fail("(b3) the second resolution ran a probe or planned "
+                     "otherwise")
+        finally:
+            memplan.probe_tile_bytes = real_probe
+            torch.cuda.set_per_process_memory_fraction(1.0, device)
+            if cache_env is None:
+                os.environ.pop("SEEDVR2_MEMPROBE_CACHE", None)
+            else:
+                os.environ["SEEDVR2_MEMPROBE_CACHE"] = cache_env
+            memplan.reset_cache_for_tests()
+    say(f"auto tiles: {sum(p[7] for p in probes)} probe runs "
+        f"({sum(p[5] for p in probes if p[7]):.2f} s), "
+        f"{sum(p[4] is None for p in probes)} out of memory; allocator "
+        f"gap (reserved beyond the allocated peak) of each probe run and "
+        f"request, whole card: " + ", ".join(
+            f"{g / 2 ** 20:.1f} MiB of {b / 2 ** 30:.2f} GiB"
+            for g, b in gaps["b1"]) + f"; under the "
+        f"{AUTO_EMULATED_BYTES / 2 ** 30:.0f} GiB fraction: " + ", ".join(
+            f"{g / 2 ** 20:.1f} MiB of {b / 2 ** 30:.2f} GiB"
+            for g, b in gaps["b2"]) + f" (margin {memplan._SAFETY_BYTES / 2 ** 20:.0f}"
+        " MiB plus each probe's own gap)")
+    for lg in loggers:
+        lg.removeHandler(handler)
+    del runner, r2, r3, r4, out2, out3
+    torch.cuda.empty_cache()
+
+
+def untiled_under_pressure(torch, memplan, runner, device, total):
+    """(b1) What the whole card's fragmentation figure means: the untiled
+    decode of (b1)'s latent run once more under a memory fraction that
+    leaves it its probe's allocated peak plus 10 %, from an empty cache.
+    Prints whether it ran and the allocator's gap then (a measurement
+    only: nothing is planned from it)."""
+    from seedvr2_tpu_torch.models.vae.pipeline_vae import _decode_slices
+
+    (kind, shape), = [k for k in runner._auto_tile_cache if k[0] == "decode"]
+    nbytes = memplan.probe_tile_bytes(runner.vae, kind, 1, *shape[:3])
+    gap_free = memplan.fragmentation(runner.vae, kind, 1, *shape[:3])
+    z = torch.randn((1,) + shape, device=device).to(runner.vae.dtype)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved(device)
+    torch.cuda.set_per_process_memory_fraction(
+        (held + 1.1 * nbytes) / total, device)
+    torch.cuda.reset_peak_memory_stats(device)
+    try:
+        with torch.no_grad():
+            out = _decode_slices(runner.vae.model, z, runner.vae.lowering)
+        torch.cuda.synchronize()
+        ran = True
+        del out
+    except torch.cuda.OutOfMemoryError:
+        ran = False
+    gap = (torch.cuda.max_memory_reserved(device) - held
+           - (torch.cuda.max_memory_allocated(device)
+              - torch.cuda.memory_allocated(device)))
+    torch.cuda.set_per_process_memory_fraction(1.0, device)
+    torch.cuda.empty_cache()
+    say(f"(b1) the untiled decode {shape} again with only its allocated "
+        f"peak {nbytes / 2 ** 30:.2f} GiB + 10 % of room: "
+        + (f"ran, the allocator reserving {gap / 2 ** 20:.1f} MiB beyond it"
+           if ran else "out of memory")
+        + f" (on the whole card it reserved {gap_free / 2 ** 20:.1f} MiB "
+        "beyond it)")
+
+
+def gguf_loads(torch, cli, gguf, native, path, device, label):
+    """The GGUF DiT loaded through cli.make_runner(quant="q4k") with the host
+    library, then with the numpy plain dequantizers (gguf.dequantize's
+    plain path); both seconds printed side by side; the two DiTs' state
+    dicts must be equal. Returns (native runner, numpy runner, seconds)."""
+    secs, deq, runners = {}, {}, {}
+    real = gguf.dequantize
+    for way in ("native", "numpy"):
+        spent = [0.0]
+
+        def timed(*args, way=way, spent=spent):
+            t = time.perf_counter()
+            try:
+                return real(*args, plain=way == "numpy")
+            finally:
+                spent[0] += time.perf_counter() - t
+
+        gguf.dequantize = timed
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runners[way] = cli.make_runner(device, seed=0, dit_model=path,
+                                           quant="q4k")
+            torch.cuda.synchronize()
+            secs[way] = time.perf_counter() - t0
+        finally:
+            gguf.dequantize = real
+        deq[way] = spent[0]
+    a, b = (r.dit.state_dict() for r in runners.values())
+    same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    say(f"{label} GGUF DiT load (cli.make_runner(quant='q4k')): "
+        f"{secs['native']:.2f} s with the host library (dequantizing "
+        f"{deq['native']:.2f} s of it; library built in "
+        f"{native.build_seconds:.2f} s this process), {secs['numpy']:.2f} s "
+        f"with the numpy dequantizers (dequantizing {deq['numpy']:.2f} s); "
+        f"the rest is the file read, the host requantization and the copy "
+        f"to the card; host {host_cpu()}; DiTs equal: {same}")
+    if not same:
+        fail(f"{label} GGUF: the natively loaded DiT differs from the numpy "
+             "loaded one")
+    return runners["native"], runners["numpy"], secs
+
+
+def host_cpu() -> str:
+    """The host's CPU: lscpu's model name (else /proc/cpuinfo's), the
+    architecture and the thread count."""
+    import platform
+
+    model = ""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=10).stdout
+        model = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                      if ln.startswith("Model name")), "")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if not model:
+        try:
+            with open("/proc/cpuinfo") as f:
+                model = next((ln.split(":", 1)[1].strip() for ln in f
+                              if ln.lower().startswith("model name")), "")
+        except OSError:
+            pass
+    return (f"{model or 'CPU model not reported'} ({platform.machine()}), "
+            f"{os.cpu_count()} threads")
+
+
+def gguf_block_check(np, gguf, native, path, layout):
+    """Start, in a pool of 4 host threads, every Q8_0 / Q4_K / Q6_K tensor
+    of the GGUF file dequantized by the host library and by the numpy plain
+    version, GGUF_CHECK_VALUES values at a time (numpy's temporaries then
+    stay in cache), compared bit for bit. Returns finish(), which waits,
+    prints the counts and seconds by type and fails on any difference."""
+    import threading
+
+    names = {GGUF_Q8_0: "Q8_0", GGUF_Q4_K: "Q4_K", GGUF_Q6_K: "Q6_K"}
+    todo = [e for e in layout if e[1] in names]
+    lock, stats = threading.Lock(), {}
+
+    def one(entry):
+        name, qt, off, size = entry
+        nbytes = GGUF_BLOCK[qt][0]
+        raw = np.fromfile(path, np.uint8, count=size, offset=off).reshape(
+            -1, nbytes)
+        s_nat = s_np = 0.0
+        same = True
+        step = max(1, GGUF_CHECK_VALUES // GGUF_BLOCK[qt][1])
+        for i in range(0, raw.shape[0], step):
+            chunk = raw[i:i + step]
+            t0 = time.perf_counter()
+            a = native.dequantize_blocks(chunk, qt)
+            t1 = time.perf_counter()
+            b = gguf._DEQUANT[qt](chunk)
+            s_nat += t1 - t0
+            s_np += time.perf_counter() - t1
+            same &= np.array_equal(a.view(np.uint32), b.view(np.uint32))
+        with lock:
+            s = stats.setdefault(names[qt], [0, 0, 0.0, 0.0, []])
+            s[0] += 1
+            s[1] += raw.shape[0] * GGUF_BLOCK[qt][1]
+            s[2] += s_nat
+            s[3] += s_np
+            if not same:
+                s[4].append(name)
+
+    pool = concurrent.futures.ThreadPoolExecutor(4)
+    t_start = time.perf_counter()
+    futures = [pool.submit(one, e) for e in todo]
+
+    def finish(label):
+        for f in futures:
+            f.result()
+        pool.shutdown()
+        wall = time.perf_counter() - t_start
+        for qt_name, (n, vals, s_nat, s_np, bad) in sorted(stats.items()):
+            say(f"{label} GGUF {qt_name}: {n} tensors, {vals / 1e6:.1f} M "
+                f"values, host library {s_nat:.2f} s, numpy {s_np:.2f} s "
+                f"(summed over 4 threads), bit-equal: {not bad}")
+        say(f"{label} GGUF block check: {len(todo)} tensors in {wall:.2f} s "
+            f"of wall beside the card's work")
+        bad = [x for s in stats.values() for x in s[4]]
+        if bad or sum(s[0] for s in stats.values()) != len(todo):
+            fail(f"{label} GGUF: the host library differs from numpy on "
+                 f"{bad[:5]}")
+    return finish
+
+
+def same_request(torch, np, cli, runners, frames, res, embeds, label):
+    """The same request through each runner: outputs must be equal."""
+    outs = [cli.process_frames(r, frames, embeds, resolution=res,
+                               seed=42)[0] for r in runners]
+    diff = float(np.abs(outs[0] - outs[1]).max())
+    say(f"{label}: the natively loaded and the numpy-loaded DiT serve the "
+        f"same request, max abs difference {diff:.6g} (must be 0)")
+    if diff != 0.0:
+        fail(f"{label}: outputs differ")
 
 
 def main() -> None:
@@ -2353,7 +2973,7 @@ def main() -> None:
     from seedvr2_tpu_torch.core.configs import DIT_3B, VAE_V3
     from seedvr2_tpu_torch.models.dit import nadit
     from seedvr2_tpu_torch.models.vae.pipeline_vae import VideoVAE
-    from seedvr2_tpu_torch.ops import _build, gather
+    from seedvr2_tpu_torch.ops import _build, gather, gguf, native
     from seedvr2_tpu_torch.ops.attention import attention
     from seedvr2_tpu_torch.ops import flash_attention as fa
     from seedvr2_tpu_torch.ops import fused_norm as fn
@@ -2487,8 +3107,10 @@ def main() -> None:
             for uk in (True, False):
                 fwd = (lambda uk=uk: nadit.nadit_forward(
                     model, vid_in, txt, tt, dplan, use_kernels=uk))
-                outs[uk] = fwd()
-                ms[uk] = cuda_ms(torch, fwd, 3, warmup=1)
+                outs[uk] = fwd()  # also the warm-up
+                # the plain versions timed once: their times only frame
+                # the kernels'
+                ms[uk] = cuda_ms(torch, fwd, 3 if uk else 1, warmup=0)
         rel = rel_l2(outs[True], outs[False])
         say(f"whole {label} DiT on latent {dplan.plan.vid_shape} "
             f"({dplan.plan.seq_len} tokens): relative L2 kernels vs plain "
@@ -2633,8 +3255,6 @@ def main() -> None:
     del to_dense, w8  # w8 holds the w8a8 DiT's linears
     torch.cuda.empty_cache()
     phase_done("6 (q8 and q4 DiTs)")
-    finish_surface()  # phase 4b's CPU references, run beside phases 4b-6
-    phase_done("4b's CPU references (the wait left after phase 6)")
 
     # 7. serving: the throughput, q8 and q4 lanes
     def lane(name, r, reqs, needed, phase="7"):
@@ -2642,7 +3262,6 @@ def main() -> None:
         for i, (label, t, h, w, res) in enumerate(reqs):
             frames = make_frames(t, h, w, seed=20 + i)
             requests.append((label, frames, res, (t, res, res * w // h, 3)))
-        requests += [(f"{label} again", *rest) for label, *rest in requests]
         reset_counts(wrappers)
         serve(torch, np, cli, r, requests, device, embeds)
         counts[name] = read_counts(wrappers, needed, name)
@@ -2652,7 +3271,6 @@ def main() -> None:
     for (label, t, h, w, res), frames in zip(FAST_REQUESTS, fast_frames):
         expect = (t, res, res * w // h, 3)
         requests.append((label, frames, res, expect))
-    requests += [(f"{label} again", *rest) for label, *rest in requests]
     reset_counts(wrappers)
     serve(torch, np, cli, fast, requests, device, embeds)
     counts["throughput"] = read_counts(
@@ -2664,55 +3282,40 @@ def main() -> None:
     lane("q4", q4, Q4_REQUESTS, ("K1", "K2", "K7"))
     del q4
     torch.cuda.empty_cache()
+    finish_surface()  # phase 4b's CPU references, run beside phases 4b-7
+    phase_done("4b's CPU references (the wait left after phase 7)")
 
-    # 8. the GGUF lane: a full-size Q4_K_M-like file through the loader
+    # 8. the GGUF lane: a full-size Q4_K_M-like file through the loader,
+    # loaded with the host library and with the numpy dequantizers
     import tempfile
 
+    label, t, h, w, res = Q8_REQUESTS[1]
+    frames = make_frames(t, h, w, seed=30)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "seedvr2_ema_3b-Q4_K_M.gguf")
         t0 = time.perf_counter()
-        expect = gguf_from_q8_runner(torch, qm, q8.dit, path, device)
+        expect, layout = gguf_from_q8_runner(torch, qm, q8.dit, path, device)
         size = os.path.getsize(path)
         say(f"GGUF written in {time.perf_counter() - t0:.2f} s: "
-            f"{size / 2 ** 30:.3f} GiB, {sum(v == 'q8' for v in expect.values())}"
-            f" Q8_0, {sum(v == 'affine' for v in expect.values())} Q4_K and "
-            f"{sum(v == 'dense' for v in expect.values())} F16 linears")
-        t0 = time.perf_counter()
-        gg = cli.make_runner(device, seed=0, dit_model=path, quant="q4k")
-        torch.cuda.synchronize()
-        say(f"GGUF loaded through cli.make_runner(quant='q4k') in "
-            f"{time.perf_counter() - t0:.2f} s: "
-            f"{dit_bytes(torch, im, qm, gg.dit)}")
-        os.remove(path)
-    kinds = {qm.Q8Linear: "q8", qm.AffineLinear: "affine",
-             torch.nn.Linear: "dense"}
-    got = {name: kinds.get(type(m)) for name, m in gg.dit.named_modules()
-           if type(m) in kinds}
-    if got != expect:
-        bad = sorted(k for k in expect if got.get(k) != expect[k])[:5]
-        fail(f"GGUF lane: linears not the modules their types call for: "
-             f"{[(k, expect[k], got.get(k)) for k in bad]}")
-    q8_mods = dict(q8.dit.named_modules())
-    for name, kind in expect.items():
-        if kind != "q8":
-            continue
-        a, b = gg.dit.get_submodule(name), q8_mods[name]
-        if not (torch.equal(a.q8, b.q8) and torch.equal(
-                a.scales, b.scales.half().float())):
-            fail(f"GGUF lane: {name}'s Q8 buffers differ from the q8 lane's "
-                 "with f16-rounded scales")
-    say(f"GGUF lane: every linear is the module its type calls for; the "
-        f"{sum(v == 'q8' for v in expect.values())} Q8 layers equal the q8 "
-        f"lane's with f16 scales")
-    del q8, q8_mods
-    torch.cuda.empty_cache()
-    label, t, h, w, res = Q8_REQUESTS[1]
-    reset_counts(wrappers)
-    serve(torch, np, cli, gg, ((f"GGUF q4k {label}", make_frames(
-        t, h, w, seed=30), res, (t, res, res * w // h, 3)),), device, embeds)
-    counts["gguf"] = read_counts(wrappers, ("K1", "K2", "K6", "K7"), "gguf")
-    del gg
-    torch.cuda.empty_cache()
+            f"{size / 2 ** 30:.3f} GiB, {gguf_kinds(expect)}")
+        gg, gg_np, _ = gguf_loads(torch, cli, gguf, native, path, device,
+                                  "3B")
+        say(f"GGUF DiT on the card: {dit_bytes(torch, im, qm, gg.dit)}")
+        finish = gguf_block_check(np, gguf, native, path, layout)
+        check_gguf_modules(torch, qm, gg.dit, q8.dit, expect, "3B")
+        del q8
+        torch.cuda.empty_cache()
+        reset_counts(wrappers)
+        serve(torch, np, cli, gg, ((f"GGUF q4k {label}", frames, res,
+                                    (t, res, res * w // h, 3)),), device,
+              embeds)
+        counts["gguf"] = read_counts(wrappers, ("K1", "K2", "K6", "K7"),
+                                     "gguf")
+        same_request(torch, np, cli, (gg, gg_np), frames, res, embeds,
+                     f"3B GGUF q4k {label}")
+        del gg, gg_np
+        torch.cuda.empty_cache()
+        finish("3B")
     phase_done("8 (GGUF lane)")
 
     # 9. the VAE's opt-in lanes: --vae_quant int8 and SEEDVR2_FUSED_NORM=1
@@ -2835,6 +3438,15 @@ def main() -> None:
                         embeds, clip)
     phase_done("10 (VAE lowering switches)")
 
+    # 10b. the legacy VAE family at full width, beside the 3B DiT
+    counts.update(legacy_vae_lanes(torch, np, cli, VideoVAE, VAE_V3, device,
+                                   embeds, make_frames, wrappers, fn, ic))
+    phase_done("10b (legacy VAE)")
+
+    # 10c. --vae_*_tile_size auto: memory probes on the card
+    auto_tile_phase(torch, np, cli, device, embeds, make_frames)
+    phase_done("10c (auto tiles)")
+
     # 11. the 7B family at full width, with no 3B model left on the card
     import gc
 
@@ -2851,8 +3463,8 @@ def main() -> None:
     recs_7b = check_7b_kernels(torch, fa, gather, im, fq, qm, nadit, device)
     torch.cuda.empty_cache()
     phase_done("11a (kernels at 7B shapes)")
-    run_7b(torch, cli, nadit, im, qm, device, txt, tt, dit_inputs, dit_runs,
-           lane, counts, phase_done)
+    run_7b(torch, np, cli, nadit, im, qm, gguf, native, device, txt, tt,
+           embeds, dit_inputs, dit_runs, lane, counts, phase_done)
 
     # 12. records and the contract line
     kernels = []

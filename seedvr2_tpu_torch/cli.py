@@ -7,7 +7,8 @@
         [--color_correction lab|wavelet|wavelet_adaptive|hsv|adain|none] \\
         [--input_noise_scale S] [--latent_noise_scale S] \\
         [--uniform_batch_size] [--tile_mode uniform|ref] \\
-        [--tile_debug false|encode|decode]
+        [--tile_debug false|encode|decode] \\
+        [--vae_encode_tile_size N|auto] [--vae_decode_tile_size N|auto]
 
 Input and output are float32 .npy arrays of frames (T, H, W, 3) in [0, 1],
 or (T, H, W, 4) RGBA, whose alpha is upscaled edge-guided and comes out as
@@ -23,7 +24,10 @@ q4k` (core/loader.py), and the VAE's opt-in lanes: `--vae_quant int8`
 at cfg 1.0, lab colour correction by default.
 The VAE's lowering switches SEEDVR2_UPSAMPLE_CONVT, SEEDVR2_HEAD_CORRECTION
 and SEEDVR2_CONV_IM2COL are read from the environment as in the JAX
-package, once, when the VAE is built.
+package, once, when the VAE is built. A tile size of `auto` picks the
+fewest-tiles grid that fits the card from memory probes run on it, cached
+in ~/.cache/seedvr2_tpu_torch/memprobe.json (or $SEEDVR2_MEMPROBE_CACHE).
+--vae_model also takes the legacy video_vae.py layout (sniffed).
 """
 
 import argparse
@@ -53,6 +57,14 @@ THROUGHPUT_PRESET = dict(
     vae_encode_tiled=True, vae_decode_tiled=True,
     vae_encode_tile_size=1536, vae_decode_tile_size=1088,
     vae_encode_tile_overlap=32, vae_decode_tile_overlap=48)
+
+
+def _tile_size(v: str):
+    """Argparse type of the tile-size flags: an int px side, or "auto" for
+    the memory-probed plan (utils/memplan.py)."""
+    if v.strip().lower() == "auto":
+        return "auto"
+    return int(v)
 
 
 def make_runner(device, seed: int = 42, dit_model: str = None,
@@ -131,7 +143,8 @@ def parse_arguments(argv=None):
                         "bf16, fp32, fp8 or the 7B fp8-mixed file), .pth / "
                         ".pt, or .gguf")
     p.add_argument("--vae_model", default=None,
-                   help="reference-layout VAE .safetensors")
+                   help="reference-layout VAE .safetensors (the VAE_V3 or "
+                        "the legacy video_vae.py layout)")
     p.add_argument("--model_dir", default=None,
                    help="directory searched first for {pos,neg}_emb")
     p.add_argument("--resolution", type=int, default=1080)
@@ -173,10 +186,13 @@ def parse_arguments(argv=None):
                         "kernel; experimental, its speed is in PERF.md. "
                         "--preset throughput does not set it")
     p.add_argument("--vae_encode_tiled", action="store_true")
-    p.add_argument("--vae_encode_tile_size", type=int, default=1024)
+    p.add_argument("--vae_encode_tile_size", type=_tile_size, default=1024,
+                   help="tile side in px, or 'auto': the fewest-tiles grid "
+                        "that fits the card, from memory probes run on it")
     p.add_argument("--vae_encode_tile_overlap", type=int, default=128)
     p.add_argument("--vae_decode_tiled", action="store_true")
-    p.add_argument("--vae_decode_tile_size", type=int, default=1024)
+    p.add_argument("--vae_decode_tile_size", type=_tile_size, default=1024,
+                   help="tile side in px, or 'auto' (see encode)")
     p.add_argument("--vae_decode_tile_overlap", type=int, default=128)
     p.add_argument("--tile_debug", default="false",
                    choices=pipeline.TILE_DEBUG,
@@ -194,12 +210,15 @@ def parse_arguments(argv=None):
 
 
 def tiling_from_args(args) -> VAETiling:
+    def size(v):
+        return "auto" if v == "auto" else (v, v)
+
     return VAETiling(
         encode_tiled=args.vae_encode_tiled,
-        encode_tile_size=(args.vae_encode_tile_size,) * 2,
+        encode_tile_size=size(args.vae_encode_tile_size),
         encode_tile_overlap=(args.vae_encode_tile_overlap,) * 2,
         decode_tiled=args.vae_decode_tiled,
-        decode_tile_size=(args.vae_decode_tile_size,) * 2,
+        decode_tile_size=size(args.vae_decode_tile_size),
         decode_tile_overlap=(args.vae_decode_tile_overlap,) * 2,
         tile_mode=args.tile_mode)
 

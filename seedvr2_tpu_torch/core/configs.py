@@ -104,7 +104,7 @@ class VAEConfig:
     mid_attention: bool = True
     use_quant_conv: bool = False
     use_post_quant_conv: bool = False
-    # "int8": opt-in int8 resnet convs in the JAX package (not ported yet).
+    # "int8": the decoder's 3x3x3 resnet convs as int8 convs (kernel K11).
     conv_quant: str = "none"
 
     @property

@@ -26,8 +26,9 @@ loaders of seedvr2_tpu.core.model_manager), numpy/torch only:
  - VAE (`load_vae_checkpoint`): the `model.` prefix stripped, deprecated
    attention names (query/key/value/proj_attn) renamed, (C, C, 1, 1)
    attention projections squeezed, the architecture sniffed
-   (`sniff_vae_config`), 2D-stored convs inflated to 3D (`tail` mode), then
-   a strict load.
+   (`sniff_vae_config`: VAE_V3's family or the legacy video_vae.py one, by
+   its markers), 2D-stored convs inflated to 3D (`tail` mode), then a
+   strict load.
 
 Both families load: the base config is the file name's family
 (`dit_config_for`, as in the JAX loader), or the 7B when the name says
@@ -392,7 +393,10 @@ def load_vae_checkpoint(path: str, device, dtype=torch.bfloat16,
                         vae_quant: str = "none") -> VideoAutoencoder:
     """Load a reference-layout VAE .safetensors onto `device` in `dtype`,
     with the JAX load_vae_checkpoint's key fixups, squeeze, sniffing and
-    2D->3D inflation, then a strict load. vae_quant "int8" sets the
+    2D->3D inflation, then a strict load. A legacy-layout file (no mid
+    attention, quant convs, (1, 3, 3) conv2) loads as its family; stored
+    2D, its conv2 depth is not in the file and the base config's "full"
+    stands, as in JAX. vae_quant "int8" sets the
     config's conv_quant, as the JAX model manager does after its load (the
     VideoVAE built on the model quantizes the served convs)."""
     fixed = {}

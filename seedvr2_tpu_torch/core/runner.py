@@ -2,7 +2,9 @@
 
 Port of seedvr2_tpu.core.runner without mesh or block streaming: VAE
 encode/decode with the latent scale/shift, spatial tiling (uniform grid or
-the reference's stride sweep) and the out-of-memory retry, the sr / t2v /
+the reference's stride sweep; tile_size "auto" resolved per item shape by
+memory probes run on the card, utils/memplan.py) and the out-of-memory
+retry, the sr / t2v /
 i2v conditions, the timestep transform, and the
 plain denoise (condition concat -> NaDiT -> optional CFG -> Euler
 endpoint). DiT plans are built once per (latent shape, text length) and
@@ -18,6 +20,7 @@ import torch
 from ..models.dit.nadit import (DevicePlan, NaDiT, build_dit_plan,
                                 nadit_forward, upload_plan)
 from ..models.vae.pipeline_vae import TILE_MODES, VideoVAE
+from ..utils import memplan
 from ..utils.dtypes import COMPUTE_DTYPE
 from . import diffusion
 from .configs import RunnerConfig
@@ -29,9 +32,10 @@ log = logging.getLogger(__name__)
 @dataclass(frozen=True)
 class VAETiling:
     """The VAE's spatial tiling settings (pixel sizes, (h, w) pairs), the
-    JAX runner's encode_/decode_ tile arguments. tile_mode "uniform" is the
-    even same-shape grid, "ref" the reference's stride sweep. Memory-probed
-    "auto" tile sizes are not ported."""
+    JAX runner's encode_/decode_ tile arguments. A tile size may be "auto":
+    the runner picks the fewest-tiles grid that fits the card, per item
+    shape (utils/memplan.py). tile_mode "uniform" is the even same-shape
+    grid, "ref" the reference's stride sweep."""
 
     encode_tiled: bool = False
     encode_tile_size: Tuple[int, int] = (512, 512)
@@ -45,11 +49,13 @@ class VAETiling:
         for kind in ("encode", "decode"):
             for what in ("tile_size", "tile_overlap"):
                 v = getattr(self, f"{kind}_{what}")
+                if what == "tile_size" and v == "auto":
+                    continue
                 if (not isinstance(v, tuple) or len(v) != 2
                         or not all(isinstance(i, int) for i in v)):
+                    also = ' or "auto"' if what == "tile_size" else ""
                     raise ValueError(f"{kind}_{what} must be an (h, w) pair "
-                                     f"of ints (\"auto\" is not ported), "
-                                     f"got {v!r}")
+                                     f"of ints{also}, got {v!r}")
         if self.tile_mode not in TILE_MODES:
             raise ValueError(f"tile_mode must be one of {TILE_MODES}, got "
                              f"{self.tile_mode!r}")
@@ -72,18 +78,83 @@ class VideoDiffusionRunner:
         self.device = next(dit.parameters()).device
         self.schedule = diffusion.LerpSchedule(config.diffusion.schedule_T)
         self._plans: Dict[Tuple, DevicePlan] = {}
+        # resolved plans of an "auto" tile size, by (kind, item shape):
+        # (tiled, tile_size px)
+        self._auto_tile_cache: Dict[tuple, tuple] = {}
+        # device out-of-memory errors the VAE phases caught and retried
+        self.oom_retries = 0
 
     # ----------------------------------------------------------------- vae
 
-    def _vae_call_with_oom_retry(self, kind: str, run_one):
-        """run_one(tiled, tile_size) for a VAE phase ("encode"/"decode"),
-        resilient to device out-of-memory as in the JAX runner: on
-        torch.cuda.OutOfMemoryError first engage tiling, then shrink the
-        tile (x0.7 a side, in 64 px steps, floor 256 px) until it fits. The
-        shrink sticks: later calls start from the runner's updated tiling.
-        Any other exception passes through."""
+    def _auto_tile_budget(self) -> Optional[int]:
+        """Device bytes a VAE call may still take: the card's limit (its
+        total memory scaled by the per-process memory fraction) less what
+        the caching allocator holds once its cache is emptied, so what
+        stays resident through the call (the DiT, the VAE, the call's
+        input) is counted once, as it stands, with the free space stuck in
+        segments that live tensors hold (the limit applies to reserved
+        memory). None on a device with no memory model (the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        torch.cuda.empty_cache()
+        return (memplan.memory_limit(self.device)
+                - torch.cuda.memory_reserved(self.device))
+
+    def _resolve_tile(self, kind: str, item: torch.Tensor):
+        """(tiled, tile_size px) for one item of a VAE phase: the tiling's
+        own unless its tile size is "auto", which is planned once per
+        (kind, item shape) by memory probes on the card (JAX's
+        _resolve_tile). item: (T, H, W, 3) for encode, (Tl, h, w, C) for
+        decode. Without a budget (the CPU) "auto" serves the fixed
+        1024 px default, as in JAX."""
         tiled = getattr(self.tiling, f"{kind}_tiled")
         tile_size = getattr(self.tiling, f"{kind}_tile_size")
+        if tile_size != "auto":
+            return tiled, tile_size
+        key = (kind, tuple(item.shape))
+        hit = self._auto_tile_cache.get(key)
+        if hit is not None:
+            return hit
+        vcfg = self.vae.cfg
+        sf, tdf = vcfg.spatial_downsample_factor, vcfg.temporal_downsample_factor
+        if kind == "decode":
+            h, w = item.shape[1], item.shape[2]
+            frames_px = (item.shape[0] - 1) * tdf + 1
+        else:
+            frames_px = item.shape[0]
+            h, w = -(-item.shape[1] // sf), -(-item.shape[2] // sf)
+        budget = self._auto_tile_budget()
+        if budget is None:
+            resolved = (tiled, (1024, 1024))
+            log.info("auto tile %s: no device memory limit; using the "
+                     "1024 px default", kind)
+        else:
+            plan = memplan.plan_auto_tile(
+                self.vae, kind, (h, w), 1, frames_px,
+                getattr(self.tiling, f"{kind}_tile_overlap"), budget)
+            resolved = (False, (1024, 1024)) if plan is None else (True, plan)
+            log.info("auto tile %s %s: resolved to %s (budget %.1f GB)", kind,
+                     tuple(item.shape), "untiled" if plan is None else plan,
+                     budget / 1e9)
+        self._auto_tile_cache[key] = resolved
+        return resolved
+
+    def _vae_call_with_oom_retry(self, kind: str, run_one,
+                                 item: torch.Tensor):
+        """run_one(tiled, tile_size) for a VAE phase ("encode"/"decode") on
+        `item`, with the tiling resolved for it, resilient to device
+        out-of-memory as in the JAX runner: on torch.cuda.OutOfMemoryError
+        first engage tiling, then shrink the tile (x0.7 a side, in 64 px
+        steps, floor 256 px) until it fits. The shrink sticks: under an
+        "auto" tile size in the item shape's plan, else in the runner's
+        tiling. Any other exception passes through."""
+        auto = getattr(self.tiling, f"{kind}_tile_size") == "auto"
+        tiled, tile_size = self._resolve_tile(kind, item)
+        if auto and self.device.type == "cuda":
+            # the plan's probes ran from an empty allocator cache; start
+            # the call there too, so earlier phases' cached blocks do not
+            # fragment what the plan counted on
+            torch.cuda.empty_cache()
         for _ in range(8):
             try:
                 return run_one(tiled, tile_size)
@@ -91,6 +162,7 @@ class VideoDiffusionRunner:
                 if tiled and min(tile_size) <= self._MIN_TILE:
                     raise
             # outside the except block the failed call's tensors are freed
+            self.oom_retries += 1
             torch.cuda.empty_cache()
             if tiled:
                 tile_size = tuple(max(self._MIN_TILE, int(t * 0.7) // 64 * 64)
@@ -98,8 +170,12 @@ class VideoDiffusionRunner:
             tiled = True
             log.warning("device OOM during VAE %s; retrying tiled %s", kind,
                         tile_size)
-            self.tiling = replace(self.tiling, **{
-                f"{kind}_tiled": tiled, f"{kind}_tile_size": tile_size})
+            if auto:
+                self._auto_tile_cache[(kind, tuple(item.shape))] = (
+                    tiled, tile_size)
+            else:
+                self.tiling = replace(self.tiling, **{
+                    f"{kind}_tiled": tiled, f"{kind}_tile_size": tile_size})
         raise RuntimeError(f"VAE {kind} kept running out of memory down to "
                            f"{tile_size}")
 
@@ -115,7 +191,7 @@ class VideoDiffusionRunner:
                 "encode", lambda tiled, ts, x=x: self.vae.encode(
                     x[None], tiled=tiled, tile_size=ts,
                     tile_overlap=self.tiling.encode_tile_overlap,
-                    tile_mode=self.tiling.tile_mode))[0]
+                    tile_mode=self.tiling.tile_mode), x)[0]
             out.append(((lat.float() - shift) * scale).to(self.compute_dtype))
         return out
 
@@ -130,7 +206,7 @@ class VideoDiffusionRunner:
                 "decode", lambda tiled, ts, z=z: self.vae.decode(
                     z, tiled=tiled, tile_size=ts,
                     tile_overlap=self.tiling.decode_tile_overlap,
-                    tile_mode=self.tiling.tile_mode))[0])
+                    tile_mode=self.tiling.tile_mode), z[0])[0])
         return out
 
     # ----------------------------------------------------------- condition

@@ -1,6 +1,10 @@
 """Causal video VAE (s8_c16_t4).
 
-Port of seedvr2_tpu.models.vae.model: plain causal 3D convs (cuDNN),
+Port of seedvr2_tpu.models.vae.model, both families: the attn_video_vae
+layout (VAE_V3) and the legacy video_vae.py layout (time_receptive_field
+"half": resnet conv2 (1, 3, 3); no mid-block attention; 1x1x1 quant_conv /
+post_quant_conv around the latent, each switch its own config field). Plain
+causal 3D convs (cuDNN),
 per-frame group norm with fp32 statistics, the mid-block spatial attention
 as a plain matmul/softmax composition; the JAX package's three lowering
 switches (`Lowering`: the decoder upsample as a transposed conv, the
@@ -79,12 +83,15 @@ def _norm(c, groups, **fk):
 
 
 class ResnetBlock(nn.Module):
-    def __init__(self, ci, co, groups, **fk):
+    """conv2 is (1, 3, 3) when conv2_kt is 1 (time_receptive_field "half");
+    the forward derives each conv's causal pad from its depth."""
+
+    def __init__(self, ci, co, groups, conv2_kt=3, **fk):
         super().__init__()
         self.norm1 = _norm(ci, groups, **fk)
         self.conv1 = _conv(ci, co, **fk)
         self.norm2 = _norm(co, groups, **fk)
-        self.conv2 = _conv(co, co, **fk)
+        self.conv2 = _conv(co, co, (conv2_kt, 3, 3), **fk)
         self.conv_shortcut = _conv(ci, co, (1, 1, 1), **fk) if ci != co else None
 
 
@@ -99,11 +106,16 @@ class AttnBlock(nn.Module):
 
 
 class MidBlock(nn.Module):
-    def __init__(self, c, groups, **fk):
+    """resnet -> spatial attention -> resnet; the legacy family has no
+    attention (attention=False: no `attentions` module)."""
+
+    def __init__(self, c, groups, conv2_kt=3, attention=True, **fk):
         super().__init__()
-        self.resnets = nn.ModuleList([ResnetBlock(c, c, groups, **fk),
-                                      ResnetBlock(c, c, groups, **fk)])
-        self.attentions = nn.ModuleList([AttnBlock(c, groups, **fk)])
+        self.resnets = nn.ModuleList([
+            ResnetBlock(c, c, groups, conv2_kt, **fk),
+            ResnetBlock(c, c, groups, conv2_kt, **fk)])
+        if attention:
+            self.attentions = nn.ModuleList([AttnBlock(c, groups, **fk)])
 
 
 class _ConvHolder(nn.Module):
@@ -113,18 +125,22 @@ class _ConvHolder(nn.Module):
             self.add_module(name, conv)
 
 
+def _conv2_kt(cfg: VAEConfig) -> int:
+    return 1 if cfg.time_receptive_field == "half" else 3
+
+
 class Encoder(nn.Module):
     def __init__(self, cfg: VAEConfig, **fk):
         super().__init__()
         chans, g = cfg.block_out_channels, cfg.norm_num_groups
-        n = len(chans)
+        n, k2 = len(chans), _conv2_kt(cfg)
         self.conv_in = _conv(cfg.in_channels, chans[0], **fk)
         self.down_blocks = nn.ModuleList()
         in_ch = chans[0]
         for i, out_ch in enumerate(chans):
             blk = nn.Module()
             blk.resnets = nn.ModuleList(
-                ResnetBlock(in_ch if j == 0 else out_ch, out_ch, g, **fk)
+                ResnetBlock(in_ch if j == 0 else out_ch, out_ch, g, k2, **fk)
                 for j in range(cfg.layers_per_block))
             if i < n - 1:
                 kt = 3 if i >= n - cfg.temporal_scale_num - 1 else 1
@@ -132,7 +148,7 @@ class Encoder(nn.Module):
                     conv=_conv(out_ch, out_ch, (kt, 3, 3), **fk))])
             self.down_blocks.append(blk)
             in_ch = out_ch
-        self.mid_block = MidBlock(chans[-1], g, **fk)
+        self.mid_block = MidBlock(chans[-1], g, k2, cfg.mid_attention, **fk)
         self.conv_norm_out = _norm(chans[-1], g, **fk)
         self.conv_out = _conv(chans[-1], 2 * cfg.latent_channels, **fk)
 
@@ -141,15 +157,15 @@ class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig, **fk):
         super().__init__()
         rev, g = list(reversed(cfg.block_out_channels)), cfg.norm_num_groups
-        n = len(rev)
+        n, k2 = len(rev), _conv2_kt(cfg)
         self.conv_in = _conv(cfg.latent_channels, rev[0], **fk)
-        self.mid_block = MidBlock(rev[0], g, **fk)
+        self.mid_block = MidBlock(rev[0], g, k2, cfg.mid_attention, **fk)
         self.up_blocks = nn.ModuleList()
         in_ch = rev[0]
         for i, out_ch in enumerate(rev):
             blk = nn.Module()
             blk.resnets = nn.ModuleList(
-                ResnetBlock(in_ch if j == 0 else out_ch, out_ch, g, **fk)
+                ResnetBlock(in_ch if j == 0 else out_ch, out_ch, g, k2, **fk)
                 for j in range(cfg.layers_per_block + 1))
             if i < n - 1:
                 ratio = 4 * (2 if i < cfg.temporal_scale_num else 1)
@@ -163,16 +179,16 @@ class Decoder(nn.Module):
 
 
 class VideoAutoencoder(nn.Module):
-    """Parameter container of the causal VAE; the cores below run it."""
+    """Parameter container of the causal VAE; the cores below run it. The
+    legacy family's quant_conv (over the moments) and post_quant_conv (over
+    the latent) are 1x1x1 convs, present when the config asks for them."""
 
     def __init__(self, cfg: VAEConfig, device=None, dtype=None):
         super().__init__()
-        if (cfg.use_quant_conv or cfg.use_post_quant_conv
-                or not cfg.mid_attention
-                or cfg.time_receptive_field != "full"):
-            raise NotImplementedError(
-                "only the attn_video_vae family (VAE_V3 switches) is ported; "
-                "the legacy family is not")
+        if cfg.time_receptive_field not in ("full", "half"):
+            raise ValueError(f"time_receptive_field="
+                             f"{cfg.time_receptive_field!r}; known: full, "
+                             "half")
         if cfg.conv_quant not in ("none", "int8"):
             raise ValueError(f"conv_quant={cfg.conv_quant!r}; known: none, "
                              "int8")
@@ -180,6 +196,11 @@ class VideoAutoencoder(nn.Module):
         self.cfg = cfg
         self.encoder = Encoder(cfg, **fk)
         self.decoder = Decoder(cfg, **fk)
+        moments, lat = 2 * cfg.latent_channels, cfg.latent_channels
+        if cfg.use_quant_conv:
+            self.quant_conv = _conv(moments, moments, (1, 1, 1), **fk)
+        if cfg.use_post_quant_conv:
+            self.post_quant_conv = _conv(lat, lat, (1, 1, 1), **fk)
 
 
 # --------------------------------------------------------------------------
@@ -410,9 +431,12 @@ def attn_block(blk: AttnBlock, x: torch.Tensor) -> torch.Tensor:
 
 def _mid_block(blk: MidBlock, path: str, x, state, new_state,
                conv_quant: str, lowering: Lowering):
+    """resnet -> (spatial attention, absent in the legacy family) ->
+    resnet."""
     x = resnet_block(blk.resnets[0], f"{path}.resnets.0", x, state, new_state,
                      conv_quant, lowering)
-    x = attn_block(blk.attentions[0], x)
+    if hasattr(blk, "attentions"):
+        x = attn_block(blk.attentions[0], x)
     return resnet_block(blk.resnets[1], f"{path}.resnets.1", x, state,
                         new_state, conv_quant, lowering)
 
@@ -504,6 +528,10 @@ def encoder_core(vae: VideoAutoencoder, x: torch.Tensor, state: State,
                    "none", lowering)
     x = norm_silu_conv(enc.conv_norm_out, enc.conv_out, "encoder.conv_out", x,
                        state, new_state, lowering=lowering)
+    if cfg.use_quant_conv:
+        # 1x1x1 over the moments: depth 1, so no temporal state
+        x = causal_conv3d(vae.quant_conv, "quant_conv", x, state, new_state,
+                          lowering=lowering)
     return x.permute(0, 2, 3, 4, 1), (new_state or {})
 
 
@@ -518,6 +546,10 @@ def decoder_core(vae: VideoAutoencoder, z: torch.Tensor, state: State,
     first_slice = state is None
     n_blocks = len(cfg.block_out_channels)
     x = z.permute(0, 4, 1, 2, 3).contiguous()
+    if cfg.use_post_quant_conv:
+        # 1x1x1 over the latent: depth 1, so no temporal state
+        x = causal_conv3d(vae.post_quant_conv, "post_quant_conv", x, state,
+                          new_state, lowering=lowering)
     x = causal_conv3d(dec.conv_in, "decoder.conv_in", x, state, new_state,
                       t_pad=1, s_pad=((1, 1), (1, 1)), lowering=lowering)
     x = _mid_block(dec.mid_block, "decoder.mid_block", x, state, new_state,

@@ -12,8 +12,9 @@ Port of seedvr2_tpu.models.vae.pipeline_vae:
  - `tile_mode="ref"`: the reference's stride sweep (`_plan_ref`, sliver
    edge tiles of other shapes included), blended the same way;
  - latent = posterior mode = the first `latent_channels` channels of the
-   encoder moments.
-Memory-probed tile sizes ("auto") are not ported yet.
+   encoder moments (after the legacy family's quant_conv, when it has one).
+Memory-probed tile sizes ("auto") are resolved by the runner
+(core/runner.py, utils/memplan.py) before a call reaches this module.
 
 The VAE's opt-in lowerings are fixed at construction, as the JAX VideoVAE
 snapshots its lowering switches: with `cfg.conv_quant == "int8"` the
@@ -190,9 +191,9 @@ def _decode_slices(vae: VideoAutoencoder, z: torch.Tensor,
 
 def int8_served_convs(model: VideoAutoencoder):
     """(path, conv) of every conv the int8 path serves: the decoder's
-    resnet convs (mid block and up blocks) whose channel dims are
-    multiples of 128. The upsampler convs, conv_out and the 1x1 shortcuts
-    stay bf16."""
+    3-deep resnet convs (mid block and up blocks) whose channel dims are
+    multiples of 128. The upsampler convs, conv_out, the 1x1 shortcuts and
+    the legacy family's (1, 3, 3) conv2 stay bf16."""
     dec = model.decoder
     blocks = [("decoder.mid_block", dec.mid_block)] + [
         (f"decoder.up_blocks.{i}", b) for i, b in enumerate(dec.up_blocks)]
@@ -366,7 +367,9 @@ def init_vae_params(cfg: VAEConfig, device, dtype=torch.bfloat16,
     """Random VAE drawn directly on `device` with the JAX package's
     init_vae_params distributions: conv and linear weights and biases
     U(+-1/sqrt(fan_in)), group norms weight 1 / bias 0; drawn in fp32 and
-    rounded to `dtype`."""
+    rounded to `dtype`. The tree is `cfg`'s family: for the legacy one,
+    (1, 3, 3) resnet conv2 ("half"), no mid attention and the 1x1x1 quant
+    convs, as JAX's init_vae_params builds it."""
     with torch.device("meta"):
         model = VideoAutoencoder(cfg, dtype=dtype)
     model = model.to_empty(device=device)

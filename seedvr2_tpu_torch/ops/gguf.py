@@ -1,6 +1,6 @@
-"""GGUF checkpoints: container parser and block dequantizers (numpy).
+"""GGUF checkpoints: container parser and block dequantizers.
 
-A copy of the numpy parts of seedvr2_tpu.ops.gguf, pinned equal to it by
+A copy of seedvr2_tpu.ops.gguf, pinned equal to it by
 tests/test_torch_gguf.py, with one difference: the quantised serving
 layouts come out in the port's (N, K) = (out, in) order, the GGUF's own, so
 nothing is transposed at load:
@@ -10,9 +10,13 @@ nothing is transposed at load:
  - native_kquants: a large 2D Q4_K/Q5_K tensor keeps its affine form
    {"qa": raw quants int8 (N, K), "s", "m": fp32 (N, K/32)} with
    w = qa * s - m (ops.quant_matmul.AffineLinear, kernel K7).
-Everything else is dequantized to float32 in torch layout. The JAX
-package's optional g++ host dequantizer (ops/native.py) is not copied: the
-numpy dequantizers compute the same values.
+Everything else is dequantized to float32 in torch layout: Q8_0, Q4_K and
+Q6_K blocks (the published files' formats, and the K-quant planes keep_q8
+requantizes) by the port's g++-built host library (ops/native.py), as JAX's
+`dequantize` does, but with no numpy fallback: a library that cannot build
+raises. The other block types, and `dequantize(..., plain=True)`, take the
+numpy dequantizers below, which are also the plain versions the host
+library is held to bit for bit (tests/test_torch_native.py).
 
 Implemented from the public GGML/GGUF block-format spec.
 """
@@ -21,6 +25,8 @@ import struct
 from typing import Dict, Tuple
 
 import numpy as np
+
+from . import native
 
 GGUF_MAGIC = b"GGUF"
 
@@ -256,8 +262,11 @@ _DEQUANT = {
 }
 
 
-def dequantize(data: np.ndarray, ggml_type: int, n_elements: int) -> np.ndarray:
-    """Raw tensor bytes -> float32 flat array of n_elements."""
+def dequantize(data: np.ndarray, ggml_type: int, n_elements: int,
+               plain: bool = False) -> np.ndarray:
+    """Raw tensor bytes -> float32 flat array of n_elements. Q8_0 / Q4_K /
+    Q6_K go through the host library unless `plain` asks for the numpy
+    version."""
     if ggml_type == F32:
         return data.view(np.float32)[:n_elements].copy()
     if ggml_type == F16:
@@ -268,6 +277,9 @@ def dequantize(data: np.ndarray, ggml_type: int, n_elements: int) -> np.ndarray:
     block_bytes, block_elems = BLOCK_SIZES[ggml_type]
     n_blocks = n_elements // block_elems
     blocks = data[: n_blocks * block_bytes].reshape(n_blocks, block_bytes)
+    if ggml_type in native.DEQUANT and not plain:
+        return native.dequantize_blocks(blocks, ggml_type).reshape(-1)[
+            :n_elements]
     return _DEQUANT[ggml_type](blocks).reshape(-1)[:n_elements]
 
 

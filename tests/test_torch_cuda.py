@@ -8,6 +8,8 @@ none:
 
 chip_smoke.py makes the same checks at the main path's shapes."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1151,3 +1153,130 @@ def test_alpha_on_gpu_matches_cpu(cuda_default_tf32, soft):
     assert gpu.device.type == "cuda"
     diff = (gpu.cpu() - cpu).abs()
     assert (diff > 1e-5).float().mean().item() <= 1e-3
+
+
+def _legacy_vae(device, conv_quant="none", seed=0):
+    """The legacy family (conv2 (1, 3, 3), no mid attention, both quant
+    convs) at 128 channels, bf16, random from a seed on the CPU, so the
+    card and the CPU hold the same weights."""
+    from seedvr2_tpu_torch.core.configs import VAEConfig
+    from seedvr2_tpu_torch.models.vae.pipeline_vae import (VideoVAE,
+                                                           init_vae_params)
+
+    cfg = VAEConfig(block_out_channels=(128, 128, 128, 128),
+                    layers_per_block=1, latent_channels=4,
+                    time_receptive_field="half", mid_attention=False,
+                    use_quant_conv=True, use_post_quant_conv=True,
+                    conv_quant=conv_quant)
+    gen = torch.Generator().manual_seed(seed)
+    model = init_vae_params(cfg, "cpu", torch.bfloat16, generator=gen)
+    return VideoVAE(model.to(device), torch.bfloat16)
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.cuda
+def test_legacy_vae_on_gpu_matches_cpu(cuda_device, monkeypatch):
+    """The legacy VAE in bf16 on the card against the same VAE on the CPU:
+    default and SEEDVR2_FUSED_NORM=1 (K12 on the card, its plain version on
+    the CPU) encode / decode within the bf16 class (relative L2 < 2e-2,
+    convs summed in other orders); K12 runs on 3-deep convs only."""
+    from seedvr2_tpu_torch.models.vae import model as tm
+
+    gen = torch.Generator().manual_seed(1)
+    z = torch.randn(1, 3, 8, 12, 4, generator=gen)
+    x = torch.rand(1, 5, 32, 48, 3, generator=gen) * 2 - 1
+    for fused in ("0", "1"):
+        monkeypatch.setenv("SEEDVR2_FUSED_NORM", fused)
+        card, cpu = _legacy_vae(cuda_device), _legacy_vae("cpu")
+        kts = []
+        real = tm.causal_conv3d
+        monkeypatch.setattr(tm, "causal_conv3d", lambda conv, *a, **k: (
+            k.get("pre_extended") and kts.append(conv.weight.shape[2]),
+            real(conv, *a, **k))[1])
+        before = tfn.norm_silu_head.launches
+        dec = card.decode(z.to(cuda_device))
+        enc = card.encode(x.to(cuda_device))
+        launched = tfn.norm_silu_head.launches - before
+        assert (launched > 0) == (fused == "1")
+        assert set(kts) <= {3} and len(kts) >= launched
+        monkeypatch.setattr(tm, "causal_conv3d", real)
+        assert _rel(dec.cpu(), cpu.decode(z)) < 2e-2
+        assert _rel(enc.cpu(), cpu.encode(x)) < 2e-2
+
+
+@pytest.mark.cuda
+def test_legacy_int8_vae_on_gpu_matches_cpu(cuda_device, monkeypatch):
+    """The legacy VAE under --vae_quant int8: K11 serves each decoder
+    conv1 once a slice and no (1, 3, 3) conv2; the card's decode with K11
+    against its plain versions on the card (K11 exact: bf16 class); and
+    every int8 layer the card ran, rerun on the CPU (plain K11) on the
+    same input and carried head, within relative L2 5e-3 (the group-norm
+    moments summed in another order flip a few int8 steps; the whole
+    decode amplifies such flips, so it is held layer by layer)."""
+    from seedvr2_tpu_torch.models.vae import model as tm
+    from seedvr2_tpu_torch.models.vae.pipeline_vae import int8_served_convs
+
+    card, cpu = (_legacy_vae(d, "int8") for d in (cuda_device, "cpu"))
+    served = dict(int8_served_convs(card.model))
+    assert served and all(p.endswith(".conv1") for p in served)
+    calls, lane = [], tm._int8_norm_silu_conv
+
+    def recorded(norm, conv, path, x, state, new_state, use_kernels):
+        head = None if state is None else state.get(path)
+        out = lane(norm, conv, path, x, state, new_state, use_kernels)
+        if use_kernels:
+            calls.append((path, x, head, out))
+        return out
+
+    monkeypatch.setattr(tm, "_int8_norm_silu_conv", recorded)
+    z = torch.randn(1, 3, 8, 12, 4, generator=torch.Generator().manual_seed(
+        2)).to(cuda_device)
+    before = tic.int8_conv3d.launches
+    out = card.decode(z)
+    assert tic.int8_conv3d.launches - before == len(calls) == 2 * len(served)
+    card.lowering = dataclasses.replace(card.lowering, use_kernels=False)
+    assert torch.isfinite(out).all() and _rel(out, card.decode(z)) < 2e-2
+    mods = dict(cpu.model.named_modules())
+    for path, x, head, got in calls:
+        base = path.rpartition(".")[0]
+        ref = lane(mods[f"{base}.norm1"], mods[path], path, x.cpu(),
+                   None if head is None else {path: head.cpu()}, None,
+                   False)
+        assert _rel(got.cpu(), ref) < 5e-3, (path, head is not None)
+
+
+@pytest.mark.cuda
+def test_memory_probe_runs_and_caches_on_gpu(cuda_device, tmp_path,
+                                             monkeypatch):
+    """One real probe at a small decode tile: positive bytes, the same on
+    each rerun with an empty cache, and a call served from the cache file
+    without a run. A decode runs first, so the CUDA libraries' lazily
+    allocated workspaces exist before any probe; the first probe may still
+    count more than the reruns, never less (55.4 MB against 49.6 MB on an
+    NVIDIA H100 80GB HBM3: state the libraries keep after it, such as the
+    convolution plans its tightly capped second run picks, is the likely
+    cause; not measured)."""
+    from seedvr2_tpu_torch.utils import memplan
+
+    monkeypatch.setenv("SEEDVR2_MEMPROBE_CACHE", str(tmp_path / "mp.json"))
+    memplan.reset_cache_for_tests()
+    vae = _legacy_vae(cuda_device)
+    vae.decode(torch.zeros(1, 2, 8, 12, 4, device=cuda_device))
+    vae.encode(torch.zeros(1, 5, 64, 96, 3, device=cuda_device))
+    runs = memplan.probe_runs
+    got = []
+    for _ in range(3):
+        (tmp_path / "mp.json").unlink(missing_ok=True)
+        memplan.reset_cache_for_tests()
+        got.append(memplan.probe_tile_bytes(vae, "decode", 1, 2, 8, 12))
+    assert memplan.probe_runs == runs + 3
+    assert got[0] >= got[1] == got[2] > 0, got
+    memplan.reset_cache_for_tests()
+    assert memplan.probe_tile_bytes(vae, "decode", 1, 2, 8, 12) == got[2]
+    assert memplan.probe_runs == runs + 3
+    enc = memplan.probe_tile_bytes(vae, "encode", 1, 5, 8, 12)
+    assert enc > 0 and memplan.probe_runs == runs + 4
+    memplan.reset_cache_for_tests()

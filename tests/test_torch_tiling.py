@@ -200,8 +200,14 @@ def test_oom_retry_passes_other_errors_and_stops_at_floor():
     with pytest.raises(torch.cuda.OutOfMemoryError):
         runner.vae_encode([torch.zeros(1, 8, 8, 3)])
     assert stub.calls == [(True, (256, 256))]
-    with pytest.raises(ValueError):
-        VAETiling(decode_tile_size="auto")
+    # a tile size is an (h, w) pair of ints or "auto" (the memory-probed
+    # plan, tests/test_torch_memplan.py); anything else is refused
+    assert VAETiling(decode_tile_size="auto").decode_tile_size == "auto"
+    for bad in ("big", (512,), (512, 512.0)):
+        with pytest.raises(ValueError, match="decode_tile_size"):
+            VAETiling(decode_tile_size=bad)
+    with pytest.raises(ValueError, match="encode_tile_overlap"):
+        VAETiling(encode_tile_overlap="auto")
     with pytest.raises(ValueError, match="tile_mode"):
         VAETiling(tile_mode="grid")
     assert VAETiling(tile_mode="ref").tile_mode == "ref"

@@ -390,14 +390,19 @@ def test_int8_weights_equal_jax(q_params):
 
 
 def test_vae_refuses_legacy_switches():
-    """The legacy family stays refused with conv_quant on or off; an
-    unknown conv_quant is a ValueError."""
+    """The legacy family's switches build, each alone and with conv_quant
+    on (tests/test_torch_vae_legacy.py holds them against JAX); what stays
+    refused is a time_receptive_field other than "full" / "half" and an
+    unknown conv_quant, each a ValueError."""
     for kw in (dict(mid_attention=False), dict(use_quant_conv=True),
                dict(use_post_quant_conv=True),
                dict(time_receptive_field="half"),
                dict(mid_attention=False, conv_quant="int8")):
-        with pytest.raises(NotImplementedError, match="legacy"):
-            tm.VideoAutoencoder(tc.VAEConfig(**TINY, **kw), device="meta")
+        tm.VideoAutoencoder(tc.VAEConfig(**TINY, **kw), device="meta")
+    with pytest.raises(ValueError, match="time_receptive_field"):
+        tm.VideoAutoencoder(tc.VAEConfig(**TINY,
+                                         time_receptive_field="quarter"),
+                            device="meta")
     with pytest.raises(ValueError, match="conv_quant"):
         tm.VideoAutoencoder(tc.VAEConfig(**TINY, conv_quant="int4"),
                             device="meta")
