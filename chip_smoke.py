@@ -123,6 +123,22 @@ network. In order it:
     loaded and served again through numpy and checked block by block as
     the 3B file in 8, and deleted; the whole DiTs' plain forwards are
     timed once;
+ 11b. BlockSwap and memory tiering on that 7B (no second init): its bf16
+    DiT with 12 and with 36 of its blocks streamed from pinned host memory
+    (ops/offload.StreamedNaDiT) serves the 720p clip and the 1080p image
+    and runs one forward on the 1080p clip's latent, each bit-equal to the
+    resident DiT, K1 and K2 launched from streamed blocks, with the
+    copies' GB/s, each block's copy and stall ms, the dit seconds and the
+    peak; under a per-process memory fraction emulating a
+    24 GiB card, core/model_manager.configure_runner picks per-phase
+    offload for a fresh 7B from the same seed and serves the 720p clip with
+    auto tiles (no OOM retry, the reserved peak within the limit, the
+    output equal to the resident 7B's with the same tiles as ints, the
+    restore's seconds), and a second call with both cache flags returns
+    the same runner in under 0.1 s; under a 16 GiB emulation it picks
+    streaming (its keep printed); after the throughput lane the 7B w8a8
+    tree streamed gives one forward bit-equal to its resident forward (K3,
+    K4 launched);
  12. prints the kernels' JSON record (K1-K12, launches by path, the 7B
     paths included, and each 7B kernel's record under "7b"), the card
     line again, and last {"ok": true, "device": {...}}.
@@ -268,6 +284,11 @@ GGUF_CHECK_VALUES = 1 << 20
 # phase 10c: the auto-tiled request and the emulated smaller card's memory
 AUTO_REQUEST = ("clip 5x540x960 -> 1080", 5, 540, 960, 1080)
 AUTO_EMULATED_BYTES = 24 << 30
+# phase 11b: the 7B's blocks kept on the card in each streamed run (36 of
+# them resident is the reference), and the smaller card emulated to make
+# configure_runner stream
+BLOCKSWAP_KEEPS = (24, 0)
+STREAM_EMULATED_BYTES = 16 << 30
 # the 1080p clip served under both upsample forms (default 3B path)
 UPSAMPLE_AB_REQUEST = ("clip 5x540x960 -> 1080", 5, 540, 960, 1080)
 # the 7B's requests: the default path (bf16) and its throughput and GGUF
@@ -2298,7 +2319,7 @@ def check_request_surface(torch, np, cli, pipeline, nadit, runner, device,
 
 
 def run_7b(torch, np, cli, nadit, im, qm, gguf, native, device, txt, tt,
-           embeds, dit_inputs, dit_runs, lane, counts, phase_done):
+           embeds, dit_inputs, dit_runs, lane, counts, phase_done, wrappers):
     """Phase 11. The full-width 7B (36 blocks, D = 3072, 24 heads) with
     random weights from a seed: the bf16 DiT's forward with kernels against
     plain versions on the 720p and 1080p clips' latents (DIT_REL_L2); the
@@ -2336,8 +2357,12 @@ def run_7b(torch, np, cli, nadit, im, qm, gguf, native, device, txt, tt,
                                                            res):
             fail(f"7B {label}: latent {inputs[label][1].plan.vid_shape}")
         dit_runs(r7.dit, f"7B bf16 ({label})", *inputs[label], DIT_REL_L2)
-    phase_done("11b (whole 7B bf16 DiT)")
+    phase_done("11 (whole 7B bf16 DiT)")
     lane("7b_default", r7, DIT7B_REQUESTS, ("K1", "K2"), "11c")
+    label = DIT7B_FAST_REQUESTS[0][0]
+    blockswap_phase(torch, np, cli, nadit, r7, device, embeds, wrappers,
+                    counts, (label, *inputs[label], txt, tt))
+    phase_done("11b (BlockSwap and memory tiering)")
 
     args = cli.parse_arguments(["unused.npy", "--preset", "throughput"])
     t0 = time.perf_counter()
@@ -2366,13 +2391,16 @@ def run_7b(torch, np, cli, nadit, im, qm, gguf, native, device, txt, tt,
     if not w8_rel < to_dense:
         fail(f"the 7B w8a8 DiT with kernels is no closer to its plain "
              f"version ({w8_rel}) than to the bf16 DiT ({to_dense})")
-    del r7, outs, dense, inputs, vid_in, dplan
+    del r7, outs, dense, inputs
     torch.cuda.empty_cache()
     lane("7b_throughput", fast7, DIT7B_FAST_REQUESTS,
          ("K1", "K2", "K3", "K4"), "11d")
     if counts["7b_throughput"]["K5"] != 0:
         fail("K5 launched on the 7B w8a8 lane, whose MLP has no gate")
-    del fast7, w8
+    streamed_w8a8(torch, nadit, fast7, vid_in, dplan, txt, tt, device,
+                  wrappers, counts)
+    phase_done("11b (the 7B w8a8 tree streamed)")
+    del fast7, w8, vid_in, dplan
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -2410,6 +2438,269 @@ def run_7b(torch, np, cli, nadit, im, qm, gguf, native, device, txt, tt,
         del gg, gg_np
         torch.cuda.empty_cache()
         finish("7B")
+
+
+def host_available() -> int:
+    """MemAvailable of /proc/meminfo in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    fail("no MemAvailable in /proc/meminfo")
+
+
+def swap_numbers(stats, since):
+    """Per-block copy and stall ms (mean / max) of the swaps recorded after
+    `since` = (copies, stalls) counts, and the copies' mean GB/s."""
+    stats.summary()  # resolves the events
+    copies = stats.copy_ms[since[0]:]
+    stalls = stats.block_times[since[1]:]
+    mean = sum(copies) / len(copies)
+    return (f"{len(copies)} streamed blocks of {stats.block_bytes / 1e6:.1f}"
+            f" MB: copy {mean:.3f} / {max(copies):.3f} ms (mean / max), "
+            f"{stats.block_bytes / (mean * 1e6):.2f} GB/s; stall "
+            f"{sum(stalls) / len(stalls):.3f} / {max(stalls):.3f} ms; one "
+            f"synchronous upload {stats.measured_transfer_ms:.3f} ms")
+
+
+def timed_forward(torch, fwd):
+    """(output, wall ms) of one DiT forward, synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = fwd()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def blockswap_phase(torch, np, cli, nadit, r7, device, embeds, wrappers,
+                    counts, forward_case):
+    """Phase 11b on the resident 7B runner of phase 11 (random weights
+    from seed 0). (a) Its bf16 DiT resident, then with BLOCKSWAP_KEEPS
+    blocks kept on the card and the rest streamed from pinned host memory
+    (StreamedNaDiT takes the same module over), serves the 720p clip and
+    the 1080p image; each output must equal the resident one bit for bit,
+    and K1 / K2 launch from streamed blocks (the keep-0 run's counts equal
+    the resident lane's). Each also runs one forward on the 1080p clip's
+    latent (forward_case: label, vid_in, dplan, txt, tt), bit-equal to the
+    resident forward, with its copy and stall times. (b) Under a memory fraction emulating a 24 GiB
+    card, configure_runner builds the 7B from seed 0 afresh and must pick
+    per-phase offload; the 720p clip served with auto tiles may not retry
+    on out-of-memory, and its reserved peak must stay within the limit;
+    (d) a second call with both cache flags must return the same runner in
+    under 0.1 s. Under a 16 GiB emulation it must pick streaming. Then the
+    resident 7B serves the clip with (b)'s tiles as ints: equal output.
+    r7's DiT ends resident again."""
+    import tempfile
+
+    from seedvr2_tpu_torch.core import model_cache, model_manager
+    from seedvr2_tpu_torch.core.configs import DIT_7B
+    from seedvr2_tpu_torch.core.runner import VAETiling, VideoDiffusionRunner
+    from seedvr2_tpu_torch.ops import offload
+    from seedvr2_tpu_torch.profile_requests import make_frames
+    from seedvr2_tpu_torch.utils import memplan
+
+    dit_bytes7 = offload.module_bytes(r7.dit)
+    avail = host_available()
+    say(f"host memory available before pinning the 7B DiT "
+        f"({dit_bytes7 / 1e9:.2f} GB): {avail / 2 ** 30:.1f} GiB")
+    if avail < 2.5 * dit_bytes7:
+        fail(f"phase 11b pins the 7B DiT twice beside a host copy; "
+             f"{avail / 2 ** 30:.1f} GiB of host memory is too small")
+    requests = []
+    for i, (label, t, h, w, res) in enumerate(DIT7B_REQUESTS):
+        requests.append((label, make_frames(t, h, w, seed=60 + i), res))
+
+    def serve_all(runner, name, stats=None):
+        outs = []
+        for label, frames, res in requests:
+            since = ((len(stats.copy_ms), len(stats.block_times))
+                     if stats is not None else None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            out, timings = cli.process_frames(runner, frames, embeds,
+                                              resolution=res, seed=42)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+            say(f"7B {name}, {label}: wall {wall:.3f} s, dit "
+                f"{timings['dit']:.4f} s, peak device memory {peak:.2f} GiB"
+                + ("" if stats is None else "; " + swap_numbers(stats, since)))
+            if not np.isfinite(out).all():
+                fail(f"7B {name} {label}: non-finite output")
+            outs.append(out)
+        return outs
+
+    ref = serve_all(r7, "resident (keep 36)")
+    label_f, vid_f, plan_f, txt, tt = forward_case
+    ref_f, ms = timed_forward(torch, lambda: nadit.nadit_forward(
+        r7.dit, vid_f, txt, tt, plan_f))
+    say(f"7B resident (keep 36) forward on the {label_f} latent: {ms:.2f} ms")
+    for keep in BLOCKSWAP_KEEPS:
+        t0 = time.perf_counter()
+        sd = offload.StreamedNaDiT(r7.dit, keep_blocks=keep, device=device)
+        say(f"StreamedNaDiT keep {keep}: {len(sd.host)} blocks packed into "
+            f"pinned host memory in {time.perf_counter() - t0:.2f} s; the "
+            f"card holds {sd.resident_bytes() / 2 ** 30:.2f} GiB of the DiT "
+            f"(IO, kept blocks, two slots of {sd.slots[0].numel() / 1e6:.1f}"
+            f" MB)")
+        if not all(p.buffer.is_pinned() for p in sd.host):
+            fail("a streamed block's host pack is not page-locked")
+        runner = VideoDiffusionRunner(None, r7.vae, r7.config,
+                                      compute_dtype=r7.compute_dtype,
+                                      tiling=r7.tiling, streamed_dit=sd)
+        reset_counts(wrappers)
+        outs = serve_all(runner, f"streamed (keep {keep})", sd.stats)
+        path = f"7b_blockswap_keep{keep}"
+        counts[path] = read_counts(wrappers, ("K1", "K2"), path)
+        same = [np.array_equal(o, r) for o, r in zip(outs, ref)]
+        say(f"streamed keep {keep} against resident, bit for bit: {same}")
+        if not all(same):
+            fail(f"the streamed 7B (keep {keep}) differs from the resident "
+                 "7B")
+        if keep == 0 and any(counts[path][k] != counts["7b_default"][k]
+                             for k in ("K1", "K2")):
+            fail("the fully streamed 7B launched K1 / K2 other times than "
+                 "the resident lane")
+        since = (len(sd.stats.copy_ms), len(sd.stats.block_times))
+        out_f, ms = timed_forward(torch, lambda: sd(vid_f, txt, tt, plan_f))
+        same_f = torch.equal(out_f, ref_f)
+        say(f"7B streamed (keep {keep}) forward on the {label_f} latent: "
+            f"{ms:.2f} ms, bit-equal to resident {same_f}; "
+            + swap_numbers(sd.stats, since))
+        if not same_f:
+            fail(f"the streamed 7B forward (keep {keep}) differs from the "
+                 "resident one")
+        del runner, sd, out_f
+    torch.cuda.empty_cache()
+
+    args = cli.parse_arguments([
+        "unused.npy", "--vae_encode_tiled", "--vae_decode_tiled",
+        "--vae_encode_tile_size", "auto", "--vae_decode_tile_size", "auto"])
+    auto = cli.tiling_from_args(args)
+    total = torch.cuda.get_device_properties(device).total_memory
+    label, frames, res = requests[0]
+    cache_env = os.environ.get("SEEDVR2_MEMPROBE_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["SEEDVR2_MEMPROBE_CACHE"] = os.path.join(tmp, "mp.json")
+        memplan.reset_cache_for_tests()
+        try:
+            torch.cuda.set_per_process_memory_fraction(
+                AUTO_EMULATED_BYTES / total, device)
+            limit = memplan.memory_limit(device)
+            kw = dict(device=device, seed=0, dit_cfg=DIT_7B, tiling=auto,
+                      dit_cache=True, vae_cache=True)
+            t0 = time.perf_counter()
+            off = model_manager.configure_runner(**kw)
+            build = time.perf_counter() - t0
+            say(f"(b) {limit / 2 ** 30:.2f} GiB card: configure_runner built "
+                f"the 7B in {build:.2f} s: phase offload "
+                f"{off.phase_offload}, streamed {off.streamed_dit is not None}"
+                f"; DiT {dit_bytes7 / 1e9:.2f} GB against "
+                f"{model_manager._PHASE_OFFLOAD_FRACTION:.0%} / "
+                f"{model_manager._AUTO_SWAP_FRACTION:.0%} of the limit")
+            if not off.phase_offload or off.streamed_dit is not None:
+                fail("(b) configure_runner did not pick per-phase offload on "
+                     "the emulated 24 GiB card")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            out_b, timings = cli.process_frames(off, frames, embeds,
+                                                resolution=res, seed=42)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(device)
+            reserved = torch.cuda.max_memory_reserved(device)
+            plans = dict(off._auto_tile_cache)
+            say(f"(b) phase offload, {label}, auto tiles: wall {wall:.3f} s, "
+                "phases " + ", ".join(f"{k} {v:.4f} s"
+                                      for k, v in timings.items())
+                + f"; plans {plans}; peak {peak / 2 ** 30:.2f} GiB "
+                f"allocated, {reserved / 2 ** 30:.2f} GiB reserved (limit "
+                f"{limit / 2 ** 30:.2f}); OOM retries {off.oom_retries}; "
+                f"restores {off.restore_seconds}")
+            if off.oom_retries or reserved > limit or not np.isfinite(
+                    out_b).all() or "dit_restore" not in timings:
+                fail("(b) an OOM retry, a peak beyond the limit, a "
+                     "non-finite output or no restore")
+            t0 = time.perf_counter()
+            again = model_manager.configure_runner(**kw)
+            hit = time.perf_counter() - t0
+            say(f"(d) configure_runner again with --cache_dit --cache_vae: "
+                f"the same runner {again is off} in {hit * 1e3:.3f} ms")
+            if again is not off or hit >= 0.1:
+                fail("(d) the cached runner was not returned in < 0.1 s")
+            del again, off
+            model_cache.get_global_cache().clear()
+            torch.cuda.empty_cache()
+
+            torch.cuda.set_per_process_memory_fraction(
+                STREAM_EMULATED_BYTES / total, device)
+            limit16 = memplan.memory_limit(device)
+            kw.update(dit_cache=False, vae_cache=False)
+            t0 = time.perf_counter()
+            small = model_manager.configure_runner(**kw)
+            sd = small.streamed_dit
+            say(f"(b) {limit16 / 2 ** 30:.2f} GiB card: configure_runner "
+                f"built the 7B in {time.perf_counter() - t0:.2f} s: streamed "
+                f"{sd is not None}"
+                + (f", keep {sd.keep_blocks}/{len(small.dit.blocks)} blocks "
+                   f"on the card ({sd.resident_bytes() / 2 ** 30:.2f} GiB)"
+                   if sd is not None else ""))
+            if sd is None:
+                fail("(b) configure_runner did not stream the 7B on the "
+                     "emulated 16 GiB card")
+            del small, sd
+            torch.cuda.empty_cache()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, device)
+            if cache_env is None:
+                os.environ.pop("SEEDVR2_MEMPROBE_CACHE", None)
+            else:
+                os.environ["SEEDVR2_MEMPROBE_CACHE"] = cache_env
+            memplan.reset_cache_for_tests()
+
+    offload.place(r7.dit, device)
+    (enc_t, enc_s), = [v for (k, _), v in plans.items() if k == "encode"]
+    (dec_t, dec_s), = [v for (k, _), v in plans.items() if k == "decode"]
+    ints = VAETiling(encode_tiled=enc_t, encode_tile_size=enc_s,
+                     encode_tile_overlap=auto.encode_tile_overlap,
+                     decode_tiled=dec_t, decode_tile_size=dec_s,
+                     decode_tile_overlap=auto.decode_tile_overlap)
+    whole = VideoDiffusionRunner(r7.dit, r7.vae, r7.config,
+                                 compute_dtype=r7.compute_dtype, tiling=ints)
+    out_w, _ = cli.process_frames(whole, frames, embeds, resolution=res,
+                                  seed=42)
+    diff = float(np.abs(out_b - out_w).max())
+    say(f"(b) the phase-offloaded 7B's {label} against the resident 7B's "
+        f"with the tiles as ints {ints}: max abs difference {diff:.6g} "
+        "(must be 0)")
+    if diff != 0.0:
+        fail("(b) the phase-offloaded 7B's output differs from the resident "
+             "7B's")
+
+
+def streamed_w8a8(torch, nadit, fast7, vid_in, dplan, txt, tt, device,
+                  wrappers, counts):
+    """Phase 11b (c): the 7B w8a8 tree of the throughput lane, all 36
+    blocks streamed, one forward on the 1080p clip's latent bit-equal to
+    its resident forward, K3 and K4 launched."""
+    from seedvr2_tpu_torch.ops import offload
+
+    with torch.no_grad():
+        ref = nadit.nadit_forward(fast7.dit, vid_in, txt, tt, dplan)
+    sd = offload.StreamedNaDiT(fast7.dit, keep_blocks=0, device=device)
+    reset_counts(wrappers)
+    out = sd(vid_in, txt, tt, dplan)
+    torch.cuda.synchronize()
+    counts["7b_w8a8_blockswap"] = read_counts(
+        wrappers, ("K1", "K2", "K3", "K4"), "7b_w8a8_blockswap")
+    same = torch.equal(out, ref)
+    say(f"(c) 7B w8a8 streamed (keep 0, {len(sd.host)} packs of "
+        f"{sd.stats.block_bytes / 1e6:.1f} MB) against resident, 1080p "
+        f"clip latent: bit-equal {same}; " + swap_numbers(sd.stats, (0, 0)))
+    if not same:
+        fail("(c) the streamed 7B w8a8 forward differs from the resident")
 
 
 def write_safetensors(torch, path, tensors):
@@ -3464,7 +3755,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("11a (kernels at 7B shapes)")
     run_7b(torch, np, cli, nadit, im, qm, gguf, native, device, txt, tt,
-           embeds, dit_inputs, dit_runs, lane, counts, phase_done)
+           embeds, dit_inputs, dit_runs, lane, counts, phase_done, wrappers)
 
     # 12. records and the contract line
     kernels = []

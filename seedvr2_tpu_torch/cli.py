@@ -8,7 +8,8 @@
         [--input_noise_scale S] [--latent_noise_scale S] \\
         [--uniform_batch_size] [--tile_mode uniform|ref] \\
         [--tile_debug false|encode|decode] \\
-        [--vae_encode_tile_size N|auto] [--vae_decode_tile_size N|auto]
+        [--vae_encode_tile_size N|auto] [--vae_decode_tile_size N|auto] \
+        [--model_dir DIR] [--blocks_to_swap N] [--cache_dit] [--cache_vae]
 
 Input and output are float32 .npy arrays of frames (T, H, W, 3) in [0, 1],
 or (T, H, W, 4) RGBA, whose alpha is upscaled edge-guided and comes out as
@@ -28,24 +29,29 @@ package, once, when the VAE is built. A tile size of `auto` picks the
 fewest-tiles grid that fits the card from memory probes run on it, cached
 in ~/.cache/seedvr2_tpu_torch/memprobe.json (or $SEEDVR2_MEMPROBE_CACHE).
 --vae_model also takes the legacy video_vae.py layout (sniffed).
+Checkpoint names are searched through utils/constants.find_model_path
+($SEEDVR2_MODEL_PATHS, --model_dir, the ComfyUI roots). The runner comes
+from core/model_manager.configure_runner, which keeps the DiT on the card,
+offloads it to pinned host memory through the VAE phases, or streams its
+blocks from there (--blocks_to_swap N forces the last N to stream; by
+default the card's memory decides); --swap_io_components is accepted and
+does nothing, as in JAX.
 """
 
 import argparse
 import os
 import sys
-from dataclasses import replace
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .core import pipeline
-from .core.configs import DIT_3B, VAE_V3, DiTConfig, RunnerConfig
-from .core.loader import (QUANT_MODES, load_dit_checkpoint,
-                          load_vae_checkpoint, quantize_dit)
+from .core.configs import DIT_3B, VAE_V3, DiTConfig
+from .core.loader import QUANT_MODES
+from .core.model_manager import configure_runner
 from .core.runner import VAETiling, VideoDiffusionRunner
-from .models.dit.nadit import init_dit
-from .models.vae.pipeline_vae import TILE_MODES, VideoVAE, init_vae_params
+from .models.vae.pipeline_vae import TILE_MODES
 from .utils import color_fix
 from .utils.text_embeds import load_text_embeddings
 
@@ -71,33 +77,29 @@ def make_runner(device, seed: int = 42, dit_model: str = None,
                 vae_model: str = None, quant: str = "none",
                 tiling: VAETiling = VAETiling(),
                 vae_quant: str = "none",
-                dit_cfg: Optional[DiTConfig] = None) -> VideoDiffusionRunner:
-    """DiT + VAE_V3 in bf16 on `device`: from reference-layout checkpoints
+                dit_cfg: Optional[DiTConfig] = None,
+                model_dir: Optional[str] = None, blocks_to_swap: int = 0,
+                dit_cache: bool = False,
+                vae_cache: bool = False) -> VideoDiffusionRunner:
+    """DiT + VAE_V3 in bf16 on `device`, through
+    core.model_manager.configure_runner: from reference-layout checkpoints
     when given (DiT .safetensors, .pth or .gguf of the 3B or 7B family, VAE
     .safetensors, through core/loader.py, which sniffs their architecture;
-    a missing file raises), else random weights drawn on the device from
+    a name is searched in `model_dir` and the other model paths, and a
+    missing file raises), else random weights drawn on the device from
     `seed`, the DiT of `dit_cfg` (DIT_7B for the 7B; the 3B when None; used
     only without `dit_model`). `quant` is the DiT's serving quantization
     (core/loader.py's table; random weights convert as a float checkpoint
     does); `vae_quant` "int8" serves the VAE decoder's resnet convs in
-    int8, for a random or a loaded VAE."""
-    device = torch.device(device)
-    dtype = torch.bfloat16
-    gen = torch.Generator(device).manual_seed(seed)
-    if dit_model:
-        dit = load_dit_checkpoint(dit_model, device, dtype, quant=quant)
-    else:
-        dit = quantize_dit(init_dit(dit_cfg or DIT_3B, device, dtype,
-                                    generator=gen), quant)
-    if vae_model:
-        vae = load_vae_checkpoint(vae_model, device, dtype,
-                                  vae_quant=vae_quant)
-    else:
-        vae = init_vae_params(replace(VAE_V3, conv_quant=vae_quant), device,
-                              dtype, generator=gen)
-    return VideoDiffusionRunner(dit, VideoVAE(vae, dtype),
-                                RunnerConfig(dit=dit.cfg, vae=vae.cfg),
-                                compute_dtype=dtype, tiling=tiling)
+    int8, for a random or a loaded VAE. blocks_to_swap > 0 streams the
+    last N DiT blocks from pinned host memory (0: decided by the card's
+    memory); dit_cache / vae_cache keep the models across calls."""
+    return configure_runner(
+        dit_model, vae_model, base_cache_dir=model_dir, dit_cache=dit_cache,
+        vae_cache=vae_cache,
+        block_swap_config={"blocks_to_swap": blocks_to_swap}, tiling=tiling,
+        quant=quant, vae_quant=vae_quant, device=device, seed=seed,
+        dit_cfg=dit_cfg or DIT_3B, vae_cfg=VAE_V3)
 
 
 def process_frames(runner: VideoDiffusionRunner, frames: np.ndarray,
@@ -145,8 +147,9 @@ def parse_arguments(argv=None):
     p.add_argument("--vae_model", default=None,
                    help="reference-layout VAE .safetensors (the VAE_V3 or "
                         "the legacy video_vae.py layout)")
-    p.add_argument("--model_dir", default=None,
-                   help="directory searched first for {pos,neg}_emb")
+    p.add_argument("--model_dir", default="./models",
+                   help="directory searched for the checkpoints (after "
+                        "$SEEDVR2_MODEL_PATHS) and first for {pos,neg}_emb")
     p.add_argument("--resolution", type=int, default=1080)
     p.add_argument("--max_resolution", type=int, default=0)
     p.add_argument("--batch_size", type=int, default=5)
@@ -201,6 +204,14 @@ def parse_arguments(argv=None):
     p.add_argument("--tile_mode", default="uniform", choices=TILE_MODES,
                    help="uniform = even same-shape tile grid; ref = the "
                         "reference's stride-sweep layout")
+    p.add_argument("--blocks_to_swap", type=int, default=0,
+                   help="stream the last N transformer blocks from host "
+                        "RAM (auto-engages for larger-than-HBM models)")
+    p.add_argument("--swap_io_components", action="store_true",
+                   help="accepted for API compat (IO params always stay "
+                        "in HBM; they are <1%% of the model)")
+    p.add_argument("--cache_dit", action="store_true")
+    p.add_argument("--cache_vae", action="store_true")
     args = p.parse_args(argv)
     if args.preset == "throughput":
         for name, val in THROUGHPUT_PRESET.items():
@@ -233,9 +244,14 @@ def main(argv=None) -> str:
         frames = frames[None]
     runner = make_runner(device, args.seed, args.dit_model, args.vae_model,
                          quant=args.quant, tiling=tiling_from_args(args),
-                         vae_quant=args.vae_quant)
-    embeds = load_text_embeddings([args.model_dir] if args.model_dir else (),
-                                  txt_dim=runner.dit_cfg.txt_in_dim)
+                         vae_quant=args.vae_quant, model_dir=args.model_dir,
+                         blocks_to_swap=args.blocks_to_swap,
+                         dit_cache=args.cache_dit, vae_cache=args.cache_vae)
+    # the model dir, then this package's directory (the JAX CLI's own
+    # directory), then the packaged embeddings
+    embeds = load_text_embeddings(
+        [args.model_dir, os.path.dirname(os.path.abspath(__file__))],
+        txt_dim=runner.dit_cfg.txt_in_dim)
     out, timings = process_frames(
         runner, frames, embeds, resolution=args.resolution, seed=args.seed,
         batch_size=args.batch_size, temporal_overlap=args.temporal_overlap,
@@ -251,6 +267,11 @@ def main(argv=None) -> str:
     print(f"wrote {out_path} {out.shape}; phase seconds: "
           + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()),
           file=sys.stderr)
+    if runner.streamed_dit is not None:
+        stats = runner.streamed_dit.stats
+        print(f"BlockSwap (keep {runner.streamed_dit.keep_blocks}/"
+              f"{runner.dit_cfg.num_layers} blocks on the card): "
+              f"{stats.summary()} {stats.transfer()}", file=sys.stderr)
     return out_path
 
 

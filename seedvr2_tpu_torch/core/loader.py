@@ -346,6 +346,16 @@ def load_dit_checkpoint(path: str, device, dtype=torch.bfloat16,
     .pt or .gguf) onto `device` in `dtype`, quantised for serving per
     `quant` (the table in the module docstring). min_dim / align are the
     conversions' size rules (tests shrink them for tiny configs)."""
+    model = read_dit_model(path, device, dtype, quant)
+    return quantize_dit(model, quant, path.endswith(".gguf"), min_dim, align)
+
+
+def read_dit_model(path: str, device, dtype=torch.bfloat16,
+                   quant: str = "none") -> NaDiT:
+    """load_dit_checkpoint without the serving conversion: the file's
+    tensors on `device`, GGUF blocks kept as `quant` reads them
+    (core/model_manager.py converts a host-resident DiT a block at a time
+    on the card)."""
     if quant not in QUANT_MODES:
         raise ValueError(f"quant={quant!r}; known: {QUANT_MODES}")
     base = dit_config_for(os.path.basename(path))
@@ -359,8 +369,13 @@ def load_dit_checkpoint(path: str, device, dtype=torch.bfloat16,
     del state
     model = model.to_empty(device=device)
     model.load_state_dict(flat, strict=True)
-    del flat
-    return quantize_dit(model, quant, path.endswith(".gguf"), min_dim, align)
+    return model
+
+
+def quantize_converts(quant: str, from_gguf: bool) -> bool:
+    """Whether quantize_dit changes the model: w8a8 always, q8 / q4 / q4k
+    a float file only (a GGUF file serves its own quantisation)."""
+    return quant == "w8a8" or (quant in ("q4", "q8", "q4k") and not from_gguf)
 
 
 def quantize_dit(model: NaDiT, quant: str, from_gguf: bool = False,

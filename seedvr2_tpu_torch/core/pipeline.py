@@ -16,9 +16,13 @@ colour method and the tile_debug overlay.
 Every phase records its wall time, ended by a device synchronise, in
 ctx["timings"], and runs inside a profiler range `seedvr2.<phase>` that
 ends after that synchronise (profile_requests attributes device time to
-phases by it).
+phases by it). The VAE phases release a phase-offloaded DiT at their entry
+(runner.release_dit); phase 2 adds the seconds of its restore
+("dit_restore") and, for a streamed DiT, the blocks' total stall
+("dit_swap_stall") to the timings, and logs the BlockSwap summary.
 """
 
+import logging
 import time
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, Optional
@@ -30,6 +34,8 @@ from ..utils import color_fix, transforms
 from ..utils.seed import input_noise_generator, noise_generator
 from .alpha import process_alpha_for_batch
 from .runner import VideoDiffusionRunner
+
+log = logging.getLogger(__name__)
 
 # ------------------------------------------------------------ temporal ops
 
@@ -177,6 +183,7 @@ def encode_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
         raise ValueError("the pipeline takes RGB or RGBA frames (T, H, W, 3 "
                          f"or 4); got {images.shape}")
     with _phase(ctx, "encode"):
+        runner.release_dit()  # VAE phase: the device belongs to the encoder
         dev = ctx["device"]
         total = len(images)
         ctx.update(input_images=images, total_frames=total,
@@ -239,6 +246,7 @@ def upscale_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
     second draw. noise_override / aug_noise_override replace the base and
     the second draw with given per-batch arrays, so a test can feed the JAX
     pipeline and the port the same noise."""
+    restores = len(runner.restore_seconds)
     with _phase(ctx, "dit"):
         dev, dt = ctx["device"], runner.compute_dtype
         n = len(ctx["all_latents"])
@@ -277,6 +285,16 @@ def upscale_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
                 progress_callback(bi + 1, n, 1, "Phase 2: Upscaling")
         ctx["all_upscaled_latents"] = results
         ctx["all_latents"] = []
+    if len(runner.restore_seconds) > restores:
+        ctx["timings"]["dit_restore"] = sum(runner.restore_seconds[restores:])
+    if runner.streamed_dit is not None:
+        s = runner.streamed_dit.stats.summary()
+        if s.get("total_swaps"):
+            ctx["timings"]["dit_swap_stall"] = s["block_stall_total_ms"] / 1e3
+            log.info("BlockSwap: %d swaps, stall avg %.1f ms / max %.1f ms "
+                     "(one un-prefetched transfer = %.1f ms, %.0f MB/block)",
+                     s["block_swaps"], s["block_avg_ms"], s["block_max_ms"],
+                     s["measured_transfer_ms"], s["block_bytes"] / 1e6)
     return ctx
 
 
@@ -287,6 +305,7 @@ def decode_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
     """Phase 3: VAE decode into a preallocated host buffer (4 channels for
     RGBA, the alpha filled in phase 4) with overlap blending."""
     with _phase(ctx, "decode"):
+        runner.release_dit()  # VAE phase: the device belongs to the decoder
         true_h, true_w = ctx["true_target_dims"]
         channels = 4 if ctx["is_rgba"] else 3
         final = np.zeros((ctx["total_frames"], true_h, true_w, channels),

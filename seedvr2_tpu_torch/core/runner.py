@@ -1,6 +1,6 @@
 """VideoDiffusionRunner: the inference engine around the DiT and the VAE.
 
-Port of seedvr2_tpu.core.runner without mesh or block streaming: VAE
+Port of seedvr2_tpu.core.runner without a mesh: VAE
 encode/decode with the latent scale/shift, spatial tiling (uniform grid or
 the reference's stride sweep; tile_size "auto" resolved per item shape by
 memory probes run on the card, utils/memplan.py) and the out-of-memory
@@ -8,11 +8,18 @@ retry, the sr / t2v /
 i2v conditions, the timestep transform, and the
 plain denoise (condition concat -> NaDiT -> optional CFG -> Euler
 endpoint). DiT plans are built once per (latent shape, text length) and
-their tables uploaded once.
+their tables uploaded once. Memory tiering (core/model_manager.py decides
+it): a `streamed_dit` (ops.offload.StreamedNaDiT) streams the DiT's blocks
+from pinned host memory, and per-phase offload (`set_phase_offload`) keeps
+the DiT in pinned host memory through the VAE phases (`release_dit`, which
+the pipeline calls at the entry of encode and decode) and restores it at
+the entry of `inference` (`ensure_dit_resident`).
 """
 
 import logging
+import time
 from dataclasses import dataclass, replace
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -20,6 +27,7 @@ import torch
 from ..models.dit.nadit import (DevicePlan, NaDiT, build_dit_plan,
                                 nadit_forward, upload_plan)
 from ..models.vae.pipeline_vae import TILE_MODES, VideoVAE
+from ..ops.offload import HostCopy, StreamedNaDiT
 from ..utils import memplan
 from ..utils.dtypes import COMPUTE_DTYPE
 from . import diffusion
@@ -65,17 +73,35 @@ class VideoDiffusionRunner:
     # an OOM retry shrinks tiles x0.7 a side down to this many px
     _MIN_TILE = 256
 
-    def __init__(self, dit: NaDiT, vae: VideoVAE,
+    def __init__(self, dit: Optional[NaDiT], vae: VideoVAE,
                  config: RunnerConfig = RunnerConfig(),
                  compute_dtype=COMPUTE_DTYPE,
-                 tiling: VAETiling = VAETiling()):
+                 tiling: VAETiling = VAETiling(),
+                 streamed_dit: Optional[StreamedNaDiT] = None,
+                 device=None):
+        """dit: the NaDiT, None when `streamed_dit` (the host-streamed DiT,
+        whose model it serves) is given. device: where the runner computes;
+        by default the streamed DiT's device, else where the DiT's
+        parameters are (give it when the DiT starts in host memory, as a
+        phase-offloaded one does)."""
         self.tiling = tiling
-        self.dit = dit
-        self.dit_cfg = dit.cfg
+        self.streamed_dit = streamed_dit
+        self.dit = streamed_dit.model if streamed_dit is not None else dit
+        self.dit_cfg = self.dit.cfg
         self.vae = vae
         self.config = config
         self.compute_dtype = compute_dtype
-        self.device = next(dit.parameters()).device
+        if device is not None:
+            self.device = torch.device(device)
+        elif streamed_dit is not None:
+            self.device = streamed_dit.device
+        else:
+            self.device = next(self.dit.parameters()).device
+        # per-phase offload: the DiT's pinned host copy (set_phase_offload)
+        self.phase_offload = False
+        self._host_dit: Optional[HostCopy] = None
+        # seconds of each restore of a phase-offloaded DiT to the device
+        self.restore_seconds: List[float] = []
         self.schedule = diffusion.LerpSchedule(config.diffusion.schedule_T)
         self._plans: Dict[Tuple, DevicePlan] = {}
         # resolved plans of an "auto" tile size, by (kind, item shape):
@@ -84,14 +110,47 @@ class VideoDiffusionRunner:
         # device out-of-memory errors the VAE phases caught and retried
         self.oom_retries = 0
 
+    # ------------------------------------------------- phase model offload
+
+    def set_phase_offload(self, host_copy: Optional[HostCopy] = None):
+        """Engage per-phase DiT offload (the reference's manage_model_device,
+        memory_manager.py:573-930): the DiT's weights leave the device
+        during the VAE phases so the VAE's workspace fits, and come back at
+        phase-2 entry from one pinned host copy made once (here, or given:
+        runners built on one cached DiT share its copy). Engaged by
+        configure_runner when the resident DiT would crowd out the VAE.
+        The DiT is released at once."""
+        self._host_dit = host_copy or HostCopy(self.dit, self.device)
+        self._host_dit.release()
+        self.phase_offload = True
+
+    def ensure_dit_resident(self):
+        """Restore a phase-offloaded DiT to the device (one non_blocking
+        copy, one synchronise), timed into restore_seconds."""
+        if self.phase_offload and not self._host_dit.resident:
+            t0 = time.perf_counter()
+            self._host_dit.restore()
+            self.restore_seconds.append(time.perf_counter() - t0)
+            log.info("DiT restored to the device in %.3f s",
+                     self.restore_seconds[-1])
+
+    def release_dit(self):
+        """Let a phase-offloaded DiT's device storage go (its module's
+        tensors point at the pinned host copy). No-op unless phase offload
+        is engaged."""
+        if self.phase_offload:
+            self._host_dit.release()
+
     # ----------------------------------------------------------------- vae
 
     def _auto_tile_budget(self) -> Optional[int]:
         """Device bytes a VAE call may still take: the card's limit (its
         total memory scaled by the per-process memory fraction) less what
         the caching allocator holds once its cache is emptied, so what
-        stays resident through the call (the DiT, the VAE, the call's
-        input) is counted once, as it stands, with the free space stuck in
+        stays resident through the call (the VAE, the call's input and the
+        DiT: none of it once release_dit() let a phase-offloaded DiT go,
+        only the IO parameters, kept blocks and two slots of a streamed
+        one) is counted once, as it stands, with the free space stuck in
         segments that live tensors hold (the limit applies to reserved
         memory). None on a device with no memory model (the CPU)."""
         if self.device.type != "cuda":
@@ -258,9 +317,11 @@ class VideoDiffusionRunner:
                   cfg_scale: Optional[float] = None,
                   steps: Optional[int] = None) -> List[torch.Tensor]:
         """One-step (or n-step) denoising of same-shape latents
-        (Tl, h, w, C), batched into one DiT call."""
+        (Tl, h, w, C), batched into one DiT call. A phase-offloaded DiT is
+        restored first; a streamed one streams its blocks."""
         if not noises:
             return []
+        self.ensure_dit_resident()
         if cfg_scale is None:
             cfg_scale = self.config.diffusion.cfg_scale
         if steps is None:
@@ -280,14 +341,16 @@ class VideoDiffusionRunner:
         txt_pos = txt_pos[None].expand(b, *txt_pos.shape)
         txt_neg = txt_neg[None].expand(b, *txt_neg.shape)
         pred_type = self.config.diffusion.prediction_type
+        dit = (self.streamed_dit if self.streamed_dit is not None
+               else partial(nadit_forward, self.dit))
 
         def f(x, t):
             vid_in = torch.cat([x, cond], dim=-1)
             tt = torch.full((b,), t, dtype=torch.float32, device=self.device)
-            pos = nadit_forward(self.dit, vid_in, txt_pos, tt, plan_pos)
+            pos = dit(vid_in, txt_pos, tt, plan_pos)
             if cfg_scale == 1.0:
                 return pos
-            neg = nadit_forward(self.dit, vid_in, txt_neg, tt, plan_neg)
+            neg = dit(vid_in, txt_neg, tt, plan_neg)
             return diffusion.classifier_free_guidance(
                 pos, neg, cfg_scale, self.config.diffusion.cfg_rescale)
 

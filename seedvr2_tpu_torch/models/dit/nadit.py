@@ -38,7 +38,7 @@ time embedding of a downscale factor.
 """
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -419,16 +419,19 @@ def init_dit(cfg: DiTConfig, device, dtype=torch.bfloat16,
     """Random NaDiT drawn directly on `device`, with the distributions of the
     JAX package's init_dit_params: linears U(+-1/sqrt(fan_in)) for weight and
     bias, qk/out norm weights 1, ada shift/gate N(0, 1/D) and ada scale
-    N(0, 1/D) + 1, each drawn in fp32 and rounded to `dtype`."""
+    N(0, 1/D) + 1, each drawn in fp32 and rounded to `dtype`. The draws
+    run on the generator's device, so a model built in host memory from a
+    card's generator holds the values one built on that card does."""
     with torch.device("meta"):
         model = NaDiT(cfg, dtype=dtype)
     model = model.to_empty(device=device)
     D = cfg.vid_dim
 
     def draw(p, fill):
-        tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+        dev = generator.device if generator is not None else p.device
+        tmp = torch.empty(p.shape, dtype=torch.float32, device=dev)
         fill(tmp)
-        p.copy_(tmp)
+        p.copy_(tmp.to(p.dtype))
 
     for name, mod in model.named_modules():
         if isinstance(mod, nn.Linear):
@@ -744,7 +747,9 @@ def unpatchify(x: torch.Tensor, grid, patch_size, out_channels: int,
 def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
                   timestep: torch.Tensor, dplan: DevicePlan,
                   use_kernels: bool = True,
-                  downscale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  downscale: Optional[torch.Tensor] = None,
+                  blocks: Optional[Iterable[nn.Module]] = None
+                  ) -> torch.Tensor:
     """Denoiser forward.
 
     Args:
@@ -762,6 +767,10 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
         downscale: (B,) downscale factor of the NaDiTUpscaler variant
             (`cfg.upscaler`): emb += emb_scale(downscale). The runner never
             passes one, as in the JAX package.
+        blocks: where the transformer blocks come from, in order
+            (default `model.blocks`); ops.offload.StreamedNaDiT passes a
+            generator that yields each block once its weights are on the
+            device.
 
     Returns:
         (B, T, H, W, vid_out_channels) prediction (v_lerp velocity).
@@ -781,7 +790,7 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
     emb_attn, emb_mlp = emb_r[..., 0, :], emb_r[..., 1, :]
 
     order = "canonical"
-    for i, blk in enumerate(model.blocks):
+    for i, blk in enumerate(model.blocks if blocks is None else blocks):
         x, xt, order = _block_forward(blk, cfg, i, x, xt, emb_attn, emb_mlp,
                                       dplan, order, use_kernels)
     if order != "canonical":

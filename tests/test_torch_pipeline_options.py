@@ -410,8 +410,8 @@ def test_cli_new_flags_and_rgba_npy(models, tmp_path, monkeypatch):
     seen = {}
 
     def make_runner(device, seed, dit_model, vae_model, quant, tiling,
-                    vae_quant):
-        seen["tiling"] = tiling
+                    vae_quant, **memory):
+        seen["tiling"], seen["memory"] = tiling, memory
         return TRunner(t_runner.dit, t_runner.vae, t_runner.config,
                        compute_dtype=torch.float32, tiling=tiling)
 
@@ -426,6 +426,8 @@ def test_cli_new_flags_and_rgba_npy(models, tmp_path, monkeypatch):
     out = np.load(cli.main(argv))
     assert out.shape == (1, 38, 32, 4) and np.isfinite(out).all()
     assert seen["tiling"].tile_mode == "ref" and seen["tiling"].decode_tiled
+    assert seen["memory"] == dict(model_dir="./models", blocks_to_swap=0,
+                                  dit_cache=False, vae_cache=False)
     assert {k: seen["kw"][k] for k in (
         "color_correction", "input_noise_scale", "latent_noise_scale",
         "uniform_batch_size", "tile_debug")} == dict(
