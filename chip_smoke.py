@@ -38,6 +38,20 @@ network. In order it:
     requests through the port's `process_frames` (a 360x640 image to 720p,
     a 5-frame 360x640 clip to 720p, the clip again), checking shapes and
     finiteness and that K1 and K2 were launched by that path;
+ 3b. the CLI surface through `cli.main(argv)` in-process on those models
+    (both cache flags): a 9-frame 360x640 .npy clip to 720p unchunked
+    (against the same request through `process_frames`), in chunks of 5
+    with overlap 2 under --debug and --profile_dir (each frame written
+    once, equal to the unchunked run away from the seam; each chunk's RSS
+    and device deltas; a profiler trace per phase) and again without the
+    profiler (its overhead), --skip_first_frames 2 --load_cap 5 against
+    the same frames given directly, --attention_mode sdpa (no K1, K2 still;
+    dit seconds beside flash; scored by --parity_check against the
+    unchunked flash output; its whole DiT output against K1's, timed in
+    turns), where OpenCV imports the clip as an mp4 through the chunk loop
+    into PNGs (against the .npy path on the decoded frames), and --doctor
+    in a subprocess beside that (rc 0, the card named); the launches of
+    the CLI paths go into the kernels' record;
  4. runs the whole 32-layer DiT once with the kernels and once with their
     plain versions on the clip's latent and bounds the relative L2 error;
  4b. the rest of the request surface on that runner: two RGBA requests
@@ -323,6 +337,31 @@ INT8_FAST_REQUESTS = (("clip 5x540x960 -> 1080", 5, 540, 960, 1080),)
 FUSED_REQUESTS = (("clip 5x360x640 -> 720", 5, 360, 640, 720),)
 # the packaged positive text embedding's length (checked in phase 3)
 TXT_LEN = 58
+# phase 3b, the CLI surface: the .npy clip (frames, height, width) and its
+# short side out, the chunking (frames a chunk, overlap), the frames the
+# chunked run blends at its seam (its second chunk's batches start where
+# the whole run's second and third do, so the frames away from the seam
+# come from the same batches with the same inputs and are expected
+# bit-equal under a colour method local to each pixel: wavelet, as in
+# tests/test_cli.py's streaming check; lab matches histograms over each
+# decoded batch, which the seam's blend changes), and skip / cap
+CLI_CLIP = (9, 360, 640)
+CLI_RES = 720
+CLI_CHUNK, CLI_OVERLAP = 5, 2
+CLI_SEAM = (3, 4)
+CLI_SKIP, CLI_CAP = 2, 5
+# runs expected bit-equal (chunked against whole away from the seam, skip /
+# cap against the same frames given directly, the CLI against
+# process_frames): if one is not, its largest difference is printed and
+# held to a bf16-class step of a [0, 1] frame; the seam's frames, blended
+# by the chunk loop after colour correction as the pipeline blends them,
+# are held to it too
+CLI_MAX_ABS = 2e-2
+# the parity report's floor (dB) for the xla lane's output scored against
+# the flash lane's on the same request: bf16-class differences (relative L2
+# ~0.007 of the frames, ~48 dB)
+CLI_PARITY_MIN_PSNR = 35.0
+
 # the q8 lane's requests (untiled VAE) and the q4 lane's (preset tiling):
 # (label, frames, height, width, short side)
 Q8_REQUESTS = (("image 1x540x960 -> 1080", 1, 540, 960, 1080),
@@ -2703,24 +2742,6 @@ def streamed_w8a8(torch, nadit, fast7, vid_in, dplan, txt, tt, device,
         fail("(c) the streamed 7B w8a8 forward differs from the resident")
 
 
-def write_safetensors(torch, path, tensors):
-    """A .safetensors file of `tensors` (name -> tensor) in fp16, written
-    one tensor at a time (an 8-byte header length, the JSON header padded
-    to 8 bytes, then the raw little-endian data)."""
-    header, off = {}, 0
-    for name, t in tensors.items():
-        n = t.numel() * 2
-        header[name] = {"dtype": "F16", "shape": list(t.shape),
-                        "data_offsets": [off, off + n]}
-        off += n
-    raw = json.dumps(header).encode()
-    raw += b" " * ((-len(raw)) % 8)
-    with open(path, "wb") as f:
-        f.write(len(raw).to_bytes(8, "little") + raw)
-        for t in tensors.values():
-            f.write(t.detach().half().cpu().numpy().tobytes())
-
-
 def legacy_k12_prediction(model):
     """K12 launches of a first slice's encode and decode, from the module
     list: every resnet conv that is 3 frames deep, and conv_out."""
@@ -2746,6 +2767,7 @@ def legacy_vae_lanes(torch, np, cli, VideoVAE, vae_cfg, device, embeds,
 
     from seedvr2_tpu_torch.core.loader import load_vae_checkpoint
     from seedvr2_tpu_torch.core.runner import VideoDiffusionRunner
+    from seedvr2_tpu_torch.core.weights import write_safetensors
     from seedvr2_tpu_torch.models.vae.pipeline_vae import (init_vae_params,
                                                            int8_served_convs)
 
@@ -2755,7 +2777,8 @@ def legacy_vae_lanes(torch, np, cli, VideoVAE, vae_cfg, device, embeds,
         gen = torch.Generator(device).manual_seed(11)
         t0 = time.perf_counter()
         src = init_vae_params(cfg, device, torch.float32, generator=gen)
-        write_safetensors(torch, path, src.state_dict())
+        write_safetensors(path, {k: v.detach().half()
+                                 for k, v in src.state_dict().items()})
         del src
         size = os.path.getsize(path)
         runner = cli.make_runner(device, seed=0, vae_model=path)
@@ -3245,6 +3268,286 @@ def same_request(torch, np, cli, runners, frames, res, embeds, label):
         fail(f"{label}: outputs differ")
 
 
+def max_abs(np, a, b) -> float:
+    return float(np.abs(a.astype(np.float64) - b).max())
+
+
+def cli_surface_phase(torch, np, cli, nadit, pipeline, runner, device,
+                      embeds, wrappers, counts, make_frames, here):
+    """Phase 3b: the CLI surface driven through `cli.main(argv)` in-process
+    on a 9-frame .npy clip at full width, on phase 3's models (both cache
+    flags, so the 3B is built once): unchunked; chunked with --debug and
+    --profile_dir, and again without the profiler; skip and cap against the
+    same frames given directly; --attention_mode sdpa with --parity_check
+    against the unchunked output; an mp4 through the chunk loop where
+    OpenCV imports, beside --doctor in a subprocess. Fails on any check;
+    clears the model cache at its end."""
+    import contextlib
+    import io
+    import tempfile
+
+    import importlib.util
+
+    from seedvr2_tpu_torch.core.model_cache import get_global_cache
+    from seedvr2_tpu_torch.utils import debug as debug_mod
+    from seedvr2_tpu_torch.utils.debug import Debug
+
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("cv2", "yaml", "psutil")}
+    say(f"host modules: OpenCV {found['cv2']}, PyYAML {found['yaml']}, "
+        f"psutil {found['psutil']} (Debug reads RSS from "
+        f"{'psutil' if debug_mod.psutil else '/proc/self/statm'})")
+    t, h, w = CLI_CLIP
+    frames = make_frames(t, h, w, seed=21)
+    expect = (t, CLI_RES, CLI_RES * w // h // 2 * 2, 3)  # even sides
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "clip.npy")
+        np.save(src, frames)
+        mid = os.path.join(tmp, "mid.npy")
+        np.save(mid, frames[CLI_SKIP:CLI_SKIP + CLI_CAP])
+        flags = ["--resolution", str(CLI_RES), "--seed", "0", "--dit_model",
+                 "random", "--vae_model", "random", "--cache_dit",
+                 "--cache_vae", "--temporal_overlap", str(CLI_OVERLAP),
+                 "--device", "cuda"]
+
+        def run(name, extra, inp=src, debug=None, path=None, needed=()):
+            """cli.main on one request: (frames out, wall s, stdout)."""
+            out_path = os.path.join(tmp, f"{name}.npy")
+            argv = [inp, "--output", out_path, *flags, *extra]
+            if path is not None:
+                reset_counts(wrappers)
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                got = cli.main(argv, debug=debug)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if path is not None:
+                counts[path] = read_counts(wrappers, needed, path)
+            out = np.load(got)
+            say(f"cli {name} ({' '.join(extra) or 'no extra flags'}): out "
+                f"{out.shape} in {wall:.3f} s")
+            if out.shape[1:] != expect[1:] or not np.isfinite(out).all():
+                fail(f"cli {name}: expected finite frames of {expect[1:]}, "
+                     f"got {out.shape}")
+            return out, wall, buf.getvalue()
+
+        def held_to(label, got, ref):
+            diff = max_abs(np, got, ref)
+            say(f"{label}: max abs difference {diff:.6g} "
+                f"({'bit-equal' if diff == 0 else 'not bit-equal'}; bound "
+                f"{CLI_MAX_ABS})")
+            if got.shape != ref.shape or diff > CLI_MAX_ABS:
+                fail(f"{label}: {got.shape} vs {ref.shape}, max abs {diff}")
+            return diff
+
+        # 1. unchunked, and the same request through process_frames
+        dbg_u = Debug()
+        whole, wall_u, _ = run("unchunked", [], debug=dbg_u, path="cli",
+                               needed=("K1", "K2"))
+        if whole.shape != expect:
+            fail(f"cli unchunked: {whole.shape}, expected {expect}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        direct, timings = cli.process_frames(
+            runner, frames, embeds, resolution=CLI_RES, seed=0,
+            temporal_overlap=CLI_OVERLAP)
+        wall_pf = time.perf_counter() - t0
+        say(f"the same request through process_frames: {wall_pf:.3f} s "
+            "(phases " + ", ".join(f"{k} {v:.4f} s" for k, v in
+                                   timings.items())
+            + f"); the CLI's wall {wall_u:.3f} s, {wall_u - wall_pf:+.3f} s "
+            "(reading, the runner from the cache, embeddings, writing)")
+        held_to("cli unchunked against process_frames", whole, direct)
+
+        # 2. unchunked and chunked in wavelet; chunked with --debug and the
+        # profiler, then without
+        wavelet = ["--color_correction", "wavelet"]
+        whole_w, wall_w, _ = run("unchunked wavelet", wavelet)
+        prof = os.path.join(tmp, "profile")
+        dbg_c = Debug(enabled=True, profile_dir=prof)
+        chunk_flags = wavelet + ["--chunk_size", str(CLI_CHUNK)]
+        chunked, wall_c, log_c = run("chunked+profile", chunk_flags + [
+            "--debug", "--profile_dir", prof], debug=dbg_c)
+        plain_c, wall_p, _ = run("chunked", chunk_flags)
+        say(f"chunked wall {wall_p:.3f} s against unchunked {wall_w:.3f} s "
+            f"(wavelet); with --debug --profile_dir {wall_c:.3f} s (profiler "
+            f"and checkpoints {wall_c - wall_p:+.3f} s)")
+        for line in log_c.splitlines():
+            if "[video]" in line or "chunk_written" in line:
+                say(f"  {line}")
+        written = [lbl for lbl, _ in dbg_c.checkpoints
+                   if lbl.startswith("chunk_written")]
+        want = [f"chunk_written[{CLI_CHUNK - CLI_OVERLAP}]",
+                f"chunk_written[{t}]"]
+        if written != want or chunked.shape[0] != t:
+            fail(f"chunked run wrote {written}, {chunked.shape[0]} frames; "
+                 f"expected {want}, each of the {t} frames once")
+        prev = dbg_c.checkpoints[0][1]
+        for lbl, state in dbg_c.checkpoints:
+            if lbl.startswith("chunk_written"):
+                say(f"  {lbl}: RSS {state['rss_gb']:.3f} GiB (delta "
+                    f"{state['rss_gb'] - prev['rss_gb']:+.4f}), device "
+                    f"{state['hbm_used_gb']:.3f} GiB allocated (delta "
+                    f"{state['hbm_used_gb'] - prev['hbm_used_gb']:+.4f}), "
+                    f"peak {state['hbm_peak_gb']:.3f}")
+                prev = state
+        away = [i for i in range(t) if i not in CLI_SEAM]
+        held_to("chunked against unchunked away from the seam",
+                chunked[away], whole_w[away])
+        held_to("chunked against unchunked at the seam",
+                chunked[list(CLI_SEAM)], whole_w[list(CLI_SEAM)])
+        held_to("chunked with the profiler against without", chunked,
+                plain_c)
+        phases = ("phase1_encode", "phase2_upscale", "phase3_decode",
+                  "phase4_postprocess")
+        for name in phases:
+            d = os.path.join(prof, name)
+            files = sorted(os.listdir(d)) if os.path.isdir(d) else []
+            size = sum(os.path.getsize(os.path.join(d, f)) for f in files)
+            say(f"  profiler traces in {name}: {len(files)} "
+                f"({size / 2 ** 20:.1f} MiB)")
+            if not files:
+                fail(f"no profiler trace written for {name}")
+
+        # 3. skip and cap against the same frames given directly
+        capped, _, _ = run("skip+cap", ["--skip_first_frames",
+                                        str(CLI_SKIP), "--load_cap",
+                                        str(CLI_CAP)])
+        given, _, _ = run("direct", [], inp=mid)
+        if capped.shape[0] != CLI_CAP:
+            fail(f"skip/cap wrote {capped.shape[0]} frames, not {CLI_CAP}")
+        held_to("skip/cap against the same frames given directly", capped,
+                given)
+
+        # 4. the xla lane (no K1, K2 still), scored by --parity_check against
+        # the unchunked flash output; its DiT output against K1's
+        dbg_x = Debug()
+        sdpa, _, log_x = run("sdpa", [
+            "--attention_mode", "sdpa", "--parity_check", "--parity_ref",
+            os.path.join(tmp, "unchunked.npy"), "--parity_min_psnr",
+            str(CLI_PARITY_MIN_PSNR)], debug=dbg_x, path="cli_sdpa",
+            needed=("K2",))
+        if counts["cli_sdpa"]["K1"] != 0:
+            fail(f"--attention_mode sdpa launched K1 "
+                 f"{counts['cli_sdpa']['K1']} times")
+        dit_f = dbg_u.elapsed("phase2_upscaling")
+        dit_x = dbg_x.elapsed("phase2_upscaling")
+        say(f"dit phase, 9-frame clip (3 batches; each lane's first run): "
+            f"flash {dit_f:.4f} s, sdpa {dit_x:.4f} s; output frames "
+            f"relative L2 "
+            f"{float(np.linalg.norm(sdpa - whole) / np.linalg.norm(whole)):.6g}")
+        lines = [ln for ln in log_x.splitlines() if ln.startswith("{")]
+        report = json.loads(lines[-1]) if lines else {}
+        say(f"parity report: {json.dumps(report)}")
+        if report.get("parity") != "ok" or report.get("passed") is not True:
+            fail(f"--parity_check report {report}")
+        ctx = pipeline.setup_generation_context(device)
+        ctx = pipeline.encode_all_batches(runner, ctx, frames[:CLI_CHUNK],
+                                          resolution=CLI_RES)
+        latent = ctx["all_latents"][0]
+        gen = torch.Generator(device).manual_seed(42)
+        noise = torch.randn(latent.shape, generator=gen, device=device).to(
+            torch.bfloat16)
+        vid_in = torch.cat([noise, runner.get_condition(noise, latent)],
+                           -1)[None]
+        txt = torch.as_tensor(embeds["pos"], dtype=torch.bfloat16,
+                              device=device)[None]
+        dplan = runner.plan(tuple(latent.shape[:3]), txt.shape[1])
+        tt = torch.full((1,), 1000.0, device=device)
+        outs, ms = {}, {"flash": [], "xla": []}
+        with torch.no_grad():
+            fwds = {m: (lambda m=m: nadit.nadit_forward(
+                runner.dit, vid_in, txt, tt, dplan, attention_mode=m))
+                for m in ms}
+            for mode, fwd in fwds.items():
+                outs[mode] = fwd()  # also the warm-up
+            # in turns, as the card's clock moves between calls
+            for mode in ("flash", "xla", "xla", "flash"):
+                ms[mode].append(cuda_ms(torch, fwds[mode], 3, warmup=0))
+        rel = rel_l2(outs["xla"], outs["flash"])
+        say(f"whole bf16 DiT on latent {dplan.plan.vid_shape}: xla (SDPA) "
+            f"against flash (K1) relative L2 {rel:.6g} (bound {DIT_REL_L2});"
+            f" forward ms in turns flash {ms['flash'][0]:.2f}, xla "
+            f"{ms['xla'][0]:.2f}, xla {ms['xla'][1]:.2f}, flash "
+            f"{ms['flash'][1]:.2f}")
+        if not torch.isfinite(outs["xla"]).all() or rel > DIT_REL_L2:
+            fail(f"xla lane DiT against flash: relative L2 {rel}")
+        del outs, vid_in, noise, latent, ctx
+
+        # 5. --doctor in its own process, beside the last step (timed ones
+        # are done)
+        import threading
+
+        t_doc = time.perf_counter()
+        doctor = subprocess.Popen(
+            [sys.executable, "-m", "seedvr2_tpu_torch.cli", "--doctor"],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        doc_end = []  # when the doctor exits (its report is small: the
+        # pipes do not fill before it does)
+        threading.Thread(target=lambda: doc_end.append(
+            (doctor.wait(), time.perf_counter())[1]), daemon=True).start()
+
+        try:
+            # 6. video IO, where OpenCV imports here: the clip as an mp4 through
+            # the chunk loop into PNGs, against the .npy path on the frames the
+            # mp4 decodes to (the same floats in, so the same uint8 out)
+            if not found["cv2"]:
+                say("OpenCV is not installed here: video IO not driven")
+            else:
+                from seedvr2_tpu_torch.utils import video_io
+
+                mp4 = os.path.join(tmp, "clip.mp4")
+                writer = video_io.VideoWriter(mp4, 30.0, (h, w))
+                writer.write_frames(frames)
+                writer.close()
+                reader = video_io.VideoReader(mp4)
+                np.save(os.path.join(tmp, "decoded.npy"), reader.read_frames(t))
+                reader.close()
+                png = os.path.join(tmp, "video", "out.png")
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main([mp4, "--output", png, "--output_format", "png",
+                              *flags, *chunk_flags])
+                wall_v = time.perf_counter() - t0
+                pngs = sorted(os.listdir(os.path.dirname(png)))
+                from_npy, _, _ = run("decoded .npy", chunk_flags,
+                                     inp=os.path.join(tmp, "decoded.npy"))
+                got = np.stack([video_io.read_image(os.path.join(
+                    os.path.dirname(png), f))[0] for f in pngs])
+                want = np.clip(from_npy * 255.0, 0, 255).astype(np.uint8)
+                same = np.array_equal(np.round(got * 255.0).astype(np.uint8),
+                                      want)
+                say(f"cli mp4 in, PNGs out, chunked: {len(pngs)} frames of "
+                    f"{got.shape[1:]} in {wall_v:.3f} s; equal to the .npy path "
+                    f"on the decoded frames: {same}")
+                if len(pngs) != t or not same:
+                    fail(f"video through the CLI: {len(pngs)} PNGs, equal to the "
+                         f".npy path: {same}")
+        finally:
+            try:
+                out, err = doctor.communicate(timeout=300)
+            finally:
+                if doctor.poll() is None:
+                    doctor.kill()
+                    doctor.wait()
+
+    doc_s = (doc_end[0] if doc_end else time.perf_counter()) - t_doc
+    for line in out.splitlines():
+        say(f"  doctor: {line}")
+    name = torch.cuda.get_device_name(0)
+    say(f"--doctor: rc {doctor.returncode} in {doc_s:.2f} s (process start "
+        "included; beside the video step)")
+    if (doctor.returncode != 0 or "backend OK: cuda" not in out
+            or name not in out):
+        fail(f"--doctor returned {doctor.returncode} without 'backend OK: "
+             f"cuda' and {name!r}: {err[-2000:]}")
+    get_global_cache().clear()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "seedvr2_tpu_torch")):
@@ -3350,9 +3653,10 @@ def main() -> None:
     recs["K12"] = check_k12(torch, fn, device)
     phase_done("2 (kernels against plain versions)")
 
-    # 3. the default path: three requests at full width
+    # 3. the default path: three requests at full width (the models cached
+    # for phase 3b's CLI runs)
     t0 = time.perf_counter()
-    runner = cli.make_runner(device, seed=0)
+    runner = cli.make_runner(device, seed=0, dit_cache=True, vae_cache=True)
     torch.cuda.synchronize()
     n_dit = sum(p.numel() for p in runner.dit.parameters())
     n_vae = sum(p.numel() for p in runner.vae.model.parameters())
@@ -3372,6 +3676,11 @@ def main() -> None:
         ("clip again", clip, 720, (5, 720, 1280, 3))), device, embeds)
     counts["default"] = read_counts(wrappers, ("K1", "K2"), "default")
     phase_done("3 (default path)")
+
+    # 3b. the CLI surface on those models
+    cli_surface_phase(torch, np, cli, nadit, pipeline, runner, device,
+                      embeds, wrappers, counts, make_frames, here)
+    phase_done("3b (CLI surface)")
 
     # 4. whole DiT, kernels against plain versions, on the clip's latent
     txt = torch.as_tensor(embeds["pos"], dtype=torch.bfloat16,

@@ -1,46 +1,70 @@
-"""Command-line entry of the PyTorch port: upscale .npy frames.
+"""Command-line entry of the PyTorch port: upscale videos, images,
+directories of frames and .npy arrays.
 
-    python -m seedvr2_tpu_torch.cli in.npy --output out.npy --resolution 720 \\
-        --seed 42 [--dit_model dit.{safetensors,pth,gguf} \\
-        --vae_model vae.safetensors] [--preset throughput] \\
-        [--quant none|q8|q4|q4k|w8a8] [--vae_quant none|int8] \\
-        [--color_correction lab|wavelet|wavelet_adaptive|hsv|adain|none] \\
-        [--input_noise_scale S] [--latent_noise_scale S] \\
-        [--uniform_batch_size] [--tile_mode uniform|ref] \\
-        [--tile_debug false|encode|decode] \\
-        [--vae_encode_tile_size N|auto] [--vae_decode_tile_size N|auto] \
-        [--model_dir DIR] [--blocks_to_swap N] [--cache_dit] [--cache_vae]
+    python -m seedvr2_tpu_torch.cli INPUT [--output PATH]
+        [--output_format mp4|png] [--resolution 1080] [--seed 42]
+        [--chunk_size N --temporal_overlap K] [--skip_first_frames N]
+        [--load_cap N] [--dit_model NAME|random] [--vae_model NAME|random]
+        [--preset quality|throughput] [--attention_mode flash|xla|sdpa|...]
+        [--quant none|q8|q4|q4k|w8a8] [--vae_quant none|int8]
+        [--color_correction lab|wavelet|wavelet_adaptive|hsv|adain|none]
+        [--parity_check --parity_ref CAPTURE] [--debug] [--profile_dir DIR]
+    python -m seedvr2_tpu_torch.cli --doctor
+    python -m seedvr2_tpu_torch.cli --convert_embeddings SRC_DIR DST_DIR
 
-Input and output are float32 .npy arrays of frames (T, H, W, 3) in [0, 1],
-or (T, H, W, 4) RGBA, whose alpha is upscaled edge-guided and comes out as
-the fourth channel (a single (H, W, C) image is taken as one frame). With
-no checkpoint given, the models are built with random weights on the
-device from --seed (the 3B DiT). Runs the JAX package's inference_cli.py
-paths with the 3B or the 7B DiT (the family comes from the checkpoint):
-the default (bf16 DiT, VAE_V3 untiled), `--preset throughput` (w8a8 DiT,
-uniform tiled VAE) and the quantised-checkpoint lanes `--quant q8 / q4 /
-q4k` (core/loader.py), and the VAE's opt-in lanes: `--vae_quant int8`
-(int8 decoder resnet convs) and SEEDVR2_FUSED_NORM=1 in the environment
-(fused norm + SiLU + causal head), alone or with the flags above; one step
-at cfg 1.0, lab colour correction by default.
-The VAE's lowering switches SEEDVR2_UPSAMPLE_CONVT, SEEDVR2_HEAD_CORRECTION
-and SEEDVR2_CONV_IM2COL are read from the environment as in the JAX
-package, once, when the VAE is built. A tile size of `auto` picks the
-fewest-tiles grid that fits the card from memory probes run on it, cached
-in ~/.cache/seedvr2_tpu_torch/memprobe.json (or $SEEDVR2_MEMPROBE_CACHE).
---vae_model also takes the legacy video_vae.py layout (sniffed).
-Checkpoint names are searched through utils/constants.find_model_path
-($SEEDVR2_MODEL_PATHS, --model_dir, the ComfyUI roots). The runner comes
+The surface of the JAX package's inference_cli.py, with its flags,
+defaults and checks, but for its parallel flags (--data_parallel,
+--tensor_parallel, --num_hosts, --host_index, --join_parts,
+--coordinator_address), which wait for the port's parallelism.
+
+INPUT is a video (OpenCV; streamed --chunk_size frames at a time in bounded
+memory, the last --temporal_overlap input frames of a chunk fed again to
+the next and the seam Hann-blended, each frame written once), an image, a
+directory of images, or the port's .npy array of frames (T, H, W, 3) in
+[0, 1], or (T, H, W, 4) RGBA, whose alpha is upscaled edge-guided and comes
+out as the fourth channel; a single (H, W, C) array is one frame. A .npy
+input streams through the same chunk loop from a memory map into a
+memory-mapped .npy output (<input>_upscaled.npy unless --output /
+--output_format say otherwise), so it needs no OpenCV: the way to feed a
+machine without it. Video, image and directory paths need OpenCV.
+
+Models: --dit_model / --vae_model name reference-layout checkpoints
+(core/loader.py: DiT .safetensors, .pth or .gguf of the 3B or 7B family;
+the VAE_V3 or the legacy VAE layout), searched through
+utils/constants.find_model_path ($SEEDVR2_MODEL_PATHS, --model_dir, the
+ComfyUI roots). The defaults are the JAX CLI's checkpoint names; a missing
+file raises (downloads are not ported). The name `random` builds random
+weights on the device from --seed (the 3B DiT, VAE_V3). The runner comes
 from core/model_manager.configure_runner, which keeps the DiT on the card,
-offloads it to pinned host memory through the VAE phases, or streams its
-blocks from there (--blocks_to_swap N forces the last N to stream; by
-default the card's memory decides); --swap_io_components is accepted and
-does nothing, as in JAX.
+offloads it through the VAE phases or streams its blocks (--blocks_to_swap;
+by default the card's memory decides) and caches models and runners
+(--cache_dit / --cache_vae), keyed on every knob, --attention_mode among
+them. --attention_mode flash (default; alias flash_attn) runs the
+hand-written attention kernels, xla (alias sdpa) the SDPA lane of
+ops/attention.py. `--preset throughput` is the JAX serving bundle (w8a8
+DiT, uniform tiled VAE; explicit flags win), `--preset quality` the
+defaults. --vae_quant int8 and SEEDVR2_FUSED_NORM=1 take the VAE's kernel
+lanes; SEEDVR2_UPSAMPLE_CONVT, SEEDVR2_HEAD_CORRECTION and
+SEEDVR2_CONV_IM2COL are read once when the VAE is built. A tile size of
+`auto` plans tiles from memory probes run on the card
+(utils/memplan.py, cached in ~/.cache/seedvr2_tpu_torch/memprobe.json or
+$SEEDVR2_MEMPROBE_CACHE).
+
+--device auto (the default) and cuda run on the card and raise when no GPU
+is visible; cpu runs the kernels' plain versions. --debug logs phases,
+timers and memory checkpoints (utils/debug.py), --profile_dir writes a
+torch.profiler chrome trace per phase, --parity_check scores the output
+against --parity_ref (utils/parity.py, one JSON line; exit 1 below
+--parity_min_psnr), --doctor prints a health report (utils/doctor.py; exit
+0 when the card computed, 3 when not). --compile_dit, --compile_vae and
+--swap_io_components are accepted and do nothing, as in JAX.
 """
 
 import argparse
 import os
 import sys
+import time
+from contextlib import contextmanager
 from typing import Optional
 
 import numpy as np
@@ -52,7 +76,9 @@ from .core.loader import QUANT_MODES
 from .core.model_manager import configure_runner
 from .core.runner import VAETiling, VideoDiffusionRunner
 from .models.vae.pipeline_vae import TILE_MODES
-from .utils import color_fix
+from .utils import color_fix, video_io
+from .utils.debug import Debug
+from .utils.model_registry import DEFAULT_DIT, DEFAULT_VAE
 from .utils.text_embeds import load_text_embeddings
 
 
@@ -63,6 +89,9 @@ THROUGHPUT_PRESET = dict(
     vae_encode_tiled=True, vae_decode_tiled=True,
     vae_encode_tile_size=1536, vae_decode_tile_size=1088,
     vae_encode_tile_overlap=32, vae_decode_tile_overlap=48)
+
+# --dit_model / --vae_model name of random weights drawn from --seed
+RANDOM_WEIGHTS = "random"
 
 
 def _tile_size(v: str):
@@ -79,8 +108,8 @@ def make_runner(device, seed: int = 42, dit_model: str = None,
                 vae_quant: str = "none",
                 dit_cfg: Optional[DiTConfig] = None,
                 model_dir: Optional[str] = None, blocks_to_swap: int = 0,
-                dit_cache: bool = False,
-                vae_cache: bool = False) -> VideoDiffusionRunner:
+                dit_cache: bool = False, vae_cache: bool = False,
+                attention_mode: str = "flash") -> VideoDiffusionRunner:
     """DiT + VAE_V3 in bf16 on `device`, through
     core.model_manager.configure_runner: from reference-layout checkpoints
     when given (DiT .safetensors, .pth or .gguf of the 3B or 7B family, VAE
@@ -93,13 +122,28 @@ def make_runner(device, seed: int = 42, dit_model: str = None,
     does); `vae_quant` "int8" serves the VAE decoder's resnet convs in
     int8, for a random or a loaded VAE. blocks_to_swap > 0 streams the
     last N DiT blocks from pinned host memory (0: decided by the card's
-    memory); dit_cache / vae_cache keep the models across calls."""
+    memory); dit_cache / vae_cache keep the models across calls;
+    attention_mode picks the kernels ("flash") or the SDPA lane ("xla")."""
     return configure_runner(
         dit_model, vae_model, base_cache_dir=model_dir, dit_cache=dit_cache,
         vae_cache=vae_cache,
         block_swap_config={"blocks_to_swap": blocks_to_swap}, tiling=tiling,
         quant=quant, vae_quant=vae_quant, device=device, seed=seed,
-        dit_cfg=dit_cfg or DIT_3B, vae_cfg=VAE_V3)
+        dit_cfg=dit_cfg or DIT_3B, vae_cfg=VAE_V3,
+        attention_mode=attention_mode)
+
+
+@contextmanager
+def _debug_phase(debug: Optional[Debug], profile: str, timer: str,
+                 message: str, checkpoint: str):
+    """One phase under `debug`'s profiler trace and timer, then a memory
+    checkpoint (the JAX CLI's process_frames); nothing without a Debug."""
+    if debug is None:
+        yield
+        return
+    with debug.profile(profile), debug.timer(timer, message):
+        yield
+    debug.checkpoint(checkpoint)
 
 
 def process_frames(runner: VideoDiffusionRunner, frames: np.ndarray,
@@ -110,113 +154,224 @@ def process_frames(runner: VideoDiffusionRunner, frames: np.ndarray,
                    uniform_batch_size: bool = False,
                    input_noise_scale: float = 0.0,
                    latent_noise_scale: float = 0.0,
-                   tile_debug: str = "false"):
+                   tile_debug: str = "false", debug: Optional[Debug] = None):
     """Run the 4 phases over one in-memory frame block (T, H, W, 3 or 4) in
     [0, 1], with the runner's VAE tiling. Returns (frames out (T, H', W',
-    3 or 4) in [0, 1], per-phase wall seconds)."""
+    3 or 4) in [0, 1], per-phase wall seconds). With a utils.debug.Debug,
+    each phase runs under its profiler trace and timer and is followed by a
+    memory checkpoint, as in the JAX CLI."""
     if prepend_frames > 0:
         frames = pipeline.pad_video_temporal(frames, count=prepend_frames,
                                              prepend=True)
     ctx = pipeline.setup_generation_context(runner.device,
                                             tile_debug=tile_debug)
     ctx["text_embeds"] = text_embeds
-    ctx = pipeline.encode_all_batches(
-        runner, ctx, frames, batch_size=batch_size,
-        uniform_batch_size=uniform_batch_size, seed=seed,
-        temporal_overlap=temporal_overlap, resolution=resolution,
-        max_resolution=max_resolution, input_noise_scale=input_noise_scale)
-    ctx = pipeline.upscale_all_batches(runner, ctx, seed=seed,
-                                       latent_noise_scale=latent_noise_scale,
-                                       noise_override=noise_override)
-    ctx = pipeline.decode_all_batches(runner, ctx)
-    ctx = pipeline.postprocess_all_batches(
-        ctx, color_correction=color_correction, prepend_frames=prepend_frames)
+    if debug is not None:
+        debug.checkpoint("pre_phase1")
+    with _debug_phase(debug, "phase1_encode", "phase1_encoding",
+                      "Phase 1: VAE encoding complete", "post_phase1"):
+        ctx = pipeline.encode_all_batches(
+            runner, ctx, frames, batch_size=batch_size,
+            uniform_batch_size=uniform_batch_size, seed=seed,
+            temporal_overlap=temporal_overlap, resolution=resolution,
+            max_resolution=max_resolution,
+            input_noise_scale=input_noise_scale)
+    with _debug_phase(debug, "phase2_upscale", "phase2_upscaling",
+                      "Phase 2: DiT upscaling complete", "post_phase2"):
+        ctx = pipeline.upscale_all_batches(
+            runner, ctx, seed=seed, latent_noise_scale=latent_noise_scale,
+            noise_override=noise_override)
+    with _debug_phase(debug, "phase3_decode", "phase3_decoding",
+                      "Phase 3: VAE decoding complete", "post_phase3"):
+        ctx = pipeline.decode_all_batches(runner, ctx)
+    with _debug_phase(debug, "phase4_postprocess", "phase4_postprocessing",
+                      "Phase 4: Post-processing complete", "post_phase4"):
+        ctx = pipeline.postprocess_all_batches(
+            ctx, color_correction=color_correction,
+            prepend_frames=prepend_frames)
+    if debug is not None:
+        debug.summary(runner.streamed_dit.stats.summary()
+                      if runner.streamed_dit is not None else None)
     return ctx["final_video"], ctx["timings"]
 
 
 def parse_arguments(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("input", help=".npy frames (T, H, W, 3) in [0, 1], or "
-                                 "(T, H, W, 4) RGBA")
-    p.add_argument("--output", default=None,
-                   help="output .npy (default: <input>_upscaled.npy)")
-    p.add_argument("--dit_model", default=None,
+    io = p.add_argument_group("Input/Output")
+    io.add_argument("input", type=str, nargs="?", default=None,
+                    help="video, image, directory, or .npy frames "
+                         "(T, H, W, 3 or 4) in [0, 1]")
+    io.add_argument("--output", type=str, default=None)
+    io.add_argument("--output_format", type=str, default=None,
+                    choices=["mp4", "png", None],
+                    help="video and directory inputs: mp4 (default) or a "
+                         "png per frame; a .npy input writes .npy unless "
+                         "this or a non-.npy --output is given")
+    io.add_argument("--model_dir", type=str, default="./models",
+                    help="directory searched for the checkpoints (after "
+                         "$SEEDVR2_MODEL_PATHS) and first for {pos,neg}_emb")
+
+    m = p.add_argument_group("Model selection")
+    m.add_argument("--dit_model", type=str, default=DEFAULT_DIT,
                    help="reference-layout 3B or 7B DiT: .safetensors (fp16, "
                         "bf16, fp32, fp8 or the 7B fp8-mixed file), .pth / "
-                        ".pt, or .gguf")
-    p.add_argument("--vae_model", default=None,
+                        ".pt, or .gguf; 'random': the 3B with random "
+                        "weights from --seed")
+    m.add_argument("--vae_model", type=str, default=DEFAULT_VAE,
                    help="reference-layout VAE .safetensors (the VAE_V3 or "
-                        "the legacy video_vae.py layout)")
-    p.add_argument("--model_dir", default="./models",
-                   help="directory searched for the checkpoints (after "
-                        "$SEEDVR2_MODEL_PATHS) and first for {pos,neg}_emb")
-    p.add_argument("--resolution", type=int, default=1080)
-    p.add_argument("--max_resolution", type=int, default=0)
-    p.add_argument("--batch_size", type=int, default=5)
-    p.add_argument("--uniform_batch_size", action="store_true",
-                   help="pad a short trailing batch to --batch_size frames")
-    p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--temporal_overlap", type=int, default=0)
-    p.add_argument("--prepend_frames", type=int, default=0)
-    p.add_argument("--color_correction", default="lab",
+                        "the legacy video_vae.py layout); 'random': VAE_V3 "
+                        "with random weights from --seed")
+
+    proc = p.add_argument_group("Processing")
+    proc.add_argument("--resolution", type=int, default=1080)
+    proc.add_argument("--max_resolution", type=int, default=0)
+    proc.add_argument("--batch_size", type=int, default=5)
+    proc.add_argument("--uniform_batch_size", action="store_true",
+                      help="pad a short trailing batch to --batch_size "
+                           "frames")
+    proc.add_argument("--seed", type=int, default=42)
+    proc.add_argument("--skip_first_frames", type=int, default=0)
+    proc.add_argument("--load_cap", type=int, default=0)
+    proc.add_argument("--chunk_size", type=int, default=0,
+                      help="frames per streaming chunk (0 = whole video)")
+    proc.add_argument("--prepend_frames", type=int, default=0)
+    proc.add_argument("--temporal_overlap", type=int, default=0)
+
+    q = p.add_argument_group("Quality")
+    q.add_argument("--color_correction", type=str, default="lab",
                    choices=color_fix.METHODS)
-    p.add_argument("--input_noise_scale", type=float, default=0.0,
+    q.add_argument("--input_noise_scale", type=float, default=0.0,
                    help="blend N(0, 0.05) noise into the input with weight "
                         "scale / 2 before encoding")
-    p.add_argument("--latent_noise_scale", type=float, default=0.0,
+    q.add_argument("--latent_noise_scale", type=float, default=0.0,
                    help="move the condition latent to the shifted timestep "
                         "1000 * scale before the DiT")
-    p.add_argument("--device", default="cuda",
-                   help="torch device; cuda requires a visible GPU")
-    p.add_argument("--preset", default=None, choices=("throughput",),
-                   help="flag bundle, explicit flags win: w8a8 DiT, uniform "
-                        "tiled VAE with 1536 px encode / 1088 px decode "
-                        "tiles at 32 / 48 px overlap")
-    p.add_argument("--quant", default="none", choices=QUANT_MODES,
-                   help="DiT serving quantization: q8 = Q8_0 int8 weights "
-                        "with per-32 scales through a dequantizing GEMM "
-                        "(GGUF files keep their Q8_0 blocks); q4k = GGUF "
-                        "Q4_K/Q5_K served in their native affine layout "
-                        "(float files: as q8); q4 = post-training 4-bit "
-                        "affine quantization of a float checkpoint (same "
-                        "kernel as q4k; stored one int8 per quant, 1.25 "
-                        "B/weight); w8a8 = per-channel int8 weights, "
-                        "per-row int8 activations")
-    p.add_argument("--vae_quant", default="none", choices=("none", "int8"),
-                   help="int8: the VAE decoder's 3x3x3 resnet convs run as "
-                        "int8 convs (per-frame activation scale, "
-                        "per-channel weight scales) through a hand-written "
-                        "kernel; experimental, its speed is in PERF.md. "
-                        "--preset throughput does not set it")
-    p.add_argument("--vae_encode_tiled", action="store_true")
-    p.add_argument("--vae_encode_tile_size", type=_tile_size, default=1024,
+
+    v = p.add_argument_group("VAE tiling")
+    v.add_argument("--vae_encode_tiled", action="store_true")
+    v.add_argument("--vae_encode_tile_size", type=_tile_size, default=1024,
                    help="tile side in px, or 'auto': the fewest-tiles grid "
                         "that fits the card, from memory probes run on it")
-    p.add_argument("--vae_encode_tile_overlap", type=int, default=128)
-    p.add_argument("--vae_decode_tiled", action="store_true")
-    p.add_argument("--vae_decode_tile_size", type=_tile_size, default=1024,
+    v.add_argument("--vae_encode_tile_overlap", type=int, default=128)
+    v.add_argument("--vae_decode_tiled", action="store_true")
+    v.add_argument("--vae_decode_tile_size", type=_tile_size, default=1024,
                    help="tile side in px, or 'auto' (see encode)")
-    p.add_argument("--vae_decode_tile_overlap", type=int, default=128)
-    p.add_argument("--tile_debug", default="false",
+    v.add_argument("--vae_decode_tile_overlap", type=int, default=128)
+    v.add_argument("--tile_debug", type=str, default="false",
                    choices=pipeline.TILE_DEBUG,
                    help="draw the last tiled encode's or decode's tile "
                         "outlines over the output")
-    p.add_argument("--tile_mode", default="uniform", choices=TILE_MODES,
+    v.add_argument("--tile_mode", type=str, default="uniform",
+                   choices=TILE_MODES,
                    help="uniform = even same-shape tile grid; ref = the "
                         "reference's stride-sweep layout")
-    p.add_argument("--blocks_to_swap", type=int, default=0,
-                   help="stream the last N transformer blocks from host "
-                        "RAM (auto-engages for larger-than-HBM models)")
-    p.add_argument("--swap_io_components", action="store_true",
-                   help="accepted for API compat (IO params always stay "
-                        "in HBM; they are <1%% of the model)")
-    p.add_argument("--cache_dit", action="store_true")
-    p.add_argument("--cache_vae", action="store_true")
+
+    perf = p.add_argument_group("Performance")
+    perf.add_argument("--preset", type=str, default=None,
+                      choices=["quality", "throughput"],
+                      help="flag bundle, explicit flags win: 'quality' = "
+                           "the defaults; 'throughput' = w8a8 DiT, uniform "
+                           "tiled VAE with 1536 px encode / 1088 px decode "
+                           "tiles at 32 / 48 px overlap")
+    perf.add_argument("--attention_mode", type=str, default="flash",
+                      choices=["flash", "xla", "sdpa", "flash_attn"],
+                      help="flash = the hand-written attention kernels; "
+                           "xla/sdpa = torch's scaled_dot_product_attention")
+    perf.add_argument("--quant", type=str, default="none",
+                      choices=QUANT_MODES,
+                      help="DiT serving quantization: q8 = Q8_0 int8 "
+                           "weights with per-32 scales through a "
+                           "dequantizing GEMM (GGUF files keep their Q8_0 "
+                           "blocks); q4k = GGUF Q4_K/Q5_K served in their "
+                           "native affine layout (float files: as q8); q4 = "
+                           "post-training 4-bit affine quantization of a "
+                           "float checkpoint (same kernel as q4k; stored "
+                           "one int8 per quant, 1.25 B/weight); w8a8 = "
+                           "per-channel int8 weights, per-row int8 "
+                           "activations")
+    perf.add_argument("--vae_quant", type=str, default="none",
+                      choices=["none", "int8"],
+                      help="int8: the VAE decoder's 3x3x3 resnet convs run "
+                           "as int8 convs (per-frame activation scale, "
+                           "per-channel weight scales) through a "
+                           "hand-written kernel; experimental, its speed "
+                           "is in PERF.md. --preset throughput does not "
+                           "set it")
+    perf.add_argument("--compile_dit", action="store_true",
+                      help="no-op (the hot path is hand-written kernels)")
+    perf.add_argument("--compile_vae", action="store_true",
+                      help="no-op (the hot path is hand-written kernels)")
+
+    bs = p.add_argument_group("Memory")
+    bs.add_argument("--blocks_to_swap", type=int, default=0,
+                    help="stream the last N transformer blocks from host "
+                         "RAM (auto-engages for larger-than-HBM models)")
+    bs.add_argument("--swap_io_components", action="store_true",
+                    help="accepted for API compat (IO params always stay "
+                         "in HBM; they are <1%% of the model)")
+
+    c = p.add_argument_group("Caching")
+    c.add_argument("--cache_dit", action="store_true")
+    c.add_argument("--cache_vae", action="store_true")
+
+    pr = p.add_argument_group("Parity")
+    pr.add_argument("--parity_check", action="store_true",
+                    help="after upscaling, score the output against a "
+                         "reference capture (--parity_ref) and print a "
+                         "one-line JSON PSNR report")
+    pr.add_argument("--parity_ref", type=str, default=None,
+                    help="reference output capture (.npy [T,H,W,C] in "
+                         "[0,1], or an image file)")
+    pr.add_argument("--parity_min_psnr", type=float, default=None,
+                    help="exit non-zero if PSNR falls below this dB value")
+    pr.add_argument("--convert_embeddings", nargs=2, default=None,
+                    metavar=("SRC_DIR", "DST_DIR"),
+                    help="convert pos_emb.pt/neg_emb.pt from SRC_DIR into "
+                         ".npy files in DST_DIR, then exit")
+    pr.add_argument("--allow_zero_embeddings", action="store_true",
+                    help="benchmark-only: run a published-width model with "
+                         "zero text embeddings if none resolve (default: "
+                         "hard error — the packaged assets normally make "
+                         "this unreachable)")
+
+    d = p.add_argument_group("Debug")
+    d.add_argument("--doctor", action="store_true",
+                   help="print an environment health report (versions, "
+                        "OpenCV, native libraries, caches, model/asset "
+                        "resolution, a probe of the card) and exit: 0 = "
+                        "the card computed, 3 = unavailable")
+    d.add_argument("--device", type=str, default="auto",
+                   choices=["auto", "cpu", "cuda"],
+                   help="auto / cuda = the GPU (raises when none is "
+                        "visible); cpu = the kernels' plain versions")
+    d.add_argument("--debug", action="store_true")
+    d.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler chrome trace per phase")
     args = p.parse_args(argv)
     if args.preset == "throughput":
         for name, val in THROUGHPUT_PRESET.items():
             if getattr(args, name) == p.get_default(name):
                 setattr(args, name, val)
+    if args.resolution <= 0:
+        p.error("--resolution must be positive")
+    if args.max_resolution < 0:
+        p.error("--max_resolution must be >= 0")
+    if args.batch_size < 1:
+        p.error("--batch_size must be >= 1")
+    if args.chunk_size < 0 or args.temporal_overlap < 0:
+        p.error("--chunk_size/--temporal_overlap must be >= 0")
+    if args.chunk_size and args.temporal_overlap >= args.chunk_size:
+        p.error("--temporal_overlap must be smaller than --chunk_size")
+    if args.seed < 0:
+        p.error("--seed must be >= 0")
+    noops = [f"--{n}" for n in
+             ("compile_dit", "compile_vae", "swap_io_components")
+             if getattr(args, n)]
+    if noops:
+        print(f"[seedvr2] note: {', '.join(noops)} accepted for API "
+              "compatibility but a no-op here (the hot path is hand-written "
+              "kernels, not compiled graphs; IO params always stay on the "
+              "card)", file=sys.stderr, flush=True)
     return args
 
 
@@ -234,37 +389,68 @@ def tiling_from_args(args) -> VAETiling:
         tile_mode=args.tile_mode)
 
 
-def main(argv=None) -> str:
-    args = parse_arguments(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is visible")
-    frames = np.load(args.input).astype(np.float32)
-    if frames.ndim == 3:
-        frames = frames[None]
-    runner = make_runner(device, args.seed, args.dit_model, args.vae_model,
-                         quant=args.quant, tiling=tiling_from_args(args),
-                         vae_quant=args.vae_quant, model_dir=args.model_dir,
-                         blocks_to_swap=args.blocks_to_swap,
-                         dit_cache=args.cache_dit, vae_cache=args.cache_vae)
+def default_output_path(input_path: str, out_format: str) -> str:
+    base, _ = os.path.splitext(input_path)
+    suffix = time.strftime("_upscaled_%Y%m%d_%H%M%S")
+    ext = ".mp4" if out_format == "mp4" else ".png"
+    return base + suffix + ext
+
+
+def resolve_device(name: str) -> torch.device:
+    """--device: auto and cuda are the current GPU and raise without one."""
+    if name == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name} but no CUDA device is visible")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def runner_from_args(args, debug: Debug) -> VideoDiffusionRunner:
+    """The runner the flags ask for, through make_runner (configure_runner)
+    with the attention mode and the memory and cache flags."""
+    device = resolve_device(args.device)
+
+    def name(n):
+        return None if n == RANDOM_WEIGHTS else n
+
+    t0 = time.perf_counter()
+    runner = make_runner(
+        device, args.seed, name(args.dit_model), name(args.vae_model),
+        quant=args.quant, tiling=tiling_from_args(args),
+        vae_quant=args.vae_quant, model_dir=args.model_dir,
+        blocks_to_swap=args.blocks_to_swap, dit_cache=args.cache_dit,
+        vae_cache=args.cache_vae, attention_mode=args.attention_mode)
+    debug.log(f"runner ready in {time.perf_counter() - t0:.2f}s "
+              f"({args.dit_model}, {args.vae_model}, attention "
+              f"{args.attention_mode}, on {device})", category="setup")
+    return runner
+
+
+def _text_embeds(args, runner, debug):
     # the model dir, then this package's directory (the JAX CLI's own
     # directory), then the packaged embeddings
-    embeds = load_text_embeddings(
-        [args.model_dir, os.path.dirname(os.path.abspath(__file__))],
-        txt_dim=runner.dit_cfg.txt_in_dim)
-    out, timings = process_frames(
+    return load_text_embeddings(
+        [args.model_dir, os.path.dirname(os.path.abspath(__file__))], debug,
+        txt_dim=runner.dit_cfg.txt_in_dim,
+        allow_zero=args.allow_zero_embeddings)
+
+
+def _frames(runner, frames, embeds, args, debug, prepend_frames=0):
+    """process_frames with the flags' options."""
+    return process_frames(
         runner, frames, embeds, resolution=args.resolution, seed=args.seed,
         batch_size=args.batch_size, temporal_overlap=args.temporal_overlap,
         max_resolution=args.max_resolution,
         color_correction=args.color_correction,
-        prepend_frames=args.prepend_frames,
+        prepend_frames=prepend_frames,
         uniform_batch_size=args.uniform_batch_size,
         input_noise_scale=args.input_noise_scale,
         latent_noise_scale=args.latent_noise_scale,
-        tile_debug=args.tile_debug)
-    out_path = args.output or os.path.splitext(args.input)[0] + "_upscaled.npy"
-    np.save(out_path, out)
-    print(f"wrote {out_path} {out.shape}; phase seconds: "
+        tile_debug=args.tile_debug, debug=debug)
+
+
+def _report(runner, out_path, n_frames, timings):
+    print(f"wrote {out_path} ({n_frames} frames); phase seconds: "
           + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()),
           file=sys.stderr)
     if runner.streamed_dit is not None:
@@ -272,7 +458,201 @@ def main(argv=None) -> str:
         print(f"BlockSwap (keep {runner.streamed_dit.keep_blocks}/"
               f"{runner.dit_cfg.num_layers} blocks on the card): "
               f"{stats.summary()} {stats.transfer()}", file=sys.stderr)
+
+
+def process_video(args, debug):
+    """A video or a .npy array, streamed --chunk_size frames at a time (the
+    JAX CLI's chunk loop)."""
+    array = video_io.detect_input_type(args.input) == "array"
+    reader = (video_io.ArrayReader if array else video_io.VideoReader)(
+        args.input, args.skip_first_frames, args.load_cap)
+    npy_out = array and args.output_format is None and (
+        args.output is None or args.output.endswith(".npy"))
+    out_format = "npy" if npy_out else (args.output_format or "mp4")
+    out_path = args.output or (
+        os.path.splitext(args.input)[0] + "_upscaled.npy" if npy_out
+        else default_output_path(args.input, out_format))
+    runner = runner_from_args(args, debug)
+    embeds = _text_embeds(args, runner, debug)
+    png_base = os.path.splitext(out_path)[0] if out_format == "png" else None
+    png_index = 0
+
+    chunk = args.chunk_size if args.chunk_size > 0 else max(reader.remaining, 1)
+    overlap = args.temporal_overlap
+    n_out = max(reader.remaining, 0)  # frames the output will hold
+    writer = None
+    held = None           # last `overlap` OUTPUT frames, not yet written
+    prev_in_tail = None   # last `overlap` INPUT frames, re-fed to next chunk
+    total_written = 0
+    timings = {}
+    # --parity_check needs the assembled output; only retain it when asked
+    # (streaming normally never holds the full video in RAM)
+    parity_frames = [] if args.parity_check else None
+    t_start = time.perf_counter()
+
+    first_chunk = True
+    while reader.remaining > 0:
+        frames = reader.read_frames(chunk)
+        if frames.shape[0] == 0:
+            break
+        debug.log(f"Processing chunk of {frames.shape[0]} frames "
+                  f"({reader.remaining} remaining)", category="video",
+                  force=True)
+        if prev_in_tail is not None:
+            frames = np.concatenate([prev_in_tail, frames], axis=0)
+        result, chunk_timings = _frames(
+            runner, frames, embeds, args, debug,
+            prepend_frames=args.prepend_frames if first_chunk else 0)
+        for k, v in chunk_timings.items():
+            timings[k] = timings.get(k, 0.0) + v
+        if held is not None:
+            # seam: blend the held previous tail with this chunk's re-decoded
+            # head (same source frames) — Hann crossfade, then write once
+            result = result.copy()
+            result[:overlap, :, :, :3] = pipeline.blend_overlapping_frames(
+                held[:, :, :, :3], result[:overlap, :, :, :3], overlap)
+        if writer is None and png_base is None:
+            writer = (video_io.ArrayWriter(out_path, n_out, result.shape[1:])
+                      if npy_out else
+                      video_io.VideoWriter(out_path, reader.fps,
+                                           result.shape[1:3]))
+
+        def emit(frames_out):
+            nonlocal total_written, png_index
+            if png_base is not None:
+                for frame in frames_out:
+                    video_io.write_image(f"{png_base}_{png_index:06d}.png",
+                                         frame)
+                    png_index += 1
+            else:
+                writer.write_frames(frames_out)
+            if parity_frames is not None:
+                parity_frames.append(np.asarray(frames_out))
+            total_written += frames_out.shape[0]
+
+        if overlap > 0 and reader.remaining > 0 and result.shape[0] > overlap:
+            emit(result[:-overlap])
+            held = result[-overlap:]
+            prev_in_tail = frames[-overlap:]
+        else:
+            emit(result)
+            held = None
+            prev_in_tail = None
+        first_chunk = False
+        # Per-chunk host-memory checkpoint: with --debug the RSS delta
+        # between successive chunks makes the bounded-memory claim of
+        # --chunk_size observable (a growing RSS across chunks = a leak;
+        # reference tracks the same via psutil, memory_manager.py:166-208).
+        debug.checkpoint(f"chunk_written[{total_written}]")
+
+    if writer is not None:
+        writer.close()
+    reader.close()
+    elapsed = time.perf_counter() - t_start
+    fps = total_written / elapsed if elapsed > 0 else 0.0
+    debug.log(f"Wrote {total_written} frames to {out_path} "
+              f"({fps:.2f} frames/s end-to-end)", category="generation",
+              force=True)
+    _report(runner, out_path, total_written, timings)
+    if parity_frames:
+        _parity_report(args, np.concatenate(parity_frames, axis=0))
     return out_path
+
+
+def _parity_report(args, result):
+    """--parity_check: score against the reference capture."""
+    if not args.parity_check:
+        return
+    from .utils import parity
+
+    if not args.parity_ref:
+        parity.print_report({"parity": "no_capture",
+                             "hint": "pass --parity_ref <capture.npy>"})
+        return
+    report = parity.compare_to_capture(result, args.parity_ref,
+                                       args.parity_min_psnr)
+    parity.print_report(report)
+    if report.get("passed") is False:
+        sys.exit(1)
+
+
+def process_image(args, debug):
+    frames = video_io.read_image(args.input)
+    out_format = args.output_format or "png"
+    out_path = args.output or default_output_path(args.input, out_format)
+    runner = runner_from_args(args, debug)
+    result, timings = _frames(runner, frames, _text_embeds(args, runner,
+                                                           debug), args,
+                              debug)
+    video_io.write_image(out_path, result[0])
+    debug.log(f"Wrote {out_path}", category="generation", force=True)
+    _report(runner, out_path, 1, timings)
+    _parity_report(args, result)
+    return out_path
+
+
+def process_directory(args, debug):
+    frames = video_io.read_directory(args.input)
+    out_format = args.output_format or "mp4"
+    out_path = args.output or default_output_path(
+        os.path.join(args.input, "frames"), out_format)
+    runner = runner_from_args(args, debug)
+    result, timings = _frames(runner, frames, _text_embeds(args, runner,
+                                                           debug), args,
+                              debug, prepend_frames=args.prepend_frames)
+    if out_format == "mp4":
+        writer = video_io.VideoWriter(out_path, 30.0, result.shape[1:3])
+        writer.write_frames(result)
+        writer.close()
+    else:
+        base, _ = os.path.splitext(out_path)
+        for i, frame in enumerate(result):
+            video_io.write_image(f"{base}_{i:05d}.png", frame)
+    debug.log(f"Wrote {out_path}", category="generation", force=True)
+    _report(runner, out_path, result.shape[0], timings)
+    _parity_report(args, result)
+    return out_path
+
+
+def main(argv=None, debug: Optional[Debug] = None) -> Optional[str]:
+    """Parse argv (default sys.argv) and run: the output path, or None
+    after --convert_embeddings; --doctor, input errors (code 2) and a
+    failed --parity_min_psnr (code 1) exit. debug: a Debug to log through
+    instead of one built from --debug / --profile_dir (a caller that reads
+    its checkpoints afterwards)."""
+    args = parse_arguments(argv)
+    if args.doctor:
+        from .utils.doctor import run_doctor
+
+        sys.exit(run_doctor(model_dir=args.model_dir))
+    if debug is None:
+        debug = Debug(enabled=args.debug, profile_dir=args.profile_dir)
+    debug.log_environment()
+    if args.convert_embeddings is not None:
+        from .utils import parity
+
+        src, dst = args.convert_embeddings
+        shapes = parity.convert_embeddings(src, dst)
+        parity.print_report({"converted": {k: list(v)
+                                           for k, v in shapes.items()},
+                             "dst": dst})
+        return None
+    if args.input is None:
+        print("error: input is required", file=sys.stderr)
+        sys.exit(2)
+    try:
+        kind = video_io.detect_input_type(args.input)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        sys.exit(2)
+    if not os.path.exists(args.input):
+        print(f"error: input not found: {args.input}", file=sys.stderr)
+        sys.exit(2)
+    if kind in ("video", "array"):
+        return process_video(args, debug)
+    if kind == "image":
+        return process_image(args, debug)
+    return process_directory(args, debug)
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ from torch import nn
 
 from ..models.dit.nadit import NaDiT, init_dit
 from ..models.vae.pipeline_vae import VideoVAE, init_vae_params
+from ..ops.attention import resolve_attention_mode
 from ..ops.offload import HostCopy, StreamedNaDiT, module_bytes, pack, place
 from ..utils import memplan
 from ..utils.constants import candidate_model_dirs, find_model_path
@@ -170,6 +171,7 @@ def configure_runner(
     compute_dtype=torch.bfloat16,
     min_dim: int = 1024,
     align: int = 256,
+    attention_mode: str = "flash",
 ) -> VideoDiffusionRunner:
     """Build (or fetch cached) a fully configured runner for a model pair.
 
@@ -182,9 +184,11 @@ def configure_runner(
     streams the last N blocks from pinned host memory; with 0 the plan
     follows the card's memory (module docstring). quant / vae_quant: the
     serving conversions (core/loader.py); min_dim / align their size rules
-    (tests shrink them). dit_cache / vae_cache keep the placed DiT / the
-    VAE across calls; both together keep the runner, keyed by every knob
-    that shapes it (a changed knob resolves to another runner)."""
+    (tests shrink them). attention_mode: the runner's (ops.attention:
+    "flash", "xla" or an alias). dit_cache / vae_cache keep the placed DiT
+    / the VAE across calls; both together keep the runner, keyed by every
+    knob that shapes it, the attention mode among them (a changed knob
+    resolves to another runner on the same cached models)."""
     if quant not in QUANT_MODES:
         raise ValueError(f"quant={quant!r}; known: {QUANT_MODES}")
     device = torch.device(device)
@@ -197,7 +201,8 @@ def configure_runner(
     vae_name = vae_model or f"random:{seed}:{dit_cfg}:{vae_cfg}"
     runner_key = "|".join(map(str, (
         dit_name, vae_name, tiling, quant, vae_quant, compute_dtype,
-        blocks_to_swap, sorted(bs_cfg.items()), device, min_dim, align)))
+        blocks_to_swap, sorted(bs_cfg.items()), device, min_dim, align,
+        resolve_attention_mode(attention_mode))))
     cached = cache.get_runner(runner_key)
     if cached is not None:
         log.info("Reusing cached runner")
@@ -240,7 +245,8 @@ def configure_runner(
     runner = VideoDiffusionRunner(
         None if hit["streamed"] is not None else model, vae,
         RunnerConfig(dit=model.cfg, vae=vae.cfg), compute_dtype=compute_dtype,
-        tiling=tiling, streamed_dit=hit["streamed"], device=device)
+        tiling=tiling, streamed_dit=hit["streamed"], device=device,
+        attention_mode=attention_mode)
     if hit["host_copy"] is not None:
         runner.set_phase_offload(hit["host_copy"])
     if dit_cache and vae_cache:

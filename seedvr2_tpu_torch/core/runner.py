@@ -27,6 +27,7 @@ import torch
 from ..models.dit.nadit import (DevicePlan, NaDiT, build_dit_plan,
                                 nadit_forward, upload_plan)
 from ..models.vae.pipeline_vae import TILE_MODES, VideoVAE
+from ..ops.attention import resolve_attention_mode
 from ..ops.offload import HostCopy, StreamedNaDiT
 from ..utils import memplan
 from ..utils.dtypes import COMPUTE_DTYPE
@@ -78,13 +79,16 @@ class VideoDiffusionRunner:
                  compute_dtype=COMPUTE_DTYPE,
                  tiling: VAETiling = VAETiling(),
                  streamed_dit: Optional[StreamedNaDiT] = None,
-                 device=None):
+                 device=None, attention_mode: str = "flash"):
         """dit: the NaDiT, None when `streamed_dit` (the host-streamed DiT,
         whose model it serves) is given. device: where the runner computes;
         by default the streamed DiT's device, else where the DiT's
         parameters are (give it when the DiT starts in host memory, as a
-        phase-offloaded one does)."""
+        phase-offloaded one does). attention_mode: "flash" (the kernels) or
+        "xla" (the SDPA lane), or an alias (ops.attention), handed to every
+        DiT forward."""
         self.tiling = tiling
+        self.attention_mode = resolve_attention_mode(attention_mode)
         self.streamed_dit = streamed_dit
         self.dit = streamed_dit.model if streamed_dit is not None else dit
         self.dit_cfg = self.dit.cfg
@@ -347,10 +351,12 @@ class VideoDiffusionRunner:
         def f(x, t):
             vid_in = torch.cat([x, cond], dim=-1)
             tt = torch.full((b,), t, dtype=torch.float32, device=self.device)
-            pos = dit(vid_in, txt_pos, tt, plan_pos)
+            pos = dit(vid_in, txt_pos, tt, plan_pos,
+                      attention_mode=self.attention_mode)
             if cfg_scale == 1.0:
                 return pos
-            neg = dit(vid_in, txt_neg, tt, plan_neg)
+            neg = dit(vid_in, txt_neg, tt, plan_neg,
+                      attention_mode=self.attention_mode)
             return diffusion.classifier_free_guidance(
                 pos, neg, cfg_scale, self.config.diffusion.cfg_rescale)
 

@@ -129,3 +129,23 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
             out[name] = t.reshape(info["shape"])
     return out
 
+
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """A .safetensors file of `tensors` (name -> tensor, each in its own
+    dtype): an 8-byte header length, the JSON header padded to 8 bytes,
+    then each tensor's raw little-endian bytes; read_safetensors reads it
+    back."""
+    names = {v: k for k, v in _ST_DTYPES.items()}
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header).encode()
+    raw += b" " * ((-len(raw)) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for t in tensors.values():
+            t = t.detach().cpu().contiguous()
+            f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())

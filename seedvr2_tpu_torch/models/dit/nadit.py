@@ -46,7 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.configs import DiTConfig
-from ...ops.attention import attention
+from ...ops.attention import (attention, packed_attention_sdpa,
+                               resolve_attention_mode)
 from ...ops.flash_attention import (packed_window_attention,
                                     packed_window_attention_plain)
 from ...ops.fused_quant import rms_ada_quantize, rms_ada_quantize_plain
@@ -526,21 +527,25 @@ def _fold_norm_tables(cos_e: torch.Tensor, sin_e: torch.Tensor, wq_v, wq_t,
 
 
 def _window_attention(attn: _Attn, cfg: DiTConfig, xv, xt, dplan: DevicePlan,
-                      method: str, use_kernels: bool):
+                      method: str, use_kernels: bool, mode: str = "flash"):
     """Joint windowed multi-modal attention for one block.
 
     xv: (B, L, D) video tokens in this layer's window-major order (every
     shape group is a contiguous slice), or their PreQuantized form in the
     w8a8 lane; xt: (B, Ltxt, D) text. Per group the
     packed qkv rows of its windows are joined with the packed text rows and
-    the lane pad in one copy and handed to kernel K1. Text output is the
+    the lane pad in one copy and handed to kernel K1 (mode "xla": to the
+    SDPA lane, ops.attention.packed_attention_sdpa). Text output is the
     mean over all windows."""
     B = xv.shape[0]
     Hn, Dh = cfg.heads, cfg.head_dim
     eps = cfg.norm_eps
     ltxt = dplan.plan.txt_len
-    attend = (packed_window_attention if use_kernels
-              else packed_window_attention_plain)
+    if mode == "xla":
+        attend = packed_attention_sdpa
+    else:
+        attend = (packed_window_attention if use_kernels
+                  else packed_window_attention_plain)
 
     qkv_v = linear(xv, _pick(attn.proj_qkv, "vid"),
                    use_kernels)                        # (B, L, 3HD)
@@ -607,7 +612,7 @@ def _from_windows(xw: torch.Tensor, up: UniformPlan) -> torch.Tensor:
 
 def _window_attention_uniform(attn: _Attn, cfg: DiTConfig, xv, xt,
                               dplan: DevicePlan, uplan: DeviceUniformPlan,
-                              use_kernels: bool):
+                              use_kernels: bool, mode: str = "flash"):
     """Joint windowed multi-modal attention over the uniform padded
     partition. xv: (B, L, D) video tokens in canonical order (or their
     PreQuantized form in the w8a8 lane); xt: (B, Ltxt, D) text.
@@ -616,7 +621,8 @@ def _window_attention_uniform(attn: _Attn, cfg: DiTConfig, xv, xt,
     are cut into windows (pad + permute), each window joined by the text
     rows, and one attention call over every window row of the batch
     (kernel K9 through ops.attention.attention) ropes each window with the
-    table its id picks and masks its pad keys. Pad query rows are cropped;
+    table its id picks and masks its pad keys (mode "xla": the dispatcher's
+    SDPA lane). Pad query rows are cropped;
     the text output is the fp32 mean over the windows."""
     B, L = xv.shape[0], xv.shape[1]
     Dh = cfg.head_dim
@@ -654,7 +660,7 @@ def _window_attention_uniform(attn: _Attn, cfg: DiTConfig, xv, xt,
         windowed_with_txt(qv, qt), windowed_with_txt(kv, kt),
         windowed_with_txt(vv, vt), rope_cos=uplan.cos, rope_sin=uplan.sin,
         table_ids=uplan.batch_ids(B), kv_valid=uplan.valid,
-        use_kernels=use_kernels).reshape(B, nW, wlen + ltxt, Hn * Dh)
+        use_kernels=use_kernels, mode=mode).reshape(B, nW, wlen + ltxt, Hn * Dh)
 
     vid_out = _from_windows(out[:, :, :wlen], up)
     # text coalesce: the mean over all windows
@@ -665,7 +671,8 @@ def _window_attention_uniform(attn: _Attn, cfg: DiTConfig, xv, xt,
 
 
 def _block_forward(blk: _Block, cfg: DiTConfig, i: int, xv, xt, emb_attn,
-                   emb_mlp, dplan: DevicePlan, order: str, use_kernels: bool):
+                   emb_mlp, dplan: DevicePlan, order: str, use_kernels: bool,
+                   mode: str = "flash"):
     """One NaMMSRTransformerBlock. xv arrives in `order` token order and
     leaves in this layer's window-major order on the grouped plan, in
     canonical order on the uniform one (the order is returned third)."""
@@ -692,10 +699,10 @@ def _block_forward(blk: _Block, cfg: DiTConfig, i: int, xv, xt, emb_attn,
     ht = _ada_in(ht, sa_v, ss_v, ada_t, "attn") if ada_t is not None else ht
     if uplan is not None:
         hv, ht = _window_attention_uniform(blk.attn, cfg, hv, ht, dplan,
-                                           uplan, use_kernels)
+                                           uplan, use_kernels, mode)
     else:
         hv, ht = _window_attention(blk.attn, cfg, hv, ht, dplan, method,
-                                   use_kernels)
+                                   use_kernels, mode)
     hv = _ada_out(hv, sg_v, ada_v, "attn")
     ht = _ada_out(ht, sg_v, ada_t, "attn") if ada_t is not None else ht
     xv = xv + hv
@@ -748,8 +755,8 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
                   timestep: torch.Tensor, dplan: DevicePlan,
                   use_kernels: bool = True,
                   downscale: Optional[torch.Tensor] = None,
-                  blocks: Optional[Iterable[nn.Module]] = None
-                  ) -> torch.Tensor:
+                  blocks: Optional[Iterable[nn.Module]] = None,
+                  attention_mode: str = "flash") -> torch.Tensor:
     """Denoiser forward.
 
     Args:
@@ -771,11 +778,15 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
             (default `model.blocks`); ops.offload.StreamedNaDiT passes a
             generator that yields each block once its weights are on the
             device.
+        attention_mode: "flash" (the kernels K1 / K9) or "xla" (the SDPA
+            lane, ops.attention), or an alias of either (the CLI's
+            --attention_mode); the gathers (K2) run in both.
 
     Returns:
         (B, T, H, W, vid_out_channels) prediction (v_lerp velocity).
     """
     cfg = model.cfg
+    mode = resolve_attention_mode(attention_mode)
     B, T = vid.shape[0], vid.shape[1]
     x = linear(patchify(vid, cfg.patch_size), model.vid_in.proj, use_kernels)
     xt = (linear(txt, model.txt_in, use_kernels)
@@ -792,7 +803,7 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
     order = "canonical"
     for i, blk in enumerate(model.blocks if blocks is None else blocks):
         x, xt, order = _block_forward(blk, cfg, i, x, xt, emb_attn, emb_mlp,
-                                      dplan, order, use_kernels)
+                                      dplan, order, use_kernels, mode)
     if order != "canonical":
         index = dplan.transitions[(order, "canonical")]
         x = gather_rows(x, index) if use_kernels else gather_rows_plain(x,

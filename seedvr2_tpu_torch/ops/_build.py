@@ -101,13 +101,19 @@ def _nvcc() -> str:
     return found
 
 
-def _build() -> KernelLibrary:
+def library_path() -> Path:
+    """Where the build of the current sources and flags lives (named by
+    their hash); it may not exist yet. Builds nothing."""
     digest = hashlib.sha256()
     for p in _sources():
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    path = BUILD_DIR / f"libseedvr2_kernels_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libseedvr2_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def _build() -> KernelLibrary:
+    path = library_path()
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

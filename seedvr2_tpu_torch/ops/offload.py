@@ -433,14 +433,16 @@ class StreamedNaDiT:
     def __call__(self, vid: torch.Tensor, txt: torch.Tensor,
                  timestep: torch.Tensor, dplan: DevicePlan,
                  use_kernels: bool = True,
-                 downscale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 downscale: Optional[torch.Tensor] = None,
+                 attention_mode: str = "flash") -> torch.Tensor:
         """nadit_forward(model, ...) with the blocks streamed."""
         pending = self.stats._pending
         if pending and all(ev.query() for ev in pending[-1][1:]):
             self.stats._resolve()  # earlier forwards' events, no wait
         try:
             return nadit_forward(self.model, vid, txt, timestep, dplan,
-                                 use_kernels, downscale, blocks=self._blocks())
+                                 use_kernels, downscale, blocks=self._blocks(),
+                                 attention_mode=attention_mode)
         finally:
             if self._copy_stream is not None:
                 # a forward that stopped early left a slot's fence behind

@@ -114,7 +114,11 @@ def reset_cache_for_tests() -> None:
 
 def memory_limit(device) -> int:
     """Bytes the caching allocator may hold on `device`: the card's
-    total_memory scaled by the per-process memory fraction."""
+    total_memory scaled by the per-process memory fraction. A device
+    without an index ("cuda") is the current one."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     total = torch.cuda.get_device_properties(device).total_memory
     return int(total * torch.cuda.get_per_process_memory_fraction(device))
 

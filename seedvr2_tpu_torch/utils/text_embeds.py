@@ -50,14 +50,16 @@ def find_embedding_path(kind: str, search_dirs,
     return None
 
 
-def load_text_embeddings(search_dirs=(), txt_dim: int = TXT_DIM
-                         ) -> Dict[str, np.ndarray]:
+def load_text_embeddings(search_dirs=(), debug=None, txt_dim: int = TXT_DIM,
+                         allow_zero: bool = False) -> Dict[str, np.ndarray]:
     """pos_emb/neg_emb from the given directories, falling back to the
     packaged published embeddings. A user file whose width is not `txt_dim`
-    raises; the packaged assets are skipped on a width mismatch. A
-    published-width model (txt_dim == 5120) without embeddings raises, since
-    unconditioned output is wrong output; other widths (test configs) get
-    zeros."""
+    raises; the packaged assets are skipped on a width mismatch (logged
+    through `debug`, a utils.debug.Debug). A published-width model
+    (txt_dim == 5120) without embeddings raises, since unconditioned output
+    is wrong output, unless allow_zero (the CLI's --allow_zero_embeddings,
+    for benchmarks) gives it zeros with a forced warning; other widths
+    (test configs) get zeros."""
     out: Dict[str, Optional[np.ndarray]] = {"pos": None, "neg": None}
     for kind in out:
         p = find_embedding_path(kind, search_dirs, include_packaged=False)
@@ -67,6 +69,11 @@ def load_text_embeddings(search_dirs=(), txt_dim: int = TXT_DIM
                 emb = _load_one(pk)
                 if emb.shape[-1] == txt_dim:
                     out[kind] = emb
+                elif debug:
+                    debug.log(
+                        f"packaged {kind}_emb dim {emb.shape[-1]} != model "
+                        f"txt_in_dim {txt_dim}; skipping",
+                        category="setup")
             continue
         emb = _load_one(p)
         if emb.shape[-1] != txt_dim:
@@ -74,9 +81,16 @@ def load_text_embeddings(search_dirs=(), txt_dim: int = TXT_DIM
                              f"not match the model's txt_in_dim {txt_dim}")
         out[kind] = emb
     if out["pos"] is None:
-        if txt_dim == TXT_DIM:
+        if not allow_zero and txt_dim == TXT_DIM:
             raise FileNotFoundError(
-                "pos_emb not found in the search dirs or the packaged assets")
+                "pos_emb not found in the search dirs or the packaged assets"
+                " — a published-model run without text conditioning "
+                "produces wrong output. Provide pos_emb.safetensors/.npy "
+                "next to the weights, or pass --allow_zero_embeddings to "
+                "benchmark without conditioning.")
+        if debug:
+            debug.log("text embeddings not found; using zeros",
+                      level="WARNING", category="setup", force=True)
         out["pos"] = np.zeros((POS_LEN, txt_dim), np.float32)
     if out["neg"] is None:
         out["neg"] = np.zeros((NEG_LEN, txt_dim), np.float32)

@@ -1383,3 +1383,112 @@ def test_phase_offload_round_trip_on_gpu(cuda_device):
         freed = held - torch.cuda.memory_allocated(cuda_device)
         assert freed >= offl._host_dit.packed.nbytes
     assert len(offl.restore_seconds) == 2
+
+
+# ------------------------------------------------------------ CLI surface
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("uniform", [False, True], ids=["grouped", "uniform"])
+def test_xla_lane_matches_flash_lane_on_gpu(cuda_device, uniform):
+    """--attention_mode xla on the card: the 2-layer width-256 NaDiT through
+    SDPA against the same model through the kernels (K1 on the grouped
+    plan, K9 on the uniform one), bounded as the kernels against their
+    plain versions; the xla lane launches no attention kernel and still
+    K2's gathers on the grouped plan."""
+    from seedvr2_tpu_torch.core.configs import small_test_config
+    from seedvr2_tpu_torch.models.dit import nadit
+
+    cfg = small_test_config(vid_dim=256, heads=2, head_dim=128)
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    model = nadit.init_dit(cfg, cuda_device, torch.bfloat16, generator=gen)
+    shape, txt_len = (2, 18, 32), 58
+    plan = nadit.upload_plan(nadit.build_dit_plan(cfg, shape, txt_len,
+                                                  uniform=uniform),
+                             cfg, cuda_device)
+    vid = torch.randn(1, *shape, cfg.vid_in_channels, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    txt = torch.randn(1, txt_len, cfg.txt_in_dim, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    t = torch.full((1,), 1000.0, device=cuda_device)
+    wrappers = (tfa.packed_window_attention, tfa.flash_windowed_attention,
+                tg.gather_rows)
+    with torch.no_grad():
+        flash = nadit.nadit_forward(model, vid, txt, t, plan).float()
+        before = [w.launches for w in wrappers]
+        xla = nadit.nadit_forward(model, vid, txt, t, plan,
+                                  attention_mode="sdpa").float()
+        launched = [w.launches - b for w, b in zip(wrappers, before)]
+    assert launched[:2] == [0, 0]
+    assert (launched[2] > 0) == (not uniform)
+    assert torch.isfinite(xla).all()
+    assert ((xla - flash).norm() / flash.norm()).item() < 2e-2
+
+
+@pytest.mark.cuda
+def test_debug_memory_state_on_gpu(cuda_device, capsys):
+    """Debug reads the card: allocated, peak, reserved and the card's total
+    under the hbm_* keys; a checkpoint's device delta is what was
+    allocated between two checkpoints."""
+    from seedvr2_tpu_torch.utils.debug import Debug
+
+    dbg = Debug(enabled=True)
+    a = dbg.checkpoint("before")
+    x = torch.empty(256 << 20, dtype=torch.uint8, device=cuda_device)
+    b = dbg.checkpoint("after")
+    total = torch.cuda.mem_get_info()[1] / 1024 ** 3
+    assert {"hbm_used_gb", "hbm_limit_gb", "hbm_peak_gb",
+            "hbm_reserved_gb", "rss_gb"} <= set(b)
+    assert b["hbm_used_gb"] - a["hbm_used_gb"] == pytest.approx(0.25)
+    assert b["hbm_peak_gb"] >= b["hbm_used_gb"]
+    assert b["hbm_reserved_gb"] >= b["hbm_used_gb"]
+    assert b["hbm_limit_gb"] == pytest.approx(total)
+    assert "checkpoint[after] (delta HBM +0.25GB" in capsys.readouterr().out
+    del x
+
+
+@pytest.mark.cuda
+def test_memory_limit_of_the_current_device_on_gpu(cuda_device):
+    """"cuda" without an index is the current card (configure_runner's
+    default device, the CLI's --device cuda)."""
+    from seedvr2_tpu_torch.utils import memplan
+
+    here = torch.device("cuda", torch.cuda.current_device())
+    assert memplan.memory_limit("cuda") == memplan.memory_limit(here) > 0
+    assert memplan.memory_limit(torch.device("cuda")) == \
+        memplan.memory_limit(here)
+
+
+@pytest.mark.cuda
+def test_npy_chunk_run_on_gpu(cuda_device, tmp_path, monkeypatch):
+    """The CLI's .npy stream on the card: a 9-frame clip in chunks of 5
+    with overlap 2 through a small DiT and VAE_V3 (random, bf16) writes
+    9 finite frames, launches K1 and K2, and equals the one-chunk run away
+    from the seam (frames 3, 4), within a bf16-class bound there (wavelet:
+    lab matches histograms over each decoded batch, which the seam's blend
+    changes)."""
+    from seedvr2_tpu_torch import cli
+    from seedvr2_tpu_torch.core.configs import small_test_config
+
+    runner = cli.make_runner(cuda_device, seed=0,
+                             dit_cfg=small_test_config(vid_dim=256, heads=2,
+                                                       head_dim=128))
+    monkeypatch.setattr(cli, "make_runner", lambda *a, **kw: runner)
+    frames = np.random.default_rng(0).uniform(0, 1, (9, 64, 96, 3)).astype(
+        np.float32)
+    np.save(tmp_path / "in.npy", frames)
+    base = [str(tmp_path / "in.npy"), "--resolution", "128",
+            "--temporal_overlap", "2", "--device", "cuda",
+            "--color_correction", "wavelet"]
+    whole = np.load(cli.main(base + ["--output", str(tmp_path / "w.npy")]))
+    before = [w.launches for w in (tfa.packed_window_attention,
+                                   tg.gather_rows)]
+    chunked = np.load(cli.main(base + ["--output", str(tmp_path / "c.npy"),
+                                       "--chunk_size", "5"]))
+    launched = [w.launches - b for w, b in zip(
+        (tfa.packed_window_attention, tg.gather_rows), before)]
+    assert chunked.shape == whole.shape == (9, 128, 192, 3)
+    assert np.isfinite(chunked).all() and min(launched) > 0
+    away = [0, 1, 2, 5, 6, 7, 8]
+    np.testing.assert_array_equal(chunked[away], whole[away])
+    assert np.abs(chunked[3:5] - whole[3:5]).max() < 2e-2

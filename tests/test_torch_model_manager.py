@@ -369,7 +369,7 @@ def test_cli_searches_model_dir_then_package_dir(tmp_path, monkeypatch,
             dit=model.cfg), compute_dtype=torch.float32,
             streamed_dit=streamed)
 
-    def load(dirs, txt_dim):
+    def load(dirs, debug=None, txt_dim=None, allow_zero=False):
         seen["dirs"] = list(dirs)
         return {"pos": np.ones((7, txt_dim), np.float32),
                 "neg": np.ones((9, txt_dim), np.float32)}

@@ -203,16 +203,19 @@ def test_batch_math_equal(total, batch, overlap):
 
 
 def test_cli_refuses_cuda_without_gpu(tmp_path, monkeypatch):
-    """--device cuda (the default) never falls back to the CPU."""
+    """--device auto (the default, as in the JAX CLI) and cuda are the GPU
+    and never fall back to the CPU."""
     path = tmp_path / "in.npy"
     np.save(path, np.zeros((1, 16, 16, 3), np.float32))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main([str(path), "--resolution", "32"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([str(path), "--resolution", "32", "--device", "cuda"])
     args = cli.parse_arguments([str(path)])
     assert (args.resolution, args.batch_size, args.seed,
             args.color_correction, args.device) == (1080, 5, 42, "lab",
-                                                    "cuda")
+                                                    "auto")
 
 
 @pytest.mark.parametrize("color", ["none", "lab"])

@@ -427,7 +427,8 @@ def test_cli_new_flags_and_rgba_npy(models, tmp_path, monkeypatch):
     assert out.shape == (1, 38, 32, 4) and np.isfinite(out).all()
     assert seen["tiling"].tile_mode == "ref" and seen["tiling"].decode_tiled
     assert seen["memory"] == dict(model_dir="./models", blocks_to_swap=0,
-                                  dit_cache=False, vae_cache=False)
+                                  dit_cache=False, vae_cache=False,
+                                  attention_mode="flash")
     assert {k: seen["kw"][k] for k in (
         "color_correction", "input_noise_scale", "latent_noise_scale",
         "uniform_batch_size", "tile_debug")} == dict(
