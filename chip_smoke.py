@@ -52,6 +52,19 @@ network. In order it:
     into PNGs (against the .npy path on the decoded frames), and --doctor
     in a subprocess beside that (rc 0, the card named); the launches of
     the CLI paths go into the kernels' record;
+ 3c. the ComfyUI node surface (seedvr2_tpu_torch/interfaces) at the 3B's
+    published widths with `random` weights from the node's seed: the
+    shipped examples/workflows/simple_image.json (a 540x960 frame to
+    1080p) and 4k_image.json (a 1080x1920 frame to 2160p with the
+    workflow's tiled decode, 1024 / 128 px) through the port's
+    `run_workflow`, their model names set to `random` in memory only
+    (latency, the runner's build, peak memory, K1 / K2 launches); a node
+    request with the default widgets, and one with quant="q8" (K6
+    launched), each bit-equal to the port's four phases called directly
+    with the same seed on the node's runner, the progress callback
+    monotone up to 1.0; two calls with cache_model=True and
+    offload_device="cpu", the second on the first's cached runner (the
+    same object), both timed; the phase's seconds;
  4. runs the whole 32-layer DiT once with the kernels and once with their
     plain versions on the clip's latent and bounds the relative L2 error;
  4b. the rest of the request surface on that runner: two RGBA requests
@@ -361,6 +374,15 @@ CLI_MAX_ABS = 2e-2
 # the flash lane's on the same request: bf16-class differences (relative L2
 # ~0.007 of the frames, ~48 dB)
 CLI_PARITY_MIN_PSNR = 35.0
+# phase 3c, the node surface: each shipped image workflow with its input
+# frames (frames, height, width), the output shape it must give and the
+# path its launches are recorded under; the node requests' input (the
+# default widgets' resolution is 1080) and seed
+NODE_WORKFLOWS = (
+    ("simple_image.json", (1, 540, 960), (1, 1080, 1920, 3), "node_image"),
+    ("4k_image.json", (1, 1080, 1920), (1, 2160, 3840, 3), "node_4k_image"))
+NODE_IMAGE = (1, 540, 960)
+NODE_SEED = 42
 
 # the q8 lane's requests (untiled VAE) and the q4 lane's (preset tiling):
 # (label, frames, height, width, short side)
@@ -3548,6 +3570,150 @@ def cli_surface_phase(torch, np, cli, nadit, pipeline, runner, device,
     torch.cuda.empty_cache()
 
 
+def node_phase(torch, np, pipeline, device, wrappers, counts, make_frames,
+               here):
+    """Phase 3c: the ComfyUI node surface at full width with random weights
+    (module docstring). Every configure_runner call the nodes make is timed
+    and its runner kept until its checks are done; the model cache is
+    cleared at the end, so no runner of this phase outlives it."""
+    from seedvr2_tpu_torch.core.model_cache import get_global_cache
+    from seedvr2_tpu_torch.interfaces import nodes, workflow
+    from seedvr2_tpu_torch.utils.text_embeds import load_text_embeddings
+
+    built = []  # (runner, seconds) of each configure_runner call
+    configure = nodes.configure_runner
+
+    def recorded(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner = configure(**kw)
+        torch.cuda.synchronize()
+        built.append((runner, time.perf_counter() - t0))
+        return runner
+
+    def request(label, run, path=None, needed=()):
+        """run() once: (output, wall s, peak GiB above what was held)."""
+        if path is not None:
+            reset_counts(wrappers)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated(device) - held) / 2 ** 30
+        if path is not None:
+            counts[path] = read_counts(wrappers, needed, path)
+        if not np.isfinite(out).all() or out.min() < 0.0 or out.max() > 1.0:
+            fail(f"node request {label}: output not finite or outside "
+                 "[0, 1]")
+        return out, wall, peak
+
+    def four_phases(runner, frames):
+        """The port's four phases called directly, with the arguments the
+        upscaler node passes at its default widgets."""
+        ctx = pipeline.setup_generation_context(runner.device)
+        ctx["text_embeds"] = load_text_embeddings(
+            ["./models", "."], txt_dim=runner.dit_cfg.txt_in_dim)
+        ctx = pipeline.encode_all_batches(runner, ctx, frames,
+                                          seed=NODE_SEED, resolution=1080)
+        ctx = pipeline.upscale_all_batches(runner, ctx, seed=NODE_SEED)
+        ctx = pipeline.decode_all_batches(runner, ctx)
+        ctx = pipeline.postprocess_all_batches(ctx,
+                                               color_correction="wavelet")
+        return ctx["final_video"]
+
+    nodes.configure_runner = recorded
+    try:
+        # the shipped image workflows, model names set to random in memory
+        for name, (t, h, w), expect, path in NODE_WORKFLOWS:
+            with open(os.path.join(here, "examples", "workflows", name)) as f:
+                wf = json.load(f)
+            for node in wf["nodes"]:
+                if node["type"] in ("SeedVR2LoadDiTModel",
+                                    "SeedVR2LoadVAEModel"):
+                    node["params"]["model"] = "random"
+            frames = make_frames(t, h, w, seed=31)
+            out, wall, peak = request(
+                name, lambda: workflow.run_workflow(
+                    wf, {"image": frames})["up"], path, ("K1", "K2"))
+            runner, build = built.pop()
+            say(f"workflow {name}: {frames.shape} -> {out.shape} in "
+                f"{wall:.3f} s (runner built in {build:.3f} s, request "
+                f"{wall - build:.3f} s); encode tiles "
+                f"{grid_of(runner.vae.last_encode_tiles)}, decode tiles "
+                f"{grid_of(runner.vae.last_decode_tiles)}; peak device "
+                f"memory {peak:.2f} GiB above what was held; K1 "
+                f"{counts[path]['K1']}, K2 {counts[path]['K2']}")
+            if out.shape != expect:
+                fail(f"workflow {name}: expected {expect}, got {out.shape}")
+            tiled = runner.tiling.decode_tiled
+            if tiled != (name == "4k_image.json") or (
+                    tiled and len(runner.vae.last_decode_tiles) < 2):
+                fail(f"workflow {name}: decode tiling {tiled} with "
+                     f"{len(runner.vae.last_decode_tiles)} tiles, against "
+                     "the workflow's VAE node")
+            del runner, out
+
+        # the default widgets and quant="q8" against the four phases called
+        # directly on the node's runner
+        frames = make_frames(*NODE_IMAGE, seed=32)
+        for path, quant, needed in (("node_default", "none", ("K1", "K2")),
+                                    ("node_q8", "q8", ("K1", "K2", "K6"))):
+            dit = nodes.SeedVR2LoadDiTModel.execute(model="random",
+                                                    quant=quant)
+            vae = nodes.SeedVR2LoadVAEModel.execute(model="random")
+            progress = []
+            out, wall, peak = request(
+                path, lambda: nodes.SeedVR2VideoUpscaler.execute(
+                    image=frames, dit=dit, vae=vae, seed=NODE_SEED,
+                    progress_callback=progress.append), path, needed)
+            runner, build = built.pop()
+            direct, d_wall, _ = request(f"{path} direct",
+                                        lambda: four_phases(runner, frames))
+            diff = max_abs(np, out, direct)
+            say(f"node request {path} (quant={quant}): {frames.shape} -> "
+                f"{out.shape} in {wall:.3f} s (runner built in {build:.3f} "
+                f"s), peak {peak:.2f} GiB; the four phases called directly "
+                f"on its runner {d_wall:.3f} s, max abs difference {diff:.6g}"
+                f"; launches "
+                + ", ".join(f"{k} {counts[path][k]}" for k in needed)
+                + f"; progress {len(progress)} reports, last "
+                f"{progress[-1]!r}")
+            if diff != 0:
+                fail(f"node request {path}: not bit-equal to the four phases "
+                     "on the same runner")
+            if progress[-1] != 1.0 or any(b < a for a, b in
+                                          zip(progress, progress[1:])):
+                fail(f"node request {path}: progress {progress} is not "
+                     "monotone up to 1.0")
+            del runner, out, direct
+
+        # the model cache: two calls with cache_model and an offload device
+        dit = nodes.SeedVR2LoadDiTModel.execute(
+            model="random", offload_device="cpu", cache_model=True)
+        vae = nodes.SeedVR2LoadVAEModel.execute(
+            model="random", offload_device="cpu", cache_model=True)
+        walls = [request(f"cached {i}", lambda: nodes.SeedVR2VideoUpscaler.
+                         execute(image=frames, dit=dit, vae=vae,
+                                 seed=NODE_SEED))[1] for i in range(2)]
+        (first, build), (again, lookup) = built[-2:]
+        say(f"cache_model=True, offload_device=cpu: first call "
+            f"{walls[0]:.3f} s (runner built in {build:.3f} s), second "
+            f"{walls[1]:.3f} s (runner from the cache in {lookup:.4f} s, "
+            f"the same object: {again is first})")
+        if again is not first:
+            fail("cache_model=True: the second node request built a new "
+                 "runner instead of reusing the cached one")
+        del first, again
+    finally:
+        nodes.configure_runner = configure
+        built.clear()
+        get_global_cache().clear()
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "seedvr2_tpu_torch")):
@@ -3681,6 +3847,11 @@ def main() -> None:
     cli_surface_phase(torch, np, cli, nadit, pipeline, runner, device,
                       embeds, wrappers, counts, make_frames, here)
     phase_done("3b (CLI surface)")
+
+    # 3c. the ComfyUI node surface and the shipped image workflows
+    node_phase(torch, np, pipeline, device, wrappers, counts, make_frames,
+               here)
+    phase_done("3c (nodes and workflows)")
 
     # 4. whole DiT, kernels against plain versions, on the clip's latent
     txt = torch.as_tensor(embeds["pos"], dtype=torch.bfloat16,

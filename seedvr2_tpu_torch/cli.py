@@ -33,7 +33,8 @@ Models: --dit_model / --vae_model name reference-layout checkpoints
 the VAE_V3 or the legacy VAE layout), searched through
 utils/constants.find_model_path ($SEEDVR2_MODEL_PATHS, --model_dir, the
 ComfyUI roots). The defaults are the JAX CLI's checkpoint names; a missing
-file raises (downloads are not ported). The name `random` builds random
+one is downloaded into --model_dir and checked against the registry's
+SHA256 (utils/downloads.py), as in JAX. The name `random` builds random
 weights on the device from --seed (the 3B DiT, VAE_V3). The runner comes
 from core/model_manager.configure_runner, which keeps the DiT on the card,
 offloads it through the VAE phases or streams its blocks (--blocks_to_swap;
@@ -115,7 +116,8 @@ def make_runner(device, seed: int = 42, dit_model: str = None,
     when given (DiT .safetensors, .pth or .gguf of the 3B or 7B family, VAE
     .safetensors, through core/loader.py, which sniffs their architecture;
     a name is searched in `model_dir` and the other model paths, and a
-    missing file raises), else random weights drawn on the device from
+    missing one downloaded into `model_dir`, a missing path raises), else
+    random weights drawn on the device from
     `seed`, the DiT of `dit_cfg` (DIT_7B for the 7B; the 3B when None; used
     only without `dit_model`). `quant` is the DiT's serving quantization
     (core/loader.py's table; random weights convert as a float checkpoint

@@ -25,6 +25,7 @@ directly. Tensor parallelism (`shard_ways`) stays a parameter fixed at 1.
 """
 
 import logging
+import os
 from dataclasses import replace
 from typing import Any, Dict, Optional
 
@@ -36,7 +37,8 @@ from ..models.vae.pipeline_vae import VideoVAE, init_vae_params
 from ..ops.attention import resolve_attention_mode
 from ..ops.offload import HostCopy, StreamedNaDiT, module_bytes, pack, place
 from ..utils import memplan
-from ..utils.constants import candidate_model_dirs, find_model_path
+from ..utils.constants import find_model_path
+from ..utils.downloads import download_weight
 from .configs import DIT_3B, VAE_V3, DiTConfig, RunnerConfig, VAEConfig
 from .loader import (QUANT_MODES, load_vae_checkpoint, quantize_converts,
                      quantize_dit, read_dit_model)
@@ -147,11 +149,17 @@ def _random_dit(cfg: DiTConfig, quant: str, device, dtype, gen,
 
 
 def _resolve(name: str, base_dir: Optional[str]) -> str:
+    """A checkpoint name's path: found on the search path, else downloaded
+    into base_dir (utils.downloads.download_weight, which raises IOError
+    when it cannot obtain the file), as JAX's configure_runner resolves. A
+    missing path with a directory part names no file of the registry's
+    repositories, so it raises FileNotFoundError instead of asking one."""
     path = find_model_path(name, base_dir)
-    if path is None:
-        raise FileNotFoundError(
-            f"{name!r} not found; searched {candidate_model_dirs(base_dir)}")
-    return path
+    if path is not None:
+        return path
+    if os.path.dirname(name):
+        raise FileNotFoundError(f"{name!r} not found")
+    return download_weight(name, base_dir or "./models")
 
 
 def configure_runner(
@@ -177,8 +185,10 @@ def configure_runner(
 
     dit_model / vae_model: checkpoint names resolved by find_model_path
     (an existing path, $SEEDVR2_MODEL_PATHS, base_cache_dir, the ComfyUI
-    roots; a missing file raises FileNotFoundError naming the searched
-    directories), or None for random weights drawn from `seed` on `device`:
+    roots), a missing file name downloaded into base_cache_dir with its
+    registry checksum (utils/downloads.py; IOError when it cannot be
+    obtained; a missing path raises FileNotFoundError), or
+    None for random weights drawn from `seed` on `device`:
     the DiT of `dit_cfg` (DIT_3B when None), then the VAE of `vae_cfg`
     (VAE_V3), from one generator. block_swap_config {"blocks_to_swap": N}
     streams the last N blocks from pinned host memory; with 0 the plan

@@ -15,9 +15,11 @@ each forward):
  - "xla" (alias "sdpa"; "flash_attn" is an alias of "flash"): the
    counterpart of JAX's XLA attention, a lane the user opts into and
    nothing else chooses: q/k RMS norm and rope in fp32 in torch, rounded to
-   the operands' dtype, then torch's scaled_dot_product_attention with the
-   padded keys masked (`packed_attention_sdpa` on the grouped plan,
-   `attention(..., mode="xla")` on the uniform one and dense).
+   the operands' dtype, then torch's scaled_dot_product_attention. On the
+   grouped plan (`packed_attention_sdpa`) and in dense attention the keys
+   at or past kv_len are sliced off, so SDPA runs unmasked; on the uniform
+   plan (`attention(..., mode="xla")` with table_ids) each window's invalid
+   keys are masked by its validity row.
 """
 
 from typing import Optional

@@ -10,8 +10,7 @@ tests/test_torch_model_manager.py. Search order for a checkpoint filename:
     key match, mirroring constants.py:63-118; `yaml` is optional).
 
 Returns None when not found; core/model_manager.configure_runner then
-raises FileNotFoundError naming the searched directories (the port
-downloads nothing).
+downloads the file into the base dir (utils/downloads.py), as in JAX.
 """
 
 import os

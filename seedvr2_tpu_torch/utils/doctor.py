@@ -6,8 +6,8 @@ libraries (the g++ host library, built and loaded here; the CUDA kernel
 library, whose build for the current sources is looked for and not made),
 the memory-probe cache (a cold cache explains a slow first `auto`-tiled
 request), and model / asset resolution (search dirs, default checkpoints,
-text embeddings; a missing file reads NOT FOUND, as the port downloads
-nothing). Then it probes the CUDA device under a watchdog thread, so the
+text embeddings; a missing default checkpoint reads NOT FOUND (will
+attempt download), as in JAX: configure_runner downloads it). Then it probes the CUDA device under a watchdog thread, so the
 doctor never hangs on a wedged CUDA runtime.
 
 Exit code: 0 iff the card computed; 3 if no CUDA device is visible or the
@@ -112,7 +112,7 @@ def run_doctor(model_dir: Optional[str] = None, echo=print) -> int:
     echo(f"model search dirs: {dirs}")
     for name in (DEFAULT_DIT, DEFAULT_VAE):
         p = find_model_path(name, model_dir)
-        echo(f"  {name}: {p or 'NOT FOUND (downloads are not ported)'}")
+        echo(f"  {name}: {p or 'NOT FOUND (will attempt download)'}")
     for emb in ("pos", "neg"):
         found = find_embedding_path(emb, dirs)
         if found and os.path.dirname(found) in ASSET_DIRS:

@@ -2,8 +2,8 @@
 
 A copy of seedvr2_tpu.utils.model_registry, pinned equal to it by
 tests/test_torch_loader.py: the catalogue of the published SeedVR2
-checkpoints. The port downloads nothing; the table names what a file is
-(its family size and precision)."""
+checkpoints: what a file is (its family size and precision) and where
+utils/downloads.py fetches it from and checks it against (repo, sha256)."""
 
 import os
 from dataclasses import dataclass

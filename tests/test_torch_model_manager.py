@@ -306,10 +306,55 @@ def test_configure_runner_plans_by_card_memory(tiny_checkpoints, monkeypatch,
 
 
 def test_configure_runner_missing_file_names_dirs(tiny_checkpoints,
-                                                  tmp_path):
-    with pytest.raises(FileNotFoundError, match=str(tmp_path)):
-        tmm.configure_runner("absent.safetensors", VAE_NAME,
-                             base_cache_dir=str(tmp_path), device="cpu")
+                                                  tmp_path, monkeypatch):
+    """A checkpoint name found nowhere on the search path is downloaded
+    into base_cache_dir (utils/downloads.py), here from a server on
+    127.0.0.1 holding the tiny checkpoints, and serves as the local files
+    do; a name the server lacks raises JAX's IOError("cannot obtain ...")
+    in both packages, and a missing path raises FileNotFoundError without
+    a request."""
+    import functools
+    import http.server
+    import threading
+
+    from seedvr2_tpu.utils import downloads as jdl
+    from seedvr2_tpu_torch.utils import downloads as tdl
+
+    handler = functools.partial(http.server.SimpleHTTPRequestHandler,
+                                directory=str(tiny_checkpoints))
+    handler.log_message = lambda *a: None
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/{{filename}}"
+    for dl in (tdl, jdl):
+        monkeypatch.setattr(dl, "HUGGINGFACE_BASE_URL", url)
+    try:
+        got = tmp_path / "got"
+        runner = tmm.configure_runner(DIT_NAME, VAE_NAME,
+                                      base_cache_dir=str(got), device="cpu",
+                                      compute_dtype=torch.float32)
+        for name in (DIT_NAME, VAE_NAME):
+            assert (got / name).read_bytes() == (
+                tiny_checkpoints / name).read_bytes()
+        images, emb, noise = _request()
+        ref, _ = _port_phases(_configure(tiny_checkpoints), images, emb,
+                              noise)
+        out, _ = _port_phases(runner, images, emb, noise)
+        assert np.array_equal(out, ref)
+        errors = []
+        for configure, dl in ((tmm.configure_runner, tdl),
+                              (jmm.configure_runner, jdl)):
+            with pytest.raises(IOError, match="cannot obtain absent") as e:
+                configure("absent.safetensors", VAE_NAME,
+                          base_cache_dir=str(tmp_path / dl.__name__))
+            errors.append(str(e.value))
+        assert errors[0] == errors[1]
+        with pytest.raises(FileNotFoundError):
+            tmm.configure_runner(str(tmp_path / "no" / DIT_NAME), VAE_NAME,
+                                 base_cache_dir=str(got), device="cpu")
+    finally:
+        srv.shutdown()
+        srv.server_close()
 
 
 @pytest.mark.parametrize("quant", ["w8a8", "q8", "q4"])

@@ -337,6 +337,74 @@ def test_int8_decode_matches_jax(q_params):
     assert to_q < 0.075 and to_q < to_f, (to_q, to_f, gap)
 
 
+def test_int8_decode_matches_jax_layer_by_layer(q_params, monkeypatch):
+    """The int8 decode of the same 3 latent frames held layer by layer, as
+    tests/test_torch_vae_legacy.py holds the legacy family's: every int8
+    norm -> SiLU -> conv the port runs (its plain K11), fed to JAX's
+    norm_silu_conv (its Pallas kernel in interpret mode) with the same
+    input and the same carried head, gives the same output to relative L2
+    <= 2e-3 (the moments summed in another order move a few y / scale
+    across a .5 boundary: one-step flips). Every served conv (conv1 and
+    conv2 of the decoder's 3-deep resnets) runs once a slice, the second
+    slice's with carried heads."""
+    import jax
+
+    from seedvr2_tpu.models.vae import model as jm
+
+    z = np.random.default_rng(3).standard_normal((1, 3, 4, 6, 4)).astype(
+        np.float32)
+    jparams = jv.VideoVAE(q_params, dataclasses.replace(
+        JVAEConfig(**Q_VAE), conv_quant="int8"), dtype=jnp.float32).params
+    tvae = _port_vae(q_params, Q_VAE, conv_quant="int8")
+    tvae.lowering = dataclasses.replace(tvae.lowering, use_kernels=False)
+    launches, calls = [], []
+    plain, lane = tic.int8_conv3d_plain, tm._int8_norm_silu_conv
+    monkeypatch.setattr(tic, "int8_conv3d_plain", lambda *a, **k: (
+        launches.append(1), plain(*a, **k))[1])
+
+    def recorded(norm, conv, path, x, state, new_state, use_kernels):
+        head = None if state is None else state.get(path)
+        out = lane(norm, conv, path, x, state, new_state, use_kernels)
+        calls.append((path, x, head, out))
+        return out
+
+    monkeypatch.setattr(tm, "_int8_norm_silu_conv", recorded)
+    out = tvae.decode(_t(z))
+    assert out.shape == (1, 9, 32, 48, 3) and torch.isfinite(out).all()
+    served = [p for p, _ in tv.int8_served_convs(tvae.model)]
+    assert {p.rsplit(".", 1)[1] for p in served} == {"conv1", "conv2"}
+    # two slices: latent frames 0-1, then 2
+    assert len(launches) == len(calls) == 2 * len(served)
+    assert [c[0] for c in calls] == served * 2
+    assert sum(head is not None for _, _, head, _ in calls) == len(served)
+
+    def nthwc(a):
+        return jnp.asarray(a.permute(0, 2, 3, 4, 1).float().numpy())
+
+    @jax.jit
+    def jax_layer(norm, conv, x, head):
+        """JAX's norm_silu_conv on one layer's parameters."""
+        return jm.norm_silu_conv({"n": norm, "c": conv}, "n", "c", x,
+                                 None if head is None else {"c": head},
+                                 None, Q_VAE["norm_num_groups"], "int8")
+
+    def node(path):
+        out = jparams
+        for part in path.split("."):
+            out = out[part]
+        return out
+
+    for path, x, head, got in calls:
+        norm = path[:-len("conv1")] + "norm" + path[-1]
+        ref = np.asarray(jax_layer(node(norm), node(path), nthwc(x),
+                                   None if head is None else nthwc(head)),
+                         np.float32)
+        got = got.permute(0, 2, 3, 4, 1).float().numpy()
+        assert got.shape == ref.shape, path
+        rel = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+        assert rel <= 2e-3, (path, head is not None, rel)
+
+
 @pytest.mark.parametrize("frames", [5, 9])
 def test_fused_norm_vae_matches_jax(monkeypatch, frames):
     """SEEDVR2_FUSED_NORM=1 at VideoVAE construction: the first slice's
