@@ -33,6 +33,21 @@ network. In order it:
     each with CUDA events after an L2 flush, beside its plain version, the
     one PyTorch call that computes the same function where there is one
     (for K11 cuDNN's bf16 conv at the same shape), and its bound;
+ 2b. serving parallelism on the one card (nothing beyond one card is
+    measured): K3, K6 and K7 with their fp32 epilogue (and K6 / K7's fp32
+    split-K reduction) against their plain versions at every row shard of
+    the 3B and the 7B at tp 2 and 4, on the text rows and 3600 / 7200 video
+    rows,
+    timed beside their bf16 form, the plain version, the library call and
+    the bound; then two ranks started by this script (`--parallel-rank`)
+    share cuda:0 over gloo: the full-width 3B in bf16, q8, q4 and w8a8 and
+    the 7B in bf16, each rank's model forward (tp = 1) then its shard's (tp
+    = 2, 10 / 12 heads a rank) on the 720p image's latent, held to each
+    other (the relative L2 and the K1 / K3 / K6 / K7 launches printed; the
+    fp32 variants' launches are their record's), and a 5x540x960 -> 1080p
+    request at batch size 1 under dp2, bit-equal to rank 0's single-rank
+    request; then the CLI under torchrun's environment at WORLD_SIZE=1 (one
+    NCCL process group) bit-equal to the plain run;
  3. the default path: builds the 3B DiT (32 layers, width 2560) and VAE_V3
     with random weights drawn on the card from a seed, and serves three
     requests through the port's `process_frames` (a 360x640 image to 720p,
@@ -384,6 +399,45 @@ NODE_WORKFLOWS = (
 NODE_IMAGE = (1, 540, 960)
 NODE_SEED = 42
 
+# phase 2b, serving parallelism on the one card. The tp2 lanes: two ranks
+# share cuda:0 over gloo, each its model's full forward (tp = 1) then its
+# shard's, on the 720p image's latent (3600 video tokens: gloo stages every
+# all-reduce through the host, so the token count sets the phase's time);
+# the kernel each lane must launch on its row-sharded projections
+TP_LATENT = (1, 90, 160)
+TP_LANES = (("dit_3b", "none"), ("dit_3b", "q8"), ("dit_3b", "q4"),
+            ("dit_3b", "w8a8"), ("dit_7b", "none"))
+TP_LANE_KERNEL = {"none": "K1", "q8": "K6f32", "q4": "K7f32",
+                  "w8a8": "K3f32"}
+TP_COUNTS = ("K1", "K2", "K3", "K3f32", "K4", "K5", "K6", "K6f32", "K7",
+             "K7f32")
+# tp2 against tp = 1, same weights and input: each row-sharded projection's
+# one bf16 rounding now follows an fp32 sum of two partials in another
+# order, so bf16-class flips propagate through the residual blocks as the
+# kernels-vs-plain differences do (DIT_REL_L2). The w8a8 lane quantizes
+# the row-sharded inputs over each rank's K slice (a finer grid): held as
+# tests/test_tp.py holds it, to the bf16 DiT no farther than 2 dB (x 10^0.1)
+# beyond the tp = 1 lane
+TP_REL_L2 = DIT_REL_L2
+TP_W8A8_RATIO = 10 ** (2 / 20)
+# the fp32 variants of K6 / K7 against their plain fp32 products: the sums'
+# order and K7's hi / lo min term apart, with no bf16 rounding left
+TP_F32_REL_L2 = 1e-4
+# the row shards (label, N, K before sharding) the fp32 variants take at tp
+# 2 and 4, on the text rows, the tp lanes' video rows and a 720p clip's;
+# the record's
+TP_SHARDS = (("3B attn out", 2560, 2560), ("3B mlp out", 2560, 6912),
+             ("7B attn out", 3072, 3072), ("7B mlp out", 3072, 12288))
+TP_ROWS = (TXT_LEN, 3600, 7200)
+TP_F32_RECORD = (2, "3B mlp out", 3600)
+# the dp2 request, one batch a frame so the two ranks share five batches
+DP_REQUEST = ("clip 5x540x960 -> 1080", 5, 540, 960, 1080)
+DP_BATCH = 1
+# the CLI's NCCL path at world size 1: the .npy clip (frames, height,
+# width, short side out)
+NCCL_CLIP = (5, 360, 640, 720)
+PARALLEL_TIMEOUT = 420
+
 # the q8 lane's requests (untiled VAE) and the q4 lane's (preset tiling):
 # (label, frames, height, width, short side)
 Q8_REQUESTS = (("image 1x540x960 -> 1080", 1, 540, 960, 1080),
@@ -455,6 +509,17 @@ KERNELS = {
             "comfyui-seedvr2_tpu/ops/int8_conv.py:40"),
     "K12": ("norm_silu_head", "seedvr2_tpu_torch/csrc/fused_norm.cu",
             "comfyui-seedvr2_tpu/ops/fused_norm.py:28"),
+    # the fp32-output variants of the row-sharded projections under tensor
+    # parallelism (the same Pallas kernels with out_dtype=float32)
+    "K3f32": ("int8_matmul (fp32 out)",
+              "seedvr2_tpu_torch/csrc/int8_matmul.cu",
+              "comfyui-seedvr2_tpu/ops/int8_matmul.py:32"),
+    "K6f32": ("quant_matmul_q8 (fp32 out)",
+              "seedvr2_tpu_torch/csrc/quant_matmul.cu",
+              "comfyui-seedvr2_tpu/ops/quant_matmul.py:28"),
+    "K7f32": ("quant_matmul_affine (fp32 out)",
+              "seedvr2_tpu_torch/csrc/quant_matmul.cu",
+              "comfyui-seedvr2_tpu/ops/quant_matmul.py:113"),
 }
 # the design each kernel's record names
 DESIGN = {
@@ -480,13 +545,18 @@ DESIGN = {
     "K12": "moments kernel (one read in 64 KB pieces, partials folded by "
            "each group's last block in fixed order) + the earlier apply "
            "pass, 16 KB pieces from the plan",
+    "K3f32": "K3 with an fp32 epilogue store of the same accumulator",
+    "K6f32": "K6 with an fp32 epilogue (TMA store of fp32 rows) and an fp32 "
+             "split-K reduction",
+    "K7f32": "K7 with K6's fp32 epilogue and fp32 split-K reduction",
 }
 # the path whose launches each kernel's record reports
 DENSE_PATH, OP_PATH = "dense (no product caller)", "op (no product caller)"
 MAIN_PATH = {"K1": "default", "K2": "default", "K3": "throughput",
              "K4": "throughput", "K5": "throughput", "K6": "q8", "K7": "q4",
              "K8": DENSE_PATH, "K9": "uniform", "K10": OP_PATH,
-             "K11": "vae_int8", "K12": "fused_norm"}
+             "K11": "vae_int8", "K12": "fused_norm", "K3f32": "tp2",
+             "K6f32": "tp2", "K7f32": "tp2"}
 
 
 def fail(msg: str) -> None:
@@ -3714,6 +3784,405 @@ def node_phase(torch, np, pipeline, device, wrappers, counts, make_frames,
         torch.cuda.empty_cache()
 
 
+def check_fp32_variants(torch, im, qm, device):
+    """K3, K6 and K7 with their fp32 epilogue (the partial product a
+    row-sharded projection sums over the tp ranks) against their plain
+    versions at every row shard of the 3B and the 7B at tp 2 and 4
+    (TP_SHARDS) on the text rows, the tp lanes' video rows and a 720p
+    clip's (TP_ROWS): K3 exact, K6 / K7 within TP_F32_REL_L2 and their bf16
+    output the fp32 one rounded; each timed beside its bf16 form, its plain
+    version, the library call and its bound. The records hold the 3B mlp
+    proj_out at tp 2 on the tp lanes' video rows (TP_F32_RECORD)."""
+    gen = torch.Generator(device).manual_seed(17)
+    f32 = torch.float32
+    recs = {}
+
+    def put(key, record, row, err, ms, plain_ms, lib_ms, ops, nbytes, note):
+        bound, by = bound_ms(ops, PEAK_INT8 if key == "K3f32" else PEAK_BF16,
+                             nbytes)
+        say(f"{key} {row}: {note}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{bound:.4f} ms ({by})")
+        if record:
+            recs[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                             shape=row)
+
+    for tp in (2, 4):
+        for label, n, k_full in TP_SHARDS:
+            k = k_full // tp
+            for m in TP_ROWS:
+                row = f"{label} tp{tp} M={m} N={n} K={k}"
+                record = (tp, label, m) == TP_F32_RECORD
+                # K3
+                xq = torch.randint(-127, 128, (m, k), generator=gen,
+                                   device=device, dtype=torch.int8)
+                wq = torch.randint(-127, 128, (n, k), generator=gen,
+                                   device=device, dtype=torch.int8)
+                xs = torch.rand(m, generator=gen, device=device) * 0.01
+                ws = torch.rand(n, generator=gen, device=device) * 0.01
+                out = im.int8_matmul(xq, wq, xs, ws, out_dtype=f32)
+                ref = im.int8_matmul_plain(xq, wq, xs, ws, f32)
+                if out.dtype != f32 or not torch.equal(out, ref):
+                    fail(f"K3 fp32 out {row}: differs from the plain version")
+                if not torch.equal(im.int8_matmul(xq, wq, xs, ws),
+                                   out.to(torch.bfloat16)):
+                    fail(f"K3 {row}: bf16 out is not the fp32 out rounded")
+                lib = None
+                if m > 16:
+                    wt = wq.t()
+                    lib = kernel_ms(torch, lambda: torch._int_mm(xq, wt), 10)
+                put("K3f32", record, row, 0.0,
+                    kernel_ms(torch, lambda: im.int8_matmul(
+                        xq, wq, xs, ws, out_dtype=f32), 10),
+                    kernel_ms(torch, lambda: im.int8_matmul_plain(
+                        xq, wq, xs, ws, f32), 3), lib, 2 * m * n * k,
+                    m * k + n * k + 4 * (m + n) + 4 * m * n,
+                    "exact; bf16 out %.4f ms (torch._int_mm: int32 product "
+                    "only)" % kernel_ms(torch, lambda: im.int8_matmul(
+                        xq, wq, xs, ws), 10))
+                del xq, wq, xs, ws, out, ref
+                # K6 and K7
+                x = torch.randn(m, k, generator=gen, device=device).to(
+                    torch.bfloat16)
+                q8 = torch.randint(-127, 128, (n, k), generator=gen,
+                                   device=device, dtype=torch.int8)
+                sc = torch.rand(n, k // 32, generator=gen,
+                                device=device) * 0.02 / 127
+                qa = torch.randint(0, 16, (n, k), generator=gen,
+                                   device=device, dtype=torch.int8)
+                s = torch.rand(n, k // 32, generator=gen,
+                               device=device) * 0.04 / 15
+                mn = torch.rand(n, k // 32, generator=gen,
+                                device=device) * 0.02
+                _, splits = qm.plan_tiles(m, n, k)
+                for key, args, wrap, plain, deq, tab in (
+                        ("K6f32", (q8, sc), qm.quant_matmul_q8,
+                         qm.quant_matmul_q8_plain,
+                         lambda: qm.dequantize_q8(q8, sc), 4),
+                        ("K7f32", (qa, s, mn), qm.quant_matmul_affine,
+                         qm.quant_matmul_affine_plain,
+                         lambda: qm.dequantize_affine(qa, s, mn), 8)):
+                    out = wrap(x, *args, out_dtype=f32)
+                    ref = plain(x, *args, f32)
+                    err = (out - ref).abs().max().item()
+                    rel = rel_l2(out, ref)
+                    if out.dtype != f32 or rel > TP_F32_REL_L2:
+                        fail(f"{key} {row}: relative L2 {rel:.3g} from the "
+                             f"plain version > {TP_F32_REL_L2}")
+                    if not torch.equal(wrap(x, *args),
+                                       out.to(torch.bfloat16)):
+                        fail(f"{key} {row}: bf16 out is not the fp32 out "
+                             "rounded")
+                    wb = deq().to(torch.bfloat16)
+                    ops = 2 * m * n * k
+                    put(key, record, row, err,
+                        kernel_ms(torch, lambda: wrap(x, *args,
+                                                      out_dtype=f32), 10),
+                        kernel_ms(torch, lambda: plain(x, *args, f32), 3),
+                        kernel_ms(torch, lambda: torch.matmul(x, wb.t()),
+                                  10), ops,
+                        2 * m * k + n * k + tab * n * (k // 32) + 4 * m * n,
+                        f"max abs {err:.3g}, relative L2 {rel:.3g}, "
+                        f"{splits} K split(s); bf16 out "
+                        f"{kernel_ms(torch, lambda: wrap(x, *args), 10):.4f} "
+                        "ms (library: torch.matmul on the dequantized bf16 "
+                        "weight, bf16 out)")
+                    del out, ref, wb
+                del x, q8, sc, qa, s, mn
+    torch.cuda.empty_cache()
+    return recs
+
+
+def parallel_rank(torch, np, rank: int, port: int, out_dir: str) -> None:
+    """One of the two ranks of phase 2b, both on cuda:0 over gloo: the tp2
+    lanes (TP_LANES), each rank's full model forward (tp = 1) then its
+    shard's (tp = 2), and the dp2 request against rank 0's single-rank
+    run. Writes rank<N>.json into out_dir and exits non-zero on a miss."""
+    import torch.distributed as dist
+
+    from seedvr2_tpu_torch import cli
+    from seedvr2_tpu_torch.core.configs import DIT_3B, DIT_7B
+    from seedvr2_tpu_torch.core.loader import quantize_dit
+    from seedvr2_tpu_torch.models.dit import nadit
+    from seedvr2_tpu_torch.parallel.comm import tp_reducer
+    from seedvr2_tpu_torch.parallel.mesh import make_mesh
+    from seedvr2_tpu_torch.parallel.tp import tp_compatible, tp_shard_dit
+    from seedvr2_tpu_torch.profile_requests import make_frames
+    from seedvr2_tpu_torch.utils.text_embeds import load_text_embeddings
+
+    def tell(msg):
+        say(f"[rank{rank}] {msg}")
+
+    wrappers, f32 = kernel_wrappers(), f32_wrappers()
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    tp_mesh = make_mesh(2, ("dp", "tp"), (1, 2), backend="gloo")
+    dp_mesh = make_mesh(2, ("dp",), (2,), backend="gloo")
+    report = {"lanes": [], "counts": {k: 0 for k in (*wrappers, *f32)}}
+    bad = []
+    bf16 = torch.bfloat16
+    for family, quant in TP_LANES:
+        cfg = DIT_3B if family == "dit_3b" else DIT_7B
+        t0 = time.perf_counter()
+        model = nadit.init_dit(cfg, device, bf16,
+                               generator=torch.Generator(device).manual_seed(0))
+        g = torch.Generator(device).manual_seed(1)
+        vid = torch.randn((1, *TP_LATENT, cfg.vid_in_channels), generator=g,
+                          device=device).to(bf16)
+        txt = torch.randn((1, TXT_LEN, cfg.txt_in_dim), generator=g,
+                          device=device).to(bf16)
+        tt = torch.full((1,), 1000.0, device=device)
+        dplan = nadit.upload_plan(nadit.build_dit_plan(cfg, TP_LATENT,
+                                                       TXT_LEN), cfg, device)
+        with torch.no_grad():
+            dense = (nadit.nadit_forward(model, vid, txt, tt, dplan).float()
+                     if quant == "w8a8" else None)
+            quantize_dit(model, quant)
+            one = nadit.nadit_forward(model, vid, txt, tt, dplan).float()
+            if not tp_compatible(model, 2, device):
+                bad.append(f"{family} {quant}: does not shard 2 ways")
+                break
+            tp_shard_dit(model, tp_mesh)
+            reduce = tp_reducer(tp_mesh)
+            spent = [0.0, 0]  # seconds in the all-reduces, their count
+
+            def timed(t, reduce=reduce):
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                out = reduce(t)
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t2
+                spent[1] += 1
+                return out
+
+            torch.cuda.synchronize()
+            reset_counts(wrappers)
+            for w in f32.values():
+                w.launches_f32 = 0
+            t1 = time.perf_counter()
+            got = nadit.nadit_forward(model, vid, txt, tt, dplan,
+                                      tp=timed).float()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+        counts = {k: w.launches for k, w in wrappers.items()}
+        counts.update({k: w.launches_f32 for k, w in f32.items()})
+        for k, v in counts.items():
+            report["counts"][k] += v
+        qkv = next(iter(model.blocks[0].attn.proj_qkv.values()))
+        heads = qkv.out_features // (3 * cfg.head_dim)
+        rel = rel_l2(got, one)
+        line = dict(lane=f"{family} {quant}", heads=heads, rel_l2=rel,
+                    seconds=secs, allreduce_seconds=spent[0],
+                    allreduces=spent[1],
+                    counts={k: counts[k] for k in TP_COUNTS})
+        if quant == "w8a8":
+            line.update(tp1_to_bf16=rel_l2(one, dense),
+                        tp2_to_bf16=rel_l2(got, dense))
+            ok = (line["tp2_to_bf16"] <= TP_W8A8_RATIO * line["tp1_to_bf16"]
+                  and torch.isfinite(got).all().item())
+        else:
+            ok = rel <= TP_REL_L2 and torch.isfinite(got).all().item()
+        need = ["K1", TP_LANE_KERNEL[quant]]
+        if heads != cfg.heads // 2 or not ok or any(counts[k] == 0
+                                                   for k in need):
+            bad.append(f"{family} {quant}: {line}")
+        report["lanes"].append(line)
+        tell(f"tp2 {family} {quant}: {heads} of {cfg.heads} heads a rank, "
+             f"relative L2 to the tp = 1 forward {rel:.3g}"
+             + (f" (to the bf16 DiT: tp1 {line['tp1_to_bf16']:.3g}, tp2 "
+                f"{line['tp2_to_bf16']:.3g})" if quant == "w8a8" else "")
+             + f"; tp2 forward {secs:.3f} s over gloo, of which "
+             f"{spent[0]:.3f} s in its {spent[1]} host-staged all-reduces "
+             f"(not a speed); launches {line['counts']}; built "
+             f"and run in {time.perf_counter() - t0:.1f} s")
+        del model, one, got, dense, vid, txt, dplan
+        torch.cuda.empty_cache()
+
+    # dp2: one request, rank 0's single-rank run first
+    runner = cli.make_runner(device, seed=0)
+    embeds = load_text_embeddings(txt_dim=DIT_3B.txt_in_dim)
+    label, t, h, w, res = DP_REQUEST
+    frames = make_frames(t, h, w, seed=8)
+    kw = dict(resolution=res, seed=42, batch_size=DP_BATCH)
+    single = cli.process_frames(runner, frames, embeds, **kw)[0] \
+        if rank == 0 else None
+    dist.barrier()
+    runner.attach_mesh(dp_mesh)
+    reset_counts(wrappers)
+    runner.last_batch_sizes = []
+    t0 = time.perf_counter()
+    out, timings = cli.process_frames(runner, frames, embeds, **kw)
+    wall = time.perf_counter() - t0
+    dp = dict(wall=wall, timings=timings, dit_calls=runner.last_batch_sizes,
+              counts={k: w.launches for k, w in wrappers.items()},
+              shape=list(out.shape))
+    if rank == 0:
+        dp["max_diff"] = float(np.abs(out - single).max())
+        dp["bit_equal"] = bool(np.array_equal(out, single))
+        if not dp["bit_equal"]:
+            bad.append(f"dp2 {label}: max diff {dp['max_diff']} from the "
+                       "single-rank request")
+    if not np.isfinite(out).all() or dp["counts"]["K1"] == 0:
+        bad.append(f"dp2 {label}: non-finite output or no K1 launch")
+    report["dp"] = dp
+    tell(f"dp2 {label} (batch size {DP_BATCH}): out {out.shape}, this "
+         f"rank's DiT calls {runner.last_batch_sizes}, wall {wall:.3f} s "
+         "(two ranks share one card), "
+         + ("bit-equal to the single-rank request" if rank == 0
+            and dp["bit_equal"] else f"max diff {dp.get('max_diff')}")
+         + f"; launches K1 {dp['counts']['K1']} K2 {dp['counts']['K2']}")
+    report["bad"] = bad
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    if bad:
+        fail(f"rank {rank}: {bad}")
+
+
+def parallel_phase(torch, np, im, qm, cli, device, here, counts):
+    """Phase 2b: the fp32 variants at the shard shapes, the two ranks
+    sharing the card (parallel_rank, in two processes started and waited
+    for here) and the CLI's NCCL path at world size 1. Returns the fp32
+    variants' records with the tp2 path's launches; adds the path's
+    launches (rank 0's) to `counts`."""
+    say("phase 2b: serving parallelism on ONE card; nothing beyond one card "
+        "is measured here (two ranks share cuda:0 over gloo: correctness, "
+        "not speed)")
+    recs = check_fp32_variants(torch, im, qm, device)
+    torch.cuda.empty_cache()  # the ranks' models need the card's memory
+    out_dir = os.path.join(here, "build", "parallel_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    for r in range(2):
+        path = os.path.join(out_dir, f"rank{r}.json")
+        if os.path.exists(path):
+            os.remove(path)
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.join(
+        here, "chip_smoke.py"), "--parallel-rank", str(r), str(port),
+        out_dir]) for r in range(2)]
+    deadline = time.time() + PARALLEL_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        fail(f"the two ranks did not finish in {PARALLEL_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        fail(f"a rank failed: exit codes {[p.returncode for p in procs]}")
+    reports = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+               for r in range(2)]
+    counts["tp2"] = reports[0]["counts"]
+    say(f"tp2 path launches (rank 0, the tp2 forwards of {len(TP_LANES)} "
+        f"lanes): {counts['tp2']}")
+    for key, rec in recs.items():
+        rec["launches"] = counts["tp2"][key]
+        if rec["launches"] == 0:
+            fail(f"{key} was never launched on the tp2 path")
+    nccl_world_one(torch, np, cli, here)
+    return recs
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_world_one(torch, np, cli, here):
+    """The CLI under a launcher's environment at world size 1 (WORLD_SIZE=1,
+    as torchrun sets it): it joins an NCCL process group, serves, and
+    leaves the group; its output bit-equal to the plain run's on the same
+    cached models."""
+    import torch.distributed as dist
+
+    from seedvr2_tpu_torch.core.model_cache import get_global_cache
+    from seedvr2_tpu_torch.profile_requests import make_frames
+
+    d = os.path.join(here, "build", "parallel_smoke")
+    clip = os.path.join(d, "clip.npy")
+    np.save(clip, make_frames(*NCCL_CLIP[:3], seed=9).astype(np.float32))
+    base = [clip, "--resolution", str(NCCL_CLIP[3]), "--seed", "0",
+            "--dit_model", "random", "--vae_model", "random", "--cache_dit",
+            "--cache_vae"]
+    seen = []
+    init = dist.init_process_group
+
+    def spy(*a, **kw):
+        seen.append(kw.get("backend"))
+        return init(*a, **kw)
+
+    env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    cli.dist.init_process_group = spy
+    try:
+        t0 = time.perf_counter()
+        a = cli.main([*base, "--output", os.path.join(d, "nccl.npy")])
+        t_nccl = time.perf_counter() - t0
+    finally:
+        cli.dist.init_process_group = init
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if seen != ["nccl"] or dist.is_initialized():
+        fail(f"the CLI under WORLD_SIZE=1 made the process groups {seen} "
+             "(expected one NCCL group, left at the end)")
+    t0 = time.perf_counter()
+    b = cli.main([*base, "--output", os.path.join(d, "plain.npy")])
+    t_plain = time.perf_counter() - t0
+    get_global_cache().clear()
+    torch.cuda.empty_cache()
+    x, y = np.load(a), np.load(b)
+    if not np.array_equal(x, y):
+        fail(f"the CLI's NCCL path at world size 1 differs from the plain "
+             f"run: max diff {np.abs(x - y).max()}")
+    say(f"CLI under WORLD_SIZE=1: one NCCL process group, output {x.shape} "
+        f"bit-equal to the plain run ({t_nccl:.2f} s, plain {t_plain:.2f} s; "
+        "the first run built the cached models)")
+
+
+def kernel_wrappers():
+    """Each kernel's wrapper, whose `launches` counts its launches."""
+    from seedvr2_tpu_torch.ops import flash_attention as fa
+    from seedvr2_tpu_torch.ops import fused_norm as fn
+    from seedvr2_tpu_torch.ops import fused_quant as fq
+    from seedvr2_tpu_torch.ops import gather
+    from seedvr2_tpu_torch.ops import int8_conv as ic
+    from seedvr2_tpu_torch.ops import int8_matmul as im
+    from seedvr2_tpu_torch.ops import quant_matmul as qm
+
+    return {"K1": fa.packed_window_attention, "K2": gather.gather_rows,
+            "K3": im.int8_matmul, "K4": fq.rms_ada_quantize,
+            "K5": fq.silu_mul_quantize, "K6": qm.quant_matmul_q8,
+            "K7": qm.quant_matmul_affine, "K8": fa.flash_attention,
+            "K9": fa.flash_windowed_attention, "K10": im.int8_matmul_qx,
+            "K11": ic.int8_conv3d, "K12": fn.norm_silu_head}
+
+
+def f32_wrappers():
+    """The wrappers of the fp32-output variants, whose `launches_f32`
+    counts the launches with the fp32 epilogue."""
+    from seedvr2_tpu_torch.ops import int8_matmul as im
+    from seedvr2_tpu_torch.ops import quant_matmul as qm
+
+    return {"K3f32": im.int8_matmul, "K6f32": qm.quant_matmul_q8,
+            "K7f32": qm.quant_matmul_affine}
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "seedvr2_tpu_torch")):
@@ -3727,6 +4196,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    if sys.argv[1:2] == ["--parallel-rank"]:  # phase 2b's ranks
+        parallel_rank(torch, np, int(sys.argv[2]), int(sys.argv[3]),
+                      sys.argv[4])
+        return
 
     from seedvr2_tpu_torch import cli
     from seedvr2_tpu_torch.core import pipeline
@@ -3744,12 +4217,7 @@ def main() -> None:
     from seedvr2_tpu_torch.profile_requests import make_frames
     from seedvr2_tpu_torch.utils.text_embeds import load_text_embeddings
 
-    wrappers = {"K1": fa.packed_window_attention, "K2": gather.gather_rows,
-                "K3": im.int8_matmul, "K4": fq.rms_ada_quantize,
-                "K5": fq.silu_mul_quantize, "K6": qm.quant_matmul_q8,
-                "K7": qm.quant_matmul_affine, "K8": fa.flash_attention,
-                "K9": fa.flash_windowed_attention, "K10": im.int8_matmul_qx,
-                "K11": ic.int8_conv3d, "K12": fn.norm_silu_head}
+    wrappers = kernel_wrappers()
     t_phase = [time.perf_counter()]
 
     def phase_done(label):
@@ -3818,6 +4286,11 @@ def main() -> None:
     recs["K11"] = check_k11(torch, ic, device)
     recs["K12"] = check_k12(torch, fn, device)
     phase_done("2 (kernels against plain versions)")
+
+    # 2b. serving parallelism on the one card: the fp32 variants, two
+    # ranks sharing it (tp2 lanes, a dp2 request), the NCCL path
+    recs.update(parallel_phase(torch, np, im, qm, cli, device, here, counts))
+    phase_done("2b (serving parallelism)")
 
     # 3. the default path: three requests at full width (the models cached
     # for phase 3b's CLI runs)
@@ -4240,13 +4713,14 @@ def main() -> None:
     # 12. records and the contract line
     kernels = []
     for key, (name, source, replaces) in KERNELS.items():
-        by_path = {path: c[key] for path, c in counts.items()}
+        by_path = {path: c[key] for path, c in counts.items() if key in c}
         extra = {"7b": recs_7b[key]} if key in recs_7b else {}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             design=DESIGN[key],
             launches=by_path[MAIN_PATH[key]], launches_by_path=by_path,
-            **recs[key], **extra))
+            **{k: v for k, v in recs[key].items() if k != "launches"},
+            **extra))
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {

@@ -9,13 +9,35 @@ directories of frames and .npy arrays.
         [--quant none|q8|q4|q4k|w8a8] [--vae_quant none|int8]
         [--color_correction lab|wavelet|wavelet_adaptive|hsv|adain|none]
         [--parity_check --parity_ref CAPTURE] [--debug] [--profile_dir DIR]
+        [--data_parallel auto|off] [--tensor_parallel T]
+        [--num_hosts N --host_index I [--coordinator_address HOST:PORT]]
+        [--num_hosts N --join_parts]
+    torchrun --nproc_per_node N -m seedvr2_tpu_torch.cli INPUT ...
     python -m seedvr2_tpu_torch.cli --doctor
     python -m seedvr2_tpu_torch.cli --convert_embeddings SRC_DIR DST_DIR
 
 The surface of the JAX package's inference_cli.py, with its flags,
-defaults and checks, but for its parallel flags (--data_parallel,
---tensor_parallel, --num_hosts, --host_index, --join_parts,
---coordinator_address), which wait for the port's parallelism.
+defaults and checks.
+
+Parallelism: one process a card, over torch.distributed (parallel/). Under
+torchrun (WORLD_SIZE in the environment) each process joins the process
+group (NCCL on cards, gloo with --device cpu) and serves on card
+LOCAL_RANK; with no launcher, a run on a host with more than one visible
+card whose flags ask for them starts one worker a card itself (a
+rendezvous on 127.0.0.1), so one command uses every local card, as the JAX
+CLI's does. --tensor_parallel T shards the DiT's heads and mlp hidden over
+T of them (parallel/tp.py; it must divide them: on one card T = 2 exits 2),
+--data_parallel auto spreads batches over the rest (dp = cards / T; off:
+only T cards). Every rank reads the input; rank 0 writes the output.
+--num_hosts N fans a long video out over hosts by frame ranges, each host
+writing a .npy segment (--host_index, default the rank in the hosts'
+process group that --coordinator_address host:port of host 0 joins, which
+only sets that default: the fan-out is file-based), and --join_parts then
+Hann-blends the segments into the output, one segment in memory at a time
+(parallel/multihost.py). Inside a host the mesh spans its cards as above:
+the CLI starts one worker a local card and hands them the host index, or
+torchrun runs per host (WORLD_SIZE its local processes) with --host_index
+given.
 
 INPUT is a video (OpenCV; streamed --chunk_size frames at a time in bounded
 memory, the last --temporal_overlap input frames of a chunk fed again to
@@ -63,6 +85,7 @@ against --parity_ref (utils/parity.py, one JSON line; exit 1 below
 
 import argparse
 import os
+import socket
 import sys
 import time
 from contextlib import contextmanager
@@ -70,6 +93,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .core import pipeline
 from .core.configs import DIT_3B, VAE_V3, DiTConfig
@@ -77,6 +101,8 @@ from .core.loader import QUANT_MODES
 from .core.model_manager import configure_runner
 from .core.runner import VAETiling, VideoDiffusionRunner
 from .models.vae.pipeline_vae import TILE_MODES
+from .parallel import multihost
+from .parallel.mesh import Mesh, make_mesh, rank_device
 from .utils import color_fix, video_io
 from .utils.debug import Debug
 from .utils.model_registry import DEFAULT_DIT, DEFAULT_VAE
@@ -110,7 +136,8 @@ def make_runner(device, seed: int = 42, dit_model: str = None,
                 dit_cfg: Optional[DiTConfig] = None,
                 model_dir: Optional[str] = None, blocks_to_swap: int = 0,
                 dit_cache: bool = False, vae_cache: bool = False,
-                attention_mode: str = "flash") -> VideoDiffusionRunner:
+                attention_mode: str = "flash",
+                mesh: Optional[Mesh] = None) -> VideoDiffusionRunner:
     """DiT + VAE_V3 in bf16 on `device`, through
     core.model_manager.configure_runner: from reference-layout checkpoints
     when given (DiT .safetensors, .pth or .gguf of the 3B or 7B family, VAE
@@ -125,14 +152,21 @@ def make_runner(device, seed: int = 42, dit_model: str = None,
     int8, for a random or a loaded VAE. blocks_to_swap > 0 streams the
     last N DiT blocks from pinned host memory (0: decided by the card's
     memory); dit_cache / vae_cache keep the models across calls;
-    attention_mode picks the kernels ("flash") or the SDPA lane ("xla")."""
-    return configure_runner(
+    attention_mode picks the kernels ("flash") or the SDPA lane ("xla").
+    mesh (build_mesh): serve over it, as the JAX CLI's make_runner does:
+    configure_runner plans the memory for its tp extent, then the runner
+    is attached to it (every rank of the mesh makes the same call)."""
+    tp = mesh.shape.get("tp", 1) if mesh is not None else 1
+    runner = configure_runner(
         dit_model, vae_model, base_cache_dir=model_dir, dit_cache=dit_cache,
         vae_cache=vae_cache,
         block_swap_config={"blocks_to_swap": blocks_to_swap}, tiling=tiling,
         quant=quant, vae_quant=vae_quant, device=device, seed=seed,
         dit_cfg=dit_cfg or DIT_3B, vae_cfg=VAE_V3,
-        attention_mode=attention_mode)
+        attention_mode=attention_mode, tensor_parallel=tp)
+    if mesh is not None:
+        runner.attach_mesh(mesh)
+    return runner
 
 
 @contextmanager
@@ -299,6 +333,33 @@ def parse_arguments(argv=None):
                            "hand-written kernel; experimental, its speed "
                            "is in PERF.md. --preset throughput does not "
                            "set it")
+    perf.add_argument("--data_parallel", type=str, default="auto",
+                      choices=["auto", "off"],
+                      help="spread batches over every card of the process "
+                           "group (torchrun, or one worker a local card "
+                           "started by this CLI; replaces the reference's "
+                           "--cuda_device fan-out)")
+    perf.add_argument("--tensor_parallel", type=int, default=1,
+                      help="shard the DiT's attention heads / mlp hidden "
+                           "over this many cards (parallel/tp.py); composes "
+                           "with data parallel (dp = cards / "
+                           "tensor_parallel)")
+    perf.add_argument("--num_hosts", type=int, default=1,
+                      help="multi-host frame fan-out: run the same command "
+                           "on every host with its --host_index, then once "
+                           "with --join_parts")
+    perf.add_argument("--host_index", type=int, default=None,
+                      help="this host's index in [0, num_hosts); defaults "
+                           "to the process group's rank (0 without one)")
+    perf.add_argument("--join_parts", action="store_true",
+                      help="assemble the per-host .partN.npy segments into "
+                           "the final output (Hann-blended seams, streamed "
+                           "to the writer one segment at a time)")
+    perf.add_argument("--coordinator_address", type=str, default=None,
+                      help="host:port of host 0 for torch.distributed's "
+                           "rendezvous of a --num_hosts fleet; optional "
+                           "(the file-based fan-out needs only a shared "
+                           "path)")
     perf.add_argument("--compile_dit", action="store_true",
                       help="no-op (the hot path is hand-written kernels)")
     perf.add_argument("--compile_vae", action="store_true",
@@ -366,6 +427,8 @@ def parse_arguments(argv=None):
         p.error("--temporal_overlap must be smaller than --chunk_size")
     if args.seed < 0:
         p.error("--seed must be >= 0")
+    if args.tensor_parallel < 1:
+        p.error("--tensor_parallel must be >= 1")
     noops = [f"--{n}" for n in
              ("compile_dit", "compile_vae", "swap_io_components")
              if getattr(args, n)]
@@ -399,18 +462,76 @@ def default_output_path(input_path: str, out_format: str) -> str:
 
 
 def resolve_device(name: str) -> torch.device:
-    """--device: auto and cuda are the current GPU and raise without one."""
+    """--device: auto and cuda are the current GPU (in a process group, the
+    rank's card: parallel.mesh.rank_device) and raise without one."""
     if name == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(f"--device {name} but no CUDA device is visible")
+    if dist.is_initialized():
+        return rank_device("cuda")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def build_mesh(args, n_devices: int) -> Optional[Mesh]:
+    """The mesh the CLI's parallelism flags ask for, or None (one device),
+    with the JAX CLI's rules and messages: --tensor_parallel T shards the
+    DiT over a 'tp' axis of extent T; --data_parallel auto spreads batches
+    over the remaining devices (dp = n_devices // T). dp off + T > 1 uses
+    only T devices. n_devices: the process group's ranks (one a device);
+    every rank calls this."""
+    tp = getattr(args, "tensor_parallel", 1)
+    dp_auto = getattr(args, "data_parallel", "auto") == "auto"
+    if tp > 1:
+        if n_devices % tp:
+            raise ValueError(
+                f"--tensor_parallel {tp} does not divide the "
+                f"{n_devices} local devices")
+        dp = n_devices // tp if dp_auto else 1
+        return make_mesh(dp * tp, axis_names=("dp", "tp"), shape=(dp, tp))
+    if dp_auto and n_devices > 1:
+        return make_mesh(n_devices, axis_names=("dp",))
+    return None
+
+
+def _fleet_group(args) -> bool:
+    """Whether the process group is a --num_hosts fleet's (one process a
+    host, made by multihost.distributed_init) rather than this host's (a
+    launcher's, WORLD_SIZE in the environment: torchrun or the CLI's own
+    workers), over whose ranks the mesh is laid."""
+    return args.num_hosts > 1 and "WORLD_SIZE" not in os.environ
+
+
+def _n_devices(args) -> int:
+    """Devices the mesh may take: the ranks of this host's process group,
+    one a card (1 outside one, or in a fleet's group)."""
+    if dist.is_initialized() and not _fleet_group(args):
+        return dist.get_world_size()
+    return 1
+
+
+def _writes(args) -> bool:
+    """Whether this process writes the output: rank 0 of this host's
+    process group (every host of a --num_hosts fleet writes its own
+    segment)."""
+    return (not dist.is_initialized() or _fleet_group(args)
+            or dist.get_rank() == 0)
 
 
 def runner_from_args(args, debug: Debug) -> VideoDiffusionRunner:
     """The runner the flags ask for, through make_runner (configure_runner)
-    with the attention mode and the memory and cache flags."""
+    with the attention mode, the memory and cache flags and the mesh of the
+    parallel flags (build_mesh; a flag it rejects exits 2)."""
     device = resolve_device(args.device)
+    try:
+        mesh = build_mesh(args, _n_devices(args))
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        sys.exit(2)
+    if mesh is not None and not mesh.member:
+        debug.log("outside the mesh the flags ask for: nothing to do",
+                  category="setup", force=True)
+        sys.exit(0)
 
     def name(n):
         return None if n == RANDOM_WEIGHTS else n
@@ -421,7 +542,12 @@ def runner_from_args(args, debug: Debug) -> VideoDiffusionRunner:
         quant=args.quant, tiling=tiling_from_args(args),
         vae_quant=args.vae_quant, model_dir=args.model_dir,
         blocks_to_swap=args.blocks_to_swap, dit_cache=args.cache_dit,
-        vae_cache=args.cache_vae, attention_mode=args.attention_mode)
+        vae_cache=args.cache_vae, attention_mode=args.attention_mode,
+        **({} if mesh is None else {"mesh": mesh}))
+    if mesh is not None:
+        layout = " x ".join(f"{ax}={n}" for ax, n in mesh.shape.items())
+        debug.log(f"multi-card serving over {layout}", category="setup",
+                  force=True)
     debug.log(f"runner ready in {time.perf_counter() - t0:.2f}s "
               f"({args.dit_model}, {args.vae_model}, attention "
               f"{args.attention_mode}, on {device})", category="setup")
@@ -462,19 +588,30 @@ def _report(runner, out_path, n_frames, timings):
               f"{stats.summary()} {stats.transfer()}", file=sys.stderr)
 
 
-def process_video(args, debug):
-    """A video or a .npy array, streamed --chunk_size frames at a time (the
-    JAX CLI's chunk loop)."""
+def _video_output(args):
+    """(reader class, .npy out?, output format, output path) of a video or
+    .npy input."""
     array = video_io.detect_input_type(args.input) == "array"
-    reader = (video_io.ArrayReader if array else video_io.VideoReader)(
-        args.input, args.skip_first_frames, args.load_cap)
     npy_out = array and args.output_format is None and (
         args.output is None or args.output.endswith(".npy"))
     out_format = "npy" if npy_out else (args.output_format or "mp4")
     out_path = args.output or (
         os.path.splitext(args.input)[0] + "_upscaled.npy" if npy_out
         else default_output_path(args.input, out_format))
+    reader = video_io.ArrayReader if array else video_io.VideoReader
+    return reader, npy_out, out_format, out_path
+
+
+def process_video(args, debug):
+    """A video or a .npy array, streamed --chunk_size frames at a time (the
+    JAX CLI's chunk loop); under --num_hosts, this host's frame range or
+    the join (_process_video_multihost)."""
+    if args.num_hosts > 1:
+        return _process_video_multihost(args, debug)
+    reader_cls, npy_out, out_format, out_path = _video_output(args)
+    reader = reader_cls(args.input, args.skip_first_frames, args.load_cap)
     runner = runner_from_args(args, debug)
+    writes = _writes(args)
     embeds = _text_embeds(args, runner, debug)
     png_base = os.path.splitext(out_path)[0] if out_format == "png" else None
     png_index = 0
@@ -513,7 +650,7 @@ def process_video(args, debug):
             result = result.copy()
             result[:overlap, :, :, :3] = pipeline.blend_overlapping_frames(
                 held[:, :, :, :3], result[:overlap, :, :, :3], overlap)
-        if writer is None and png_base is None:
+        if writer is None and png_base is None and writes:
             writer = (video_io.ArrayWriter(out_path, n_out, result.shape[1:])
                       if npy_out else
                       video_io.VideoWriter(out_path, reader.fps,
@@ -521,12 +658,12 @@ def process_video(args, debug):
 
         def emit(frames_out):
             nonlocal total_written, png_index
-            if png_base is not None:
+            if writes and png_base is not None:
                 for frame in frames_out:
                     video_io.write_image(f"{png_base}_{png_index:06d}.png",
                                          frame)
                     png_index += 1
-            else:
+            elif writes:
                 writer.write_frames(frames_out)
             if parity_frames is not None:
                 parity_frames.append(np.asarray(frames_out))
@@ -556,9 +693,80 @@ def process_video(args, debug):
               f"({fps:.2f} frames/s end-to-end)", category="generation",
               force=True)
     _report(runner, out_path, total_written, timings)
-    if parity_frames:
+    if parity_frames and writes:
         _parity_report(args, np.concatenate(parity_frames, axis=0))
     return out_path
+
+
+def _process_video_multihost(args, debug):
+    """Multi-host frame fan-out (parallel/multihost.py): this host
+    processes its frame range into a .npy segment next to the output;
+    --join_parts assembles the segments into the output, streamed one
+    segment at a time into the video or .npy writer. The output path must
+    be shared (or the segments copied) for the join."""
+    reader_cls, npy_out, _, out_path = _video_output(args)
+    probe = reader_cls(args.input, args.skip_first_frames, args.load_cap)
+    total, fps = probe.remaining, probe.fps
+    probe.close()
+    ranges = multihost.frame_ranges(total, args.num_hosts,
+                                    args.temporal_overlap)
+    if args.join_parts:
+        writer = None
+        joined = 0
+        for chunk in multihost.iter_joined_segments(
+                out_path, args.num_hosts, args.temporal_overlap):
+            if writer is None:
+                writer = (video_io.ArrayWriter(out_path, total,
+                                               chunk.shape[1:])
+                          if npy_out else
+                          video_io.VideoWriter(out_path, fps,
+                                               chunk.shape[1:3]))
+            writer.write_frames(chunk)
+            joined += chunk.shape[0]
+        if writer is not None:
+            writer.close()
+        debug.log(f"Joined {args.num_hosts} segments -> {out_path} "
+                  f"({joined} frames)", category="generation", force=True)
+        return out_path
+
+    idx = _host_index(args)
+    start, end = ranges[idx]
+    debug.log(f"host {idx}/{args.num_hosts}: frames [{start}, {end}) of "
+              f"{total}", category="setup", force=True)
+    reader = reader_cls(args.input, args.skip_first_frames + start,
+                        end - start)
+    runner = runner_from_args(args, debug)
+    frames = reader.read_frames(end - start)
+    reader.close()
+    result, timings = _frames(
+        runner, frames, _text_embeds(args, runner, debug), args, debug,
+        prepend_frames=args.prepend_frames if idx == 0 else 0)
+    if not _writes(args):  # another worker of this host writes it
+        return multihost.part_path(out_path, idx)
+    path = multihost.save_segment(out_path, idx, result)
+    debug.log(f"host {idx}: wrote segment {path} ({result.shape[0]} "
+              "frames)", category="generation", force=True)
+    _report(runner, path, result.shape[0], timings)
+    return path
+
+
+def _host_index(args) -> int:
+    """This host's index in a --num_hosts fleet: --host_index, else the
+    rank in the fleet's process group (0 without one). A host's own
+    process group (its workers or torchrun's) does not say which host it
+    is: there --host_index is required. Exits 2 outside [0, num_hosts)."""
+    idx = args.host_index
+    if idx is None:
+        if dist.is_initialized() and not _fleet_group(args):
+            print("error: --num_hosts under a launcher's process group "
+                  "needs --host_index", file=sys.stderr)
+            sys.exit(2)
+        idx = multihost.default_host_index()
+    if not 0 <= idx < args.num_hosts:
+        print(f"error: --host_index {idx} outside [0, {args.num_hosts})",
+              file=sys.stderr)
+        sys.exit(2)
+    return idx
 
 
 def _parity_report(args, result):
@@ -586,6 +794,8 @@ def process_image(args, debug):
     result, timings = _frames(runner, frames, _text_embeds(args, runner,
                                                            debug), args,
                               debug)
+    if not _writes(args):
+        return out_path
     video_io.write_image(out_path, result[0])
     debug.log(f"Wrote {out_path}", category="generation", force=True)
     _report(runner, out_path, 1, timings)
@@ -602,6 +812,8 @@ def process_directory(args, debug):
     result, timings = _frames(runner, frames, _text_embeds(args, runner,
                                                            debug), args,
                               debug, prepend_frames=args.prepend_frames)
+    if not _writes(args):
+        return out_path
     if out_format == "mp4":
         writer = video_io.VideoWriter(out_path, 30.0, result.shape[1:3])
         writer.write_frames(result)
@@ -616,17 +828,101 @@ def process_directory(args, debug):
     return out_path
 
 
+def _local_workers(args) -> int:
+    """Workers the CLI starts itself, one a local card: outside a process
+    group and a launcher, on a host with more than one visible card, when
+    the flags ask for them (--data_parallel auto: every card; off: the
+    --tensor_parallel ones); a --num_hosts host too, but not the join.
+    0: serve in this process."""
+    if (dist.is_initialized() or "WORLD_SIZE" in os.environ
+            or args.join_parts or args.device == "cpu"
+            or args.input is None or args.doctor
+            or args.convert_embeddings is not None
+            or not torch.cuda.is_available()):
+        return 0
+    cards = torch.cuda.device_count()
+    n = cards if args.data_parallel == "auto" else args.tensor_parallel
+    return n if 1 < n <= cards else 0
+
+
+def _worker(index: int, argv, port: int, n: int) -> None:
+    """One local worker: torchrun's environment for rank `index` of `n`,
+    then main."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(n), RANK=str(index),
+                      LOCAL_RANK=str(index))
+    main(argv)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _join_group(args) -> bool:
+    """Join the process group the environment or the flags describe,
+    before the first device use: a launcher's (WORLD_SIZE in the
+    environment: torchrun, or this CLI's own workers; NCCL on cards, gloo
+    with --device cpu), else a --num_hosts fleet's (at
+    --coordinator_address, multihost.distributed_init; a failure warns).
+    True when this call made the group (main destroys it at its end)."""
+    if dist.is_initialized():
+        return False
+    if "WORLD_SIZE" not in os.environ:
+        if (args.num_hosts > 1 and args.coordinator_address
+                and not args.join_parts):
+            return multihost.distributed_init(args.coordinator_address,
+                                              args.num_hosts, args.host_index)
+        return False
+    cuda = args.device != "cpu" and torch.cuda.is_available()
+    if cuda:
+        torch.cuda.set_device(rank_device("cuda"))
+    dist.init_process_group(backend="nccl" if cuda else "gloo",
+                            init_method="env://")
+    return True
+
+
 def main(argv=None, debug: Optional[Debug] = None) -> Optional[str]:
     """Parse argv (default sys.argv) and run: the output path, or None
-    after --convert_embeddings; --doctor, input errors (code 2) and a
-    failed --parity_min_psnr (code 1) exit. debug: a Debug to log through
-    instead of one built from --debug / --profile_dir (a caller that reads
-    its checkpoints afterwards)."""
+    after --convert_embeddings or when this call started local workers
+    (_local_workers; they write the output); --doctor, input errors (code
+    2) and a failed --parity_min_psnr (code 1) exit. debug: a Debug to log
+    through instead of one built from --debug / --profile_dir (a caller
+    that reads its checkpoints afterwards)."""
     args = parse_arguments(argv)
     if args.doctor:
         from .utils.doctor import run_doctor
 
         sys.exit(run_doctor(model_dir=args.model_dir))
+    workers = _local_workers(args)
+    if workers:
+        import torch.multiprocessing as mp
+
+        if workers % args.tensor_parallel:  # build_mesh's check, up front
+            print(f"error: --tensor_parallel {args.tensor_parallel} does not "
+                  f"divide the {workers} local devices", file=sys.stderr)
+            sys.exit(2)
+        argv = list(sys.argv[1:] if argv is None else argv)
+        if args.num_hosts > 1 and args.host_index is None:
+            # the workers' group is this host's: the host index comes from
+            # the fleet's group, joined here and left before they start
+            own_group = _join_group(args)
+            argv += ["--host_index", str(_host_index(args))]
+            if own_group:
+                dist.destroy_process_group()
+        mp.spawn(_worker, args=(argv, _free_port(), workers), nprocs=workers)
+        return None
+    own_group = _join_group(args)
+    try:
+        return _run(args, debug)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _run(args, debug: Optional[Debug]) -> Optional[str]:
+    """main's body, once the process group is settled."""
     if debug is None:
         debug = Debug(enabled=args.debug, profile_dir=args.profile_dir)
     debug.log_environment()

@@ -21,11 +21,17 @@ per-process fraction); the CPU has none, and plans resident. With no
 checkpoint the models are drawn from `seed` on the runner's device (the
 DiT of `dit_cfg`, then VAE_V3), as the JAX CLI's random-weight tests do;
 a random DiT that would go to the card whole anyway is drawn there
-directly. Tensor parallelism (`shard_ways`) stays a parameter fixed at 1.
+directly. Under tensor parallelism (`tensor_parallel` > 1, JAX's
+configure_runner) the plan compares the bytes a card holds: the blocks'
+tp-th share beside the whole IO weights (`shard_ways`), when the DiT's
+layout shards that many ways (parallel.tp.tp_compatible); a 7B that would
+stream or offload on one card then serves resident over tp = 2. The
+sharding itself happens at the runner's attach_mesh.
 """
 
 import logging
 import os
+import warnings
 from dataclasses import replace
 from typing import Any, Dict, Optional
 
@@ -180,6 +186,7 @@ def configure_runner(
     min_dim: int = 1024,
     align: int = 256,
     attention_mode: str = "flash",
+    tensor_parallel: int = 1,
 ) -> VideoDiffusionRunner:
     """Build (or fetch cached) a fully configured runner for a model pair.
 
@@ -198,7 +205,12 @@ def configure_runner(
     "flash", "xla" or an alias). dit_cache / vae_cache keep the placed DiT
     / the VAE across calls; both together keep the runner, keyed by every
     knob that shapes it, the attention mode among them (a changed knob
-    resolves to another runner on the same cached models)."""
+    resolves to another runner on the same cached models).
+    tensor_parallel: the tp extent the runner will be attached to (the
+    CLI's --tensor_parallel): the memory plan budgets per-card bytes when
+    the DiT shards that many ways, as in JAX; a DiT that does not is
+    planned whole, with JAX's warning. The runner's attach_mesh shards it,
+    so a cached DiT is keyed on it too."""
     if quant not in QUANT_MODES:
         raise ValueError(f"quant={quant!r}; known: {QUANT_MODES}")
     device = torch.device(device)
@@ -212,7 +224,7 @@ def configure_runner(
     runner_key = "|".join(map(str, (
         dit_name, vae_name, tiling, quant, vae_quant, compute_dtype,
         blocks_to_swap, sorted(bs_cfg.items()), device, min_dim, align,
-        resolve_attention_mode(attention_mode))))
+        resolve_attention_mode(attention_mode), tensor_parallel)))
     cached = cache.get_runner(runner_key)
     if cached is not None:
         log.info("Reusing cached runner")
@@ -223,14 +235,16 @@ def configure_runner(
     gen = (torch.Generator(device).manual_seed(seed)
            if dit_path is None or vae_path is None else None)
 
-    dit_key = f"{dit_path or dit_name}|{quant}|{compute_dtype}"
+    # a tp-sharded DiT is another model: keyed on its tp extent
+    dit_key = (f"{dit_path or dit_name}|{quant}|{compute_dtype}"
+               f"|tp{tensor_parallel}")
     hit = cache.get_dit(dit_key) if dit_cache else None
-    if hit is not None and _plan(hit["model"], blocks_to_swap,
-                                 device) != hit["plan"]:
+    if hit is not None and _plan(hit["model"], blocks_to_swap, device,
+                                 hit["shard_ways"]) != hit["plan"]:
         hit = None  # placed for another plan: build it again
     if hit is None:
         hit = _build_dit(dit_path, dit_cfg, quant, device, compute_dtype, gen,
-                         blocks_to_swap, min_dim, align)
+                         blocks_to_swap, min_dim, align, tensor_parallel)
         if dit_cache:
             cache.set_dit(dit_key, hit)
     elif gen is not None:
@@ -264,12 +278,29 @@ def configure_runner(
     return runner
 
 
+def _shard_ways(model: NaDiT, tensor_parallel: int, device) -> int:
+    """The tp extent the memory plan budgets: tensor_parallel when the DiT
+    shards that many ways on `device`, else 1 with JAX's warning."""
+    if tensor_parallel <= 1:
+        return 1
+    from ..parallel.tp import tp_compatible
+
+    if tp_compatible(model, tensor_parallel, device):
+        return tensor_parallel
+    warnings.warn(
+        f"tensor_parallel={tensor_parallel} requested but this "
+        f"checkpoint's layout/dims do not shard that many ways; "
+        f"planning memory single-chip", stacklevel=3)
+    return 1
+
+
 def _build_dit(dit_path, dit_cfg, quant, device, dtype, gen, blocks_to_swap,
-               min_dim, align) -> Dict[str, Any]:
+               min_dim, align, tensor_parallel: int = 1) -> Dict[str, Any]:
     """Load (or draw) the DiT, convert it and place it by the plan:
-    {"model", "plan" (_plan's), "streamed" (StreamedNaDiT or None),
-    "host_copy" (the phase offload's HostCopy or None), "gen_state" (the
-    generator after the DiT's draws, for a cached DiT's VAE)}."""
+    {"model", "plan" (_plan's), "shard_ways" (the tp extent it budgets),
+    "streamed" (StreamedNaDiT or None), "host_copy" (the phase offload's
+    HostCopy or None), "gen_state" (the generator after the DiT's draws,
+    for a cached DiT's VAE)}."""
     if dit_path is not None:
         model = read_dit_model(dit_path, "cpu", dtype, quant)
         model = quantize_dit_by_block(model, quant, dit_path.endswith(".gguf"),
@@ -277,8 +308,10 @@ def _build_dit(dit_path, dit_cfg, quant, device, dtype, gen, blocks_to_swap,
     else:
         model = _random_dit(dit_cfg, quant, device, dtype, gen,
                             blocks_to_swap, min_dim, align)
-    plan = _plan(model, blocks_to_swap, device)
-    out = {"model": model, "plan": plan, "streamed": None, "host_copy": None,
+    ways = _shard_ways(model, tensor_parallel, device)
+    plan = _plan(model, blocks_to_swap, device, ways)
+    out = {"model": model, "plan": plan, "shard_ways": ways, "streamed": None,
+           "host_copy": None,
            "gen_state": gen.get_state() if gen is not None else None}
     if plan[0] == "stream":
         out["streamed"] = StreamedNaDiT(model, keep_blocks=plan[1],
@@ -292,14 +325,16 @@ def _build_dit(dit_path, dit_cfg, quant, device, dtype, gen, blocks_to_swap,
     return out
 
 
-def _plan(model: NaDiT, blocks_to_swap: int, device) -> tuple:
+def _plan(model: NaDiT, blocks_to_swap: int, device,
+          shard_ways: int = 1) -> tuple:
     """("stream", keep_blocks), ("offload",) or ("resident",): JAX's
-    decision (_plan_block_streaming, then _PHASE_OFFLOAD_FRACTION)."""
-    keep = _plan_block_streaming(model, blocks_to_swap, device)
+    decision (_plan_block_streaming, then _PHASE_OFFLOAD_FRACTION) on the
+    bytes a card holds under `shard_ways`-way tensor parallelism."""
+    keep = _plan_block_streaming(model, blocks_to_swap, device, shard_ways)
     if keep is not None:
         return ("stream", keep)
     limit = _device_limit(device)
-    if limit is not None and (_per_chip_dit_bytes(model, 1)
+    if limit is not None and (_per_chip_dit_bytes(model, shard_ways)
                               > _PHASE_OFFLOAD_FRACTION * limit):
         return ("offload",)
     return ("resident",)

@@ -1,17 +1,27 @@
 """4-phase generation pipeline: encode-all -> upscale-all -> decode-all ->
 postprocess-all.
 
-Port of seedvr2_tpu.core.pipeline without a device mesh: frames (RGB or
-RGBA) live in host numpy, each padded batch is moved to the device for its
-phase, latents stay on the device between phases, and the output is
-assembled in one preallocated host buffer with Hann-window temporal overlap
-blending. Batch index math matches the JAX package (and the reference)
-exactly: step = batch_size - temporal_overlap, optional uniform padding of
-the trailing batch, 4n+1 padding with reversed frames, per-batch
-`ori_length` trimming, prepend-frame removal at the end. The phases take
-the JAX phases' options: input and latent noise (seeded as utils/seed.py
-says), uniform batches, progress and interrupt callbacks, alpha, every
-colour method and the tile_debug overlay.
+Port of seedvr2_tpu.core.pipeline: frames (RGB or RGBA) live in host numpy,
+each padded batch is moved to the device for its phase, latents stay on the
+device between phases, and the output is assembled in one preallocated host
+buffer with Hann-window temporal overlap blending. Batch index math matches
+the JAX package (and the reference) exactly: step = batch_size -
+temporal_overlap, optional uniform padding of the trailing batch, 4n+1
+padding with reversed frames, per-batch `ori_length` trimming,
+prepend-frame removal at the end. The phases take the JAX phases' options:
+input and latent noise (seeded as utils/seed.py says), uniform batches,
+progress and interrupt callbacks, alpha, every colour method and the
+tile_debug overlay.
+
+Under a mesh (runner.attach_mesh) every rank runs the same phases on the
+same input, which it reads itself. The batches go in waves: the VAE phases'
+waves hold one batch a rank of the mesh, the DiT phase's one a dp group
+(of same-shape batches), and the runner spreads each wave and shares its
+results with every rank in batch order (JAX's dp-sized waves; a short tail
+wave leaves ranks idle where JAX pads it with copies of its last batch and
+drops their results). Every draw is keyed by the batch index or the seed,
+never by the rank, so the frames are those of one rank; every rank holds
+them after decode and runs phase 4 on them; the caller writes them once.
 
 Every phase records its wall time, ended by a device synchronise, in
 ctx["timings"], and runs inside a profiler range `seedvr2.<phase>` that
@@ -30,7 +40,9 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel.comm import wave_width
 from ..utils import color_fix, transforms
+from ..utils.partition import partition_by_size
 from ..utils.seed import input_noise_generator, noise_generator
 from .alpha import process_alpha_for_batch
 from .runner import VideoDiffusionRunner
@@ -153,6 +165,13 @@ def _transform_batch(ctx: Dict[str, Any], rgb: np.ndarray) -> torch.Tensor:
                                     ctx["max_resolution"])
 
 
+def _wave_width(runner: VideoDiffusionRunner, axis: Optional[str]) -> int:
+    """Batches a wave holds: the runner's spread over its mesh
+    (parallel/comm.wave_width; axis None for the VAE phases, "dp" for the
+    DiT phase)."""
+    return wave_width(getattr(runner, "mesh", None), axis)
+
+
 def _prepare_batch(images: np.ndarray, start: int, end: int,
                    uniform_padding: int) -> np.ndarray:
     video = images[start:end]
@@ -178,7 +197,9 @@ def encode_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
     uniform_batch_size pads a short trailing batch to batch_size frames.
     input_noise_scale > 0 blends N(0, 1) * 0.05 noise into the transformed
     batch with weight scale / 2, drawn from input_noise_generator(seed, bi);
-    input_noise_override replaces those per-batch N(0, 1) draws."""
+    input_noise_override replaces those per-batch N(0, 1) draws. The
+    batches go in waves of one a rank of the mesh (runner.vae_encode
+    spreads them; every rank prepares the wave's batches)."""
     if images.ndim != 4 or images.shape[-1] not in (3, 4):
         raise ValueError("the pipeline takes RGB or RGBA frames (T, H, W, 3 "
                          f"or 4); got {images.shape}")
@@ -196,36 +217,42 @@ def encode_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
         ctx["actual_temporal_overlap"] = actual_overlap
         ctx.update(all_latents=[], all_ori_lengths=[], batch_metadata=[],
                    all_alpha_channels=[])
-        for bi, (start, end) in enumerate(batches):
-            _check_interrupt(ctx)
-            ori_length = end - start
-            uniform_pad = (batch_size - ori_length
-                           if uniform_batch_size and ori_length < batch_size
-                           else 0)
-            video = _prepare_batch(images, start, end, uniform_pad)
-            ctx["all_ori_lengths"].append(ori_length)
-            ctx["batch_metadata"].append((start, end, uniform_pad))
-            if ctx["is_rgba"]:
-                ctx["all_alpha_channels"].append(video[..., 3:4].copy())
-                video = video[..., :3]
-            x = _transform_batch(ctx, video)
-            if input_noise_scale > 0:
-                if input_noise_override is not None:
-                    noise = torch.as_tensor(input_noise_override[bi],
-                                            dtype=torch.float32, device=dev)
-                else:
-                    noise = torch.randn(
-                        x.shape, generator=input_noise_generator(seed, bi,
-                                                                 dev),
-                        dtype=torch.float32, device=dev)
-                blend = input_noise_scale * 0.5
-                x = x * (1 - blend) + (x + noise * 0.05) * blend
-            ctx["all_latents"].append(
-                runner.vae_encode([x.to(runner.compute_dtype)])[0])
+        for wave in partition_by_size(list(range(len(batches))),
+                                      _wave_width(runner, None)):
+            xs = []
+            for bi in wave:
+                _check_interrupt(ctx)
+                start, end = batches[bi]
+                ori_length = end - start
+                uniform_pad = (batch_size - ori_length
+                               if uniform_batch_size
+                               and ori_length < batch_size else 0)
+                video = _prepare_batch(images, start, end, uniform_pad)
+                ctx["all_ori_lengths"].append(ori_length)
+                ctx["batch_metadata"].append((start, end, uniform_pad))
+                if ctx["is_rgba"]:
+                    ctx["all_alpha_channels"].append(video[..., 3:4].copy())
+                    video = video[..., :3]
+                x = _transform_batch(ctx, video)
+                if input_noise_scale > 0:
+                    if input_noise_override is not None:
+                        noise = torch.as_tensor(input_noise_override[bi],
+                                                dtype=torch.float32,
+                                                device=dev)
+                    else:
+                        noise = torch.randn(
+                            x.shape, generator=input_noise_generator(
+                                seed, bi, dev),
+                            dtype=torch.float32, device=dev)
+                    blend = input_noise_scale * 0.5
+                    x = x * (1 - blend) + (x + noise * 0.05) * blend
+                xs.append(x.to(runner.compute_dtype))
+            ctx["all_latents"] += runner.vae_encode(xs)
             ctx["encode_tile_boundaries"] = list(runner.vae.last_encode_tiles)
             if progress_callback:
-                progress_callback(bi + 1, len(batches), ori_length,
-                                  "Phase 1: Encoding")
+                for bi in wave:
+                    progress_callback(bi + 1, len(batches), ctx[
+                        "all_ori_lengths"][bi], "Phase 1: Encoding")
     return ctx
 
 
@@ -245,14 +272,15 @@ def upscale_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
     1000 * scale, towards base * 0.1 + N(0, 1) * 0.05, N the generator's
     second draw. noise_override / aug_noise_override replace the base and
     the second draw with given per-batch arrays, so a test can feed the JAX
-    pipeline and the port the same noise."""
+    pipeline and the port the same noise. Same-shape batches go in waves
+    of one a dp group (runner.inference spreads them)."""
     restores = len(runner.restore_seconds)
     with _phase(ctx, "dit"):
         dev, dt = ctx["device"], runner.compute_dtype
         n = len(ctx["all_latents"])
-        results = []
-        for bi, latent in enumerate(ctx["all_latents"]):
-            _check_interrupt(ctx)
+
+        def condition(bi):
+            latent = ctx["all_latents"][bi]
             gen = noise_generator(seed, dev)
             # drawn even when overridden: the augmentation is the second draw
             base = torch.randn(latent.shape, generator=gen,
@@ -274,15 +302,29 @@ def upscale_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
                     torch.tensor([latent.shape[:3]]))
                 blurred = runner.schedule.forward(latent.float(), aug, t[0])
             noise = base.to(dt)
-            cond = runner.get_condition(noise, blurred.to(dt))
-            results.append(runner.inference(
-                noises=[noise], conditions=[cond],
-                texts_pos=[ctx["text_embeds"]["pos"]],
-                texts_neg=[ctx["text_embeds"]["neg"]],
-                cfg_scale=1.0, steps=1)[0])
-            ctx["all_latents"][bi] = None
-            if progress_callback:
-                progress_callback(bi + 1, n, 1, "Phase 2: Upscaling")
+            return noise, runner.get_condition(noise, blurred.to(dt))
+
+        groups: Dict[tuple, list] = {}
+        for bi, latent in enumerate(ctx["all_latents"]):
+            groups.setdefault(tuple(latent.shape), []).append(bi)
+        results: list = [None] * n
+        done = 0
+        for idxs in groups.values():
+            for wave in partition_by_size(idxs, _wave_width(runner, "dp")):
+                _check_interrupt(ctx)
+                noises, conds = zip(*(condition(bi) for bi in wave))
+                outs = runner.inference(
+                    noises=list(noises), conditions=list(conds),
+                    texts_pos=[ctx["text_embeds"]["pos"]],
+                    texts_neg=[ctx["text_embeds"]["neg"]],
+                    cfg_scale=1.0, steps=1)
+                for bi, out in zip(wave, outs):
+                    results[bi] = out
+                    ctx["all_latents"][bi] = None
+                done += len(wave)
+                if progress_callback:
+                    progress_callback(done, n, len(wave),
+                                      "Phase 2: Upscaling")
         ctx["all_upscaled_latents"] = results
         ctx["all_latents"] = []
     if len(runner.restore_seconds) > restores:
@@ -303,7 +345,8 @@ def decode_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
                        progress_callback: Optional[Callable] = None
                        ) -> Dict[str, Any]:
     """Phase 3: VAE decode into a preallocated host buffer (4 channels for
-    RGBA, the alpha filled in phase 4) with overlap blending."""
+    RGBA, the alpha filled in phase 4) with overlap blending, in waves of
+    one batch a rank of the mesh (runner.vae_decode spreads them)."""
     with _phase(ctx, "decode"):
         runner.release_dit()  # VAE phase: the device belongs to the decoder
         true_h, true_w = ctx["true_target_dims"]
@@ -314,25 +357,29 @@ def decode_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
         write_idx = 0
         ctx["decode_batch_info"] = []
         n = len(ctx["all_upscaled_latents"])
-        for bi, latent in enumerate(ctx["all_upscaled_latents"]):
+        for wave in partition_by_size(list(range(n)),
+                                      _wave_width(runner, None)):
             _check_interrupt(ctx)
-            ori = ctx["all_ori_lengths"][bi]
-            sample = runner.vae_decode([latent])[0][:ori, :true_h, :true_w]
-            sample = sample.float().cpu().numpy()
-            if bi > 0 and 0 < overlap < sample.shape[0] \
-                    and write_idx >= overlap:
-                prev_tail = final[write_idx - overlap: write_idx, :, :, :3]
-                final[write_idx - overlap: write_idx, :, :, :3] = \
-                    blend_overlapping_frames(prev_tail, sample[:overlap],
-                                             overlap)
-                sample = sample[overlap:]
-            end = write_idx + sample.shape[0]
-            final[write_idx:end, :, :, :3] = sample
-            ctx["decode_batch_info"].append((write_idx, end, bi, ori))
-            write_idx = end
-            ctx["all_upscaled_latents"][bi] = None
-            if progress_callback:
-                progress_callback(bi + 1, n, 1, "Phase 3: Decoding")
+            samples = runner.vae_decode(
+                [ctx["all_upscaled_latents"][bi] for bi in wave])
+            for bi, sample in zip(wave, samples):
+                ori = ctx["all_ori_lengths"][bi]
+                sample = sample[:ori, :true_h, :true_w].float().cpu().numpy()
+                if bi > 0 and 0 < overlap < sample.shape[0] \
+                        and write_idx >= overlap:
+                    prev_tail = final[write_idx - overlap: write_idx, :, :, :3]
+                    final[write_idx - overlap: write_idx, :, :, :3] = \
+                        blend_overlapping_frames(prev_tail, sample[:overlap],
+                                                 overlap)
+                    sample = sample[overlap:]
+                end = write_idx + sample.shape[0]
+                final[write_idx:end, :, :, :3] = sample
+                ctx["decode_batch_info"].append((write_idx, end, bi, ori))
+                write_idx = end
+                ctx["all_upscaled_latents"][bi] = None
+                if progress_callback:
+                    progress_callback(bi + 1, n, 1, "Phase 3: Decoding")
+            del samples, sample  # the wave's device frames, before the next
         ctx["final_video"] = final[:write_idx]
         ctx["all_upscaled_latents"] = []
         ctx["decode_tile_boundaries"] = list(runner.vae.last_decode_tiles)

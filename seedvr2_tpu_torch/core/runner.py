@@ -1,26 +1,40 @@
 """VideoDiffusionRunner: the inference engine around the DiT and the VAE.
 
-Port of seedvr2_tpu.core.runner without a mesh: VAE
-encode/decode with the latent scale/shift, spatial tiling (uniform grid or
-the reference's stride sweep; tile_size "auto" resolved per item shape by
-memory probes run on the card, utils/memplan.py) and the out-of-memory
-retry, the sr / t2v /
-i2v conditions, the timestep transform, and the
-plain denoise (condition concat -> NaDiT -> optional CFG -> Euler
-endpoint). DiT plans are built once per (latent shape, text length) and
-their tables uploaded once. Memory tiering (core/model_manager.py decides
-it): a `streamed_dit` (ops.offload.StreamedNaDiT) streams the DiT's blocks
-from pinned host memory, and per-phase offload (`set_phase_offload`) keeps
-the DiT in pinned host memory through the VAE phases (`release_dit`, which
-the pipeline calls at the entry of encode and decode) and restores it at
-the entry of `inference` (`ensure_dit_resident`).
+Port of seedvr2_tpu.core.runner: VAE encode/decode with the latent
+scale/shift, spatial tiling (uniform grid or the reference's stride sweep;
+tile_size "auto" resolved per item shape by memory probes run on the card,
+utils/memplan.py) and the out-of-memory retry, the sr / t2v / i2v
+conditions, the timestep transform, and the plain denoise (condition concat
+-> NaDiT -> optional CFG -> Euler endpoint). DiT plans are built once per
+(latent shape, text length) and their tables uploaded once. Memory tiering
+(core/model_manager.py decides it): a `streamed_dit`
+(ops.offload.StreamedNaDiT) streams the DiT's blocks from pinned host
+memory, and per-phase offload (`set_phase_offload`) keeps the DiT in pinned
+host memory through the VAE phases (`release_dit`, which the pipeline calls
+at the entry of encode and decode) and restores it at the entry of
+`inference` (`ensure_dit_resident`).
+
+Serving parallelism (`attach_mesh`, parallel/mesh.py): one process a
+device, every rank running the same calls on the same inputs. The VAE
+phases' items go one a rank over every rank of the mesh (dp x tp: the VAE
+has no tensor parallelism), in waves, or the tiled VAE's tiles do; the DiT
+phase's items go one a dp group; each wave's results are then shared with
+every rank in input order (parallel/comm.spread). Each item runs alone, as
+at world size 1, so dp is bit-equal to one rank. Whether and how a VAE
+item tiles is agreed by every rank before either branch is taken (each
+rank plans alone: its own memory probes and OOM shrinks), and a wave's
+failure is agreed before its results are shared, so an OOM retry runs on
+every rank alike. Under tp the DiT's blocks are this rank's shard
+(parallel/tp.py) and its forward sums the row-sharded projections over the
+tp ranks.
 """
 
 import logging
 import time
+import warnings
 from dataclasses import dataclass, replace
 from functools import partial
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -29,6 +43,8 @@ from ..models.dit.nadit import (DevicePlan, NaDiT, build_dit_plan,
 from ..models.vae.pipeline_vae import TILE_MODES, VideoVAE
 from ..ops.attention import resolve_attention_mode
 from ..ops.offload import HostCopy, StreamedNaDiT
+from ..parallel.comm import agree_max, spread, tp_reducer, wave_width
+from ..parallel.mesh import Mesh
 from ..utils import memplan
 from ..utils.dtypes import COMPUTE_DTYPE
 from . import diffusion
@@ -113,6 +129,12 @@ class VideoDiffusionRunner:
         self._auto_tile_cache: Dict[tuple, tuple] = {}
         # device out-of-memory errors the VAE phases caught and retried
         self.oom_retries = 0
+        # serving parallelism (attach_mesh): the mesh, and the DiT's
+        # tensor-parallel reduce when its blocks are sharded
+        self.mesh: Optional[Mesh] = None
+        self.tp: Optional[Callable] = None
+        # the DiT calls' batch sizes on this rank (tests read the dp spread)
+        self.last_batch_sizes: List[int] = []
 
     # ------------------------------------------------- phase model offload
 
@@ -138,6 +160,50 @@ class VideoDiffusionRunner:
             log.info("DiT restored to the device in %.3f s",
                      self.restore_seconds[-1])
 
+    @staticmethod
+    def _warn_no_tp(tp: int):
+        warnings.warn(
+            f"tensor parallelism requested (tp={tp}) but the DiT weight "
+            f"layout/dims do not shard that many ways — serving replicated "
+            f"instead", stacklevel=3)
+
+    def attach_mesh(self, mesh: Mesh):
+        """Serve over a mesh (parallel/mesh.make_mesh; every rank of it
+        calls this). The VAE phases spread their items, or the tiled VAE
+        its tiles, over every rank; the DiT phase its items over the dp
+        axis. With a tp axis > 1 and a DiT whose layout shards that many
+        ways (any serving layout, tp.tp_compatible) the DiT serves
+        tensor-parallel: this rank keeps its heads and mlp hidden columns
+        (tp.tp_shard_dit) and the forward sums the row-sharded projections
+        over the tp ranks in fp32. A phase-offloaded DiT is sharded in its
+        host copy, so each restore brings back this rank's shard. Otherwise
+        the DiT stays whole on every rank, with JAX's warnings: a layout
+        that does not divide (resident or phase-offloaded), and a streamed
+        DiT (blocks do not shard: each rank streams its own whole blocks,
+        and its batches still spread over dp)."""
+        from ..parallel.tp import tp_compatible, tp_shard_dit
+
+        self.mesh = mesh
+        self.tp = None
+        tp = mesh.shape.get("tp", 1)
+        if tp > 1:
+            if self.streamed_dit is not None:
+                warnings.warn(
+                    f"tensor parallelism (tp={tp}) does not compose with "
+                    f"host block streaming — blocks replicate; pass a "
+                    f"tensor_parallel that makes the model fit the card "
+                    f"(configure_runner plans per-card bytes) or drop "
+                    f"--blocks_to_swap", stacklevel=2)
+            elif not tp_compatible(self.dit, tp, self.device):
+                self._warn_no_tp(tp)
+            else:
+                tp_shard_dit(self.dit, mesh)
+                if self.phase_offload:
+                    # the shard replaces the whole model in the host copy
+                    self._host_dit = HostCopy(self.dit, self.device)
+                    self._host_dit.release()
+                self.tp = tp_reducer(mesh)
+
     def release_dit(self):
         """Let a phase-offloaded DiT's device storage go (its module's
         tensors point at the pinned host copy). No-op unless phase offload
@@ -154,9 +220,11 @@ class VideoDiffusionRunner:
         stays resident through the call (the VAE, the call's input and the
         DiT: none of it once release_dit() let a phase-offloaded DiT go,
         only the IO parameters, kept blocks and two slots of a streamed
-        one) is counted once, as it stands, with the free space stuck in
-        segments that live tensors hold (the limit applies to reserved
-        memory). None on a device with no memory model (the CPU)."""
+        one; this rank's shard under tensor parallelism, the per-card bytes
+        JAX's budget counts) is counted once, as it stands, with the free
+        space stuck in segments that live tensors hold (the limit applies
+        to reserved memory). None on a device with no memory model (the
+        CPU)."""
         if self.device.type != "cuda":
             return None
         torch.cuda.empty_cache()
@@ -202,17 +270,36 @@ class VideoDiffusionRunner:
         self._auto_tile_cache[key] = resolved
         return resolved
 
+    def _tile_plans(self, kind: str, items: List[torch.Tensor]) -> list:
+        """(tiled, tile_size px) for each item of a VAE phase, agreed by
+        every rank of the mesh, since each rank plans alone (its own "auto"
+        probes and OOM shrinks): tiled where any rank tiles, at the
+        smallest tile size any rank asks. Without a mesh, this rank's
+        plans."""
+        plans = [self._resolve_tile(kind, x) for x in items]
+        if wave_width(self.mesh) == 1:
+            return plans
+        flat = agree_max([v for tiled, (th, tw) in plans
+                          for v in (int(tiled), -th, -tw)],
+                         self.mesh, self.device)
+        return [(bool(flat[i]), (-flat[i + 1], -flat[i + 2]))
+                for i in range(0, len(flat), 3)]
+
     def _vae_call_with_oom_retry(self, kind: str, run_one,
-                                 item: torch.Tensor):
-        """run_one(tiled, tile_size) for a VAE phase ("encode"/"decode") on
-        `item`, with the tiling resolved for it, resilient to device
-        out-of-memory as in the JAX runner: on torch.cuda.OutOfMemoryError
-        first engage tiling, then shrink the tile (x0.7 a side, in 64 px
-        steps, floor 256 px) until it fits. The shrink sticks: under an
-        "auto" tile size in the item shape's plan, else in the runner's
-        tiling. Any other exception passes through."""
+                                 item: torch.Tensor, plan: tuple,
+                                 mesh: Optional[Mesh]):
+        """run_one(tiled, tile_size, mesh) for a VAE phase
+        ("encode"/"decode") on `item` under its tile plan (tiled,
+        tile_size), resilient to device out-of-memory as in the JAX
+        runner: on torch.cuda.OutOfMemoryError first engage tiling, then
+        shrink the tile (x0.7 a side, in 64 px steps, floor 256 px) until it
+        fits. The shrink sticks: under an "auto" tile size in the item
+        shape's plan, else in the runner's tiling. mesh: the ranks that
+        share the item's tiles (None: every tile here); they start from one
+        agreed plan and the tile waves agree each OOM, so every rank
+        retries alike. Any other exception passes through."""
         auto = getattr(self.tiling, f"{kind}_tile_size") == "auto"
-        tiled, tile_size = self._resolve_tile(kind, item)
+        tiled, tile_size = plan
         if auto and self.device.type == "cuda":
             # the plan's probes ran from an empty allocator cache; start
             # the call there too, so earlier phases' cached blocks do not
@@ -220,7 +307,7 @@ class VideoDiffusionRunner:
             torch.cuda.empty_cache()
         for _ in range(8):
             try:
-                return run_one(tiled, tile_size)
+                return run_one(tiled, tile_size, mesh)
             except torch.cuda.OutOfMemoryError:
                 if tiled and min(tile_size) <= self._MIN_TILE:
                     raise
@@ -242,35 +329,58 @@ class VideoDiffusionRunner:
         raise RuntimeError(f"VAE {kind} kept running out of memory down to "
                            f"{tile_size}")
 
+    def _vae_waves(self, kind: str, items: List[torch.Tensor],
+                   run_one: Callable) -> List[torch.Tensor]:
+        """run_one(item, tiled, tile_size, mesh) for a VAE phase's items
+        under their agreed plans (_tile_plans), with the OOM retry. When no
+        plan tiles, the items spread one a rank over every rank of the mesh
+        (JAX's _batched_waves: the VAE has no tensor parallelism, so the tp
+        ranks take items too), each computed here alone (an OOM retry
+        tiles it here); otherwise the items run in turn and their tiles
+        spread over the mesh."""
+        plans = self._tile_plans(kind, items)
+        if not any(tiled for tiled, _ in plans):
+            return list(spread(
+                range(len(items)), lambda i: self._vae_call_with_oom_retry(
+                    kind, partial(run_one, items[i]), items[i], plans[i],
+                    None),
+                self.mesh, None, self.device))
+        return [self._vae_call_with_oom_retry(kind, partial(run_one, x), x,
+                                              plan, self.mesh)
+                for x, plan in zip(items, plans)]
+
     @torch.no_grad()
     def vae_encode(self, samples: List[torch.Tensor]) -> List[torch.Tensor]:
         """samples: (T, H, W, 3) in [-1, 1] -> latents (Tl, h, w, 16) scaled
-        by the VAE scaling factor."""
+        by the VAE scaling factor; spread over the mesh (_vae_waves)."""
         scale = self.config.vae.scaling_factor
         shift = self.config.vae.shifting_factor
-        out = []
-        for x in samples:
-            lat = self._vae_call_with_oom_retry(
-                "encode", lambda tiled, ts, x=x: self.vae.encode(
-                    x[None], tiled=tiled, tile_size=ts,
-                    tile_overlap=self.tiling.encode_tile_overlap,
-                    tile_mode=self.tiling.tile_mode), x)[0]
-            out.append(((lat.float() - shift) * scale).to(self.compute_dtype))
-        return out
+
+        def one(x, tiled, ts, mesh):
+            lat = self.vae.encode(
+                x[None], tiled=tiled, tile_size=ts,
+                tile_overlap=self.tiling.encode_tile_overlap,
+                tile_mode=self.tiling.tile_mode, mesh=mesh)[0]
+            return ((lat.float() - shift) * scale).to(self.compute_dtype)
+
+        return self._vae_waves("encode", samples, one)
 
     @torch.no_grad()
     def vae_decode(self, latents: List[torch.Tensor]) -> List[torch.Tensor]:
+        """latents (Tl, h, w, 16) -> samples (T, H, W, 3) in the VAE's
+        dtype; spread over the mesh (_vae_waves)."""
         scale = self.config.vae.scaling_factor
         shift = self.config.vae.shifting_factor
-        out = []
-        for lat in latents:
-            z = (lat.float() / scale + shift).to(self.vae.dtype)[None]
-            out.append(self._vae_call_with_oom_retry(
-                "decode", lambda tiled, ts, z=z: self.vae.decode(
-                    z, tiled=tiled, tile_size=ts,
-                    tile_overlap=self.tiling.decode_tile_overlap,
-                    tile_mode=self.tiling.tile_mode), z[0])[0])
-        return out
+        zs = [(lat.float() / scale + shift).to(self.vae.dtype)
+              for lat in latents]
+
+        def one(z, tiled, ts, mesh):
+            return self.vae.decode(
+                z[None], tiled=tiled, tile_size=ts,
+                tile_overlap=self.tiling.decode_tile_overlap,
+                tile_mode=self.tiling.tile_mode, mesh=mesh)[0]
+
+        return self._vae_waves("decode", zs, one)
 
     # ----------------------------------------------------------- condition
 
@@ -321,8 +431,11 @@ class VideoDiffusionRunner:
                   cfg_scale: Optional[float] = None,
                   steps: Optional[int] = None) -> List[torch.Tensor]:
         """One-step (or n-step) denoising of same-shape latents
-        (Tl, h, w, C), batched into one DiT call. A phase-offloaded DiT is
-        restored first; a streamed one streams its blocks."""
+        (Tl, h, w, C), batched into one DiT call; under a mesh with dp > 1
+        the latents go one a dp group instead, each denoised alone (as the
+        pipeline's world-size-1 calls are) and shared with every rank. A
+        phase-offloaded DiT is restored first; a streamed one streams its
+        blocks."""
         if not noises:
             return []
         self.ensure_dit_resident()
@@ -332,6 +445,18 @@ class VideoDiffusionRunner:
             steps = self.config.diffusion.sampling_steps
         if len({tuple(x.shape) for x in noises}) != 1:
             raise ValueError("mixed shapes in one inference call")
+        if self.mesh is not None and self.mesh.shape.get("dp", 1) > 1:
+            return list(spread(
+                list(zip(noises, conditions)),
+                lambda nc: self._denoise([nc[0]], [nc[1]], texts_pos,
+                                         texts_neg, cfg_scale, steps)[0],
+                self.mesh, "dp", self.device))
+        return self._denoise(noises, conditions, texts_pos, texts_neg,
+                             cfg_scale, steps)
+
+    def _denoise(self, noises, conditions, texts_pos, texts_neg,
+                 cfg_scale: float, steps: int) -> List[torch.Tensor]:
+        """inference's batched DiT call on this rank (its tp group)."""
         tl, h, w, _ = noises[0].shape
         dt = self.compute_dtype
         txt_pos = torch.as_tensor(texts_pos[0], dtype=dt, device=self.device)
@@ -342,11 +467,12 @@ class VideoDiffusionRunner:
         noise = torch.stack(noises).to(dt)
         cond = torch.stack(conditions).to(dt)
         b = noise.shape[0]
+        self.last_batch_sizes.append(b)
         txt_pos = txt_pos[None].expand(b, *txt_pos.shape)
         txt_neg = txt_neg[None].expand(b, *txt_neg.shape)
         pred_type = self.config.diffusion.prediction_type
         dit = (self.streamed_dit if self.streamed_dit is not None
-               else partial(nadit_forward, self.dit))
+               else partial(nadit_forward, self.dit, tp=self.tp))
 
         def f(x, t):
             vid_in = torch.cat([x, cond], dim=-1)

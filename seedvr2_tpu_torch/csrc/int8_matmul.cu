@@ -7,7 +7,9 @@
 // (comfyui-seedvr2_tpu/ops/int8_matmul.py).
 //
 // Computes out[m, n] = bf16((float(sum_k xq[m, k] * wq[n, k]) * xs[m]) * ws[n])
-// with xq (M, K) int8 activations and wq (N, K) int8 weights, both
+// (or the same fp32 value unrounded: the fp32 epilogue of a row-sharded
+// projection under tensor parallelism, whose partials are summed over the
+// ranks before the one rounding) with xq (M, K) int8 activations and wq (N, K) int8 weights, both
 // K-contiguous, xs (M,) and ws (N,) fp32 scales. The int32 sums are exact and
 // the epilogue multiplies in the JAX kernel's order and rounds once, so the
 // result equals the plain version bit for bit. The bias is not added here:
@@ -460,16 +462,16 @@ cudaError_t s8_gemm(const void* xq, const void* wq, const float* xs,
 }  // namespace seedvr2
 
 // xq: (M, K) int8, wq: (N, K) int8, xs: (M,) fp32, ws: (N,) fp32, out:
-// (M, N) bf16; all contiguous and 16-byte aligned, K % 32 == 0, N % 8 == 0,
-// swap / bt from `plan_qx`; checked by the Python wrapper
-// (seedvr2_tpu_torch/ops/int8_matmul.py). Launches the s8 GEMM.
+// (M, N) bf16 (out_f32 = 0) or fp32; all contiguous and 16-byte aligned,
+// K % 32 == 0, N % 8 == 0, swap / bt from `plan_qx`; checked by the Python
+// wrapper (seedvr2_tpu_torch/ops/int8_matmul.py). Launches the s8 GEMM.
 extern "C" int seedvr2_int8_matmul(const void* xq, const void* wq,
                                    const void* xs, const void* ws, void* out,
-                                   int M, int N, int K, int swap, int bt,
-                                   void* stream) {
+                                   int M, int N, int K, int out_f32, int swap,
+                                   int bt, void* stream) {
   return int(seedvr2::s8_gemm(xq, wq, static_cast<const float*>(xs),
                               static_cast<const float*>(ws), out, M, N, K,
-                              /*out_f32=*/false, swap != 0, bt,
+                              out_f32 != 0, swap != 0, bt,
                               static_cast<cudaStream_t>(stream)));
 }
 

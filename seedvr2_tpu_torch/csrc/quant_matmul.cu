@@ -15,7 +15,12 @@
 // where x_g . q_g is the 32-term dot of group g and xg[m, g] the fp32 sum of
 // the 32 x values of row m in group g: w = q*s - m folded into a side term,
 // as the JAX kernel does. The bias is not added here: the caller adds it
-// after the bf16 rounding, as the JAX package does.
+// after the bf16 rounding, as the JAX package does. With out_f32 the same
+// sums are written unrounded in fp32: the epilogue of a row-sharded
+// projection under tensor parallelism, whose partials are summed over the
+// ranks before the one rounding (the fp32 store the split-K workspace
+// already takes, on the output itself; the split-K reduction then writes
+// fp32 too).
 //
 // Exactness: the Pallas body dequantises a tile to fp32 and takes an fp32
 // dot. Dequantising to a bf16 tile here would round s*q to 8 mantissa bits,
@@ -222,8 +227,8 @@ __device__ __forceinline__ void issue_group(float (&d)[NA],
 // d[4i+2], d[4i+3] at weight row 16w + g + 8.
 //
 // grid: (N / 128, M / BT, splits); split z takes groups [z*gps, z*gps +
-// gps). out: bf16 (M, N) when splits == 1, else the fp32 workspace
-// (splits, M, N). K7 (AFFINE) adds the min term, from the pre-pass's bf16
+// gps). out: bf16 (M, N) when splits == 1 and !f32, else fp32: the
+// workspace (splits, M, N), or the fp32 output (M, N) at one split. K7 (AFFINE) adds the min term, from the pre-pass's bf16
 // hi and lo planes of xg (tm_xg: (2, M, XW)) and of -mn (tm_mn: (2, N,
 // XW)), in 64-group panels; it is additive over the groups, so split z
 // takes panels z, z + splits, ... of all K/32 groups.
@@ -235,7 +240,7 @@ qmm_kernel(const __grid_constant__ CUtensorMap tm_x,
            const __grid_constant__ CUtensorMap tm_xg,
            const __grid_constant__ CUtensorMap tm_mn,
            const __grid_constant__ CUtensorMap tm_o, void* __restrict__ out,
-           int M, int N, int G, int gps, int tma_out) {
+           int M, int N, int G, int gps, int tma_out, int f32) {
   using C = Cfg<BT>;
   constexpr int NA = BT / 2;  // accumulator registers a thread
   extern __shared__ unsigned char smem_raw[];
@@ -404,7 +409,7 @@ qmm_kernel(const __grid_constant__ CUtensorMap tm_x,
 
   // epilogue: every consumer is past the ring, so it holds the staging.
   asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS * 128) : "memory");
-  const bool split = gridDim.z > 1;
+  const bool split = f32 != 0;  // fp32 rows: workspace or fp32 output
   const int c0 = warp * 16 + g;  // this thread's columns c0, c0 + 8
   if (tma_out) {
     // Warpgroup wg's 64 columns x BT tokens as TMA boxes of 128-byte rows
@@ -483,10 +488,17 @@ qmm_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-// out[i] = bf16(sum over splits of ws[s][i]), the splits in order.
+__device__ __forceinline__ void store_pair(__nv_bfloat162* o, float2 a) {
+  *o = __floats2bfloat162_rn(a.x, a.y);
+}
+__device__ __forceinline__ void store_pair(float2* o, float2 a) { *o = a; }
+
+// out[i] = sum over splits of ws[s][i], the splits in order, rounded to
+// bf16 (OutT __nv_bfloat162) or kept fp32 (float2).
+template <typename OutT>
 __global__ void split_reduce_kernel(const float2* __restrict__ ws,
-                                    __nv_bfloat162* __restrict__ out,
-                                    long long pairs, int splits) {
+                                    OutT* __restrict__ out, long long pairs,
+                                    int splits) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < pairs; i += (long long)gridDim.x * blockDim.x) {
     float2 a = ws[i];
@@ -495,7 +507,7 @@ __global__ void split_reduce_kernel(const float2* __restrict__ ws,
       a.x += b.x;
       a.y += b.y;
     }
-    out[i] = __floats2bfloat162_rn(a.x, a.y);
+    store_pair(out + i, a);
   }
 }
 
@@ -543,12 +555,17 @@ __global__ void k7_prepass_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 cudaError_t launch_split_reduce(const void* ws, void* out, long long pairs,
-                                int splits, cudaStream_t stream) {
+                                int splits, bool out_f32,
+                                cudaStream_t stream) {
   const long long blocks = (pairs + 255) / 256;
-  split_reduce_kernel<<<unsigned(blocks < 1056 ? blocks : 1056), 256, 0,
-                        stream>>>(static_cast<const float2*>(ws),
-                                  static_cast<__nv_bfloat162*>(out), pairs,
-                                  splits);
+  const unsigned grid = unsigned(blocks < 1056 ? blocks : 1056);
+  const float2* src = static_cast<const float2*>(ws);
+  if (out_f32)
+    split_reduce_kernel<<<grid, 256, 0, stream>>>(
+        src, static_cast<float2*>(out), pairs, splits);
+  else
+    split_reduce_kernel<<<grid, 256, 0, stream>>>(
+        src, static_cast<__nv_bfloat162*>(out), pairs, splits);
   return cudaGetLastError();
 }
 
@@ -567,8 +584,8 @@ template <int BT, bool AFFINE>
 cudaError_t launch_bt(const CUtensorMap& tx, const CUtensorMap& tq,
                       const CUtensorMap& ts, const CUtensorMap& txg,
                       const CUtensorMap& tmn, const CUtensorMap& to,
-                      bool tma_out, void* out, int M, int N, int G,
-                      int splits, cudaStream_t stream) {
+                      bool tma_out, bool f32, void* out, int M, int N,
+                      int G, int splits, cudaStream_t stream) {
   using C = Cfg<BT>;
   const cudaError_t e = cudaFuncSetAttribute(
       qmm_kernel<BT, AFFINE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -578,17 +595,17 @@ cudaError_t launch_bt(const CUtensorMap& tx, const CUtensorMap& tq,
   const dim3 grid(unsigned((N + BN - 1) / BN), unsigned((M + BT - 1) / BT),
                   unsigned(splits));
   qmm_kernel<BT, AFFINE><<<grid, THREADS, C::SMEM, stream>>>(
-      tx, tq, ts, txg, tmn, to, out, M, N, G, gps, int(tma_out));
+      tx, tq, ts, txg, tmn, to, out, M, N, G, gps, int(tma_out), int(f32));
   return cudaGetLastError();
 }
 
 // x (M, K) bf16, q (N, K) int8, s (N, G4) fp32, xg (2, M, XW) and mnp (2,
 // N, XW) bf16 (K7's pre-pass outputs), ws (splits, M, N) fp32 when splits
-// > 1, out (M, N) bf16.
+// > 1, out (M, N) bf16, or fp32 with out_f32.
 template <bool AFFINE>
 int launch(const void* x, const void* q, const void* s, const void* xg,
            const void* mnp, void* ws, void* out, int M, int N, int K, int G4,
-           int XW, int bt, int splits, cudaStream_t stream) {
+           int XW, int bt, int splits, bool out_f32, cudaStream_t stream) {
   if (M == 0 || N == 0) return int(cudaSuccess);
   const int G = K / 32;
   // a split starts on a whole stage: the table boxes' first column must
@@ -615,50 +632,53 @@ int launch(const void* x, const void* q, const void* s, const void* xg,
   if (!ok) return int(cudaErrorInvalidValue);
   if (!AFFINE) txg = tmn = ts;  // unread
   // the output through TMA stores where its rows are 16-byte multiples:
-  // bf16 (M, N) boxes of 64 columns, or the fp32 workspace (splits, M, N)
-  // in boxes of 32
+  // bf16 (M, N) boxes of 64 columns, or fp32 rows in boxes of 32: the
+  // workspace (splits, M, N), or the fp32 output (M, N) at one split
   CUtensorMap to = ts;  // unread without them
-  const bool tma_out = splits > 1 ? N % 4 == 0 : N % 8 == 0;
+  const bool f32 = splits > 1 || out_f32;
+  void* dst = splits > 1 ? ws : out;
+  const bool tma_out = f32 ? N % 4 == 0 : N % 8 == 0;
   if (tma_out &&
-      !(splits > 1
-            ? make_map_3d(&to, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ws, N, M,
+      !(f32 ? make_map_3d(&to, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, dst, N, M,
                           splits, uint64_t(N) * 4, uint64_t(N) * 4 * M, 32,
                           bt, CU_TENSOR_MAP_SWIZZLE_128B)
             : make_map_3d(&to, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out, N, M,
                           1, uint64_t(N) * 2, uint64_t(N) * 2 * M, 64, bt,
                           CU_TENSOR_MAP_SWIZZLE_128B)))
     return int(cudaErrorInvalidValue);
-  void* dst = splits > 1 ? ws : out;
   cudaError_t e;
   if (bt == 128)
-    e = launch_bt<128, AFFINE>(tx, tq, ts, txg, tmn, to, tma_out, dst, M, N,
-                               G, splits, stream);
+    e = launch_bt<128, AFFINE>(tx, tq, ts, txg, tmn, to, tma_out, f32, dst,
+                               M, N, G, splits, stream);
   else if (bt == 64)
-    e = launch_bt<64, AFFINE>(tx, tq, ts, txg, tmn, to, tma_out, dst, M, N,
-                              G, splits, stream);
+    e = launch_bt<64, AFFINE>(tx, tq, ts, txg, tmn, to, tma_out, f32, dst,
+                              M, N, G, splits, stream);
   else if (bt == 8)
-    e = launch_bt<8, AFFINE>(tx, tq, ts, txg, tmn, to, tma_out, dst, M, N, G,
-                             splits, stream);
+    e = launch_bt<8, AFFINE>(tx, tq, ts, txg, tmn, to, tma_out, f32, dst, M,
+                             N, G, splits, stream);
   else
     return int(cudaErrorInvalidValue);
   if (e != cudaSuccess || splits == 1) return int(e);
   return int(launch_split_reduce(ws, out, (long long)M * N / 2, splits,
-                                 stream));
+                                 out_f32, stream));
 }
 
 }  // namespace
 
 // x: (M, K) bf16, q: (N, K) int8, scales: (N, G4) fp32 (K/32 groups, zero
 // padded to G4 % 4 == 0), ws: (splits, M, N) fp32 scratch (null when
-// splits == 1), out: (M, N) bf16; all contiguous and 16-byte aligned, K %
-// 32 == 0, N % 2 == 0, bt in {8, 64, 128}: checked by the Python wrapper
-// (seedvr2_tpu_torch/ops/quant_matmul.py), which also picks bt and splits.
+// splits == 1), out: (M, N) bf16 (out_f32 = 0) or fp32; all contiguous
+// and 16-byte aligned, K % 32 == 0, N % 2 == 0, bt in {8, 64, 128}: checked
+// by the Python wrapper (seedvr2_tpu_torch/ops/quant_matmul.py), which also
+// picks bt and splits.
 extern "C" int seedvr2_quant_matmul_q8(const void* x, const void* q,
                                        const void* scales, void* ws,
                                        void* out, int M, int N, int K, int G4,
-                                       int bt, int splits, void* stream) {
+                                       int bt, int splits, int out_f32,
+                                       void* stream) {
   return launch<false>(x, q, scales, nullptr, nullptr, ws, out, M, N, K, G4,
-                       0, bt, splits, static_cast<cudaStream_t>(stream));
+                       0, bt, splits, out_f32 != 0,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // As above with q in [0, 31], the affine tables s, m: (N, G4) fp32, and
@@ -670,7 +690,7 @@ extern "C" int seedvr2_quant_matmul_affine(const void* x, const void* q,
                                            void* xg, void* mnp, void* ws,
                                            void* out, int M, int N, int K,
                                            int G4, int XW, int bt, int splits,
-                                           void* stream) {
+                                           int out_f32, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return int(cudaSuccess);
   if (K <= 0 || K % 32 || G4 < K / 32 || XW < K / 32 || XW % 8)
@@ -678,7 +698,7 @@ extern "C" int seedvr2_quant_matmul_affine(const void* x, const void* q,
   const cudaError_t e = launch_prepass(x, xg, m, mnp, M, N, K, G4, XW, st);
   if (e != cudaSuccess) return int(e);
   return launch<true>(x, q, s, xg, mnp, ws, out, M, N, K, G4, XW, bt, splits,
-                      st);
+                      out_f32 != 0, st);
 }
 
 // K7's pre-pass alone: xg (2, M, XW) bf16 from x (M, K) bf16 and mnp (2,
@@ -693,13 +713,13 @@ extern "C" int seedvr2_k7_prepass(const void* x, void* xg, const void* m,
                             static_cast<cudaStream_t>(stream)));
 }
 
-// The split-K reduction alone: out (pairs * 2) bf16 = the sum of ws
-// (splits, pairs * 2) fp32 over the splits, in order.
+// The split-K reduction alone: out (pairs * 2) bf16 (out_f32 = 0) or fp32 =
+// the sum of ws (splits, pairs * 2) fp32 over the splits, in order.
 extern "C" int seedvr2_split_reduce(const void* ws, void* out,
-                                    long long pairs, int splits,
+                                    long long pairs, int splits, int out_f32,
                                     void* stream) {
   if (pairs == 0) return int(cudaSuccess);
   if (splits < 1) return int(cudaErrorInvalidValue);
-  return int(launch_split_reduce(ws, out, pairs, splits,
+  return int(launch_split_reduce(ws, out, pairs, splits, out_f32 != 0,
                                  static_cast<cudaStream_t>(stream)));
 }

@@ -28,6 +28,13 @@ quantization (kernel K4, `_norm_mod`), the swiglu's silu*up with it (K5,
 (`ops.quant_matmul`, `core.loader`) the Q8_0 linears run K6 and the affine
 ones K7; their producers stay plain, as in the JAX package.
 
+Tensor parallelism (parallel/tp.py): after `tp_shard_dit` a rank holds its
+heads' slice of every qkv / proj_out and its hidden columns of every mlp;
+`nadit_forward(..., tp=reduce)` then runs the blocks on the local heads
+(the attention kernels take the head count from the qkv width, as the JAX
+package's tp_axis does) and sums each row-sharded projection's fp32
+partials over the tp ranks with `reduce` (ops/layers.linear).
+
 Replicated quirks of the released models: 3B blocks >= mm_layers share their
 vid/txt weights ("all"); the 3B last block has no txt mlp/ada branch; the
 output modulation `vid_out_ada` reuses the blocks' attn-layer emb slices.
@@ -527,7 +534,8 @@ def _fold_norm_tables(cos_e: torch.Tensor, sin_e: torch.Tensor, wq_v, wq_t,
 
 
 def _window_attention(attn: _Attn, cfg: DiTConfig, xv, xt, dplan: DevicePlan,
-                      method: str, use_kernels: bool, mode: str = "flash"):
+                      method: str, use_kernels: bool, mode: str = "flash",
+                      tp=None):
     """Joint windowed multi-modal attention for one block.
 
     xv: (B, L, D) video tokens in this layer's window-major order (every
@@ -536,9 +544,10 @@ def _window_attention(attn: _Attn, cfg: DiTConfig, xv, xt, dplan: DevicePlan,
     packed qkv rows of its windows are joined with the packed text rows and
     the lane pad in one copy and handed to kernel K1 (mode "xla": to the
     SDPA lane, ops.attention.packed_attention_sdpa). Text output is the
-    mean over all windows."""
+    mean over all windows. tp: the tensor-parallel reduce; the heads are
+    then this rank's (the qkv width's), proj_out's partials summed."""
     B = xv.shape[0]
-    Hn, Dh = cfg.heads, cfg.head_dim
+    Dh = cfg.head_dim
     eps = cfg.norm_eps
     ltxt = dplan.plan.txt_len
     if mode == "xla":
@@ -551,6 +560,8 @@ def _window_attention(attn: _Attn, cfg: DiTConfig, xv, xt, dplan: DevicePlan,
                    use_kernels)                        # (B, L, 3HD)
     qkv_t = linear(xt, _pick(attn.proj_qkv, "txt"),
                    use_kernels)                        # (B, Lt, 3HD)
+    # every head, or this rank's under tensor parallelism
+    Hn = qkv_v.shape[-1] // (3 * Dh)
     wq_v = _pick(attn.norm_q, "vid").weight
     wk_v = _pick(attn.norm_k, "vid").weight
     wq_t = _pick(attn.norm_q, "txt").weight
@@ -580,8 +591,8 @@ def _window_attention(attn: _Attn, cfg: DiTConfig, xv, xt, dplan: DevicePlan,
 
     vid_out = torch.cat(vid_chunks, dim=1)  # stays window-major
     txt_out = (txt_acc / dplan.num_windows[method]).to(xv.dtype)
-    vid_out = linear(vid_out, _pick(attn.proj_out, "vid"), use_kernels)
-    txt_out = linear(txt_out, _pick(attn.proj_out, "txt"), use_kernels)
+    vid_out = linear(vid_out, _pick(attn.proj_out, "vid"), use_kernels, tp)
+    txt_out = linear(txt_out, _pick(attn.proj_out, "txt"), use_kernels, tp)
     return vid_out, txt_out
 
 
@@ -612,7 +623,8 @@ def _from_windows(xw: torch.Tensor, up: UniformPlan) -> torch.Tensor:
 
 def _window_attention_uniform(attn: _Attn, cfg: DiTConfig, xv, xt,
                               dplan: DevicePlan, uplan: DeviceUniformPlan,
-                              use_kernels: bool, mode: str = "flash"):
+                              use_kernels: bool, mode: str = "flash",
+                              tp=None):
     """Joint windowed multi-modal attention over the uniform padded
     partition. xv: (B, L, D) video tokens in canonical order (or their
     PreQuantized form in the w8a8 lane); xt: (B, Ltxt, D) text.
@@ -623,7 +635,8 @@ def _window_attention_uniform(attn: _Attn, cfg: DiTConfig, xv, xt,
     (kernel K9 through ops.attention.attention) ropes each window with the
     table its id picks and masks its pad keys (mode "xla": the dispatcher's
     SDPA lane). Pad query rows are cropped;
-    the text output is the fp32 mean over the windows."""
+    the text output is the fp32 mean over the windows. tp: as
+    _window_attention's."""
     B, L = xv.shape[0], xv.shape[1]
     Dh = cfg.head_dim
     up = uplan.up
@@ -665,17 +678,18 @@ def _window_attention_uniform(attn: _Attn, cfg: DiTConfig, xv, xt,
     vid_out = _from_windows(out[:, :, :wlen], up)
     # text coalesce: the mean over all windows
     txt_out = out[:, :, wlen:].float().mean(dim=1).to(out.dtype)
-    vid_out = linear(vid_out, _pick(attn.proj_out, "vid"), use_kernels)
-    txt_out = linear(txt_out, _pick(attn.proj_out, "txt"), use_kernels)
+    vid_out = linear(vid_out, _pick(attn.proj_out, "vid"), use_kernels, tp)
+    txt_out = linear(txt_out, _pick(attn.proj_out, "txt"), use_kernels, tp)
     return vid_out, txt_out
 
 
 def _block_forward(blk: _Block, cfg: DiTConfig, i: int, xv, xt, emb_attn,
                    emb_mlp, dplan: DevicePlan, order: str, use_kernels: bool,
-                   mode: str = "flash"):
+                   mode: str = "flash", tp=None):
     """One NaMMSRTransformerBlock. xv arrives in `order` token order and
     leaves in this layer's window-major order on the grouped plan, in
-    canonical order on the uniform one (the order is returned third)."""
+    canonical order on the uniform one (the order is returned third). tp:
+    the tensor-parallel reduce of a tp-sharded block (nadit_forward)."""
     method = cfg.window_method(i)
     uplan = dplan.uniform[method] if dplan.uniform is not None else None
     if uplan is None and order != method:
@@ -699,10 +713,10 @@ def _block_forward(blk: _Block, cfg: DiTConfig, i: int, xv, xt, emb_attn,
     ht = _ada_in(ht, sa_v, ss_v, ada_t, "attn") if ada_t is not None else ht
     if uplan is not None:
         hv, ht = _window_attention_uniform(blk.attn, cfg, hv, ht, dplan,
-                                           uplan, use_kernels, mode)
+                                           uplan, use_kernels, mode, tp)
     else:
         hv, ht = _window_attention(blk.attn, cfg, hv, ht, dplan, method,
-                                   use_kernels, mode)
+                                   use_kernels, mode, tp)
     hv = _ada_out(hv, sg_v, ada_v, "attn")
     ht = _ada_out(ht, sg_v, ada_t, "attn") if ada_t is not None else ht
     xv = xv + hv
@@ -712,12 +726,12 @@ def _block_forward(blk: _Block, cfg: DiTConfig, i: int, xv, xt, emb_attn,
     hv = _norm_mod(xv, ma_v, ms_v, ada_v, "mlp", eps,
                    getattr(mlp_v, "proj_in_gate", mlp_v.proj_in),
                    use_kernels)
-    hv = mlp_forward(hv, mlp_v, cfg.mlp_type, use_kernels)
+    hv = mlp_forward(hv, mlp_v, cfg.mlp_type, use_kernels, tp)
     xv = xv + _ada_out(hv, mg_v, ada_v, "mlp")
     if not vid_only:
         ht2 = _ada_in(rms_norm(xt, eps), ma_v, ms_v, ada_t, "mlp")
         ht2 = mlp_forward(ht2, _pick(blk.mlp, "txt"), cfg.mlp_type,
-                          use_kernels)
+                          use_kernels, tp)
         xt = xt + _ada_out(ht2, mg_v, ada_t, "mlp")
     return xv, xt, ("canonical" if uplan is not None else method)
 
@@ -756,7 +770,7 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
                   use_kernels: bool = True,
                   downscale: Optional[torch.Tensor] = None,
                   blocks: Optional[Iterable[nn.Module]] = None,
-                  attention_mode: str = "flash") -> torch.Tensor:
+                  attention_mode: str = "flash", tp=None) -> torch.Tensor:
     """Denoiser forward.
 
     Args:
@@ -781,6 +795,11 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
         attention_mode: "flash" (the kernels K1 / K9) or "xla" (the SDPA
             lane, ops.attention), or an alias of either (the CLI's
             --attention_mode); the gathers (K2) run in both.
+        tp: tensor parallelism, for a model whose blocks
+            parallel.tp.tp_shard_dit sharded: the reduce that sums a
+            row-sharded projection's fp32 partials over the tp ranks
+            (parallel.comm.tp_reducer). Every tp rank calls the forward
+            with the same inputs and gets the same output.
 
     Returns:
         (B, T, H, W, vid_out_channels) prediction (v_lerp velocity).
@@ -803,7 +822,7 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
     order = "canonical"
     for i, blk in enumerate(model.blocks if blocks is None else blocks):
         x, xt, order = _block_forward(blk, cfg, i, x, xt, emb_attn, emb_mlp,
-                                      dplan, order, use_kernels, mode)
+                                      dplan, order, use_kernels, mode, tp)
     if order != "canonical":
         index = dplan.transitions[(order, "canonical")]
         x = gather_rows(x, index) if use_kernels else gather_rows_plain(x,

@@ -15,6 +15,11 @@ Port of seedvr2_tpu.models.vae.pipeline_vae:
    encoder moments (after the legacy family's quant_conv, when it has one).
 Memory-probed tile sizes ("auto") are resolved by the runner
 (core/runner.py, utils/memplan.py) before a call reaches this module.
+Given a mesh (`mesh=`, the runner's when it tiles an item over the mesh)
+the tiles of a tiled call go one a rank over every rank of the mesh, in
+waves, each wave's tiles shared with every rank and blended in input order
+(JAX's _tile_map, through parallel/comm.spread): the same sums in the same
+order, so bit-equal to one rank.
 
 The VAE's opt-in lowerings are fixed at construction, as the JAX VideoVAE
 snapshots its lowering switches: with `cfg.conv_quant == "int8"` the
@@ -40,6 +45,7 @@ from torch import nn
 
 from ...core.configs import VAEConfig
 from ...ops.int8_conv import conv_weight_int8
+from ...parallel.comm import spread
 from .model import Lowering, VideoAutoencoder, decoder_core, encoder_core
 
 
@@ -232,12 +238,23 @@ class VideoVAE:
         self.last_encode_tiles = []
         self.last_decode_tiles = []
 
+    @staticmethod
+    def _tile_map(run, crops, mesh):
+        """run(crop) for each crop, yielded in input order; over a mesh of
+        more than one rank the crops go one a rank in waves of the mesh's
+        size (the VAE has no tensor parallelism: the dp and tp ranks all
+        take tiles), each wave's results shared with every rank. A lone
+        crop runs on every rank."""
+        return spread(crops, run, None if len(crops) == 1 else mesh, None,
+                      crops[0].device)
+
     @torch.no_grad()
     def encode(self, x: torch.Tensor, tiled: bool = False,
                tile_size: Tuple[int, int] = (512, 512),
                tile_overlap: Tuple[int, int] = (64, 64),
                tile_mode: str = "uniform",
-               tile_grid: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+               tile_grid: Optional[Tuple[int, int]] = None,
+               mesh=None) -> torch.Tensor:
         """x: (B, T, H, W, 3) in [-1, 1], T % 4 == 1 -> latent mode
         (B, (T-1)/4+1, H/8, W/8, latent_channels).
 
@@ -245,7 +262,9 @@ class VideoVAE:
         tiles of at most tile_size px area (`_plan_grid`, or exactly
         tile_grid=(rows, cols)) overlapping by at least tile_overlap px;
         with "ref" the reference's stride sweep (`_plan_ref`); blended with
-        cosine fades. A frame no larger than one tile is encoded untiled."""
+        cosine fades. A frame no larger than one tile is encoded untiled.
+        mesh: a parallel.mesh.Mesh whose ranks share the tiles (every rank
+        calls with the same arguments), None: every tile here."""
         x = x.to(self.dtype)
         B, T, H, W, _ = x.shape
         lat = self.cfg.latent_channels
@@ -277,11 +296,16 @@ class VideoVAE:
         result = torch.zeros((B, Tl, H_lat, W_lat, lat), dtype=torch.float32,
                              device=x.device)
         count = np.zeros((H_lat, W_lat), np.float32)
+        crops = [x[:, :, y * sf: min(y_end * sf, H),
+                   xx * sf: min(x_end * sf, W)]
+                 for (y, y_end, xx, x_end) in rects]
+        # next() in the body: a zip over the tiles would hold the last tile
+        # while the next one encodes
+        tiles = self._tile_map(
+            lambda c: _encode_slices(self.model, c, self.lowering)[..., :lat],
+            crops, mesh)
         for (y, y_end, xx, x_end) in rects:
-            crop = x[:, :, y * sf: min(y_end * sf, H),
-                     xx * sf: min(x_end * sf, W)]
-            tile = _encode_slices(self.model, crop,
-                                  self.lowering)[..., :lat].float()
+            tile = next(tiles).float()
             eh = min(y_end - y, tile.shape[2], H_lat - y)
             ew = min(x_end - xx, tile.shape[3], W_lat - xx)
             mask = np.outer(_fade_weights(eh, fade_h, y > 0, y_end < H_lat),
@@ -299,7 +323,8 @@ class VideoVAE:
                tile_size: Tuple[int, int] = (512, 512),
                tile_overlap: Tuple[int, int] = (64, 64),
                tile_mode: str = "uniform",
-               tile_grid: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+               tile_grid: Optional[Tuple[int, int]] = None,
+               mesh=None) -> torch.Tensor:
         """z: (B, Tl, h, w, latent) -> (B, (Tl-1)*4+1, 8h, 8w, 3).
 
         tiled: with tile_mode "uniform" decode an even grid of same-shape
@@ -308,7 +333,7 @@ class VideoVAE:
         stride sweep; fades in output space with the pixel overlap. The tiles
         are decoded one after another into one fp32 output buffer with
         host-built masks and 1 / count, as the JAX package's tiled-decode
-        scan does."""
+        scan does. mesh: as encode's."""
         z = z.to(self.dtype)
         B, Tl, h, w, _ = z.shape
         sf = self.cfg.spatial_downsample_factor
@@ -350,9 +375,12 @@ class VideoVAE:
 
         result = torch.zeros((B, T, H, W, 3), dtype=torch.float32,
                              device=z.device)
+        tiles = self._tile_map(
+            lambda c: _decode_slices(self.model, c, self.lowering),
+            [z[:, :, y:y_end, xx:x_end] for (y, y_end, xx, x_end) in rects],
+            mesh)
         for (y, y_end, xx, x_end), m in zip(rects, masks):
-            tile = _decode_slices(self.model, z[:, :, y:y_end, xx:x_end],
-                                  self.lowering)
+            tile = next(tiles)  # as in encode: no zip over the tiles
             result[:, :, y * sf: y_end * sf, xx * sf: x_end * sf] += (
                 tile.float()
                 * torch.as_tensor(m, device=z.device)[None, None, :, :, None])

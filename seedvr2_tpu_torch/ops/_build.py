@@ -43,7 +43,7 @@ _SIGNATURES = {
     # x, idx, out, B, L, L2, D, stream
     "seedvr2_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     # xq, wq, xs, ws, out, M, N, K, swap, bt, stream
-    "seedvr2_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],
+    "seedvr2_int8_matmul": [_P] * 5 + [_I] * 6 + [_P],
     # x, wq, ws, xs, xq (scratch), out, M, N, K, x_f32, out_f32, swap, bt,
     # stream
     "seedvr2_int8_matmul_qx": [_P] * 6 + [_I] * 7 + [_P],
@@ -54,13 +54,13 @@ _SIGNATURES = {
     # g, u, q, s, rows, K, row_stride, stream
     "seedvr2_silu_mul_quantize": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, q, scales, ws, out, M, N, K, G4, bt, splits, stream
-    "seedvr2_quant_matmul_q8": [_P] * 5 + [_I] * 6 + [_P],
+    "seedvr2_quant_matmul_q8": [_P] * 5 + [_I] * 7 + [_P],
     # x, q, s, m, xg, mnp, ws, out, M, N, K, G4, XW, bt, splits, stream
-    "seedvr2_quant_matmul_affine": [_P] * 8 + [_I] * 7 + [_P],
+    "seedvr2_quant_matmul_affine": [_P] * 8 + [_I] * 8 + [_P],
     # x, xg, m, mnp, M, N, K, G4, XW, stream
     "seedvr2_k7_prepass": [_P] * 4 + [_I] * 5 + [_P],
     # ws, out, pairs, splits, stream
-    "seedvr2_split_reduce": [_P, _P, _L, _I, _P],
+    "seedvr2_split_reduce": [_P, _P, _L, _I, _I, _P],
     # x_ext, wk, xs, ws, bias, out, T, H, Wp, C, Co, W_out, out strides
     # (co, t, h, w), pixel tiles, channel tiles, stream
     "seedvr2_int8_conv3d": [_P] * 6 + [_I] * 6 + [_L] * 4 + [_I] * 2 + [_P],

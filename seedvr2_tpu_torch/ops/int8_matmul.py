@@ -2,11 +2,14 @@
 quantization helpers, the w8a8 linears and the DiT conversion; and the
 quantizing GEMM (kernel K10), an op with no caller on a serving path.
 
-Port of seedvr2_tpu.ops.int8_matmul (without tensor parallelism):
-weights are quantized per output channel once, activations per row at run
-time, and
+Port of seedvr2_tpu.ops.int8_matmul: weights are quantized per output
+channel once, activations per row at run time, and
 
     out[m, n] = bf16((float(sum_k xq[m, k] * wq[n, k]) * xs[m]) * ws[n])
+
+or the same product unrounded in fp32 (`out_dtype=torch.float32`), which a
+row-sharded projection under tensor parallelism sums over the tp ranks
+before its one rounding (`w8a8_linear(..., reduce)`).
 
 Layout: the port stores a weight (N, K), K-contiguous (the JAX package
 stores (K, N)), as 8-bit `wgmma` reads both operands; activations are
@@ -64,10 +67,12 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor,
     ws (N,) fp32.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel (the
-    s8 GEMM on the tiles `plan_qx` picks), or raise on what it does not
-    take: contiguous operands on one device, bf16 output, K % 32 == 0,
-    K > 0, N % 8 == 0, 16-byte aligned xq and wq (what its TMA loads
-    need; an operand that is not is refused, never copied)."""
+    s8 GEMM on the tiles `plan_qx` picks; out_dtype fp32 takes its fp32
+    epilogue, the same accumulator stored unrounded), or raise on what it
+    does not take: contiguous operands on one device, bf16 or fp32
+    output, K % 32 == 0, K > 0, N % 8 == 0, 16-byte aligned xq and wq
+    (what its TMA loads need; an operand that is not is refused, never
+    copied)."""
     m, k = xq.shape
     n, k2 = wq.shape
     if k != k2 or xs.shape != (m,) or ws.shape != (n,):
@@ -78,8 +83,9 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor,
         return int8_matmul_plain(xq, wq, xs, ws, out_dtype)
     if xq.device.type != "cuda":
         raise RuntimeError(f"int8_matmul: no kernel for {xq.device}")
-    if out_dtype != torch.bfloat16:
-        raise ValueError(f"int8_matmul kernel writes bf16, not {out_dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"int8_matmul kernel writes bf16 or fp32, not "
+                         f"{out_dtype}")
     for name, t, dt in (("xq", xq, torch.int8), ("wq", wq, torch.int8),
                         ("xs", xs, torch.float32), ("ws", ws, torch.float32)):
         if t.dtype != dt or not t.is_contiguous() or t.device != xq.device:
@@ -89,19 +95,23 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, xs: torch.Tensor,
     if k == 0 or k % 32 or n % 8 or xq.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError(f"int8_matmul kernel: needs K % 32 == 0 (K={k}), "
                          f"N % 8 == 0 (N={n}) and 16-byte aligned operands")
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
+    f32 = out_dtype == torch.float32
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
     if m and n:
         swap, bt = plan_qx(m)
         err = _build.kernel_library().lib.seedvr2_int8_matmul(
             xq.data_ptr(), wq.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-            out.data_ptr(), m, n, k, int(swap), bt,
+            out.data_ptr(), m, n, k, int(f32), int(swap), bt,
             torch.cuda.current_stream(xq.device).cuda_stream)
         _build.check(err, "seedvr2_int8_matmul")
         int8_matmul.launches += 1
+        int8_matmul.launches_f32 += f32
     return out
 
 
+# launches of the kernel, and of them those with the fp32 epilogue
 int8_matmul.launches = 0
+int8_matmul.launches_f32 = 0
 
 
 def quantize_rows_qx(x: torch.Tensor):
@@ -221,24 +231,36 @@ class W8A8Linear(nn.Module):
         return cls(q, s, bias)
 
 
-def _product(x, wq: torch.Tensor, ws: torch.Tensor, use_kernels: bool):
+def _product(x, wq: torch.Tensor, ws: torch.Tensor, use_kernels: bool,
+             reduce=None):
     """x (float tensor or PreQuantized) @ wq^T with scales, as (lead, N) in
-    x's dtype; float inputs are quantized per row first."""
+    x's dtype; float inputs are quantized per row first. reduce: the
+    product is taken in fp32, summed in place by `reduce`, then rounded."""
     if isinstance(x, PreQuantized):
         q, s, dtype = x.q, x.s, x.dtype
     else:
         (q, s), dtype = quantize_activations(x), x.dtype
     lead, k = q.shape[:-1], q.shape[-1]
     matmul = int8_matmul if use_kernels else int8_matmul_plain
-    out = matmul(q.reshape(-1, k), wq, s.reshape(-1), ws, out_dtype=dtype)
+    out = matmul(q.reshape(-1, k), wq, s.reshape(-1), ws,
+                 out_dtype=dtype if reduce is None else torch.float32)
+    if reduce is not None:
+        out = reduce(out).to(dtype)
     return out.reshape(*lead, wq.shape[0])
 
 
-def w8a8_linear(x, layer: W8A8Linear, use_kernels: bool = True
-                ) -> torch.Tensor:
+def w8a8_linear(x, layer: W8A8Linear, use_kernels: bool = True,
+                reduce=None) -> torch.Tensor:
     """Drop-in linear: x quantized per row (or a PreQuantized from a fused
-    producer), int8 GEMM, then the bias in the output dtype."""
-    out = _product(x, layer.w8a8, layer.ws, use_kernels)
+    producer), int8 GEMM, then the bias in the output dtype.
+
+    reduce: row-sharded tensor parallelism, as the JAX package's
+    psum_axis: a float x is quantized per row over its LOCAL K slice (a
+    finer scale grid than one rank's full-K absmax), a PreQuantized x
+    comes from K5 on the local hidden columns; K3 writes the fp32
+    partial, `reduce` sums it over the tp ranks, one rounding to x's
+    dtype, and the replicated bias once."""
+    out = _product(x, layer.w8a8, layer.ws, use_kernels, reduce)
     if layer.bias is not None:
         out = out + layer.bias.to(out.dtype)
     return out

@@ -3,10 +3,14 @@
 Port of seedvr2_tpu.ops.layers, dense, w8a8, Q8_0 and affine branches.
 Numerics follow the JAX package: fp32 statistics, products accumulated in
 fp32 (or int32 for w8a8) and rounded once to the activation dtype, bias
-added after the rounding.
+added after the rounding. Under tensor parallelism (parallel/tp.py) a
+row-sharded projection's partial product is summed over the tp ranks in
+fp32 (`reduce`) before that one rounding, as the JAX package's psum_axis
+does: rounding each partial to bf16 first loses mantissa bits per partial
+and compounds per layer (~1% pixel error at 2 chips, JAX measured).
 """
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,11 +50,34 @@ def group_norm(x: torch.Tensor, num_groups: int, eps: float = 1e-6,
     return out
 
 
-def linear(x, layer, use_kernels: bool = True) -> torch.Tensor:
+Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _matmul_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """x @ weight^T summed in fp32 and left unrounded. Half-precision
+    operands on a card go to cuBLAS's tensor-core GEMM with an fp32 output
+    (torch.mm's out_dtype), as JAX's dot with preferred_element_type does;
+    elsewhere the fp32 matmul of the widened operands (bf16 x bf16
+    products are exact in fp32)."""
+    w = weight.to(x.dtype)
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[0])
+    return torch.matmul(x.float(), w.float().t())
+
+
+def linear(x, layer, use_kernels: bool = True,
+           reduce: Reduce = None) -> torch.Tensor:
     """x @ W^T + b for an nn.Linear-shaped layer (weight (out, in)). The
     product accumulates in fp32 (cuBLAS and the CPU kernels both do), is
     rounded to x's dtype, and only then gets the bias, as in the JAX
     package.
+
+    reduce: a row-sharded projection's tp sum (parallel/comm.tp_reducer):
+    the local product is taken in fp32 (every layout's kernel writes fp32
+    then: K3, K6, K7), summed in place by `reduce`, rounded once to x's
+    dtype, and the replicated bias added once.
 
     A W8A8Linear serves the int8 lane (ops/int8_matmul.w8a8_linear, kernel
     K3 unless use_kernels is False); x may then be a PreQuantized from a
@@ -58,14 +85,18 @@ def linear(x, layer, use_kernels: bool = True) -> torch.Tensor:
     (ops/quant_matmul.py; their plain versions without use_kernels). A
     PreQuantized with any other layer raises TypeError."""
     if isinstance(layer, W8A8Linear):
-        return w8a8_linear(x, layer, use_kernels)
+        return w8a8_linear(x, layer, use_kernels, reduce)
     if isinstance(x, PreQuantized):
         raise TypeError("PreQuantized input requires w8a8 weights")
     if isinstance(layer, Q8Linear):
-        return quant_linear(x, layer, use_kernels)
+        return quant_linear(x, layer, use_kernels, reduce)
     if isinstance(layer, AffineLinear):
-        return affine_quant_linear(x, layer, use_kernels)
-    out = torch.matmul(x, layer.weight.to(x.dtype).t())
+        return affine_quant_linear(x, layer, use_kernels, reduce)
+    if reduce is not None:
+        acc = reduce(_matmul_f32(x, layer.weight))
+        out = acc.to(x.dtype)
+    else:
+        out = torch.matmul(x, layer.weight.to(x.dtype).t())
     if layer.bias is not None:
         out = out + layer.bias.to(x.dtype)
     return out
@@ -79,8 +110,8 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
-def mlp_forward(x, mlp, mlp_type: str, use_kernels: bool = True
-                ) -> torch.Tensor:
+def mlp_forward(x, mlp, mlp_type: str, use_kernels: bool = True,
+                reduce: Reduce = None) -> torch.Tensor:
     """swiglu: proj_out(silu(proj_in_gate(x)) * proj_in(x)); normal:
     proj_out(gelu_tanh(proj_in(x))).
 
@@ -88,7 +119,9 @@ def mlp_forward(x, mlp, mlp_type: str, use_kernels: bool = True
     (w8a8_double_linear), and a w8a8 proj_out takes silu(g) * u through
     the fused quantize (kernel K5, its plain version without use_kernels).
     x may be a PreQuantized there. Q8_0 and affine layers run each linear
-    on its own, as the JAX package does."""
+    on its own, as the JAX package does. reduce: tensor parallelism, the
+    proj_in* column-sharded (their biases with their columns) and proj_out
+    row-sharded, summed by `reduce` (linear)."""
     if mlp_type == "swiglu":
         gate, up, out = mlp.proj_in_gate, mlp.proj_in, mlp.proj_out
         if isinstance(gate, W8A8Linear) and isinstance(up, W8A8Linear):
@@ -96,12 +129,12 @@ def mlp_forward(x, mlp, mlp_type: str, use_kernels: bool = True
             if isinstance(out, W8A8Linear):
                 fused = (silu_mul_quantize if use_kernels
                          else silu_mul_quantize_plain)
-                return linear(fused(g, u), out, use_kernels)
-            return linear(silu(g) * u, out, use_kernels)
+                return linear(fused(g, u), out, use_kernels, reduce)
+            return linear(silu(g) * u, out, use_kernels, reduce)
         return linear(silu(linear(x, gate, use_kernels))
-                      * linear(x, up, use_kernels), out, use_kernels)
+                      * linear(x, up, use_kernels), out, use_kernels, reduce)
     return linear(gelu_tanh(linear(x, mlp.proj_in, use_kernels)),
-                  mlp.proj_out, use_kernels)
+                  mlp.proj_out, use_kernels, reduce)
 
 
 def swiglu_hidden_dim(dim: int, expand_ratio: int, multiple_of: int = 256) -> int:

@@ -328,7 +328,9 @@ class StreamedNaDiT:
     become views there, so no second host copy is kept). Outputs equal
     nadit_forward's on the resident model, bit for bit: the same kernels run
     on the same weights. One StreamedNaDiT serves a model at a time.
-    `attach_mesh` (multi-chip composition) is not ported yet."""
+    Under a mesh (the runner's attach_mesh) every rank streams its own
+    whole blocks into its own slots (tensor parallelism does not shard a
+    streamed DiT) and the runner spreads the batches over dp."""
 
     def __init__(self, model: NaDiT, keep_blocks: int = 0, device="cuda"):
         self.device = torch.device(device)

@@ -2,9 +2,8 @@
 dequantizing GEMMs (kernels K6 and K7), the quantizers, the quantised
 linears and the DiT conversions.
 
-Port of seedvr2_tpu.ops.quant_matmul (without the tensor-parallel fp32
-output). Weights keep one int8 per value and fp32 tables per 32-group along
-K:
+Port of seedvr2_tpu.ops.quant_matmul. Weights keep one int8 per value and
+fp32 tables per 32-group along K:
 
  - Q8_0 (`--quant q8`, GGUF Q8_0): w = q * s, q in [-127, 127];
  - affine (`--quant q4`, native GGUF Q4_K/Q5_K under `--quant q4k`):
@@ -19,7 +18,11 @@ On a CUDA tensor `quant_matmul_q8` and `quant_matmul_affine` launch the
 hand-written kernels of `csrc/quant_matmul.cu` (its header says what bounds
 them and how they keep the fp32 arithmetic exact), with the token width and
 K split `plan_tiles` picks; on a CPU tensor they run the plain versions,
-the JAX package's non-TPU emulation.
+the JAX package's non-TPU emulation. Both write bf16, or with
+`out_dtype=torch.float32` the unrounded fp32 product (the kernels' fp32
+epilogue, and an fp32 split-K reduction): what a row-sharded projection
+under tensor parallelism sums over the tp ranks before its one rounding
+(`quant_linear(..., reduce)`).
 """
 
 import functools
@@ -80,19 +83,21 @@ def dequantize_affine(q: torch.Tensor, s: torch.Tensor,
 
 
 def quant_matmul_q8_plain(x: torch.Tensor, q: torch.Tensor,
-                          scales: torch.Tensor) -> torch.Tensor:
+                          scales: torch.Tensor, out_dtype=None
+                          ) -> torch.Tensor:
     """Plain version of K6: x (M, K) @ dequantized (N, K)^T in fp32, rounded
-    to x's dtype."""
-    return torch.matmul(x.float(), dequantize_q8(q, scales).t()).to(x.dtype)
+    to out_dtype (default x's dtype)."""
+    return torch.matmul(x.float(), dequantize_q8(q, scales).t()).to(
+        out_dtype or x.dtype)
 
 
 def quant_matmul_affine_plain(x: torch.Tensor, q: torch.Tensor,
-                              s: torch.Tensor, m: torch.Tensor
-                              ) -> torch.Tensor:
-    """Plain version of K7: x (M, K) @ (q * s - m)^T in fp32, rounded to x's
-    dtype."""
-    return torch.matmul(x.float(),
-                        dequantize_affine(q, s, m).t()).to(x.dtype)
+                              s: torch.Tensor, m: torch.Tensor,
+                              out_dtype=None) -> torch.Tensor:
+    """Plain version of K7: x (M, K) @ (q * s - m)^T in fp32, rounded to
+    out_dtype (default x's dtype)."""
+    return torch.matmul(x.float(), dequantize_affine(q, s, m).t()).to(
+        out_dtype or x.dtype)
 
 
 def group_sums_plain(x: torch.Tensor) -> torch.Tensor:
@@ -230,40 +235,50 @@ def group_sums(x: torch.Tensor) -> torch.Tensor:
     return (xg[0].float() + xg[1].float())[:, :k // GROUP]
 
 
-def split_reduce_plain(ws: torch.Tensor) -> torch.Tensor:
+def split_reduce_plain(ws: torch.Tensor, out_dtype=torch.bfloat16
+                       ) -> torch.Tensor:
     """Plain version of the split-K reduction: ws (splits, M, N) fp32 summed
-    over the splits in order, rounded to bf16."""
+    over the splits in order, rounded to out_dtype (bf16 or fp32)."""
     acc = ws[0].clone()
     for part in ws[1:]:
         acc += part
-    return acc.to(torch.bfloat16)
+    return acc.to(out_dtype)
 
 
-def split_reduce(ws: torch.Tensor) -> torch.Tensor:
+def _out_dtype(name: str, out_dtype):
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} kernel writes bf16 or fp32, not "
+                         f"{out_dtype}")
+    return out_dtype == torch.float32
+
+
+def split_reduce(ws: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
     """The split-K reduction kernel alone (CPU tensors take the plain
     version); bit-equal to split_reduce_plain."""
     if ws.device.type == "cpu":
-        return split_reduce_plain(ws)
+        return split_reduce_plain(ws, out_dtype)
+    f32 = _out_dtype("split_reduce", out_dtype)
     splits, m, n = ws.shape
     if (ws.dtype != torch.float32 or not ws.is_contiguous() or n % 2
             or ws.data_ptr() % 16):
         raise ValueError("split_reduce kernel: ws must be contiguous fp32 "
                          "(splits, M, N), N even")
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=ws.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=ws.device)
     if m and n:
         _build.check(_build.kernel_library().lib.seedvr2_split_reduce(
-            ws.data_ptr(), out.data_ptr(), m * n // 2, splits,
+            ws.data_ptr(), out.data_ptr(), m * n // 2, splits, int(f32),
             _stream(ws)), "seedvr2_split_reduce")
     return out
 
 
-def _launch(name: str, x, q, tables) -> torch.Tensor:
+def _launch(name: str, x, q, tables, out_dtype) -> torch.Tensor:
     """Check what the kernel takes, plan its tiles, allocate the output and
     scratch, launch on the current stream and raise on a launch error."""
+    f32 = _out_dtype(name, out_dtype)
     _check_kernel(name, x, q, tables)
     m, k = x.shape
     n = q.shape[0]
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if not (m and n):
         return out
     tables, g4 = _tables_g4(tables)
@@ -276,7 +291,7 @@ def _launch(name: str, x, q, tables) -> torch.Tensor:
         fn = "seedvr2_quant_matmul_q8"
         err = lib.seedvr2_quant_matmul_q8(
             x.data_ptr(), q.data_ptr(), tables[0].data_ptr(), ws_ptr,
-            out.data_ptr(), m, n, k, g4, bt, splits, _stream(x))
+            out.data_ptr(), m, n, k, g4, bt, splits, int(f32), _stream(x))
     else:
         fn = "seedvr2_quant_matmul_affine"
         xw = _xg_width(k)
@@ -285,52 +300,59 @@ def _launch(name: str, x, q, tables) -> torch.Tensor:
         err = lib.seedvr2_quant_matmul_affine(
             x.data_ptr(), q.data_ptr(), tables[0].data_ptr(),
             tables[1].data_ptr(), xg.data_ptr(), mnp.data_ptr(), ws_ptr,
-            out.data_ptr(), m, n, k, g4, xw, bt, splits, _stream(x))
+            out.data_ptr(), m, n, k, g4, xw, bt, splits, int(f32),
+            _stream(x))
     _build.check(err, fn)
     return out
 
 
 def quant_matmul_q8(x: torch.Tensor, q: torch.Tensor,
-                    scales: torch.Tensor) -> torch.Tensor:
+                    scales: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """x (M, K) @ (q (N, K) int8 * scales (N, K/32) per 32-group)^T ->
-    (M, N) in x's dtype, fp32 accumulation.
+    (M, N) in out_dtype (default x's dtype), fp32 accumulation.
 
-    CPU tensors take the plain version. CUDA tensors launch K6, or raise on
-    what it does not take: bf16 x, contiguous 16-byte aligned operands on
-    one device, K % 32 == 0, N even."""
+    CPU tensors take the plain version. CUDA tensors launch K6 (its fp32
+    epilogue for an fp32 out_dtype), or raise on what it does not take:
+    bf16 x, bf16 or fp32 output, contiguous 16-byte aligned operands on one
+    device, K % 32 == 0, N even."""
     _check("quant_matmul_q8", x, q, (scales,))
     if x.device.type == "cpu":
-        return quant_matmul_q8_plain(x, q, scales)
+        return quant_matmul_q8_plain(x, q, scales, out_dtype)
     if x.device.type != "cuda":
         raise RuntimeError(f"quant_matmul_q8: no kernel for {x.device}")
-    out = _launch("quant_matmul_q8", x, q, (scales,))
+    out = _launch("quant_matmul_q8", x, q, (scales,), out_dtype or x.dtype)
     quant_matmul_q8.launches += 1
+    quant_matmul_q8.launches_f32 += out.dtype == torch.float32
     return out
 
 
+# launches of the kernel, and of them those with the fp32 epilogue
 quant_matmul_q8.launches = 0
+quant_matmul_q8.launches_f32 = 0
 
 
 def quant_matmul_affine(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
-                        m: torch.Tensor) -> torch.Tensor:
-    """x (M, K) @ (q * s - m per 32-group)^T -> (M, N) in x's dtype; q
-    (N, K) int8 raw quants, s and m (N, K/32) fp32. The min term is taken as
-    group_sums(x) @ m, as in the JAX kernel.
+                        m: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """x (M, K) @ (q * s - m per 32-group)^T -> (M, N) in out_dtype
+    (default x's dtype); q (N, K) int8 raw quants, s and m (N, K/32) fp32.
+    The min term is taken as group_sums(x) @ m, as in the JAX kernel.
 
     CPU tensors take the plain version; CUDA tensors launch K7 (its
     pre-pass first: the group sums and -m as bf16 planes) or raise (as
     quant_matmul_q8)."""
     _check("quant_matmul_affine", x, q, (s, m))
     if x.device.type == "cpu":
-        return quant_matmul_affine_plain(x, q, s, m)
+        return quant_matmul_affine_plain(x, q, s, m, out_dtype)
     if x.device.type != "cuda":
         raise RuntimeError(f"quant_matmul_affine: no kernel for {x.device}")
-    out = _launch("quant_matmul_affine", x, q, (s, m))
+    out = _launch("quant_matmul_affine", x, q, (s, m), out_dtype or x.dtype)
     quant_matmul_affine.launches += 1
+    quant_matmul_affine.launches_f32 += out.dtype == torch.float32
     return out
 
 
 quant_matmul_affine.launches = 0
+quant_matmul_affine.launches_f32 = 0
 
 
 # ------------------------------------------------------------------ linears
@@ -411,30 +433,39 @@ class AffineLinear(nn.Module):
                    torch.empty((n, k // GROUP), device=dev), bias)
 
 
-def _finish(out: torch.Tensor, lead, bias) -> torch.Tensor:
-    """(M, N) product -> (*lead, N), then the bias in the output dtype."""
-    out = out.reshape(*lead, -1)
+def _finish(out: torch.Tensor, lead, bias, dtype, reduce) -> torch.Tensor:
+    """(M, N) product -> (*lead, N): with `reduce` the fp32 product summed
+    over the tp ranks first; rounded to dtype, then the bias."""
+    if reduce is not None:
+        out = reduce(out)
+    out = out.to(dtype).reshape(*lead, -1)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
 
 
 def quant_linear(x: torch.Tensor, layer: Q8Linear,
-                 use_kernels: bool = True) -> torch.Tensor:
+                 use_kernels: bool = True, reduce=None) -> torch.Tensor:
     """linear() for a Q8Linear: the product rounded to x's dtype, then the
-    bias. x: (..., K)."""
+    bias. x: (..., K). reduce: row-sharded tensor parallelism, as the JAX
+    package's psum_axis: K6 writes the local K slice's product in fp32,
+    `reduce` sums it over the tp ranks, one rounding, the bias once."""
     mm = quant_matmul_q8 if use_kernels else quant_matmul_q8_plain
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    return _finish(mm(x2, layer.q8, layer.scales), x.shape[:-1], layer.bias)
+    f32 = None if reduce is None else torch.float32
+    return _finish(mm(x2, layer.q8, layer.scales, f32), x.shape[:-1],
+                   layer.bias, x.dtype, reduce)
 
 
 def affine_quant_linear(x: torch.Tensor, layer: AffineLinear,
-                        use_kernels: bool = True) -> torch.Tensor:
-    """linear() for an AffineLinear (as quant_linear)."""
+                        use_kernels: bool = True, reduce=None
+                        ) -> torch.Tensor:
+    """linear() for an AffineLinear (as quant_linear, K7)."""
     mm = quant_matmul_affine if use_kernels else quant_matmul_affine_plain
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    return _finish(mm(x2, layer.qa, layer.s, layer.m), x.shape[:-1],
-                   layer.bias)
+    f32 = None if reduce is None else torch.float32
+    return _finish(mm(x2, layer.qa, layer.s, layer.m, f32), x.shape[:-1],
+                   layer.bias, x.dtype, reduce)
 
 
 # --------------------------------------------------------------- conversion

@@ -1,0 +1,159 @@
+"""The device mesh of the port's serving parallelism.
+
+Port of seedvr2_tpu.parallel.mesh in PyTorch's idiom. JAX runs one SPMD
+program over a named mesh of chips; the port runs one process per device
+(`torchrun`, or the CLI's own launcher) and lays the processes of a
+torch.distributed world out as a mesh of named axes, row-major, as JAX
+reshapes its device list:
+
+ - dp: data parallel, independent batches and VAE tiles;
+ - tp: tensor parallel, the DiT's attention heads and mlp hidden
+   (parallel/tp.py).
+
+`Mesh` answers what the runner asks of JAX's mesh (`shape` as a dict,
+`axis_names`) and holds one process group a line of each axis, made with
+`torch.distributed.new_group` on the backend asked for (NCCL between
+cards, gloo on the CPU, and gloo named explicitly where two ranks share one
+card, which NCCL refuses). Every collective runs in parallel/comm.py.
+
+The fsdp axis and `param_sharding` / `shard_params` serve the trainer and
+wait for its port.
+"""
+
+import os
+from dataclasses import dataclass, field
+from itertools import product
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def factorize(n: int, ways: int = 3) -> Sequence[int]:
+    """Split n into `ways` near-equal power factors (largest first)."""
+    factors = [1] * ways
+    i = 0
+    remaining = n
+    primes = []
+    d = 2
+    while remaining > 1:
+        while remaining % d == 0:
+            primes.append(d)
+            remaining //= d
+        d += 1
+    for p in sorted(primes, reverse=True):
+        factors[i % ways] *= p
+        i += 1
+    return sorted(factors, reverse=True)
+
+
+@dataclass(eq=False)
+class Mesh:
+    """World ranks `ranks` laid out row-major over `axis_names` with extents
+    `shape`; `rank` is this process's world rank (None outside a process
+    group: a one-rank mesh). `groups` holds the process groups of the lines
+    this rank lies on, keyed by their ranks, and of the whole mesh."""
+
+    axis_names: Tuple[str, ...]
+    shape: Dict[str, int]
+    ranks: Tuple[int, ...]
+    rank: int = 0
+    groups: Dict[Tuple[int, ...], object] = field(default_factory=dict,
+                                                   repr=False)
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def member(self) -> bool:
+        return self.rank in self.ranks
+
+    def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
+        """{axis: index} of a world rank (default this one)."""
+        pos = self.ranks.index(self.rank if rank is None else rank)
+        idx = np.unravel_index(pos, [self.shape[a] for a in self.axis_names])
+        return {a: int(i) for a, i in zip(self.axis_names, idx)}
+
+    def rank_at(self, **coords) -> int:
+        """The world rank at the given axis indices (missing axes: 0)."""
+        idx = [coords.get(a, 0) for a in self.axis_names]
+        pos = np.ravel_multi_index(idx, [self.shape[a]
+                                         for a in self.axis_names])
+        return self.ranks[int(pos)]
+
+    def line(self, axis: Optional[str] = None) -> Tuple[int, ...]:
+        """The world ranks that share every index of this rank but
+        `axis`'s, in axis order; the whole mesh for axis None."""
+        if axis is None:
+            return self.ranks
+        here = self.coords()
+        return tuple(self.rank_at(**{**here, axis: i})
+                     for i in range(self.shape.get(axis, 1)))
+
+    def group(self, axis: Optional[str] = None):
+        """The process group of line(axis); None for a line of one rank,
+        which needs no collective."""
+        ranks = self.line(axis)
+        return None if len(ranks) == 1 else self.groups[ranks]
+
+
+def make_mesh(n_devices: Optional[int] = None, axis_names=("dp", "tp"),
+              shape: Optional[Sequence[int]] = None,
+              backend: Optional[str] = None) -> Mesh:
+    """Mesh over the first `n_devices` ranks of the torch.distributed world
+    (default the whole world), as JAX's takes the first n devices. With
+    shape None the
+    count is factorized near-equally over the axes; an explicit shape pins
+    each axis' extent (the CLI's --tensor_parallel -> (dp, tp)) and must lay
+    out n_devices exactly, as in JAX. backend: the process groups' backend
+    (None: the world's). Every rank of the world calls this with the same
+    arguments (process groups are made collectively); a rank outside the
+    mesh gets it with `member` False. Without an initialised process group
+    only a one-rank mesh is possible."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = n_devices or world
+    if shape is None:
+        shape = factorize(n, len(axis_names))
+    elif len(shape) != len(axis_names) or int(np.prod(shape)) != n:
+        raise ValueError(f"mesh shape {tuple(shape)} does not lay out "
+                         f"{n} devices over axes {tuple(axis_names)}")
+    if n > world:
+        raise ValueError(f"a mesh of {n} ranks does not fit a world of "
+                         f"{world}")
+    ranks = tuple(range(n))
+    mesh = Mesh(tuple(axis_names), dict(zip(axis_names, map(int, shape))),
+                ranks, dist.get_rank() if dist.is_initialized() else 0)
+    if n == 1:
+        return mesh
+    grid = np.asarray(ranks).reshape(tuple(shape))
+    lines = [ranks]
+    for ax in range(len(axis_names)):
+        if shape[ax] == 1:
+            continue
+        rest = [range(s) for i, s in enumerate(shape) if i != ax]
+        for idx in product(*rest):
+            sel = list(idx)
+            sel.insert(ax, slice(None))
+            lines.append(tuple(int(r) for r in grid[tuple(sel)]))
+    # collective: every world rank makes every group once, in one order
+    for line in dict.fromkeys(lines):
+        group = dist.new_group(list(line), backend=backend)
+        if mesh.rank in line:
+            mesh.groups[line] = group
+    return mesh
+
+
+def local_rank() -> int:
+    """This process's index among the processes of its host (torchrun's
+    LOCAL_RANK; 0 outside a launcher)."""
+    return int(os.environ.get("LOCAL_RANK", "0"))
+
+
+def rank_device(device: str = "cuda") -> torch.device:
+    """The device this rank serves on: card LOCAL_RANK modulo the visible
+    cards for "cuda", the CPU for "cpu"."""
+    if torch.device(device).type != "cuda":
+        return torch.device("cpu")
+    return torch.device("cuda", local_rank() % torch.cuda.device_count())

@@ -21,8 +21,15 @@ _GB = 1024 ** 3
 
 
 def _rank_tag() -> str:
-    """' [rankN]' in a multi-process run; the port has no process groups
-    yet (parallelism is still to port), so always ''."""
+    """' [rankN]' when a torch.distributed process group of more than one
+    rank is initialised (the port's multi-process serving: torchrun, the
+    CLI's launcher, --num_hosts fleets), '' otherwise; as the JAX package
+    tags its multi-process runs (the reference's rank-tagged logging)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return f" [rank{dist.get_rank()}]"
     return ""
 
 

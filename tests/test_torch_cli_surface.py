@@ -66,10 +66,7 @@ from .test_torch_pipeline import DIT_KW, VAE_KW
 
 # ------------------------------------------------------------- parsers
 
-PARALLEL = {"--data_parallel", "--tensor_parallel", "--num_hosts",
-            "--host_index", "--join_parts", "--coordinator_address"}
-
-# every non-parallel flag of inference_cli.py:45-256 with a value to parse
+# every flag of inference_cli.py:45-256 with a value to parse
 SAMPLES = {
     "--output": ["o.mp4"], "--output_format": ["png"], "--model_dir": ["/m"],
     "--dit_model": ["x.gguf"], "--vae_model": ["v.safetensors"],
@@ -90,6 +87,9 @@ SAMPLES = {
     "--parity_min_psnr": ["30.5"], "--convert_embeddings": ["a", "b"],
     "--allow_zero_embeddings": [], "--doctor": [], "--device": ["cpu"],
     "--debug": [], "--profile_dir": ["/p"],
+    "--data_parallel": ["off"], "--tensor_parallel": ["2"],
+    "--num_hosts": ["3"], "--host_index": ["1"], "--join_parts": [],
+    "--coordinator_address": ["h0:1234"],
 }
 
 
@@ -131,10 +131,10 @@ def parsers():
 
 
 def test_flag_list_is_the_jax_surface(parsers):
-    """SAMPLES names every JAX flag but the parallel ones, and the port has
-    no flag JAX lacks."""
+    """SAMPLES names every JAX flag, the parallel ones among them, and the
+    port has no flag JAX lacks."""
     jax_flags = set(parsers[0]) - {"-h", "--help"}
-    assert set(SAMPLES) == jax_flags - PARALLEL
+    assert set(SAMPLES) == jax_flags
     assert set(parsers[1]) - {"-h", "--help"} == set(SAMPLES)
 
 
@@ -168,11 +168,11 @@ def test_input_positional_optional():
 def test_presets_and_explicit_flags_as_jax(argv):
     """tests/test_cli.py's preset cases: the bundle applies where a flag was
     left at its default, explicit flags win, 'quality' changes nothing;
-    every value the port shares with JAX equal."""
+    every value equal to JAX's."""
     t, j = cli.parse_arguments(["in.png", *argv]), _jax_args(["in.png",
                                                               *argv])
     tv, jv = vars(t), vars(j)
-    assert set(tv) == set(jv) - {f[2:] for f in PARALLEL}
+    assert set(tv) == set(jv)
     assert tv == {k: jv[k] for k in tv}
     if argv[:2] == ["--preset", "throughput"]:
         assert t.vae_decode_tiled and t.vae_encode_tiled

@@ -1492,3 +1492,115 @@ def test_npy_chunk_run_on_gpu(cuda_device, tmp_path, monkeypatch):
     away = [0, 1, 2, 5, 6, 7, 8]
     np.testing.assert_array_equal(chunked[away], whole[away])
     assert np.abs(chunked[3:5] - whole[3:5]).max() < 2e-2
+
+
+# tensor parallelism's row shards: (K, N) of the 3B attention proj_out (K =
+# 2560 / tp), the 3B mlp proj_out (6912 / tp), the 7B attention proj_out
+# (3072 / tp) and mlp proj_out (12288 / tp) at tp = 2 and 4, at the text
+# rows, the time embedding's and a 1080p latent's tokens (the split-K path
+# runs at the small M)
+TP_SHARDS = [(1280, 2560), (640, 2560), (3456, 2560), (1728, 2560),
+             (1536, 3072), (768, 3072), (6144, 3072), (3072, 3072)]
+TP_M = (8, 64, 16320)
+
+
+def _rel_l2(out, ref):
+    return ((out.float() - ref.float()).norm()
+            / ref.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", TP_SHARDS)
+@pytest.mark.parametrize("m", TP_M)
+def test_k3_fp32_output_exact_on_gpu(cuda_device, m, n, k):
+    """K3's fp32 epilogue (the partial a row-sharded w8a8 projection sums
+    over the tp ranks): the same exact int32 sums and scale order, stored
+    unrounded, so bit-equal to the plain version; its bf16 output is this
+    fp32 output rounded once."""
+    gen = torch.Generator(cuda_device).manual_seed(m + k)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=cuda_device,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device=cuda_device,
+                       dtype=torch.int8)
+    xs = torch.rand(m, generator=gen, device=cuda_device) * 0.01
+    ws = torch.rand(n, generator=gen, device=cuda_device) * 0.01
+    before = tim.int8_matmul.launches_f32
+    out = tim.int8_matmul(xq, wq, xs, ws, out_dtype=torch.float32)
+    assert tim.int8_matmul.launches_f32 == before + 1
+    assert out.dtype == torch.float32
+    assert torch.equal(out, tim.int8_matmul_plain(xq, wq, xs, ws,
+                                                  torch.float32))
+    assert torch.equal(tim.int8_matmul(xq, wq, xs, ws),
+                       out.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        tim.int8_matmul(xq, wq, xs, ws, out_dtype=torch.float16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", TP_SHARDS)
+@pytest.mark.parametrize("m", TP_M)
+def test_k6_k7_fp32_output_on_gpu(cuda_device, m, n, k):
+    """K6's and K7's fp32 epilogue (and, where the plan splits K, the fp32
+    split-K reduction): the accumulator the bf16 output rounds, stored
+    unrounded, so the bf16 output is this one rounded once; against the
+    plain fp32 products, the sums' order (K6, relative L2 <= 1e-5) and K7's
+    hi / lo min term (<= 1e-4) apart."""
+    gen = torch.Generator(cuda_device).manual_seed(m * 3 + k)
+    x, q, s = _q8_case(gen, m, n, k, cuda_device)
+    before = tqm.quant_matmul_q8.launches_f32
+    out = tqm.quant_matmul_q8(x, q, s, out_dtype=torch.float32)
+    assert tqm.quant_matmul_q8.launches_f32 == before + 1
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert torch.equal(tqm.quant_matmul_q8(x, q, s), out.to(torch.bfloat16))
+    assert _rel_l2(out, tqm.quant_matmul_q8_plain(x, q, s,
+                                                  torch.float32)) <= 1e-5
+    x, q, s, mn = _affine_case(gen, m, n, k, 15, cuda_device)
+    before = tqm.quant_matmul_affine.launches_f32
+    out = tqm.quant_matmul_affine(x, q, s, mn, out_dtype=torch.float32)
+    assert tqm.quant_matmul_affine.launches_f32 == before + 1
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert torch.equal(tqm.quant_matmul_affine(x, q, s, mn),
+                       out.to(torch.bfloat16))
+    assert _rel_l2(out, tqm.quant_matmul_affine_plain(
+        x, q, s, mn, torch.float32)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(8, 2560, 1280), (64, 3072, 6144),
+                                   (8, 3072, 3072)])
+def test_split_reduce_fp32_on_gpu(cuda_device, m, n, k):
+    """At these shard shapes the plan splits K; the reduction into fp32 is
+    bit-equal to its plain version and, rounded, to the bf16 one."""
+    _, splits = tqm.plan_tiles(m, n, k)
+    assert splits > 1
+    gen = torch.Generator(cuda_device).manual_seed(n + k)
+    ws = torch.randn(splits, m, n, generator=gen, device=cuda_device)
+    out = tqm.split_reduce(ws, torch.float32)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, tqm.split_reduce_plain(ws, torch.float32))
+    assert torch.equal(tqm.split_reduce(ws), out.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(8, 2560, 1280), (3600, 2560, 3456),
+                                   (3600, 3072, 6144)])
+def test_dense_row_shard_fp32_product_on_gpu(cuda_device, m, n, k):
+    """The dense tp lane's row-sharded product: bf16 operands into an fp32
+    output on the tensor cores (no fp32 copy of the weight), within the
+    sums' order of the fp32 product of the widened operands."""
+    from seedvr2_tpu_torch.ops.layers import _matmul_f32
+
+    gen = torch.Generator(cuda_device).manual_seed(m + n)
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    w = torch.randn(n, k, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    out = _matmul_f32(x[None], w)
+    assert out.dtype == torch.float32 and out.shape == (1, m, n)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = torch.matmul(x.float(), w.float().t())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert _rel_l2(out[0], ref) <= 1e-5

@@ -148,7 +148,7 @@ class _StubVAE:
         return x[..., :1]
 
     def encode(self, x, tiled=False, tile_size=None, tile_overlap=None,
-               tile_mode=None):
+               tile_mode=None, mesh=None):
         return self._call(x, tiled, tile_size)
 
     decode = encode
