@@ -181,9 +181,27 @@ network. In order it:
     streaming (its keep printed); after the throughput lane the 7B w8a8
     tree streamed gives one forward bit-equal to its resident forward (K3,
     K4 launched);
- 12. prints the kernels' JSON record (K1-K12, launches by path, the 7B
-    paths included, and each 7B kernel's record under "7b"), the card
-    line again, and last {"ok": true, "device": {...}}.
+ 13. the trainer (seedvr2_tpu_torch/parallel/train.py), after every
+    serving model is freed: K1's backward kernels (dq, dk/dv, the norm /
+    rope pre-pass backward) each against its plain version, and the whole
+    backward against its plain version, at the record shape (B=12 S=512
+    kv_len=463) and the 1080p clip plan's largest window group, each timed
+    after an L2 flush beside its plain version, its bound and torch SDPA's
+    backward, K1's serving time printed beside them; K2's backward (K2 on
+    the inverse index) bit-equal to index_select's gradient; two ranks on
+    cuda:0 over gloo at fsdp 2 (the 3B's widths, 4 blocks) taking three
+    steps equal to one rank's, with a checkpoint saved after step 2,
+    restored onto the mesh and stepped again bit-equal; then the full
+    32-layer 3B on a 64x64x16 latent (a 512x512 frame, 1024 tokens) at
+    batch 2 with the packaged text embedding: one backward with every
+    parameter's gradient present and finite, three AdamW steps with the
+    kernels (the path's K1 / K2 forward and backward launches, the step
+    seconds, the peak memory against the 57-60 GiB reckoned) and the same
+    steps with the plain versions, the losses held to each other;
+ 12. prints the kernels' JSON record (K1-K12 and the backward kernels,
+    launches by path, the 7B paths included, and each 7B kernel's record
+    under "7b"), the card line again, and last {"ok": true, "device":
+    {...}}.
 
 The uniform window plan and the last three kernels (K8 dense flash
 attention, K9 windowed flash attention, K10 quantizing int8 GEMM) add, in
@@ -473,6 +491,52 @@ COLOUR_EXACT_ABS, LAB_MAX_ABS, BINNED_SHARE = 1e-5, 1e-2, 1e-3
 # relative L2 distance to the untiled decode at the same tile and overlap.
 REF_TILED_RATIO = 2.0
 
+# phase 13, the trainer: the full 32-layer 3B on a 64 x 64 x 16 latent (one
+# 512 x 512 frame, 1024 tokens) at batch 2 with the packaged text
+# embedding, TRAIN_STEPS AdamW steps; the two ranks' model (the 3B's widths,
+# TRAIN_RANK_LAYERS blocks, so that two processes fit one card); the peak
+# reckoned for the full model (fp32 parameters, gradients and both moments
+# 50.5 GiB, the bf16 weight copies 6.3 GiB, the activations a few GiB); the
+# kernels the train path must launch
+TRAIN_LATENT = (1, 64, 64)
+TRAIN_BATCH = 2
+TRAIN_STEPS = 3
+TRAIN_RANK_LAYERS = 4
+TRAIN_PEAK_GIB = (57, 60)
+TRAIN_KERNELS = ("K1", "K2", "K1bwd_dq", "K1bwd_dkdv", "K1bwd_prepass",
+                 "K2bwd")
+# K1's backward parts against their plain versions on the same inputs
+# (relative L2): dq, dk, lse, delta and the table gradients are fp32 sums of
+# the same products in another order (exp2f against torch.exp2, table
+# partials folded over the batch rows): BWD_F32_REL; dv and the pre-pass's
+# d q / d k are such sums rounded to bf16, where a sum an ulp away can round
+# to the neighbouring bf16 value: BWD_BF16_REL. The whole backward against
+# its plain version, which keeps q-hat and k-hat in fp32 where the kernels
+# take K1's bf16 pre-pass output: a bf16-class BWD_WHOLE_REL, as K1's own
+# K1_ATOL.
+BWD_F32_REL = 1e-5
+BWD_BF16_REL = 1e-3
+BWD_WHOLE_REL = 2e-2
+# the full 3B's one backward with the kernels against the same backward
+# through the plain versions (same bf16 model, batch and draws), relative
+# L2 over every gradient at once and on each parameter's own: the two
+# differ by K1's bf16 q-hat / k-hat and probabilities in the forward and
+# backward of 32 layers, bf16-class. Read on the H100: 0.0027 over all,
+# 0.0049 on the median leaf, 0.0089 on the worst (a qk-norm weight, reached
+# only through K1's tables); bounds about 3.5x those
+BWD_3B_REL = 1e-2
+BWD_LEAF_REL = 3e-2
+# the 3B's losses over three steps with the kernels against the same steps
+# with the plain versions: the forward's bf16-class attention differences
+# (DIT_REL_L2 on the DiT's output) and the gradients' move the loss far
+# less than its size (2.2e-5 relative at most on the H100): within 1e-3
+TRAIN_LOSS_REL = 1e-3
+# two ranks at fsdp 2 against one rank, same card, same data: dp 1 means
+# each rank computes one rank's arithmetic on parameters gathered bit for
+# bit, so the two agree unless a library reduction is not deterministic:
+# losses and parameters within 1e-5 relative (bit-equality printed)
+TRAIN_RANKS_REL = 1e-5
+
 # H100 SXM data-sheet peaks (dense), for the bounds
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
@@ -520,6 +584,21 @@ KERNELS = {
     "K7f32": ("quant_matmul_affine (fp32 out)",
               "seedvr2_tpu_torch/csrc/quant_matmul.cu",
               "comfyui-seedvr2_tpu/ops/quant_matmul.py:113"),
+    # the trainer's gradients of K1 and K2: the JAX package differentiates
+    # the jnp compositions behind the same Pallas kernels (no backward
+    # kernel), so they replace K1's and K2's gradients
+    "K1bwd_dq": ("attention_backward_dq (K1's gradient, dq part)",
+                 "seedvr2_tpu_torch/csrc/attention_backward.cu",
+                 "comfyui-seedvr2_tpu/ops/flash_attention.py:224"),
+    "K1bwd_dkdv": ("attention_backward_dkdv (K1's gradient, dk/dv part)",
+                   "seedvr2_tpu_torch/csrc/attention_backward.cu",
+                   "comfyui-seedvr2_tpu/ops/flash_attention.py:224"),
+    "K1bwd_prepass": ("prepass_backward (K1's gradient, norm / rope part)",
+                      "seedvr2_tpu_torch/csrc/attention_backward.cu",
+                      "comfyui-seedvr2_tpu/ops/flash_attention.py:224"),
+    "K2bwd": ("gather_rows on the inverse index (K2's gradient)",
+              "seedvr2_tpu_torch/csrc/gather_rows.cu",
+              "comfyui-seedvr2_tpu/ops/gather.py:70"),
 }
 # the design each kernel's record names
 DESIGN = {
@@ -549,6 +628,14 @@ DESIGN = {
     "K6f32": "K6 with an fp32 epilogue (TMA store of fp32 rows) and an fp32 "
              "split-K reduction",
     "K7f32": "K7 with K6's fp32 epilogue and fp32 split-K reduction",
+    "K1bwd_dq": "a block per 64 q rows: one lse sweep, then dS and dQ with "
+                "fp32 FMAs from shared memory (4 x 4 a thread)",
+    "K1bwd_dkdv": "a block per 64 keys walking the q tiles: P, dS, dV and dK "
+                  "with fp32 FMAs from shared memory, dV into d qkv",
+    "K1bwd_prepass": "D/8 threads a row over the heads as the forward "
+                     "pre-pass; table partials a row, folded over the batch "
+                     "rows in order",
+    "K2bwd": "K2 itself on the inverse permutation",
 }
 # the path whose launches each kernel's record reports
 DENSE_PATH, OP_PATH = "dense (no product caller)", "op (no product caller)"
@@ -556,7 +643,9 @@ MAIN_PATH = {"K1": "default", "K2": "default", "K3": "throughput",
              "K4": "throughput", "K5": "throughput", "K6": "q8", "K7": "q4",
              "K8": DENSE_PATH, "K9": "uniform", "K10": OP_PATH,
              "K11": "vae_int8", "K12": "fused_norm", "K3f32": "tp2",
-             "K6f32": "tp2", "K7f32": "tp2"}
+             "K6f32": "tp2", "K7f32": "tp2", "K1bwd_dq": "train",
+             "K1bwd_dkdv": "train", "K1bwd_prepass": "train",
+             "K2bwd": "train"}
 
 
 def fail(msg: str) -> None:
@@ -4155,6 +4244,516 @@ def nccl_world_one(torch, np, cli, here):
         "the first run built the cached models)")
 
 
+# ----------------------------------------------------------- the trainer
+
+
+def k1_bwd_case(torch, fa, b, s, kv, H, D, tabs, gen, device):
+    """Inputs of K1's backward at one shape: qkv with its lane pad rows
+    zero, K1's output, an incoming gradient, K1's own pre-pass output."""
+    qkv = torch.randn(b, s, 3 * H * D, generator=gen, device=device).to(
+        torch.bfloat16)
+    qkv[:, kv:] = 0
+    out = fa.packed_window_attention(qkv, H, D, *tabs, 1e-5, kv)
+    dout = torch.randn(b, s, H * D, generator=gen, device=device).to(
+        torch.bfloat16)
+    x = qkv.view(b, s, 3, H, D)
+    qh, kh = fa.attention_prepass(x[:, :, 0], x[:, :, 1], *tabs, 1e-5,
+                                  D ** -0.5 * 1.4426950408889634)
+    return qkv, out, dout, x, qh, kh
+
+
+def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
+    """K1's backward, each part against its plain version on the same
+    inputs (BWD_* tolerances) and the whole against its plain version, at
+    the record shape (B=12 S=512 kv_len=463, random tables), at the 1080p
+    clip plan's largest window group (its real tables) and at every window
+    group of the training plan, window and shifted (the 3B at TRAIN_LATENT,
+    B = TRAIN_BATCH windows of a group, its tables folded with random
+    qk-norm weights): the shapes the train path launches. The first two
+    shapes' parts are timed after an L2 flush beside their plain versions,
+    their bounds and torch SDPA's backward at the same shape (all three
+    gradients at once: the yardstick of the dq and dk/dv parts). Returns
+    the record shape's three records."""
+    import torch.nn.functional as F
+
+    H, D, eps = cfg.heads, cfg.head_dim, cfg.norm_eps
+    gen = torch.Generator(device).manual_seed(13)
+    dplan = nadit.upload_plan(nadit.build_dit_plan(cfg, (2, 136, 240),
+                                                   TXT_LEN), cfg, device)
+    g = max((g for gs in dplan.groups.values() for g in gs),
+            key=lambda g: g.n * g.sk_pad ** 2)
+    ones = torch.ones(D, device=device)
+    cases = [("B=12 S=512 kv_len=463", 12, 512, 463,
+              (*rope_tables(torch, gen, 512, D, device),
+               *rope_tables(torch, gen, 512, D, device))),
+             (f"1080p clip plan largest group n={g.n} wlen={g.wlen} "
+              f"S={g.sk_pad} kv_len={g.skv}", g.n, g.sk_pad, g.skv,
+              nadit._fold_norm_tables(g.cos, g.sin, ones, ones, ones, ones,
+                                      g.wlen, g.skv))]
+    timed = len(cases)
+    tplan = nadit.upload_plan(nadit.build_dit_plan(cfg, TRAIN_LATENT,
+                                                   TXT_LEN), cfg, device)
+    wgen = torch.Generator(device).manual_seed(15)
+    norm_w = [1.0 + 0.1 * torch.randn(D, generator=wgen, device=device)
+              for _ in range(4)]
+    for method, groups in tplan.groups.items():
+        for i, g in enumerate(groups):
+            cases.append((
+                f"train plan {method} group {i} n={g.n} wlen={g.wlen} "
+                f"S={g.sk_pad} kv_len={g.skv} B={TRAIN_BATCH * g.n}",
+                TRAIN_BATCH * g.n, g.sk_pad, g.skv,
+                nadit._fold_norm_tables(g.cos, g.sin, *norm_w, g.wlen,
+                                        g.skv)))
+    recs = {}
+    worst = {}
+    for n_case, (label, b, s, kv, tabs) in enumerate(cases):
+        qkv, out, dout, x, qh, kh = k1_bwd_case(torch, fa, b, s, kv, H, D,
+                                                tabs, gen, device)
+        v = x[:, :, 2]
+        dq, lse, delta = fa.attention_backward_dq(qh, kh, v, out, dout, kv)
+        dk, dv = fa.attention_backward_dkdv(qh, kh, v, dout, lse, delta, kv)
+        pre = fa.prepass_backward(x[:, :, 0], x[:, :, 1], *tabs, eps, dq, dk,
+                                  D ** -0.5, fa._LN2)
+        whole = fa.packed_window_attention_backward(qkv, H, D, *tabs, eps,
+                                                    kv, out, dout)
+        again = fa.packed_window_attention_backward(qkv, H, D, *tabs, eps,
+                                                    kv, out, dout)
+        torch.cuda.synchronize()
+        p_dq, p_lse, p_delta = fa.attention_backward_dq_plain(qh, kh, v, out,
+                                                              dout, kv)
+        p_dk, p_dv = fa.attention_backward_dkdv_plain(qh, kh, v, dout, lse,
+                                                      delta, kv)
+        p_pre = fa.prepass_backward_plain(x[:, :, 0], x[:, :, 1], *tabs, eps,
+                                          dq, dk, D ** -0.5, fa._LN2)
+        p_whole = fa.packed_window_attention_backward_plain(
+            qkv, H, D, *tabs, eps, kv, out, dout)
+        errs = {
+            "dq": (rel_l2(dq, p_dq), BWD_F32_REL),
+            "lse": (rel_l2(lse[..., :kv], p_lse[..., :kv]), BWD_F32_REL),
+            "delta": (rel_l2(delta, p_delta), BWD_F32_REL),
+            "dk": (rel_l2(dk, p_dk), BWD_F32_REL),
+            "dv": (rel_l2(dv, p_dv), BWD_BF16_REL),
+            "pre-pass d q": (rel_l2(pre[0], p_pre[0]), BWD_BF16_REL),
+            "pre-pass d k": (rel_l2(pre[1], p_pre[1]), BWD_BF16_REL),
+            **{f"d {n}": (rel_l2(a, r), BWD_F32_REL) for n, a, r in zip(
+                ("cos_q", "sin_q", "cos_k", "sin_k"), pre[2], p_pre[2])},
+            **{f"whole d {n}": (rel_l2(a, r), BWD_WHOLE_REL)
+               for n, a, r in zip(("qkv", "cos_q", "sin_q", "cos_k",
+                                   "sin_k"), whole, p_whole)}}
+        bad = {k: e for k, (e, tol) in errs.items()
+               if not e <= tol or e != e}
+        rerun = all(torch.equal(a, c) for a, c in zip(whole, again))
+        pad = (whole[0][:, kv:].abs().max().item() if kv < s else 0.0)
+        say(f"K1 backward {label}: relative L2 to the plain versions "
+            + ", ".join(f"{k} {e:.3g}" for k, (e, _) in errs.items())
+            + f" (bounds: fp32 sums {BWD_F32_REL}, bf16 outputs "
+            f"{BWD_BF16_REL}, whole {BWD_WHOLE_REL}); rerun bit-equal "
+            f"{rerun}; d qkv at or past kv_len max |.| {pad}")
+        if bad or not rerun or pad != 0.0 or not all(
+                torch.isfinite(t).all() for t in whole):
+            fail(f"K1 backward {label}: beyond bounds {bad}, rerun equal "
+                 f"{rerun}, pad rows {pad}")
+        if n_case >= timed:
+            for k, (e, _) in errs.items():
+                worst[k] = max(worst.get(k, 0.0), e)
+            del qkv, out, dout, x, qh, kh, dq, dk, dv, pre, whole, again
+            del p_dq, p_dk, p_dv, p_pre, p_whole
+            continue
+        # times, bounds, the plain versions and SDPA's backward
+        def max_abs(*pairs):
+            return max((a.float() - r.float()).abs().max().item()
+                       for a, r in pairs)
+
+        nq = b * H * kv * D  # the rows below kv_len, every head
+        parts = {
+            "K1bwd_dq": (
+                lambda: fa.attention_backward_dq(qh, kh, v, out, dout, kv),
+                lambda: fa.attention_backward_dq_plain(qh, kh, v, out, dout,
+                                                       kv),
+                6.0 * b * H * kv * kv * D, nq * 2 * 5 + nq * 4
+                + 2 * b * H * kv * 4, max_abs((dq, p_dq))),
+            "K1bwd_dkdv": (
+                lambda: fa.attention_backward_dkdv(qh, kh, v, dout, lse,
+                                                   delta, kv),
+                lambda: fa.attention_backward_dkdv_plain(qh, kh, v, dout,
+                                                         lse, delta, kv),
+                8.0 * b * H * kv * kv * D, nq * 2 * 4 + 2 * b * H * kv * 4
+                + nq * (4 + 2), max_abs((dk, p_dk), (dv, p_dv))),
+            "K1bwd_prepass": (
+                lambda: fa.prepass_backward(x[:, :, 0], x[:, :, 1], *tabs,
+                                            eps, dq, dk, D ** -0.5,
+                                            fa._LN2),
+                lambda: fa.prepass_backward_plain(x[:, :, 0], x[:, :, 1],
+                                                  *tabs, eps, dq, dk,
+                                                  D ** -0.5, fa._LN2),
+                0.0, nq * (2 * 2 + 2 * 4 + 2 * 2) + 8 * s * D * 4,
+                max_abs(*zip(pre[:2], p_pre[:2]), *zip(pre[2], p_pre[2]))),
+        }
+        q, k, vv, mask = sdpa_inputs(torch, qkv, H, D, tabs, eps, kv)
+        q, k, vv = (t.detach().requires_grad_() for t in (q, k, vv))
+        o = F.scaled_dot_product_attention(q, k, vv, attn_mask=mask)
+        do = dout.view(b, s, H, D).transpose(1, 2)
+        lib_ms = kernel_ms(torch, lambda: torch.autograd.grad(
+            o, (q, k, vv), do, retain_graph=True), 10)
+        whole_ms = kernel_ms(
+            torch, lambda: fa.packed_window_attention_backward(
+                qkv, H, D, *tabs, eps, kv, out, dout), 5)
+        for key, (run, plain, ops, nbytes, err) in parts.items():
+            ms = kernel_ms(torch, run, 10)
+            plain_ms = kernel_ms(torch, plain, 3)
+            bound, by = bound_ms(ops, PEAK_BF16, nbytes)
+            lib = lib_ms if key != "K1bwd_prepass" else None
+            say(f"{key} {label}: kernel {ms:.4f} ms"
+                + (f" ({ops / ms / 1e9:.1f} TFLOP/s)" if ops else "")
+                + f", plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})"
+                + (f", SDPA backward (dq, dk, dv at once) {lib_ms:.4f} ms"
+                   if lib is not None else ", no library call"))
+            if key not in recs:
+                recs[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib, bound_ms=bound, bound_by=by,
+                                 shape=label)
+        say(f"K1 backward {label}: whole call {whole_ms:.4f} ms (K1's "
+            f"pre-pass again, dq, dk/dv, pre-pass backward); K1 forward at "
+            f"the record shape {k1_ms:.4f} ms (PERF.md row 1: 0.1621 ms)")
+        del qkv, out, dout, x, qh, kh, dq, dk, dv, pre, whole, again, p_dq
+        del p_dk, p_dv, p_pre, p_whole, q, k, vv, o
+        torch.cuda.empty_cache()
+    say(f"K1 backward over the training plan's {len(cases) - timed} window "
+        "groups: worst relative L2 to the plain versions "
+        + ", ".join(f"{k} {e:.3g}" for k, e in worst.items()))
+    return recs
+
+
+def check_k2_backward(torch, gather, nadit, cfg, device):
+    """K2's gradient (K2 on the inverse index) bit-equal to index_select's
+    gradient on the training plan's transitions (batch 2, width D), timed
+    on the window -> shifted_window transition beside its plain version,
+    the bound and index_add_ (index_select's gradient)."""
+    gen = torch.Generator(device).manual_seed(14)
+    plan = nadit.build_dit_plan(cfg, TRAIN_LATENT, TXT_LEN)
+    for key in (("canonical", "window"), ("window", "shifted_window"),
+                ("shifted_window", "canonical")):
+        index = gather.RowIndex(plan.transitions[key], device)
+        idx = index.tensor.long()
+        x = torch.randn(TRAIN_BATCH, plan.seq_len, cfg.vid_dim, generator=gen,
+                        device=device).to(torch.bfloat16).requires_grad_()
+        g = torch.randn(TRAIN_BATCH, len(index), cfg.vid_dim, generator=gen,
+                        device=device).to(torch.bfloat16)
+        (ref,) = torch.autograd.grad(torch.index_select(x, 1, idx), x, g)
+        (got,) = torch.autograd.grad(gather.gather_rows_grad(x, index), x, g)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"K2 backward {key}: differs from index_select's gradient")
+        say(f"K2 backward {key[0]}->{key[1]} B={TRAIN_BATCH} "
+            f"L={plan.seq_len} D={cfg.vid_dim}: bit-equal to index_select's "
+            "gradient")
+    inv = index.inverse
+    ms = kernel_ms(torch, lambda: gather.gather_rows(g, inv), 50)
+    plain_ms = kernel_ms(torch, lambda: gather.gather_rows_plain(g, inv), 50)
+    xz = torch.zeros_like(x, requires_grad=False)
+    lib_ms = kernel_ms(torch, lambda: xz.zero_().index_add_(1, idx, g), 50)
+    nbytes = 2 * g.numel() * 2 + len(index) * 4
+    bound, by = bound_ms(0, PEAK_BF16, nbytes)
+    say(f"K2bwd B={TRAIN_BATCH} L={plan.seq_len} D={cfg.vid_dim}: kernel "
+        f"{ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} "
+        f"ms, index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by,
+                shape=f"B={TRAIN_BATCH} L={plan.seq_len} D={cfg.vid_dim}")
+
+
+def train_batch(torch, cfg, device, embeds, seed):
+    """The training batch: a seeded (B, 1, 64, 64, 16) latent and condition
+    channels, the packaged positive text embedding for every row."""
+    gen = torch.Generator(device).manual_seed(seed)
+    t, h, w = TRAIN_LATENT
+    out = cfg.vid_out_channels
+    latent = torch.randn((TRAIN_BATCH, t, h, w, out), generator=gen,
+                         device=device)
+    cond = torch.randn((TRAIN_BATCH, t, h, w, cfg.vid_in_channels - out),
+                       generator=gen, device=device)
+    txt = torch.as_tensor(embeds["pos"], device=device)[None].expand(
+        TRAIN_BATCH, -1, -1).contiguous()
+    return {"latent": latent, "cond": cond, "txt": txt}
+
+
+def step_generator(torch, device, i):
+    """The generator of training step i: every run and every rank draws
+    step i's noise and timesteps alike."""
+    return torch.Generator(device).manual_seed(5000 + i)
+
+
+def train_rank(torch, np, rank: int, port: int, out_dir: str) -> None:
+    """One of phase 13's two ranks, both on cuda:0 over gloo, the mesh
+    (dp, fsdp, tp) = (1, 2, 1): the 3B at full width and TRAIN_RANK_LAYERS
+    blocks, three steps against one rank's (rank 0 runs those too), a
+    checkpoint after step 2 restored onto the mesh and stepped again. Writes
+    rank<N>.json into out_dir and exits non-zero on a miss."""
+    import torch.distributed as dist
+
+    from seedvr2_tpu_torch.core.configs import DIT_3B
+    from seedvr2_tpu_torch.models.dit import nadit
+    from seedvr2_tpu_torch.parallel import train
+    from seedvr2_tpu_torch.parallel.mesh import make_mesh, param_sharding
+    from seedvr2_tpu_torch.utils.text_embeds import load_text_embeddings
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    mesh = make_mesh(2, ("dp", "fsdp", "tp"), (1, 2, 1), backend="gloo")
+    cfg = dataclasses.replace(DIT_3B, num_layers=TRAIN_RANK_LAYERS)
+    embeds = load_text_embeddings(txt_dim=cfg.txt_in_dim)
+    batch = train_batch(torch, cfg, device, embeds, 7)
+    plan = nadit.build_dit_plan(cfg, TRAIN_LATENT, TXT_LEN)
+    model = nadit.init_dit(cfg, device, torch.bfloat16,
+                           torch.Generator(device).manual_seed(0))
+    init_state, step = train.make_train_step(cfg, plan, mesh, device=device)
+    state = init_state(model)
+    ref = None
+    if rank == 0:
+        init1, step1 = train.make_train_step(cfg, plan, None, device=device)
+        ref = init1(model)
+    del model
+    report, bad = {"losses": []}, []
+    t0 = time.perf_counter()
+    for i in range(3):
+        if i == 2:
+            path = os.path.join(out_dir, "state.safetensors")
+            t1 = time.perf_counter()
+            train.save_train_state(state, path)
+            report["save_seconds"] = time.perf_counter() - t1
+        state, loss = step(state, batch, step_generator(torch, device, i))
+        report["losses"].append(loss.item())
+    torch.cuda.synchronize()
+    report["mesh_seconds"] = time.perf_counter() - t0
+    whole = train.full_params(state)
+    t1 = time.perf_counter()
+    back = train.restore_train_state(path, state)
+    report["restore_seconds"] = time.perf_counter() - t1
+    back, loss = step(back, batch, step_generator(torch, device, 2))
+    same = all(torch.equal(back.params[k], state.params[k])
+               for k in state.params) and loss.item() == report["losses"][2]
+    report["restored_bit_equal"] = bool(same)
+    if not same:
+        bad.append("the restored state's step 3 differs from the run that "
+                   "never stopped")
+    sizes = all(state.params[k].numel() * int(np.prod(
+        [mesh.shape[a] for a in param_sharding(mesh, s) if a])) ==
+        int(np.prod(s)) for k, s in state.shapes.items())
+    cut = sum(any(param_sharding(mesh, s)) for s in state.shapes.values())
+    report["pieces"] = f"{cut} of {len(state.shapes)} tensors halved"
+    if not sizes or not cut:
+        bad.append(f"pieces not 1/(fsdp*tp): {report['pieces']}")
+    if rank == 0:
+        losses = []
+        for i in range(3):
+            ref, loss = step1(ref, batch, step_generator(torch, device, i))
+            losses.append(loss.item())
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(report["losses"],
+                                                        losses))
+        perr = max(rel_l2(whole[k], ref.params[k]) for k in whole)
+        exact = all(torch.equal(whole[k], ref.params[k]) for k in whole) \
+            and losses == report["losses"]
+        report.update(one_rank_losses=losses, loss_rel=lerr, params_rel=perr,
+                      bit_equal=exact)
+        if not (lerr <= TRAIN_RANKS_REL and perr <= TRAIN_RANKS_REL):
+            bad.append(f"two ranks vs one: loss {lerr}, params {perr} beyond "
+                       f"{TRAIN_RANKS_REL}")
+    if not all(np.isfinite(report["losses"])):
+        bad.append(f"non-finite losses {report['losses']}")
+    report["bad"] = bad
+    with open(os.path.join(out_dir, f"train_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    if bad:
+        fail(f"train rank {rank}: {bad}")
+
+
+def train_ranks(here) -> dict:
+    """Phase 13's two ranks (train_rank) in two processes; their reports."""
+    out_dir = os.path.join(here, "build", "train_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    for name in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, name))
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.join(
+        here, "chip_smoke.py"), "--train-rank", str(r), str(port), out_dir])
+        for r in range(2)]
+    deadline = time.time() + PARALLEL_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        fail(f"the two training ranks did not finish in {PARALLEL_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        fail(f"a training rank failed: exit codes "
+             f"{[p.returncode for p in procs]}")
+    reports = [json.load(open(os.path.join(out_dir, f"train_rank{r}.json")))
+               for r in range(2)]
+    for name in os.listdir(out_dir):  # the checkpoint file
+        os.remove(os.path.join(out_dir, name))
+    return reports
+
+
+def train_phase(torch, np, nadit, fa, gather, device, here, counts, embeds,
+                wrappers, k1_ms):
+    """Phase 13: K1's and K2's backward against their plain versions, the
+    two-rank fsdp world, then the full 32-layer 3B: one backward with every
+    gradient checked, three AdamW steps with the kernels (the path's
+    launches, step times, peak memory) and the same steps with the plain
+    versions. Returns the backward kernels' records."""
+    from seedvr2_tpu_torch.core.configs import DIT_3B
+    from seedvr2_tpu_torch.core.diffusion import logitnormal_timesteps
+    from seedvr2_tpu_torch.parallel import train
+
+    cfg = DIT_3B
+    recs = check_k1_backward(torch, fa, nadit, cfg, device, k1_ms)
+    recs["K2bwd"] = check_k2_backward(torch, gather, nadit, cfg, device)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    reports = train_ranks(here)
+    r0 = reports[0]
+    say(f"two ranks on cuda:0 over gloo, mesh (dp, fsdp, tp) = (1, 2, 1), "
+        f"the 3B's widths at {TRAIN_RANK_LAYERS} blocks: losses "
+        f"{r0['losses']} (one rank {r0['one_rank_losses']}; loss rel "
+        f"{r0['loss_rel']:.3g}, params rel {r0['params_rel']:.3g}, bound "
+        f"{TRAIN_RANKS_REL}; bit-equal {r0['bit_equal']}); {r0['pieces']} "
+        f"on each rank; checkpoint saved in {r0['save_seconds']:.2f} s, "
+        f"restored in {r0['restore_seconds']:.2f} s, its step bit-equal "
+        f"{r0['restored_bit_equal']} on both ranks; three mesh steps with "
+        f"the save {r0['mesh_seconds']:.2f} s (two ranks share one card: "
+        f"correctness, not speed); world {time.perf_counter() - t0:.1f} s")
+
+    # the full 3B: every parameter's gradient from one backward
+    t0 = time.perf_counter()
+    model = nadit.init_dit(cfg, device, torch.bfloat16,
+                           torch.Generator(device).manual_seed(0))
+    batch = train_batch(torch, cfg, device, embeds, 7)
+    plan = nadit.build_dit_plan(cfg, TRAIN_LATENT, TXT_LEN)
+    dplan = nadit.upload_plan(plan, cfg, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = step_generator(torch, device, 0)
+    noise = torch.randn(batch["latent"].shape, generator=gen, device=device)
+    tt = logitnormal_timesteps(gen, (TRAIN_BATCH,))
+    loss = train.flow_loss(model, batch, noise, tt, dplan)
+    loss.backward()
+    missing = [k for k, p in model.named_parameters() if p.grad is None]
+    bad = [k for k, p in model.named_parameters()
+           if p.grad is not None and not torch.isfinite(p.grad).all()]
+    say(f"3B ({cfg.num_layers} blocks, width {cfg.vid_dim}, "
+        f"{n_params / 1e9:.3f} B parameters) one flow_loss backward on "
+        f"latent {TRAIN_LATENT} x "
+        f"{TRAIN_BATCH} ({plan.seq_len} tokens a row, {TXT_LEN} text): loss "
+        f"{loss.item():.6g}; {len(missing)} parameters without a gradient, "
+        f"{len(bad)} with non-finite values")
+    if missing or bad or not torch.isfinite(loss):
+        fail(f"3B backward: no gradient for {missing[:4]}, non-finite "
+             f"{bad[:4]}, loss {loss.item()}")
+    # the same backward through the plain versions, leaf by leaf
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    plain_loss = train.flow_loss(model, batch, noise, tt, dplan,
+                                 use_kernels=False)
+    plain_loss.backward()
+    leaf, num, den = {}, 0.0, 0.0
+    for k, p in model.named_parameters():
+        d = (grads[k].float() - p.grad.float()).norm().item()
+        n = p.grad.float().norm().item()
+        leaf[k] = d / n if n > 0 else (0.0 if d == 0 else float("inf"))
+        num, den = num + d * d, den + n * n
+    overall = (num / den) ** 0.5
+    order = sorted(leaf, key=leaf.get, reverse=True)
+    say(f"3B backward with the kernels against the plain versions, leaf by "
+        f"leaf: loss {loss.item():.6g} against {plain_loss.item():.6g}; "
+        f"relative L2 over every gradient {overall:.4g} (bound "
+        f"{BWD_3B_REL}), median leaf {leaf[order[len(order) // 2]]:.4g}, "
+        "worst leaves "
+        + ", ".join(f"{k} {leaf[k]:.4g}" for k in order[:4])
+        + f" (bound {BWD_LEAF_REL})")
+    if not (overall <= BWD_3B_REL and leaf[order[0]] <= BWD_LEAF_REL):
+        fail(f"3B backward: kernels against plain relative L2 {overall} "
+             f"overall (bound {BWD_3B_REL}), "
+             f"{[(k, leaf[k]) for k in order[:4]]} on the worst leaves "
+             f"(bound {BWD_LEAF_REL})")
+    model.zero_grad(set_to_none=True)
+    del loss, plain_loss, noise, tt, grads
+
+    # three steps with the kernels
+    init_state, step = train.make_train_step(cfg, dplan, None, device=device)
+    state = init_state(model)
+    host = {k: v.cpu() for k, v in state.params.items()}  # the plain run's
+    del model
+    torch.cuda.empty_cache()
+    say(f"3B training state built in {time.perf_counter() - t0:.1f} s: "
+        f"{torch.cuda.memory_allocated(device) / 2 ** 30:.2f} GiB on the card "
+        "(fp32 parameters and both moments)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts(wrappers)
+    losses, secs = [], []
+    for i in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, loss = step(state, batch, step_generator(torch, device, i))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        losses.append(loss.item())
+    counts["train"] = read_counts(wrappers, TRAIN_KERNELS, "train")
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    mu = state.opt_state["mu"]
+    dead = [k for k, v in mu.items() if not v.abs().sum().item() > 0]
+    nonfinite = [k for k in state.params
+                 if not (torch.isfinite(state.params[k]).all()
+                         and torch.isfinite(mu[k]).all())]
+    per_step = {k: counts["train"][k] // TRAIN_STEPS for k in TRAIN_KERNELS}
+    say(f"3B train steps with the kernels: losses {losses}; step seconds "
+        f"{[round(s, 3) for s in secs]}; peak {peak:.2f} GiB allocated "
+        f"(reckoned {TRAIN_PEAK_GIB[0]}-{TRAIN_PEAK_GIB[1]} GiB); launches "
+        f"a step {per_step}; {len(dead)} parameters whose first moment "
+        f"stayed zero, {len(nonfinite)} non-finite")
+    if dead or nonfinite or not all(np.isfinite(losses)):
+        fail(f"3B train steps: zero moments {dead[:4]}, non-finite "
+             f"{nonfinite[:4]}, losses {losses}")
+
+    # the same steps with the plain versions, from the same start
+    for k, v in host.items():
+        state.params[k].copy_(v)
+        mu[k].zero_()
+        state.opt_state["nu"][k].zero_()
+    del host
+    _, plain_step = train.make_train_step(cfg, dplan, None, device=device,
+                                          use_kernels=False)
+    state = state._replace(step=0)
+    plain, plain_secs = [], []
+    for i in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, loss = plain_step(state, batch,
+                                 step_generator(torch, device, i))
+        torch.cuda.synchronize()
+        plain_secs.append(time.perf_counter() - t1)
+        plain.append(loss.item())
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    say(f"3B train steps with the plain versions: losses {plain} (relative "
+        f"to the kernels' {[f'{e:.3g}' for e in errs]}, bound "
+        f"{TRAIN_LOSS_REL}); step seconds "
+        f"{[round(s, 3) for s in plain_secs]}")
+    if not max(errs) <= TRAIN_LOSS_REL:
+        fail(f"3B train steps: kernels vs plain losses {errs} beyond "
+             f"{TRAIN_LOSS_REL}")
+    del state, batch, dplan, mu
+    torch.cuda.empty_cache()
+    for key in TRAIN_KERNELS[2:]:
+        recs[key]["launches_per_step"] = per_step[key]
+    return recs
+
+
 def kernel_wrappers():
     """Each kernel's wrapper, whose `launches` counts its launches."""
     from seedvr2_tpu_torch.ops import flash_attention as fa
@@ -4170,7 +4769,10 @@ def kernel_wrappers():
             "K5": fq.silu_mul_quantize, "K6": qm.quant_matmul_q8,
             "K7": qm.quant_matmul_affine, "K8": fa.flash_attention,
             "K9": fa.flash_windowed_attention, "K10": im.int8_matmul_qx,
-            "K11": ic.int8_conv3d, "K12": fn.norm_silu_head}
+            "K11": ic.int8_conv3d, "K12": fn.norm_silu_head,
+            "K1bwd_dq": fa.attention_backward_dq,
+            "K1bwd_dkdv": fa.attention_backward_dkdv,
+            "K1bwd_prepass": fa.prepass_backward, "K2bwd": gather.GatherRows}
 
 
 def f32_wrappers():
@@ -4199,6 +4801,10 @@ def main() -> None:
     if sys.argv[1:2] == ["--parallel-rank"]:  # phase 2b's ranks
         parallel_rank(torch, np, int(sys.argv[2]), int(sys.argv[3]),
                       sys.argv[4])
+        return
+    if sys.argv[1:2] == ["--train-rank"]:  # phase 13's ranks
+        train_rank(torch, np, int(sys.argv[2]), int(sys.argv[3]),
+                   sys.argv[4])
         return
 
     from seedvr2_tpu_torch import cli
@@ -4709,6 +5315,14 @@ def main() -> None:
     phase_done("11a (kernels at 7B shapes)")
     run_7b(torch, np, cli, nadit, im, qm, gguf, native, device, txt, tt,
            embeds, dit_inputs, dit_runs, lane, counts, phase_done, wrappers)
+
+    # 13. the trainer: K1's and K2's backward, two ranks at fsdp 2, the full
+    # 3B's train steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    recs.update(train_phase(torch, np, nadit, fa, gather, device, here,
+                            counts, embeds, wrappers, recs["K1"]["ms"]))
+    phase_done("13 (trainer)")
 
     # 12. records and the contract line
     kernels = []

@@ -1,4 +1,5 @@
-"""Rectified-flow diffusion math: schedule, timesteps, Euler step, CFG.
+"""Rectified-flow diffusion math: schedule, timesteps, Euler step, CFG, and
+the trainer's logit-normal timesteps.
 
 Port of seedvr2_tpu.core.diffusion. Timesteps are computed on the host with
 numpy; the step math runs on tensors in fp32 islands.
@@ -114,3 +115,14 @@ def classifier_free_guidance(pos: torch.Tensor, neg: torch.Tensor,
         factor = rescale * factor + (1.0 - rescale)
         cfg = cfg * factor
     return cfg
+
+
+def logitnormal_timesteps(generator: torch.Generator, shape, T: float = 1000.0,
+                          loc: float = 0.0, scale: float = 1.0
+                          ) -> torch.Tensor:
+    """Training timesteps t = sigmoid(N(loc, scale)) * T in fp32 (the
+    configs' diffusion.timesteps.training), drawn from `generator` on its
+    device. Used by the training step (parallel/train.py)."""
+    z = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device) * scale + loc
+    return torch.sigmoid(z) * T

@@ -21,6 +21,12 @@ safetensors reader of this package's own (an 8-byte little-endian header
 length, a JSON header, then raw little-endian bytes), so a host without the
 `safetensors` package can read the checkpoints and the packaged text
 embeddings.
+
+The trainer's side (parallel/train.py): `save_checkpoint` ports
+seedvr2_tpu.core.export.save_checkpoint (reference-layout keys, fp16
+values, a file the port's loaders read), from a model or from a training
+state; `train_state_from_jax` carries a JAX TrainState (numpy leaves, optax
+adamw's ScaleByAdamState) across as a one-rank port TrainState.
 """
 
 import json
@@ -149,3 +155,44 @@ def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
         for t in tensors.values():
             t = t.detach().cpu().contiguous()
             f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+
+
+def save_checkpoint(model_or_state, path: str, dtype=torch.float16) -> None:
+    """A reference-layout .safetensors checkpoint (the state-dict names,
+    floating tensors in `dtype`, integer ones as they are) of an nn.Module
+    or of a parallel.train.TrainState (its whole parameters: every rank of
+    its mesh takes part, the mesh's first rank writes)."""
+    if hasattr(model_or_state, "opt_state"):
+        from ..parallel.train import full_params
+
+        state = model_or_state
+        tensors = full_params(state)
+        if state.mesh is not None and state.mesh.rank != state.mesh.ranks[0]:
+            return
+    else:
+        tensors = model_or_state.state_dict()
+    write_safetensors(path, {k: v.detach().to(dtype)
+                             if v.is_floating_point() else v.detach()
+                             for k, v in tensors.items()})
+
+
+def train_state_from_jax(state):
+    """A JAX parallel.train.TrainState with numpy leaves (jax.device_get of
+    one) as a one-rank parallel.train.TrainState of whole fp32 CPU tensors:
+    the params through state_dict_from_jax, optax's ScaleByAdamState (the
+    first element of adamw's chained state: count, mu, nu) onto the moments
+    "mu" / "nu" under the same names, the step from the state (checked
+    against the count)."""
+    from ..parallel.train import TrainState
+
+    adam = next(s for s in state.opt_state
+                if all(hasattr(s, a) for a in ("count", "mu", "nu")))
+    step = int(np.asarray(state.step))
+    if int(np.asarray(adam.count)) != step:
+        raise ValueError(f"optax count {int(np.asarray(adam.count))} is not "
+                         f"the state's step {step}")
+    return TrainState(
+        params=state_dict_from_jax(state.params),
+        opt_state={"mu": state_dict_from_jax(adam.mu),
+                   "nu": state_dict_from_jax(adam.nu)},
+        step=step)

@@ -28,6 +28,13 @@ quantization (kernel K4, `_norm_mod`), the swiglu's silu*up with it (K5,
 (`ops.quant_matmul`, `core.loader`) the Q8_0 linears run K6 and the affine
 ones K7; their producers stay plain, as in the JAX package.
 
+Training (parallel/train.py) runs the grouped plan's forward with grad on:
+K1 and K2 then go through their autograd Functions
+(`ops.flash_attention.packed_window_attention_grad`,
+`ops.gather.gather_rows_grad`), whose backward is hand-written too; the
+qk-norm weights reach K1 only through the folded tables, whose gradients
+K1's backward returns.
+
 Tensor parallelism (parallel/tp.py): after `tp_shard_dit` a rank holds its
 heads' slice of every qkv / proj_out and its hidden columns of every mlp;
 `nadit_forward(..., tp=reduce)` then runs the blocks on the local heads
@@ -55,10 +62,12 @@ from torch import nn
 from ...core.configs import DiTConfig
 from ...ops.attention import (attention, packed_attention_sdpa,
                                resolve_attention_mode)
-from ...ops.flash_attention import (packed_window_attention,
+# K1 and K2 through their autograd Functions: the raw kernel wrappers when
+# no input needs a gradient (serving), the kernels' backward otherwise
+from ...ops.flash_attention import (packed_window_attention_grad,
                                     packed_window_attention_plain)
 from ...ops.fused_quant import rms_ada_quantize, rms_ada_quantize_plain
-from ...ops.gather import RowIndex, gather_rows, gather_rows_plain
+from ...ops.gather import RowIndex, gather_rows_grad, gather_rows_plain
 from ...ops.int8_matmul import W8A8Linear
 from ...ops.layers import linear, mlp_forward, rms_norm, silu, swiglu_hidden_dim
 from . import rope as rope_lib
@@ -553,7 +562,7 @@ def _window_attention(attn: _Attn, cfg: DiTConfig, xv, xt, dplan: DevicePlan,
     if mode == "xla":
         attend = packed_attention_sdpa
     else:
-        attend = (packed_window_attention if use_kernels
+        attend = (packed_window_attention_grad if use_kernels
                   else packed_window_attention_plain)
 
     qkv_v = linear(xv, _pick(attn.proj_qkv, "vid"),
@@ -694,7 +703,7 @@ def _block_forward(blk: _Block, cfg: DiTConfig, i: int, xv, xt, emb_attn,
     uplan = dplan.uniform[method] if dplan.uniform is not None else None
     if uplan is None and order != method:
         index = dplan.transitions[(order, method)]
-        xv = (gather_rows(xv, index) if use_kernels
+        xv = (gather_rows_grad(xv, index) if use_kernels
               else gather_rows_plain(xv, index))
     vid_only = cfg.block_vid_only(i)
     eps = cfg.norm_eps
@@ -825,8 +834,8 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
                                       dplan, order, use_kernels, mode, tp)
     if order != "canonical":
         index = dplan.transitions[(order, "canonical")]
-        x = gather_rows(x, index) if use_kernels else gather_rows_plain(x,
-                                                                        index)
+        x = (gather_rows_grad(x, index) if use_kernels
+             else gather_rows_plain(x, index))
 
     if cfg.vid_out_norm:
         x = rms_norm(x, cfg.norm_eps, model.vid_out_norm.weight)

@@ -37,6 +37,7 @@ Layout is channels-last: video (B, T, H, W, 3) in [-1, 1], latent
 
 import math
 import os
+from functools import partial
 from typing import Optional, Tuple
 
 import numpy as np
@@ -45,7 +46,7 @@ from torch import nn
 
 from ...core.configs import VAEConfig
 from ...ops.int8_conv import conv_weight_int8
-from ...parallel.comm import spread
+from ...parallel.comm import agreed, spread
 from .model import Lowering, VideoAutoencoder, decoder_core, encoder_core
 
 
@@ -195,6 +196,36 @@ def _decode_slices(vae: VideoAutoencoder, z: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+def _blend_buffer(shape, device) -> torch.Tensor:
+    """The fp32 zeros a tiled call blends its tiles into."""
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def _blend_tiles(tiles, steps, finish, mesh, device):
+    """step(tile) for each step and the next tile of `tiles` in turn, then
+    finish()'s result. Over a mesh, a failure here on one rank (in a step
+    or in finish, an out-of-memory in the blend's temporaries above all) is
+    agreed by every rank once every tile has been received (parallel.comm
+    .agreed), so no rank leaves the tile waves early and every rank raises
+    alike: a caller's OOM retry then runs on every rank with one plan."""
+    err = None
+    for step in steps:
+        tile = next(tiles)
+        if err is None:
+            try:
+                step(tile)
+            except Exception as e:  # noqa: BLE001 - re-raised once agreed
+                err = e
+        del tile
+
+    def done():
+        if err is not None:
+            raise err
+        return finish()
+
+    return agreed(done, mesh, device, "tiled call")
+
+
 def int8_served_convs(model: VideoAutoencoder):
     """(path, conv) of every conv the int8 path serves: the decoder's
     3-deep resnet convs (mid block and up blocks) whose channel dims are
@@ -293,19 +324,23 @@ class VideoVAE:
             (y * sf, xx * sf, (y_end - y) * sf, (x_end - xx) * sf)
             for (y, y_end, xx, x_end) in rects]
 
-        result = torch.zeros((B, Tl, H_lat, W_lat, lat), dtype=torch.float32,
-                             device=x.device)
+        # the blend buffer's allocation agreed before any tile is shared
+        result = agreed(lambda: _blend_buffer((B, Tl, H_lat, W_lat, lat),
+                                              x.device), mesh, x.device,
+                        "tiled encode's blend buffer")
         count = np.zeros((H_lat, W_lat), np.float32)
         crops = [x[:, :, y * sf: min(y_end * sf, H),
                    xx * sf: min(x_end * sf, W)]
                  for (y, y_end, xx, x_end) in rects]
-        # next() in the body: a zip over the tiles would hold the last tile
+        # next() in the loop: a zip over the tiles would hold the last tile
         # while the next one encodes
         tiles = self._tile_map(
             lambda c: _encode_slices(self.model, c, self.lowering)[..., :lat],
             crops, mesh)
-        for (y, y_end, xx, x_end) in rects:
-            tile = next(tiles).float()
+
+        def add(rect, tile):
+            y, y_end, xx, x_end = rect
+            tile = tile.float()
             eh = min(y_end - y, tile.shape[2], H_lat - y)
             ew = min(x_end - xx, tile.shape[3], W_lat - xx)
             mask = np.outer(_fade_weights(eh, fade_h, y > 0, y_end < H_lat),
@@ -315,8 +350,13 @@ class VideoVAE:
                 * torch.as_tensor(mask, device=x.device)[None, None, :, :,
                                                          None])
             count[y: y + eh, xx: xx + ew] += mask
-        count = torch.as_tensor(np.clip(count, 1e-6, None), device=x.device)
-        return (result / count[None, None, :, :, None]).to(self.dtype)
+
+        def finish():
+            c = torch.as_tensor(np.clip(count, 1e-6, None), device=x.device)
+            return (result / c[None, None, :, :, None]).to(self.dtype)
+
+        return _blend_tiles(tiles, [partial(add, r) for r in rects], finish,
+                            mesh, x.device)
 
     @torch.no_grad()
     def decode(self, z: torch.Tensor, tiled: bool = False,
@@ -370,22 +410,27 @@ class VideoVAE:
                                        x_end < w)).astype(np.float32)
             masks.append(m)
             count[y * sf: y_end * sf, xx * sf: x_end * sf] += m
-        inv_count = torch.as_tensor(1.0 / np.clip(count, 1e-6, None),
-                                    device=z.device)
-
-        result = torch.zeros((B, T, H, W, 3), dtype=torch.float32,
-                             device=z.device)
+        # the blend buffers' allocation agreed before any tile is shared
+        result, inv_count = agreed(
+            lambda: (_blend_buffer((B, T, H, W, 3), z.device),
+                     torch.as_tensor(1.0 / np.clip(count, 1e-6, None),
+                                     device=z.device)),
+            mesh, z.device, "tiled decode's blend buffers")
         tiles = self._tile_map(
             lambda c: _decode_slices(self.model, c, self.lowering),
             [z[:, :, y:y_end, xx:x_end] for (y, y_end, xx, x_end) in rects],
             mesh)
-        for (y, y_end, xx, x_end), m in zip(rects, masks):
-            tile = next(tiles)  # as in encode: no zip over the tiles
+
+        def add(rect, m, tile):  # as in encode: no zip over the tiles
+            y, y_end, xx, x_end = rect
             result[:, :, y * sf: y_end * sf, xx * sf: x_end * sf] += (
                 tile.float()
                 * torch.as_tensor(m, device=z.device)[None, None, :, :, None])
-            del tile
-        return (result * inv_count[None, None, :, :, None]).to(self.dtype)
+
+        return _blend_tiles(
+            tiles, [partial(add, r, m) for r, m in zip(rects, masks)],
+            lambda: (result * inv_count[None, None, :, :, None]).to(
+                self.dtype), mesh, z.device)
 
 
 @torch.no_grad()

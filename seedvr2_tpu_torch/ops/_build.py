@@ -19,6 +19,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,6 +42,18 @@ _SIGNATURES = {
     # q, k, v, cos, sin, valid, ids, scratch, out, B, Sq, Sk, H, D, kv_len,
     # table_rows, qscale, stream
     "seedvr2_flash_attention": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # q_hat, k_hat, v, v_stride, out, dout, dq, lse, delta, B, S, H, D,
+    # kv_len, stream
+    "seedvr2_attn_bwd_dq": [_P, _P, _P, _L] + [_P] * 5 + [_I] * 5 + [_P],
+    # q_hat, k_hat, v, v_stride, dout, lse, delta, dk, dv, dv_stride, B, S,
+    # H, D, kv_len, stream
+    "seedvr2_attn_bwd_dkdv": [_P, _P, _P, _L] + [_P] * 5 + [_L] + [_I] * 5
+                             + [_P],
+    # q_src, k_src, src_stride, cos_q, sin_q, cos_k, sin_k, dq_acc, dk_acc,
+    # dq_dst, dk_dst, dst_stride, partials, tables, B, S, H, D, eps, gq, gk,
+    # stream
+    "seedvr2_prepass_bwd": [_P, _P, _L] + [_P] * 8 + [_L, _P, _P]
+                           + [_I] * 4 + [_F] * 3 + [_P],
     # x, idx, out, B, L, L2, D, stream
     "seedvr2_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     # xq, wq, xs, ws, out, M, N, K, swap, bt, stream
@@ -158,6 +172,17 @@ def kernel_library() -> KernelLibrary:
         if _loaded is None:
             _loaded = _build()
         return _loaded
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and a tensor needs a gradient: a kernel's
+    output has no autograd history, so a raw kernel wrapper must not be
+    handed one (its autograd Function is)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                    for t in tensors):
+        raise RuntimeError(f"{name}: an input needs a gradient; the kernel's "
+                           "output would carry none. Call its autograd "
+                           "Function (the *_grad entry point) instead")
 
 
 def check(err: int, name: str) -> None:

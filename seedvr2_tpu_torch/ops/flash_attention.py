@@ -28,6 +28,24 @@ and ropes q and k once (`attention_prepass`, plainly `norm_rope_plain`;
 K9's rows each by the table their id picks); one counted call launches
 both. K9's step walks only the key tiles that hold a valid key
 (`live_key_tiles`).
+
+K1's gradient (`packed_window_attention_grad`, the `PackedWindowAttention`
+autograd Function; the JAX package differentiates its jnp composition and
+has no backward kernel): the forward launches K1 as serving does and saves
+qkv, the four tables and the output; the backward
+(`packed_window_attention_backward`, `csrc/attention_backward.cu`) relaunches
+K1's pre-pass for q-hat and k-hat, then three parts, each with its plain
+version: the dq kernel (row logsumexp by one sweep over the live key tiles,
+D = rowsum(dO * O), dQ-hat; `attention_backward_dq`), the dk/dv kernel
+(per key tile over the q tiles; `attention_backward_dkdv`) and the
+pre-pass backward (through the scale, the rotation and the RMS norm to the
+q / k columns of d qkv, and the four fp32 table gradients summed over
+batch rows and heads from per-row partials folded in a fixed order;
+`prepass_backward`). Output rows at or past kv_len are the lane pad, which
+the caller discards: their cotangent is taken as zero, so every row at or
+past kv_len gets zero gradient. No float atomics: reruns are bit-identical.
+The raw wrappers refuse an input that needs a gradient while grad mode is
+on (their outputs have no autograd history).
 """
 
 from typing import Optional
@@ -41,6 +59,7 @@ from .gather import RowIndex
 from ..models.dit.rope import apply_rope_ext, rotate_half_full
 
 _LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 _HEAD_DIMS = (64, 128)
 
 
@@ -144,6 +163,7 @@ def attention_prepass(q: torch.Tensor, k: torch.Tensor,
     attention step (so chip_smoke.py can time it alone), or raise on what
     it does not take: bf16 q, k with heads and D contiguous, D in (64,
     128)."""
+    _build.refuse_grad("attention pre-pass", q, k, cos_q, sin_q, cos_k, sin_k)
     if ids is not None and cos_q is None:
         raise ValueError("attention pre-pass: window ids without tables")
     id_t = None if ids is None else ids.tensor
@@ -199,7 +219,11 @@ def packed_window_attention(qkv: torch.Tensor, heads: int, d: int,
 
     CPU tensors take the plain version. CUDA tensors launch the kernel (its
     pre-pass, then its attention step), or raise on what it does not take:
-    qkv must be contiguous bf16 with D in (64, 128); 1 <= kv_len <= S."""
+    qkv must be contiguous bf16 with D in (64, 128); 1 <= kv_len <= S.
+    Inputs that need a gradient while grad mode is on are refused on every
+    device: `packed_window_attention_grad` carries one."""
+    _build.refuse_grad("packed window attention", qkv, cos_q, sin_q, cos_k,
+                       sin_k)
     if qkv.device.type == "cpu":
         return packed_window_attention_plain(qkv, heads, d, cos_q, sin_q,
                                              cos_k, sin_k, eps, kv_len)
@@ -235,6 +259,347 @@ def packed_window_attention(qkv: torch.Tensor, heads: int, d: int,
 
 
 packed_window_attention.launches = 0
+
+
+# ------------------------------------------------------------ K1 backward
+
+
+def _masked_dout(dout: torch.Tensor, b: int, s: int, h: int, d: int,
+                 kv_len: int) -> torch.Tensor:
+    """dO as fp32 (B, S, H, D) with the rows at or past kv_len zeroed."""
+    do = dout.float().reshape(b, s, h, d).clone()
+    do[:, kv_len:] = 0.0
+    return do
+
+
+def attention_backward_dq_plain(q_hat: torch.Tensor, k_hat: torch.Tensor,
+                                v: torch.Tensor, out: torch.Tensor,
+                                dout: torch.Tensor, kv_len: int):
+    """Plain version of the dq kernel. q_hat, k_hat (B, S, H, D): K1's
+    pre-pass output (q times scale*log2e, so the scores are in the exp2
+    domain); v (B, S, H, D); out, dout (B, S, H*D). Returns (dq_acc =
+    sum_j dS_ij k_hat_j as fp32 (B, S, H, D), lse (B, H, S) fp32 in the
+    log2 domain, delta = rowsum(dO * O) (B, H, S) fp32), with P_ij =
+    exp2(q_hat_i . k_hat_j - lse_i) over the keys below kv_len and dS =
+    P * (dO v^T - delta); dO rows at or past kv_len count as zero."""
+    b, s, h, d = q_hat.shape
+    q, k, vv = q_hat.float(), k_hat.float(), v.float()
+    do = _masked_dout(dout, b, s, h, d, kv_len)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    sc[..., kv_len:] = float("-inf")
+    m = sc.amax(dim=-1, keepdim=True)
+    lse = m + torch.log2(torch.exp2(sc - m).sum(dim=-1, keepdim=True))
+    p = torch.exp2(sc - lse)
+    delta = (do * out.float().reshape(b, s, h, d)).sum(-1).transpose(1, 2)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vv)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    return dq, lse[..., 0].contiguous(), delta.contiguous()
+
+
+def attention_backward_dkdv_plain(q_hat: torch.Tensor, k_hat: torch.Tensor,
+                                  v: torch.Tensor, dout: torch.Tensor,
+                                  lse: torch.Tensor, delta: torch.Tensor,
+                                  kv_len: int):
+    """Plain version of the dk/dv kernel, from the dq part's lse and delta:
+    (dk_acc = sum_i dS_ij q_hat_i as fp32 (B, S, H, D), dv = sum_i P_ij dO_i
+    (B, S, H, D) in v's dtype); keys at or past kv_len get zero."""
+    b, s, h, d = q_hat.shape
+    q, k, vv = q_hat.float(), k_hat.float(), v.float()
+    do = _masked_dout(dout, b, s, h, d, kv_len)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    p = torch.exp2(sc - lse[..., None])
+    p[..., kv_len:] = 0.0
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vv)
+    ds = p * (dp - delta[..., None])
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    return dk, dv.to(v.dtype)
+
+
+def prepass_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                           cos_q: torch.Tensor, sin_q: torch.Tensor,
+                           cos_k: torch.Tensor, sin_k: torch.Tensor,
+                           eps: float, dq_acc: torch.Tensor,
+                           dk_acc: torch.Tensor, gq: float, gk: float):
+    """Plain version of the pre-pass backward. q, k (B, S, H, D): the raw
+    q / k columns of qkv; tables (S, D) fp32; dq_acc, dk_acc (B, S, H, D)
+    fp32 from the dq and dk/dv parts, times gq / gk (ln2 times the side's
+    pre-pass multiplier: the scale for q, ln2 for k) the gradient of the
+    roped rows. Back through the rotation (rot^T = -rot) and the RMS norm:
+    (dq, dk in q's dtype, (d cos_q, d sin_q, d cos_k, d sin_k) fp32 (S, D)
+    summed over batch rows and heads)."""
+    outs, tabs = [], []
+    for x, cos, sin, acc, g in ((q, cos_q, sin_q, dq_acc, gq),
+                                (k, cos_k, sin_k, dk_acc, gk)):
+        z = x.float()
+        r = torch.rsqrt(torch.mean(z * z, dim=-1, keepdim=True) + eps)
+        n = z * r
+        gr = acc.float() * g
+        c, sn = cos.float()[:, None, :], sin.float()[:, None, :]
+        dn = gr * c - rotate_half_full(gr * sn)
+        tabs += [(gr * n).sum(dim=(0, 2)),
+                 (gr * rotate_half_full(n)).sum(dim=(0, 2))]
+        dz = r * (dn - n * torch.mean(dn * n, dim=-1, keepdim=True))
+        outs.append(dz.to(x.dtype))
+    return outs[0], outs[1], tuple(tabs)
+
+
+def packed_window_attention_backward_plain(qkv: torch.Tensor, heads: int,
+                                           d: int, cos_q, sin_q, cos_k,
+                                           sin_k, eps: float, kv_len: int,
+                                           out: torch.Tensor,
+                                           dout: torch.Tensor):
+    """Plain version of K1's backward, the kernels' parts in their order
+    (q-hat and k-hat kept in fp32): (d qkv (B, S, 3*H*D) in qkv's dtype,
+    d cos_q, d sin_q, d cos_k, d sin_k (S, D) fp32). dO rows at or past
+    kv_len count as zero; every row at or past kv_len gets zero
+    gradient."""
+    b, s, _ = qkv.shape
+    x = qkv.reshape(b, s, 3, heads, d)
+    mult = d ** -0.5 * _LOG2E
+    q_hat = norm_rope_plain(x[:, :, 0].float(), cos_q, sin_q, eps, mult)
+    k_hat = norm_rope_plain(x[:, :, 1].float(), cos_k, sin_k, eps)
+    v = x[:, :, 2]
+    dq, lse, delta = attention_backward_dq_plain(q_hat, k_hat, v, out, dout,
+                                                 kv_len)
+    dk, dv = attention_backward_dkdv_plain(q_hat, k_hat, v, dout, lse, delta,
+                                           kv_len)
+    dqr, dkr, tabs = prepass_backward_plain(x[:, :, 0], x[:, :, 1], cos_q,
+                                            sin_q, cos_k, sin_k, eps, dq, dk,
+                                            d ** -0.5, _LN2)
+    dqkv = torch.stack([dqr, dkr, dv], dim=2).reshape(b, s, 3 * heads * d)
+    return (dqkv.to(qkv.dtype), *tabs)
+
+
+def _check_rows(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    if (t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous() or t.device != device
+            or t.data_ptr() % 16):
+        raise ValueError(f"{name}: takes a contiguous, 16-byte aligned "
+                         f"{dtype} {tuple(shape)} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_packed_v(name: str, v: torch.Tensor, b: int, s: int, h: int,
+                    d: int) -> None:
+    """v: the v columns of a contiguous packed (B, S, 3*H*D) bf16 qkv (or a
+    contiguous (B, S, H, D))."""
+    if (v.dtype != torch.bfloat16 or v.shape != (b, s, h, d)
+            or v.stride(3) != 1 or v.stride(2) != d
+            or v.stride(0) != s * v.stride(1) or v.stride(1) % 8
+            or v.data_ptr() % 16):
+        raise ValueError(f"{name}: v must be bf16 (B, S, H, D) rows with "
+                         "heads and D contiguous, 16-byte aligned")
+
+
+def _check_bwd(name: str, q_hat: torch.Tensor, k_hat: torch.Tensor,
+               kv_len: int):
+    if q_hat.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for {q_hat.device}")
+    b, s, h, d = q_hat.shape
+    for t in (q_hat, k_hat):
+        _check_rows(name, t, (b, s, h, d), torch.bfloat16, q_hat.device)
+    if d not in _HEAD_DIMS or not 1 <= kv_len <= s or b > 65535 or h > 65535:
+        raise ValueError(f"{name}: head dim {d} not in {_HEAD_DIMS}, kv_len "
+                         f"{kv_len} not in [1, {s}], or grid too large")
+    return b, s, h, d
+
+
+def attention_backward_dq(q_hat: torch.Tensor, k_hat: torch.Tensor,
+                          v: torch.Tensor, out: torch.Tensor,
+                          dout: torch.Tensor, kv_len: int):
+    """The dq kernel of K1's backward (plain version on the CPU): (dq_acc,
+    lse, delta) as attention_backward_dq_plain, but for lse at rows at or
+    past kv_len, which no part reads (the kernel writes 0 there in a tile
+    wholly past kv_len). On a card: bf16 q_hat and k_hat (B, S, H, D)
+    contiguous, v the packed operand's v columns, out and dout contiguous
+    bf16 (B, S, H*D)."""
+    if q_hat.device.type == "cpu":
+        return attention_backward_dq_plain(q_hat, k_hat, v, out, dout, kv_len)
+    b, s, h, d = _check_bwd("attention backward dq", q_hat, k_hat, kv_len)
+    _check_packed_v("attention backward dq", v, b, s, h, d)
+    for t in (out, dout):
+        _check_rows("attention backward dq", t, (b, s, h * d),
+                    torch.bfloat16, q_hat.device)
+    dq = torch.empty((b, s, h, d), dtype=torch.float32, device=q_hat.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q_hat.device)
+    delta = torch.empty_like(lse)
+    err = _build.kernel_library().lib.seedvr2_attn_bwd_dq(
+        q_hat.data_ptr(), k_hat.data_ptr(), v.data_ptr(), v.stride(1),
+        out.data_ptr(), dout.data_ptr(), dq.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), b, s, h, d, kv_len, _stream(q_hat))
+    _build.check(err, "seedvr2_attn_bwd_dq")
+    attention_backward_dq.launches += 1
+    return dq, lse, delta
+
+
+attention_backward_dq.launches = 0
+
+
+def attention_backward_dkdv(q_hat: torch.Tensor, k_hat: torch.Tensor,
+                            v: torch.Tensor, dout: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor,
+                            kv_len: int,
+                            dv_out: Optional[torch.Tensor] = None):
+    """The dk/dv kernel of K1's backward (plain version on the CPU):
+    (dk_acc fp32 (B, S, H, D), dv bf16). On a card dv is written into
+    `dv_out` when given (the v columns of a packed (B, S, 3*H*D) gradient,
+    the view returned), else into a new (B, S, H, D)."""
+    if q_hat.device.type == "cpu":
+        return attention_backward_dkdv_plain(q_hat, k_hat, v, dout, lse,
+                                             delta, kv_len)
+    b, s, h, d = _check_bwd("attention backward dk/dv", q_hat, k_hat, kv_len)
+    _check_packed_v("attention backward dk/dv", v, b, s, h, d)
+    _check_rows("attention backward dk/dv", dout, (b, s, h * d),
+                torch.bfloat16, q_hat.device)
+    for t in (lse, delta):
+        _check_rows("attention backward dk/dv", t, (b, h, s), torch.float32,
+                    q_hat.device)
+    if dv_out is None:
+        dv_out = torch.empty((b, s, h, d), dtype=torch.bfloat16,
+                             device=q_hat.device)
+    _check_packed_v("attention backward dk/dv (dv)", dv_out, b, s, h, d)
+    dk = torch.empty((b, s, h, d), dtype=torch.float32, device=q_hat.device)
+    err = _build.kernel_library().lib.seedvr2_attn_bwd_dkdv(
+        q_hat.data_ptr(), k_hat.data_ptr(), v.data_ptr(), v.stride(1),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv_out.data_ptr(), dv_out.stride(1), b, s, h, d, kv_len,
+        _stream(q_hat))
+    _build.check(err, "seedvr2_attn_bwd_dkdv")
+    attention_backward_dkdv.launches += 1
+    return dk, dv_out
+
+
+attention_backward_dkdv.launches = 0
+
+
+def prepass_backward(q: torch.Tensor, k: torch.Tensor, cos_q: torch.Tensor,
+                     sin_q: torch.Tensor, cos_k: torch.Tensor,
+                     sin_k: torch.Tensor, eps: float, dq_acc: torch.Tensor,
+                     dk_acc: torch.Tensor, gq: float, gk: float,
+                     out: Optional[torch.Tensor] = None):
+    """The pre-pass backward kernel of K1's backward (plain version on the
+    CPU): (dq, dk, (d cos_q, d sin_q, d cos_k, d sin_k)) as
+    prepass_backward_plain. On a card q and k are the q / k columns of a
+    contiguous packed bf16 qkv, and dq / dk are written into the q / k
+    columns of `out` (a packed (B, S, 3*H*D) bf16 gradient) when given,
+    else into new (B, S, H, D) tensors; the table gradients are per-row
+    partials over the heads folded over the batch rows in order by a
+    second launch."""
+    if q.device.type == "cpu":
+        return prepass_backward_plain(q, k, cos_q, sin_q, cos_k, sin_k, eps,
+                                      dq_acc, dk_acc, gq, gk)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"pre-pass backward: no kernel for {q.device}")
+    b, s, h, d = q.shape
+    name = "pre-pass backward"
+    for t in (q, k):
+        _check_packed_v(name, t, b, s, h, d)
+    if q.stride(1) != k.stride(1):
+        raise ValueError(f"{name}: q and k rows at different strides")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {_HEAD_DIMS}")
+    for t in (cos_q, sin_q, cos_k, sin_k):
+        _check_table(t, (s, d), q.device)
+    for t in (dq_acc, dk_acc):
+        _check_rows(name, t, (b, s, h, d), torch.float32, q.device)
+    if out is None:
+        dst = torch.empty((2, b, s, h, d), dtype=torch.bfloat16,
+                          device=q.device)
+        dq, dk = dst[0], dst[1]
+        dq_ptr, dk_ptr, dst_stride = dq.data_ptr(), dk.data_ptr(), h * d
+    else:
+        _check_rows(name, out, (b, s, 3 * h * d), torch.bfloat16, q.device)
+        x = out.view(b, s, 3, h, d)
+        dq, dk = x[:, :, 0], x[:, :, 1]
+        dq_ptr, dk_ptr, dst_stride = dq.data_ptr(), dk.data_ptr(), 3 * h * d
+    partials = torch.empty((b, 4, s, d), dtype=torch.float32,
+                           device=q.device)
+    tables = torch.empty((4, s, d), dtype=torch.float32, device=q.device)
+    err = _build.kernel_library().lib.seedvr2_prepass_bwd(
+        q.data_ptr(), k.data_ptr(), q.stride(1), cos_q.data_ptr(),
+        sin_q.data_ptr(), cos_k.data_ptr(), sin_k.data_ptr(),
+        dq_acc.data_ptr(), dk_acc.data_ptr(), dq_ptr, dk_ptr, dst_stride,
+        partials.data_ptr(), tables.data_ptr(), b, s, h, d, float(eps),
+        float(gq), float(gk), _stream(q))
+    _build.check(err, "seedvr2_prepass_bwd")
+    prepass_backward.launches += 1
+    return dq, dk, tuple(tables.unbind(0))
+
+
+prepass_backward.launches = 0
+
+
+def packed_window_attention_backward(qkv: torch.Tensor, heads: int, d: int,
+                                     cos_q, sin_q, cos_k, sin_k, eps: float,
+                                     kv_len: int, out: torch.Tensor,
+                                     dout: torch.Tensor):
+    """K1's backward: (d qkv (B, S, 3*H*D), d cos_q, d sin_q, d cos_k,
+    d sin_k (S, D) fp32). CPU tensors take the plain version. CUDA tensors
+    relaunch K1's pre-pass (q-hat, k-hat), then the dq, dk/dv and pre-pass
+    backward kernels, which write d qkv's v, then q and k columns in place;
+    what K1 does not take is refused as K1 refuses it."""
+    if qkv.device.type == "cpu":
+        return packed_window_attention_backward_plain(
+            qkv, heads, d, cos_q, sin_q, cos_k, sin_k, eps, kv_len, out, dout)
+    b, s, _ = qkv.shape
+    if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
+        raise ValueError("packed attention backward takes contiguous bf16 "
+                         f"qkv, got {qkv.dtype}")
+    x = qkv.view(b, s, 3, heads, d)
+    q_hat, k_hat = attention_prepass(x[:, :, 0], x[:, :, 1], cos_q, sin_q,
+                                     cos_k, sin_k, eps, d ** -0.5 * _LOG2E)
+    dq, lse, delta = attention_backward_dq(q_hat, k_hat, x[:, :, 2], out,
+                                           dout, kv_len)
+    dqkv = torch.empty_like(qkv)
+    dk, _ = attention_backward_dkdv(q_hat, k_hat, x[:, :, 2], dout, lse, delta,
+                                    kv_len,
+                                    dqkv.view(b, s, 3, heads, d)[:, :, 2])
+    del q_hat, k_hat, lse, delta
+    _, _, tables = prepass_backward(x[:, :, 0], x[:, :, 1], cos_q, sin_q,
+                                    cos_k, sin_k, eps, dq, dk, d ** -0.5,
+                                    _LN2, out=dqkv)
+    return (dqkv, *tables)
+
+
+class PackedWindowAttention(torch.autograd.Function):
+    """K1 with its gradient: the forward launches K1 as serving does (its
+    plain version on the CPU) and saves qkv, the tables and the output; the
+    backward is packed_window_attention_backward, returning d qkv and the
+    four table gradients."""
+
+    @staticmethod
+    def forward(ctx, qkv, cos_q, sin_q, cos_k, sin_k, heads, d, eps, kv_len):
+        out = packed_window_attention(qkv, heads, d, cos_q, sin_q, cos_k,
+                                      sin_k, eps, kv_len)
+        ctx.save_for_backward(qkv, cos_q, sin_q, cos_k, sin_k, out)
+        ctx.args = (heads, d, eps, kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, cos_q, sin_q, cos_k, sin_k, out = ctx.saved_tensors
+        heads, d, eps, kv_len = ctx.args
+        grads = packed_window_attention_backward(
+            qkv, heads, d, cos_q, sin_q, cos_k, sin_k, eps, kv_len, out,
+            dout.contiguous())
+        return (*grads, None, None, None, None)
+
+
+def packed_window_attention_grad(qkv: torch.Tensor, heads: int, d: int,
+                                 cos_q: torch.Tensor, sin_q: torch.Tensor,
+                                 cos_k: torch.Tensor, sin_k: torch.Tensor,
+                                 eps: float, kv_len: int) -> torch.Tensor:
+    """packed_window_attention with a gradient: the kernel alone when no
+    input needs one (or grad mode is off), else through
+    PackedWindowAttention."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (qkv, cos_q, sin_q, cos_k, sin_k)):
+        return PackedWindowAttention.apply(qkv, cos_q, sin_q, cos_k, sin_k,
+                                           heads, d, eps, kv_len)
+    return packed_window_attention(qkv, heads, d, cos_q, sin_q, cos_k, sin_k,
+                                   eps, kv_len)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

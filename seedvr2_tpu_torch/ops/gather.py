@@ -7,6 +7,13 @@ kernel `csrc/gather_rows.cu` (replaces the Pallas TPU kernel
 so); on a CPU tensor it runs the plain version. The index vector is
 validated on the host and uploaded once (`RowIndex`), so a launch never
 synchronises with the device.
+
+Its gradient (`gather_rows_grad`, the `GatherRows` autograd Function): every
+window-order transition is a permutation of the rows, so the gradient of a
+gather is the same kernel run on the incoming gradient with the inverse
+index (`RowIndex.inverse`, built and uploaded once). `gather_rows` itself
+refuses an input that needs a gradient while grad mode is on, since the
+kernel's output has no autograd history.
 """
 
 import numpy as np
@@ -29,9 +36,25 @@ class RowIndex:
             raise ValueError("row indices must lie in [0, 2**31)")
         self.numpy = idx.astype(np.int32)
         self.tensor = torch.as_tensor(self.numpy, device=device)
+        self._inverse = None
 
     def __len__(self):
         return self.numpy.shape[0]
+
+    @property
+    def inverse(self) -> "RowIndex":
+        """The inverse permutation (inverse[idx[j]] = j), on the same
+        device, built and uploaded at first use. Raises ValueError when the
+        index is not a permutation of its len(idx) source rows."""
+        if self._inverse is None:
+            n = len(self)
+            if self.hi != n - 1 or np.unique(self.numpy).size != n:
+                raise ValueError("the row index is not a permutation of its "
+                                 f"{n} source rows: no inverse")
+            inv = np.empty(n, np.int32)
+            inv[self.numpy] = np.arange(n, dtype=np.int32)
+            self._inverse = RowIndex(inv, self.tensor.device)
+        return self._inverse
 
 
 def gather_rows_plain(x: torch.Tensor, index: RowIndex) -> torch.Tensor:
@@ -44,7 +67,9 @@ def gather_rows(x: torch.Tensor, index: RowIndex) -> torch.Tensor:
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, or
     raise on what it does not take (dtype, rank, contiguity, index device or
-    range)."""
+    range). An x that needs a gradient while grad mode is on is refused on
+    every device: `gather_rows_grad` carries one."""
+    _build.refuse_grad("gather_rows", x)
     if index.hi >= x.shape[-2]:
         raise IndexError(f"row index {index.hi} out of range for "
                          f"{x.shape[-2]} rows")
@@ -71,3 +96,38 @@ def gather_rows(x: torch.Tensor, index: RowIndex) -> torch.Tensor:
 
 
 gather_rows.launches = 0
+
+
+class GatherRows(torch.autograd.Function):
+    """K2 with its gradient: forward launches K2 (the plain gather on the
+    CPU), backward launches K2 on the incoming gradient with the inverse
+    permutation (raises for an index that is not a permutation of x's
+    rows)."""
+
+    @staticmethod
+    def forward(ctx, x, index: RowIndex):
+        ctx.index = index
+        ctx.rows = x.shape[-2]
+        return gather_rows(x, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        index = ctx.index
+        if len(index) != ctx.rows:
+            raise ValueError(f"gather_rows backward: {len(index)} rows "
+                             f"gathered from {ctx.rows} are no permutation")
+        out = gather_rows(grad.contiguous(), index.inverse)
+        if grad.is_cuda:
+            GatherRows.launches += 1  # K2's launches as the gradient
+        return out, None
+
+
+GatherRows.launches = 0
+
+
+def gather_rows_grad(x: torch.Tensor, index: RowIndex) -> torch.Tensor:
+    """gather_rows with a gradient: the kernel alone when x needs none (or
+    grad mode is off), else through GatherRows."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return GatherRows.apply(x, index)
+    return gather_rows(x, index)

@@ -1,6 +1,7 @@
-"""Every collective of the port's serving parallelism, in one place.
+"""Every collective of the port's serving and training parallelism, in one
+place.
 
-Three kinds, on the tensors' own device:
+Four kinds, on the tensors' own device:
 
  - `all_reduce_sum_`: the fp32 sum of the partial products of a
    row-sharded projection over the tp line (ops/layers.linear's `reduce`,
@@ -11,7 +12,12 @@ Three kinds, on the tensors' own device:
    pipeline;
  - `agree_max`: a decision every rank must take alike, although each
    reaches it alone (a VAE item's tile plan, a wave's failure), so that
-   no rank takes a branch with collectives that another rank skips.
+   no rank takes a branch with collectives that another rank skips;
+   `agreed` runs a step whose failure on one rank every rank must share
+   before anything more is exchanged (a tiled call's blend buffers);
+ - `gather_shards`: a tensor put back together from the pieces the ranks
+   hold under a sharding spec (parallel/mesh.py; the trainer's fsdp / tp
+   parameter pieces), bit-exact in any dtype.
 
 All are built on torch.distributed's broadcast and all_reduce, the two
 collectives that NCCL takes and that gloo also takes on CUDA tensors (gloo
@@ -28,7 +34,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils.partition import partition_by_size
-from .mesh import Mesh
+from .mesh import Mesh, shard
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
            torch.int8, torch.uint8, torch.int32, torch.int64, torch.bool)
@@ -37,11 +43,11 @@ _MAX_DIMS = 8
 _OK, _OOM, _FAILED = 0, 1, 2
 
 
-def all_reduce_sum_(t: torch.Tensor, mesh: Mesh, axis: str = "tp"
-                    ) -> torch.Tensor:
+def all_reduce_sum_(t: torch.Tensor, mesh: Optional[Mesh],
+                    axis: str = "tp") -> torch.Tensor:
     """Sum `t` over this rank's line of `axis`, in place; `t` as it is on a
-    line of one rank."""
-    group = mesh.group(axis)
+    line of one rank or without a mesh."""
+    group = None if mesh is None else mesh.group(axis)
     if group is not None:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
@@ -68,6 +74,26 @@ def agree_max(values: Sequence[int], mesh: Optional[Mesh], device
                      device=device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return [int(v) for v in t.tolist()]
+
+
+def gather_shards(local: torch.Tensor, spec: Sequence, shape: Sequence[int],
+                  mesh: Optional[Mesh]) -> torch.Tensor:
+    """The whole tensor of `shape` of which each rank holds its piece under
+    `spec` (mesh.shard's) as `local`, on every rank of the lines of the
+    spec's axes. Each rank writes its piece into zeros and the bytes are
+    summed as uint8 over each axis' line in turn; exactly one rank holds a
+    nonzero byte at each place, so the sum is the tensor bit for bit, in
+    any dtype. `local` itself when no axis of the spec spans ranks."""
+    axes = [a for a in spec if a is not None and mesh is not None
+            and mesh.shape.get(a, 1) > 1]
+    if not axes:
+        return local
+    full = torch.zeros(tuple(shape), dtype=local.dtype, device=local.device)
+    shard(mesh, full, spec).copy_(local)
+    raw = full.view(-1).view(torch.uint8)
+    for axis in axes:
+        dist.all_reduce(raw, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+    return full
 
 
 def broadcast(t: Optional[torch.Tensor], src: int, mesh: Mesh,
@@ -148,22 +174,34 @@ def spread(items: Sequence, run: Callable, mesh: Optional[Mesh],
         owners = [mesh.rank_at(**{axis: j}) for j in range(width)]
         mine = mesh.coords()[axis]
     for wave in partition_by_size(list(range(len(items))), width):
-        local, err, state = None, None, _OK
-        if mine < len(wave):
-            try:
-                local = run(items[wave[mine]])
-            except torch.cuda.OutOfMemoryError as e:
-                err, state = e, _OOM
-            except Exception as e:  # noqa: BLE001 - re-raised below
-                err, state = e, _FAILED
-        state = agree_max([state], mesh, device)[0]
-        if err is not None:
-            raise err
-        if state == _OOM:
-            raise torch.cuda.OutOfMemoryError(
-                "another rank of the mesh ran out of device memory in this "
-                "wave")
-        if state == _FAILED:
-            raise RuntimeError("another rank of the mesh failed in this "
-                               "wave")
+        local = agreed(
+            (lambda i=wave[mine]: run(items[i])) if mine < len(wave)
+            else (lambda: None), mesh, device, "wave")
         yield from share(local, owners[:len(wave)], mesh, device)
+
+
+def agreed(run: Callable, mesh: Optional[Mesh], device, what: str = "step"):
+    """run() here, its outcome agreed by every rank of the mesh before any
+    rank goes on: when run raises on some rank, every rank raises (its own
+    error on that rank; torch.cuda.OutOfMemoryError elsewhere when a rank
+    ran out of device memory, so a caller's OOM retry runs on every rank
+    alike, else RuntimeError), and no rank waits in a later collective that
+    another rank left. Every rank calls it; without a mesh run() alone."""
+    out, err, state = None, None, _OK
+    try:
+        out = run()
+    except torch.cuda.OutOfMemoryError as e:
+        err, state = e, _OOM
+    except Exception as e:  # noqa: BLE001 - re-raised below
+        err, state = e, _FAILED
+    if mesh is not None:
+        state = agree_max([state], mesh, device)[0]
+    if err is not None:
+        raise err
+    if state == _OOM:
+        raise torch.cuda.OutOfMemoryError(
+            f"another rank of the mesh ran out of device memory in this "
+            f"{what}")
+    if state == _FAILED:
+        raise RuntimeError(f"another rank of the mesh failed in this {what}")
+    return out

@@ -1,4 +1,4 @@
-"""The device mesh of the port's serving parallelism.
+"""The device mesh of the port's serving and training parallelism.
 
 Port of seedvr2_tpu.parallel.mesh in PyTorch's idiom. JAX runs one SPMD
 program over a named mesh of chips; the port runs one process per device
@@ -6,28 +6,47 @@ program over a named mesh of chips; the port runs one process per device
 torch.distributed world out as a mesh of named axes, row-major, as JAX
 reshapes its device list:
 
- - dp: data parallel, independent batches and VAE tiles;
+ - dp: data parallel, independent batches and VAE tiles; the trainer's
+   batch rows (`batch_sharding`);
+ - fsdp: parameter sharding, the trainer's (`param_sharding`,
+   `shard_params`): every tensor of rank >= 2 keeps 1/fsdp of its JAX
+   in-dim here, its optimizer moments with it;
  - tp: tensor parallel, the DiT's attention heads and mlp hidden
-   (parallel/tp.py).
+   (parallel/tp.py); in a training mesh a storage axis too, as in JAX's
+   `param_sharding`: 1/tp of each such tensor's JAX out-dim.
 
 `Mesh` answers what the runner asks of JAX's mesh (`shape` as a dict,
 `axis_names`) and holds one process group a line of each axis, made with
 `torch.distributed.new_group` on the backend asked for (NCCL between
 cards, gloo on the CPU, and gloo named explicitly where two ranks share one
-card, which NCCL refuses). Every collective runs in parallel/comm.py.
+card, which NCCL refuses), each bounded by COLLECTIVE_TIMEOUT. Every
+collective runs in parallel/comm.py.
 
-The fsdp axis and `param_sharding` / `shard_params` serve the trainer and
-wait for its port.
+A sharding spec is a tuple with one entry a dim of the tensor as the port
+holds it: an axis name (that dim cut in equal contiguous pieces over the
+axis, piece i on the rank at index i) or None (whole). `shard` cuts this
+rank's piece; parallel/comm.gather_shards puts the pieces back together.
 """
 
 import os
 from dataclasses import dataclass, field
+from datetime import timedelta
 from itertools import product
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+# How long a collective on a mesh's groups waits for a partner before it
+# raises, so that the partners of a rank that failed outside a collective
+# (an exception inside a tp forward, say) fail too instead of waiting.
+# NCCL's own default, which gloo's 30 minutes would otherwise exceed; it
+# outlasts the longest legitimate wait at a collective by far: a dp rank
+# without an item waits out its partners' wave, one DiT step and its VAE
+# phases, seconds on the card, and a trainer's ranks wait out one rank
+# writing the checkpoint.
+COLLECTIVE_TIMEOUT = timedelta(minutes=10)
 
 
 def factorize(n: int, ways: int = 3) -> Sequence[int]:
@@ -99,19 +118,21 @@ class Mesh:
         return None if len(ranks) == 1 else self.groups[ranks]
 
 
-def make_mesh(n_devices: Optional[int] = None, axis_names=("dp", "tp"),
+def make_mesh(n_devices: Optional[int] = None,
+              axis_names=("dp", "fsdp", "tp"),
               shape: Optional[Sequence[int]] = None,
               backend: Optional[str] = None) -> Mesh:
     """Mesh over the first `n_devices` ranks of the torch.distributed world
-    (default the whole world), as JAX's takes the first n devices. With
-    shape None the
-    count is factorized near-equally over the axes; an explicit shape pins
-    each axis' extent (the CLI's --tensor_parallel -> (dp, tp)) and must lay
-    out n_devices exactly, as in JAX. backend: the process groups' backend
+    (default the whole world), as JAX's takes the first n devices, over
+    JAX's default axes (dp, fsdp, tp). With shape None the count is
+    factorized near-equally over the axes; an explicit shape pins each
+    axis' extent (the CLI's --tensor_parallel -> (dp, tp)) and must lay out
+    n_devices exactly, as in JAX. backend: the process groups' backend
     (None: the world's). Every rank of the world calls this with the same
     arguments (process groups are made collectively); a rank outside the
     mesh gets it with `member` False. Without an initialised process group
-    only a one-rank mesh is possible."""
+    only a one-rank mesh is possible. A collective on the mesh's groups
+    waits at most COLLECTIVE_TIMEOUT for a partner, then raises."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     n = n_devices or world
     if shape is None:
@@ -139,10 +160,69 @@ def make_mesh(n_devices: Optional[int] = None, axis_names=("dp", "tp"),
             lines.append(tuple(int(r) for r in grid[tuple(sel)]))
     # collective: every world rank makes every group once, in one order
     for line in dict.fromkeys(lines):
-        group = dist.new_group(list(line), backend=backend)
+        group = dist.new_group(list(line), backend=backend,
+                               timeout=COLLECTIVE_TIMEOUT)
         if mesh.rank in line:
             mesh.groups[line] = group
     return mesh
+
+
+def param_sharding(mesh: Mesh, shape: Sequence[int]) -> Tuple:
+    """The training layout of a parameter of torch shape `shape`: JAX's rule
+    (seedvr2_tpu.parallel.mesh.param_sharding) on the JAX layout of the
+    same tensor. Rank >= 2 shards its JAX in-dim (dim 0) over fsdp and its
+    JAX out-dim (the last dim) over tp where fsdp / tp > 1 divides it;
+    everything else is replicated. The port holds a linear as (out, in),
+    JAX as (in, out): fsdp cuts torch dim 1, tp dim 0. 5-D and 4-D convs
+    follow core.weights.state_dict_from_jax's transposes (JAX (kt, kh, kw,
+    ci, co) / (kh, kw, ci, co), torch (co, ci, kt, kh, kw) / (co, ci, kh,
+    kw)): fsdp cuts torch dim 2, tp dim 0. Other ranks keep JAX's
+    layout."""
+    fsdp = mesh.shape.get("fsdp", 1)
+    tp = mesh.shape.get("tp", 1)
+    n = len(shape)
+    spec = [None] * n
+    if n < 2:
+        return tuple(spec)
+    # the torch dims of JAX's dim 0 and of its last dim
+    first, last = {2: (1, 0), 4: (2, 0), 5: (2, 0)}.get(n, (0, n - 1))
+    if fsdp > 1 and shape[first] % fsdp == 0:
+        spec[first] = "fsdp"
+    if tp > 1 and shape[last] % tp == 0:
+        spec[last] = "tp"
+    return tuple(spec)
+
+
+def batch_sharding(mesh: Mesh, ndim: int) -> Tuple:
+    """The leading batch axis over dp, everything else whole (every mesh
+    lays its batch rows out so)."""
+    return ("dp",) + (None,) * (ndim - 1)
+
+
+def shard(mesh: Mesh, t: torch.Tensor, spec: Sequence) -> torch.Tensor:
+    """This rank's piece of `t` under `spec` (a view). A dim that its axis
+    does not divide raises."""
+    here = mesh.coords()
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        n = mesh.shape.get(axis, 1)
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"over {n} {axis} ranks")
+        size = t.shape[dim] // n
+        t = t.narrow(dim, here[axis] * size, size)
+    return t
+
+
+def shard_params(mesh: Mesh, params) -> Dict[str, torch.Tensor]:
+    """{name: this rank's piece under param_sharding, a contiguous copy} of
+    a {name: tensor} dict or of an nn.Module's parameters."""
+    if not isinstance(params, dict):
+        params = dict(params.named_parameters())
+    return {k: shard(mesh, v.detach(), param_sharding(mesh, v.shape))
+            .clone(memory_format=torch.contiguous_format)
+            for k, v in params.items()}
 
 
 def local_rank() -> int:

@@ -764,7 +764,7 @@ def test_xla_lane_forward_matches_jax(family, uniform, monkeypatch):
         raise AssertionError("a kernel wrapper in the xla lane")
 
     monkeypatch.setattr(tattn.F, "scaled_dot_product_attention", count)
-    monkeypatch.setattr(tn, "packed_window_attention", refuse)
+    monkeypatch.setattr(tn, "packed_window_attention_grad", refuse)
     monkeypatch.setattr(tn, "packed_window_attention_plain", refuse)
     from seedvr2_tpu_torch.ops import flash_attention as tfa
 

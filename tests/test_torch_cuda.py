@@ -158,6 +158,158 @@ def test_k2_kernel_matches_plain_on_gpu(cuda_device, width):
     assert torch.equal(tg.gather_rows(x, index), tg.gather_rows_plain(x, index))
 
 
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+# K1's backward: kv_len at 1, one row short of a key tile, one tile, a
+# partial last tile, the record shape, a whole window, a training-plan
+# group with a q tile wholly past kv_len; D = 64 and 128
+_K1_BWD = [(128, 1, 128), (128, 63, 64), (128, 64, 128), (192, 191, 128),
+           (512, 463, 128), (256, 256, 64), (384, 298, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,kv_len,d", _K1_BWD,
+                         ids=[f"S{s}-kv{kv}-D{d}" for s, kv, d in _K1_BWD])
+def test_k1_backward_parts_on_gpu(cuda_device, s, kv_len, d):
+    """Each part of K1's backward against its plain version on the same
+    inputs (chip_smoke.py's BWD bounds: fp32 sums 1e-5 relative L2, bf16
+    outputs 1e-3), the whole against its plain version (bf16-class 2e-2),
+    rows at or past kv_len zero (delta's too), reruns bit-equal."""
+    gen = torch.Generator(cuda_device).manual_seed(s + kv_len + d)
+    b, h, eps = 3, 4, 1e-5
+    tabs = _tables(np.random.default_rng(s), s, d, cuda_device)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    qkv[:, kv_len:] = 0
+    out = tfa.packed_window_attention(qkv, h, d, *tabs, eps, kv_len)
+    dout = torch.randn(b, s, h * d, generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    x = qkv.view(b, s, 3, h, d)
+    qh, kh = tfa.attention_prepass(x[:, :, 0], x[:, :, 1], *tabs, eps,
+                                   d ** -0.5 * tfa._LOG2E)
+    v = x[:, :, 2]
+    dq, lse, delta = tfa.attention_backward_dq(qh, kh, v, out, dout, kv_len)
+    dk, dv = tfa.attention_backward_dkdv(qh, kh, v, dout, lse, delta, kv_len)
+    pre = tfa.prepass_backward(x[:, :, 0], x[:, :, 1], *tabs, eps, dq, dk,
+                               d ** -0.5, tfa._LN2)
+    whole = tfa.packed_window_attention_backward(qkv, h, d, *tabs, eps,
+                                                 kv_len, out, dout)
+    again = tfa.packed_window_attention_backward(qkv, h, d, *tabs, eps,
+                                                 kv_len, out, dout)
+    torch.cuda.synchronize()
+    p_dq, p_lse, p_delta = tfa.attention_backward_dq_plain(qh, kh, v, out,
+                                                           dout, kv_len)
+    p_dk, p_dv = tfa.attention_backward_dkdv_plain(qh, kh, v, dout, lse,
+                                                   delta, kv_len)
+    p_pre = tfa.prepass_backward_plain(x[:, :, 0], x[:, :, 1], *tabs, eps,
+                                       dq, dk, d ** -0.5, tfa._LN2)
+    p_whole = tfa.packed_window_attention_backward_plain(
+        qkv, h, d, *tabs, eps, kv_len, out, dout)
+    assert _rel(lse[..., :kv_len], p_lse[..., :kv_len]) <= 1e-5
+    assert _rel(delta, p_delta) <= 1e-5
+    assert _rel(dv, p_dv) <= 1e-3
+    assert all(torch.isfinite(t).all() for t in whole)
+    if kv_len == 1:
+        # one key: P = 1 and O = v_0, so dS = dO v_0 - delta = 0, and dq,
+        # dk, the pre-pass's outputs and the table gradients vanish; each
+        # side keeps only the rounding residue of that difference (~1e-5)
+        for t in (dq, p_dq, dk, p_dk, *pre[:2], *p_pre[:2], *pre[2],
+                  *p_pre[2], *whole[1:], *p_whole[1:]):
+            assert t.abs().max().item() <= 1e-3
+        w, pw = (t.view(b, s, 3, h * d) for t in (whole[0], p_whole[0]))
+        assert w[:, :, :2].abs().max().item() <= 1e-3
+        assert _rel(w[:, :, 2], pw[:, :, 2]) <= 1e-3
+    else:
+        assert _rel(dq, p_dq) <= 1e-5 and _rel(dk, p_dk) <= 1e-5
+        assert _rel(pre[0], p_pre[0]) <= 1e-3
+        assert _rel(pre[1], p_pre[1]) <= 1e-3
+        for t, r in zip(pre[2], p_pre[2]):
+            assert _rel(t, r) <= 1e-5
+        for t, r in zip(whole, p_whole):
+            assert _rel(t, r) <= 2e-2
+    assert all(torch.equal(t, r) for t, r in zip(whole, again))
+    assert not whole[0][:, kv_len:].any()
+    assert all(not t[kv_len:].any() for t in whole[1:])
+
+
+@pytest.mark.cuda
+def test_k1_k2_functions_on_gpu(cuda_device):
+    """K1's and K2's autograd Functions on the card: outputs with a
+    grad_fn, gradients within the bf16 class of torch autograd through the
+    plain versions (K2's bit-equal to index_select's), counted launches;
+    the raw wrappers refuse an input that needs a gradient."""
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    b, s, h, d, kv = 2, 256, 4, 128, 200
+    tabs = [t.requires_grad_() for t in
+            _tables(np.random.default_rng(3), s, d, cuda_device)]
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen,
+                      device=cuda_device).to(torch.bfloat16).requires_grad_()
+    dout = torch.randn(b, s, h * d, generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    dout[:, kv:] = 0
+    with pytest.raises(RuntimeError, match="needs a gradient"):
+        tfa.packed_window_attention(qkv, h, d, *tabs, 1e-5, kv)
+    before = tfa.attention_backward_dkdv.launches
+    out = tfa.packed_window_attention_grad(qkv, h, d, *tabs, 1e-5, kv)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (qkv, *tabs), dout)
+    ref = torch.autograd.grad(tfa.packed_window_attention_plain(
+        qkv, h, d, *tabs, 1e-5, kv), (qkv, *tabs), dout)
+    assert tfa.attention_backward_dkdv.launches == before + 1
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 2e-2
+    index = tg.RowIndex(np.random.default_rng(1).permutation(300),
+                        cuda_device)
+    x = torch.randn(2, 300, 2560, generator=gen, device=cuda_device).to(
+        torch.bfloat16).requires_grad_()
+    g = torch.randn(2, 300, 2560, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    with pytest.raises(RuntimeError, match="needs a gradient"):
+        tg.gather_rows(x, index)
+    before = tg.GatherRows.launches
+    (got,) = torch.autograd.grad(tg.gather_rows_grad(x, index), x, g)
+    (ref,) = torch.autograd.grad(torch.index_select(
+        x, 1, index.tensor.long()), x, g)
+    assert torch.equal(got, ref) and tg.GatherRows.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_train_steps_on_gpu(cuda_device):
+    """Two bf16 AdamW steps of a small 3B-layout DiT (D = 64 heads, which
+    K1 takes) through the kernels against the same steps through the plain
+    versions: losses within 1e-2 relative, every first moment finite and
+    nonzero."""
+    from seedvr2_tpu_torch.core.configs import small_test_config
+    from seedvr2_tpu_torch.models.dit import nadit
+    from seedvr2_tpu_torch.parallel import train
+
+    cfg = small_test_config(vid_dim=128, heads=2, head_dim=64)
+    plan = nadit.build_dit_plan(cfg, (1, 16, 16), 7)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    model = nadit.init_dit(cfg, cuda_device, torch.float32, gen)
+    batch = {"latent": torch.randn(2, 1, 16, 16, 16, device=cuda_device),
+             "cond": torch.randn(2, 1, 16, 16, 17, device=cuda_device),
+             "txt": torch.randn(2, 7, cfg.txt_in_dim, device=cuda_device)}
+    losses = {}
+    for uk in (True, False):
+        init_state, step = train.make_train_step(cfg, plan, None,
+                                                 device=cuda_device,
+                                                 use_kernels=uk)
+        state = init_state(model)
+        losses[uk] = []
+        for i in range(2):
+            state, loss = step(state, batch,
+                               torch.Generator(cuda_device).manual_seed(i))
+            losses[uk].append(loss.item())
+        assert all(torch.isfinite(m).all() and m.abs().sum() > 0
+                   for m in state.opt_state["mu"].values())
+    for a, r in zip(losses[True], losses[False]):
+        assert abs(a - r) <= 1e-2 * abs(r)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,k", [(1, 2560, 2560), (58, 2560, 5120),
                                    (300, 384, 96), (7200, 13824, 2560),

@@ -22,8 +22,13 @@ ranks run every check on meshes over that one world:
  - tp4 at 20 heads (3B-like) and 24 heads (7B-like): the attention runs at
    5 and 6 local heads, within 2e-5 of JAX's tp=4 run;
  - the uniform window plan (K9's plain version) at local heads;
- - the tiled VAE's tile waves over 4 ranks, bit-equal to one rank;
- - BlockSwap (StreamedNaDiT) under dp2, bit-equal to the resident DiT.
+ - the tiled VAE's tile waves over 4 ranks, bit-equal to one rank, with
+   an OOM on one rank in a tile wave and in a tiled call's blend buffer
+   (every rank retries alike);
+ - BlockSwap (StreamedNaDiT) under dp2, bit-equal to the resident DiT;
+ - one rank failing inside a tp4 forward: its partners raise within the
+   mesh's bounded timeout instead of waiting; the CLI's mesh's groups are
+   bounded by COLLECTIVE_TIMEOUT.
 
 Each check is reported per rank and read back by one test case each.
 """
@@ -240,7 +245,8 @@ CHECKS = ["pipeline_dp4_bit_equal", "pipeline_dp2tp2_bit_equal",
           "pipeline_vs_jax_mesh", "tp2_dit_3b", "tp2_dit_7b", "tp2_q8",
           "tp2_q4k", "tp2_w8a8_psnr", "tp4_dit_3b_5_heads",
           "tp4_dit_7b_6_heads", "tp2_uniform_plan", "tiled_vae_waves",
-          "vae_oom_one_rank", "blockswap_dp2", "rank_tag"]
+          "vae_oom_one_rank", "vae_oom_blend_one_rank", "blockswap_dp2",
+          "rank_tag", "tp_failure_one_rank", "cli_mesh_timeout"]
 
 
 def _jmesh(dp, tp):

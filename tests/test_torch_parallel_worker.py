@@ -10,6 +10,9 @@ belongs to, and writes {check: {"ok", "detail"}} to rank<N>.json.
 import json
 import os
 import sys
+import time
+from datetime import timedelta
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -28,12 +31,15 @@ from seedvr2_tpu_torch.ops.offload import StreamedNaDiT
 from seedvr2_tpu_torch.ops.quant_matmul import (quantize_dit_affine4,
                                                 quantize_dit_q8)
 from seedvr2_tpu_torch.parallel.comm import broadcast, tp_reducer
-from seedvr2_tpu_torch.parallel.mesh import make_mesh
+from seedvr2_tpu_torch.parallel import mesh as mesh_lib
+from seedvr2_tpu_torch.parallel.mesh import COLLECTIVE_TIMEOUT, make_mesh
 from seedvr2_tpu_torch.parallel.tp import tp_shard_dit
 from seedvr2_tpu_torch.utils.debug import _rank_tag
 from seedvr2_tpu_torch.utils.parity import psnr
 
 F32 = torch.float32
+TP4_HEADS = 20  # tests/test_torch_parallel.py's 3B-like tp4 case
+TP_TIMEOUT_S = 5
 
 
 def _tuples(kw):
@@ -155,6 +161,89 @@ def vae_oom_one_rank(w, mesh, g):
              f"{r.oom_retries - retries}, tile {r.tiling.decode_tile_size}")
 
 
+def vae_oom_blend_one_rank(w, mesh, g):
+    """A device OOM on one rank of the 4-rank tiled decode outside a tile's
+    compute: rank 2's first blend-buffer allocation fails. Every rank
+    raises alike before any tile is shared and retries that item with the
+    shrunk tile; no rank hangs, and each result equals the one-rank decode
+    under the tiling its item got."""
+    lats = [torch.randn((2, 6, 5, w.vae_kw["latent_channels"]), generator=g)
+            for _ in range(2)]
+    size = {px: VAETiling(decode_tiled=True, decode_tile_size=(px, px),
+                          decode_tile_overlap=(8, 8)) for px in (32, 16)}
+    one = w.pipe_runner()
+    ref = {}
+    for px, tiling in size.items():
+        one.tiling = tiling
+        ref[px] = [one.vae_decode([z])[0] for z in lats]
+    r = w.pipe_runner()
+    r.attach_mesh(mesh)
+    r._MIN_TILE = 16
+    r.tiling = size[32]
+    buffer, calls = pipeline_vae._blend_buffer, []
+
+    def flaky(shape, device):
+        calls.append(shape)
+        if w.rank == 2 and len(calls) == 1:
+            raise torch.cuda.OutOfMemoryError("injected")
+        return buffer(shape, device)
+
+    pipeline_vae._blend_buffer = flaky
+    try:
+        got = r.vae_decode(lats)
+    finally:
+        pipeline_vae._blend_buffer = buffer
+    # the shrink sticks in the runner's tiling; the call's second item was
+    # planned with the first, at 32 px
+    ok = [torch.equal(a, b) for a, b in zip(got, (ref[16][0], ref[32][1]))]
+    w.record("vae_oom_blend_one_rank",
+             all(ok) and r.oom_retries == 1
+             and r.tiling.decode_tile_size == (16, 16),
+             f"equal per item {ok}, retries {r.oom_retries}, tile "
+             f"{r.tiling.decode_tile_size}")
+
+
+def tp_failure_one_rank(w, mesh, timeout_s):
+    """Rank 3 raises inside a tp4 forward (at block 1): its partners, in
+    the block's all-reduce on a mesh made with a bounded timeout, raise
+    within it instead of waiting for the rank that left."""
+    name = "tp4_dit_3b"
+    model = w.dit_model(name, "dit_3b", "dense", TP4_HEADS)
+    tp_shard_dit(model, mesh)
+    d = w.data
+    n, b = (torch.from_numpy(d[f"{name}/{k}"]) for k in ("noise", "blur"))
+    vid = torch.cat([n, b, torch.ones_like(n[..., :1])], -1)[None]
+    txt = torch.from_numpy(d[f"{name}/txt"])[None]
+    dplan = nadit.upload_plan(nadit.build_dit_plan(
+        model.cfg, tuple(n.shape[:3]), txt.shape[1]), model.cfg, "cpu")
+    block = nadit._block_forward
+
+    def flaky(blk, cfg, i, *a, **kw):
+        if w.rank == 3 and i == 1:
+            raise RuntimeError("injected failure")
+        return block(blk, cfg, i, *a, **kw)
+
+    nadit._block_forward = flaky
+    t0 = time.perf_counter()
+    try:
+        nadit.nadit_forward(model, vid, txt, torch.full((1,), 1000.0), dplan,
+                            tp=tp_reducer(mesh))
+        outcome = "returned"
+    except RuntimeError as e:
+        outcome = str(e)
+    finally:
+        nadit._block_forward = block
+    seconds = time.perf_counter() - t0
+    if w.rank == 3:
+        ok = outcome == "injected failure"
+    else:
+        ok = outcome not in ("returned", "injected failure") \
+            and seconds < timeout_s + 60
+    w.record("tp_failure_one_rank", ok,
+             f"{outcome[:120]!r} after {seconds:.1f} s (timeout "
+             f"{timeout_s} s)")
+
+
 def _close(got, ref, tol):
     err = float(np.max(np.abs(got - ref)))
     ok = np.allclose(got, ref, rtol=tol, atol=tol)
@@ -174,10 +263,25 @@ def main():
     m_tp2 = make_mesh(2, ("dp", "tp"), (1, 2))
     m_tp4 = make_mesh(4, ("dp", "tp"), (1, 4))
     m_dp2 = make_mesh(2, ("dp",), (2,))
+    # the failure case's mesh waits TP_TIMEOUT_S, not COLLECTIVE_TIMEOUT
+    mesh_lib.COLLECTIVE_TIMEOUT = timedelta(seconds=TP_TIMEOUT_S)
+    try:
+        m_tp4_bounded = make_mesh(4, ("dp", "tp"), (1, 4))
+    finally:
+        mesh_lib.COLLECTIVE_TIMEOUT = COLLECTIVE_TIMEOUT
+    m_cli = cli.build_mesh(SimpleNamespace(tensor_parallel=2,
+                                           data_parallel="auto"), 4)
+    # the CLI's groups wait COLLECTIVE_TIMEOUT, not gloo's 30 minutes
+    waits = {line: g._get_backend(torch.device("cpu")).options._timeout
+             for line, g in m_cli.groups.items()}
+    w.record("cli_mesh_timeout",
+             m_cli.shape == {"dp": 2, "tp": 2} and len(waits) >= 2
+             and all(t == COLLECTIVE_TIMEOUT for t in waits.values()),
+             f"{waits}")
 
     # attention heads as the kernels (plain versions here) see them
-    attend = nadit.packed_window_attention
-    nadit.packed_window_attention = \
+    attend = nadit.packed_window_attention_grad
+    nadit.packed_window_attention_grad = \
         lambda qkv, heads, *a, **kw: (w.heads.append(heads),
                                       attend(qkv, heads, *a, **kw))[1]
     uni = nadit.attention
@@ -283,6 +387,7 @@ def main():
     w.record("tiled_vae_waves", same and min(min(t) for t in tiles) > 1,
              f"tiles (encode, decode) per mode {tiles}")
     vae_oom_one_rank(w, m_dp4, g)
+    vae_oom_blend_one_rank(w, m_dp4, g)
 
     # BlockSwap under dp2
     if m_dp2.member:
@@ -293,6 +398,9 @@ def main():
                  and r.mesh is m_dp2
                  and r.last_batch_sizes == [1, 1],
                  f"max diff {np.abs(got - ws1).max():.3g}")
+
+    # last: its mesh's groups are left with a timed-out collective
+    tp_failure_one_rank(w, m_tp4_bounded, TP_TIMEOUT_S)
 
     # the port reached nothing of the JAX package
     assert not any(m == "seedvr2_tpu" or m.startswith("seedvr2_tpu.")

@@ -1,0 +1,636 @@
+"""The port's trainer (seedvr2_tpu_torch/parallel/train.py) and the gradients
+of its kernels K1 and K2 against the JAX package, on the CPU.
+
+The JAX side differentiates its jnp compositions (it has no backward
+kernel); the port's autograd Functions run their plain backward versions
+here. Inputs are seeded numpy, JAX's noise and timesteps are drawn from a
+JAX key and handed to the port. Tolerances, with their reasons:
+
+ - fp32 (the gradient math): 1e-5 relative L2 per tensor, the same
+   arithmetic summed in other orders;
+ - JAX's own bf16 train_step against the port's: 1e-2 relative on the
+   losses and 3e-2 relative L2 over every Adam first moment after one step
+   (both are 0.1 * grad): the two frameworks round the bf16 products and
+   sums at other places (JAX's own bf16 gradients lie 0.73 % from its fp32
+   ones overall on this config, 2.6 % on the worst leaf);
+ - AdamW against optax.adamw on the same gradients: 1e-6 relative L2.
+"""
+
+import numpy as np
+import optax
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from seedvr2_tpu.core import diffusion as jdiff
+from seedvr2_tpu.core import export as jexport
+from seedvr2_tpu.core.configs import DiTConfig as JDiTConfig
+from seedvr2_tpu.core.configs import DIT_3B as J_DIT_3B
+from seedvr2_tpu.models.dit import nadit as jn
+from seedvr2_tpu.ops import attention as jattn
+from seedvr2_tpu.ops import gather as jgather
+from seedvr2_tpu.parallel import mesh as jmesh
+from seedvr2_tpu.parallel import train as jtrain
+from seedvr2_tpu_torch.core import weights as tw
+from seedvr2_tpu_torch.core.configs import DIT_3B, DiTConfig
+from seedvr2_tpu_torch.core.diffusion import logitnormal_timesteps
+from seedvr2_tpu_torch.core.loader import load_dit_checkpoint
+from seedvr2_tpu_torch.models.dit import nadit as tn
+from seedvr2_tpu_torch.ops import flash_attention as tfa
+from seedvr2_tpu_torch.ops import gather as tgather
+from seedvr2_tpu_torch.parallel import mesh as tmesh
+from seedvr2_tpu_torch.parallel import train as ttrain
+
+from .test_torch_dit import random_params
+
+# tests/test_components.py's tiny config
+TINY = dict(family="dit_3b", vid_in_channels=9, vid_out_channels=4,
+            vid_dim=24, txt_in_dim=16, heads=2, head_dim=12,
+            patch_size=(1, 2, 2), num_layers=2, mm_layers=1,
+            mlp_type="swiglu", window=(2, 2, 2), rope_type="mmrope3d",
+            rope_dim=12, vid_out_norm=True)
+SHAPE, TXT_LEN, BATCH = (1, 4, 4), 5, 2
+FP32_REL = 1e-5
+BF16_LOSS_REL, BF16_MU_REL = 1e-2, 3e-2
+ADAMW_REL = 1e-6
+
+
+def rel_l2(a, b) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg, tcfg = JDiTConfig(**TINY), DiTConfig(**TINY)
+    params = random_params(lambda k: jn.init_dit_params(
+        k, jcfg, dtype=jnp.float32), 7)
+    rng = np.random.default_rng(3)
+    t, h, w = SHAPE
+    batch = {
+        "latent": rng.standard_normal((BATCH, t, h, w, 4), np.float32),
+        "cond": rng.standard_normal((BATCH, t, h, w, 5), np.float32),
+        "txt": rng.standard_normal((BATCH, TXT_LEN, 16), np.float32)}
+    return jcfg, tcfg, params, batch
+
+
+def port_model(tcfg, params):
+    model = tn.NaDiT(tcfg, dtype=torch.float32)
+    model.load_state_dict(tw.state_dict_from_jax(params), strict=True)
+    return model
+
+
+def tbatch(batch):
+    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+
+
+def jax_draws(key, batch, T=1000.0):
+    """JAX's loss_fn draws from one step's key: (noise, t) as numpy."""
+    k_noise, k_t = jax.random.split(key)
+    x0 = batch["latent"]
+    noise = jax.random.normal(k_noise, x0.shape, jnp.float32)
+    t = jdiff.logitnormal_timesteps(k_t, (x0.shape[0],), T=T)
+    return np.array(noise), np.array(t)
+
+
+def grads_by_name(jgrads):
+    """A JAX tree (gradients, moments) under the port's names and layouts
+    (fp32)."""
+    return {k: v.numpy() for k, v in tw.state_dict_from_jax(jgrads).items()}
+
+
+# ------------------------------------------------------------ K1 and K2
+
+
+def _k1_inputs(seed, b=3, s=16, h=2, d=12, kv=11):
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((b, s, 3 * h * d)).astype(np.float32)
+    ang = rng.standard_normal((4, s, d // 2))
+    w = 1 + 0.2 * rng.standard_normal((4, s, d))
+    tabs = [np.repeat(np.cos(ang[i]), 2, -1) * w[i] if i % 2 == 0
+            else np.repeat(np.sin(ang[i]), 2, -1) * w[i] for i in range(4)]
+    dout = rng.standard_normal((b, s, h * d)).astype(np.float32)
+    dout[:, kv:] = 0.0  # the lane pad rows, which the caller discards
+    return qkv, [t.astype(np.float32) for t in tabs], dout, (h, d, kv)
+
+
+@pytest.mark.parametrize("kv", [11, 16])
+def test_k1_backward_plain_matches_jax_vjp(kv):
+    """d qkv and the four table gradients of the plain backward against
+    jax.vjp of packed_attention's jnp branch, fp32, kv_len < S and = S."""
+    qkv, tabs, dout, (h, d, _) = _k1_inputs(kv, kv=kv)
+    eps = 1e-5
+
+    def f(x, cq, sq, ck, sk):
+        return jattn.packed_attention(x, h, d, cq, sq, ck, sk, eps, kv)
+
+    out, vjp = jax.vjp(f, jnp.asarray(qkv), *map(jnp.asarray, tabs))
+    ref = vjp(jnp.asarray(dout))
+    t_qkv = torch.from_numpy(qkv)
+    t_tabs = [torch.from_numpy(t) for t in tabs]
+    t_out = tfa.packed_window_attention_plain(t_qkv, h, d, *t_tabs, eps, kv)
+    np.testing.assert_allclose(_np(t_out), np.asarray(out), rtol=1e-5,
+                               atol=1e-6)
+    got = tfa.packed_window_attention_backward_plain(
+        t_qkv, h, d, *t_tabs, eps, kv, t_out, torch.from_numpy(dout))
+    assert len(got) == 5
+    for name, g, r in zip(("qkv", "cos_q", "sin_q", "cos_k", "sin_k"), got,
+                          ref):
+        assert rel_l2(_np(g), r) <= FP32_REL, name
+    if kv < 16:  # every row at or past kv_len gets zero gradient
+        assert not got[0][:, kv:].any()
+        assert all(not t[kv:].any() for t in got[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_function_matches_autograd_through_plain(dtype):
+    """The autograd Function (forward: K1's plain version, backward: the
+    plain backward) against torch autograd through the plain forward:
+    within 1e-5 in fp32; in bf16 within a bf16-class 2e-2 (the backward
+    keeps q-hat and k-hat in fp32, the forward rounds q and k)."""
+    qkv, tabs, dout, (h, d, kv) = _k1_inputs(5)
+    tol = FP32_REL if dtype == torch.float32 else 2e-2
+
+    def leaves():
+        return [torch.from_numpy(qkv).to(dtype).requires_grad_()] + [
+            torch.from_numpy(t).requires_grad_() for t in tabs]
+
+    ref_in, fn_in = leaves(), leaves()
+    g_out = torch.from_numpy(dout).to(dtype)
+    ref = torch.autograd.grad(tfa.packed_window_attention_plain(
+        ref_in[0], h, d, *ref_in[1:], 1e-5, kv), ref_in, g_out)
+    out = tfa.packed_window_attention_grad(fn_in[0], h, d, *fn_in[1:], 1e-5,
+                                           kv)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, fn_in, g_out)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and rel_l2(_np(g), _np(r)) <= tol
+
+
+def test_kernel_wrappers_refuse_grad_inputs():
+    """A raw kernel wrapper handed an input that needs a gradient while
+    grad mode is on raises, on every device; under no_grad it serves."""
+    qkv, tabs, _, (h, d, kv) = _k1_inputs(1)
+    x = torch.from_numpy(qkv).requires_grad_()
+    t_tabs = [torch.from_numpy(t) for t in tabs]
+    with pytest.raises(RuntimeError, match="needs a gradient"):
+        tfa.packed_window_attention(x, h, d, *t_tabs, 1e-5, kv)
+    q = x.reshape(3, 16, 3, h, d)[:, :, 0]
+    with pytest.raises(RuntimeError, match="needs a gradient"):
+        tfa.attention_prepass(q, q, *t_tabs, 1e-5)
+    index = tgather.RowIndex(np.arange(16)[::-1].copy(), "cpu")
+    with pytest.raises(RuntimeError, match="needs a gradient"):
+        tgather.gather_rows(x, index)
+    with torch.no_grad():
+        tfa.packed_window_attention(x, h, d, *t_tabs, 1e-5, kv)
+        tgather.gather_rows(x, index)
+
+
+def test_k2_gradient_matches_jax_vjp_bit_equal():
+    """The gather's gradient (K2 on the inverse index) equals jax.vjp of
+    JAX's gather_rows bit for bit, on every transition of a real plan; each
+    transition's inverse is the opposite transition."""
+    cfg = DiTConfig(**TINY)
+    plan = tn.build_dit_plan(cfg, (3, 8, 10), TXT_LEN)
+    rng = np.random.default_rng(0)
+    for (a, b), idx in plan.transitions.items():
+        index = tgather.RowIndex(idx, "cpu")
+        np.testing.assert_array_equal(index.inverse.numpy,
+                                      plan.transitions[(b, a)])
+        x = rng.standard_normal((2, len(idx), 6)).astype(np.float32)
+        g = rng.standard_normal((2, len(idx), 6)).astype(np.float32)
+        _, vjp = jax.vjp(lambda v: jgather.gather_rows(v, idx),
+                         jnp.asarray(x))
+        ref = np.asarray(vjp(jnp.asarray(g))[0])
+        tx = torch.from_numpy(x).requires_grad_()
+        out = tgather.gather_rows_grad(tx, index)
+        (got,) = torch.autograd.grad(out, tx, torch.from_numpy(g))
+        np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_k2_backward_refuses_a_non_permutation():
+    index = tgather.RowIndex(np.array([0, 2, 2, 1]), "cpu")
+    with pytest.raises(ValueError, match="not a permutation"):
+        index.inverse
+    x = torch.zeros(1, 4, 3, requires_grad=True)
+    out = tgather.gather_rows_grad(x, index)
+    with pytest.raises(ValueError, match="not a permutation"):
+        out.sum().backward()
+    short = tgather.RowIndex(np.array([1, 0]), "cpu")
+    out = tgather.gather_rows_grad(x, short)
+    with pytest.raises(ValueError, match="no permutation"):
+        out.sum().backward()
+
+
+# ------------------------------------------------------------- the loss
+
+
+def test_logitnormal_timesteps():
+    g = torch.Generator().manual_seed(0)
+    t = logitnormal_timesteps(g, (4096,), T=1000.0)
+    assert t.dtype == torch.float32 and t.shape == (4096,)
+    assert 0 < float(t.min()) and float(t.max()) < 1000.0
+    # sigmoid(N(0, 1)) has median 0.5; loc shifts it
+    assert abs(float(t.median()) - 500.0) < 25.0
+    g = torch.Generator().manual_seed(0)
+    z = torch.randn((4,), generator=g)
+    g = torch.Generator().manual_seed(0)
+    np.testing.assert_allclose(
+        logitnormal_timesteps(g, (4,), 10.0, 0.5, 2.0).numpy(),
+        (torch.sigmoid(z * 2.0 + 0.5) * 10.0).numpy(), rtol=1e-6)
+
+
+def test_flow_loss_and_every_gradient_match_jax_fp32(setup):
+    """The fp32 loss and every parameter's gradient against
+    jax.value_and_grad of the same loss from JAX's nadit_forward,
+    LerpSchedule and logitnormal_timesteps (noise and t from a JAX key):
+    within 1e-5 per leaf."""
+    jcfg, tcfg, params, batch = setup
+    noise, t = jax_draws(jax.random.PRNGKey(11), batch)
+    plan = jn.build_dit_plan(jcfg, SHAPE, TXT_LEN)
+    sched = jdiff.LerpSchedule(1000.0)
+
+    def loss(p):
+        x0 = jnp.asarray(batch["latent"])
+        x_t = sched.forward(x0, noise, jnp.asarray(t)[:, None, None, None,
+                                                         None])
+        vid_in = jnp.concatenate([x_t, jnp.asarray(batch["cond"])], -1)
+        pred = jn.nadit_forward(p, jcfg, vid_in, jnp.asarray(batch["txt"]),
+                                jnp.asarray(t), plan)
+        return jnp.mean((pred - (noise - x0)) ** 2)
+
+    j_loss, j_grads = jax.jit(jax.value_and_grad(loss))(params)
+    model = port_model(tcfg, params)
+    t_loss = ttrain.flow_loss(model, tbatch(batch), torch.from_numpy(noise),
+                              torch.from_numpy(t),
+                              tn.build_dit_plan(tcfg, SHAPE, TXT_LEN),
+                              dtype=torch.float32)
+    t_loss.backward()
+    assert abs(t_loss.item() - float(j_loss)) <= FP32_REL * float(j_loss)
+    ref = grads_by_name(j_grads)
+    got = {k: p.grad for k, p in model.named_parameters()}
+    assert set(got) == set(ref)
+    bad = {k: rel_l2(_np(got[k]), ref[k]) for k in ref
+           if got[k] is None or rel_l2(_np(got[k]), ref[k]) > FP32_REL}
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("family", ["dit_3b", "dit_7b"])
+def test_unreached_parameters_step_on_jax_zero_gradient(family):
+    """A last block with its own text weights (the 3B cut to its
+    mm_layers, the 7B): what only its discarded text output feeds gets no
+    gradient in the port and exactly zero in JAX; train_step takes those
+    (unreached_by_design) as zero and every other gradient as JAX's, in
+    fp32 within 1e-5 per leaf."""
+    if family == "dit_3b":
+        kw = dict(TINY, mm_layers=TINY["num_layers"])
+        jcfg, tcfg = JDiTConfig(**kw), DiTConfig(**kw)
+    else:
+        from seedvr2_tpu.core.configs import small_test_config as j_small
+
+        from seedvr2_tpu_torch.core.configs import small_test_config
+
+        jcfg = j_small(family="dit_7b")
+        tcfg = small_test_config(family="dit_7b")
+    params = random_params(lambda k: jn.init_dit_params(
+        k, jcfg, dtype=jnp.float32), 9)
+    rng = np.random.default_rng(4)
+    out = tcfg.vid_out_channels
+    batch = {
+        "latent": rng.standard_normal((BATCH, *SHAPE, out), np.float32),
+        "cond": rng.standard_normal(
+            (BATCH, *SHAPE, tcfg.vid_in_channels - out), np.float32),
+        "txt": rng.standard_normal((BATCH, TXT_LEN, tcfg.txt_in_dim),
+                                   np.float32)}
+    noise, t = jax_draws(jax.random.PRNGKey(12), batch)
+    plan = jn.build_dit_plan(jcfg, SHAPE, TXT_LEN)
+    sched = jdiff.LerpSchedule(1000.0)
+
+    def loss(p):
+        x0 = jnp.asarray(batch["latent"])
+        x_t = sched.forward(x0, noise, jnp.asarray(t)[:, None, None, None,
+                                                         None])
+        vid_in = jnp.concatenate([x_t, jnp.asarray(batch["cond"])], -1)
+        pred = jn.nadit_forward(p, jcfg, vid_in, jnp.asarray(batch["txt"]),
+                                jnp.asarray(t), plan)
+        return jnp.mean((pred - (noise - x0)) ** 2)
+
+    ref = grads_by_name(jax.jit(jax.grad(loss))(params))
+    model = port_model(tcfg, params)
+    ttrain.flow_loss(model, tbatch(batch), torch.from_numpy(noise),
+                     torch.from_numpy(t), tn.build_dit_plan(tcfg, SHAPE,
+                                                            TXT_LEN),
+                     dtype=torch.float32).backward()
+    none = {k for k, p in model.named_parameters() if p.grad is None}
+    assert none and all(ttrain.unreached_by_design(tcfg, k) for k in none)
+    # the text queries' norm weight reaches only the text output too: a
+    # gradient of zeros on both sides (the port's from K1's table gradients)
+    zero = {k for k, p in model.named_parameters()
+            if p.grad is None or not p.grad.any()}
+    assert {k for k, g in ref.items() if not g.any()} == zero
+    init_state, step = ttrain.make_train_step(
+        tcfg, tn.build_dit_plan(tcfg, SHAPE, TXT_LEN), device="cpu",
+        dtype=torch.float32)
+    state, _ = step(init_state(port_model(tcfg, params)), tbatch(batch),
+                    noise=torch.from_numpy(noise), t=torch.from_numpy(t))
+    mu = {k: _np(v) / (1.0 - ttrain.B1) for k, v in
+          state.opt_state["mu"].items()}
+    bad = {k: rel_l2(mu[k], ref[k]) for k in ref if k not in none
+           and rel_l2(mu[k], ref[k]) > FP32_REL}
+    assert not bad, bad
+    assert all(not mu[k].any() for k in zero)
+
+
+def test_training_path_refusals(setup):
+    _, tcfg, params, batch = setup
+    model = port_model(tcfg, params)
+    args = (tbatch(batch), torch.zeros(BATCH, *SHAPE, 4),
+            torch.full((BATCH,), 500.0))
+    with pytest.raises(NotImplementedError, match="uniform plan"):
+        ttrain.flow_loss(model, *args, tn.build_dit_plan(
+            tcfg, SHAPE, TXT_LEN, uniform=True))
+    with pytest.raises(NotImplementedError, match="uniform plan"):
+        ttrain.make_train_step(tcfg, tn.build_dit_plan(
+            tcfg, SHAPE, TXT_LEN, uniform=True), device="cpu")
+    from seedvr2_tpu_torch.ops.quant_matmul import quantize_dit_q8
+
+    quantize_dit_q8(model, 8)
+    with pytest.raises(ValueError, match="quantised serving linear"):
+        ttrain.flow_loss(model, *args, tn.build_dit_plan(tcfg, SHAPE,
+                                                         TXT_LEN))
+    half = port_model(tcfg, params).half()
+    with pytest.raises(ValueError, match="only bf16 / fp32"):
+        ttrain.flow_loss(half, *args, tn.build_dit_plan(tcfg, SHAPE,
+                                                        TXT_LEN))
+
+
+def test_train_step_raises_on_a_cut_graph(setup, monkeypatch):
+    """A K1 output without autograd history (a raw kernel call on the
+    training path) leaves the parameters upstream of it without a gradient:
+    train_step raises instead of stepping them on weight decay alone."""
+    _, tcfg, params, batch = setup
+    plain = tn.packed_window_attention_plain
+    monkeypatch.setattr(tn, "packed_window_attention_grad",
+                        lambda qkv, *a, **kw: plain(qkv.detach(), *a, **kw))
+    init_state, step = ttrain.make_train_step(
+        tcfg, tn.build_dit_plan(tcfg, SHAPE, TXT_LEN), device="cpu",
+        dtype=torch.float32)
+    state = init_state(port_model(tcfg, params))
+    before = {k: v.clone() for k, v in state.params.items()}
+    with pytest.raises(RuntimeError, match="no gradient for .*proj_qkv"):
+        step(state, tbatch(batch), noise=torch.zeros(BATCH, *SHAPE, 4),
+             t=torch.full((BATCH,), 500.0))
+    assert state.step == 0
+    assert all(torch.equal(before[k], v) for k, v in state.params.items())
+
+
+# ---------------------------------------------------------------- steps
+
+
+def _jax_steps(jcfg, params, batch, n, keys):
+    """n steps of JAX's real make_train_step (bf16, optax) on a one-device
+    mesh: (states after each step, losses)."""
+    plan = jn.build_dit_plan(jcfg, SHAPE, TXT_LEN)
+    mesh = jmesh.make_mesh(1)
+    with mesh:
+        init_state, step = jtrain.make_train_step(jcfg, plan, mesh)
+        state = init_state(params)
+        states, losses = [], []
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        for i in range(n):
+            state, loss = step(state, jb, keys[i])
+            states.append(jax.device_get(state))
+            losses.append(float(loss))
+    return states, losses
+
+
+@pytest.fixture(scope="module")
+def jax_run(setup):
+    """Three steps of JAX's train_step from the setup's parameters: (keys,
+    states after each step, losses)."""
+    jcfg, _, params, batch = setup
+    keys = [jax.random.PRNGKey(100 + i) for i in range(3)]
+    return (keys, *_jax_steps(jcfg, params, batch, 3, keys))
+
+
+def _port_steps(tcfg, state_or_model, batch, draws, dtype=torch.bfloat16):
+    init_state, step = ttrain.make_train_step(
+        tcfg, tn.build_dit_plan(tcfg, SHAPE, TXT_LEN), device="cpu",
+        dtype=dtype)
+    state = init_state(state_or_model)
+    losses, mus = [], []
+    for noise, t in draws:
+        state, loss = step(state, tbatch(batch),
+                           noise=torch.from_numpy(noise),
+                           t=torch.from_numpy(t))
+        losses.append(loss.item())
+        mus.append({k: v.clone() for k, v in state.opt_state["mu"].items()})
+    return state, losses, mus
+
+
+def test_three_steps_against_jax_train_step(setup, jax_run):
+    """Three steps of JAX's own bf16 train_step and the port's, fed the
+    same draws: losses within 1e-2, the first moment after step 1 (0.1 *
+    grad on both sides) within 3e-2 relative L2 overall, steps equal."""
+    _, tcfg, params, batch = setup
+    keys, j_states, j_losses = jax_run
+    draws = [jax_draws(k, batch) for k in keys]
+    state, losses, mus = _port_steps(tcfg, port_model(tcfg, params), batch,
+                                     draws)
+    for got, ref in zip(losses, j_losses):
+        assert abs(got - ref) <= BF16_LOSS_REL * abs(ref), (losses, j_losses)
+    ref_mu = grads_by_name(j_states[0].opt_state[0].mu)
+    names = sorted(ref_mu)
+    got = np.concatenate([mus[0][k].numpy().ravel() for k in names])
+    ref = np.concatenate([ref_mu[k].ravel() for k in names])
+    assert rel_l2(got, ref) <= BF16_MU_REL
+    assert state.step == int(j_states[-1].step) == 3
+
+
+def test_adamw_matches_optax():
+    """adamw_ against optax.adamw(lr, weight_decay=0.01) on the same
+    gradients, three steps: within 1e-6."""
+    rng = np.random.default_rng(2)
+    p0 = rng.standard_normal((7, 5)).astype(np.float32)
+    grads = [rng.standard_normal((7, 5)).astype(np.float32) * 10 ** -i
+             for i in range(3)]
+    tx = optax.adamw(3e-3, weight_decay=0.01)
+    jp = jnp.asarray(p0)
+    opt = tx.init(jp)
+    p, mu, nu = (torch.from_numpy(p0.copy()), torch.zeros(7, 5),
+                 torch.zeros(7, 5))
+    for i, g in enumerate(grads):
+        upd, opt = tx.update(jnp.asarray(g), opt, jp)
+        jp = optax.apply_updates(jp, upd)
+        ttrain.adamw_(p, mu, nu, torch.from_numpy(g), i + 1, 3e-3)
+        assert rel_l2(p.numpy(), np.asarray(jp)) <= ADAMW_REL
+        assert rel_l2(mu.numpy(), np.asarray(opt[0].mu)) <= ADAMW_REL
+        assert rel_l2(nu.numpy(), np.asarray(opt[0].nu)) <= ADAMW_REL
+
+
+def test_carried_across_state_continues_as_jax(setup, jax_run):
+    """Two JAX steps, the state carried across by train_state_from_jax,
+    then one more step on each side: the loss within 1e-2 and the
+    parameters within bf16-class 3e-2 relative L2 of JAX's."""
+    _, tcfg, _, batch = setup
+    keys, j_states, j_losses = jax_run
+    carried = tw.train_state_from_jax(j_states[1])
+    assert carried.step == 2 and set(carried.params) == set(
+        carried.opt_state["mu"])
+    state, losses, _ = _port_steps(tcfg, carried, batch,
+                                   [jax_draws(keys[2], batch)])
+    assert abs(losses[0] - j_losses[2]) <= BF16_LOSS_REL * abs(j_losses[2])
+    ref = {k: v.numpy() for k, v in tw.state_dict_from_jax(
+        j_states[2].params).items()}
+    names = sorted(ref)
+    got = np.concatenate([state.params[k].numpy().ravel() for k in names])
+    want = np.concatenate([ref[k].ravel() for k in names])
+    assert rel_l2(got, want) <= BF16_MU_REL
+    assert state.step == 3
+    with pytest.raises(ValueError, match="count"):
+        tw.train_state_from_jax(j_states[1]._replace(step=np.int32(5)))
+
+
+# --------------------------------------------------------- the sharding
+
+
+def _jax_leaves(tree):
+    """{dotted JAX path: leaf}"""
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    out = {}
+    for path, leaf in flat:
+        key = ".".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                       for p in path)
+        out[key] = leaf
+    return out
+
+
+def _port_name(key):
+    parts = key.split(".")
+    if parts[-1] == "w":
+        parts[-1] = "weight"
+    elif parts[-1] == "b":
+        parts[-1] = "bias"
+    return ".".join(parts)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 1), (1, 1, 2), (2, 2, 2)])
+@pytest.mark.parametrize("tree", ["tiny", "3b"])
+def test_param_sharding_matches_jax(shape, tree):
+    """Every leaf's spec, mapped through the layout transposes, equals
+    JAX's param_sharding on the same mesh shape (the 3B's on abstract
+    shapes: nothing is allocated)."""
+    jcfg = JDiTConfig(**TINY) if tree == "tiny" else J_DIT_3B
+    tcfg = DiTConfig(**TINY) if tree == "tiny" else DIT_3B
+    shapes = jax.eval_shape(lambda k: jn.init_dit_params(
+        k, jcfg, dtype=jnp.float32), jax.random.PRNGKey(0))
+    mesh = jmesh.make_mesh(int(np.prod(shape)), shape=shape)
+    tm = tmesh.Mesh(("dp", "fsdp", "tp"),
+                    dict(zip(("dp", "fsdp", "tp"), shape)),
+                    tuple(range(int(np.prod(shape)))))
+    with torch.device("meta"):
+        port = dict(tn.NaDiT(tcfg, dtype=torch.float32).named_parameters())
+    leaves = _jax_leaves(shapes)
+    assert {_port_name(k) for k in leaves} == set(port)
+    for key, leaf in leaves.items():
+        spec = tuple(jmesh.param_sharding(mesh, leaf).spec)
+        spec = spec + (None,) * (leaf.ndim - len(spec))
+        name = _port_name(key)
+        want = spec[::-1] if leaf.ndim == 2 else spec
+        got = tmesh.param_sharding(tm, tuple(port[name].shape))
+        assert got == want, (name, got, want)
+
+
+def test_param_sharding_conv_layouts():
+    """5-D and 4-D convs follow state_dict_from_jax's transposes."""
+    m = tmesh.Mesh(("dp", "fsdp", "tp"), {"dp": 1, "fsdp": 2, "tp": 2},
+                   (0, 1, 2, 3))
+    jm = jmesh.make_mesh(4, shape=(1, 2, 2))
+    for jshape, perm in (((2, 3, 3, 4, 6), (4, 3, 0, 1, 2)),
+                         ((4, 3, 6, 8), (3, 2, 0, 1)),
+                         ((3, 3, 6, 8), (3, 2, 0, 1))):
+        jspec = tuple(jmesh.param_sharding(
+            jm, jax.ShapeDtypeStruct(jshape, jnp.float32)).spec)
+        jspec = jspec + (None,) * (len(jshape) - len(jspec))
+        tshape = tuple(jshape[i] for i in perm)
+        assert tmesh.param_sharding(m, tshape) == tuple(jspec[i]
+                                                        for i in perm)
+
+
+def test_shard_params_pieces():
+    m = tmesh.Mesh(("dp", "fsdp", "tp"), {"dp": 1, "fsdp": 2, "tp": 2},
+                   (0, 1, 2, 3), rank=3)
+    w = torch.arange(24.0).reshape(4, 6)
+    piece = tmesh.shard_params(m, {"w": w, "b": torch.ones(4)})
+    # rank 3: fsdp index 1 (columns 3..5), tp index 1 (rows 2..3)
+    assert torch.equal(piece["w"], w[2:4, 3:6])
+    assert torch.equal(piece["b"], torch.ones(4))
+    assert piece["w"].is_contiguous()
+    assert tmesh.batch_sharding(m, 3) == ("dp", None, None)
+
+
+def test_make_mesh_defaults_to_jax_axes():
+    one = tmesh.make_mesh()
+    assert one.axis_names == ("dp", "fsdp", "tp") == tuple(
+        jmesh.make_mesh(1).axis_names)
+    assert one.shape == {"dp": 1, "fsdp": 1, "tp": 1}
+
+
+# ---------------------------------------------------------- checkpoints
+
+
+def test_save_checkpoint_equals_to_torch_state_dict(setup, tmp_path):
+    """The port's save_checkpoint (of a model and of a training state)
+    holds JAX's to_torch_state_dict tensor for tensor (fp16), and the port's
+    loader reads it back."""
+    _, tcfg, params, _ = setup
+    ref = jexport.to_torch_state_dict(jax.device_get(params))
+    model = port_model(tcfg, params)
+    init_state, _ = ttrain.make_train_step(
+        tcfg, tn.build_dit_plan(tcfg, SHAPE, TXT_LEN), device="cpu")
+    for what, obj in (("model", model), ("state", init_state(model))):
+        path = str(tmp_path / f"{what}.safetensors")
+        tw.save_checkpoint(obj, path)
+        got = tw.read_safetensors(path)
+        assert set(got) == set(ref)
+        for k, v in ref.items():
+            assert got[k].dtype == torch.float16
+            np.testing.assert_array_equal(got[k].numpy(), v)
+    loaded = load_dit_checkpoint(path, "cpu", torch.float32)
+    for k, v in loaded.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), ref[k].astype(np.float32))
+
+
+def test_train_state_checkpoint_roundtrip(setup, tmp_path):
+    """The counterpart of tests/test_components.py's: save and restore the
+    training state (after a step, so the moments are not zero), every
+    tensor and the step equal, and the restored state steps on bit-equal
+    to the one that never stopped."""
+    _, tcfg, params, batch = setup
+    init_state, step = ttrain.make_train_step(
+        tcfg, tn.build_dit_plan(tcfg, SHAPE, TXT_LEN), device="cpu",
+        dtype=torch.float32)
+    state = init_state(port_model(tcfg, params))
+    g = torch.Generator().manual_seed(3)
+    state, _ = step(state, tbatch(batch), g)
+    path = str(tmp_path / "state.safetensors")
+    ttrain.save_train_state(state, path)
+    back = ttrain.restore_train_state(path, state)
+    assert back.step == state.step == 1
+    for a, b in ((state.params, back.params),
+                 (state.opt_state["mu"], back.opt_state["mu"]),
+                 (state.opt_state["nu"], back.opt_state["nu"])):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    g1, g2 = (torch.Generator().manual_seed(4) for _ in range(2))
+    state, l1 = step(state, tbatch(batch), g1)
+    back, l2 = step(back, tbatch(batch), g2)
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(state.params[k], back.params[k])
+               for k in state.params)
