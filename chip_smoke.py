@@ -506,16 +506,24 @@ TRAIN_PEAK_GIB = (57, 60)
 TRAIN_KERNELS = ("K1", "K2", "K1bwd_dq", "K1bwd_dkdv", "K1bwd_prepass",
                  "K2bwd")
 # K1's backward parts against their plain versions on the same inputs
-# (relative L2): dq, dk, lse, delta and the table gradients are fp32 sums of
-# the same products in another order (exp2f against torch.exp2, table
+# (relative L2): lse (K1's training launch against its plain version on the
+# same bf16 q-hat and k-hat), delta and the table gradients are fp32 sums
+# of the same products in another order (exp2f against torch.exp2, table
 # partials folded over the batch rows): BWD_F32_REL; dv and the pre-pass's
 # d q / d k are such sums rounded to bf16, where a sum an ulp away can round
-# to the neighbouring bf16 value: BWD_BF16_REL. The whole backward against
+# to the neighbouring bf16 value: BWD_BF16_REL (dv's P enters the tensor
+# cores as bf16 hi + lo, about 16 bits, which keeps it there). dq-hat and
+# dk-hat take dS rounded to bf16 where it becomes a tensor-core operand
+# (one bf16 dS: about 1.7e-3 relative L2 in a float64 model of the record
+# shape; the plain versions keep fp32): BWD_DQDK_REL, set from the H100's
+# readings (0.00165-0.00168 over the record shape, the n = 32 group and the
+# 13 training groups; bound about 3x that). The whole backward against
 # its plain version, which keeps q-hat and k-hat in fp32 where the kernels
 # take K1's bf16 pre-pass output: a bf16-class BWD_WHOLE_REL, as K1's own
 # K1_ATOL.
 BWD_F32_REL = 1e-5
 BWD_BF16_REL = 1e-3
+BWD_DQDK_REL = 5e-3
 BWD_WHOLE_REL = 2e-2
 # the full 3B's one backward with the kernels against the same backward
 # through the plain versions (same bf16 model, batch and draws), relative
@@ -628,10 +636,15 @@ DESIGN = {
     "K6f32": "K6 with an fp32 epilogue (TMA store of fp32 rows) and an fp32 "
              "split-K reduction",
     "K7f32": "K7 with K6's fp32 epilogue and fp32 split-K reduction",
-    "K1bwd_dq": "a block per 64 q rows: one lse sweep, then dS and dQ with "
-                "fp32 FMAs from shared memory (4 x 4 a thread)",
-    "K1bwd_dkdv": "a block per 64 keys walking the q tiles: P, dS, dV and dK "
-                  "with fp32 FMAs from shared memory, dV into d qkv",
+    "K1bwd_dq": "K1's step: 1-2 warpgroups of 64 q rows a block (host "
+                "plan), TMA ring of k-hat / v tiles, S and dP by wgmma SS, "
+                "dS in fp32 registers from the forward's lse, dQ-hat += "
+                "bf16(dS) k-hat by wgmma RS, one sweep",
+    "K1bwd_dkdv": "64 keys a block, TMA ring of q-hat / dO tiles and their "
+                  "lse / delta rows; two warpgroups split a q tile for S^T "
+                  "and dP^T (wgmma SS), stage P^T (bf16 hi + lo) and dS^T "
+                  "in shared memory, and split D for dK-hat and dV (wgmma "
+                  "SS); the next tile's S^T issued first; dV into d qkv",
     "K1bwd_prepass": "D/8 threads a row over the heads as the forward "
                      "pre-pass; table partials a row, folded over the batch "
                      "rows in order",
@@ -693,6 +706,33 @@ def kernel_ms(torch, fn, iters: int, warmup: int = 2) -> float:
                                   device="cuda"))
     for _ in range(warmup):
         fn()
+    pairs = []
+    for _ in range(iters):
+        _FLUSH[0].zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def queued_ms(torch, fn, iters: int = 10) -> float:
+    """kernel_ms for a call of a few tens of microseconds: every timed call
+    (after its L2-evicting write) and its events are enqueued behind a
+    spin of the device (torch.cuda._sleep, ~50 ms), so the host's launch
+    overhead, longer than such a call, never falls between two events.
+    Late in this script torch.profiler records no device events, so
+    device_ms reads nothing there."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(256 << 20, dtype=torch.uint8,
+                                  device="cuda"))
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
     pairs = []
     for _ in range(iters):
         _FLUSH[0].zero_()
@@ -849,6 +889,14 @@ EARLIER_MS = {name: (design, ms) for design, times in (
         "K11 Ci=256 Co=256 T=5 360x640": 6.8834,
         "K11 Ci=256 Co=128 T=5 720x1280": 13.7964,
         "K11 Ci=128 Co=128 T=5 720x1280": 7.3963,
+    }),
+    ("fp32-FMA design", {
+        "K1bwd_dq B=12 S=512 kv_len=463": 3.0659,
+        "K1bwd_dkdv B=12 S=512 kv_len=463": 3.2118,
+        "K1bwd_dq 1080p clip plan largest group n=32 wlen=405 S=512 "
+        "kv_len=463": 7.8661,
+        "K1bwd_dkdv 1080p clip plan largest group n=32 wlen=405 S=512 "
+        "kv_len=463": 8.2241,
     }),
     ("mma.sync design", {
         "K6 image 1080 qkv": 1.8952, "K6 image 1080 attn out": 0.6451,
@@ -4249,17 +4297,21 @@ def nccl_world_one(torch, np, cli, here):
 
 def k1_bwd_case(torch, fa, b, s, kv, H, D, tabs, gen, device):
     """Inputs of K1's backward at one shape: qkv with its lane pad rows
-    zero, K1's output, an incoming gradient, K1's own pre-pass output."""
+    zero, K1's output and rows' lse from its training launch, an incoming
+    gradient, K1's own pre-pass output; and whether the training launch's
+    output is bit-equal to the serving launch's."""
     qkv = torch.randn(b, s, 3 * H * D, generator=gen, device=device).to(
         torch.bfloat16)
     qkv[:, kv:] = 0
-    out = fa.packed_window_attention(qkv, H, D, *tabs, 1e-5, kv)
+    out, lse = fa.packed_window_attention_lse(qkv, H, D, *tabs, 1e-5, kv)
+    same = torch.equal(out, fa.packed_window_attention(qkv, H, D, *tabs,
+                                                       1e-5, kv))
     dout = torch.randn(b, s, H * D, generator=gen, device=device).to(
         torch.bfloat16)
     x = qkv.view(b, s, 3, H, D)
     qh, kh = fa.attention_prepass(x[:, :, 0], x[:, :, 1], *tabs, 1e-5,
                                   D ** -0.5 * 1.4426950408889634)
-    return qkv, out, dout, x, qh, kh
+    return qkv, out, lse, same, dout, x, qh, kh
 
 
 def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
@@ -4269,11 +4321,15 @@ def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
     clip plan's largest window group (its real tables) and at every window
     group of the training plan, window and shifted (the 3B at TRAIN_LATENT,
     B = TRAIN_BATCH windows of a group, its tables folded with random
-    qk-norm weights): the shapes the train path launches. The first two
-    shapes' parts are timed after an L2 flush beside their plain versions,
-    their bounds and torch SDPA's backward at the same shape (all three
-    gradients at once: the yardstick of the dq and dk/dv parts). Returns
-    the record shape's three records."""
+    qk-norm weights): the shapes the train path launches. lse comes from
+    K1's training launch, held against its plain version, its output
+    bit-equal to the serving launch's. The first two shapes' parts are
+    timed after an L2 flush beside their plain versions, their bounds and
+    torch SDPA's backward at the same shape (all three gradients at once:
+    the yardstick of the dq and dk/dv parts); at every training group the
+    dq and dk/dv parts are timed too, and summed over one step's launches
+    (each group once a layer of its kind). Returns the record shape's three
+    records."""
     import torch.nn.functional as F
 
     H, D, eps = cfg.heads, cfg.head_dim, cfg.norm_eps
@@ -4293,6 +4349,7 @@ def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
     timed = len(cases)
     tplan = nadit.upload_plan(nadit.build_dit_plan(cfg, TRAIN_LATENT,
                                                    TXT_LEN), cfg, device)
+    per_step = cfg.num_layers // len(tplan.groups)  # layers of each kind
     wgen = torch.Generator(device).manual_seed(15)
     norm_w = [1.0 + 0.1 * torch.randn(D, generator=wgen, device=device)
               for _ in range(4)]
@@ -4306,21 +4363,24 @@ def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
                                         g.skv)))
     recs = {}
     worst = {}
+    step_calls = []  # (label, shape, flops, the two parts' calls)
     for n_case, (label, b, s, kv, tabs) in enumerate(cases):
-        qkv, out, dout, x, qh, kh = k1_bwd_case(torch, fa, b, s, kv, H, D,
-                                                tabs, gen, device)
+        qkv, out, lse, same, dout, x, qh, kh = k1_bwd_case(
+            torch, fa, b, s, kv, H, D, tabs, gen, device)
         v = x[:, :, 2]
-        dq, lse, delta = fa.attention_backward_dq(qh, kh, v, out, dout, kv)
+        dq, delta = fa.attention_backward_dq(qh, kh, v, out, dout, lse, kv)
         dk, dv = fa.attention_backward_dkdv(qh, kh, v, dout, lse, delta, kv)
         pre = fa.prepass_backward(x[:, :, 0], x[:, :, 1], *tabs, eps, dq, dk,
                                   D ** -0.5, fa._LN2)
         whole = fa.packed_window_attention_backward(qkv, H, D, *tabs, eps,
-                                                    kv, out, dout)
+                                                    kv, out, dout, lse)
         again = fa.packed_window_attention_backward(qkv, H, D, *tabs, eps,
-                                                    kv, out, dout)
+                                                    kv, out, dout, lse)
         torch.cuda.synchronize()
-        p_dq, p_lse, p_delta = fa.attention_backward_dq_plain(qh, kh, v, out,
-                                                              dout, kv)
+        _, p_lse = fa.packed_window_attention_lse_plain(qkv, H, D, *tabs,
+                                                        1e-5, kv)
+        p_dq, p_delta = fa.attention_backward_dq_plain(qh, kh, v, out, dout,
+                                                       lse, kv)
         p_dk, p_dv = fa.attention_backward_dkdv_plain(qh, kh, v, dout, lse,
                                                       delta, kv)
         p_pre = fa.prepass_backward_plain(x[:, :, 0], x[:, :, 1], *tabs, eps,
@@ -4328,10 +4388,10 @@ def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
         p_whole = fa.packed_window_attention_backward_plain(
             qkv, H, D, *tabs, eps, kv, out, dout)
         errs = {
-            "dq": (rel_l2(dq, p_dq), BWD_F32_REL),
-            "lse": (rel_l2(lse[..., :kv], p_lse[..., :kv]), BWD_F32_REL),
+            "dq": (rel_l2(dq, p_dq), BWD_DQDK_REL),
+            "lse": (rel_l2(lse, p_lse), BWD_F32_REL),
             "delta": (rel_l2(delta, p_delta), BWD_F32_REL),
-            "dk": (rel_l2(dk, p_dk), BWD_F32_REL),
+            "dk": (rel_l2(dk, p_dk), BWD_DQDK_REL),
             "dv": (rel_l2(dv, p_dv), BWD_BF16_REL),
             "pre-pass d q": (rel_l2(pre[0], p_pre[0]), BWD_BF16_REL),
             "pre-pass d k": (rel_l2(pre[1], p_pre[1]), BWD_BF16_REL),
@@ -4347,17 +4407,29 @@ def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
         say(f"K1 backward {label}: relative L2 to the plain versions "
             + ", ".join(f"{k} {e:.3g}" for k, (e, _) in errs.items())
             + f" (bounds: fp32 sums {BWD_F32_REL}, bf16 outputs "
-            f"{BWD_BF16_REL}, whole {BWD_WHOLE_REL}); rerun bit-equal "
-            f"{rerun}; d qkv at or past kv_len max |.| {pad}")
-        if bad or not rerun or pad != 0.0 or not all(
+            f"{BWD_BF16_REL}, dq / dk {BWD_DQDK_REL}, whole "
+            f"{BWD_WHOLE_REL}); rerun bit-equal {rerun}; d qkv at or past "
+            f"kv_len max |.| {pad}; K1's training launch's output bit-equal "
+            f"to the serving launch's {same}")
+        if bad or not rerun or not same or pad != 0.0 or not all(
                 torch.isfinite(t).all() for t in whole):
             fail(f"K1 backward {label}: beyond bounds {bad}, rerun equal "
-                 f"{rerun}, pad rows {pad}")
+                 f"{rerun}, training launch's output equal {same}, pad rows "
+                 f"{pad}")
+        ops = {"K1bwd_dq": 6.0 * b * H * kv * kv * D,
+               "K1bwd_dkdv": 8.0 * b * H * kv * kv * D}
         if n_case >= timed:
             for k, (e, _) in errs.items():
                 worst[k] = max(worst.get(k, 0.0), e)
-            del qkv, out, dout, x, qh, kh, dq, dk, dv, pre, whole, again
-            del p_dq, p_dk, p_dv, p_pre, p_whole
+            # timed after the loop, with the other groups' launches
+            step_calls.append((label, (b, s, kv), ops, (
+                lambda qh=qh, kh=kh, v=v, out=out, dout=dout, lse=lse, kv=kv:
+                fa.attention_backward_dq(qh, kh, v, out, dout, lse, kv),
+                lambda qh=qh, kh=kh, v=v, dout=dout, lse=lse, delta=delta,
+                kv=kv: fa.attention_backward_dkdv(qh, kh, v, dout, lse,
+                                                  delta, kv))))
+            del qkv, x, dq, dk, dv, pre, whole, again
+            del p_lse, p_dq, p_dk, p_dv, p_pre, p_whole
             continue
         # times, bounds, the plain versions and SDPA's backward
         def max_abs(*pairs):
@@ -4367,17 +4439,18 @@ def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
         nq = b * H * kv * D  # the rows below kv_len, every head
         parts = {
             "K1bwd_dq": (
-                lambda: fa.attention_backward_dq(qh, kh, v, out, dout, kv),
+                lambda: fa.attention_backward_dq(qh, kh, v, out, dout, lse,
+                                                 kv),
                 lambda: fa.attention_backward_dq_plain(qh, kh, v, out, dout,
-                                                       kv),
-                6.0 * b * H * kv * kv * D, nq * 2 * 5 + nq * 4
+                                                       lse, kv),
+                ops["K1bwd_dq"], nq * 2 * 5 + nq * 4
                 + 2 * b * H * kv * 4, max_abs((dq, p_dq))),
             "K1bwd_dkdv": (
                 lambda: fa.attention_backward_dkdv(qh, kh, v, dout, lse,
                                                    delta, kv),
                 lambda: fa.attention_backward_dkdv_plain(qh, kh, v, dout,
                                                          lse, delta, kv),
-                8.0 * b * H * kv * kv * D, nq * 2 * 4 + 2 * b * H * kv * 4
+                ops["K1bwd_dkdv"], nq * 2 * 4 + 2 * b * H * kv * 4
                 + nq * (4 + 2), max_abs((dk, p_dk), (dv, p_dv))),
             "K1bwd_prepass": (
                 lambda: fa.prepass_backward(x[:, :, 0], x[:, :, 1], *tabs,
@@ -4397,30 +4470,66 @@ def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
             o, (q, k, vv), do, retain_graph=True), 10)
         whole_ms = kernel_ms(
             torch, lambda: fa.packed_window_attention_backward(
-                qkv, H, D, *tabs, eps, kv, out, dout), 5)
-        for key, (run, plain, ops, nbytes, err) in parts.items():
+                qkv, H, D, *tabs, eps, kv, out, dout, lse), 5)
+        fwd_ms = {name: kernel_ms(torch, run, 10) for name, run in (
+            ("serving", lambda: fa.packed_window_attention(
+                qkv, H, D, *tabs, 1e-5, kv)),
+            ("training (lse)", lambda: fa.packed_window_attention_lse(
+                qkv, H, D, *tabs, 1e-5, kv)))}
+        pair_ms = 0.0
+        for key, (run, plain, n_ops, nbytes, err) in parts.items():
             ms = kernel_ms(torch, run, 10)
             plain_ms = kernel_ms(torch, plain, 3)
-            bound, by = bound_ms(ops, PEAK_BF16, nbytes)
+            bound, by = bound_ms(n_ops, PEAK_BF16, nbytes)
             lib = lib_ms if key != "K1bwd_prepass" else None
+            if lib is not None:
+                pair_ms += ms
             say(f"{key} {label}: kernel {ms:.4f} ms"
-                + (f" ({ops / ms / 1e9:.1f} TFLOP/s)" if ops else "")
+                + (f" ({n_ops / ms / 1e9:.1f} TFLOP/s)" if n_ops else "")
                 + f", plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})"
                 + (f", SDPA backward (dq, dk, dv at once) {lib_ms:.4f} ms"
-                   if lib is not None else ", no library call"))
+                   if lib is not None else ", no library call")
+                + (f"; {earlier_note(f'{key} {label}')}"
+                   if lib is not None else ""))
             if key not in recs:
                 recs[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                  library_ms=lib, bound_ms=bound, bound_by=by,
                                  shape=label)
-        say(f"K1 backward {label}: whole call {whole_ms:.4f} ms (K1's "
-            f"pre-pass again, dq, dk/dv, pre-pass backward); K1 forward at "
-            f"the record shape {k1_ms:.4f} ms (PERF.md row 1: 0.1621 ms)")
-        del qkv, out, dout, x, qh, kh, dq, dk, dv, pre, whole, again, p_dq
-        del p_dk, p_dv, p_pre, p_whole, q, k, vv, o
+        say(f"K1 backward {label}: dq + dk/dv {pair_ms:.4f} ms against SDPA's "
+            f"backward {lib_ms:.4f} ms ({pair_ms / lib_ms:.2f}x); whole call "
+            f"{whole_ms:.4f} ms (K1's pre-pass again, dq, dk/dv, pre-pass "
+            f"backward); K1 forward here: serving "
+            f"{fwd_ms['serving']:.4f} ms, training (lse) "
+            f"{fwd_ms['training (lse)']:.4f} ms; K1 forward at the record "
+            f"shape in phase 1 {k1_ms:.4f} ms (PERF.md row 1: 0.1621 ms)")
+        del qkv, out, lse, dout, x, qh, kh, dq, dk, dv, pre, whole, again
+        del p_lse, p_dq, p_dk, p_dv, p_pre, p_whole, q, k, vv, o
         torch.cuda.empty_cache()
+    # the training groups' parts: these launches take 10-70 us, shorter
+    # than the host's launch overhead between two CUDA events
+    step_ms = {"K1bwd_dq": 0.0, "K1bwd_dkdv": 0.0}
+    for label, (b, s, kv), ops, fns in step_calls:
+        ms = {key: queued_ms(torch, fn) for key, fn in zip(step_ms, fns)}
+        for key, t in ms.items():
+            step_ms[key] += per_step * t
+        plan = fa.backward_plan(b, s, H, kv, fa._sm_count(device))
+        say(f"K1 backward {label}: dq {ms['K1bwd_dq']:.4f} ms "
+            f"({ops['K1bwd_dq'] / ms['K1bwd_dq'] / 1e9:.1f} TFLOP/s), dk/dv "
+            f"{ms['K1bwd_dkdv']:.4f} ms ("
+            f"{ops['K1bwd_dkdv'] / ms['K1bwd_dkdv'] / 1e9:.1f} TFLOP/s); dq "
+            f"{plan.wg} warpgroup(s) a block, {plan.blocks * H * b} blocks; "
+            f"dk/dv {plan.kv_blocks * H * b} blocks; {per_step} launches of "
+            "each a step")
+    del step_calls
+    torch.cuda.empty_cache()
     say(f"K1 backward over the training plan's {len(cases) - timed} window "
         "groups: worst relative L2 to the plain versions "
-        + ", ".join(f"{k} {e:.3g}" for k, e in worst.items()))
+        + ", ".join(f"{k} {e:.3g}" for k, e in worst.items())
+        + f"; one train step's {per_step * (len(cases) - timed)} launches of "
+        f"each part: dq {step_ms['K1bwd_dq']:.3f} ms, dk/dv "
+        f"{step_ms['K1bwd_dkdv']:.3f} ms, together "
+        f"{sum(step_ms.values()):.3f} ms (each launch alone after an L2 "
+        "flush, queued behind a device spin)")
     return recs
 
 
@@ -4698,6 +4807,7 @@ def train_phase(torch, np, nadit, fa, gather, device, here, counts, embeds,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     reset_counts(wrappers)
+    fa.packed_window_attention.launches_lse = 0
     losses, secs = [], []
     for i in range(TRAIN_STEPS):
         t1 = time.perf_counter()
@@ -4713,14 +4823,20 @@ def train_phase(torch, np, nadit, fa, gather, device, here, counts, embeds,
                  if not (torch.isfinite(state.params[k]).all()
                          and torch.isfinite(mu[k]).all())]
     per_step = {k: counts["train"][k] // TRAIN_STEPS for k in TRAIN_KERNELS}
+    lse_step = fa.packed_window_attention.launches_lse // TRAIN_STEPS
     say(f"3B train steps with the kernels: losses {losses}; step seconds "
-        f"{[round(s, 3) for s in secs]}; peak {peak:.2f} GiB allocated "
-        f"(reckoned {TRAIN_PEAK_GIB[0]}-{TRAIN_PEAK_GIB[1]} GiB); launches "
-        f"a step {per_step}; {len(dead)} parameters whose first moment "
-        f"stayed zero, {len(nonfinite)} non-finite")
-    if dead or nonfinite or not all(np.isfinite(losses)):
+        f"{[round(s, 3) for s in secs]} (PERF.md, the fp32-FMA backward: "
+        f"1.558 / 0.815 / 0.906); peak {peak:.2f} GiB allocated (PERF.md: "
+        f"54.94; reckoned "
+        f"{TRAIN_PEAK_GIB[0]}-{TRAIN_PEAK_GIB[1]} GiB); launches a step "
+        f"{per_step}, of K1 {lse_step} through its training (lse) launch; "
+        f"{len(dead)} parameters whose first moment stayed zero, "
+        f"{len(nonfinite)} non-finite")
+    if (dead or nonfinite or not all(np.isfinite(losses))
+            or lse_step != per_step["K1bwd_dq"]):
         fail(f"3B train steps: zero moments {dead[:4]}, non-finite "
-             f"{nonfinite[:4]}, losses {losses}")
+             f"{nonfinite[:4]}, losses {losses}, K1 lse launches a step "
+             f"{lse_step} against {per_step['K1bwd_dq']} dq launches")
 
     # the same steps with the plain versions, from the same start
     for k, v in host.items():

@@ -8,18 +8,19 @@
 // here by hand. Driven by seedvr2_tpu_torch/ops/flash_attention.py
 // (packed_window_attention_backward), which first relaunches K1's own
 // pre-pass (packed_attention.cu) for q-hat (normed, roped, times
-// scale*log2e) and k-hat in bf16.
+// scale*log2e) and k-hat in bf16, and takes each row's log-sum-exp (lse,
+// exp2 domain) from K1's forward, whose training launch writes it.
 //
 // Three parts, one C entry each:
-//  (a) `attn_bwd_dq_kernel`: a block owns 64 q rows of one (b, h). It
-//      forms delta_i = sum_d dO_i * O_i, sweeps the key tiles below kv_len
-//      once for the row logsumexp (log2 domain), then again for P =
-//      exp2(q-hat k-hat^T - lse), dS = P * (dO v^T - delta) and dQ-hat +=
-//      dS k-hat. Writes dQ-hat (fp32), lse and delta.
-//  (b) `attn_bwd_dkdv_kernel`: a block owns 64 keys of one (b, h) and walks
-//      the q tiles below kv_len: P and dS again from lse and delta, dV +=
-//      P^T dO (written as bf16 into d qkv's v columns) and dK-hat += dS^T
-//      q-hat (fp32).
+//  (a) `attn_bwd_dq_kernel`: a block owns 64 q rows of one (b, h) per
+//      consumer warpgroup. It forms delta_i = sum_d dO_i * O_i, then sweeps
+//      the key tiles below kv_len once: P = exp2(q-hat k-hat^T - lse), dS =
+//      P * (dO v^T - delta), dQ-hat += dS k-hat. Writes dQ-hat (fp32) and
+//      delta.
+//  (b) `attn_bwd_dkdv_kernel`: a block owns 64 keys of one (b, h) and
+//      walks the q tiles below kv_len: P^T and dS^T from lse and delta, dV
+//      += P^T dO (written as bf16 into d qkv's v columns) and dK-hat +=
+//      dS^T q-hat (fp32).
 //  (c) `prepass_bwd_kernel`: per (b, row), D/8 threads walk the H heads as
 //      the forward pre-pass does: the roped rows' gradient (dQ-hat times
 //      ln2 * scale * log2e = scale for q, dK-hat times ln2 for k) goes back
@@ -30,29 +31,59 @@
 //      those over b in order.
 // Output rows at or past kv_len are the lane pad, which the caller
 // discards: their dO counts as zero, so every row at or past kv_len gets
-// zero gradient. No float atomics anywhere: reruns are bit-identical.
+// zero gradient. No float atomics anywhere, and every output tile is
+// written by one block: reruns are bit-identical.
 //
 // What bounds it on an H100: (a) and (b) are products, 6 and 8 * S *
-// kv_len * D flops per (b, h), tensor-core work in principle; this first
-// version computes them with fp32 FMAs from shared memory (67 TFLOP/s
-// peak outside the tensor cores), every operand widened to fp32 in
-// shared memory once per tile: 4 x 4 outputs a thread, one float4 of each
-// operand per step, 256 threads and one block an SM (up to 211 KB of
-// shared memory at D = 128). (c) is bound by bytes: qkv's q / k columns
-// and the fp32 dQ-hat / dK-hat read once, d qkv's q / k columns written
-// once. Its redesign for Hopper (wgmma, the forward saving the lse) is
-// later work.
+// kv_len * D flops per (b, h) (3 and 4 products of 2 * S * kv_len * D), on
+// the tensor cores at 989 TFLOP/s; at the 3B's windows (S <= 512, D = 128)
+// a (b, h) moves about 12 * S * D bytes against that, so bytes and
+// operations are close, and what holds both kernels is latency: each
+// 64-row tile's products depend on one another through the elementwise P
+// and dS. The design is K1's forward step: TMA rings of 64-row tiles
+// (128-byte swizzle) behind full / empty mbarriers fed by a producer warp,
+// consumer warpgroups issuing every product as `wgmma.mma_async`
+// (attention_step.cuh), P and dS in fp32 registers. The split into two
+// kernels recomputes S and dP but needs no (key tiles x rows x D) fp32
+// workspace for dQ, no second reduction pass and no atomics. Registers
+// shape both: at 9 warps an SM (or 2 x 5) ptxas gives a thread 168, and
+// `setmaxnreg` in a producer warpgroup did not raise what ptxas allocated
+// for the consumers (it spilled). (a) keeps dS as register A fragments and
+// lets a tile's products wait for each other, the overlap coming from the
+// SM's two warpgroups (staging dS in shared memory to issue the next
+// tile's S and dP first ran 15 % slower). (b) splits each q tile between
+// its two warpgroups for S^T and dP^T, stages P^T and dS^T as bf16 A tiles
+// in shared memory, and splits D between them for the dK-hat / dV
+// products, so that each element is formed once and a warpgroup holds two
+// 64 x 64 accumulators; it issues the next tile's S^T and dP^T before this
+// tile's products. Both loops keep their conditionals outside the wgmma
+// pipeline (a peeled last tile): under an `if`, ptxas serialised every
+// wgmma (C7514 / C7518). Beside the cost a tile, each block pays a fixed
+// cost several tiles long (ab_attention_backward.py's shapes with 8, 15
+// and 29 tiles a block show it); a persistent variant, one block an SM
+// loading the next item's resident tiles while one runs, did not remove
+// it, so the grids stay one block a tile row. P and dS are rounded to
+// bf16 where they become tensor-core operands, as in every tensor-core
+// attention backward; P is split into bf16 hi + lo for dV so that dV keeps
+// fp32-class accuracy (one bf16 P gives dV ~2.6e-3 relative L2). A host
+// plan (backward_plan) picks 1 or 2 consumer warpgroups a dq block so that
+// small groups (B = 2, S = 128) still spread over the SMs (1: two blocks an
+// SM). (c) is bound by bytes: qkv's q / k columns and the fp32 dQ-hat /
+// dK-hat read once, d qkv's q / k columns written once.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_step.cuh"
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int BWD_THREADS = 256;
-constexpr int TILE = 64;  // rows of a q tile and of a key tile
-constexpr int PAD = 4;    // floats added to a natural-layout row
+using namespace seedvr2::sm90;
+using namespace seedvr2::step;
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -65,369 +96,492 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
   }
 }
 
-// Rows r0 .. r0 + 63 of batch row b (row r at base + (b * S + r) * stride,
-// head h at column h * D) widened to fp32 into a transposed [D][64] array
-// `t` and / or a natural [64][D + PAD] array `n` (either may be null); rows
-// at or past `valid` are zero. Thread i takes row i % 64 of a 16-byte
-// column chunk, so a warp's transposed stores fall in 32 banks.
+// Ring depth for C consumer warpgroups a block: C = 2 runs one block an SM,
+// C = 1 two (the host plan's small groups), each within its share of the
+// SM's shared memory.
+template <int C>
+__host__ __device__ constexpr int stages() {
+  return C == 2 ? 3 : 2;
+}
+
+// Bytes of one 64-row tile of D bf16 columns.
 template <int D>
-__device__ void load_tile(const __nv_bfloat16* base, long long stride, int b,
-                          int S, int h, int r0, int valid, float* t,
-                          float* n) {
-  constexpr int CH = D / 8;
-  for (int id = threadIdx.x; id < TILE * CH; id += BWD_THREADS) {
-    const int j = id % TILE;
-    const int c = (id / TILE) * 8;
-    const int r = r0 + j;
-    float x[8];
-    if (r < valid) {
-      load8(base + ((long long)b * S + r) * stride + (long long)h * D + c, x);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] = 0.f;
-    }
-    if (t != nullptr) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) t[(c + e) * TILE + j] = x[e];
-    }
-    if (n != nullptr) {
-      float4* q = reinterpret_cast<float4*>(n + j * (D + PAD) + c);
-      q[0] = make_float4(x[0], x[1], x[2], x[3]);
-      q[1] = make_float4(x[4], x[5], x[6], x[7]);
-    }
-  }
+__host__ __device__ constexpr uint32_t tile_bytes() {
+  return (D / BOX) * BOX_BYTES;
 }
 
-// acc[i][j] = sum_d A[d][a0 + i] * Bm[d][b0 + j] over two transposed
-// [D][64] tiles.
-template <int D>
-__device__ __forceinline__ void tile_product(const float* A, const float* Bm,
-                                             int a0, int b0,
-                                             float (&acc)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(A + d * TILE + a0);
-    const float4 bb = *reinterpret_cast<const float4*>(Bm + d * TILE + b0);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// acc[i][e] += sum_r W[r][w0 + i] * N[r][n0 + e] over the 64 rows r of a
-// [64][64] array W and a natural [64][D + PAD] array N, DC = D / 16 columns.
-template <int D>
-__device__ __forceinline__ void accumulate(const float* W, const float* N,
-                                           int w0, int n0,
-                                           float (&acc)[4][D / 16]) {
-  constexpr int DC = D / 16;
-#pragma unroll 4
-  for (int r = 0; r < TILE; ++r) {
-    const float4 w = *reinterpret_cast<const float4*>(W + r * TILE + w0);
-    const float wv[4] = {w.x, w.y, w.z, w.w};
-    float nv[DC];
-#pragma unroll
-    for (int e = 0; e < DC; e += 4) {
-      const float4 q =
-          *reinterpret_cast<const float4*>(N + r * (D + PAD) + n0 + e);
-      nv[e] = q.x;
-      nv[e + 1] = q.y;
-      nv[e + 2] = q.z;
-      nv[e + 3] = q.w;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < DC; ++e) acc[i][e] = fmaf(wv[i], nv[e], acc[i][e]);
-  }
-}
-
-// Reductions over the 16 lanes that share a thread's rows (lane % 16 is
-// the column group).
-__device__ __forceinline__ float max16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <int D>
+template <int D, int C>
 constexpr size_t dq_smem_bytes() {
-  // Qt, dOt, Kt, Vt [D][64]; Kn [64][D + PAD]; dS^T [64][64]; lse, delta
-  return (size_t(4) * D * TILE + TILE * (D + PAD) + TILE * TILE + 2 * TILE) *
-         sizeof(float);
+  // q-hat and dO tiles (C each), the k-hat / v ring, delta rows, the
+  // barriers, 1024 bytes of alignment slack
+  return size_t(2 * C + 2 * stages<C>()) * tile_bytes<D>() + C * BN * 4 +
+         (2 * stages<C>() + 1) * 8 + 1024;
 }
+
+constexpr int DKDV_STAGES = 3;  // depth of the dk/dv kernel's q-hat / dO ring
 
 template <int D>
 constexpr size_t dkdv_smem_bytes() {
-  // Kt, Vt, Qt, dOt [D][64]; Qn, dOn [64][D + PAD]; P / dS [64][64]; lse,
-  // delta
-  return (size_t(4) * D * TILE + 2 * TILE * (D + PAD) + TILE * TILE +
-          2 * TILE) *
-         sizeof(float);
+  // k-hat and v tiles, the q-hat / dO ring, two sets of the P^T hi / lo and
+  // dS^T A tiles, each stage's lse and delta rows, the barriers, slack
+  return size_t(2 + 2 * DKDV_STAGES) * tile_bytes<D>() + 6 * BOX_BYTES +
+         DKDV_STAGES * 2 * BN * 4 + (2 * DKDV_STAGES + 1) * 8 + 1024;
 }
 
-// (a): grid (ceil(S / 64), H, B). q_hat, k_hat (B, S, H, D) bf16; v rows at
-// v_stride; out, dout (B, S, H * D) bf16; dq (B, S, H, D) fp32; lse, delta
-// (B, H, S) fp32, every row written: delta is 0 at or past kv_len; lse is
-// the row's log-sum-exp over the keys below kv_len, 0 in a tile wholly past
-// kv_len (no part reads a pad row's lse).
+// Zeros rows r0 .. r0 + rows - 1 of head h of batch row b: fp32 (the
+// (B, S, H, D) accumulator at f32, or null) and bf16 (rows at bf_stride, or
+// null); a block's threads share the 16-byte stores.
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
-attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q_hat,
-                   const __nv_bfloat16* __restrict__ k_hat,
-                   const __nv_bfloat16* __restrict__ v, long long v_stride,
+__device__ void zero_rows(float* f32, __nv_bfloat16* bf, long long bf_stride,
+                          int b, int S, int H, int h, int r0, int rows) {
+  const long long hd = (long long)H * D;
+  for (int i = threadIdx.x; i < rows * (D / 4); i += blockDim.x) {
+    const long long row = (long long)b * S + r0 + i / (D / 4);
+    const int c = (i % (D / 4)) * 4;
+    if (f32 != nullptr)
+      *reinterpret_cast<float4*>(f32 + row * hd + (long long)h * D + c) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    if (bf != nullptr && c % 8 == 0)
+      *reinterpret_cast<uint4*>(bf + row * bf_stride + (long long)h * D + c) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Two bf16 values at row `row`, columns c, c + 1 (c even) of a 64 x 64
+// bf16 A tile in shared memory with the 128-byte swizzle (16-byte chunk k
+// of row r at chunk k ^ (r % 8)), as TMA would have written it.
+__device__ __forceinline__ void st_a(unsigned char* tile, int row, int c,
+                                     __nv_bfloat162 v) {
+  *reinterpret_cast<__nv_bfloat162*>(
+      tile + row * 128 + (((c >> 3) ^ (row & 7)) << 4) + (c & 7) * 2) = v;
+}
+
+// dS = P * (dP - delta) over one 64-key tile of the dq kernel, in place of
+// the scores: P = exp2(s - lse) for the rows g / g + 8 this thread holds
+// (lse and delta per row), 0 at keys past kv_len (the last tile's) and in
+// rows that get no gradient (at or past kv_len).
+__device__ __forceinline__ void dq_ds(float (&sc)[BN / 2],
+                                      const float (&dp)[BN / 2], int k0,
+                                      int kv_len, int t, const float (&lse)[2],
+                                      const float (&dl)[2],
+                                      const bool (&live)[2]) {
+  const bool edge = k0 + BN > kv_len;
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e / 2;
+      const int col = k0 + 8 * i + 2 * t + e % 2;
+      const bool on = live[r] && (!edge || col < kv_len);
+      const float p = exp2f(sc[4 * i + e] - lse[r]);
+      sc[4 * i + e] = on ? p * (dp[4 * i + e] - dl[r]) : 0.f;
+    }
+}
+
+// (a) dq: grid (blocks, H, B), C consumer warpgroups of 64 q rows a block
+// and one producer warp. q-hat and dO stay resident; the producer keeps the
+// 64-key k-hat and v tiles below kv_len in flight in a ring of stages<C>()
+// (v read in place from the packed qkv). Per key tile a warpgroup issues S
+// = q-hat k-hat^T and dP = dO v^T (wgmma, both operands in shared memory),
+// forms dS = exp2(S - lse) * (dP - delta) in fp32 registers, then issues
+// dQ-hat += bf16(dS) k-hat (dS as register A fragments, k-hat MN-major, as
+// the forward's P v). The tile's products wait for each other: S, dP, the
+// dS fragments and the dQ-hat accumulator of two tiles at once would pass
+// the 168 registers a thread has at 9 (or 2 x 5) warps an SM, so the
+// overlap comes from the SM's two warpgroups. delta
+// = rowsum(dO * O) is formed first and written for the dk/dv kernel, 0 at
+// or past kv_len. lse comes from K1's forward (its LSE launch). A block
+// wholly past kv_len writes zeros.
+template <int D, int C>
+__global__ void __launch_bounds__(C * 128 + 32, C == 1 ? 2 : 1)
+attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
                    const __nv_bfloat16* __restrict__ out,
                    const __nv_bfloat16* __restrict__ dout,
-                   float* __restrict__ dq, float* __restrict__ lse_out,
-                   float* __restrict__ delta_out, int S, int H, int kv_len) {
-  constexpr int DC = D / 16;
-  extern __shared__ float4 smem4[];
-  float* sQt = reinterpret_cast<float*>(smem4);
-  float* sDOt = sQt + D * TILE;
-  float* sKt = sDOt + D * TILE;
-  float* sVt = sKt + D * TILE;
-  float* sKn = sVt + D * TILE;
-  float* sDS = sKn + TILE * (D + PAD);  // [key][q row]
-  float* sLse = sDS + TILE * TILE;
-  float* sDelta = sLse + TILE;
-
+                   const float* __restrict__ lse, float* __restrict__ dq,
+                   float* __restrict__ delta, int S, int H, int kv_len) {
+  constexpr uint32_t TILE = tile_bytes<D>();
+  constexpr int P = D / BOX;
+  constexpr int ST = stages<C>();
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int q0 = blockIdx.x * TILE;
+  const int q0 = blockIdx.x * (C * BN);
   const long long hd = (long long)H * D;
-  const int tid = threadIdx.x;
-  const int r0 = (tid / 16) * 4;  // this thread's 4 q rows
-  const int c0 = (tid % 16) * 4;  // its 4 keys of a score tile
-  const int d0 = (tid % 16) * DC; // its DC columns of dQ
+  const long long bh = ((long long)b * H + h) * S;  // lse / delta rows
+  if (q0 >= kv_len) {  // every row of the block gets zero gradient
+    const int rows = min(C * BN, S - q0);
+    zero_rows<D>(dq, nullptr, 0, b, S, H, h, q0, rows);
+    for (int r = threadIdx.x; r < rows; r += blockDim.x)
+      delta[bh + q0 + r] = 0.f;
+    return;
+  }
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base;                  // C tiles
+  const uint32_t sDO = sQ + C * TILE;        // C tiles
+  const uint32_t sK = sDO + C * TILE;        // ST tiles
+  const uint32_t sV = sK + ST * TILE;        // ST tiles
+  const uint32_t s_delta = sV + ST * TILE;   // C * 64 floats
+  const uint32_t full = s_delta + C * BN * 4;
+  const uint32_t empty = full + 8 * ST;
+  const uint32_t qbar = empty + 8 * ST;
+  float* delta_s = reinterpret_cast<float*>(smem_raw + (s_delta - raw));
 
-  if (q0 >= kv_len) {  // every row of the tile gets zero gradient
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + r0 + i;
-      if (row >= S) break;
-      float* dst = dq + ((long long)b * S + row) * hd + (long long)h * D + d0;
-#pragma unroll
-      for (int e = 0; e < DC; ++e) dst[e] = 0.f;
-      if (tid % 16 == 0) {  // delta 0 as below kv_len's pad rows; lse unread
-        lse_out[((long long)b * H + h) * S + row] = 0.f;
-        delta_out[((long long)b * H + h) * S + row] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, C * 128);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int n_tiles = (kv_len + BN - 1) / BN;
+  const int wg = threadIdx.x / 128;
+  if (wg == C) {
+    // producer: one thread keeps the ring full
+    if (threadIdx.x == C * 128) {
+      mbar_expect_tx(qbar, 2 * C * TILE);
+      for (int c = 0; c < C; ++c)
+        for (int p = 0; p < P; ++p) {
+          tma_load(sQ + c * TILE + p * BOX_BYTES, &tm_q, qbar,
+                   h * D + p * BOX, q0 + c * BN, b);
+          tma_load(sDO + c * TILE + p * BOX_BYTES, &tm_do, qbar,
+                   h * D + p * BOX, q0 + c * BN, b);
+        }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST;
+        mbar_wait(empty + 8 * s, ((j / ST) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * TILE);
+        for (int p = 0; p < P; ++p) {
+          tma_load(sK + s * TILE + p * BOX_BYTES, &tm_k, full + 8 * s,
+                   h * D + p * BOX, j * BN, b);
+          tma_load(sV + s * TILE + p * BOX_BYTES, &tm_v, full + 8 * s,
+                   h * D + p * BOX, j * BN, b);
+        }
       }
     }
     return;
   }
 
-  // delta: four threads a row, D / 4 columns each
+  // consumers: warpgroup wg owns q rows r0 .. r0 + 63
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = q0 + wg * BN;
   {
-    const int r = tid / 4;
-    const int part = tid % 4;
-    const int row = q0 + r;
+    // delta: two threads a row, D / 2 columns each
+    const int r = tid / 2;
+    const int row = r0 + r;
     float acc = 0.f;
     if (row < kv_len) {
       const long long off = ((long long)b * S + row) * hd + (long long)h * D +
-                            part * (D / 4);
-      for (int e = 0; e < D / 4; e += 8) {
-        float o[8], g[8];
+                            (tid % 2) * (D / 2);
+#pragma unroll 4
+      for (int e = 0; e < D / 2; e += 8) {
+        float o[8], gr[8];
         load8(out + off + e, o);
-        load8(dout + off + e, g);
+        load8(dout + off + e, gr);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc = fmaf(o[i], g[i], acc);
+        for (int i = 0; i < 8; ++i) acc = fmaf(o[i], gr[i], acc);
       }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    if (part == 0) sDelta[r] = acc;
+    if (tid % 2 == 0) {
+      delta_s[wg * BN + r] = acc;
+      if (row < S) delta[bh + row] = acc;
+    }
   }
-  load_tile<D>(q_hat, hd, b, S, h, q0, S, sQt, nullptr);
-  load_tile<D>(dout, hd, b, S, h, q0, kv_len, sDOt, nullptr);
-  __syncthreads();
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+  const int r_lo = warp * 16 + g;
+  float lse_r[2], dl[2];
+  bool live[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + r_lo + 8 * r;
+    lse_r[r] = row < S ? lse[bh + row] : 0.f;
+    dl[r] = delta_s[wg * BN + r_lo + 8 * r];
+    live[r] = row < kv_len;
+  }
+  const uint32_t q_tile = sQ + wg * TILE;
+  const uint32_t do_tile = sDO + wg * TILE;
 
-  const int n_tiles = (kv_len + TILE - 1) / TILE;
-  // pass 1: the row logsumexp over the keys below kv_len (every tile
-  // visited holds at least one, so each row's max is finite)
-  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  float l[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * TILE;
-    load_tile<D>(k_hat, hd, b, S, h, k0, S, sKt, nullptr);
-    __syncthreads();
-    float sc[4][4];
-    tile_product<D>(sQt, sKt, r0, c0, sc);
+  float acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (k0 + c0 + j < kv_len) mx = fmaxf(mx, sc[i][j]);
-      const float mn = fmaxf(m[i], max16(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (k0 + c0 + j < kv_len) sum += exp2f(sc[i][j] - mn);
-      l[i] = l[i] * exp2f(m[i] - mn) + sum;
-      m[i] = mn;
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float lse = m[i] + log2f(sum16(l[i]));
-    if (tid % 16 == 0) {
-      sLse[r0 + i] = lse;
-      const int row = q0 + r0 + i;
-      if (row < S) {
-        lse_out[((long long)b * H + h) * S + row] = lse;
-        delta_out[((long long)b * H + h) * S + row] = sDelta[r0 + i];
-      }
-    }
-  }
-  __syncthreads();
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[BN / 2], dp[BN / 2];
+  uint32_t pa[BN / 16][4];
 
-  // pass 2: dS and dQ-hat
-  float acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < DC; ++e) acc[i][e] = 0.f;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * TILE;
-    load_tile<D>(k_hat, hd, b, S, h, k0, S, sKt, sKn);
-    load_tile<D>(v, v_stride, b, S, h, k0, S, sVt, nullptr);
-    __syncthreads();
-    float sc[4][4], dp[4][4];
-    tile_product<D>(sQt, sKt, r0, c0, sc);
-    tile_product<D>(sDOt, sVt, r0, c0, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float lse = sLse[r0 + i];
-      const float dl = sDelta[r0 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p =
-            k0 + c0 + j < kv_len ? exp2f(sc[i][j] - lse) : 0.f;
-        sDS[(c0 + j) * TILE + r0 + i] = p * (dp[i][j] - dl);
-      }
-    }
-    __syncthreads();
-    accumulate<D>(sDS, sKn, r0, d0, acc);
-    __syncthreads();
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % ST;
+    mbar_wait(full + 8 * s, (j / ST) & 1);
+    issue_scores<D>(sc, q_tile, sK + s * TILE);
+    issue_scores<D>(dp, do_tile, sV + s * TILE);
+    wgmma_wait<0>();
+    reg_fence(sc);
+    reg_fence(dp);
+    dq_ds(sc, dp, j * BN, kv_len, t, lse_r, dl, live);
+    pack_p(pa, sc);
+    issue_pv<D>(acc, pa, sK + s * TILE);
+    wgmma_wait<0>();
+    reg_fence(acc);
+    mbar_arrive(empty + 8 * s);  // this thread is done with stage s
   }
+
+  // dQ-hat rows as fp32, two values a store (rows at or past kv_len are 0)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + r0 + i;
-    if (row >= S) break;
-    float* dst = dq + ((long long)b * S + row) * hd + (long long)h * D + d0;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + r_lo + 8 * r;
+    if (row >= S) continue;
+    float* dst = dq + ((long long)b * S + row) * hd + (long long)h * D + 2 * t;
 #pragma unroll
-    for (int e = 0; e < DC; ++e) dst[e] = acc[i][e];
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<float2*>(dst + 8 * i) =
+          make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
   }
 }
 
-// (b): grid (ceil(S / 64), H, B). dk (B, S, H, D) fp32; dv rows at
-// dv_stride (bf16, head h at column h * D).
+// P^T (as bf16 hi and lo, hi = bf16(p), lo = bf16(p - hi), so that hi +
+// lo carries P to about 16 bits) and dS^T of this warpgroup's HQ q columns
+// (c0 .. c0 + HQ - 1 of the q tile at q0) into the shared A tiles at
+// `tiles` (hi, lo, dS^T BOX_BYTES apart; 64 keys x 64 q rows, 128-byte
+// swizzle: 16-byte chunk c of row r at chunk c ^ (r % 8)). The rows are
+// keys, the columns q rows, so lse and delta vary along the columns (read
+// from the stage's rows). 0 at keys past kv_len and at q rows past kv_len,
+// whose dO arrives unmasked.
+template <int HQ>
+__device__ __forceinline__ void dkdv_store_p_ds(
+    const float (&sc)[HQ / 2], const float (&dp)[HQ / 2],
+    unsigned char* tiles, const float* rows, int q0, int c0, int kv_len,
+    int t, int r_lo, const bool (&live)[2]) {
+  const bool edge = q0 + BN > kv_len;
+#pragma unroll
+  for (int i = 0; i < HQ / 8; ++i) {
+    const int c = c0 + 8 * i + 2 * t;
+    const float2 ls = *reinterpret_cast<const float2*>(rows + c);
+    const float2 dl = *reinterpret_cast<const float2*>(rows + BN + c);
+    const bool on0 = !edge || q0 + c < kv_len;
+    const bool on1 = !edge || q0 + c + 1 < kv_len;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float* s2 = sc + 4 * i + 2 * r;
+      const float* d2 = dp + 4 * i + 2 * r;
+      const bool a = live[r] && on0;
+      const bool b = live[r] && on1;
+      const float p0 = a ? exp2f(s2[0] - ls.x) : 0.f;
+      const float p1 = b ? exp2f(s2[1] - ls.y) : 0.f;
+      const float ds0 = a ? p0 * (d2[0] - dl.x) : 0.f;
+      const float ds1 = b ? p1 * (d2[1] - dl.y) : 0.f;
+      const int row = r_lo + 8 * r;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+      st_a(tiles, row, c, hi);
+      st_a(tiles + BOX_BYTES, row, c,
+           __floats2bfloat162_rn(p0 - __low2float(hi), p1 - __high2float(hi)));
+      st_a(tiles + 2 * BOX_BYTES, row, c, __floats2bfloat162_rn(ds0, ds1));
+    }
+  }
+}
+
+// Issues (and commits) dK-hat += dS^T q-hat and dV += (P^T hi + lo) dO on
+// one 64-column panel, every operand in shared memory: the A tiles at
+// `tiles` (hi, lo, dS^T) K-major, q-hat and dO's panel MN-major (a 16-row
+// step 2048 bytes further).
+__device__ __forceinline__ void issue_dk_dv(float (&dka)[BN / 2],
+                                            float (&dva)[BN / 2],
+                                            uint32_t tiles, uint32_t q_panel,
+                                            uint32_t do_panel) {
+  reg_fence(dka);
+  reg_fence(dva);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < BN / 16; ++ks) {
+    const uint64_t dq = sw128_desc(q_panel + ks * 2048, BOX_BYTES, 1024);
+    const uint64_t ddo = sw128_desc(do_panel + ks * 2048, BOX_BYTES, 1024);
+    wgmma_ss_mn(dka, sw128_desc(tiles + 2 * BOX_BYTES + ks * 32, 16, 1024),
+                dq);
+    wgmma_ss_mn(dva, sw128_desc(tiles + ks * 32, 16, 1024), ddo);
+    wgmma_ss_mn(dva, sw128_desc(tiles + BOX_BYTES + ks * 32, 16, 1024), ddo);
+  }
+  wgmma_commit();
+}
+
+// (b) dk/dv: grid (blocks, H, B), a block owns 64 keys, with W = D / 64
+// consumer warpgroups and one producer warp. k-hat and v stay resident;
+// the producer keeps the q tiles below kv_len in flight: its lanes stage
+// the tile's 64 lse and delta rows into the stage, one lane issues the
+// q-hat and dO TMA loads. Warpgroup w forms S^T = k-hat q-hat^T and dP^T =
+// v dO^T for its 64 / W q rows of a tile (SS), P^T and dS^T from them in
+// fp32 registers, and stores them as bf16 A tiles (P^T as hi + lo) in
+// shared memory; after a barrier of the W warpgroups, w accumulates
+// dK-hat += dS^T q-hat and dV += (P^T hi + lo) dO over the whole q tile on
+// its 64-column panel of D (SS, q-hat and dO MN-major). Each S^T / dP^T
+// element is formed once (5 tile products a tile: S^T, dP^T, dK, dV hi,
+// dV lo) and a warpgroup holds two 64 x 64 accumulators. The next tile's
+// S^T and dP^T are issued before this tile's dK / dV products and formed
+// into the other set of A tiles while they run. dK-hat goes out fp32, dV
+// as bf16 into dv's rows. A block wholly past kv_len writes zeros.
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
-attn_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q_hat,
-                     const __nv_bfloat16* __restrict__ k_hat,
-                     const __nv_bfloat16* __restrict__ v, long long v_stride,
-                     const __nv_bfloat16* __restrict__ dout,
+__global__ void __launch_bounds__((D / BOX) * 128 + 32, 1)
+attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, long long dv_stride,
                      int S, int H, int kv_len) {
-  constexpr int DC = D / 16;
-  extern __shared__ float4 smem4[];
-  float* sKt = reinterpret_cast<float*>(smem4);
-  float* sVt = sKt + D * TILE;
-  float* sQt = sVt + D * TILE;
-  float* sDOt = sQt + D * TILE;
-  float* sQn = sDOt + D * TILE;
-  float* sDOn = sQn + TILE * (D + PAD);
-  float* sP = sDOn + TILE * (D + PAD);  // [q row][key]
-  float* sLse = sP + TILE * TILE;
-  float* sDelta = sLse + TILE;
-
+  constexpr uint32_t TILE = tile_bytes<D>();
+  constexpr int W = D / BOX;  // consumer warpgroups, one a panel
+  constexpr int HQ = BN / W;  // q rows of a tile whose S^T a group forms
+  constexpr int ST = DKDV_STAGES;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int k0 = blockIdx.x * TILE;
+  const int k0 = blockIdx.x * BN;
   const long long hd = (long long)H * D;
-  const int tid = threadIdx.x;
-  const int j0 = (tid / 16) * 4;   // this thread's 4 keys
-  const int i0 = (tid % 16) * 4;   // its 4 q rows of a score tile
-  const int d0 = (tid % 16) * DC;  // its DC columns of dK and dV
-
-  float dka[4][DC], dva[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < DC; ++e) dka[i][e] = dva[i][e] = 0.f;
-
-  if (k0 < kv_len) {
-    load_tile<D>(k_hat, hd, b, S, h, k0, S, sKt, nullptr);
-    load_tile<D>(v, v_stride, b, S, h, k0, S, sVt, nullptr);
-    const int n_q = (kv_len + TILE - 1) / TILE;
-    const float* lse_row = lse + ((long long)b * H + h) * S;
-    const float* delta_row = delta + ((long long)b * H + h) * S;
-    for (int qt = 0; qt < n_q; ++qt) {
-      const int q0 = qt * TILE;
-      __syncthreads();  // the previous q tile's reads are done
-      load_tile<D>(q_hat, hd, b, S, h, q0, S, sQt, sQn);
-      load_tile<D>(dout, hd, b, S, h, q0, kv_len, sDOt, sDOn);
-      for (int r = tid; r < TILE; r += BWD_THREADS) {
-        const int row = q0 + r;
-        sLse[r] = row < S ? lse_row[row] : 0.f;
-        sDelta[r] = row < S ? delta_row[row] : 0.f;
-      }
-      __syncthreads();
-      float sc[4][4], dp[4][4];
-      tile_product<D>(sKt, sQt, j0, i0, sc);   // sc[key][q row]
-      tile_product<D>(sVt, sDOt, j0, i0, dp);
-      float ds[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool live = k0 + j0 + j < kv_len;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = live ? exp2f(sc[j][i] - sLse[i0 + i]) : 0.f;
-          ds[j][i] = p * (dp[j][i] - sDelta[i0 + i]);
-          sP[(i0 + i) * TILE + j0 + j] = p;
-        }
-      }
-      __syncthreads();
-      accumulate<D>(sP, sDOn, j0, d0, dva);
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) sP[(i0 + i) * TILE + j0 + j] = ds[j][i];
-      __syncthreads();
-      accumulate<D>(sP, sQn, j0, d0, dka);
-    }
+  const long long bh = ((long long)b * H + h) * S;
+  if (k0 >= kv_len) {  // keys that no row attends: zero gradient
+    zero_rows<D>(dk, dv, dv_stride, b, S, H, h, k0, min(BN, S - k0));
+    return;
   }
-  // keys at or past kv_len (and whole tiles past it) write zeros
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base;                   // 1 tile
+  const uint32_t sV = sK + TILE;              // 1 tile
+  const uint32_t sQ = sV + TILE;              // ST tiles
+  const uint32_t sDO = sQ + ST * TILE;        // ST tiles
+  const uint32_t s_pds = sDO + ST * TILE;     // 2 x (P^T hi, lo, dS^T)
+  const uint32_t s_rows = s_pds + 6 * BOX_BYTES;  // ST x (64 lse, 64 delta)
+  const uint32_t full = s_rows + ST * 2 * BN * 4;
+  const uint32_t empty = full + 8 * ST;
+  const uint32_t kvbar = empty + 8 * ST;
+  float* rows_s = reinterpret_cast<float*>(smem_raw + (s_rows - raw));
+  unsigned char* pds = smem_raw + (s_pds - raw);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(empty + 8 * s, W * 128);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int n_q = (kv_len + BN - 1) / BN;
+  const int wg = threadIdx.x / 128;
+  if (wg == W) {
+    // producer warp: lane 0 issues the loads, every lane stages rows
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * TILE);
+      for (int p = 0; p < W; ++p) {
+        tma_load(sK + p * BOX_BYTES, &tm_k, kvbar, h * D + p * BOX, k0, b);
+        tma_load(sV + p * BOX_BYTES, &tm_v, kvbar, h * D + p * BOX, k0, b);
+      }
+    }
+    for (int j = 0; j < n_q; ++j) {
+      const int s = j % ST;
+      mbar_wait(empty + 8 * s, ((j / ST) & 1) ^ 1);
+      float* rows = rows_s + s * 2 * BN;
+      for (int r = lane; r < BN; r += 32) {
+        const int row = j * BN + r;
+        rows[r] = row < S ? lse[bh + row] : 0.f;
+        rows[BN + r] = row < S ? delta[bh + row] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(full + 8 * s, 2 * TILE);
+        for (int p = 0; p < W; ++p) {
+          tma_load(sQ + s * TILE + p * BOX_BYTES, &tm_q, full + 8 * s,
+                   h * D + p * BOX, j * BN, b);
+          tma_load(sDO + s * TILE + p * BOX_BYTES, &tm_do, full + 8 * s,
+                   h * D + p * BOX, j * BN, b);
+        }
+      } else {
+        mbar_arrive(full + 8 * s);  // releases this lane's rows
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg forms S^T of q rows c0 .. c0 + HQ - 1 of each
+  // tile and owns columns 64 wg .. 64 wg + 63 of the keys' gradients
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r_lo = warp * 16 + g;
+  const bool live[2] = {k0 + r_lo < kv_len, k0 + r_lo + 8 < kv_len};
+  const uint32_t panel = wg * BOX_BYTES;
+  const int c0 = wg * HQ;
+
+  float dka[BN / 2], dva[BN / 2];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int row = k0 + j0 + j;
-    if (row >= S) break;
-    float* k_dst = dk + ((long long)b * S + row) * hd + (long long)h * D + d0;
-    __nv_bfloat16* v_dst =
-        dv + ((long long)b * S + row) * dv_stride + (long long)h * D + d0;
+  for (int i = 0; i < BN / 2; ++i) dka[i] = dva[i] = 0.f;
+  float sc[HQ / 2], dp[HQ / 2];
+
+  mbar_wait(kvbar, 0);
+  mbar_wait(full, 0);
+  issue_scores<D, HQ>(sc, sK, sQ + c0 * 128);   // S^T
+  issue_scores<D, HQ>(dp, sV, sDO + c0 * 128);  // dP^T
+  wgmma_wait<0>();
+  reg_fence(sc);
+  reg_fence(dp);
+  dkdv_store_p_ds<HQ>(sc, dp, pds, rows_s, 0, c0, kv_len, t, r_lo, live);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync 1, %0;" ::"n"(W * 128) : "memory");
+  for (int j = 0; j + 1 < n_q; ++j) {
+    // tile j + 1's S^T and dP^T first, then tile j's products
+    const int s = j % ST;
+    const int s1 = (j + 1) % ST;
+    mbar_wait(full + 8 * s1, ((j + 1) / ST) & 1);
+    issue_scores<D, HQ>(sc, sK, sQ + s1 * TILE + c0 * 128);
+    issue_scores<D, HQ>(dp, sV, sDO + s1 * TILE + c0 * 128);
+    issue_dk_dv(dka, dva, s_pds + (j % 2) * 3 * BOX_BYTES,
+                sQ + s * TILE + panel, sDO + s * TILE + panel);
+    wgmma_wait<1>();  // S^T and dP^T of tile j + 1 have landed
+    reg_fence(sc);
+    reg_fence(dp);
+    dkdv_store_p_ds<HQ>(sc, dp, pds + ((j + 1) % 2) * 3 * BOX_BYTES,
+                        rows_s + s1 * 2 * BN, (j + 1) * BN, c0, kv_len, t,
+                        r_lo, live);
+    wgmma_wait<0>();  // tile j's dK / dV products have landed
+    reg_fence(dka);
+    reg_fence(dva);
+    mbar_arrive(empty + 8 * s);  // this thread is done with stage s
+    // tile j + 1's A tiles are whole; tile j's are read
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync 1, %0;" ::"n"(W * 128) : "memory");
+  }
+  issue_dk_dv(dka, dva, s_pds + ((n_q - 1) % 2) * 3 * BOX_BYTES,
+              sQ + ((n_q - 1) % ST) * TILE + panel,
+              sDO + ((n_q - 1) % ST) * TILE + panel);
+  wgmma_wait<0>();
+  reg_fence(dka);
+  reg_fence(dva);
+
+  // dK-hat as fp32, dV as bf16, this warpgroup's 64 columns of each key
+  // row (keys at or past kv_len are 0)
 #pragma unroll
-    for (int e = 0; e < DC; ++e) {
-      k_dst[e] = dka[j][e];
-      v_dst[e] = __float2bfloat16_rn(dva[j][e]);
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + r_lo + 8 * r;
+    if (row >= S) continue;
+    const int c = wg * BOX + 2 * t;
+    float* kd = dk + ((long long)b * S + row) * hd + (long long)h * D + c;
+    __nv_bfloat16* vd =
+        dv + ((long long)b * S + row) * dv_stride + (long long)h * D + c;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      *reinterpret_cast<float2*>(kd + 8 * i) =
+          make_float2(dka[4 * i + 2 * r], dka[4 * i + 2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(vd + 8 * i) =
+          __floats2bfloat162_rn(dva[4 * i + 2 * r], dva[4 * i + 2 * r + 1]);
     }
   }
 }
@@ -561,43 +715,60 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
 }
 
-template <int D>
-cudaError_t launch_dq(const void* q_hat, const void* k_hat, const void* v,
-                      long long v_stride, const void* out, const void* dout,
-                      void* dq, void* lse, void* delta, int B, int S, int H,
-                      int kv_len, cudaStream_t st) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = set_smem(attn_bwd_dq_kernel<D>, smem);
+// Tensor map of B batch rows of S rows of H*D bf16 (row stride `stride`
+// elements), boxes of 64 x 64 with the 128-byte swizzle, as K1's forward
+// maps its operands.
+bool rows_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+              long long stride) {
+  return make_map_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr,
+                     uint64_t(H) * D, uint64_t(S), uint64_t(B),
+                     uint64_t(stride) * 2, uint64_t(stride) * 2 * S, BOX, BOX,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The four operands' tensor maps (q-hat, k-hat, v at v_stride, dO) and the
+// host plan's grid: `blocks` blocks of `rows` rows must cover S, none of
+// them wholly past it.
+bool bwd_maps(CUtensorMap (&m)[4], const void* q_hat, const void* k_hat,
+              const void* v, long long v_stride, const void* dout, int B,
+              int S, int H, int D, int kv_len, int rows, int blocks) {
+  const long long hd = (long long)H * D;
+  return (D == 64 || D == 128) && kv_len >= 1 && kv_len <= S &&
+         (long long)blocks * rows >= S && (long long)(blocks - 1) * rows < S &&
+         rows_map(&m[0], q_hat, B, S, H, D, hd) &&
+         rows_map(&m[1], k_hat, B, S, H, D, hd) &&
+         rows_map(&m[2], v, B, S, H, D, v_stride) &&
+         rows_map(&m[3], dout, B, S, H, D, hd);
+}
+
+template <int D, int C>
+cudaError_t launch_dq(const CUtensorMap (&m)[4], const void* out,
+                      const void* dout, const void* lse, void* dq,
+                      void* delta, int B, int S, int H, int kv_len, int blocks,
+                      cudaStream_t st) {
+  constexpr size_t smem = dq_smem_bytes<D, C>();
+  cudaError_t err = set_smem(attn_bwd_dq_kernel<D, C>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + TILE - 1) / TILE, H, B);
-  attn_bwd_dq_kernel<D><<<grid, BWD_THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q_hat),
-      static_cast<const __nv_bfloat16*>(k_hat),
-      static_cast<const __nv_bfloat16*>(v), v_stride,
-      static_cast<const __nv_bfloat16*>(out),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<float*>(dq),
-      static_cast<float*>(lse), static_cast<float*>(delta), S, H, kv_len);
+  attn_bwd_dq_kernel<D, C><<<dim3(blocks, H, B), C * 128 + 32, smem, st>>>(
+      m[0], m[1], m[2], m[3], static_cast<const __nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(dq), static_cast<float*>(delta), S, H, kv_len);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkdv(const void* q_hat, const void* k_hat, const void* v,
-                        long long v_stride, const void* dout, const void* lse,
+cudaError_t launch_dkdv(const CUtensorMap (&m)[4], const void* lse,
                         const void* delta, void* dk, void* dv,
                         long long dv_stride, int B, int S, int H, int kv_len,
-                        cudaStream_t st) {
+                        int blocks, cudaStream_t st) {
   constexpr size_t smem = dkdv_smem_bytes<D>();
   cudaError_t err = set_smem(attn_bwd_dkdv_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + TILE - 1) / TILE, H, B);
-  attn_bwd_dkdv_kernel<D><<<grid, BWD_THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q_hat),
-      static_cast<const __nv_bfloat16*>(k_hat),
-      static_cast<const __nv_bfloat16*>(v), v_stride,
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<__nv_bfloat16*>(dv), dv_stride, S,
-      H, kv_len);
+  attn_bwd_dkdv_kernel<D><<<dim3(blocks, H, B), (D / BOX) * 128 + 32, smem,
+                            st>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<__nv_bfloat16*>(dv), dv_stride, S, H, kv_len);
   return cudaGetLastError();
 }
 
@@ -633,43 +804,56 @@ cudaError_t launch_prepass_bwd(const void* q_src, const void* k_src,
 
 // q_hat, k_hat (B, S, H, D) bf16 contiguous; v (B, S, H, D) bf16 rows at
 // v_stride elements (the packed qkv's v columns); out, dout (B, S, H * D)
-// bf16; dq (B, S, H, D) fp32; lse, delta (B, H, S) fp32; every pointer
-// 16-byte aligned, 1 <= kv_len <= S, D in {64, 128}: checked by the Python
-// wrapper (seedvr2_tpu_torch/ops/flash_attention.py).
+// bf16; lse (B, H, S) fp32 from K1's LSE launch; dq (B, S, H, D) fp32;
+// delta (B, H, S) fp32, every row written; wg consumer warpgroups a block
+// and `blocks` blocks along S from the host plan (backward_plan in
+// seedvr2_tpu_torch/ops/flash_attention.py). Every pointer 16-byte aligned,
+// 1 <= kv_len <= S, D in {64, 128}: checked by the Python wrapper.
 extern "C" int seedvr2_attn_bwd_dq(const void* q_hat, const void* k_hat,
                                    const void* v, long long v_stride,
                                    const void* out, const void* dout,
-                                   void* dq, void* lse, void* delta, int B,
-                                   int S, int H, int D, int kv_len,
-                                   void* stream) {
+                                   const void* lse, void* dq, void* delta,
+                                   int B, int S, int H, int D, int kv_len,
+                                   int wg, int blocks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || S == 0) return int(cudaSuccess);
+  CUtensorMap m[4];
+  if ((wg != 1 && wg != 2) ||
+      !bwd_maps(m, q_hat, k_hat, v, v_stride, dout, B, S, H, D, kv_len,
+                wg * BN, blocks))
+    return int(cudaErrorInvalidValue);
   if (D == 128)
-    return int(launch_dq<128>(q_hat, k_hat, v, v_stride, out, dout, dq, lse,
-                              delta, B, S, H, kv_len, st));
-  if (D == 64)
-    return int(launch_dq<64>(q_hat, k_hat, v, v_stride, out, dout, dq, lse,
-                             delta, B, S, H, kv_len, st));
-  return int(cudaErrorInvalidValue);
+    return int(wg == 2 ? launch_dq<128, 2>(m, out, dout, lse, dq, delta, B, S,
+                                           H, kv_len, blocks, st)
+                       : launch_dq<128, 1>(m, out, dout, lse, dq, delta, B, S,
+                                           H, kv_len, blocks, st));
+  return int(wg == 2 ? launch_dq<64, 2>(m, out, dout, lse, dq, delta, B, S, H,
+                                        kv_len, blocks, st)
+                     : launch_dq<64, 1>(m, out, dout, lse, dq, delta, B, S, H,
+                                        kv_len, blocks, st));
 }
 
-// As above; lse and delta from seedvr2_attn_bwd_dq; dk (B, S, H, D) fp32;
-// dv bf16 rows at dv_stride elements (d qkv's v columns).
+// As above; lse from K1's LSE launch, delta from seedvr2_attn_bwd_dq; dk
+// (B, S, H, D) fp32; dv bf16 rows at dv_stride elements (d qkv's v
+// columns); `blocks` blocks of 64 keys, D / 64 warpgroups each.
 extern "C" int seedvr2_attn_bwd_dkdv(const void* q_hat, const void* k_hat,
                                      const void* v, long long v_stride,
                                      const void* dout, const void* lse,
                                      const void* delta, void* dk, void* dv,
                                      long long dv_stride, int B, int S, int H,
-                                     int D, int kv_len, void* stream) {
+                                     int D, int kv_len, int blocks,
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || S == 0) return int(cudaSuccess);
+  CUtensorMap m[4];
+  if (!bwd_maps(m, q_hat, k_hat, v, v_stride, dout, B, S, H, D, kv_len, BN,
+                blocks))
+    return int(cudaErrorInvalidValue);
   if (D == 128)
-    return int(launch_dkdv<128>(q_hat, k_hat, v, v_stride, dout, lse, delta,
-                                dk, dv, dv_stride, B, S, H, kv_len, st));
-  if (D == 64)
-    return int(launch_dkdv<64>(q_hat, k_hat, v, v_stride, dout, lse, delta,
-                               dk, dv, dv_stride, B, S, H, kv_len, st));
-  return int(cudaErrorInvalidValue);
+    return int(launch_dkdv<128>(m, lse, delta, dk, dv, dv_stride, B, S, H,
+                                kv_len, blocks, st));
+  return int(launch_dkdv<64>(m, lse, delta, dk, dv, dv_stride, B, S, H,
+                             kv_len, blocks, st));
 }
 
 // q_src / k_src: the q / k columns of the packed bf16 qkv (rows at

@@ -40,13 +40,15 @@ cudaError_t qk_prepass(int D, const PrepassSide& q, const PrepassSide& k,
 // every stride a multiple of 8, D in {64, 128}. With key_valid ((nU, Sk)
 // bytes) and ids (B int32 < nU), batch row b's keys are those that row
 // ids[b] of key_valid marks instead (kv_len unused), and key tiles that hold
-// none of them are neither loaded nor multiplied.
+// none of them are neither loaded nor multiplied. With lse ((B, H, S) fp32;
+// no key_valid, Sq == Sk == S), each row's log-sum-exp of its scores (exp2
+// domain) is written there too, by the kernel's LSE instantiation.
 cudaError_t attention_sm90(const void* q, long long q_stride, const void* k,
                            long long k_stride, const void* v,
                            long long v_stride, void* out, int B, int Sq,
                            int Sk, int H, int D, int kv_len,
                            float score_scale, cudaStream_t stream,
                            const unsigned char* key_valid = nullptr,
-                           const int* ids = nullptr);
+                           const int* ids = nullptr, float* lse = nullptr);
 
 }  // namespace seedvr2

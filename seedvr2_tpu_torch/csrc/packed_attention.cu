@@ -43,8 +43,13 @@
 //     from shared memory, K-major), the online softmax in registers in the
 //     exp2 domain, and O += P v with P taken from the S accumulator as bf16
 //     register A fragments and v as an MN-major (transposed) shared operand,
-//     so v is never transposed by hand. Key tiles wholly past kv_len are
-//     never loaded; the partial one is masked on the fp32 scores. K9's
+//     so v is never transposed by hand (the tile products are in
+//     attention_step.cuh, which K1's backward shares). Key tiles wholly
+//     past kv_len are never loaded; the partial one is masked on the fp32
+//     scores. K1's training launch (`seedvr2_packed_attention_lse`, the
+//     template flag LSE) also stores each row's m + log2(l), the lse the
+//     backward's dq and dk/dv kernels read (attention_backward.cu); the
+//     serving launches, K8 and K9 instantiate LSE = false. K9's
 //     variant (template flag MASKED) takes its keys from a per-window
 //     validity row picked by ids[b]: the block stages it as one 64-bit word
 //     a key tile and walks only the tiles that hold a valid key, masking a
@@ -59,12 +64,14 @@
 #include <stdint.h>
 
 #include "attention_sm90.cuh"
+#include "attention_step.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 using seedvr2::PrepassSide;
 using namespace seedvr2::sm90;
+using namespace seedvr2::step;
 
 // ---------------------------------------------------------------- pre-pass
 
@@ -180,10 +187,7 @@ cudaError_t launch_prepass(const PrepassSide& q, const PrepassSide& k, int B,
 
 constexpr int BM = 64;         // q rows of one consumer warpgroup
 constexpr int CONSUMERS = 2;   // consumer warpgroups a block
-constexpr int BN = 64;         // keys a tile
 constexpr int STAGES = 4;      // depth of the k / v ring
-constexpr int BOX = 64;        // rows and bf16 columns (128 bytes) of a box
-constexpr uint32_t BOX_BYTES = BOX * BOX * 2;
 constexpr int THREADS = CONSUMERS * 128 + 32;  // + one producer warp
 
 template <int D>
@@ -191,16 +195,6 @@ constexpr size_t smem_bytes() {
   // q tiles, the k and v rings, the barriers, 1024 bytes of alignment slack
   return size_t(CONSUMERS + 2 * STAGES) * (D / BOX) * BOX_BYTES +
          (2 * STAGES + 1) * 8 + 1024;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 __device__ __forceinline__ uint64_t lds64(uint32_t addr) {
@@ -213,49 +207,6 @@ __device__ __forceinline__ int lds32(uint32_t addr) {
   int v;
   asm volatile("ld.shared.s32 %0, [%1];" : "=r"(v) : "r"(addr));
   return v;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// Issues (and commits, without waiting) S = q k^T for one 64-key tile:
-// D/16 steps of 16 columns, a step 32 bytes into the 128-byte swizzled rows
-// of one 64-column panel; both operands K-major.
-template <int D>
-__device__ __forceinline__ void issue_scores(float (&sc)[BN / 2],
-                                             uint32_t q_tile,
-                                             uint32_t k_tile) {
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
-  reg_fence(sc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
-    wgmma_ss(sc, sw128_desc(q_tile + off, 16, 1024),
-             sw128_desc(k_tile + off, 16, 1024), 1);
-  }
-  wgmma_commit();
-}
-
-// Issues (and commits) O += P v for one 64-key tile: P as register A
-// fragments, v MN-major; a 16-key step starts 16 rows (2048 bytes) further,
-// v's D columns (N) are split in panels BOX_BYTES apart (leading byte
-// offset), 8-key groups 1024 bytes apart (stride byte offset).
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&pa)[BN / 16][4],
-                                         uint32_t v_tile) {
-  reg_fence(o);
-  wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < BN / 16; ++ks) {
-    const uint64_t dv = sw128_desc(v_tile + ks * 16 * 128, BOX_BYTES, 1024);
-    wgmma_rs<1>(o, pa[ks], dv, 1);
-  }
-  wgmma_commit();
 }
 
 // Online softmax over one tile of fp32 scores, exp2 domain, for the rows g
@@ -311,18 +262,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], int k0,
   }
 }
 
-// P rounded to bf16 as the register A fragments of four 16-key steps.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[BN / 16][4],
-                                       const float (&sc)[BN / 2]) {
-#pragma unroll
-  for (int ks = 0; ks < BN / 16; ++ks) {
-    pa[ks][0] = pack_bf16(sc[8 * ks], sc[8 * ks + 1]);
-    pa[ks][1] = pack_bf16(sc[8 * ks + 2], sc[8 * ks + 3]);
-    pa[ks][2] = pack_bf16(sc[8 * ks + 4], sc[8 * ks + 5]);
-    pa[ks][3] = pack_bf16(sc[8 * ks + 6], sc[8 * ks + 7]);
-  }
-}
-
 template <int D>
 __device__ __forceinline__ void rescale(float (&o)[D / 2],
                                         const float (&corr)[2]) {
@@ -335,11 +274,14 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2],
   }
 }
 
-// Accumulator layout of a wgmma m64nN tile (as mma.sync m16n8 per warp):
-// thread (warp w, lane = 4g + t) holds, for each 8-column block i, d[4i],
-// d[4i+1] at row 16w + g, columns 8i + 2t, 8i + 2t + 1, and d[4i+2],
-// d[4i+3] at row 16w + g + 8. Two adjacent blocks of the score tile are the
-// register A fragment of one 16-key step of P v.
+// The accumulators follow attention_step.cuh's layout: two adjacent
+// 8-column blocks of the score tile are the register A fragment of one
+// 16-key step of P v.
+//
+// LSE (K1's training launch): each row's log-sum-exp of its scores, m +
+// log2(l) in the exp2 domain, is also written into lse_out ((B, H, Sk) fp32,
+// Sq == Sk) for every row below Sk; the serving launches instantiate
+// LSE = false and never touch lse_out.
 //
 // MASKED (K9): batch row b's keys are those that row ids[b] of key_valid
 // ((nU, Sk) bytes) marks. The block first stages that row as one 64-bit
@@ -348,7 +290,7 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2],
 // warpgroups walk that one list, so their mbarrier phases agree, and a tile
 // with no valid key is never loaded or multiplied (each of its keys would
 // add exp2(-inf) = 0).
-template <int D, bool MASKED>
+template <int D, bool MASKED, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
@@ -356,7 +298,8 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_o, int kv_len,
                  float score_scale,
                  const unsigned char* __restrict__ key_valid,
-                 const int* __restrict__ ids, int Sk) {
+                 const int* __restrict__ ids, int Sk,
+                 float* __restrict__ lse_out) {
   constexpr int P = D / BOX;                 // 64-column panels of a tile
   constexpr uint32_t TILE = P * BOX_BYTES;   // one 64-row tile, D columns
   extern __shared__ unsigned char smem_raw[];
@@ -504,6 +447,12 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float d_hi = fmaxf(quad_sum(l[1]), 1e-30f);
   unsigned char* out_tile = smem_raw + (q_tile - raw);
   const int r_lo = warp * 16 + g;  // r_lo % 8 == (r_lo + 8) % 8 == g
+  if constexpr (LSE) {
+    const int row = q0 + wg * BM + r_lo;
+    float* dst = lse_out + ((long long)b * gridDim.y + h) * Sk + row;
+    if (t == 0 && row < Sk) dst[0] = m[0] + log2f(d_lo);
+    if (t == 0 && row + 8 < Sk) dst[8] = m[1] + log2f(d_hi);
+  }
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     const uint32_t off =
@@ -543,24 +492,24 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int rows, int H,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool MASKED>
+template <int D, bool MASKED, bool LSE = false>
 cudaError_t launch_attention(const CUtensorMap& q, const CUtensorMap& k,
                              const CUtensorMap& v, const CUtensorMap& o,
                              int B, int Sq, int Sk, int H, int kv_len,
                              float score_scale,
                              const unsigned char* key_valid, const int* ids,
-                             cudaStream_t stream) {
+                             cudaStream_t stream, float* lse = nullptr) {
   // MASKED: two validity words and a list entry a key tile, and the count
   const size_t smem =
       smem_bytes<D>() + (MASKED ? size_t((Sk + BN - 1) / BN) * 20 + 16 : 0);
   if (smem > 232448) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<D, MASKED>,
+      attention_kernel<D, MASKED, LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + CONSUMERS * BM - 1) / (CONSUMERS * BM), H, B);
-  attention_kernel<D, MASKED><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, kv_len, score_scale, key_valid, ids, Sk);
+  attention_kernel<D, MASKED, LSE><<<grid, THREADS, smem, stream>>>(
+      q, k, v, o, kv_len, score_scale, key_valid, ids, Sk, lse);
   return cudaGetLastError();
 }
 
@@ -583,11 +532,13 @@ cudaError_t attention_sm90(const void* q, long long q_stride, const void* k,
                            long long v_stride, void* out, int B, int Sq,
                            int Sk, int H, int D, int kv_len,
                            float score_scale, cudaStream_t stream,
-                           const unsigned char* key_valid, const int* ids) {
+                           const unsigned char* key_valid, const int* ids,
+                           float* lse) {
   if (B == 0 || Sq == 0) return cudaSuccess;
   const bool masked = key_valid != nullptr;
   if ((D != 64 && D != 128) || (masked && ids == nullptr) ||
-      (!masked && (kv_len < 1 || kv_len > Sk)))
+      (!masked && (kv_len < 1 || kv_len > Sk)) ||
+      (lse != nullptr && (masked || Sq != Sk)))
     return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, to;
   if (!make_map(&tq, q, B, Sq, H, D, q_stride) ||
@@ -595,6 +546,13 @@ cudaError_t attention_sm90(const void* q, long long q_stride, const void* k,
       !make_map(&tv, v, B, Sk, H, D, v_stride) ||
       !make_map(&to, out, B, Sq, H, D, (long long)H * D))
     return cudaErrorInvalidValue;
+  if (lse != nullptr)
+    return D == 128 ? launch_attention<128, false, true>(
+                          tq, tk, tv, to, B, Sq, Sk, H, kv_len, score_scale,
+                          nullptr, nullptr, stream, lse)
+                    : launch_attention<64, false, true>(
+                          tq, tk, tv, to, B, Sq, Sk, H, kv_len, score_scale,
+                          nullptr, nullptr, stream, lse);
   if (masked)
     return D == 128 ? launch_attention<128, true>(tq, tk, tv, to, B, Sq, Sk,
                                                   H, kv_len, score_scale,
@@ -617,12 +575,11 @@ cudaError_t attention_sm90(const void* q, long long q_stride, const void* k,
 // 1 <= kv_len <= S, D in {64, 128}: checked by the Python wrapper
 // (seedvr2_tpu_torch/ops/flash_attention.py). Launches the pre-pass, then
 // the attention step.
-extern "C" int seedvr2_packed_attention(const void* qkv, const void* cos_q,
-                                        const void* sin_q, const void* cos_k,
-                                        const void* sin_k, void* scratch,
-                                        void* out, int B, int S, int H, int D,
-                                        int kv_len, float eps, float qscale,
-                                        void* stream) {
+static int packed_attention(const void* qkv, const void* cos_q,
+                            const void* sin_q, const void* cos_k,
+                            const void* sin_k, void* scratch, void* out,
+                            float* lse, int B, int S, int H, int D, int kv_len,
+                            float eps, float qscale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long hd = (long long)H * D;
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(qkv);
@@ -635,7 +592,31 @@ extern "C" int seedvr2_packed_attention(const void* qkv, const void* cos_q,
   cudaError_t err = seedvr2::qk_prepass(D, q, k, B, H, S, true, eps, st);
   if (err != cudaSuccess) return int(err);
   return int(seedvr2::attention_sm90(q_hat, hd, k_hat, hd, x + 2 * hd, 3 * hd,
-                                     out, B, S, S, H, D, kv_len, 1.f, st));
+                                     out, B, S, S, H, D, kv_len, 1.f, st,
+                                     nullptr, nullptr, lse));
+}
+
+extern "C" int seedvr2_packed_attention(const void* qkv, const void* cos_q,
+                                        const void* sin_q, const void* cos_k,
+                                        const void* sin_k, void* scratch,
+                                        void* out, int B, int S, int H, int D,
+                                        int kv_len, float eps, float qscale,
+                                        void* stream) {
+  return packed_attention(qkv, cos_q, sin_q, cos_k, sin_k, scratch, out,
+                          nullptr, B, S, H, D, kv_len, eps, qscale, stream);
+}
+
+// K1's training launch: as seedvr2_packed_attention, and each row's
+// log-sum-exp (exp2 domain of the pre-pass output's scores, over the keys
+// below kv_len) into lse ((B, H, S) fp32, every row written), the lse that
+// the dq and dk/dv kernels of K1's backward (attention_backward.cu) read.
+extern "C" int seedvr2_packed_attention_lse(
+    const void* qkv, const void* cos_q, const void* sin_q, const void* cos_k,
+    const void* sin_k, void* scratch, void* out, void* lse, int B, int S,
+    int H, int D, int kv_len, float eps, float qscale, void* stream) {
+  return packed_attention(qkv, cos_q, sin_q, cos_k, sin_k, scratch, out,
+                          static_cast<float*>(lse), B, S, H, D, kv_len, eps,
+                          qscale, stream);
 }
 
 // The pre-pass alone: q_src (B, Sq, H, D) and k_src (B, Sk, H, D) bf16 at row

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels:
-// K1/K8/K9's attention step (packed_attention.cu), K6/K7's dequantizing
+// K1/K8/K9's attention step (packed_attention.cu, attention_step.cuh) and
+// K1's backward (attention_backward.cu), K6/K7's dequantizing
 // GEMMs (quant_matmul.cu), K3/K10's s8 GEMM (int8_matmul.cu) and K11's
 // implicit-GEMM conv (int8_conv.cu).
 // Shared-memory addresses are 32-bit `.shared` addresses (smem_u32).
@@ -153,7 +154,7 @@ __device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
               "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
 
 // d(64 x N, fp32) (+)= A(64 x 16) B(16 x N), both bf16 K-major in shared
-// memory, N = 8, 64 or 128. d is overwritten when `accumulate` is 0.
+// memory, N = 8, 32, 64 or 128. d is overwritten when `accumulate` is 0.
 __device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
@@ -161,6 +162,17 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, "
+      "p, 1, 1, 0, 0;\n}\n"
+      : SEEDVR2_F8(0), SEEDVR2_F8(8)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -183,6 +195,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : SEEDVR2_F8(0), SEEDVR2_F8(8), SEEDVR2_F8(16), SEEDVR2_F8(24),
         SEEDVR2_F8(32), SEEDVR2_F8(40), SEEDVR2_F8(48), SEEDVR2_F8(56)
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d(64 x N, fp32) += A(64 x 16) B(16 x N), bf16 in shared memory, A
+// K-major, B MN-major (transposed).
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" SEEDVR2_D32
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : SEEDVR2_F8(0), SEEDVR2_F8(8), SEEDVR2_F8(16), SEEDVR2_F8(24)
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // d(64 x N, fp32) (+)= A(64 x 16, bf16 registers, the m16k16 A fragment of

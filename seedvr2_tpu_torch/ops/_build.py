@@ -35,6 +35,9 @@ _SIGNATURES = {
     # qkv, cos_q, sin_q, cos_k, sin_k, scratch, out, B, S, H, D, kv_len, eps,
     # qscale, stream
     "seedvr2_packed_attention": [_P] * 7 + [_I] * 5 + [_F, _F, _P],
+    # qkv, cos_q, sin_q, cos_k, sin_k, scratch, out, lse, B, S, H, D, kv_len,
+    # eps, qscale, stream
+    "seedvr2_packed_attention_lse": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
     # q_src, q_stride, k_src, k_stride, cos_q, sin_q, cos_k, sin_k, ids,
     # q_dst, k_dst, B, Sq, Sk, H, D, table_rows, norm, eps, qscale, stream
     "seedvr2_qk_prepass": [_P, _L, _P, _L] + [_P] * 7 + [_I] * 7
@@ -42,12 +45,12 @@ _SIGNATURES = {
     # q, k, v, cos, sin, valid, ids, scratch, out, B, Sq, Sk, H, D, kv_len,
     # table_rows, qscale, stream
     "seedvr2_flash_attention": [_P] * 9 + [_I] * 7 + [_F, _P],
-    # q_hat, k_hat, v, v_stride, out, dout, dq, lse, delta, B, S, H, D,
-    # kv_len, stream
-    "seedvr2_attn_bwd_dq": [_P, _P, _P, _L] + [_P] * 5 + [_I] * 5 + [_P],
+    # q_hat, k_hat, v, v_stride, out, dout, lse, dq, delta, B, S, H, D,
+    # kv_len, wg, blocks, stream
+    "seedvr2_attn_bwd_dq": [_P, _P, _P, _L] + [_P] * 5 + [_I] * 7 + [_P],
     # q_hat, k_hat, v, v_stride, dout, lse, delta, dk, dv, dv_stride, B, S,
-    # H, D, kv_len, stream
-    "seedvr2_attn_bwd_dkdv": [_P, _P, _P, _L] + [_P] * 5 + [_L] + [_I] * 5
+    # H, D, kv_len, blocks, stream
+    "seedvr2_attn_bwd_dkdv": [_P, _P, _P, _L] + [_P] * 5 + [_L] + [_I] * 6
                              + [_P],
     # q_src, k_src, src_stride, cos_q, sin_q, cos_k, sin_k, dq_acc, dk_acc,
     # dq_dst, dk_dst, dst_stride, partials, tables, B, S, H, D, eps, gq, gk,

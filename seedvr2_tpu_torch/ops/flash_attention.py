@@ -31,24 +31,30 @@ both. K9's step walks only the key tiles that hold a valid key
 
 K1's gradient (`packed_window_attention_grad`, the `PackedWindowAttention`
 autograd Function; the JAX package differentiates its jnp composition and
-has no backward kernel): the forward launches K1 as serving does and saves
-qkv, the four tables and the output; the backward
-(`packed_window_attention_backward`, `csrc/attention_backward.cu`) relaunches
-K1's pre-pass for q-hat and k-hat, then three parts, each with its plain
-version: the dq kernel (row logsumexp by one sweep over the live key tiles,
-D = rowsum(dO * O), dQ-hat; `attention_backward_dq`), the dk/dv kernel
-(per key tile over the q tiles; `attention_backward_dkdv`) and the
-pre-pass backward (through the scale, the rotation and the RMS norm to the
-q / k columns of d qkv, and the four fp32 table gradients summed over
-batch rows and heads from per-row partials folded in a fixed order;
-`prepass_backward`). Output rows at or past kv_len are the lane pad, which
-the caller discards: their cotangent is taken as zero, so every row at or
-past kv_len gets zero gradient. No float atomics: reruns are bit-identical.
-The raw wrappers refuse an input that needs a gradient while grad mode is
-on (their outputs have no autograd history).
+has no backward kernel): the forward launches K1's training launch
+(`packed_window_attention_lse`: the serving kernel's instantiation that
+also stores each row's log-sum-exp, exp2 domain; plainly
+`packed_window_attention_lse_plain`) and saves qkv, the four tables, the
+output and that lse; the backward (`packed_window_attention_backward`,
+`csrc/attention_backward.cu`) relaunches K1's pre-pass for q-hat and
+k-hat, then three parts, each with its plain version: the dq kernel (D =
+rowsum(dO * O), then one sweep of the live key tiles for dQ-hat from the
+forward's lse; `attention_backward_dq`), the dk/dv kernel (per 64-key tile
+over the q tiles; `attention_backward_dkdv`), both on K1's Hopper step
+(TMA rings, every product a `wgmma`, P and dS rounded to bf16 as
+tensor-core operands, P as bf16 hi + lo for dV; tiles from
+`backward_plan`), and the pre-pass backward (through the scale, the
+rotation and the RMS norm to the q / k columns of d qkv, and the four fp32
+table gradients summed over batch rows and heads from per-row partials
+folded in a fixed order; `prepass_backward`). Output rows at or past
+kv_len are the lane pad, which the caller discards: their cotangent is
+taken as zero, so every row at or past kv_len gets zero gradient. No float
+atomics and one block per output tile: reruns are bit-identical. The raw
+wrappers refuse an input that needs a gradient while grad mode is on
+(their outputs have no autograd history).
 """
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -227,23 +233,8 @@ def packed_window_attention(qkv: torch.Tensor, heads: int, d: int,
     if qkv.device.type == "cpu":
         return packed_window_attention_plain(qkv, heads, d, cos_q, sin_q,
                                              cos_k, sin_k, eps, kv_len)
-    if qkv.device.type != "cuda":
-        raise RuntimeError(f"packed attention: no kernel for {qkv.device}")
-    b, s, width = qkv.shape
-    if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
-        raise ValueError("packed attention kernel takes contiguous bf16 qkv, "
-                         f"got {qkv.dtype}")
-    if width != 3 * heads * d or d not in _HEAD_DIMS:
-        raise ValueError(f"packed attention kernel: width {width} != 3*{heads}"
-                         f"*{d} or head dim not in {_HEAD_DIMS}")
-    if not 1 <= kv_len <= s:
-        raise ValueError(f"packed attention kernel: 1 <= kv_len={kv_len} <= "
-                         f"S={s} does not hold")
-    if b > 65535 or heads > 65535:
-        raise ValueError("packed attention kernel: grid too large")
-    for t in (cos_q, sin_q, cos_k, sin_k):
-        _check_table(t, (s, d), qkv.device)
-    _check_aligned("packed attention", qkv)
+    _check_k1(qkv, heads, d, (cos_q, sin_q, cos_k, sin_k), kv_len)
+    b, s, _ = qkv.shape
     # q-hat and k-hat: normed, roped (q times scale*log2e) bf16
     scratch = torch.empty((2, b, s, heads, d), dtype=qkv.dtype,
                           device=qkv.device)
@@ -259,6 +250,94 @@ def packed_window_attention(qkv: torch.Tensor, heads: int, d: int,
 
 
 packed_window_attention.launches = 0
+packed_window_attention.launches_lse = 0
+
+
+def _check_k1(qkv: torch.Tensor, heads: int, d: int, tables,
+              kv_len: int) -> None:
+    """What K1's kernel takes: contiguous bf16 (B, S, 3*H*D) qkv on a CUDA
+    device, D in (64, 128), 1 <= kv_len <= S, (S, D) fp32 tables."""
+    if qkv.device.type != "cuda":
+        raise RuntimeError(f"packed attention: no kernel for {qkv.device}")
+    b, s, width = qkv.shape
+    if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
+        raise ValueError("packed attention kernel takes contiguous bf16 qkv, "
+                         f"got {qkv.dtype}")
+    if width != 3 * heads * d or d not in _HEAD_DIMS:
+        raise ValueError(f"packed attention kernel: width {width} != 3*{heads}"
+                         f"*{d} or head dim not in {_HEAD_DIMS}")
+    if not 1 <= kv_len <= s:
+        raise ValueError(f"packed attention kernel: 1 <= kv_len={kv_len} <= "
+                         f"S={s} does not hold")
+    if b > 65535 or heads > 65535:
+        raise ValueError("packed attention kernel: grid too large")
+    for t in tables:
+        _check_table(t, (s, d), qkv.device)
+    _check_aligned("packed attention", qkv)
+
+
+def attention_lse_plain(q_hat: torch.Tensor, k_hat: torch.Tensor,
+                        kv_len: int) -> torch.Tensor:
+    """Each row's log-sum-exp of its scores q_hat . k_hat over the keys
+    below kv_len, in the log2 domain (q_hat carries scale*log2e): (B, S, H,
+    D) q_hat and k_hat -> (B, H, S) fp32."""
+    sc = torch.einsum("bqhd,bkhd->bhqk", q_hat.float(), k_hat.float())
+    sc[..., kv_len:] = float("-inf")
+    m = sc.amax(dim=-1, keepdim=True)
+    lse = m + torch.log2(torch.exp2(sc - m).sum(dim=-1, keepdim=True))
+    return lse[..., 0].contiguous()
+
+
+def packed_window_attention_lse_plain(qkv: torch.Tensor, heads: int, d: int,
+                                      cos_q, sin_q, cos_k, sin_k, eps: float,
+                                      kv_len: int):
+    """Plain version of K1's training launch: (packed_window_attention_plain
+    (...), lse), lse (B, H, S) fp32 the attention_lse_plain of the plain
+    composition's normed, roped q (times scale*log2e) and k, each rounded
+    to qkv's dtype as K1's pre-pass rounds q-hat and k-hat."""
+    b, s, _ = qkv.shape
+    x = qkv.reshape(b, s, 3, heads, d)
+    q_hat = norm_rope_plain(x[:, :, 0], cos_q, sin_q, eps, d ** -0.5 * _LOG2E)
+    k_hat = norm_rope_plain(x[:, :, 1], cos_k, sin_k, eps)
+    out = packed_window_attention_plain(qkv, heads, d, cos_q, sin_q, cos_k,
+                                        sin_k, eps, kv_len)
+    return out, attention_lse_plain(q_hat, k_hat, kv_len)
+
+
+def packed_window_attention_lse(qkv: torch.Tensor, heads: int, d: int,
+                                cos_q: torch.Tensor, sin_q: torch.Tensor,
+                                cos_k: torch.Tensor, sin_k: torch.Tensor,
+                                eps: float, kv_len: int):
+    """K1's training launch: (out, lse) with out as packed_window_attention
+    and lse (B, H, S) fp32 each row's log-sum-exp of its scores over the
+    keys below kv_len (log2 domain), every row written: what the dq and
+    dk/dv kernels of K1's backward read in place of a second sweep.
+
+    CPU tensors take the plain version. CUDA tensors launch K1 (its
+    pre-pass, then the step's LSE instantiation, which also stores m +
+    log2(l) per row; the serving launches keep the other one), counted in
+    packed_window_attention.launches and .launches_lse, or raise on what K1
+    does not take. Refuses inputs that need a gradient, as K1 does."""
+    _build.refuse_grad("packed window attention", qkv, cos_q, sin_q, cos_k,
+                       sin_k)
+    if qkv.device.type == "cpu":
+        return packed_window_attention_lse_plain(qkv, heads, d, cos_q, sin_q,
+                                                 cos_k, sin_k, eps, kv_len)
+    _check_k1(qkv, heads, d, (cos_q, sin_q, cos_k, sin_k), kv_len)
+    b, s, _ = qkv.shape
+    scratch = torch.empty((2, b, s, heads, d), dtype=qkv.dtype,
+                          device=qkv.device)
+    out = torch.empty((b, s, heads * d), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, heads, s), dtype=torch.float32, device=qkv.device)
+    err = _build.kernel_library().lib.seedvr2_packed_attention_lse(
+        qkv.data_ptr(), cos_q.data_ptr(), sin_q.data_ptr(), cos_k.data_ptr(),
+        sin_k.data_ptr(), scratch.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, s, heads, d, kv_len, float(eps), float(d ** -0.5 * _LOG2E),
+        _stream(qkv))
+    _build.check(err, "seedvr2_packed_attention_lse")
+    packed_window_attention.launches += 1
+    packed_window_attention.launches_lse += 1
+    return out, lse
 
 
 # ------------------------------------------------------------ K1 backward
@@ -274,34 +353,35 @@ def _masked_dout(dout: torch.Tensor, b: int, s: int, h: int, d: int,
 
 def attention_backward_dq_plain(q_hat: torch.Tensor, k_hat: torch.Tensor,
                                 v: torch.Tensor, out: torch.Tensor,
-                                dout: torch.Tensor, kv_len: int):
+                                dout: torch.Tensor, lse: torch.Tensor,
+                                kv_len: int):
     """Plain version of the dq kernel. q_hat, k_hat (B, S, H, D): K1's
     pre-pass output (q times scale*log2e, so the scores are in the exp2
-    domain); v (B, S, H, D); out, dout (B, S, H*D). Returns (dq_acc =
-    sum_j dS_ij k_hat_j as fp32 (B, S, H, D), lse (B, H, S) fp32 in the
-    log2 domain, delta = rowsum(dO * O) (B, H, S) fp32), with P_ij =
+    domain); v (B, S, H, D); out, dout (B, S, H*D); lse (B, H, S) fp32, the
+    rows' log-sum-exp in the log2 domain from K1's forward
+    (packed_window_attention_lse). Returns (dq_acc = sum_j dS_ij k_hat_j as
+    fp32 (B, S, H, D), delta = rowsum(dO * O) (B, H, S) fp32), with P_ij =
     exp2(q_hat_i . k_hat_j - lse_i) over the keys below kv_len and dS =
     P * (dO v^T - delta); dO rows at or past kv_len count as zero."""
     b, s, h, d = q_hat.shape
     q, k, vv = q_hat.float(), k_hat.float(), v.float()
     do = _masked_dout(dout, b, s, h, d, kv_len)
     sc = torch.einsum("bqhd,bkhd->bhqk", q, k)
-    sc[..., kv_len:] = float("-inf")
-    m = sc.amax(dim=-1, keepdim=True)
-    lse = m + torch.log2(torch.exp2(sc - m).sum(dim=-1, keepdim=True))
-    p = torch.exp2(sc - lse)
+    p = torch.exp2(sc - lse.float()[..., None])
+    p[..., kv_len:] = 0.0
     delta = (do * out.float().reshape(b, s, h, d)).sum(-1).transpose(1, 2)
     dp = torch.einsum("bqhd,bkhd->bhqk", do, vv)
     ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
-    return dq, lse[..., 0].contiguous(), delta.contiguous()
+    return dq, delta.contiguous()
 
 
 def attention_backward_dkdv_plain(q_hat: torch.Tensor, k_hat: torch.Tensor,
                                   v: torch.Tensor, dout: torch.Tensor,
                                   lse: torch.Tensor, delta: torch.Tensor,
                                   kv_len: int):
-    """Plain version of the dk/dv kernel, from the dq part's lse and delta:
+    """Plain version of the dk/dv kernel, from the forward's lse and the dq
+    part's delta:
     (dk_acc = sum_i dS_ij q_hat_i as fp32 (B, S, H, D), dv = sum_i P_ij dO_i
     (B, S, H, D) in v's dtype); keys at or past kv_len get zero."""
     b, s, h, d = q_hat.shape
@@ -351,18 +431,19 @@ def packed_window_attention_backward_plain(qkv: torch.Tensor, heads: int,
                                            out: torch.Tensor,
                                            dout: torch.Tensor):
     """Plain version of K1's backward, the kernels' parts in their order
-    (q-hat and k-hat kept in fp32): (d qkv (B, S, 3*H*D) in qkv's dtype,
-    d cos_q, d sin_q, d cos_k, d sin_k (S, D) fp32). dO rows at or past
-    kv_len count as zero; every row at or past kv_len gets zero
-    gradient."""
+    (q-hat and k-hat kept in fp32, so the rows' lse is that of their fp32
+    scores, formed here): (d qkv (B, S, 3*H*D) in qkv's dtype, d cos_q,
+    d sin_q, d cos_k, d sin_k (S, D) fp32). dO rows at or past kv_len count
+    as zero; every row at or past kv_len gets zero gradient."""
     b, s, _ = qkv.shape
     x = qkv.reshape(b, s, 3, heads, d)
     mult = d ** -0.5 * _LOG2E
     q_hat = norm_rope_plain(x[:, :, 0].float(), cos_q, sin_q, eps, mult)
     k_hat = norm_rope_plain(x[:, :, 1].float(), cos_k, sin_k, eps)
     v = x[:, :, 2]
-    dq, lse, delta = attention_backward_dq_plain(q_hat, k_hat, v, out, dout,
-                                                 kv_len)
+    lse = attention_lse_plain(q_hat, k_hat, kv_len)
+    dq, delta = attention_backward_dq_plain(q_hat, k_hat, v, out, dout, lse,
+                                            kv_len)
     dk, dv = attention_backward_dkdv_plain(q_hat, k_hat, v, dout, lse, delta,
                                            kv_len)
     dqr, dkr, tabs = prepass_backward_plain(x[:, :, 0], x[:, :, 1], cos_q,
@@ -393,6 +474,38 @@ def _check_packed_v(name: str, v: torch.Tensor, b: int, s: int, h: int,
                          "heads and D contiguous, 16-byte aligned")
 
 
+H100_SMS = 132  # the plan's SM count when no card is asked
+
+
+class BackwardPlan(NamedTuple):
+    """The tiles of K1's dq and dk/dv kernels for one (B, S, H, kv_len)."""
+
+    wg: int         # dq: consumer warpgroups of 64 q rows a block
+    blocks: int     # dq: blocks of wg * 64 q rows along S
+    kv_blocks: int  # dk/dv: blocks of 64 keys along S (D / 64 warpgroups
+                    # each, splitting a q tile's scores and D's columns)
+
+
+def backward_plan(b: int, s: int, h: int, kv_len: int,
+                  sms: int = H100_SMS) -> BackwardPlan:
+    """The dq and dk/dv kernels' tile plan for B batch rows of S rows, H
+    heads. Each kernel's blocks cover the S rows of every (b, h) once
+    (blocks past kv_len write zeros). A dq block of two warpgroups shares
+    its k-hat / v tiles between them and runs alone on an SM; one of one
+    warpgroup runs two an SM with half the rows each, which spreads a group
+    with fewer live 128-row blocks than the card has SMs (the training
+    plan's B = 2, S = 128 groups: 40 blocks of 128 rows) over twice as many
+    SMs. A dk/dv block owns 64 keys; its warpgroups split each q tile's
+    scores and the 64-column panels of D."""
+    live = b * h * -(-kv_len // 128)
+    wg = 2 if live >= sms else 1
+    return BackwardPlan(wg, -(-s // (64 * wg)), -(-s // 64))
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _check_bwd(name: str, q_hat: torch.Tensor, k_hat: torch.Tensor,
                kv_len: int):
     if q_hat.device.type != "cuda":
@@ -408,30 +521,34 @@ def _check_bwd(name: str, q_hat: torch.Tensor, k_hat: torch.Tensor,
 
 def attention_backward_dq(q_hat: torch.Tensor, k_hat: torch.Tensor,
                           v: torch.Tensor, out: torch.Tensor,
-                          dout: torch.Tensor, kv_len: int):
+                          dout: torch.Tensor, lse: torch.Tensor,
+                          kv_len: int):
     """The dq kernel of K1's backward (plain version on the CPU): (dq_acc,
-    lse, delta) as attention_backward_dq_plain, but for lse at rows at or
-    past kv_len, which no part reads (the kernel writes 0 there in a tile
-    wholly past kv_len). On a card: bf16 q_hat and k_hat (B, S, H, D)
-    contiguous, v the packed operand's v columns, out and dout contiguous
-    bf16 (B, S, H*D)."""
+    delta) as attention_backward_dq_plain, from the forward's lse. On a
+    card: bf16 q_hat and k_hat (B, S, H, D) contiguous, v the packed
+    operand's v columns, out and dout contiguous bf16 (B, S, H*D), lse
+    contiguous fp32 (B, H, S); the tiles as backward_plan says."""
     if q_hat.device.type == "cpu":
-        return attention_backward_dq_plain(q_hat, k_hat, v, out, dout, kv_len)
+        return attention_backward_dq_plain(q_hat, k_hat, v, out, dout, lse,
+                                           kv_len)
     b, s, h, d = _check_bwd("attention backward dq", q_hat, k_hat, kv_len)
     _check_packed_v("attention backward dq", v, b, s, h, d)
     for t in (out, dout):
         _check_rows("attention backward dq", t, (b, s, h * d),
                     torch.bfloat16, q_hat.device)
+    _check_rows("attention backward dq", lse, (b, h, s), torch.float32,
+                q_hat.device)
+    plan = backward_plan(b, s, h, kv_len, _sm_count(q_hat.device))
     dq = torch.empty((b, s, h, d), dtype=torch.float32, device=q_hat.device)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q_hat.device)
-    delta = torch.empty_like(lse)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q_hat.device)
     err = _build.kernel_library().lib.seedvr2_attn_bwd_dq(
         q_hat.data_ptr(), k_hat.data_ptr(), v.data_ptr(), v.stride(1),
-        out.data_ptr(), dout.data_ptr(), dq.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), b, s, h, d, kv_len, _stream(q_hat))
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+        delta.data_ptr(), b, s, h, d, kv_len, plan.wg, plan.blocks,
+        _stream(q_hat))
     _build.check(err, "seedvr2_attn_bwd_dq")
     attention_backward_dq.launches += 1
-    return dq, lse, delta
+    return dq, delta
 
 
 attention_backward_dq.launches = 0
@@ -443,9 +560,10 @@ def attention_backward_dkdv(q_hat: torch.Tensor, k_hat: torch.Tensor,
                             kv_len: int,
                             dv_out: Optional[torch.Tensor] = None):
     """The dk/dv kernel of K1's backward (plain version on the CPU):
-    (dk_acc fp32 (B, S, H, D), dv bf16). On a card dv is written into
-    `dv_out` when given (the v columns of a packed (B, S, 3*H*D) gradient,
-    the view returned), else into a new (B, S, H, D)."""
+    (dk_acc fp32 (B, S, H, D), dv bf16), from the forward's lse and the dq
+    part's delta. On a card dv is written into `dv_out` when given (the v
+    columns of a packed (B, S, 3*H*D) gradient, the view returned), else
+    into a new (B, S, H, D); the tiles as backward_plan says."""
     if q_hat.device.type == "cpu":
         return attention_backward_dkdv_plain(q_hat, k_hat, v, dout, lse,
                                              delta, kv_len)
@@ -460,12 +578,13 @@ def attention_backward_dkdv(q_hat: torch.Tensor, k_hat: torch.Tensor,
         dv_out = torch.empty((b, s, h, d), dtype=torch.bfloat16,
                              device=q_hat.device)
     _check_packed_v("attention backward dk/dv (dv)", dv_out, b, s, h, d)
+    plan = backward_plan(b, s, h, kv_len, _sm_count(q_hat.device))
     dk = torch.empty((b, s, h, d), dtype=torch.float32, device=q_hat.device)
     err = _build.kernel_library().lib.seedvr2_attn_bwd_dkdv(
         q_hat.data_ptr(), k_hat.data_ptr(), v.data_ptr(), v.stride(1),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv_out.data_ptr(), dv_out.stride(1), b, s, h, d, kv_len,
-        _stream(q_hat))
+        plan.kv_blocks, _stream(q_hat))
     _build.check(err, "seedvr2_attn_bwd_dkdv")
     attention_backward_dkdv.launches += 1
     return dk, dv_out
@@ -534,12 +653,15 @@ prepass_backward.launches = 0
 def packed_window_attention_backward(qkv: torch.Tensor, heads: int, d: int,
                                      cos_q, sin_q, cos_k, sin_k, eps: float,
                                      kv_len: int, out: torch.Tensor,
-                                     dout: torch.Tensor):
-    """K1's backward: (d qkv (B, S, 3*H*D), d cos_q, d sin_q, d cos_k,
-    d sin_k (S, D) fp32). CPU tensors take the plain version. CUDA tensors
-    relaunch K1's pre-pass (q-hat, k-hat), then the dq, dk/dv and pre-pass
-    backward kernels, which write d qkv's v, then q and k columns in place;
-    what K1 does not take is refused as K1 refuses it."""
+                                     dout: torch.Tensor, lse: torch.Tensor):
+    """K1's backward from the forward's output and lse
+    (packed_window_attention_lse): (d qkv (B, S, 3*H*D), d cos_q, d sin_q,
+    d cos_k, d sin_k (S, D) fp32). CPU tensors take the plain version,
+    which keeps q-hat in fp32 and forms the lse of its own scores. CUDA
+    tensors relaunch K1's pre-pass (q-hat, k-hat), then the dq, dk/dv and
+    pre-pass backward kernels, which read lse (the kernels' bf16 q-hat is
+    the forward's) and write d qkv's v, then q and k columns in place; what
+    K1 does not take is refused as K1 refuses it."""
     if qkv.device.type == "cpu":
         return packed_window_attention_backward_plain(
             qkv, heads, d, cos_q, sin_q, cos_k, sin_k, eps, kv_len, out, dout)
@@ -550,13 +672,13 @@ def packed_window_attention_backward(qkv: torch.Tensor, heads: int, d: int,
     x = qkv.view(b, s, 3, heads, d)
     q_hat, k_hat = attention_prepass(x[:, :, 0], x[:, :, 1], cos_q, sin_q,
                                      cos_k, sin_k, eps, d ** -0.5 * _LOG2E)
-    dq, lse, delta = attention_backward_dq(q_hat, k_hat, x[:, :, 2], out,
-                                           dout, kv_len)
+    dq, delta = attention_backward_dq(q_hat, k_hat, x[:, :, 2], out, dout,
+                                      lse, kv_len)
     dqkv = torch.empty_like(qkv)
     dk, _ = attention_backward_dkdv(q_hat, k_hat, x[:, :, 2], dout, lse, delta,
                                     kv_len,
                                     dqkv.view(b, s, 3, heads, d)[:, :, 2])
-    del q_hat, k_hat, lse, delta
+    del q_hat, k_hat, delta
     _, _, tables = prepass_backward(x[:, :, 0], x[:, :, 1], cos_q, sin_q,
                                     cos_k, sin_k, eps, dq, dk, d ** -0.5,
                                     _LN2, out=dqkv)
@@ -564,26 +686,27 @@ def packed_window_attention_backward(qkv: torch.Tensor, heads: int, d: int,
 
 
 class PackedWindowAttention(torch.autograd.Function):
-    """K1 with its gradient: the forward launches K1 as serving does (its
-    plain version on the CPU) and saves qkv, the tables and the output; the
-    backward is packed_window_attention_backward, returning d qkv and the
-    four table gradients."""
+    """K1 with its gradient: the forward launches K1's training launch
+    (packed_window_attention_lse; its plain version on the CPU) and saves
+    qkv, the tables, the output and the rows' lse; the backward is
+    packed_window_attention_backward, returning d qkv and the four table
+    gradients."""
 
     @staticmethod
     def forward(ctx, qkv, cos_q, sin_q, cos_k, sin_k, heads, d, eps, kv_len):
-        out = packed_window_attention(qkv, heads, d, cos_q, sin_q, cos_k,
-                                      sin_k, eps, kv_len)
-        ctx.save_for_backward(qkv, cos_q, sin_q, cos_k, sin_k, out)
+        out, lse = packed_window_attention_lse(qkv, heads, d, cos_q, sin_q,
+                                               cos_k, sin_k, eps, kv_len)
+        ctx.save_for_backward(qkv, cos_q, sin_q, cos_k, sin_k, out, lse)
         ctx.args = (heads, d, eps, kv_len)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, cos_q, sin_q, cos_k, sin_k, out = ctx.saved_tensors
+        qkv, cos_q, sin_q, cos_k, sin_k, out, lse = ctx.saved_tensors
         heads, d, eps, kv_len = ctx.args
         grads = packed_window_attention_backward(
             qkv, heads, d, cos_q, sin_q, cos_k, sin_k, eps, kv_len, out,
-            dout.contiguous())
+            dout.contiguous(), lse)
         return (*grads, None, None, None, None)
 
 

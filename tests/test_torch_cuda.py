@@ -164,51 +164,60 @@ def _rel(a, b) -> float:
 
 
 # K1's backward: kv_len at 1, one row short of a key tile, one tile, a
-# partial last tile, the record shape, a whole window, a training-plan
-# group with a q tile wholly past kv_len; D = 64 and 128
-_K1_BWD = [(128, 1, 128), (128, 63, 64), (128, 64, 128), (192, 191, 128),
-           (512, 463, 128), (256, 256, 64), (384, 298, 128)]
+# partial last tile, the record shape, a whole window, training-plan groups
+# with a q tile wholly past kv_len and with the smallest kv_len (S = 128
+# kv_len = 62, one warpgroup a block); D = 64 and 128; the 3B's 20 heads,
+# a few, and the 7B's 24
+_K1_BWD = [(128, 1, 128, 4), (128, 63, 64, 4), (128, 64, 128, 4),
+           (192, 191, 128, 4), (512, 463, 128, 20), (256, 256, 64, 4),
+           (384, 298, 128, 4), (128, 62, 128, 20), (512, 463, 128, 24)]
+# dq-hat and dk-hat against their fp32 plain versions: dS is rounded to
+# bf16 where it becomes a tensor-core operand (chip_smoke.py's
+# BWD_DQDK_REL)
+DQDK_REL = 5e-3
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,kv_len,d", _K1_BWD,
-                         ids=[f"S{s}-kv{kv}-D{d}" for s, kv, d in _K1_BWD])
-def test_k1_backward_parts_on_gpu(cuda_device, s, kv_len, d):
+@pytest.mark.parametrize("s,kv_len,d,h", _K1_BWD,
+                         ids=[f"S{s}-kv{kv}-D{d}-H{h}"
+                              for s, kv, d, h in _K1_BWD])
+def test_k1_backward_parts_on_gpu(cuda_device, s, kv_len, d, h):
     """Each part of K1's backward against its plain version on the same
-    inputs (chip_smoke.py's BWD bounds: fp32 sums 1e-5 relative L2, bf16
-    outputs 1e-3), the whole against its plain version (bf16-class 2e-2),
-    rows at or past kv_len zero (delta's too), reruns bit-equal."""
+    inputs, lse from K1's training launch (chip_smoke.py's BWD bounds:
+    delta 1e-5 relative L2, dv and the pre-pass's bf16 outputs 1e-3, the
+    tables 1e-5, dq-hat and dk-hat DQDK_REL), the whole against its plain
+    version (bf16-class 2e-2), rows at or past kv_len zero (delta's too),
+    reruns bit-equal."""
     gen = torch.Generator(cuda_device).manual_seed(s + kv_len + d)
-    b, h, eps = 3, 4, 1e-5
+    b, eps = 3, 1e-5
     tabs = _tables(np.random.default_rng(s), s, d, cuda_device)
     qkv = torch.randn(b, s, 3 * h * d, generator=gen,
                       device=cuda_device).to(torch.bfloat16)
     qkv[:, kv_len:] = 0
-    out = tfa.packed_window_attention(qkv, h, d, *tabs, eps, kv_len)
+    out, lse = tfa.packed_window_attention_lse(qkv, h, d, *tabs, eps, kv_len)
     dout = torch.randn(b, s, h * d, generator=gen,
                        device=cuda_device).to(torch.bfloat16)
     x = qkv.view(b, s, 3, h, d)
     qh, kh = tfa.attention_prepass(x[:, :, 0], x[:, :, 1], *tabs, eps,
                                    d ** -0.5 * tfa._LOG2E)
     v = x[:, :, 2]
-    dq, lse, delta = tfa.attention_backward_dq(qh, kh, v, out, dout, kv_len)
+    dq, delta = tfa.attention_backward_dq(qh, kh, v, out, dout, lse, kv_len)
     dk, dv = tfa.attention_backward_dkdv(qh, kh, v, dout, lse, delta, kv_len)
     pre = tfa.prepass_backward(x[:, :, 0], x[:, :, 1], *tabs, eps, dq, dk,
                                d ** -0.5, tfa._LN2)
     whole = tfa.packed_window_attention_backward(qkv, h, d, *tabs, eps,
-                                                 kv_len, out, dout)
+                                                 kv_len, out, dout, lse)
     again = tfa.packed_window_attention_backward(qkv, h, d, *tabs, eps,
-                                                 kv_len, out, dout)
+                                                 kv_len, out, dout, lse)
     torch.cuda.synchronize()
-    p_dq, p_lse, p_delta = tfa.attention_backward_dq_plain(qh, kh, v, out,
-                                                           dout, kv_len)
+    p_dq, p_delta = tfa.attention_backward_dq_plain(qh, kh, v, out, dout,
+                                                    lse, kv_len)
     p_dk, p_dv = tfa.attention_backward_dkdv_plain(qh, kh, v, dout, lse,
                                                    delta, kv_len)
     p_pre = tfa.prepass_backward_plain(x[:, :, 0], x[:, :, 1], *tabs, eps,
                                        dq, dk, d ** -0.5, tfa._LN2)
     p_whole = tfa.packed_window_attention_backward_plain(
         qkv, h, d, *tabs, eps, kv_len, out, dout)
-    assert _rel(lse[..., :kv_len], p_lse[..., :kv_len]) <= 1e-5
     assert _rel(delta, p_delta) <= 1e-5
     assert _rel(dv, p_dv) <= 1e-3
     assert all(torch.isfinite(t).all() for t in whole)
@@ -223,7 +232,7 @@ def test_k1_backward_parts_on_gpu(cuda_device, s, kv_len, d):
         assert w[:, :, :2].abs().max().item() <= 1e-3
         assert _rel(w[:, :, 2], pw[:, :, 2]) <= 1e-3
     else:
-        assert _rel(dq, p_dq) <= 1e-5 and _rel(dk, p_dk) <= 1e-5
+        assert _rel(dq, p_dq) <= DQDK_REL and _rel(dk, p_dk) <= DQDK_REL
         assert _rel(pre[0], p_pre[0]) <= 1e-3
         assert _rel(pre[1], p_pre[1]) <= 1e-3
         for t, r in zip(pre[2], p_pre[2]):
@@ -233,6 +242,39 @@ def test_k1_backward_parts_on_gpu(cuda_device, s, kv_len, d):
     assert all(torch.equal(t, r) for t, r in zip(whole, again))
     assert not whole[0][:, kv_len:].any()
     assert all(not t[kv_len:].any() for t in whole[1:])
+
+
+_K1_LSE = [(128, 62, 128, 20), (512, 463, 128, 20), (512, 512, 64, 24),
+           (192, 1, 128, 4), (384, 298, 128, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,kv_len,d,h", _K1_LSE,
+                         ids=[f"S{s}-kv{kv}-D{d}-H{h}"
+                              for s, kv, d, h in _K1_LSE])
+def test_k1_lse_launch_on_gpu(cuda_device, s, kv_len, d, h):
+    """K1's training launch: its lse (every row below S) within 1e-5
+    relative L2 of the plain version's (the same bf16 q-hat and k-hat,
+    fp32 sums in another order), and its output bit-equal to the serving
+    launch's on the same inputs."""
+    gen = torch.Generator(cuda_device).manual_seed(s + kv_len + h)
+    tabs = _tables(np.random.default_rng(h), s, d, cuda_device)
+    qkv = torch.randn(2, s, 3 * h * d, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    qkv[:, kv_len:] = 0
+    before = (tfa.packed_window_attention.launches,
+              tfa.packed_window_attention.launches_lse)
+    out, lse = tfa.packed_window_attention_lse(qkv, h, d, *tabs, 1e-5, kv_len)
+    served = tfa.packed_window_attention(qkv, h, d, *tabs, 1e-5, kv_len)
+    torch.cuda.synchronize()
+    _, p_lse = tfa.packed_window_attention_lse_plain(qkv, h, d, *tabs, 1e-5,
+                                                     kv_len)
+    assert lse.shape == (2, h, s) and torch.isfinite(lse).all()
+    assert _rel(lse, p_lse) <= 1e-5
+    assert torch.equal(out, served)
+    assert (tfa.packed_window_attention.launches,
+            tfa.packed_window_attention.launches_lse) == (before[0] + 2,
+                                                          before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -252,13 +294,16 @@ def test_k1_k2_functions_on_gpu(cuda_device):
     dout[:, kv:] = 0
     with pytest.raises(RuntimeError, match="needs a gradient"):
         tfa.packed_window_attention(qkv, h, d, *tabs, 1e-5, kv)
-    before = tfa.attention_backward_dkdv.launches
+    before = (tfa.attention_backward_dkdv.launches,
+              tfa.packed_window_attention.launches_lse)
     out = tfa.packed_window_attention_grad(qkv, h, d, *tabs, 1e-5, kv)
     assert out.grad_fn is not None
     got = torch.autograd.grad(out, (qkv, *tabs), dout)
     ref = torch.autograd.grad(tfa.packed_window_attention_plain(
         qkv, h, d, *tabs, 1e-5, kv), (qkv, *tabs), dout)
-    assert tfa.attention_backward_dkdv.launches == before + 1
+    assert (tfa.attention_backward_dkdv.launches,
+            tfa.packed_window_attention.launches_lse) == (before[0] + 1,
+                                                          before[1] + 1)
     for g, r in zip(got, ref):
         assert _rel(g, r) <= 2e-2
     index = tg.RowIndex(np.random.default_rng(1).permutation(300),

@@ -149,6 +149,137 @@ def test_k1_backward_plain_matches_jax_vjp(kv):
         assert all(not t[kv:].any() for t in got[1:])
 
 
+def _jax_scores(qkv, tabs, h, d, eps, kv):
+    """The JAX composition's scores (ops/attention.py packed_attention's jnp
+    branch: its fp32 RMS norm and rope, then q k^T * d**-0.5), keys at or
+    past kv_len at -inf: (B, H, S, S)."""
+    from seedvr2_tpu.models.dit.rope import rotate_half_full
+
+    b, s, _ = qkv.shape
+    x = jnp.asarray(qkv).reshape(b, s, 3, h, d)
+
+    def norm_rope(z, cos, sin):
+        z = z * jax.lax.rsqrt(jnp.mean(z * z, axis=-1, keepdims=True) + eps)
+        return (z * jnp.asarray(cos)[:, None, :]
+                + rotate_half_full(z) * jnp.asarray(sin)[:, None, :])
+
+    q = norm_rope(x[:, :, 0], tabs[0], tabs[1])
+    k = norm_rope(x[:, :, 1], tabs[2], tabs[3])
+    sc = jnp.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5
+    return jnp.where(jnp.arange(s) < kv, sc, -jnp.inf)
+
+
+@pytest.mark.parametrize("kv", [11, 16])
+def test_k1_lse_plain_matches_jax_logsumexp(kv):
+    """The plain version of K1's training launch: its output is K1's, its
+    lse each row's jax.nn.logsumexp of the JAX composition's scores over
+    the keys below kv_len, in the log2 domain (times log2e), fp32."""
+    qkv, tabs, _, (h, d, _) = _k1_inputs(kv + 40, kv=kv)
+    t_qkv = torch.from_numpy(qkv)
+    t_tabs = [torch.from_numpy(t) for t in tabs]
+    out, lse = tfa.packed_window_attention_lse_plain(t_qkv, h, d, *t_tabs,
+                                                     1e-5, kv)
+    assert lse.dtype == torch.float32 and lse.shape == (3, h, 16)
+    assert torch.equal(out, tfa.packed_window_attention_plain(
+        t_qkv, h, d, *t_tabs, 1e-5, kv))
+    ref = jax.nn.logsumexp(_jax_scores(qkv, tabs, h, d, 1e-5, kv), axis=-1)
+    assert rel_l2(_np(lse), np.asarray(ref) * tfa._LOG2E) <= FP32_REL
+
+
+@pytest.mark.parametrize("kv", [11, 16])
+def test_k1_dq_plain_from_the_forward_lse_as_before(kv):
+    """attention_backward_dq_plain fed the forward's lse gives the dq and
+    delta of the earlier form, which swept the keys for the rows' lse
+    itself (re-formed here), within fp32 summation order; that lse and the
+    forward's agree."""
+    qkv, tabs, dout, (h, d, _) = _k1_inputs(kv + 20, kv=kv)
+    t_qkv = torch.from_numpy(qkv)
+    t_tabs = [torch.from_numpy(t) for t in tabs]
+    out, lse = tfa.packed_window_attention_lse_plain(t_qkv, h, d, *t_tabs,
+                                                     1e-5, kv)
+    x = t_qkv.reshape(3, 16, 3, h, d)
+    qh = tfa.norm_rope_plain(x[:, :, 0], t_tabs[0], t_tabs[1], 1e-5,
+                             d ** -0.5 * tfa._LOG2E)
+    kh = tfa.norm_rope_plain(x[:, :, 1], t_tabs[2], t_tabs[3], 1e-5)
+    v, g = x[:, :, 2], torch.from_numpy(dout)
+    dq, delta = tfa.attention_backward_dq_plain(qh, kh, v, out, g, lse, kv)
+    # the earlier form: its own lse sweep, then P, dS and dq
+    sc = torch.einsum("bqhd,bkhd->bhqk", qh, kh)
+    sc[..., kv:] = float("-inf")
+    m = sc.amax(dim=-1, keepdim=True)
+    own = m + torch.log2(torch.exp2(sc - m).sum(dim=-1, keepdim=True))
+    do = g.reshape(3, 16, h, d).clone()
+    do[:, kv:] = 0.0
+    ref_delta = (do * out.reshape(3, 16, h, d)).sum(-1).transpose(1, 2)
+    ds = torch.exp2(sc - own) * (torch.einsum("bqhd,bkhd->bhqk", do, v)
+                                 - ref_delta[..., None])
+    ref = torch.einsum("bhqk,bkhd->bqhd", ds, kh)
+    assert rel_l2(_np(own[..., 0]), _np(lse)) <= FP32_REL
+    assert rel_l2(_np(dq), _np(ref)) <= FP32_REL
+    assert rel_l2(_np(delta), _np(ref_delta)) <= FP32_REL
+
+
+def _bwd_groups(case):
+    """(B, S, H, kv_len) of every K1 call of a case: each window group of
+    the training plan (the 3B at 1 x 64 x 64, batch 2), the record shape,
+    the 1080p clip plan's largest group (n = 32), and the 7B's 24 heads on
+    the training plan and the record shape."""
+    if case == "record":
+        return [(12, 512, 20, 463)]
+    if case == "heads24":
+        return [(12, 512, 24, 463)] + [(b, s, 24, kv) for b, s, _, kv in
+                                       _bwd_groups("train")]
+    latent, batch = {"train": ((1, 64, 64), 2),
+                     "clip1080": ((2, 136, 240), 1)}[case]
+    plan = tn.build_dit_plan(DIT_3B, latent, 58)
+    out = []
+    for lp in plan.layer_plans.values():
+        for g in lp.groups:
+            n, wlen = g.idx.shape
+            skv = wlen + 58
+            out.append((batch * n, skv + (-skv) % tn._LANE, DIT_3B.heads,
+                        skv))
+    if case == "clip1080":
+        out = [max(out, key=lambda c: c[0] * c[1] ** 2)]
+    return out
+
+
+@pytest.mark.parametrize("case", ["train", "record", "clip1080", "heads24"])
+def test_k1_backward_plan_covers_every_row_once(case):
+    """The dq and dk/dv kernels' tile plan: per (b, h) the dq blocks of wg
+    warpgroups of 64 rows cover each of the S q rows exactly once, the
+    dk/dv blocks each key row and column panel exactly once, no block lies
+    wholly past S (the kernels' entry refuses such a grid), and the small
+    training groups (B = 2, S = 128)
+    take one warpgroup a block, so that their live rows spread over more
+    blocks than 128-row blocks would give."""
+    groups = _bwd_groups(case)
+    assert len(groups) == {"train": 13, "record": 1, "clip1080": 1,
+                           "heads24": 14}[case]
+    for b, s, h, kv in groups:
+        wg, blocks, kv_blocks = tfa.backward_plan(b, s, h, kv)
+        assert wg in (1, 2) and (blocks - 1) * wg * 64 < s
+        assert (kv_blocks - 1) * 64 < s
+        # dq: block x's warpgroup w owns q rows 64 (x wg + w) .. + 63
+        seen = np.zeros(s, np.int64)
+        for x in range(blocks):
+            for w in range(wg):
+                r0 = 64 * (x * wg + w)
+                seen[r0:r0 + 64] += 1
+        assert (seen == 1).all(), (b, s, h, kv)
+        # dk/dv: block x owns keys 64 x .. + 63, its warpgroups split D
+        # into 64-column panels
+        seen = np.zeros((s, 2), np.int64)
+        for x in range(kv_blocks):
+            for w in range(128 // 64):
+                seen[64 * x:64 * x + 64, w] += 1
+        assert (seen == 1).all(), (b, s, h, kv)
+        if b * h * -(-kv // 128) < tfa.H100_SMS:
+            assert wg == 1
+        if (b, s) == (12, 512) or b == 32:
+            assert wg == 2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_function_matches_autograd_through_plain(dtype):
     """The autograd Function (forward: K1's plain version, backward: the
