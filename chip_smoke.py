@@ -505,6 +505,12 @@ TRAIN_RANK_LAYERS = 4
 TRAIN_PEAK_GIB = (57, 60)
 TRAIN_KERNELS = ("K1", "K2", "K1bwd_dq", "K1bwd_dkdv", "K1bwd_prepass",
                  "K2bwd")
+# the uniform window plan's train path: K9's training launch and its three
+# backward parts, and none of the grouped plan's kernels
+TRAIN_UNIFORM_KERNELS = ("K9", "K9bwd_dq", "K9bwd_dkdv", "K9bwd_prepass")
+# K9's backward record shape: the 720p clip's shifted layer (32 windows of
+# S = 463 over 9 ids), as K9's own record
+K9_RECORD = ("720p clip", (2, 90, 160), "shifted_window")
 # K1's backward parts against their plain versions on the same inputs
 # (relative L2): lse (K1's training launch against its plain version on the
 # same bf16 q-hat and k-hat), delta and the table gradients are fp32 sums
@@ -607,6 +613,17 @@ KERNELS = {
     "K2bwd": ("gather_rows on the inverse index (K2's gradient)",
               "seedvr2_tpu_torch/csrc/gather_rows.cu",
               "comfyui-seedvr2_tpu/ops/gather.py:70"),
+    # the uniform plan's trainer: K9's gradient (the JAX package
+    # differentiates the jnp composition behind the same Pallas kernel)
+    "K9bwd_dq": ("windowed_backward_dq (K9's gradient, dq part)",
+                 "seedvr2_tpu_torch/csrc/attention_backward.cu",
+                 "comfyui-seedvr2_tpu/ops/flash_attention.py:333"),
+    "K9bwd_dkdv": ("windowed_backward_dkdv (K9's gradient, dk/dv part)",
+                   "seedvr2_tpu_torch/csrc/attention_backward.cu",
+                   "comfyui-seedvr2_tpu/ops/flash_attention.py:333"),
+    "K9bwd_prepass": ("windowed_rope_backward (K9's gradient, rope part)",
+                      "seedvr2_tpu_torch/csrc/attention_backward.cu",
+                      "comfyui-seedvr2_tpu/ops/flash_attention.py:333"),
 }
 # the design each kernel's record names
 DESIGN = {
@@ -649,6 +666,17 @@ DESIGN = {
                      "pre-pass; table partials a row, folded over the batch "
                      "rows in order",
     "K2bwd": "K2 itself on the inverse permutation",
+    "K9bwd_dq": "K1bwd_dq MASKED: the window's validity words and live-tile "
+                "list staged in shared memory behind a barrier (as K9's "
+                "forward), only live key tiles loaded, a partly valid one "
+                "masked on the fp32 scores",
+    "K9bwd_dkdv": "K1bwd_dkdv MASKED: one barrier vote whether the block's "
+                  "64 keys hold a valid key (none: zeros, exit), masked "
+                  "keys P = 0",
+    "K9bwd_prepass": "D/8 threads a row over the heads, the row's table "
+                     "(picked by window id) read once; rot^T of dQ-hat * "
+                     "scale and dK-hat * ln2 into bf16, no norm, no table "
+                     "gradients",
 }
 # the path whose launches each kernel's record reports
 DENSE_PATH, OP_PATH = "dense (no product caller)", "op (no product caller)"
@@ -658,7 +686,9 @@ MAIN_PATH = {"K1": "default", "K2": "default", "K3": "throughput",
              "K11": "vae_int8", "K12": "fused_norm", "K3f32": "tp2",
              "K6f32": "tp2", "K7f32": "tp2", "K1bwd_dq": "train",
              "K1bwd_dkdv": "train", "K1bwd_prepass": "train",
-             "K2bwd": "train"}
+             "K2bwd": "train", "K9bwd_dq": "train_uniform",
+             "K9bwd_dkdv": "train_uniform",
+             "K9bwd_prepass": "train_uniform"}
 
 
 def fail(msg: str) -> None:
@@ -725,7 +755,7 @@ def queued_ms(torch, fn, iters: int = 10) -> float:
     spin of the device (torch.cuda._sleep, ~50 ms), so the host's launch
     overhead, longer than such a call, never falls between two events.
     Late in this script torch.profiler records no device events, so
-    device_ms reads nothing there."""
+    device_ms cannot read there: phases 11a and 13 time with this."""
     if not _FLUSH:
         _FLUSH.append(torch.empty(256 << 20, dtype=torch.uint8,
                                   device="cuda"))
@@ -746,26 +776,49 @@ def queued_ms(torch, fn, iters: int = 10) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
+DEVICE_MS_SESSIONS = 3
+
+
 def device_ms(torch, fn, iters: int = 10, only: str = "") -> float:
     """Mean device milliseconds of the kernels one call of fn() launches
     (those whose name holds `only`, when given), summed from a
     torch.profiler trace, the L2 evicted before each call as in kernel_ms.
     Unlike CUDA events around a call of a few tens of microseconds, it
-    leaves out the host's launch overhead."""
+    leaves out the host's launch overhead. A trace that holds fewer such
+    device events than calls (the profiler dropped them; it has recorded
+    none at all for a call now and then, and none late in this script) is
+    taken again, up to DEVICE_MS_SESSIONS sessions, then the run fails:
+    a reading of 0 is never returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     kernel_ms(torch, fn, 1)  # warm-up; allocates the flush buffer
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            _FLUSH[0].zero_()
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == DeviceType.CUDA and only in e.name
-             and not any(w in e.name.lower() for w in ("fill", "memset")))
-    return us / iters / 1e3
+    for _ in range(DEVICE_MS_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                _FLUSH[0].zero_()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and only in e.name
+                  and not any(w in e.name.lower()
+                              for w in ("fill", "memset"))]
+        us = sum(e.device_time_total for e in events)
+        if len(events) >= iters and us > 0:
+            return us / iters / 1e3
+    raise RuntimeError(
+        f"device_ms: {DEVICE_MS_SESSIONS} profiler sessions recorded "
+        f"{len(events)} device events of {iters} calls (name holding "
+        f"{only!r}); time this call with queued_ms")
+
+
+def timer_note(timer) -> str:
+    """How a short call's time was read: device_ms's profiler trace, or
+    queued_ms's events behind a device spin (where the profiler records
+    nothing)."""
+    return ("device time" if timer is device_ms
+            else "events queued behind a device spin")
 
 
 def bound_ms(ops: float, peak_ops: float, nbytes: float):
@@ -924,16 +977,17 @@ def earlier_note(name: str) -> str:
 
 
 def check_k1(torch, fa, nadit, cfg, device, path_latents, tag="",
-             random_tables=True):
+             random_tables=True, timer=device_ms):
     """K1 against its plain version: window lengths 128, 896 and 3712 with
     random tables (when `random_tables`), and every window group of
     `cfg`'s 720p clip plan with its real tables (all timed), then every
     group of the requests' plans `path_latents` (checked; the largest
     group of the 1080p clip's plan, the default path's 1080p clip too,
     timed). Each timed case prints the pre-pass's time alone beside the
-    whole call's and the earlier design's time. Rows are named after `tag`
-    (the 7B's "7B "). Returns the record of the 720p clip plan's largest
-    group."""
+    whole call's and the earlier design's time; `timer` reads the
+    pre-pass (device_ms, or queued_ms where the profiler records nothing).
+    Rows are named after `tag` (the 7B's "7B "). Returns the record of the
+    720p clip plan's largest group."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device).manual_seed(1)
@@ -998,7 +1052,7 @@ def check_k1(torch, fa, nadit, cfg, device, path_latents, tag="",
                                   rtol=PREPASS_RTOL, atol=PREPASS_ATOL):
                 fail(f"K1 {name}: pre-pass {side} beyond one bf16 ulp of "
                      "its plain version")
-        prepass_ms = device_ms(torch, lambda: fa.attention_prepass(
+        prepass_ms = timer(torch, lambda: fa.attention_prepass(
             x[:, :, 0], x[:, :, 1], *tabs, eps, qscale))
         plain_ms = kernel_ms(torch, lambda: fa.packed_window_attention_plain(
             qkv, H, D, *tabs, eps, kv), 10)
@@ -1010,8 +1064,8 @@ def check_k1(torch, fa, nadit, cfg, device, path_latents, tag="",
         bound, by = bound_ms(flops, PEAK_BF16, nbytes)
         say(f"K1 {name}: max_abs_err {err:.6g} (atol=rtol={K1_ATOL}); "
             f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-            f"prepass_ms {prepass_ms:.4f} of it alone (device time), "
-            f"{earlier_note('K1 ' + name)}"
+            f"prepass_ms {prepass_ms:.4f} of it alone ({timer_note(timer)}),"
+            f" {earlier_note('K1 ' + name)}"
             f"; plain {plain_ms:.4f} ms, sdpa (attention core only) "
             f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
         if case is main:
@@ -1074,7 +1128,7 @@ def mlp_dims(cfg, joined):
     return "mlp in", hidden, hidden
 
 
-def check_k3(torch, im, cfg, device, path_rows, tag=""):
+def check_k3(torch, im, cfg, device, path_rows, tag="", timer=device_ms):
     """K3 bit-exact against its plain version at every shape `cfg`'s w8a8
     DiT gives it on the throughput path: the video GEMMs at each request's
     token count `path_rows` [(label, M)], the text rows and the time
@@ -1125,8 +1179,8 @@ def check_k3(torch, im, cfg, device, path_rows, tag=""):
         row = f"K3 {name} M={m} N={n} K={k}"
         dev = ""
         if m <= TXT_LEN:
-            d = device_ms(torch, lambda: im.int8_matmul(xq, wq, xs, ws))
-            dev = f"device {d:.4f} ms, "
+            d = timer(torch, lambda: im.int8_matmul(xq, wq, xs, ws))
+            dev = f"{timer_note(timer)} {d:.4f} ms, "
         swap, bt = im.plan_qx(m)
         say(f"{row}: exact; kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s; "
             f"{dev}tiles {'128 weights x ' if swap else '128 x '}{bt}"
@@ -1154,7 +1208,7 @@ def q_error(torch, out, ref, name):
     return worst, equal
 
 
-def check_k4_k5(torch, fq, cfg, device, path_rows):
+def check_k4_k5(torch, fq, cfg, device, path_rows, timer=device_ms):
     """K4 on D-wide rows (2560 in the 3B, 3072 in the 7B) and, for a swiglu
     MLP (the 3B), K5 on the hidden-wide halves of a gate+up product, at the
     text length and at each throughput request's token count `path_rows`
@@ -1179,9 +1233,9 @@ def check_k4_k5(torch, fq, cfg, device, path_rows):
         m = l
         nbytes = m * D * 2 + 2 * D * 4 + m * D + 4 * m
         bound, by = bound_ms(K4_OPS_PER_ELEM * m * D, PEAK_FP32, nbytes)
-        dev = "" if l != TXT_LEN else " (device {:.4f} ms)".format(device_ms(
-            torch, lambda: fq.rms_ada_quantize(x, scale, shift,
-                                               cfg.norm_eps)))
+        dev = "" if l != TXT_LEN else " ({} {:.4f} ms)".format(
+            timer_note(timer), timer(torch, lambda: fq.rms_ada_quantize(
+                x, scale, shift, cfg.norm_eps)))
         say(f"K4 rows={m} K={D}: q max diff {worst}, {equal * 100:.4f} % "
             f"equal; kernel {ms:.4f} ms{dev} ({nbytes / ms / 1e6:.0f} GB/s),"
             f" plain {plain_ms:.4f} ms, library none, bound {bound:.4f} ms "
@@ -1204,8 +1258,9 @@ def check_k4_k5(torch, fq, cfg, device, path_rows):
         m = l
         nbytes = 2 * m * hidden * 2 + m * hidden + 4 * m
         bound, by = bound_ms(K5_OPS_PER_ELEM * m * hidden, PEAK_FP32, nbytes)
-        dev = "" if l != TXT_LEN else " (device {:.4f} ms)".format(device_ms(
-            torch, lambda: fq.silu_mul_quantize(g, u)))
+        dev = "" if l != TXT_LEN else " ({} {:.4f} ms)".format(
+            timer_note(timer), timer(torch,
+                                     lambda: fq.silu_mul_quantize(g, u)))
         say(f"K5 rows={m} K={hidden}: q max diff {worst}, "
             f"{equal * 100:.4f} % equal; kernel {ms:.4f} ms{dev} "
             f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, "
@@ -1225,7 +1280,8 @@ def bf16_ulps(torch, out, ref):
     return (out32 - ref32).abs() / torch.ldexp(torch.ones_like(ref32), e - 8)
 
 
-def check_k6_k7(torch, qm, cfg, device, rows, main=None, tag=""):
+def check_k6_k7(torch, qm, cfg, device, rows, main=None, tag="",
+                timer=device_ms):
     """K6 and K7 against their plain versions at every distinct (K, N) of
     `cfg`'s converted linears: the video linears at each lane's token
     count (`rows` = {"K6": [(label, M)], "K7": [...]}), the text stream's at
@@ -1311,12 +1367,12 @@ def check_k6_k7(torch, qm, cfg, device, rows, main=None, tag=""):
             extra = ""
             prepass = dev = None
             if m <= TXT_LEN:  # a call of tens of microseconds: device time
-                dev = device_ms(torch, lambda: run(x, q, *tabs))
-                extra = f", {dev:.4f} ms device time"
+                dev = timer(torch, lambda: run(x, q, *tabs))
+                extra = f", {dev:.4f} ms {timer_note(timer)}"
             if key == "K7":
-                prepass = device_ms(torch, lambda: qm.k7_prepass(x, tabs[1]))
+                prepass = timer(torch, lambda: qm.k7_prepass(x, tabs[1]))
                 extra += (f", pre-pass (xg and -m planes) {prepass:.4f} of "
-                          "it (device time)")
+                          f"it ({timer_note(timer)})")
             key_name = f"{key} {tag}{name}"
             say(f"{key_name} M={m} N={n} K={k} (tokens {bt}, splits "
                 f"{splits}): max {worst:.3g} ulps, {share * 100:.4f} % within "
@@ -2277,7 +2333,10 @@ def check_7b_kernels(torch, fa, gather, im, fq, qm, nadit, device):
     transitions; K3 and K4 at the throughput lane's 1080p clip (16320
     rows); K6 and K7 at the GGUF lane's 720p clip (7200 rows). Returns
     {kernel: record} with each kernel's record at its 7B path's main
-    shape (K6 and K7 with every shape under by_shape)."""
+    shape (K6 and K7 with every shape under by_shape). The short calls'
+    times (K1's pre-pass, K3 / K4 / K6 / K7 at the text's rows, K7's
+    pre-pass) are read with queued_ms: this late in the run torch.profiler
+    records no device events."""
     from seedvr2_tpu_torch.core.configs import DIT_7B, VAE_V3
 
     lat = {label: latent_shape(VAE_V3, t, h, w, res)
@@ -2290,15 +2349,18 @@ def check_7b_kernels(torch, fa, gather, im, fq, qm, nadit, device):
     say(f"7B kernel checks: throughput rows {rows}, GGUF rows {gguf_rows}")
     recs = {"K1": check_k1(torch, fa, nadit, DIT_7B, device,
                            [("1080p clip", s) for s in lat.values()],
-                           tag="7B ", random_tables=False),
+                           tag="7B ", random_tables=False, timer=queued_ms),
             "K2": check_k2(torch, gather, nadit, DIT_7B, device,
                            list(lat.items())),
-            "K3": check_k3(torch, im, DIT_7B, device, rows, tag="7B ")}
-    recs.update(check_k4_k5(torch, fq, DIT_7B, device, rows))
+            "K3": check_k3(torch, im, DIT_7B, device, rows, tag="7B ",
+                           timer=queued_ms)}
+    recs.update(check_k4_k5(torch, fq, DIT_7B, device, rows,
+                            timer=queued_ms))
     recs.update(check_k6_k7(torch, qm, DIT_7B, device,
                             {"K6": gguf_rows, "K7": gguf_rows},
                             main={"K6": "clip 720 qkv",
-                                  "K7": "clip 720 mlp in"}, tag="7B "))
+                                  "K7": "clip 720 mlp in"}, tag="7B ",
+                            timer=queued_ms))
     return recs
 
 
@@ -4482,19 +4544,28 @@ def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
             plain_ms = kernel_ms(torch, plain, 3)
             bound, by = bound_ms(n_ops, PEAK_BF16, nbytes)
             lib = lib_ms if key != "K1bwd_prepass" else None
+            queued = ""
             if lib is not None:
                 pair_ms += ms
+            else:
+                # the pre-pass backward's two launches: the host's launch
+                # gap between them is inside the events' reading
+                q_ms = queued_ms(torch, run)
+                queued = (f", {q_ms:.4f} ms queued behind a device spin "
+                          f"({bound / q_ms * 100:.0f} % of the bound's rate)")
+                if n_case == 0:
+                    recs.setdefault(key, {})["queued_ms"] = q_ms
             say(f"{key} {label}: kernel {ms:.4f} ms"
-                + (f" ({n_ops / ms / 1e9:.1f} TFLOP/s)" if n_ops else "")
+                + (f" ({n_ops / ms / 1e9:.1f} TFLOP/s)" if n_ops else queued)
                 + f", plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})"
                 + (f", SDPA backward (dq, dk, dv at once) {lib_ms:.4f} ms"
                    if lib is not None else ", no library call")
                 + (f"; {earlier_note(f'{key} {label}')}"
                    if lib is not None else ""))
-            if key not in recs:
-                recs[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 library_ms=lib, bound_ms=bound, bound_by=by,
-                                 shape=label)
+            if "ms" not in recs.get(key, {}):
+                recs.setdefault(key, {}).update(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib,
+                    bound_ms=bound, bound_by=by, shape=label)
         say(f"K1 backward {label}: dq + dk/dv {pair_ms:.4f} ms against SDPA's "
             f"backward {lib_ms:.4f} ms ({pair_ms / lib_ms:.2f}x); whole call "
             f"{whole_ms:.4f} ms (K1's pre-pass again, dq, dk/dv, pre-pass "
@@ -4558,17 +4629,211 @@ def check_k2_backward(torch, gather, nadit, cfg, device):
             "gradient")
     inv = index.inverse
     ms = kernel_ms(torch, lambda: gather.gather_rows(g, inv), 50)
+    q_ms = queued_ms(torch, lambda: gather.gather_rows(g, inv))
     plain_ms = kernel_ms(torch, lambda: gather.gather_rows_plain(g, inv), 50)
     xz = torch.zeros_like(x, requires_grad=False)
     lib_ms = kernel_ms(torch, lambda: xz.zero_().index_add_(1, idx, g), 50)
     nbytes = 2 * g.numel() * 2 + len(index) * 4
     bound, by = bound_ms(0, PEAK_BF16, nbytes)
     say(f"K2bwd B={TRAIN_BATCH} L={plan.seq_len} D={cfg.vid_dim}: kernel "
-        f"{ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} "
+        f"{ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s; {q_ms:.4f} ms queued "
+        f"behind a device spin, {bound_ms(0, PEAK_BF16, nbytes)[0] / q_ms * 100:.0f}"
+        f" % of the bound's rate), plain {plain_ms:.4f} "
         f"ms, index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound, bound_by=by,
+    return dict(max_abs_err=0.0, ms=ms, queued_ms=q_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=by,
                 shape=f"B={TRAIN_BATCH} L={plan.seq_len} D={cfg.vid_dim}")
+
+
+def check_k9_backward(torch, fa, nadit, cfg, device):
+    """K9's backward, each part against its plain version on the same
+    inputs (BWD_* tolerances: the same arithmetic as K1's backward) and the
+    whole against its plain version, at the record shape (K9_RECORD, its
+    real tables, masks and ids) and at every uniform window layer of the
+    training plan (TRAIN_LATENT, TRAIN_BATCH rows of windows): the shapes
+    the uniform train path launches. q, k, v and dO are random bf16, dO
+    zero at each window's pad slots (the rows the DiT crops). lse comes
+    from K9's training launch, held against its plain version, its output
+    bit-equal to the serving launch's; every masked key's dk and dv zero;
+    reruns bit-equal. At the record shape both K9 launches are timed, and
+    each part (queued_ms) beside its plain version, its bound (the live
+    key tiles' products; each input read and each output written once) and
+    torch SDPA's backward with the boolean key mask on the same roped
+    operands (dq, dk, dv at once: the yardstick of the dq and dk/dv
+    parts). Returns the three records."""
+    import torch.nn.functional as F
+
+    H, D = cfg.heads, cfg.head_dim
+    scale = D ** -0.5
+    gen = torch.Generator(device).manual_seed(19)
+    label, latent, method = K9_RECORD
+    cases = [(f"{label} {method}", nadit.upload_plan(nadit.build_dit_plan(
+        cfg, latent, TXT_LEN, uniform=True), cfg, device).uniform[method], 1)]
+    tplan = nadit.upload_plan(nadit.build_dit_plan(
+        cfg, TRAIN_LATENT, TXT_LEN, uniform=True), cfg, device)
+    cases += [(f"train plan {m}", u, TRAIN_BATCH)
+              for m, u in tplan.uniform.items()]
+    recs, worst = {}, {}
+    for n_case, (label, u, batch) in enumerate(cases):
+        ids = u.batch_ids(batch)
+        b, s = len(ids), u.cos.shape[1]
+        idx = ids.tensor.long()
+        keep = u.valid[idx]
+        name = (f"{label} nW={b} nU={u.cos.shape[0]} S={s} H={H} D={D}")
+        q, k, v, dout = (torch.randn(b, s, H, D, generator=gen,
+                                     device=device).to(torch.bfloat16)
+                         for _ in range(4))
+        dout[~keep] = 0
+        args = (None, u.cos, u.sin, ids, u.valid)
+        out, lse = fa.flash_windowed_attention_lse(q, k, v, *args)
+        same = torch.equal(out, fa.flash_windowed_attention(q, k, v, *args))
+        qh, kh = fa.attention_prepass(q, k, u.cos, u.sin, u.cos, u.sin, None,
+                                      scale * fa._LOG2E, ids)
+        dq, delta = fa.windowed_backward_dq(qh, kh, v, out, dout, lse,
+                                            u.valid, ids)
+        dk, dv = fa.windowed_backward_dkdv(qh, kh, v, dout, lse, delta,
+                                           u.valid, ids)
+        rq, rk = fa.windowed_rope_backward(dq, dk, u.cos, u.sin, ids, scale,
+                                           fa._LN2)
+        whole = fa.flash_windowed_attention_backward(q, k, v, *args, out,
+                                                     dout, lse)
+        again = fa.flash_windowed_attention_backward(q, k, v, *args, out,
+                                                     dout, lse)
+        torch.cuda.synchronize()
+        _, p_lse = fa.flash_windowed_attention_lse_plain(q, k, v, *args)
+        p_dq, p_delta = fa.windowed_backward_dq_plain(qh, kh, v, out, dout,
+                                                      lse, u.valid, ids)
+        p_dk, p_dv = fa.windowed_backward_dkdv_plain(qh, kh, v, dout, lse,
+                                                     delta, u.valid, ids)
+        p_rq, p_rk = fa.windowed_rope_backward_plain(dq, dk, u.cos, u.sin,
+                                                     ids, scale, fa._LN2)
+        p_whole = fa.flash_windowed_attention_backward_plain(
+            q, k, v, *args, out, dout)
+        errs = {
+            "lse": (rel_l2(lse, p_lse), BWD_F32_REL),
+            "delta": (rel_l2(delta, p_delta), BWD_F32_REL),
+            "dq": (rel_l2(dq, p_dq), BWD_DQDK_REL),
+            "dk": (rel_l2(dk, p_dk), BWD_DQDK_REL),
+            "dv": (rel_l2(dv, p_dv), BWD_BF16_REL),
+            "rope d q": (rel_l2(rq, p_rq), BWD_BF16_REL),
+            "rope d k": (rel_l2(rk, p_rk), BWD_BF16_REL),
+            **{f"whole d {n}": (rel_l2(a, r), BWD_WHOLE_REL)
+               for n, a, r in zip("qkv", whole, p_whole)}}
+        bad = {k_: e for k_, (e, tol) in errs.items()
+               if not e <= tol or e != e}
+        rerun = all(torch.equal(a, c) for a, c in zip(whole, again))
+        pad = max(t[~keep].abs().max().item() if (~keep).any() else 0.0
+                  for t in (dk, dv, whole[1], whole[2]))
+        tiles = fa.live_key_tiles(u.valid)[idx]
+        say(f"K9 backward {name}: relative L2 to the plain versions "
+            + ", ".join(f"{k_} {e:.3g}" for k_, (e, _) in errs.items())
+            + f" (bounds: fp32 sums {BWD_F32_REL}, bf16 outputs "
+            f"{BWD_BF16_REL}, dq / dk {BWD_DQDK_REL}, whole "
+            f"{BWD_WHOLE_REL}); rerun bit-equal {rerun}; masked keys' dk / "
+            f"dv max |.| {pad}; key tiles walked {tiles.sum().item()} of "
+            f"{tiles.numel()} a head; K9's training launch's output "
+            f"bit-equal to the serving launch's {same}")
+        if bad or not rerun or not same or pad != 0.0 or not all(
+                torch.isfinite(t).all() for t in whole):
+            fail(f"K9 backward {name}: beyond bounds {bad}, rerun equal "
+                 f"{rerun}, training launch's output equal {same}, masked "
+                 f"keys {pad}")
+        if n_case > 0:
+            for k_, (e, _) in errs.items():
+                worst[k_] = max(worst.get(k_, 0.0), e)
+            continue
+        # the record shape: times, bounds, the plain versions, SDPA
+        def max_abs(*pairs):
+            return max((a.float() - r.float()).abs().max().item()
+                       for a, r in pairs)
+
+        nq = b * s * H * D
+        live_keys = 64 * tiles.sum().item()  # per head, over the windows
+        rows = 2 * b * H * s * 4  # lse and delta
+        mask_bytes = u.valid.numel() + 4 * b
+        parts = {
+            "K9bwd_dq": (
+                lambda: fa.windowed_backward_dq(qh, kh, v, out, dout, lse,
+                                                u.valid, ids),
+                lambda: fa.windowed_backward_dq_plain(qh, kh, v, out, dout,
+                                                      lse, u.valid, ids),
+                6.0 * H * s * live_keys * D,
+                nq * 2 * 5 + nq * 4 + rows + mask_bytes,
+                max_abs((dq, p_dq), (delta, p_delta))),
+            "K9bwd_dkdv": (
+                lambda: fa.windowed_backward_dkdv(qh, kh, v, dout, lse,
+                                                  delta, u.valid, ids),
+                lambda: fa.windowed_backward_dkdv_plain(
+                    qh, kh, v, dout, lse, delta, u.valid, ids),
+                8.0 * H * s * live_keys * D,
+                nq * 2 * 4 + rows + nq * (4 + 2) + mask_bytes,
+                max_abs((dk, p_dk), (dv, p_dv))),
+            "K9bwd_prepass": (
+                lambda: fa.windowed_rope_backward(dq, dk, u.cos, u.sin, ids,
+                                                  scale, fa._LN2),
+                lambda: fa.windowed_rope_backward_plain(
+                    dq, dk, u.cos, u.sin, ids, scale, fa._LN2),
+                0.0, nq * 4 * 2 + nq * 2 * 2 + 2 * u.cos.numel() * 4 + 4 * b,
+                max_abs((rq, p_rq), (rk, p_rk))),
+        }
+        fwd_ms = {key: kernel_ms(torch, run, 10) for key, run in (
+            ("serving", lambda: fa.flash_windowed_attention(q, k, v, *args)),
+            ("training (lse)",
+             lambda: fa.flash_windowed_attention_lse(q, k, v, *args)))}
+        qr, kr = attention_core(torch, q, k, u.cos[idx], u.sin[idx])
+        qr, kr, vr = (t.detach().requires_grad_() for t in (
+            qr, kr, v.transpose(1, 2).contiguous()))
+        o = F.scaled_dot_product_attention(qr, kr, vr,
+                                           attn_mask=keep[:, None, None, :])
+        do = dout.transpose(1, 2)
+        lib_ms = kernel_ms(torch, lambda: torch.autograd.grad(
+            o, (qr, kr, vr), do, retain_graph=True), 10)
+        whole_ms = kernel_ms(torch, lambda: fa.flash_windowed_attention_backward(
+            q, k, v, *args, out, dout, lse), 5)
+        pair_ms = 0.0
+        for key, (run, plain, n_ops, nbytes, err) in parts.items():
+            ms = queued_ms(torch, run)
+            plain_ms = kernel_ms(torch, plain, 3)
+            bound, by = bound_ms(n_ops, PEAK_BF16, nbytes)
+            lib = lib_ms if key != "K9bwd_prepass" else None
+            if lib is not None:
+                pair_ms += ms
+            say(f"{key} {name}: kernel {ms:.4f} ms (queued_ms)"
+                + (f" ({n_ops / ms / 1e9:.1f} TFLOP/s of the live tiles' "
+                   "work)" if n_ops else
+                   f" ({nbytes / ms / 1e6:.0f} GB/s)")
+                + f", plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})"
+                + (f", SDPA backward with the key mask (dq, dk, dv at once) "
+                   f"{lib_ms:.4f} ms" if lib is not None
+                   else ", no library call"))
+            recs[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib, bound_ms=bound, bound_by=by,
+                             shape=name)
+        say(f"K9 backward {name}: dq + dk/dv {pair_ms:.4f} ms against SDPA's "
+            f"masked backward {lib_ms:.4f} ms ({pair_ms / lib_ms:.2f}x); "
+            f"whole call {whole_ms:.4f} ms (K9's pre-pass again, dq, dk/dv, "
+            f"rope backward); K9 forward here: serving "
+            f"{fwd_ms['serving']:.4f} ms, training (lse) "
+            f"{fwd_ms['training (lse)']:.4f} ms")
+        del qr, kr, vr, o, do
+    say(f"K9 backward over the training plan's {len(cases) - 1} uniform "
+        "layers: worst relative L2 to the plain versions "
+        + ", ".join(f"{k_} {e:.3g}" for k_, e in worst.items()))
+    torch.cuda.empty_cache()
+    return recs
+
+
+def leaf_errors(model, grads):
+    """Each parameter's gradient in `grads` against the one its .grad now
+    holds (relative L2), and over every gradient at once: (overall, {name:
+    rel}, names worst first)."""
+    leaf, num, den = {}, 0.0, 0.0
+    for k, p in model.named_parameters():
+        d = (grads[k].float() - p.grad.float()).norm().item()
+        n = p.grad.float().norm().item()
+        leaf[k] = d / n if n > 0 else (0.0 if d == 0 else float("inf"))
+        num, den = num + d * d, den + n * n
+    return (num / den) ** 0.5, leaf, sorted(leaf, key=leaf.get, reverse=True)
 
 
 def train_batch(torch, cfg, device, embeds, seed):
@@ -4713,11 +4978,15 @@ def train_ranks(here) -> dict:
 
 def train_phase(torch, np, nadit, fa, gather, device, here, counts, embeds,
                 wrappers, k1_ms):
-    """Phase 13: K1's and K2's backward against their plain versions, the
-    two-rank fsdp world, then the full 32-layer 3B: one backward with every
-    gradient checked, three AdamW steps with the kernels (the path's
-    launches, step times, peak memory) and the same steps with the plain
-    versions. Returns the backward kernels' records."""
+    """Phase 13: K1's, K2's and K9's backward against their plain
+    versions, the two-rank fsdp world, then the full 32-layer 3B on the
+    grouped and on the uniform window plan (the same parameters, batch and
+    draws): on each one backward with every gradient checked leaf by leaf
+    against the plain versions' and the two plans' losses against each
+    other, then three AdamW steps with the kernels (the path's launches,
+    none of the other plan's kernels, step times, peak memory) and the same
+    steps with the plain versions. Returns the backward kernels'
+    records."""
     from seedvr2_tpu_torch.core.configs import DIT_3B
     from seedvr2_tpu_torch.core.diffusion import logitnormal_timesteps
     from seedvr2_tpu_torch.parallel import train
@@ -4725,6 +4994,7 @@ def train_phase(torch, np, nadit, fa, gather, device, here, counts, embeds,
     cfg = DIT_3B
     recs = check_k1_backward(torch, fa, nadit, cfg, device, k1_ms)
     recs["K2bwd"] = check_k2_backward(torch, gather, nadit, cfg, device)
+    recs.update(check_k9_backward(torch, fa, nadit, cfg, device))
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -4746,127 +5016,156 @@ def train_phase(torch, np, nadit, fa, gather, device, here, counts, embeds,
     model = nadit.init_dit(cfg, device, torch.bfloat16,
                            torch.Generator(device).manual_seed(0))
     batch = train_batch(torch, cfg, device, embeds, 7)
-    plan = nadit.build_dit_plan(cfg, TRAIN_LATENT, TXT_LEN)
+    plan = nadit.build_dit_plan(cfg, TRAIN_LATENT, TXT_LEN, uniform=True)
     dplan = nadit.upload_plan(plan, cfg, device)
+    plans = {"grouped": dataclasses.replace(dplan, uniform=None),
+             "uniform": dplan}
     n_params = sum(p.numel() for p in model.parameters())
     gen = step_generator(torch, device, 0)
     noise = torch.randn(batch["latent"].shape, generator=gen, device=device)
     tt = logitnormal_timesteps(gen, (TRAIN_BATCH,))
-    loss = train.flow_loss(model, batch, noise, tt, dplan)
-    loss.backward()
-    missing = [k for k, p in model.named_parameters() if p.grad is None]
-    bad = [k for k, p in model.named_parameters()
-           if p.grad is not None and not torch.isfinite(p.grad).all()]
-    say(f"3B ({cfg.num_layers} blocks, width {cfg.vid_dim}, "
-        f"{n_params / 1e9:.3f} B parameters) one flow_loss backward on "
-        f"latent {TRAIN_LATENT} x "
-        f"{TRAIN_BATCH} ({plan.seq_len} tokens a row, {TXT_LEN} text): loss "
-        f"{loss.item():.6g}; {len(missing)} parameters without a gradient, "
-        f"{len(bad)} with non-finite values")
-    if missing or bad or not torch.isfinite(loss):
-        fail(f"3B backward: no gradient for {missing[:4]}, non-finite "
-             f"{bad[:4]}, loss {loss.item()}")
-    # the same backward through the plain versions, leaf by leaf
-    grads = {k: p.grad for k, p in model.named_parameters()}
-    model.zero_grad(set_to_none=True)
-    plain_loss = train.flow_loss(model, batch, noise, tt, dplan,
-                                 use_kernels=False)
-    plain_loss.backward()
-    leaf, num, den = {}, 0.0, 0.0
-    for k, p in model.named_parameters():
-        d = (grads[k].float() - p.grad.float()).norm().item()
-        n = p.grad.float().norm().item()
-        leaf[k] = d / n if n > 0 else (0.0 if d == 0 else float("inf"))
-        num, den = num + d * d, den + n * n
-    overall = (num / den) ** 0.5
-    order = sorted(leaf, key=leaf.get, reverse=True)
-    say(f"3B backward with the kernels against the plain versions, leaf by "
-        f"leaf: loss {loss.item():.6g} against {plain_loss.item():.6g}; "
-        f"relative L2 over every gradient {overall:.4g} (bound "
-        f"{BWD_3B_REL}), median leaf {leaf[order[len(order) // 2]]:.4g}, "
-        "worst leaves "
-        + ", ".join(f"{k} {leaf[k]:.4g}" for k in order[:4])
-        + f" (bound {BWD_LEAF_REL})")
-    if not (overall <= BWD_3B_REL and leaf[order[0]] <= BWD_LEAF_REL):
-        fail(f"3B backward: kernels against plain relative L2 {overall} "
-             f"overall (bound {BWD_3B_REL}), "
-             f"{[(k, leaf[k]) for k in order[:4]]} on the worst leaves "
-             f"(bound {BWD_LEAF_REL})")
-    model.zero_grad(set_to_none=True)
-    del loss, plain_loss, noise, tt, grads
+    one_loss = {}
+    for name, pl in plans.items():
+        reset_counts(wrappers)
+        loss = train.flow_loss(model, batch, noise, tt, pl)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+        missing = [k for k, p in model.named_parameters() if p.grad is None]
+        bad = [k for k, p in model.named_parameters()
+               if p.grad is not None and not torch.isfinite(p.grad).all()]
+        say(f"3B ({cfg.num_layers} blocks, width {cfg.vid_dim}, "
+            f"{n_params / 1e9:.3f} B parameters) one flow_loss backward on "
+            f"the {name} plan, latent {TRAIN_LATENT} x {TRAIN_BATCH} "
+            f"({plan.seq_len} tokens a row, {TXT_LEN} text): loss "
+            f"{loss.item():.6g}; {len(missing)} parameters without a "
+            f"gradient, {len(bad)} with non-finite values; launches "
+            f"{launched}")
+        if missing or bad or not torch.isfinite(loss):
+            fail(f"3B backward ({name} plan): no gradient for {missing[:4]}, "
+                 f"non-finite {bad[:4]}, loss {loss.item()}")
+        # the same backward through the plain versions, leaf by leaf
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        plain_loss = train.flow_loss(model, batch, noise, tt, pl,
+                                     use_kernels=False)
+        plain_loss.backward()
+        overall, leaf, order = leaf_errors(model, grads)
+        say(f"3B backward with the kernels against the plain versions on the "
+            f"{name} plan, leaf by leaf: loss {loss.item():.6g} against "
+            f"{plain_loss.item():.6g}; relative L2 over every gradient "
+            f"{overall:.4g} (bound {BWD_3B_REL}), median leaf "
+            f"{leaf[order[len(order) // 2]]:.4g}, worst leaves "
+            + ", ".join(f"{k} {leaf[k]:.4g}" for k in order[:4])
+            + f" (bound {BWD_LEAF_REL})")
+        if not (overall <= BWD_3B_REL and leaf[order[0]] <= BWD_LEAF_REL):
+            fail(f"3B backward ({name} plan): kernels against plain relative "
+                 f"L2 {overall} overall (bound {BWD_3B_REL}), "
+                 f"{[(k, leaf[k]) for k in order[:4]]} on the worst leaves "
+                 f"(bound {BWD_LEAF_REL})")
+        one_loss[name] = loss.item()
+        model.zero_grad(set_to_none=True)
+        del loss, plain_loss, grads
+    plan_rel = abs(one_loss["uniform"] - one_loss["grouped"]) / abs(
+        one_loss["grouped"])
+    say(f"3B loss on the uniform plan {one_loss['uniform']:.6g} against the "
+        f"grouped plan's {one_loss['grouped']:.6g} (same parameters and "
+        f"draws; relative {plan_rel:.3g}, bound {TRAIN_LOSS_REL}: the two "
+        "plans compute one function)")
+    if not plan_rel <= TRAIN_LOSS_REL:
+        fail(f"3B uniform plan's loss {one_loss['uniform']} against the "
+             f"grouped plan's {one_loss['grouped']}: {plan_rel}")
+    del noise, tt
 
-    # three steps with the kernels
-    init_state, step = train.make_train_step(cfg, dplan, None, device=device)
+    # TRAIN_STEPS steps on each plan with the kernels and with the plain
+    # versions, each run from the same start
+    init_state, _ = train.make_train_step(cfg, dplan, None, device=device)
     state = init_state(model)
-    host = {k: v.cpu() for k, v in state.params.items()}  # the plain run's
+    host = {k: v.cpu() for k, v in state.params.items()}  # the start
     del model
     torch.cuda.empty_cache()
     say(f"3B training state built in {time.perf_counter() - t0:.1f} s: "
         f"{torch.cuda.memory_allocated(device) / 2 ** 30:.2f} GiB on the card "
         "(fp32 parameters and both moments)")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    reset_counts(wrappers)
-    fa.packed_window_attention.launches_lse = 0
-    losses, secs = [], []
-    for i in range(TRAIN_STEPS):
-        t1 = time.perf_counter()
-        state, loss = step(state, batch, step_generator(torch, device, i))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t1)
-        losses.append(loss.item())
-    counts["train"] = read_counts(wrappers, TRAIN_KERNELS, "train")
-    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    mu = state.opt_state["mu"]
-    dead = [k for k, v in mu.items() if not v.abs().sum().item() > 0]
-    nonfinite = [k for k in state.params
-                 if not (torch.isfinite(state.params[k]).all()
-                         and torch.isfinite(mu[k]).all())]
-    per_step = {k: counts["train"][k] // TRAIN_STEPS for k in TRAIN_KERNELS}
-    lse_step = fa.packed_window_attention.launches_lse // TRAIN_STEPS
-    say(f"3B train steps with the kernels: losses {losses}; step seconds "
-        f"{[round(s, 3) for s in secs]} (PERF.md, the fp32-FMA backward: "
-        f"1.558 / 0.815 / 0.906); peak {peak:.2f} GiB allocated (PERF.md: "
-        f"54.94; reckoned "
-        f"{TRAIN_PEAK_GIB[0]}-{TRAIN_PEAK_GIB[1]} GiB); launches a step "
-        f"{per_step}, of K1 {lse_step} through its training (lse) launch; "
-        f"{len(dead)} parameters whose first moment stayed zero, "
-        f"{len(nonfinite)} non-finite")
-    if (dead or nonfinite or not all(np.isfinite(losses))
-            or lse_step != per_step["K1bwd_dq"]):
-        fail(f"3B train steps: zero moments {dead[:4]}, non-finite "
-             f"{nonfinite[:4]}, losses {losses}, K1 lse launches a step "
-             f"{lse_step} against {per_step['K1bwd_dq']} dq launches")
 
-    # the same steps with the plain versions, from the same start
-    for k, v in host.items():
-        state.params[k].copy_(v)
-        mu[k].zero_()
-        state.opt_state["nu"][k].zero_()
-    del host
-    _, plain_step = train.make_train_step(cfg, dplan, None, device=device,
-                                          use_kernels=False)
-    state = state._replace(step=0)
-    plain, plain_secs = [], []
-    for i in range(TRAIN_STEPS):
-        t1 = time.perf_counter()
-        state, loss = plain_step(state, batch,
-                                 step_generator(torch, device, i))
+    def run_steps(pl, use_kernels):
+        """TRAIN_STEPS steps on plan `pl` from the start: (state, losses,
+        step seconds, peak GiB)."""
+        nonlocal state
+        for k, v in host.items():
+            state.params[k].copy_(v)
+            state.opt_state["mu"][k].zero_()
+            state.opt_state["nu"][k].zero_()
+        state = state._replace(step=0)
+        _, step = train.make_train_step(cfg, pl, None, device=device,
+                                        use_kernels=use_kernels)
         torch.cuda.synchronize()
-        plain_secs.append(time.perf_counter() - t1)
-        plain.append(loss.item())
-    errs = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
-    say(f"3B train steps with the plain versions: losses {plain} (relative "
-        f"to the kernels' {[f'{e:.3g}' for e in errs]}, bound "
-        f"{TRAIN_LOSS_REL}); step seconds "
-        f"{[round(s, 3) for s in plain_secs]}")
-    if not max(errs) <= TRAIN_LOSS_REL:
-        fail(f"3B train steps: kernels vs plain losses {errs} beyond "
-             f"{TRAIN_LOSS_REL}")
-    del state, batch, dplan, mu
+        torch.cuda.reset_peak_memory_stats(device)
+        losses, secs = [], []
+        for i in range(TRAIN_STEPS):
+            t1 = time.perf_counter()
+            state, loss = step(state, batch, step_generator(torch, device, i))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            losses.append(loss.item())
+        return losses, secs, torch.cuda.max_memory_allocated(device) / 2 ** 30
+
+    per_step = {}
+    for name, path, needed, absent in (
+            ("grouped", "train", TRAIN_KERNELS, ("K9",) + tuple(
+                k for k in TRAIN_UNIFORM_KERNELS if k != "K9")),
+            ("uniform", "train_uniform", TRAIN_UNIFORM_KERNELS,
+             TRAIN_KERNELS)):
+        reset_counts(wrappers)
+        fa.packed_window_attention.launches_lse = 0
+        fa.flash_windowed_attention.launches_lse = 0
+        losses, secs, peak = run_steps(plans[name], True)
+        counts[path] = read_counts(wrappers, needed, path)
+        mu = state.opt_state["mu"]
+        dead = [k for k, v in mu.items() if not v.abs().sum().item() > 0]
+        nonfinite = [k for k in state.params
+                     if not (torch.isfinite(state.params[k]).all()
+                             and torch.isfinite(mu[k]).all())]
+        per_step[name] = {k: counts[path][k] // TRAIN_STEPS
+                          for k in needed + absent}
+        lse_step = (fa.packed_window_attention.launches_lse
+                    if name == "grouped" else
+                    fa.flash_windowed_attention.launches_lse) // TRAIN_STEPS
+        say(f"3B train steps on the {name} plan with the kernels: losses "
+            f"{losses}; step seconds {[round(x, 3) for x in secs]}; peak "
+            f"{peak:.2f} GiB allocated (reckoned "
+            f"{TRAIN_PEAK_GIB[0]}-{TRAIN_PEAK_GIB[1]} GiB); launches a step "
+            f"{per_step[name]}, of {needed[0]} {lse_step} through its "
+            f"training (lse) launch; {len(dead)} parameters whose first "
+            f"moment stayed zero, {len(nonfinite)} non-finite")
+        stray = [k for k in absent if per_step[name][k]]
+        dq_step = per_step[name][f"{needed[0]}bwd_dq"]
+        # the uniform plan: one K9 call and one of each backward part a
+        # layer
+        short = [k for k in needed if name == "uniform"
+                 and per_step[name][k] != cfg.num_layers]
+        if (dead or nonfinite or stray or short
+                or not all(np.isfinite(losses)) or lse_step != dq_step):
+            fail(f"3B train steps ({name} plan): zero moments {dead[:4]}, "
+                 f"non-finite {nonfinite[:4]}, losses {losses}, launched "
+                 f"{stray} of the other plan, {short} not once a layer, "
+                 f"{needed[0]} lse launches a step {lse_step} against "
+                 f"{dq_step} dq launches")
+        plain, plain_secs, _ = run_steps(plans[name], False)
+        errs = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+        say(f"3B train steps on the {name} plan with the plain versions: "
+            f"losses {plain} (relative to the kernels' "
+            f"{[f'{e:.3g}' for e in errs]}, bound {TRAIN_LOSS_REL}); step "
+            f"seconds {[round(x, 3) for x in plain_secs]}")
+        if not max(errs) <= TRAIN_LOSS_REL:
+            fail(f"3B train steps ({name} plan): kernels vs plain losses "
+                 f"{errs} beyond {TRAIN_LOSS_REL}")
+    del state, batch, dplan, plans, host
     torch.cuda.empty_cache()
     for key in TRAIN_KERNELS[2:]:
-        recs[key]["launches_per_step"] = per_step[key]
+        recs[key]["launches_per_step"] = per_step["grouped"][key]
+    for key in TRAIN_UNIFORM_KERNELS[1:]:
+        recs[key]["launches_per_step"] = per_step["uniform"][key]
     return recs
 
 
@@ -4888,7 +5187,10 @@ def kernel_wrappers():
             "K11": ic.int8_conv3d, "K12": fn.norm_silu_head,
             "K1bwd_dq": fa.attention_backward_dq,
             "K1bwd_dkdv": fa.attention_backward_dkdv,
-            "K1bwd_prepass": fa.prepass_backward, "K2bwd": gather.GatherRows}
+            "K1bwd_prepass": fa.prepass_backward, "K2bwd": gather.GatherRows,
+            "K9bwd_dq": fa.windowed_backward_dq,
+            "K9bwd_dkdv": fa.windowed_backward_dkdv,
+            "K9bwd_prepass": fa.windowed_rope_backward}
 
 
 def f32_wrappers():

@@ -1,4 +1,5 @@
-// Backward of the packed window attention (kernel K1's gradient).
+// Backward of the packed window attention (kernel K1's gradient) and of
+// the windowed attention (kernel K9's gradient).
 //
 // Replaces: no TPU kernel. The JAX package differentiates the jnp
 // composition behind `flash_packed_attention`
@@ -34,6 +35,25 @@
 // zero gradient. No float atomics anywhere, and every output tile is
 // written by one block: reruns are bit-identical.
 //
+// K9's gradient (the uniform window plan's windowed attention; the JAX
+// package differentiates the jnp composition behind `_fa_rope_mask_kernel`
+// (comfyui-seedvr2_tpu/ops/attention.py attention, table_ids branch) and
+// has no backward kernel): the same step with a MASKED flag, driven by
+// flash_windowed_attention_backward, which relaunches K9's pre-pass for
+// q-hat / k-hat and takes lse from K9's training launch. A window row b's
+// keys are those row ids[b] of the (nU, S) validity mask marks, in place of
+// kv_len; every q row is live (the rows the caller crops carry dO = 0).
+// (a) stages its row's validity as one 64-bit word a key tile and the list
+// of live tiles in shared memory behind a barrier, as K9's forward step
+// (stage_live_tiles), and walks only those tiles, masking a partly valid
+// one on the fp32 scores; (b) votes once whether its 64 keys hold a valid
+// key (a block of none writes zeros and exits) and gives masked keys P =
+// 0; (d) `rope_bwd_kernel` is K9's pre-pass backward: rot^T of dQ-hat *
+// scale and dK-hat * ln2 by the table ids[b] picks, into bf16 (the pre-pass
+// only ropes, with the plan's constant tables: no norm, no table
+// gradients). The conditionals of (a) and (b) stay outside the wgmma
+// pipelines, as K1's do.
+//
 // What bounds it on an H100: (a) and (b) are products, 6 and 8 * S *
 // kv_len * D flops per (b, h) (3 and 4 products of 2 * S * kv_len * D), on
 // the tensor cores at 989 TFLOP/s; at the 3B's windows (S <= 512, D = 128)
@@ -68,8 +88,12 @@
 // fp32-class accuracy (one bf16 P gives dV ~2.6e-3 relative L2). A host
 // plan (backward_plan) picks 1 or 2 consumer warpgroups a dq block so that
 // small groups (B = 2, S = 128) still spread over the SMs (1: two blocks an
-// SM). (c) is bound by bytes: qkv's q / k columns and the fp32 dQ-hat /
-// dK-hat read once, d qkv's q / k columns written once.
+// SM). (c) and (d) are bound by bytes: (c) reads qkv's q / k columns and
+// the fp32 dQ-hat / dK-hat once and writes d qkv's q / k columns once; (d)
+// reads dQ-hat / dK-hat (and one table row a row) once and writes bf16 dq /
+// dk once. (d) could run in (a)'s and (b)'s epilogues instead (a thread's
+// accumulator holds whole rotate-half pairs), saving the fp32 round trip;
+// it is a launch of its own so that each part is checked alone.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -113,9 +137,15 @@ __host__ __device__ constexpr uint32_t tile_bytes() {
 template <int D, int C>
 constexpr size_t dq_smem_bytes() {
   // q-hat and dO tiles (C each), the k-hat / v ring, delta rows, the
-  // barriers, 1024 bytes of alignment slack
+  // barriers, 1024 bytes of alignment slack (K9 adds its live-tile list,
+  // masked_list_bytes)
   return size_t(2 * C + 2 * stages<C>()) * tile_bytes<D>() + C * BN * 4 +
          (2 * stages<C>() + 1) * 8 + 1024;
+}
+
+// K9's key-tile words and live-tile list (stage_live_tiles) for S keys
+inline size_t masked_list_bytes(int S) {
+  return size_t((S + BN - 1) / BN) * 20 + 16;
 }
 
 constexpr int DKDV_STAGES = 3;  // depth of the dk/dv kernel's q-hat / dO ring
@@ -158,21 +188,25 @@ __device__ __forceinline__ void st_a(unsigned char* tile, int row, int c,
 
 // dS = P * (dP - delta) over one 64-key tile of the dq kernel, in place of
 // the scores: P = exp2(s - lse) for the rows g / g + 8 this thread holds
-// (lse and delta per row), 0 at keys past kv_len (the last tile's) and in
+// (lse and delta per row), 0 at keys past kv_len (the last tile's; MASKED:
+// at the keys whose bit in the tile's validity word `bits` is 0) and in
 // rows that get no gradient (at or past kv_len).
+template <bool MASKED>
 __device__ __forceinline__ void dq_ds(float (&sc)[BN / 2],
                                       const float (&dp)[BN / 2], int k0,
-                                      int kv_len, int t, const float (&lse)[2],
+                                      int kv_len, uint64_t bits, int t,
+                                      const float (&lse)[2],
                                       const float (&dl)[2],
                                       const bool (&live)[2]) {
-  const bool edge = k0 + BN > kv_len;
+  const bool edge = MASKED ? ~bits != 0 : k0 + BN > kv_len;
 #pragma unroll
   for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e / 2;
-      const int col = k0 + 8 * i + 2 * t + e % 2;
-      const bool on = live[r] && (!edge || col < kv_len);
+      const int c = 8 * i + 2 * t + e % 2;
+      const bool key = MASKED ? ((bits >> c) & 1) != 0 : k0 + c < kv_len;
+      const bool on = live[r] && (!edge || key);
       const float p = exp2f(sc[4 * i + e] - lse[r]);
       sc[4 * i + e] = on ? p * (dp[4 * i + e] - dl[r]) : 0.f;
     }
@@ -191,8 +225,13 @@ __device__ __forceinline__ void dq_ds(float (&sc)[BN / 2],
 // overlap comes from the SM's two warpgroups. delta
 // = rowsum(dO * O) is formed first and written for the dk/dv kernel, 0 at
 // or past kv_len. lse comes from K1's forward (its LSE launch). A block
-// wholly past kv_len writes zeros.
-template <int D, int C>
+// wholly past kv_len writes zeros. MASKED (K9's backward; kv_len == S,
+// every q row live): batch row b's keys are those row ids[b] of key_valid
+// ((nU, S) bytes) marks; the block stages that row's validity words and
+// live-tile list as K9's forward step does (stage_live_tiles), the
+// producer loads only the live tiles, and a partly valid tile is masked on
+// the fp32 scores.
+template <int D, int C, bool MASKED>
 __global__ void __launch_bounds__(C * 128 + 32, C == 1 ? 2 : 1)
 attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -201,7 +240,9 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __nv_bfloat16* __restrict__ out,
                    const __nv_bfloat16* __restrict__ dout,
                    const float* __restrict__ lse, float* __restrict__ dq,
-                   float* __restrict__ delta, int S, int H, int kv_len) {
+                   float* __restrict__ delta, int S, int H, int kv_len,
+                   const unsigned char* __restrict__ key_valid,
+                   const int* __restrict__ ids) {
   constexpr uint32_t TILE = tile_bytes<D>();
   constexpr int P = D / BOX;
   constexpr int ST = stages<C>();
@@ -229,6 +270,12 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t empty = full + 8 * ST;
   const uint32_t qbar = empty + 8 * ST;
   float* delta_s = reinterpret_cast<float*>(smem_raw + (s_delta - raw));
+  // MASKED: the key tiles' validity words, then the live tiles' words,
+  // indices and count (stage_live_tiles)
+  uint64_t* words = reinterpret_cast<uint64_t*>(smem_raw + (qbar + 8 - raw));
+  const int all_tiles = MASKED ? (S + BN - 1) / BN : 0;
+  const uint64_t* live_words = words + all_tiles;
+  const int* live_tiles = reinterpret_cast<const int*>(live_words + all_tiles);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -238,8 +285,11 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
-  const int n_tiles = (kv_len + BN - 1) / BN;
+  int n_tiles = (kv_len + BN - 1) / BN;
+  if constexpr (MASKED)
+    n_tiles = stage_live_tiles(words, key_valid + (long long)ids[b] * S, S);
+  else
+    __syncthreads();
   const int wg = threadIdx.x / 128;
   if (wg == C) {
     // producer: one thread keeps the ring full
@@ -254,13 +304,14 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % ST;
+        const int k0 = (MASKED ? live_tiles[j] : j) * BN;
         mbar_wait(empty + 8 * s, ((j / ST) & 1) ^ 1);
         mbar_expect_tx(full + 8 * s, 2 * TILE);
         for (int p = 0; p < P; ++p) {
           tma_load(sK + s * TILE + p * BOX_BYTES, &tm_k, full + 8 * s,
-                   h * D + p * BOX, j * BN, b);
+                   h * D + p * BOX, k0, b);
           tma_load(sV + s * TILE + p * BOX_BYTES, &tm_v, full + 8 * s,
-                   h * D + p * BOX, j * BN, b);
+                   h * D + p * BOX, k0, b);
         }
       }
     }
@@ -326,7 +377,8 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait<0>();
     reg_fence(sc);
     reg_fence(dp);
-    dq_ds(sc, dp, j * BN, kv_len, t, lse_r, dl, live);
+    dq_ds<MASKED>(sc, dp, (MASKED ? live_tiles[j] : j) * BN, kv_len,
+                  MASKED ? live_words[j] : 0, t, lse_r, dl, live);
     pack_p(pa, sc);
     issue_pv<D>(acc, pa, sK + s * TILE);
     wgmma_wait<0>();
@@ -426,7 +478,12 @@ __device__ __forceinline__ void issue_dk_dv(float (&dka)[BN / 2],
 // S^T and dP^T are issued before this tile's dK / dV products and formed
 // into the other set of A tiles while they run. dK-hat goes out fp32, dV
 // as bf16 into dv's rows. A block wholly past kv_len writes zeros.
-template <int D>
+// MASKED (K9's backward; kv_len == S, every q row live): the block's keys
+// are valid where row ids[b] of key_valid ((nU, S) bytes) marks them; a
+// block whose 64 keys hold no valid key writes zeros and exits (one
+// barrier's vote, before any mbarrier), and a masked key inside a live
+// block gets P = 0, so its dK-hat and dV rows stay zero.
+template <int D, bool MASKED>
 __global__ void __launch_bounds__((D / BOX) * 128 + 32, 1)
 attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -435,7 +492,9 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, long long dv_stride,
-                     int S, int H, int kv_len) {
+                     int S, int H, int kv_len,
+                     const unsigned char* __restrict__ key_valid,
+                     const int* __restrict__ ids) {
   constexpr uint32_t TILE = tile_bytes<D>();
   constexpr int W = D / BOX;  // consumer warpgroups, one a panel
   constexpr int HQ = BN / W;  // q rows of a tile whose S^T a group forms
@@ -445,7 +504,13 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int k0 = blockIdx.x * BN;
   const long long hd = (long long)H * D;
   const long long bh = ((long long)b * H + h) * S;
-  if (k0 >= kv_len) {  // keys that no row attends: zero gradient
+  const unsigned char* vrow =
+      MASKED ? key_valid + (long long)ids[b] * S : nullptr;
+  bool dead = k0 >= kv_len;  // keys that no row attends: zero gradient
+  if constexpr (MASKED)
+    dead = !__syncthreads_or(threadIdx.x < BN && k0 + int(threadIdx.x) < S &&
+                             vrow[k0 + threadIdx.x] != 0);
+  if (dead) {
     zero_rows<D>(dk, dv, dv_stride, b, S, H, h, k0, min(BN, S - k0));
     return;
   }
@@ -517,7 +582,12 @@ attn_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int g = lane / 4;
   const int t = lane % 4;
   const int r_lo = warp * 16 + g;
-  const bool live[2] = {k0 + r_lo < kv_len, k0 + r_lo + 8 < kv_len};
+  bool live[2];  // this thread's key rows r_lo, r_lo + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + r_lo + 8 * r;
+    live[r] = MASKED ? key < S && vrow[key] != 0 : key < kv_len;
+  }
   const uint32_t panel = wg * BOX_BYTES;
   const int c0 = wg * HQ;
 
@@ -697,6 +767,55 @@ prepass_bwd_kernel(const __nv_bfloat16* __restrict__ q_src,
   }
 }
 
+// (d) K9's pre-pass backward, the rope backward by window id: grid (ceil(B
+// * S / rows a block), 2); blockIdx.y picks the side (0: q, 1: k). D/8
+// threads own one (b, row) and 8 columns of every head; the row's table
+// values (table ids[b], picked as K9's pre-pass picks them) are read once
+// for its H heads. K9's pre-pass only ropes, with plan-constant tables, so
+// this is rot^T of the roped rows' gradient (dQ-hat times gq = scale, dK-hat
+// times gk = ln2) into bf16 (B, S, H, D): no norm, no table gradients.
+template <int D>
+__global__ void __launch_bounds__(PRE_THREADS)
+rope_bwd_kernel(const float* __restrict__ dq_acc,
+                const float* __restrict__ dk_acc,
+                const float* __restrict__ cos_t,
+                const float* __restrict__ sin_t, const int* __restrict__ ids,
+                __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+                int B, int S, int H, float gq, float gk) {
+  constexpr int TPR = D / 8;
+  const bool is_q = blockIdx.y == 0;
+  const float* acc = is_q ? dq_acc : dk_acc;
+  __nv_bfloat16* dst = is_q ? dq : dk;
+  const float gmul = is_q ? gq : gk;
+  const long long row = (long long)blockIdx.x * (PRE_THREADS / TPR) +
+                        threadIdx.x / TPR;
+  if (row >= (long long)B * S) return;
+  const int c = (threadIdx.x % TPR) * 8;
+  const long long t0 = ((long long)ids[row / S] * S + row % S) * D + c;
+  const float4* cp = reinterpret_cast<const float4*>(cos_t + t0);
+  const float4* sp = reinterpret_cast<const float4*>(sin_t + t0);
+  const float4 c0 = cp[0], c1 = cp[1], s0 = sp[0], s1 = sp[1];
+  const float cs[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  const float sn[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll 4
+  for (int h = 0; h < H; ++h) {
+    const long long off = (row * H + h) * (long long)D + c;
+    const float4* ap = reinterpret_cast<const float4*>(acc + off);
+    const float4 a0 = ap[0], a1 = ap[1];
+    const float g[8] = {a0.x * gmul, a0.y * gmul, a0.z * gmul, a0.w * gmul,
+                        a1.x * gmul, a1.y * gmul, a1.z * gmul, a1.w * gmul};
+    uint4 packed;
+    __nv_bfloat162* yp = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+    for (int e = 0; e < 8; e += 2)
+      // the forward: y[e] = x[e] cs[e] - x[e+1] sn[e],
+      // y[e+1] = x[e+1] cs[e+1] + x[e] sn[e+1]
+      yp[e / 2] = __floats2bfloat162_rn(g[e] * cs[e] + g[e + 1] * sn[e + 1],
+                                        g[e + 1] * cs[e + 1] - g[e] * sn[e]);
+    *reinterpret_cast<uint4*>(dst + off) = packed;
+  }
+}
+
 // out[i] = sum over b, in order, of partials[b * n + i]
 __global__ void __launch_bounds__(256)
 table_fold_kernel(const float* __restrict__ partials, float* __restrict__ out,
@@ -741,34 +860,63 @@ bool bwd_maps(CUtensorMap (&m)[4], const void* q_hat, const void* k_hat,
          rows_map(&m[3], dout, B, S, H, D, hd);
 }
 
-template <int D, int C>
+// MASKED: K9's keys (valid, ids), kv_len == S
+template <int D, int C, bool MASKED>
 cudaError_t launch_dq(const CUtensorMap (&m)[4], const void* out,
                       const void* dout, const void* lse, void* dq,
                       void* delta, int B, int S, int H, int kv_len, int blocks,
-                      cudaStream_t st) {
-  constexpr size_t smem = dq_smem_bytes<D, C>();
-  cudaError_t err = set_smem(attn_bwd_dq_kernel<D, C>, smem);
+                      const void* valid, const void* ids, cudaStream_t st) {
+  const size_t smem =
+      dq_smem_bytes<D, C>() + (MASKED ? masked_list_bytes(S) : 0);
+  cudaError_t err = set_smem(attn_bwd_dq_kernel<D, C, MASKED>, smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<D, C><<<dim3(blocks, H, B), C * 128 + 32, smem, st>>>(
-      m[0], m[1], m[2], m[3], static_cast<const __nv_bfloat16*>(out),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(dq), static_cast<float*>(delta), S, H, kv_len);
+  attn_bwd_dq_kernel<D, C, MASKED>
+      <<<dim3(blocks, H, B), C * 128 + 32, smem, st>>>(
+          m[0], m[1], m[2], m[3], static_cast<const __nv_bfloat16*>(out),
+          static_cast<const __nv_bfloat16*>(dout),
+          static_cast<const float*>(lse), static_cast<float*>(dq),
+          static_cast<float*>(delta), S, H, kv_len,
+          static_cast<const unsigned char*>(valid),
+          static_cast<const int*>(ids));
   return cudaGetLastError();
 }
 
-template <int D>
+template <bool MASKED>
+cudaError_t run_dq(const CUtensorMap (&m)[4], const void* out,
+                   const void* dout, const void* lse, void* dq, void* delta,
+                   int B, int S, int H, int D, int kv_len, int wg, int blocks,
+                   const void* valid, const void* ids, cudaStream_t st) {
+  if (D == 128)
+    return wg == 2 ? launch_dq<128, 2, MASKED>(m, out, dout, lse, dq, delta,
+                                               B, S, H, kv_len, blocks, valid,
+                                               ids, st)
+                   : launch_dq<128, 1, MASKED>(m, out, dout, lse, dq, delta,
+                                               B, S, H, kv_len, blocks, valid,
+                                               ids, st);
+  return wg == 2 ? launch_dq<64, 2, MASKED>(m, out, dout, lse, dq, delta, B,
+                                            S, H, kv_len, blocks, valid, ids,
+                                            st)
+                 : launch_dq<64, 1, MASKED>(m, out, dout, lse, dq, delta, B,
+                                            S, H, kv_len, blocks, valid, ids,
+                                            st);
+}
+
+template <int D, bool MASKED>
 cudaError_t launch_dkdv(const CUtensorMap (&m)[4], const void* lse,
                         const void* delta, void* dk, void* dv,
                         long long dv_stride, int B, int S, int H, int kv_len,
-                        int blocks, cudaStream_t st) {
+                        int blocks, const void* valid, const void* ids,
+                        cudaStream_t st) {
   constexpr size_t smem = dkdv_smem_bytes<D>();
-  cudaError_t err = set_smem(attn_bwd_dkdv_kernel<D>, smem);
+  cudaError_t err = set_smem(attn_bwd_dkdv_kernel<D, MASKED>, smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_dkdv_kernel<D><<<dim3(blocks, H, B), (D / BOX) * 128 + 32, smem,
-                            st>>>(
-      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<__nv_bfloat16*>(dv), dv_stride, S, H, kv_len);
+  attn_bwd_dkdv_kernel<D, MASKED>
+      <<<dim3(blocks, H, B), (D / BOX) * 128 + 32, smem, st>>>(
+          m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<float*>(dk),
+          static_cast<__nv_bfloat16*>(dv), dv_stride, S, H, kv_len,
+          static_cast<const unsigned char*>(valid),
+          static_cast<const int*>(ids));
   return cudaGetLastError();
 }
 
@@ -800,6 +948,22 @@ cudaError_t launch_prepass_bwd(const void* q_src, const void* k_src,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_rope_bwd(const void* dq_acc, const void* dk_acc,
+                            const void* cos, const void* sin, const void* ids,
+                            void* dq, void* dk, int B, int S, int H, float gq,
+                            float gk, cudaStream_t st) {
+  constexpr int ROWS = PRE_THREADS / (D / 8);
+  const long long total = (long long)B * S;
+  rope_bwd_kernel<D><<<dim3(unsigned((total + ROWS - 1) / ROWS), 2),
+                       PRE_THREADS, 0, st>>>(
+      static_cast<const float*>(dq_acc), static_cast<const float*>(dk_acc),
+      static_cast<const float*>(cos), static_cast<const float*>(sin),
+      static_cast<const int*>(ids), static_cast<__nv_bfloat16*>(dq),
+      static_cast<__nv_bfloat16*>(dk), B, S, H, gq, gk);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q_hat, k_hat (B, S, H, D) bf16 contiguous; v (B, S, H, D) bf16 rows at
@@ -822,15 +986,8 @@ extern "C" int seedvr2_attn_bwd_dq(const void* q_hat, const void* k_hat,
       !bwd_maps(m, q_hat, k_hat, v, v_stride, dout, B, S, H, D, kv_len,
                 wg * BN, blocks))
     return int(cudaErrorInvalidValue);
-  if (D == 128)
-    return int(wg == 2 ? launch_dq<128, 2>(m, out, dout, lse, dq, delta, B, S,
-                                           H, kv_len, blocks, st)
-                       : launch_dq<128, 1>(m, out, dout, lse, dq, delta, B, S,
-                                           H, kv_len, blocks, st));
-  return int(wg == 2 ? launch_dq<64, 2>(m, out, dout, lse, dq, delta, B, S, H,
-                                        kv_len, blocks, st)
-                     : launch_dq<64, 1>(m, out, dout, lse, dq, delta, B, S, H,
-                                        kv_len, blocks, st));
+  return int(run_dq<false>(m, out, dout, lse, dq, delta, B, S, H, D, kv_len,
+                           wg, blocks, nullptr, nullptr, st));
 }
 
 // As above; lse from K1's LSE launch, delta from seedvr2_attn_bwd_dq; dk
@@ -850,10 +1007,11 @@ extern "C" int seedvr2_attn_bwd_dkdv(const void* q_hat, const void* k_hat,
                 blocks))
     return int(cudaErrorInvalidValue);
   if (D == 128)
-    return int(launch_dkdv<128>(m, lse, delta, dk, dv, dv_stride, B, S, H,
-                                kv_len, blocks, st));
-  return int(launch_dkdv<64>(m, lse, delta, dk, dv, dv_stride, B, S, H,
-                             kv_len, blocks, st));
+    return int(launch_dkdv<128, false>(m, lse, delta, dk, dv, dv_stride, B, S,
+                                       H, kv_len, blocks, nullptr, nullptr,
+                                       st));
+  return int(launch_dkdv<64, false>(m, lse, delta, dk, dv, dv_stride, B, S, H,
+                                    kv_len, blocks, nullptr, nullptr, st));
 }
 
 // q_src / k_src: the q / k columns of the packed bf16 qkv (rows at
@@ -882,5 +1040,73 @@ extern "C" int seedvr2_prepass_bwd(const void* q_src, const void* k_src,
                                       cos_k, sin_k, dq_acc, dk_acc, dq_dst,
                                       dk_dst, dst_stride, partials,
                                       tables_out, B, S, H, eps, gq, gk, st));
+  return int(cudaErrorInvalidValue);
+}
+
+// K9's backward (the uniform window plan's windowed attention). q_hat,
+// k_hat, v, out, dout (B, S, H, D) bf16 contiguous (q-hat and k-hat from
+// K9's pre-pass); lse (B, H, S) fp32 from K9's training launch
+// (seedvr2_flash_attention_lse); valid (nU, S) bytes and ids (B,) int32 <
+// nU: batch row b's keys are those row ids[b] of valid marks, and every q
+// row is live (the caller's pad rows carry dO = 0). dq (B, S, H, D) fp32,
+// delta (B, H, S) fp32; wg and blocks from the host plan (backward_plan(B,
+// S, H, S)). Checked by the Python wrapper.
+extern "C" int seedvr2_win_bwd_dq(const void* q_hat, const void* k_hat,
+                                  const void* v, const void* out,
+                                  const void* dout, const void* lse,
+                                  const void* valid, const void* ids, void* dq,
+                                  void* delta, int B, int S, int H, int D,
+                                  int wg, int blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0 || S == 0) return int(cudaSuccess);
+  CUtensorMap m[4];
+  if ((wg != 1 && wg != 2) || valid == nullptr || ids == nullptr ||
+      !bwd_maps(m, q_hat, k_hat, v, (long long)H * D, dout, B, S, H, D, S,
+                wg * BN, blocks))
+    return int(cudaErrorInvalidValue);
+  return int(run_dq<true>(m, out, dout, lse, dq, delta, B, S, H, D, S, wg,
+                          blocks, valid, ids, st));
+}
+
+// As above; delta from seedvr2_win_bwd_dq; dk (B, S, H, D) fp32, dv (B, S,
+// H, D) bf16 contiguous; `blocks` blocks of 64 keys, D / 64 warpgroups
+// each; a block of no valid key writes zeros.
+extern "C" int seedvr2_win_bwd_dkdv(const void* q_hat, const void* k_hat,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    const void* valid, const void* ids,
+                                    void* dk, void* dv, int B, int S, int H,
+                                    int D, int blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0 || S == 0) return int(cudaSuccess);
+  const long long hd = (long long)H * D;
+  CUtensorMap m[4];
+  if (valid == nullptr || ids == nullptr ||
+      !bwd_maps(m, q_hat, k_hat, v, hd, dout, B, S, H, D, S, BN, blocks))
+    return int(cudaErrorInvalidValue);
+  if (D == 128)
+    return int(launch_dkdv<128, true>(m, lse, delta, dk, dv, hd, B, S, H, S,
+                                      blocks, valid, ids, st));
+  return int(launch_dkdv<64, true>(m, lse, delta, dk, dv, hd, B, S, H, S,
+                                   blocks, valid, ids, st));
+}
+
+// K9's pre-pass backward: dq_acc / dk_acc (B, S, H, D) fp32 from the two
+// kernels above, tables (nU, S, D) fp32 (the plan's), ids (B,) int32 < nU;
+// dq / dk (B, S, H, D) bf16 = rot^T(gq dq_acc), rot^T(gk dk_acc) by the
+// table ids[b] picks. Checked by the Python wrapper.
+extern "C" int seedvr2_win_rope_bwd(const void* dq_acc, const void* dk_acc,
+                                    const void* cos, const void* sin,
+                                    const void* ids, void* dq, void* dk,
+                                    int B, int S, int H, int D, float gq,
+                                    float gk, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0 || S == 0) return int(cudaSuccess);
+  if (D == 128)
+    return int(launch_rope_bwd<128>(dq_acc, dk_acc, cos, sin, ids, dq, dk, B,
+                                    S, H, gq, gk, st));
+  if (D == 64)
+    return int(launch_rope_bwd<64>(dq_acc, dk_acc, cos, sin, ids, dq, dk, B,
+                                   S, H, gq, gk, st));
   return int(cudaErrorInvalidValue);
 }

@@ -41,8 +41,9 @@ cudaError_t qk_prepass(int D, const PrepassSide& q, const PrepassSide& k,
 // bytes) and ids (B int32 < nU), batch row b's keys are those that row
 // ids[b] of key_valid marks instead (kv_len unused), and key tiles that hold
 // none of them are neither loaded nor multiplied. With lse ((B, H, S) fp32;
-// no key_valid, Sq == Sk == S), each row's log-sum-exp of its scores (exp2
-// domain) is written there too, by the kernel's LSE instantiation.
+// Sq == Sk == S; K1's and K9's training launches), each row's log-sum-exp
+// of its scores over its keys (exp2 domain) is written there too, by the
+// kernel's LSE instantiation.
 cudaError_t attention_sm90(const void* q, long long q_stride, const void* k,
                            long long k_stride, const void* v,
                            long long v_stride, void* out, int B, int Sq,

@@ -82,6 +82,44 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
   wgmma_commit();
 }
 
+// K9's key tiles (the MASKED forward step and the MASKED dq kernel of its
+// backward): stages a window's validity row `row` (Sk bytes, nonzero = a
+// valid key) as one 64-bit word a 64-key tile into words[0 .. n) (n =
+// ceil(Sk / 64); warp w takes tiles w, w + warps, ...: lane l's keys l
+// and l + 32), then, behind a barrier, thread 0 lists the tiles whose
+// word is not 0, in order: their words at words[n ..], their indices
+// (int) after those, their count after the indices. Every thread of the
+// block calls it; it ends with a barrier and returns the count, so the
+// producer and the consumers walk one list and their mbarrier phases
+// agree. words needs n * 20 + 4 bytes.
+__device__ __forceinline__ int stage_live_tiles(uint64_t* words,
+                                                const unsigned char* row,
+                                                int Sk) {
+  const int n = (Sk + BN - 1) / BN;
+  const int lane = threadIdx.x % 32;
+  for (int j = threadIdx.x / 32; j < n; j += blockDim.x / 32) {
+    const int c = j * BN + lane;
+    const uint32_t lo = __ballot_sync(0xffffffffu, c < Sk && row[c] != 0);
+    const uint32_t hi =
+        __ballot_sync(0xffffffffu, c + 32 < Sk && row[c + 32] != 0);
+    if (lane == 0) words[j] = lo | (uint64_t(hi) << 32);
+  }
+  __syncthreads();
+  uint64_t* live_words = words + n;
+  int* live_tiles = reinterpret_cast<int*>(live_words + n);
+  if (threadIdx.x == 0) {
+    int m = 0;
+    for (int j = 0; j < n; ++j)
+      if (words[j] != 0) {
+        live_words[m] = words[j];
+        live_tiles[m++] = j;
+      }
+    live_tiles[n] = m;
+  }
+  __syncthreads();
+  return live_tiles[n];
+}
+
 // A 64 x 64 accumulator rounded to bf16 as the register A fragments of
 // four 16-deep steps.
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[BN / 16][4],

@@ -38,7 +38,10 @@
 // ms at the 720p clip's shifted layer, 32 windows of S=463 H=20, on that
 // card, 0.11 of it the pre-pass; SDPA 0.43 ms). The TMA's zero fill past a
 // batch row's last row replaces zero rows written by hand, and its clipped
-// stores keep rows past Sq unwritten.
+// stores keep rows past Sq unwritten. K9's training launch
+// (`seedvr2_flash_attention_lse`) is the same call through the step's LSE
+// instantiation, which also stores each row's log-sum-exp for K9's
+// backward (attention_backward.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,22 +53,22 @@
 // Sq may differ from Sk), keys < kv_len. K9 otherwise: cos/sin (nU, Sk, D)
 // with table_rows == Sk, valid (nU, Sk) bytes, ids (B,) int32 < nU, Sq ==
 // Sk, kv_len unused. With a table, scratch holds (2, B, S, H, D) bf16 for
-// q-hat and k-hat. Shapes, types, alignment and the ids' range are
-// validated by the Python wrappers (seedvr2_tpu_torch/ops/flash_attention.py).
-extern "C" int seedvr2_flash_attention(const void* q, const void* k,
-                                       const void* v, const void* cos,
-                                       const void* sin, const void* valid,
-                                       const void* ids, void* scratch,
-                                       void* out, int B, int Sq, int Sk,
-                                       int H, int D, int kv_len,
-                                       int table_rows, float qscale,
-                                       void* stream) {
+// q-hat and k-hat. With lse ((B, H, S) fp32; K9's training launch), each
+// row's log-sum-exp of its scores is stored too. Shapes, types, alignment
+// and the ids' range are validated by the Python wrappers
+// (seedvr2_tpu_torch/ops/flash_attention.py).
+static int flash_attention(const void* q, const void* k, const void* v,
+                           const void* cos, const void* sin,
+                           const void* valid, const void* ids, void* scratch,
+                           void* out, float* lse, int B, int Sq, int Sk, int H,
+                           int D, int kv_len, int table_rows, float qscale,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0) return int(cudaSuccess);
   const long long hd = (long long)H * D;
   const int* id = static_cast<const int*>(ids);
   if (cos == nullptr) {
-    if (id != nullptr) return int(cudaErrorInvalidValue);
+    if (id != nullptr || lse != nullptr) return int(cudaErrorInvalidValue);
     return int(seedvr2::attention_sm90(q, hd, k, hd, v, hd, out, B, Sq, Sk, H,
                                        D, kv_len, qscale, st));
   }
@@ -81,6 +84,39 @@ extern "C" int seedvr2_flash_attention(const void* q, const void* k,
   if (err != cudaSuccess) return int(err);
   return int(seedvr2::attention_sm90(
       q_hat, hd, k_hat, hd, v, hd, out, B, Sq, Sk, H, D, kv_len, 1.f, st,
-      static_cast<const unsigned char*>(id != nullptr ? valid : nullptr),
-      id));
+      static_cast<const unsigned char*>(id != nullptr ? valid : nullptr), id,
+      lse));
+}
+
+extern "C" int seedvr2_flash_attention(const void* q, const void* k,
+                                       const void* v, const void* cos,
+                                       const void* sin, const void* valid,
+                                       const void* ids, void* scratch,
+                                       void* out, int B, int Sq, int Sk,
+                                       int H, int D, int kv_len,
+                                       int table_rows, float qscale,
+                                       void* stream) {
+  return flash_attention(q, k, v, cos, sin, valid, ids, scratch, out, nullptr,
+                         B, Sq, Sk, H, D, kv_len, table_rows, qscale, stream);
+}
+
+// K9's training launch: as seedvr2_flash_attention's K9 (every argument
+// given, S = Sq = Sk), and each row's log-sum-exp (exp2 domain of the
+// pre-pass output's scores, over the keys its window id marks) into lse
+// ((B, H, S) fp32, every row written): the lse that the dq and dk/dv
+// kernels of K9's backward (attention_backward.cu) read. Its output is
+// bit-equal to the serving launch's.
+extern "C" int seedvr2_flash_attention_lse(const void* q, const void* k,
+                                           const void* v, const void* cos,
+                                           const void* sin, const void* valid,
+                                           const void* ids, void* scratch,
+                                           void* out, void* lse, int B, int S,
+                                           int H, int D, float qscale,
+                                           void* stream) {
+  if (cos == nullptr || sin == nullptr || valid == nullptr || ids == nullptr ||
+      lse == nullptr)
+    return int(cudaErrorInvalidValue);
+  return flash_attention(q, k, v, cos, sin, valid, ids, scratch, out,
+                         static_cast<float*>(lse), B, S, S, H, D, S, S, qscale,
+                         stream);
 }

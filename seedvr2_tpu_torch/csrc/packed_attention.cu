@@ -46,10 +46,11 @@
 //     so v is never transposed by hand (the tile products are in
 //     attention_step.cuh, which K1's backward shares). Key tiles wholly
 //     past kv_len are never loaded; the partial one is masked on the fp32
-//     scores. K1's training launch (`seedvr2_packed_attention_lse`, the
-//     template flag LSE) also stores each row's m + log2(l), the lse the
+//     scores. K1's and K9's training launches
+//     (`seedvr2_packed_attention_lse`, `seedvr2_flash_attention_lse`, the
+//     template flag LSE) also store each row's m + log2(l), the lse the
 //     backward's dq and dk/dv kernels read (attention_backward.cu); the
-//     serving launches, K8 and K9 instantiate LSE = false. K9's
+//     serving launches instantiate LSE = false. K9's
 //     variant (template flag MASKED) takes its keys from a per-window
 //     validity row picked by ids[b]: the block stages it as one 64-bit word
 //     a key tile and walks only the tiles that hold a valid key, masking a
@@ -278,18 +279,20 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2],
 // 8-column blocks of the score tile are the register A fragment of one
 // 16-key step of P v.
 //
-// LSE (K1's training launch): each row's log-sum-exp of its scores, m +
-// log2(l) in the exp2 domain, is also written into lse_out ((B, H, Sk) fp32,
-// Sq == Sk) for every row below Sk; the serving launches instantiate
-// LSE = false and never touch lse_out.
+// LSE (K1's and K9's training launches): each row's log-sum-exp of its
+// scores, m + log2(l) in the exp2 domain, is also written into lse_out
+// ((B, H, Sk) fp32, Sq == Sk) for every row below Sk; the serving launches
+// instantiate LSE = false and never touch lse_out. The output of either
+// instantiation is the same arithmetic, so a training launch's output is
+// bit-equal to the serving launch's.
 //
 // MASKED (K9): batch row b's keys are those that row ids[b] of key_valid
 // ((nU, Sk) bytes) marks. The block first stages that row as one 64-bit
 // validity word a key tile, then the list of the tiles whose word is not 0,
-// both in shared memory behind a barrier: the producer and both consumer
-// warpgroups walk that one list, so their mbarrier phases agree, and a tile
-// with no valid key is never loaded or multiplied (each of its keys would
-// add exp2(-inf) = 0).
+// both in shared memory behind a barrier (attention_step.cuh
+// stage_live_tiles): the producer and both consumer warpgroups walk that
+// one list, so their mbarrier phases agree, and a tile with no valid key is
+// never loaded or multiplied (each of its keys would add exp2(-inf) = 0).
 template <int D, bool MASKED, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 attention_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -330,35 +333,11 @@ attention_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if constexpr (MASKED) {
-    // warp w stages tiles w, w + 9, ...: lane l's keys l and l + 32
-    const unsigned char* row = key_valid + (long long)ids[b] * Sk;
-    const int lane = threadIdx.x % 32;
-    for (int j = threadIdx.x / 32; j < all_tiles; j += THREADS / 32) {
-      const int c = j * BN + lane;
-      const uint32_t lo = __ballot_sync(0xffffffffu, c < Sk && row[c] != 0);
-      const uint32_t hi =
-          __ballot_sync(0xffffffffu, c + 32 < Sk && row[c + 32] != 0);
-      if (lane == 0) words[j] = lo | (uint64_t(hi) << 32);
-    }
-  }
-  __syncthreads();
   int n_tiles = (kv_len + BN - 1) / BN;  // tiles past kv_len skipped
-  if constexpr (MASKED) {
-    if (threadIdx.x == 0) {
-      uint64_t* lw = words + all_tiles;
-      int* lt = reinterpret_cast<int*>(lw + all_tiles);
-      int n = 0;
-      for (int j = 0; j < all_tiles; ++j)
-        if (words[j] != 0) {
-          lw[n] = words[j];
-          lt[n++] = j;
-        }
-      lt[all_tiles] = n;
-    }
+  if constexpr (MASKED)
+    n_tiles = stage_live_tiles(words, key_valid + (long long)ids[b] * Sk, Sk);
+  else
     __syncthreads();
-    n_tiles = lds32(live_tiles + 4 * all_tiles);
-  }
 
   const int wg = threadIdx.x / 128;
   if (wg == CONSUMERS) {
@@ -538,7 +517,7 @@ cudaError_t attention_sm90(const void* q, long long q_stride, const void* k,
   const bool masked = key_valid != nullptr;
   if ((D != 64 && D != 128) || (masked && ids == nullptr) ||
       (!masked && (kv_len < 1 || kv_len > Sk)) ||
-      (lse != nullptr && (masked || Sq != Sk)))
+      (lse != nullptr && Sq != Sk))
     return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, to;
   if (!make_map(&tq, q, B, Sq, H, D, q_stride) ||
@@ -546,7 +525,14 @@ cudaError_t attention_sm90(const void* q, long long q_stride, const void* k,
       !make_map(&tv, v, B, Sk, H, D, v_stride) ||
       !make_map(&to, out, B, Sq, H, D, (long long)H * D))
     return cudaErrorInvalidValue;
-  if (lse != nullptr)
+  if (lse != nullptr && masked)  // K9's training launch
+    return D == 128 ? launch_attention<128, true, true>(
+                          tq, tk, tv, to, B, Sq, Sk, H, kv_len, score_scale,
+                          key_valid, ids, stream, lse)
+                    : launch_attention<64, true, true>(
+                          tq, tk, tv, to, B, Sq, Sk, H, kv_len, score_scale,
+                          key_valid, ids, stream, lse);
+  if (lse != nullptr)  // K1's training launch
     return D == 128 ? launch_attention<128, false, true>(
                           tq, tk, tv, to, B, Sq, Sk, H, kv_len, score_scale,
                           nullptr, nullptr, stream, lse)

@@ -28,12 +28,16 @@ quantization (kernel K4, `_norm_mod`), the swiglu's silu*up with it (K5,
 (`ops.quant_matmul`, `core.loader`) the Q8_0 linears run K6 and the affine
 ones K7; their producers stay plain, as in the JAX package.
 
-Training (parallel/train.py) runs the grouped plan's forward with grad on:
-K1 and K2 then go through their autograd Functions
+Training (parallel/train.py) runs either plan's forward with grad on. On
+the grouped plan K1 and K2 go through their autograd Functions
 (`ops.flash_attention.packed_window_attention_grad`,
 `ops.gather.gather_rows_grad`), whose backward is hand-written too; the
 qk-norm weights reach K1 only through the folded tables, whose gradients
-K1's backward returns.
+K1's backward returns. On the uniform plan K9 goes through its Function
+(`ops.flash_attention.flash_windowed_attention_grad`, reached through
+ops.attention.attention): its backward returns dq, dk and dv, the qk-norms
+and the text rope having run as plain torch ops before the windows are
+cut, and the per-window rope tables being plan constants.
 
 Tensor parallelism (parallel/tp.py): after `tp_shard_dit` a rank holds its
 heads' slice of every qkv / proj_out and its hidden columns of every mlp;

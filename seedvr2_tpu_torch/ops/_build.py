@@ -45,6 +45,17 @@ _SIGNATURES = {
     # q, k, v, cos, sin, valid, ids, scratch, out, B, Sq, Sk, H, D, kv_len,
     # table_rows, qscale, stream
     "seedvr2_flash_attention": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # q, k, v, cos, sin, valid, ids, scratch, out, lse, B, S, H, D, qscale,
+    # stream
+    "seedvr2_flash_attention_lse": [_P] * 10 + [_I] * 4 + [_F, _P],
+    # q_hat, k_hat, v, out, dout, lse, valid, ids, dq, delta, B, S, H, D,
+    # wg, blocks, stream
+    "seedvr2_win_bwd_dq": [_P] * 10 + [_I] * 6 + [_P],
+    # q_hat, k_hat, v, dout, lse, delta, valid, ids, dk, dv, B, S, H, D,
+    # blocks, stream
+    "seedvr2_win_bwd_dkdv": [_P] * 10 + [_I] * 5 + [_P],
+    # dq_acc, dk_acc, cos, sin, ids, dq, dk, B, S, H, D, gq, gk, stream
+    "seedvr2_win_rope_bwd": [_P] * 7 + [_I] * 4 + [_F, _F, _P],
     # q_hat, k_hat, v, v_stride, out, dout, lse, dq, delta, B, S, H, D,
     # kv_len, wg, blocks, stream
     "seedvr2_attn_bwd_dq": [_P, _P, _P, _L] + [_P] * 5 + [_I] * 7 + [_P],

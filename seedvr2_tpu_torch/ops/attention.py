@@ -5,8 +5,10 @@
    fp32-accumulated p@v rounded to q's dtype. The plain versions of the
    attention kernels (K1, K8, K9) are built on it.
  - `attention`: the dispatcher of the uniform window plan (table_ids given:
-   kernel K9) and of dense attention (kernel K8); the grouped plan calls K1
-   directly (ops.flash_attention.packed_window_attention).
+   kernel K9, through `flash_windowed_attention_grad`, which carries K9's
+   hand-written gradient when q, k or v needs one) and of dense attention
+   (kernel K8); the grouped plan calls K1 directly
+   (ops.flash_attention.packed_window_attention_grad).
 
 The attention mode (the CLI's --attention_mode, JAX's set_attention_mode
 without its process-wide global: the runner holds the mode and hands it to
@@ -157,7 +159,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                kv_valid, kv_len)
 
     if table_ids is not None:
-        fn = (fa.flash_windowed_attention if use_kernels
+        fn = (fa.flash_windowed_attention_grad if use_kernels
               else fa.flash_windowed_attention_plain)
         return fn(q, k, v, scale, rope_cos, rope_sin, table_ids, kv_valid)
     fn = fa.flash_attention if use_kernels else fa.flash_attention_plain

@@ -52,6 +52,23 @@ taken as zero, so every row at or past kv_len gets zero gradient. No float
 atomics and one block per output tile: reruns are bit-identical. The raw
 wrappers refuse an input that needs a gradient while grad mode is on
 (their outputs have no autograd history).
+
+K9's gradient (`flash_windowed_attention_grad`, the `WindowedAttention`
+autograd Function; the uniform window plan's training path; the JAX
+package differentiates its jnp composition and has no backward kernel):
+the forward launches K9's training launch (`flash_windowed_attention_lse`,
+the step's MASKED LSE instantiation; plainly
+`flash_windowed_attention_lse_plain`) and saves q, k, v, the output and
+the lse; the backward (`flash_windowed_attention_backward`) relaunches
+K9's pre-pass, then three parts, each with its plain version: K1's dq and
+dk/dv kernels in their MASKED variant (`windowed_backward_dq`,
+`windowed_backward_dkdv`: each window row's keys from the validity row its
+id picks, dq walking only the live key tiles, a dk/dv block of no valid
+key writing zeros; every q row counts, the rows the caller crops arriving
+with dO = 0) and the rope backward by window id (`windowed_rope_backward`:
+K9's pre-pass only ropes, with plan-constant tables, so no norm and no
+table gradients). The same guarantees as K1's: no float atomics, reruns
+bit-identical.
 """
 
 from typing import NamedTuple, Optional
@@ -276,16 +293,37 @@ def _check_k1(qkv: torch.Tensor, heads: int, d: int, tables,
     _check_aligned("packed attention", qkv)
 
 
+def _first_keys(kv_len: int, s: int, device) -> torch.Tensor:
+    """(1, S) bool: the keys below kv_len (K1's)."""
+    return (torch.arange(s, device=device) < kv_len)[None]
+
+
+def _window_keys(kv_valid: torch.Tensor, table_ids: RowIndex,
+                 device) -> torch.Tensor:
+    """(B, S) bool: each window row's keys, the validity row its id picks
+    (K9's)."""
+    return kv_valid.to(device)[table_ids.tensor.to(device).long()].bool()
+
+
+def _lse_plain(q_hat: torch.Tensor, k_hat: torch.Tensor,
+               keep: torch.Tensor) -> torch.Tensor:
+    """Each row's log-sum-exp of its scores q_hat . k_hat over the keys
+    `keep` (B or 1, S) marks, in the log2 domain (q_hat carries
+    scale*log2e): (B, S, H, D) q_hat and k_hat -> (B, H, S) fp32."""
+    sc = torch.einsum("bqhd,bkhd->bhqk", q_hat.float(), k_hat.float())
+    sc = sc.masked_fill(~keep[:, None, None, :], float("-inf"))
+    m = sc.amax(dim=-1, keepdim=True)
+    lse = m + torch.log2(torch.exp2(sc - m).sum(dim=-1, keepdim=True))
+    return lse[..., 0].contiguous()
+
+
 def attention_lse_plain(q_hat: torch.Tensor, k_hat: torch.Tensor,
                         kv_len: int) -> torch.Tensor:
     """Each row's log-sum-exp of its scores q_hat . k_hat over the keys
     below kv_len, in the log2 domain (q_hat carries scale*log2e): (B, S, H,
     D) q_hat and k_hat -> (B, H, S) fp32."""
-    sc = torch.einsum("bqhd,bkhd->bhqk", q_hat.float(), k_hat.float())
-    sc[..., kv_len:] = float("-inf")
-    m = sc.amax(dim=-1, keepdim=True)
-    lse = m + torch.log2(torch.exp2(sc - m).sum(dim=-1, keepdim=True))
-    return lse[..., 0].contiguous()
+    return _lse_plain(q_hat, k_hat,
+                      _first_keys(kv_len, q_hat.shape[1], q_hat.device))
 
 
 def packed_window_attention_lse_plain(qkv: torch.Tensor, heads: int, d: int,
@@ -351,6 +389,38 @@ def _masked_dout(dout: torch.Tensor, b: int, s: int, h: int, d: int,
     return do
 
 
+def _dq_plain(q_hat, k_hat, v, out, do, lse, keep):
+    """dq_acc = sum_j dS_ij k_hat_j (fp32 (B, S, H, D)) and delta =
+    rowsum(dO * O) ((B, H, S) fp32) from fp32 dO (B, S, H, D), P_ij =
+    exp2(q_hat_i . k_hat_j - lse_i) over the keys `keep` (B or 1, S)
+    marks, dS = P * (dO v^T - delta)."""
+    b, s, h, d = q_hat.shape
+    q, k, vv = q_hat.float(), k_hat.float(), v.float()
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    p = torch.exp2(sc - lse.float()[..., None])
+    p = p.masked_fill(~keep[:, None, None, :], 0.0)
+    delta = (do * out.float().reshape(b, s, h, d)).sum(-1).transpose(1, 2)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vv)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    return dq, delta.contiguous()
+
+
+def _dkdv_plain(q_hat, k_hat, v, do, lse, delta, keep):
+    """dk_acc = sum_i dS_ij q_hat_i (fp32 (B, S, H, D)) and dv = sum_i P_ij
+    dO_i (v's dtype), as _dq_plain's P and dS; keys `keep` leaves out get
+    zero."""
+    q, k, vv = q_hat.float(), k_hat.float(), v.float()
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    p = torch.exp2(sc - lse.float()[..., None])
+    p = p.masked_fill(~keep[:, None, None, :], 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vv)
+    ds = p * (dp - delta[..., None])
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    return dk, dv.to(v.dtype)
+
+
 def attention_backward_dq_plain(q_hat: torch.Tensor, k_hat: torch.Tensor,
                                 v: torch.Tensor, out: torch.Tensor,
                                 dout: torch.Tensor, lse: torch.Tensor,
@@ -364,16 +434,9 @@ def attention_backward_dq_plain(q_hat: torch.Tensor, k_hat: torch.Tensor,
     exp2(q_hat_i . k_hat_j - lse_i) over the keys below kv_len and dS =
     P * (dO v^T - delta); dO rows at or past kv_len count as zero."""
     b, s, h, d = q_hat.shape
-    q, k, vv = q_hat.float(), k_hat.float(), v.float()
-    do = _masked_dout(dout, b, s, h, d, kv_len)
-    sc = torch.einsum("bqhd,bkhd->bhqk", q, k)
-    p = torch.exp2(sc - lse.float()[..., None])
-    p[..., kv_len:] = 0.0
-    delta = (do * out.float().reshape(b, s, h, d)).sum(-1).transpose(1, 2)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do, vv)
-    ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
-    return dq, delta.contiguous()
+    return _dq_plain(q_hat, k_hat, v, out,
+                     _masked_dout(dout, b, s, h, d, kv_len), lse,
+                     _first_keys(kv_len, s, q_hat.device))
 
 
 def attention_backward_dkdv_plain(q_hat: torch.Tensor, k_hat: torch.Tensor,
@@ -385,16 +448,9 @@ def attention_backward_dkdv_plain(q_hat: torch.Tensor, k_hat: torch.Tensor,
     (dk_acc = sum_i dS_ij q_hat_i as fp32 (B, S, H, D), dv = sum_i P_ij dO_i
     (B, S, H, D) in v's dtype); keys at or past kv_len get zero."""
     b, s, h, d = q_hat.shape
-    q, k, vv = q_hat.float(), k_hat.float(), v.float()
-    do = _masked_dout(dout, b, s, h, d, kv_len)
-    sc = torch.einsum("bqhd,bkhd->bhqk", q, k)
-    p = torch.exp2(sc - lse[..., None])
-    p[..., kv_len:] = 0.0
-    dp = torch.einsum("bqhd,bkhd->bhqk", do, vv)
-    ds = p * (dp - delta[..., None])
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
-    return dk, dv.to(v.dtype)
+    return _dkdv_plain(q_hat, k_hat, v,
+                       _masked_dout(dout, b, s, h, d, kv_len), lse, delta,
+                       _first_keys(kv_len, s, q_hat.device))
 
 
 def prepass_backward_plain(q: torch.Tensor, k: torch.Tensor,
@@ -784,6 +840,43 @@ def _qscale(scale: Optional[float], d: int) -> float:
     return float(((d ** -0.5) if scale is None else scale) * _LOG2E)
 
 
+def _check_windowed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+                    table_ids: RowIndex, kv_valid: torch.Tensor):
+    """K9's shapes, on every device: q, k, v (B, S, H, D), (nU, S, D)
+    tables, an (nU, S) mask and B ids < nU. Returns (B, S, H, D)."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("windowed attention is self-attention over "
+                         f"(B, S, H, D): q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    b, s, h, d = q.shape
+    n_u = rope_cos.shape[0]
+    if (rope_cos.shape != (n_u, s, d) or rope_sin.shape != rope_cos.shape
+            or kv_valid.shape != (n_u, s) or len(table_ids) != b
+            or table_ids.hi >= n_u):
+        raise ValueError(f"windowed attention: tables {tuple(rope_cos.shape)}"
+                         f" / {tuple(rope_sin.shape)}, mask "
+                         f"{tuple(kv_valid.shape)} and {len(table_ids)} ids "
+                         f"up to {table_ids.hi} do not fit {b} rows of "
+                         f"({s}, {h}, {d})")
+    return b, s, h, d
+
+
+def _check_k9(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+              table_ids: RowIndex, kv_valid: torch.Tensor) -> None:
+    """What K9's kernels take: contiguous bf16 operands, fp32 tables, a
+    bool mask and int32 ids, all on one CUDA device, D in (64, 128)."""
+    _check_cuda_operands(name, q, k, v)
+    for t, dt in ((rope_cos, torch.float32), (rope_sin, torch.float32),
+                  (kv_valid, torch.bool), (table_ids.tensor, torch.int32)):
+        if t.dtype != dt or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} kernel: tables, mask and ids must be "
+                             f"contiguous {dt} on {q.device}, got {t.dtype} "
+                             f"on {t.device}")
+    _check_aligned(name, rope_cos, rope_sin)
+
+
 def flash_windowed_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, scale: Optional[float],
                              rope_cos: torch.Tensor, rope_sin: torch.Tensor,
@@ -799,32 +892,17 @@ def flash_windowed_attention(q: torch.Tensor, k: torch.Tensor,
     pre-pass with the windows' tables, then the attention step over each
     window's live key tiles), or raise on what it does not take: contiguous
     bf16 q/k/v and fp32 tables, a bool mask, ids on the same device, D in
-    (64, 128)."""
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("windowed attention is self-attention over "
-                         f"(B, S, H, D): q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    b, s, h, d = q.shape
-    n_u = rope_cos.shape[0]
-    if (rope_cos.shape != (n_u, s, d) or rope_sin.shape != rope_cos.shape
-            or kv_valid.shape != (n_u, s) or len(table_ids) != b
-            or table_ids.hi >= n_u):
-        raise ValueError(f"windowed attention: tables {tuple(rope_cos.shape)}"
-                         f" / {tuple(rope_sin.shape)}, mask "
-                         f"{tuple(kv_valid.shape)} and {len(table_ids)} ids "
-                         f"up to {table_ids.hi} do not fit {b} rows of "
-                         f"({s}, {h}, {d})")
+    (64, 128). Inputs that need a gradient while grad mode is on are
+    refused on every device: `flash_windowed_attention_grad` carries
+    one."""
+    _build.refuse_grad("windowed attention", q, k, v, rope_cos, rope_sin)
+    b, s, h, d = _check_windowed(q, k, v, rope_cos, rope_sin, table_ids,
+                                 kv_valid)
     if q.device.type == "cpu":
         return flash_windowed_attention_plain(q, k, v, scale, rope_cos,
                                               rope_sin, table_ids, kv_valid)
-    _check_cuda_operands("flash_windowed_attention", q, k, v)
-    for t, dt in ((rope_cos, torch.float32), (rope_sin, torch.float32),
-                  (kv_valid, torch.bool), (table_ids.tensor, torch.int32)):
-        if t.dtype != dt or not t.is_contiguous() or t.device != q.device:
-            raise ValueError("flash_windowed_attention kernel: tables, mask "
-                             f"and ids must be contiguous {dt} on {q.device}, "
-                             f"got {t.dtype} on {t.device}")
-    _check_aligned("flash_windowed_attention", rope_cos, rope_sin)
+    _check_k9("flash_windowed_attention", q, k, v, rope_cos, rope_sin,
+              table_ids, kv_valid)
     # q-hat and k-hat: each window roped by its table (q times
     # scale*log2e), bf16
     scratch = torch.empty((2, b, s, h, d), dtype=q.dtype, device=q.device)
@@ -840,6 +918,354 @@ def flash_windowed_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_windowed_attention.launches = 0
+flash_windowed_attention.launches_lse = 0
+
+
+def flash_windowed_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                                       v: torch.Tensor,
+                                       scale: Optional[float],
+                                       rope_cos: torch.Tensor,
+                                       rope_sin: torch.Tensor,
+                                       table_ids: RowIndex,
+                                       kv_valid: torch.Tensor):
+    """Plain version of K9's training launch: (flash_windowed_attention_plain
+    (...), lse), lse (B, H, S) fp32 the log2-domain log-sum-exp of each
+    row's scores over its window's valid keys, from q and k roped by the
+    window's table (q times scale*log2e), each rounded to q's dtype as K9's
+    pre-pass rounds q-hat and k-hat."""
+    ids = table_ids.tensor.to(q.device)
+    q_hat = norm_rope_plain(q, rope_cos, rope_sin, None,
+                            _qscale(scale, q.shape[-1]), ids)
+    k_hat = norm_rope_plain(k, rope_cos, rope_sin, ids=ids)
+    out = flash_windowed_attention_plain(q, k, v, scale, rope_cos, rope_sin,
+                                         table_ids, kv_valid)
+    return out, _lse_plain(q_hat, k_hat,
+                           _window_keys(kv_valid, table_ids, q.device))
+
+
+def flash_windowed_attention_lse(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, scale: Optional[float],
+                                 rope_cos: torch.Tensor,
+                                 rope_sin: torch.Tensor, table_ids: RowIndex,
+                                 kv_valid: torch.Tensor):
+    """K9's training launch: (out, lse) with out as flash_windowed_attention
+    and lse (B, H, S) fp32 each row's log-sum-exp of its scores over its
+    window's valid keys (log2 domain), every row written: what the dq and
+    dk/dv kernels of K9's backward read.
+
+    CPU tensors take the plain version. CUDA tensors launch K9 (its
+    pre-pass, then the step's MASKED LSE instantiation, which also stores
+    m + log2(l) per row; the serving launch keeps the other one), counted
+    in flash_windowed_attention.launches and .launches_lse, or raise on
+    what K9 does not take. Refuses inputs that need a gradient, as K9
+    does."""
+    _build.refuse_grad("windowed attention", q, k, v, rope_cos, rope_sin)
+    b, s, h, d = _check_windowed(q, k, v, rope_cos, rope_sin, table_ids,
+                                 kv_valid)
+    if q.device.type == "cpu":
+        return flash_windowed_attention_lse_plain(
+            q, k, v, scale, rope_cos, rope_sin, table_ids, kv_valid)
+    _check_k9("flash_windowed_attention", q, k, v, rope_cos, rope_sin,
+              table_ids, kv_valid)
+    scratch = torch.empty((2, b, s, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    err = _build.kernel_library().lib.seedvr2_flash_attention_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rope_cos.data_ptr(),
+        rope_sin.data_ptr(), kv_valid.data_ptr(), table_ids.tensor.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(), lse.data_ptr(), b, s, h, d,
+        _qscale(scale, d), _stream(q))
+    _build.check(err, "seedvr2_flash_attention_lse")
+    flash_windowed_attention.launches += 1
+    flash_windowed_attention.launches_lse += 1
+    return out, lse
+
+
+# ------------------------------------------------------------ K9 backward
+
+
+def windowed_backward_dq_plain(q_hat: torch.Tensor, k_hat: torch.Tensor,
+                               v: torch.Tensor, out: torch.Tensor,
+                               dout: torch.Tensor, lse: torch.Tensor,
+                               kv_valid: torch.Tensor, table_ids: RowIndex):
+    """Plain version of K9's dq kernel: (dq_acc fp32 (B, S, H, D), delta
+    (B, H, S) fp32) as attention_backward_dq_plain's, over each window
+    row's valid keys (kv_valid[table_ids]) in place of the first kv_len;
+    every q row counts (the rows the caller crops arrive with dO = 0).
+    q_hat, k_hat: K9's pre-pass output; out, dout (B, S, H, D); lse from
+    K9's training launch."""
+    b, s, h, d = q_hat.shape
+    return _dq_plain(q_hat, k_hat, v, out, dout.float().reshape(b, s, h, d),
+                     lse, _window_keys(kv_valid, table_ids, q_hat.device))
+
+
+def windowed_backward_dkdv_plain(q_hat: torch.Tensor, k_hat: torch.Tensor,
+                                 v: torch.Tensor, dout: torch.Tensor,
+                                 lse: torch.Tensor, delta: torch.Tensor,
+                                 kv_valid: torch.Tensor,
+                                 table_ids: RowIndex):
+    """Plain version of K9's dk/dv kernel: (dk_acc fp32 (B, S, H, D), dv in
+    v's dtype) over each window row's valid keys; a masked key gets zero."""
+    b, s, h, d = q_hat.shape
+    return _dkdv_plain(q_hat, k_hat, v, dout.float().reshape(b, s, h, d),
+                       lse, delta,
+                       _window_keys(kv_valid, table_ids, q_hat.device))
+
+
+def windowed_rope_backward_plain(dq_acc: torch.Tensor, dk_acc: torch.Tensor,
+                                 rope_cos: torch.Tensor,
+                                 rope_sin: torch.Tensor, table_ids: RowIndex,
+                                 gq: float, gk: float,
+                                 dtype=torch.bfloat16):
+    """Plain version of K9's pre-pass backward (the rope backward by window
+    id): (rot^T(gq * dq_acc), rot^T(gk * dk_acc)) in `dtype`, each row by
+    the table its window id picks (rot^T(g) = g * cos - rotate_half(g *
+    sin)); gq = the scale, gk = ln2 turn dQ-hat and dK-hat into the roped
+    rows' gradients. K9's tables are plan constants: no table gradient."""
+    ids = table_ids.tensor.to(dq_acc.device).long()
+    c = rope_cos[ids].float()[:, :, None, :]
+    sn = rope_sin[ids].float()[:, :, None, :]
+    outs = []
+    for acc, g in ((dq_acc, gq), (dk_acc, gk)):
+        gr = acc.float() * g
+        outs.append((gr * c - rotate_half_full(gr * sn)).to(dtype))
+    return tuple(outs)
+
+
+def flash_windowed_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                            v: torch.Tensor,
+                                            scale: Optional[float],
+                                            rope_cos: torch.Tensor,
+                                            rope_sin: torch.Tensor,
+                                            table_ids: RowIndex,
+                                            kv_valid: torch.Tensor,
+                                            out: torch.Tensor,
+                                            dout: torch.Tensor):
+    """Plain version of K9's backward, the kernels' parts in their order
+    (q-hat and k-hat kept in fp32, so the rows' lse is that of their fp32
+    scores, formed here): (dq, dk, dv) in q's, k's and v's dtypes."""
+    b, s, h, d = q.shape
+    ids = table_ids.tensor.to(q.device)
+    keep = _window_keys(kv_valid, table_ids, q.device)
+    sc = d ** -0.5 if scale is None else scale
+    q_hat = norm_rope_plain(q.float(), rope_cos, rope_sin, None, sc * _LOG2E,
+                            ids)
+    k_hat = norm_rope_plain(k.float(), rope_cos, rope_sin, ids=ids)
+    lse = _lse_plain(q_hat, k_hat, keep)
+    do = dout.float().reshape(b, s, h, d)
+    dq, delta = _dq_plain(q_hat, k_hat, v, out, do, lse, keep)
+    dk, dv = _dkdv_plain(q_hat, k_hat, v, do, lse, delta, keep)
+    dqr, dkr = windowed_rope_backward_plain(dq, dk, rope_cos, rope_sin,
+                                            table_ids, sc, _LN2, torch.float32)
+    return dqr.to(q.dtype), dkr.to(k.dtype), dv
+
+
+def _check_k9_bwd(name: str, lse: torch.Tensor, kv_valid: torch.Tensor,
+                  table_ids: RowIndex, *rows: torch.Tensor):
+    """What K9's backward kernels take: bf16 (B, S, H, D) contiguous rows
+    (the first sets the shape), lse (B, H, S) fp32, an (nU, S) bool mask
+    and B int32 ids < nU on the rows' CUDA device."""
+    x = rows[0]
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for {x.device}")
+    b, s, h, d = x.shape
+    for t in rows:
+        _check_rows(name, t, (b, s, h, d), torch.bfloat16, x.device)
+    _check_rows(name, lse, (b, h, s), torch.float32, x.device)
+    if (kv_valid.dtype != torch.bool or kv_valid.dim() != 2
+            or kv_valid.shape[1] != s or not kv_valid.is_contiguous()
+            or kv_valid.device != x.device):
+        raise ValueError(f"{name}: the mask must be a contiguous (nU, {s}) "
+                         f"bool on {x.device}")
+    _check_ids(table_ids, b, kv_valid.shape[0], x.device)
+    if d not in _HEAD_DIMS or b > 65535 or h > 65535:
+        raise ValueError(f"{name}: head dim {d} not in {_HEAD_DIMS}, or grid "
+                         "too large")
+    return b, s, h, d
+
+
+def windowed_backward_dq(q_hat: torch.Tensor, k_hat: torch.Tensor,
+                         v: torch.Tensor, out: torch.Tensor,
+                         dout: torch.Tensor, lse: torch.Tensor,
+                         kv_valid: torch.Tensor, table_ids: RowIndex):
+    """K9's dq kernel (plain version on the CPU): (dq_acc, delta) as
+    windowed_backward_dq_plain, from the training launch's lse. On a card:
+    contiguous bf16 (B, S, H, D) q_hat, k_hat, v, out, dout; the tiles as
+    backward_plan(B, S, H, S) says; each block walks only its window's
+    live key tiles."""
+    if q_hat.device.type == "cpu":
+        return windowed_backward_dq_plain(q_hat, k_hat, v, out, dout, lse,
+                                          kv_valid, table_ids)
+    name = "windowed backward dq"
+    b, s, h, d = _check_k9_bwd(name, lse, kv_valid, table_ids, q_hat, k_hat,
+                               v, out, dout)
+    plan = backward_plan(b, s, h, s, _sm_count(q_hat.device))
+    dq = torch.empty((b, s, h, d), dtype=torch.float32, device=q_hat.device)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q_hat.device)
+    err = _build.kernel_library().lib.seedvr2_win_bwd_dq(
+        q_hat.data_ptr(), k_hat.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), kv_valid.data_ptr(),
+        table_ids.tensor.data_ptr(), dq.data_ptr(), delta.data_ptr(), b, s, h,
+        d, plan.wg, plan.blocks, _stream(q_hat))
+    _build.check(err, "seedvr2_win_bwd_dq")
+    windowed_backward_dq.launches += 1
+    return dq, delta
+
+
+windowed_backward_dq.launches = 0
+
+
+def windowed_backward_dkdv(q_hat: torch.Tensor, k_hat: torch.Tensor,
+                           v: torch.Tensor, dout: torch.Tensor,
+                           lse: torch.Tensor, delta: torch.Tensor,
+                           kv_valid: torch.Tensor, table_ids: RowIndex):
+    """K9's dk/dv kernel (plain version on the CPU): (dk_acc fp32, dv bf16)
+    as windowed_backward_dkdv_plain, from the training launch's lse and the
+    dq part's delta; a block of 64 keys of which none is valid writes
+    zeros."""
+    if q_hat.device.type == "cpu":
+        return windowed_backward_dkdv_plain(q_hat, k_hat, v, dout, lse, delta,
+                                            kv_valid, table_ids)
+    name = "windowed backward dk/dv"
+    b, s, h, d = _check_k9_bwd(name, lse, kv_valid, table_ids, q_hat, k_hat,
+                               v, dout)
+    _check_rows(name, delta, (b, h, s), torch.float32, q_hat.device)
+    plan = backward_plan(b, s, h, s, _sm_count(q_hat.device))
+    dk = torch.empty((b, s, h, d), dtype=torch.float32, device=q_hat.device)
+    dv = torch.empty((b, s, h, d), dtype=torch.bfloat16, device=q_hat.device)
+    err = _build.kernel_library().lib.seedvr2_win_bwd_dkdv(
+        q_hat.data_ptr(), k_hat.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), kv_valid.data_ptr(),
+        table_ids.tensor.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, d,
+        plan.kv_blocks, _stream(q_hat))
+    _build.check(err, "seedvr2_win_bwd_dkdv")
+    windowed_backward_dkdv.launches += 1
+    return dk, dv
+
+
+windowed_backward_dkdv.launches = 0
+
+
+def windowed_rope_backward(dq_acc: torch.Tensor, dk_acc: torch.Tensor,
+                           rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+                           table_ids: RowIndex, gq: float, gk: float):
+    """K9's pre-pass backward kernel (plain version on the CPU): (dq, dk)
+    bf16 (B, S, H, D) as windowed_rope_backward_plain, from the dq and
+    dk/dv parts' fp32 accumulators (contiguous (B, S, H, D)) and K9's
+    (nU, S, D) fp32 tables."""
+    if dq_acc.device.type == "cpu":
+        return windowed_rope_backward_plain(dq_acc, dk_acc, rope_cos,
+                                            rope_sin, table_ids, gq, gk)
+    name = "windowed rope backward"
+    if dq_acc.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for {dq_acc.device}")
+    b, s, h, d = dq_acc.shape
+    for t in (dq_acc, dk_acc):
+        _check_rows(name, t, (b, s, h, d), torch.float32, dq_acc.device)
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {_HEAD_DIMS}")
+    n_u = rope_cos.shape[0]
+    for t in (rope_cos, rope_sin):
+        _check_table(t, (n_u, s, d), dq_acc.device)
+    _check_ids(table_ids, b, n_u, dq_acc.device)
+    dst = torch.empty((2, b, s, h, d), dtype=torch.bfloat16,
+                      device=dq_acc.device)
+    err = _build.kernel_library().lib.seedvr2_win_rope_bwd(
+        dq_acc.data_ptr(), dk_acc.data_ptr(), rope_cos.data_ptr(),
+        rope_sin.data_ptr(), table_ids.tensor.data_ptr(), dst[0].data_ptr(),
+        dst[1].data_ptr(), b, s, h, d, float(gq), float(gk), _stream(dq_acc))
+    _build.check(err, "seedvr2_win_rope_bwd")
+    windowed_rope_backward.launches += 1
+    return dst[0], dst[1]
+
+
+windowed_rope_backward.launches = 0
+
+
+def flash_windowed_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor, scale: Optional[float],
+                                      rope_cos: torch.Tensor,
+                                      rope_sin: torch.Tensor,
+                                      table_ids: RowIndex,
+                                      kv_valid: torch.Tensor,
+                                      out: torch.Tensor, dout: torch.Tensor,
+                                      lse: torch.Tensor):
+    """K9's backward from the training launch's output and lse
+    (flash_windowed_attention_lse): (dq, dk, dv) (B, S, H, D). CPU tensors
+    take the plain version, which keeps q-hat in fp32 and forms the lse of
+    its own scores. CUDA tensors relaunch K9's pre-pass (q-hat, k-hat by
+    each window's table), then the dq, dk/dv and rope backward kernels,
+    which read lse (the kernels' bf16 q-hat is the forward's); what K9 does
+    not take is refused as K9 refuses it."""
+    b, s, h, d = _check_windowed(q, k, v, rope_cos, rope_sin, table_ids,
+                                 kv_valid)
+    if q.device.type == "cpu":
+        return flash_windowed_attention_backward_plain(
+            q, k, v, scale, rope_cos, rope_sin, table_ids, kv_valid, out,
+            dout)
+    _check_k9("windowed attention backward", q, k, v, rope_cos, rope_sin,
+              table_ids, kv_valid)
+    sc = d ** -0.5 if scale is None else scale
+    q_hat, k_hat = attention_prepass(q, k, rope_cos, rope_sin, rope_cos,
+                                     rope_sin, None, sc * _LOG2E, table_ids)
+    dq, delta = windowed_backward_dq(q_hat, k_hat, v, out, dout, lse,
+                                     kv_valid, table_ids)
+    dk, dv = windowed_backward_dkdv(q_hat, k_hat, v, dout, lse, delta,
+                                    kv_valid, table_ids)
+    del q_hat, k_hat, delta
+    dq, dk = windowed_rope_backward(dq, dk, rope_cos, rope_sin, table_ids,
+                                    sc, _LN2)
+    return dq, dk, dv
+
+
+class WindowedAttention(torch.autograd.Function):
+    """K9 with its gradient: the forward launches K9's training launch
+    (flash_windowed_attention_lse; its plain version on the CPU) and saves
+    q, k, v, the output and the rows' lse; the backward is
+    flash_windowed_attention_backward, returning dq, dk and dv. The tables,
+    the mask and the ids are the plan's constants and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rope_cos, rope_sin, kv_valid, scale,
+                table_ids):
+        out, lse = flash_windowed_attention_lse(q, k, v, scale, rope_cos,
+                                                rope_sin, table_ids, kv_valid)
+        ctx.save_for_backward(q, k, v, rope_cos, rope_sin, kv_valid, out,
+                              lse)
+        ctx.args = (scale, table_ids)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, rope_cos, rope_sin, kv_valid, out, lse = ctx.saved_tensors
+        scale, table_ids = ctx.args
+        grads = flash_windowed_attention_backward(
+            q, k, v, scale, rope_cos, rope_sin, table_ids, kv_valid, out,
+            dout.contiguous(), lse)
+        return (*grads, None, None, None, None, None)
+
+
+def flash_windowed_attention_grad(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, scale: Optional[float],
+                                  rope_cos: torch.Tensor,
+                                  rope_sin: torch.Tensor,
+                                  table_ids: RowIndex,
+                                  kv_valid: torch.Tensor) -> torch.Tensor:
+    """flash_windowed_attention with a gradient for q, k and v: the kernel
+    alone when none needs one (or grad mode is off), else through
+    WindowedAttention. Tables that need a gradient are refused (K9's are
+    the plan's constants)."""
+    if not torch.is_grad_enabled():
+        return flash_windowed_attention(q, k, v, scale, rope_cos, rope_sin,
+                                        table_ids, kv_valid)
+    if rope_cos.requires_grad or rope_sin.requires_grad:
+        raise RuntimeError("windowed attention: K9's tables are the plan's "
+                           "constants; its backward has no table gradient")
+    if any(t.requires_grad for t in (q, k, v)):
+        return WindowedAttention.apply(q, k, v, rope_cos, rope_sin, kv_valid,
+                                       scale, table_ids)
+    return flash_windowed_attention(q, k, v, scale, rope_cos, rope_sin,
+                                    table_ids, kv_valid)
 
 KEY_TILE = 64  # keys a tile of the Hopper attention step
 

@@ -12,9 +12,11 @@ The loss (`flow_loss`) is JAX's: x_t = LerpSchedule(T).forward(x0, noise,
 t) with t = sigmoid(N(0, 1)) * T (core.diffusion.logitnormal_timesteps),
 the target noise - x0, the mean square of the prediction's error in fp32;
 x_t, the condition and the text enter the DiT in the compute dtype (bf16 by
-default). Only the grouped window plan trains (kernels K1 and K2 forward,
-and their hand-written backward through their autograd Functions); a
-uniform plan (K9), a quantised tree (K3-K7) or the SDPA lane are refused.
+default). Both window plans train: the grouped one through kernels K1 and
+K2, the uniform one (`build_dit_plan(..., uniform=True)`) through kernel
+K9, each forward and its hand-written backward through their autograd
+Functions; nothing in the step depends on the plan. A quantised tree
+(K3-K7) or the SDPA lane are refused.
 
 Parallelism, one process a device (parallel/mesh.py):
  - the parameters and AdamW's two moments live as fp32 pieces, the
@@ -73,18 +75,10 @@ class TrainState(NamedTuple):
     shapes: Optional[Dict[str, Tuple[int, ...]]] = None
 
 
-def _check_plan(dplan: DevicePlan) -> None:
-    if dplan.uniform is not None:
-        raise NotImplementedError(
-            "training runs the grouped window plan only; the uniform plan "
-            "(kernel K9's backward) is not ported")
-
-
-def check_trainable(model: NaDiT, dplan: DevicePlan) -> None:
-    """Raise on what the training path does not take: the uniform window
-    plan (K9 has no backward yet), a quantised tree (the serving lanes
-    K3-K7: no trainable weights) or weights neither bf16 nor fp32."""
-    _check_plan(dplan)
+def check_trainable(model: NaDiT) -> None:
+    """Raise on what the training path does not take: a quantised tree (the
+    serving lanes K3-K7: no trainable weights) or weights neither bf16 nor
+    fp32."""
     for name, mod in model.named_modules():
         if isinstance(mod, (W8A8Linear, Q8Linear, AffineLinear)):
             raise ValueError(f"{name} is a quantised serving linear "
@@ -132,15 +126,15 @@ def flow_loss(model: NaDiT, batch: Dict[str, torch.Tensor],
 
     batch: latent (B, T, h, w, vid_out_channels) clean latents, cond (B, T,
     h, w, vid_in - vid_out) the condition channels, txt (B, L, txt_in_dim);
-    noise: like latent, fp32; t: (B,) timesteps. plan: the grouped window
-    plan (a DiTPlan is uploaded to the latent's device). dtype: the compute
-    dtype of the DiT's inputs (bf16, or fp32 for an exact comparison).
-    use_kernels: False runs K1's and K2's plain versions and autograd
-    through them (nadit_forward's switch), the reference the kernels'
-    gradients are held against."""
+    noise: like latent, fp32; t: (B,) timesteps. plan: the grouped or the
+    uniform window plan (a DiTPlan is uploaded to the latent's device).
+    dtype: the compute dtype of the DiT's inputs (bf16, or fp32 for an
+    exact comparison). use_kernels: False runs the kernels' plain versions
+    (K1's and K2's, or K9's) and autograd through them (nadit_forward's
+    switch), the reference the kernels' gradients are held against."""
     if not isinstance(plan, DevicePlan):
         plan = upload_plan(plan, model.cfg, batch["latent"].device)
-    check_trainable(model, plan)
+    check_trainable(model)
     return _sq_sum(model, batch, noise, t, plan, dtype, T, use_kernels) \
         / batch["latent"].numel()
 
@@ -183,7 +177,8 @@ def make_train_step(cfg: DiTConfig, plan: Union[DiTPlan, DevicePlan],
                     device="cuda", dtype=torch.bfloat16,
                     use_kernels: bool = True):
     """(init_state, train_step) of flow-matching training of `cfg`'s NaDiT
-    on the grouped window plan `plan`, over `mesh` (None: one rank), on
+    on the window plan `plan` (grouped, or uniform: build_dit_plan(...,
+    uniform=True)), over `mesh` (None: one rank), on
     `device` (the card unless the caller asks for the CPU). dtype: the
     compute dtype (bf16; fp32 runs the same step exactly, on the CPU).
     use_kernels: as flow_loss's (False: the plain reference).
@@ -202,7 +197,6 @@ def make_train_step(cfg: DiTConfig, plan: Union[DiTPlan, DevicePlan],
         raise ValueError(f"compute dtype {dtype}: bf16 or fp32")
     dplan = plan if isinstance(plan, DevicePlan) else upload_plan(plan, cfg,
                                                                   device)
-    _check_plan(dplan)
     if mesh is not None and mesh.size == 1:
         mesh = None
     with torch.device("meta"):
@@ -226,7 +220,7 @@ def make_train_step(cfg: DiTConfig, plan: Union[DiTPlan, DevicePlan],
             src, step = model.params, model.step
             moments = {k: pieces(model.opt_state[k]) for k in ("mu", "nu")}
         else:
-            check_trainable(model, dplan)
+            check_trainable(model)
             src, step = dict(model.named_parameters()), 0
             moments = None
         if set(src) != set(shapes):

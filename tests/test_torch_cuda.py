@@ -1026,6 +1026,185 @@ def test_k9_kernel_window_without_valid_keys_on_gpu(cuda_device):
                                atol=2e-2, rtol=2e-2)
 
 
+def _k9_train_case(case, device):
+    """K9's training-path operands: "record" is the 720p clip's shifted
+    layer (32 windows of S = 463, its 9 ids' real tables and validity, H =
+    20, D = 128); a _k9_valid pattern is 6 windows of S = 463 or 140 over
+    3 ids with random tables (front_back: dead key tiles; middle: a dead
+    tile and partly valid ones), H = 4. Returns (q, k, v, cos, sin, ids,
+    valid, dout), dout zero at each window's invalid slots (the rows the
+    DiT crops)."""
+    gen = torch.Generator(device).manual_seed(len(case))
+    if case == "record":
+        from seedvr2_tpu_torch.core.configs import DIT_3B
+        from seedvr2_tpu_torch.models.dit import nadit
+
+        u = nadit.build_dit_plan(DIT_3B, (2, 90, 160), 58,
+                                 uniform=True).uniform["shifted_window"]
+        cos, sin, valid = (torch.from_numpy(a).to(device)
+                           for a in (u.cos, u.sin, u.valid))
+        ids, h = u.ids, 20
+    else:
+        pattern, s = case.split("-")
+        s = int(s)
+        ang = torch.randn(3, s, 64, generator=gen, device=device)
+        cos = torch.cos(ang).repeat_interleave(2, -1).contiguous()
+        sin = torch.sin(ang).repeat_interleave(2, -1).contiguous()
+        valid = _k9_valid(pattern, s, device)
+        ids, h = np.array([0, 1, 2, 2, 1, 0]), 4
+    b, s = len(ids), valid.shape[1]
+    q, k, v, dout = (torch.randn(b, s, h, 128, generator=gen,
+                                 device=device).to(torch.bfloat16)
+                     for _ in range(4))
+    index = tg.RowIndex(ids, device)
+    dout[~valid[index.tensor.long()]] = 0
+    return q, k, v, cos, sin, index, valid, dout
+
+
+_K9_CASES = ["record", "front_back-463", "middle-140"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _K9_CASES)
+def test_k9_lse_launch_on_gpu(cuda_device, case):
+    """K9's training launch: its output bit-equal to the serving launch's
+    on the same inputs, its lse within 1e-5 relative L2 of the plain
+    version's (the same bf16 q-hat and k-hat, fp32 sums in another order),
+    both launches counted."""
+    q, k, v, cos, sin, ids, valid, _ = _k9_train_case(case, cuda_device)
+    before = (tfa.flash_windowed_attention.launches,
+              tfa.flash_windowed_attention.launches_lse)
+    out, lse = tfa.flash_windowed_attention_lse(q, k, v, None, cos, sin, ids,
+                                                valid)
+    served = tfa.flash_windowed_attention(q, k, v, None, cos, sin, ids, valid)
+    torch.cuda.synchronize()
+    _, p_lse = tfa.flash_windowed_attention_lse_plain(q, k, v, None, cos, sin,
+                                                      ids, valid)
+    assert lse.shape == (q.shape[0], q.shape[2], q.shape[1])
+    assert torch.isfinite(lse).all() and _rel(lse, p_lse) <= 1e-5
+    assert torch.equal(out, served)
+    assert (tfa.flash_windowed_attention.launches,
+            tfa.flash_windowed_attention.launches_lse) == (before[0] + 2,
+                                                           before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _K9_CASES)
+def test_k9_backward_parts_on_gpu(cuda_device, case):
+    """Each part of K9's backward against its plain version on the same
+    inputs, lse from K9's training launch (chip_smoke.py's BWD bounds, as
+    K1's: delta 1e-5, dv and the rope backward's bf16 outputs 1e-3, dq-hat
+    and dk-hat DQDK_REL), the whole against its plain version (bf16-class
+    2e-2); every masked key's dk and dv zero; reruns bit-equal."""
+    q, k, v, cos, sin, ids, valid, dout = _k9_train_case(case, cuda_device)
+    d = q.shape[-1]
+    out, lse = tfa.flash_windowed_attention_lse(q, k, v, None, cos, sin, ids,
+                                                valid)
+    qh, kh = tfa.attention_prepass(q, k, cos, sin, cos, sin, None,
+                                   d ** -0.5 * tfa._LOG2E, ids)
+    counts = [f.launches for f in (tfa.windowed_backward_dq,
+                                   tfa.windowed_backward_dkdv,
+                                   tfa.windowed_rope_backward)]
+    dq, delta = tfa.windowed_backward_dq(qh, kh, v, out, dout, lse, valid,
+                                         ids)
+    dk, dv = tfa.windowed_backward_dkdv(qh, kh, v, dout, lse, delta, valid,
+                                        ids)
+    rq, rk = tfa.windowed_rope_backward(dq, dk, cos, sin, ids, d ** -0.5,
+                                        tfa._LN2)
+    whole = tfa.flash_windowed_attention_backward(q, k, v, None, cos, sin, ids,
+                                                  valid, out, dout, lse)
+    again = tfa.flash_windowed_attention_backward(q, k, v, None, cos, sin, ids,
+                                                  valid, out, dout, lse)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (tfa.windowed_backward_dq,
+                                 tfa.windowed_backward_dkdv,
+                                 tfa.windowed_rope_backward)] == [
+        c + 3 for c in counts]
+    p_dq, p_delta = tfa.windowed_backward_dq_plain(qh, kh, v, out, dout, lse,
+                                                   valid, ids)
+    p_dk, p_dv = tfa.windowed_backward_dkdv_plain(qh, kh, v, dout, lse, delta,
+                                                  valid, ids)
+    p_rq, p_rk = tfa.windowed_rope_backward_plain(dq, dk, cos, sin, ids,
+                                                  d ** -0.5, tfa._LN2)
+    p_whole = tfa.flash_windowed_attention_backward_plain(
+        q, k, v, None, cos, sin, ids, valid, out, dout)
+    assert _rel(delta, p_delta) <= 1e-5
+    assert _rel(dq, p_dq) <= DQDK_REL and _rel(dk, p_dk) <= DQDK_REL
+    assert _rel(dv, p_dv) <= 1e-3
+    assert _rel(rq, p_rq) <= 1e-3 and _rel(rk, p_rk) <= 1e-3
+    for t, r in zip(whole, p_whole):
+        assert torch.isfinite(t).all() and _rel(t, r) <= 2e-2
+    assert all(torch.equal(t, r) for t, r in zip(whole, again))
+    masked = ~valid[ids.tensor.long()]
+    assert not dk[masked].any() and not dv[masked].any()
+    assert not whole[1][masked].any() and not whole[2][masked].any()
+
+
+@pytest.mark.cuda
+def test_k9_function_on_gpu(cuda_device):
+    """K9's autograd Function on the card: an output with a grad_fn from
+    the training launch, dq, dk and dv within the bf16 class of torch
+    autograd through the plain composition, each backward part launched
+    once; the raw wrapper refuses an input that needs a gradient."""
+    q, k, v, cos, sin, ids, valid, dout = _k9_train_case("middle-140",
+                                                         cuda_device)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    with pytest.raises(RuntimeError, match="needs a gradient"):
+        tfa.flash_windowed_attention(q, k, v, None, cos, sin, ids, valid)
+    before = (tfa.windowed_backward_dkdv.launches,
+              tfa.flash_windowed_attention.launches_lse)
+    out = tfa.flash_windowed_attention_grad(q, k, v, None, cos, sin, ids,
+                                            valid)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    ref = torch.autograd.grad(tfa.flash_windowed_attention_plain(
+        q, k, v, None, cos, sin, ids, valid), (q, k, v), dout)
+    assert (tfa.windowed_backward_dkdv.launches,
+            tfa.flash_windowed_attention.launches_lse) == (before[0] + 1,
+                                                           before[1] + 1)
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_uniform_train_steps_on_gpu(cuda_device):
+    """Two bf16 AdamW steps of a small DiT (D = 64 heads) on the uniform
+    window plan through K9 and its backward against the same steps through
+    the plain versions: losses within 1e-2 relative, every first moment
+    finite and nonzero, no K1 or K2 launch."""
+    from seedvr2_tpu_torch.core.configs import small_test_config
+    from seedvr2_tpu_torch.models.dit import nadit
+    from seedvr2_tpu_torch.parallel import train
+
+    cfg = small_test_config(vid_dim=128, heads=2, head_dim=64)
+    plan = nadit.build_dit_plan(cfg, (1, 16, 16), 7, uniform=True)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    model = nadit.init_dit(cfg, cuda_device, torch.float32, gen)
+    batch = {"latent": torch.randn(2, 1, 16, 16, 16, device=cuda_device),
+             "cond": torch.randn(2, 1, 16, 16, 17, device=cuda_device),
+             "txt": torch.randn(2, 7, cfg.txt_in_dim, device=cuda_device)}
+    losses = {}
+    for uk in (True, False):
+        init_state, step = train.make_train_step(cfg, plan, None,
+                                                 device=cuda_device,
+                                                 use_kernels=uk)
+        state = init_state(model)
+        before = (tfa.packed_window_attention.launches,
+                  tfa.windowed_backward_dq.launches)
+        losses[uk] = []
+        for i in range(2):
+            state, loss = step(state, batch,
+                               torch.Generator(cuda_device).manual_seed(i))
+            losses[uk].append(loss.item())
+        dq_launches = tfa.windowed_backward_dq.launches - before[1]
+        assert tfa.packed_window_attention.launches == before[0]
+        assert dq_launches == (2 * cfg.num_layers if uk else 0)
+        assert all(torch.isfinite(m).all() and m.abs().sum() > 0
+                   for m in state.opt_state["mu"].values())
+    for a, r in zip(losses[True], losses[False]):
+        assert abs(a - r) <= 1e-2 * abs(r)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,k,x_dtype,out_dtype", [
     (1, 2560, 2560, torch.bfloat16, torch.bfloat16),

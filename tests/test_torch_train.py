@@ -1,5 +1,6 @@
 """The port's trainer (seedvr2_tpu_torch/parallel/train.py) and the gradients
-of its kernels K1 and K2 against the JAX package, on the CPU.
+of its kernels K1, K2 and K9 against the JAX package, on the CPU, on the
+grouped and the uniform window plans.
 
 The JAX side differentiates its jnp compositions (it has no backward
 kernel); the port's autograd Functions run their plain backward versions
@@ -305,9 +306,116 @@ def test_k1_function_matches_autograd_through_plain(dtype):
         assert g.dtype == r.dtype and rel_l2(_np(g), _np(r)) <= tol
 
 
+def _k9_inputs(seed, b=3, s=140, h=2, d=16):
+    """K9's operands (q, k, v, cos, sin, ids, valid, cotangent) as numpy:
+    window id 0 has pad slots first (its first key tile partly valid) and a
+    64-key tile of no valid key (keys 64-127), id 1 pad slots in the
+    middle; the pad query rows, which the DiT crops, get zero cotangent."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.standard_normal((b, s, h, d)).astype(np.float32)
+                  for _ in range(4))
+    ang = rng.standard_normal((2, s, d // 2))
+    cos = np.repeat(np.cos(ang), 2, -1).astype(np.float32)
+    sin = np.repeat(np.sin(ang), 2, -1).astype(np.float32)
+    valid = np.ones((2, s), bool)
+    valid[0, :10] = False
+    valid[0, 64:128] = False
+    valid[1, 100:120] = False
+    ids = np.array([0, 1, 0], np.int32)
+    g[~valid[ids]] = 0.0
+    return q, k, v, cos, sin, ids, valid, g
+
+
+def _k9_torch(q, k, v, cos, sin, ids, valid, grad=False):
+    """The port's K9 arguments after (q, k, v)'s scale: (q, k, v), (None,
+    cos, sin, RowIndex, valid)."""
+    qkv = [torch.from_numpy(x).requires_grad_(grad) for x in (q, k, v)]
+    return qkv, (None, torch.from_numpy(cos), torch.from_numpy(sin),
+                 tgather.RowIndex(ids, "cpu"), torch.from_numpy(valid))
+
+
+def test_k9_function_matches_jax_vjp():
+    """K9's autograd Function on the CPU (its training launch's and its
+    backward's plain versions) against jax.vjp of JAX's attention with
+    table_ids and kv_valid (use_flash False), fp32: output and dq, dk, dv
+    within 1e-5; masked keys get no dk / dv."""
+    q, k, v, cos, sin, ids, valid, g = _k9_inputs(21)
+
+    def f(q, k, v):
+        return jattn.attention(q, k, v, use_flash=False, rope_cos=cos,
+                               rope_sin=sin, table_ids=ids, kv_valid=valid)
+
+    out, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
+    ref = vjp(jnp.asarray(g))
+    leaves, args = _k9_torch(q, k, v, cos, sin, ids, valid, grad=True)
+    t_out = tfa.flash_windowed_attention_grad(*leaves, *args)
+    assert t_out.grad_fn is not None
+    np.testing.assert_allclose(_np(t_out), np.asarray(out), rtol=1e-5,
+                               atol=1e-6)
+    got = torch.autograd.grad(t_out, leaves, torch.from_numpy(g))
+    for name, a, r in zip("qkv", got, ref):
+        assert rel_l2(_np(a), r) <= FP32_REL, name
+    masked = ~valid[ids]
+    assert not _np(got[1])[masked].any() and not _np(got[2])[masked].any()
+
+
+def test_k9_lse_plain_matches_jax_logsumexp():
+    """The plain version of K9's training launch: its output is K9's, its
+    lse each row's jax.nn.logsumexp of JAX's masked scores (apply_rope_ext
+    by the window's table, q k^T * d**-0.5, invalid keys at -inf), in the
+    log2 domain (times log2e), fp32."""
+    from seedvr2_tpu.models.dit.rope import apply_rope_ext
+
+    q, k, v, cos, sin, ids, valid, _ = _k9_inputs(22)
+    (tq, tk, tv), args = _k9_torch(q, k, v, cos, sin, ids, valid)
+    out, lse = tfa.flash_windowed_attention_lse_plain(tq, tk, tv, *args)
+    assert lse.dtype == torch.float32 and lse.shape == (3, 2, 140)
+    assert torch.equal(out, tfa.flash_windowed_attention_plain(tq, tk, tv,
+                                                               *args))
+    jq = apply_rope_ext(jnp.asarray(q), cos[ids], sin[ids])
+    jk = apply_rope_ext(jnp.asarray(k), cos[ids], sin[ids])
+    sc = jnp.einsum("bqhd,bkhd->bhqk", jq, jk) * 16 ** -0.5
+    sc = jnp.where(jnp.asarray(valid[ids])[:, None, None, :], sc, -jnp.inf)
+    ref = jax.nn.logsumexp(sc, axis=-1)
+    assert rel_l2(_np(lse), np.asarray(ref) * tfa._LOG2E) <= FP32_REL
+
+
+def test_k9_backward_parts_compose_to_the_whole():
+    """K9's three backward parts as the card runs them (the pre-pass's q-hat
+    / k-hat, the forward's lse, dq and delta, dk and dv through their CPU
+    routes, the rope backward by window id in fp32) against the whole
+    plain backward, fp32 within 1e-5; a key tile of no valid key and every
+    masked key get zero dk / dv."""
+    q, k, v, cos, sin, ids, valid, g = _k9_inputs(23)
+    (tq, tk, tv), (_, tc, ts, index, tvalid) = _k9_torch(q, k, v, cos, sin,
+                                                         ids, valid)
+    tg = torch.from_numpy(g)
+    out, lse = tfa.flash_windowed_attention_lse(tq, tk, tv, None, tc, ts,
+                                                index, tvalid)
+    qh, kh = tfa.attention_prepass(tq, tk, tc, ts, tc, ts, None,
+                                   16 ** -0.5 * tfa._LOG2E, index)
+    dq, delta = tfa.windowed_backward_dq(qh, kh, tv, out, tg, lse, tvalid,
+                                         index)
+    dk, dv = tfa.windowed_backward_dkdv(qh, kh, tv, tg, lse, delta, tvalid,
+                                        index)
+    assert not dk[:, 64:128][0].any() and not dv[0, 64:128].any()
+    dqr, dkr = tfa.windowed_rope_backward_plain(dq, dk, tc, ts, index,
+                                                16 ** -0.5, tfa._LN2,
+                                                torch.float32)
+    whole = tfa.flash_windowed_attention_backward(tq, tk, tv, None, tc, ts,
+                                                  index, tvalid, out, tg,
+                                                  lse)
+    for name, a, r in zip("qkv", (dqr, dkr, dv), whole):
+        assert rel_l2(_np(a), _np(r)) <= FP32_REL, name
+    masked = ~valid[ids]
+    assert not _np(dkr)[masked].any() and not _np(dv)[masked].any()
+
+
 def test_kernel_wrappers_refuse_grad_inputs():
     """A raw kernel wrapper handed an input that needs a gradient while
-    grad mode is on raises, on every device; under no_grad it serves."""
+    grad mode is on raises, on every device; under no_grad it serves. K9's
+    grad entry refuses tables that need a gradient (they are the plan's
+    constants)."""
     qkv, tabs, _, (h, d, kv) = _k1_inputs(1)
     x = torch.from_numpy(qkv).requires_grad_()
     t_tabs = [torch.from_numpy(t) for t in tabs]
@@ -319,9 +427,19 @@ def test_kernel_wrappers_refuse_grad_inputs():
     index = tgather.RowIndex(np.arange(16)[::-1].copy(), "cpu")
     with pytest.raises(RuntimeError, match="needs a gradient"):
         tgather.gather_rows(x, index)
+    (tq, tk, tv), args = _k9_torch(*_k9_inputs(2)[:7], grad=True)
+    for fn in (tfa.flash_windowed_attention,
+               tfa.flash_windowed_attention_lse):
+        with pytest.raises(RuntimeError, match="needs a gradient"):
+            fn(tq, tk, tv, *args)
+    tables = [t.clone().requires_grad_() for t in args[1:3]]
+    with pytest.raises(RuntimeError, match="plan's constants"):
+        tfa.flash_windowed_attention_grad(tq, tk, tv, None, *tables,
+                                          *args[3:])
     with torch.no_grad():
         tfa.packed_window_attention(x, h, d, *t_tabs, 1e-5, kv)
         tgather.gather_rows(x, index)
+        tfa.flash_windowed_attention(tq, tk, tv, *args)
 
 
 def test_k2_gradient_matches_jax_vjp_bit_equal():
@@ -378,14 +496,21 @@ def test_logitnormal_timesteps():
         (torch.sigmoid(z * 2.0 + 0.5) * 10.0).numpy(), rtol=1e-6)
 
 
-def test_flow_loss_and_every_gradient_match_jax_fp32(setup):
+PLANS = pytest.mark.parametrize("uniform", [False, True],
+                                ids=["grouped", "uniform"])
+
+
+@PLANS
+def test_flow_loss_and_every_gradient_match_jax_fp32(setup, uniform):
     """The fp32 loss and every parameter's gradient against
     jax.value_and_grad of the same loss from JAX's nadit_forward,
-    LerpSchedule and logitnormal_timesteps (noise and t from a JAX key):
+    LerpSchedule and logitnormal_timesteps (noise and t from a JAX key),
+    on the grouped and on the uniform window plan (K9 and its gradient; a
+    900-slot window of 4 video tokens: pad keys and pad query rows):
     within 1e-5 per leaf."""
     jcfg, tcfg, params, batch = setup
     noise, t = jax_draws(jax.random.PRNGKey(11), batch)
-    plan = jn.build_dit_plan(jcfg, SHAPE, TXT_LEN)
+    plan = jn.build_dit_plan(jcfg, SHAPE, TXT_LEN, uniform=uniform)
     sched = jdiff.LerpSchedule(1000.0)
 
     def loss(p):
@@ -401,7 +526,8 @@ def test_flow_loss_and_every_gradient_match_jax_fp32(setup):
     model = port_model(tcfg, params)
     t_loss = ttrain.flow_loss(model, tbatch(batch), torch.from_numpy(noise),
                               torch.from_numpy(t),
-                              tn.build_dit_plan(tcfg, SHAPE, TXT_LEN),
+                              tn.build_dit_plan(tcfg, SHAPE, TXT_LEN,
+                                                uniform=uniform),
                               dtype=torch.float32)
     t_loss.backward()
     assert abs(t_loss.item() - float(j_loss)) <= FP32_REL * float(j_loss)
@@ -479,17 +605,41 @@ def test_unreached_parameters_step_on_jax_zero_gradient(family):
     assert all(not mu[k].any() for k in zero)
 
 
+def test_uniform_plan_gradients_match_grouped_fp32(setup):
+    """The port's two plans compute one function: the fp32 loss and every
+    gradient on the uniform plan (K9's Function) against the grouped plan
+    (K1's and K2's) on the same parameters and draws, within 1e-5 per
+    leaf (the same products summed over other windows' layouts)."""
+    _, tcfg, params, batch = setup
+    noise, t = jax_draws(jax.random.PRNGKey(13), batch)
+    losses, grads = [], []
+    for uniform in (False, True):
+        model = port_model(tcfg, params)
+        loss = ttrain.flow_loss(model, tbatch(batch), torch.from_numpy(noise),
+                                torch.from_numpy(t),
+                                tn.build_dit_plan(tcfg, SHAPE, TXT_LEN,
+                                                  uniform=uniform),
+                                dtype=torch.float32)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({k: p.grad for k, p in model.named_parameters()})
+    assert abs(losses[1] - losses[0]) <= FP32_REL * losses[0]
+    assert {k for k, g in grads[0].items() if g is None} == {
+        k for k, g in grads[1].items() if g is None}
+    bad = {k: rel_l2(_np(grads[1][k]), _np(g)) for k, g in grads[0].items()
+           if g is not None and rel_l2(_np(grads[1][k]), _np(g)) > FP32_REL}
+    assert not bad, bad
+
+
 def test_training_path_refusals(setup):
+    """A quantised tree and fp16 weights are refused; both window plans
+    are taken."""
     _, tcfg, params, batch = setup
     model = port_model(tcfg, params)
     args = (tbatch(batch), torch.zeros(BATCH, *SHAPE, 4),
             torch.full((BATCH,), 500.0))
-    with pytest.raises(NotImplementedError, match="uniform plan"):
-        ttrain.flow_loss(model, *args, tn.build_dit_plan(
-            tcfg, SHAPE, TXT_LEN, uniform=True))
-    with pytest.raises(NotImplementedError, match="uniform plan"):
-        ttrain.make_train_step(tcfg, tn.build_dit_plan(
-            tcfg, SHAPE, TXT_LEN, uniform=True), device="cpu")
+    ttrain.make_train_step(tcfg, tn.build_dit_plan(
+        tcfg, SHAPE, TXT_LEN, uniform=True), device="cpu")
     from seedvr2_tpu_torch.ops.quant_matmul import quantize_dit_q8
 
     quantize_dit_q8(model, 8)
@@ -525,10 +675,11 @@ def test_train_step_raises_on_a_cut_graph(setup, monkeypatch):
 # ---------------------------------------------------------------- steps
 
 
-def _jax_steps(jcfg, params, batch, n, keys):
+def _jax_steps(jcfg, params, batch, n, keys, uniform=False):
     """n steps of JAX's real make_train_step (bf16, optax) on a one-device
-    mesh: (states after each step, losses)."""
-    plan = jn.build_dit_plan(jcfg, SHAPE, TXT_LEN)
+    mesh, on the grouped or the uniform window plan: (states after each
+    step, losses)."""
+    plan = jn.build_dit_plan(jcfg, SHAPE, TXT_LEN, uniform=uniform)
     mesh = jmesh.make_mesh(1)
     with mesh:
         init_state, step = jtrain.make_train_step(jcfg, plan, mesh)
@@ -543,18 +694,34 @@ def _jax_steps(jcfg, params, batch, n, keys):
 
 
 @pytest.fixture(scope="module")
-def jax_run(setup):
-    """Three steps of JAX's train_step from the setup's parameters: (keys,
-    states after each step, losses)."""
+def jax_runs(setup):
+    """Three steps of JAX's train_step from the setup's parameters on
+    either plan, each run once: run(uniform) -> (keys, states after each
+    step, losses)."""
     jcfg, _, params, batch = setup
     keys = [jax.random.PRNGKey(100 + i) for i in range(3)]
-    return (keys, *_jax_steps(jcfg, params, batch, 3, keys))
+    runs = {}
+
+    def run(uniform):
+        if uniform not in runs:
+            runs[uniform] = (keys, *_jax_steps(jcfg, params, batch, 3, keys,
+                                               uniform))
+        return runs[uniform]
+
+    return run
 
 
-def _port_steps(tcfg, state_or_model, batch, draws, dtype=torch.bfloat16):
+@pytest.fixture(scope="module")
+def jax_run(jax_runs):
+    """The grouped plan's run of jax_runs."""
+    return jax_runs(False)
+
+
+def _port_steps(tcfg, state_or_model, batch, draws, dtype=torch.bfloat16,
+                uniform=False):
     init_state, step = ttrain.make_train_step(
-        tcfg, tn.build_dit_plan(tcfg, SHAPE, TXT_LEN), device="cpu",
-        dtype=dtype)
+        tcfg, tn.build_dit_plan(tcfg, SHAPE, TXT_LEN, uniform=uniform),
+        device="cpu", dtype=dtype)
     state = init_state(state_or_model)
     losses, mus = [], []
     for noise, t in draws:
@@ -566,15 +733,17 @@ def _port_steps(tcfg, state_or_model, batch, draws, dtype=torch.bfloat16):
     return state, losses, mus
 
 
-def test_three_steps_against_jax_train_step(setup, jax_run):
+@PLANS
+def test_three_steps_against_jax_train_step(setup, jax_runs, uniform):
     """Three steps of JAX's own bf16 train_step and the port's, fed the
-    same draws: losses within 1e-2, the first moment after step 1 (0.1 *
-    grad on both sides) within 3e-2 relative L2 overall, steps equal."""
+    same draws, on the grouped and on the uniform window plan: losses
+    within 1e-2, the first moment after step 1 (0.1 * grad on both sides)
+    within 3e-2 relative L2 overall, steps equal."""
     _, tcfg, params, batch = setup
-    keys, j_states, j_losses = jax_run
+    keys, j_states, j_losses = jax_runs(uniform)
     draws = [jax_draws(k, batch) for k in keys]
     state, losses, mus = _port_steps(tcfg, port_model(tcfg, params), batch,
-                                     draws)
+                                     draws, uniform=uniform)
     for got, ref in zip(losses, j_losses):
         assert abs(got - ref) <= BF16_LOSS_REL * abs(ref), (losses, j_losses)
     ref_mu = grads_by_name(j_states[0].opt_state[0].mu)

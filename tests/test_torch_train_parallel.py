@@ -11,6 +11,8 @@ by the weight bridge) and a batch of 2, and each rank checks:
    order than one rank's whole-batch backward);
  - each rank holding 1 / (fsdp * tp) of every tensor param_sharding cuts,
    its parameters and both moments alike;
+ - three fp32 steps on the uniform window plan on (1, 2, 2) (fsdp 2,
+   dp 1) bit-equal to the same steps on one rank;
  - a checkpoint written by the world on (1, 2, 2) after two steps,
    restored on one rank, stepping on bit-equal to the world's third step.
 
@@ -39,7 +41,7 @@ from .test_torch_train import BATCH, SHAPE, TINY, TXT_LEN
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
 CHECKS = ["train_dp2_fsdp2", "train_fsdp4", "train_fsdp2_tp2",
-          "checkpoint_4_ranks_to_1"]
+          "train_uniform_fsdp2_tp2", "checkpoint_4_ranks_to_1"]
 
 _WORKER = r"""
 import os, sys

@@ -4,7 +4,8 @@ Run by that file in a subprocess (RANK / WORLD_SIZE / MASTER_* in the
 environment, SPEC naming its spec.json); it defines no tests and imports
 neither JAX nor the JAX package. Every rank makes every mesh, in one order,
 trains on each the tiny DiT of the spec for three fp32 steps beside the
-same steps on one rank (no mesh) in this process, and writes {check: {"ok",
+same steps on one rank (no mesh) in this process, on the grouped window
+plan and, on one mesh, on the uniform one, and writes {check: {"ok",
 "detail"}} to rank<N>.json.
 """
 
@@ -41,8 +42,10 @@ class World:
         kw = {k: tuple(v) if isinstance(v, list) else v
               for k, v in spec["cfg"].items()}
         self.cfg = tc.DiTConfig(**kw)
-        self.plan = nadit.build_dit_plan(self.cfg, tuple(spec["shape"]),
-                                         spec["txt_len"])
+        self.plans = {u: nadit.build_dit_plan(self.cfg, tuple(spec["shape"]),
+                                              spec["txt_len"], uniform=u)
+                      for u in (False, True)}
+        self.plan = self.plans[False]
         data = np.load(os.path.join(spec["out"], "inputs.npz"))
         self.batch = {k: torch.from_numpy(data[k])
                       for k in ("latent", "cond", "txt")}
@@ -53,12 +56,13 @@ class World:
     def record(self, name, ok, detail=""):
         self.results[name] = {"ok": bool(ok), "detail": str(detail)}
 
-    def run(self, mesh, state=None, steps=range(STEPS)):
+    def run(self, mesh, state=None, steps=range(STEPS), uniform=False):
         """Steps `steps` (each drawing from its own seeded generator) from
-        the model, or on from `state` (laid out for `mesh`): (state,
-        losses)."""
+        the model, or on from `state` (laid out for `mesh`), on the grouped
+        or the uniform window plan: (state, losses)."""
         init_state, step = train.make_train_step(
-            self.cfg, self.plan, mesh, device="cpu", dtype=torch.float32)
+            self.cfg, self.plans[uniform], mesh, device="cpu",
+            dtype=torch.float32)
         if state is None:
             state = init_state(self.model)
         losses = []
@@ -95,6 +99,23 @@ def check_mesh(w, name, mesh, ref):
     return state
 
 
+def check_uniform(w, name, mesh):
+    """Three steps on the uniform window plan on `mesh` (dp 1) against one
+    rank's: a dp 1 mesh computes one rank's arithmetic on parameters
+    gathered bit for bit, so losses and whole parameters are bit-equal."""
+    state, losses = w.run(mesh, uniform=True)
+    ref_state, ref_losses = w.run(None, uniform=True)
+    whole = train.full_params(state)
+    same = [torch.equal(whole[k], ref_state.params[k]) for k in whole]
+    w.record(f"train_uniform_{name}",
+             all(same) and all(torch.equal(a, b)
+                               for a, b in zip(losses, ref_losses))
+             and state.step == STEPS,
+             f"{sum(same)}/{len(same)} tensors bit-equal, losses "
+             f"{[float(x) for x in losses]} vs "
+             f"{[float(x) for x in ref_losses]}")
+
+
 def check_checkpoint(w, mesh, path):
     """Two steps on the 4-rank mesh, saved, a third step there; one rank
     restores the file and takes the third step: bit-equal to the run that
@@ -129,6 +150,7 @@ def main():
     ref = w.run(None)
     for name, mesh in meshes.items():
         check_mesh(w, name, mesh, ref)
+    check_uniform(w, "fsdp2_tp2", meshes["fsdp2_tp2"])
     check_checkpoint(w, meshes["fsdp2_tp2"],
                      os.path.join(spec["out"], "state.safetensors"))
     assert not any(m == "seedvr2_tpu" or m.startswith("seedvr2_tpu.")
