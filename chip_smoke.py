@@ -187,17 +187,26 @@ network. In order it:
     backward against its plain version, at the record shape (B=12 S=512
     kv_len=463) and the 1080p clip plan's largest window group, each timed
     after an L2 flush beside its plain version, its bound and torch SDPA's
-    backward, K1's serving time printed beside them; K2's backward (K2 on
-    the inverse index) bit-equal to index_select's gradient; two ranks on
-    cuda:0 over gloo at fsdp 2 (the 3B's widths, 4 blocks) taking three
-    steps equal to one rank's, with a checkpoint saved after step 2,
-    restored onto the mesh and stepped again bit-equal; then the full
-    32-layer 3B on a 64x64x16 latent (a 512x512 frame, 1024 tokens) at
-    batch 2 with the packaged text embedding: one backward with every
-    parameter's gradient present and finite, three AdamW steps with the
-    kernels (the path's K1 / K2 forward and backward launches, the step
-    seconds, the peak memory against the 57-60 GiB reckoned) and the same
-    steps with the plain versions, the losses held to each other;
+    backward, K1's serving time printed beside them, and at every window
+    group of the training plan at the 3B's 20 heads and at a tp 2 rank's
+    10; K2's backward (K2 on the inverse index) bit-equal to
+    index_select's gradient; K9's training launch and backward likewise at
+    its record shape and the training plan's layers at 20 and 10 heads;
+    then the full 32-layer 3B on a 64x64x16 latent (a 512x512 frame, 1024
+    tokens) at batch 2 with the packaged text embedding: one backward with
+    every parameter's gradient present and finite, three AdamW steps with
+    the kernels on each plan (the path's forward and backward launches,
+    the step seconds, the peak memory against the reckoning) and the same
+    steps with the plain versions, the losses held to each other; two
+    steps under attention_mode="xla" held to the flash mode's; then two
+    ranks on cuda:0 over gloo training the same full 3B at fsdp 2 (bit-
+    equal to one rank) and at tp 2 (losses, sampled parameters and their
+    updates within bf16-class bounds; one step on the uniform plan too,
+    held so against one rank's first step), each rank's peak against its
+    reckoning, its
+    gathers and launches, and the 3B's widths at 4 blocks at fsdp 2 with
+    a checkpoint saved after step 2, restored onto the mesh and stepped
+    again bit-equal;
  12. prints the kernels' JSON record (K1-K12 and the backward kernels,
     launches by path, the 7B paths included, and each 7B kernel's record
     under "7b"), the card line again, and last {"ok": true, "device":
@@ -455,6 +464,9 @@ DP_BATCH = 1
 # width, short side out)
 NCCL_CLIP = (5, 360, 640, 720)
 PARALLEL_TIMEOUT = 420
+# phase 13's two-rank worlds: the full 3B on two meshes and the checkpoint
+# round trip
+TRAIN_WORLD_TIMEOUT = 600
 
 # the q8 lane's requests (untiled VAE) and the q4 lane's (preset tiling):
 # (label, frames, height, width, short side)
@@ -493,16 +505,36 @@ REF_TILED_RATIO = 2.0
 
 # phase 13, the trainer: the full 32-layer 3B on a 64 x 64 x 16 latent (one
 # 512 x 512 frame, 1024 tokens) at batch 2 with the packaged text
-# embedding, TRAIN_STEPS AdamW steps; the two ranks' model (the 3B's widths,
-# TRAIN_RANK_LAYERS blocks, so that two processes fit one card); the peak
-# reckoned for the full model (fp32 parameters, gradients and both moments
-# 50.5 GiB, the bf16 weight copies 6.3 GiB, the activations a few GiB); the
-# kernels the train path must launch
+# embedding, TRAIN_STEPS AdamW steps on one rank; then two ranks on cuda:0
+# over gloo training the same full 3B from the same start on the same
+# draws on each of TRAIN_MESHES (dp, fsdp, tp), TRAIN_STEPS steps on the
+# grouped plan each and, on the tp mesh, TRAIN_TP_UNIFORM_STEPS on the
+# uniform plan; and the 3B's widths at TRAIN_RANK_LAYERS blocks at fsdp 2
+# for the checkpoint round trip (the full 3B's file would be 38 GiB). The
+# peak reckoned for one rank (fp32 parameters, gradients and both moments
+# 50.5 GiB; the bf16 weights now bound a block at a time; the activations a
+# few GiB), and a rank's at fsdp 2 (fp32 pieces of the parameters, both
+# moments and the gradients 25.3 GiB, at most two gathered blocks 0.6 GiB,
+# the activations as one rank's: 28-33 GiB) and at tp 2 (the same pieces of
+# the halved blocks and the whole rest 26.0 GiB, one block's bf16 weights,
+# the activations at half the heads: 27-30 GiB; 31-37 GiB if the bf16 local
+# weights and gradients stayed for the whole step, which they do not)
 TRAIN_LATENT = (1, 64, 64)
 TRAIN_BATCH = 2
 TRAIN_STEPS = 3
+TRAIN_TP = 2
+TRAIN_MESHES = (("fsdp2", (1, 2, 1)), ("tp2", (1, 1, TRAIN_TP)))
+TRAIN_TP_UNIFORM_STEPS = 1
 TRAIN_RANK_LAYERS = 4
-TRAIN_PEAK_GIB = (57, 60)
+TRAIN_PEAK_GIB = (51, 56)
+TRAIN_RANK_PEAK_GIB = {"fsdp2": (28, 33), "tp2": (27, 30)}
+# a rank's peak may exceed the top of its reckoning by this much before
+# the phase fails (the activations' share is a guess)
+TRAIN_RANK_PEAK_SLACK_GIB = 3.0
+# every TRAIN_SAMPLE-th element of each rank's parameter pieces after the
+# steps is held against the same elements of one rank's run (one rank
+# writes them, TRAIN_SAMPLE times fewer bytes than its state)
+TRAIN_SAMPLE = 97
 TRAIN_KERNELS = ("K1", "K2", "K1bwd_dq", "K1bwd_dkdv", "K1bwd_prepass",
                  "K2bwd")
 # the uniform window plan's train path: K9's training launch and its three
@@ -546,10 +578,35 @@ BWD_LEAF_REL = 3e-2
 # less than its size (2.2e-5 relative at most on the H100): within 1e-3
 TRAIN_LOSS_REL = 1e-3
 # two ranks at fsdp 2 against one rank, same card, same data: dp 1 means
-# each rank computes one rank's arithmetic on parameters gathered bit for
+# each rank computes one rank's arithmetic on weights gathered bit for
 # bit, so the two agree unless a library reduction is not deterministic:
 # losses and parameters within 1e-5 relative (bit-equality printed)
 TRAIN_RANKS_REL = 1e-5
+# two ranks at tp 2 against one rank: each row-sharded projection's fp32
+# partials are summed over the two ranks before its one bf16 rounding, and
+# the gradients at the column-sharded inputs are rounded to bf16 per rank
+# and summed, so bf16-class differences move through 32 blocks and three
+# AdamW steps as the kernels-vs-plain ones do (TRAIN_LOSS_REL on the
+# losses; read on the H100: 5.1e-6 on the grouped plan's three steps,
+# 5.7e-6 on the uniform plan's step); the parameters after three steps,
+# each within about 3e-4 of its start, by relative L2 over the sampled
+# elements: read 1.76e-4, bound about 3x that. The steps' updates
+# themselves (the parameters' moves from the start, about 1.2 % of their
+# norm; a missing update reads 1): read 0.0151 after the grouped plan's
+# three steps, bound 3x that. The uniform plan's one step is held the same
+# way against one rank's parameters after its first step: read 1.49e-4 on
+# the parameters, 0.0261-0.0262 on the update (AdamW's first step moves an
+# element by about lr times its gradient's sign, which bf16-class
+# differences flip on the smallest gradients); the grouped plan's readings
+# repeated to the digit over two runs
+TRAIN_TP_LOSS_REL = TRAIN_LOSS_REL
+TRAIN_TP_PARAM_REL = 5e-4
+TRAIN_TP_UPDATE_REL = 0.045
+# the xla attention mode's steps (SDPA, its backward by autograd) against
+# the flash mode's (K1 and its backward) on the same start and draws: two
+# bf16 attentions rounded at other points, as the kernels against their
+# plain versions: TRAIN_LOSS_REL
+TRAIN_XLA_STEPS = 2
 
 # H100 SXM data-sheet peaks (dense), for the bounds
 PEAK_BF16 = 989e12
@@ -4105,7 +4162,7 @@ def parallel_rank(torch, np, rank: int, port: int, out_dir: str) -> None:
     from seedvr2_tpu_torch.core.configs import DIT_3B, DIT_7B
     from seedvr2_tpu_torch.core.loader import quantize_dit
     from seedvr2_tpu_torch.models.dit import nadit
-    from seedvr2_tpu_torch.parallel.comm import tp_reducer
+    from seedvr2_tpu_torch.parallel.comm import TPComm
     from seedvr2_tpu_torch.parallel.mesh import make_mesh
     from seedvr2_tpu_torch.parallel.tp import tp_compatible, tp_shard_dit
     from seedvr2_tpu_torch.profile_requests import make_frames
@@ -4146,17 +4203,21 @@ def parallel_rank(torch, np, rank: int, port: int, out_dir: str) -> None:
                 bad.append(f"{family} {quant}: does not shard 2 ways")
                 break
             tp_shard_dit(model, tp_mesh)
-            reduce = tp_reducer(tp_mesh)
             spent = [0.0, 0]  # seconds in the all-reduces, their count
 
-            def timed(t, reduce=reduce):
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
-                out = reduce(t)
-                torch.cuda.synchronize()
-                spent[0] += time.perf_counter() - t2
-                spent[1] += 1
-                return out
+            class Timed(TPComm):
+                """The tp line's collectives, each sum timed alone."""
+
+                def __call__(self, t):
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    out = super().__call__(t)
+                    torch.cuda.synchronize()
+                    spent[0] += time.perf_counter() - t2
+                    spent[1] += 1
+                    return out
+
+            timed = Timed(tp_mesh)
 
             torch.cuda.synchronize()
             reset_counts(wrappers)
@@ -4394,7 +4455,7 @@ def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
     records."""
     import torch.nn.functional as F
 
-    H, D, eps = cfg.heads, cfg.head_dim, cfg.norm_eps
+    D, eps = cfg.head_dim, cfg.norm_eps
     gen = torch.Generator(device).manual_seed(13)
     dplan = nadit.upload_plan(nadit.build_dit_plan(cfg, (2, 136, 240),
                                                    TXT_LEN), cfg, device)
@@ -4403,11 +4464,11 @@ def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
     ones = torch.ones(D, device=device)
     cases = [("B=12 S=512 kv_len=463", 12, 512, 463,
               (*rope_tables(torch, gen, 512, D, device),
-               *rope_tables(torch, gen, 512, D, device))),
+               *rope_tables(torch, gen, 512, D, device)), cfg.heads),
              (f"1080p clip plan largest group n={g.n} wlen={g.wlen} "
               f"S={g.sk_pad} kv_len={g.skv}", g.n, g.sk_pad, g.skv,
               nadit._fold_norm_tables(g.cos, g.sin, ones, ones, ones, ones,
-                                      g.wlen, g.skv))]
+                                      g.wlen, g.skv), cfg.heads)]
     timed = len(cases)
     tplan = nadit.upload_plan(nadit.build_dit_plan(cfg, TRAIN_LATENT,
                                                    TXT_LEN), cfg, device)
@@ -4415,18 +4476,22 @@ def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
     wgen = torch.Generator(device).manual_seed(15)
     norm_w = [1.0 + 0.1 * torch.randn(D, generator=wgen, device=device)
               for _ in range(4)]
-    for method, groups in tplan.groups.items():
-        for i, g in enumerate(groups):
-            cases.append((
-                f"train plan {method} group {i} n={g.n} wlen={g.wlen} "
-                f"S={g.sk_pad} kv_len={g.skv} B={TRAIN_BATCH * g.n}",
-                TRAIN_BATCH * g.n, g.sk_pad, g.skv,
-                nadit._fold_norm_tables(g.cos, g.sin, *norm_w, g.wlen,
-                                        g.skv)))
+    # every group at the 3B's heads, then at a tp 2 rank's (the sharded
+    # trainer's launches, checked only)
+    for H in (cfg.heads, cfg.heads // TRAIN_TP):
+        for method, groups in tplan.groups.items():
+            for i, g in enumerate(groups):
+                cases.append((
+                    f"train plan {method} group {i} n={g.n} wlen={g.wlen} "
+                    f"S={g.sk_pad} kv_len={g.skv} B={TRAIN_BATCH * g.n} "
+                    f"H={H}", TRAIN_BATCH * g.n, g.sk_pad, g.skv,
+                    nadit._fold_norm_tables(g.cos, g.sin, *norm_w, g.wlen,
+                                            g.skv), H))
     recs = {}
     worst = {}
+    worst_local = {}
     step_calls = []  # (label, shape, flops, the two parts' calls)
-    for n_case, (label, b, s, kv, tabs) in enumerate(cases):
+    for n_case, (label, b, s, kv, tabs, H) in enumerate(cases):
         qkv, out, lse, same, dout, x, qh, kh = k1_bwd_case(
             torch, fa, b, s, kv, H, D, tabs, gen, device)
         v = x[:, :, 2]
@@ -4480,6 +4545,12 @@ def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
                  f"{pad}")
         ops = {"K1bwd_dq": 6.0 * b * H * kv * kv * D,
                "K1bwd_dkdv": 8.0 * b * H * kv * kv * D}
+        if n_case >= timed and H != cfg.heads:
+            for k, (e, _) in errs.items():
+                worst_local[k] = max(worst_local.get(k, 0.0), e)
+            del qkv, x, dq, dk, dv, pre, whole, again
+            del p_lse, p_dq, p_dk, p_dv, p_pre, p_whole
+            continue
         if n_case >= timed:
             for k, (e, _) in errs.items():
                 worst[k] = max(worst.get(k, 0.0), e)
@@ -4583,20 +4654,26 @@ def check_k1_backward(torch, fa, nadit, cfg, device, k1_ms):
         ms = {key: queued_ms(torch, fn) for key, fn in zip(step_ms, fns)}
         for key, t in ms.items():
             step_ms[key] += per_step * t
-        plan = fa.backward_plan(b, s, H, kv, fa._sm_count(device))
+        plan = fa.backward_plan(b, s, cfg.heads, kv, fa._sm_count(device))
         say(f"K1 backward {label}: dq {ms['K1bwd_dq']:.4f} ms "
             f"({ops['K1bwd_dq'] / ms['K1bwd_dq'] / 1e9:.1f} TFLOP/s), dk/dv "
             f"{ms['K1bwd_dkdv']:.4f} ms ("
             f"{ops['K1bwd_dkdv'] / ms['K1bwd_dkdv'] / 1e9:.1f} TFLOP/s); dq "
-            f"{plan.wg} warpgroup(s) a block, {plan.blocks * H * b} blocks; "
-            f"dk/dv {plan.kv_blocks * H * b} blocks; {per_step} launches of "
-            "each a step")
+            f"{plan.wg} warpgroup(s) a block, {plan.blocks * cfg.heads * b} "
+            f"blocks; dk/dv {plan.kv_blocks * cfg.heads * b} blocks; "
+            f"{per_step} launches of each a step")
     del step_calls
     torch.cuda.empty_cache()
-    say(f"K1 backward over the training plan's {len(cases) - timed} window "
+    n_groups = (len(cases) - timed) // 2
+    say(f"K1 backward over the training plan's {n_groups} window groups at "
+        f"a tp {TRAIN_TP} rank's {cfg.heads // TRAIN_TP} heads (K1's "
+        "training launch, its lse, and every backward part): worst relative "
+        "L2 to the plain versions "
+        + ", ".join(f"{k} {e:.3g}" for k, e in worst_local.items()))
+    say(f"K1 backward over the training plan's {n_groups} window "
         "groups: worst relative L2 to the plain versions "
         + ", ".join(f"{k} {e:.3g}" for k, e in worst.items())
-        + f"; one train step's {per_step * (len(cases) - timed)} launches of "
+        + f"; one train step's {per_step * n_groups} launches of "
         f"each part: dq {step_ms['K1bwd_dq']:.3f} ms, dk/dv "
         f"{step_ms['K1bwd_dkdv']:.3f} ms, together "
         f"{sum(step_ms.values()):.3f} ms (each launch alone after an L2 "
@@ -4663,18 +4740,21 @@ def check_k9_backward(torch, fa, nadit, cfg, device):
     parts). Returns the three records."""
     import torch.nn.functional as F
 
-    H, D = cfg.heads, cfg.head_dim
+    D = cfg.head_dim
     scale = D ** -0.5
     gen = torch.Generator(device).manual_seed(19)
     label, latent, method = K9_RECORD
     cases = [(f"{label} {method}", nadit.upload_plan(nadit.build_dit_plan(
-        cfg, latent, TXT_LEN, uniform=True), cfg, device).uniform[method], 1)]
+        cfg, latent, TXT_LEN, uniform=True), cfg, device).uniform[method], 1,
+        cfg.heads)]
     tplan = nadit.upload_plan(nadit.build_dit_plan(
         cfg, TRAIN_LATENT, TXT_LEN, uniform=True), cfg, device)
-    cases += [(f"train plan {m}", u, TRAIN_BATCH)
+    # the training plan's layers at the 3B's heads and at a tp 2 rank's
+    cases += [(f"train plan {m}", u, TRAIN_BATCH, H)
+              for H in (cfg.heads, cfg.heads // TRAIN_TP)
               for m, u in tplan.uniform.items()]
-    recs, worst = {}, {}
-    for n_case, (label, u, batch) in enumerate(cases):
+    recs, worst, worst_local = {}, {}, {}
+    for n_case, (label, u, batch, H) in enumerate(cases):
         ids = u.batch_ids(batch)
         b, s = len(ids), u.cos.shape[1]
         idx = ids.tensor.long()
@@ -4739,8 +4819,9 @@ def check_k9_backward(torch, fa, nadit, cfg, device):
                  f"{rerun}, training launch's output equal {same}, masked "
                  f"keys {pad}")
         if n_case > 0:
+            into = worst if H == cfg.heads else worst_local
             for k_, (e, _) in errs.items():
-                worst[k_] = max(worst.get(k_, 0.0), e)
+                into[k_] = max(into.get(k_, 0.0), e)
             continue
         # the record shape: times, bounds, the plain versions, SDPA
         def max_abs(*pairs):
@@ -4816,9 +4897,14 @@ def check_k9_backward(torch, fa, nadit, cfg, device):
             f"{fwd_ms['serving']:.4f} ms, training (lse) "
             f"{fwd_ms['training (lse)']:.4f} ms")
         del qr, kr, vr, o, do
-    say(f"K9 backward over the training plan's {len(cases) - 1} uniform "
-        "layers: worst relative L2 to the plain versions "
+    say(f"K9 backward over the training plan's {(len(cases) - 1) // 2} "
+        "uniform layers: worst relative L2 to the plain versions "
         + ", ".join(f"{k_} {e:.3g}" for k_, e in worst.items()))
+    say(f"K9 backward over the training plan's {(len(cases) - 1) // 2} "
+        f"uniform layers at a tp {TRAIN_TP} rank's {cfg.heads // TRAIN_TP} "
+        "heads (K9's training launch, its lse, and every backward part): "
+        "worst relative L2 to the plain versions "
+        + ", ".join(f"{k_} {e:.3g}" for k_, e in worst_local.items()))
     torch.cuda.empty_cache()
     return recs
 
@@ -4857,85 +4943,238 @@ def step_generator(torch, device, i):
     return torch.Generator(device).manual_seed(5000 + i)
 
 
+def piece_samples(torch, np, train, cfg, shape, rank, params):
+    """Every TRAIN_SAMPLE-th element of each fp32 piece that world rank
+    `rank` of the (dp, fsdp, tp) mesh `shape` holds of the whole tensors
+    `params` under the trainer's layout (no process group needed), on the
+    host."""
+    from seedvr2_tpu_torch.parallel.mesh import Mesh
+
+    names = ("dp", "fsdp", "tp")
+    mesh = Mesh(names, dict(zip(names, shape)),
+                tuple(range(int(np.prod(shape)))), rank)
+    layout = train.TrainLayout(cfg, mesh, {k: tuple(v.shape)
+                                           for k, v in params.items()})
+    return {k: layout.piece(k, v).reshape(-1)[::TRAIN_SAMPLE].clone().cpu()
+            for k, v in params.items()}
+
+
+def sample_errors(torch, got, ref, start):
+    """Sampled pieces after the steps (`got`) against one rank's (`ref`):
+    (bit-equal, relative L2 of the parameters over every sample, of the
+    steps' updates from `start`, the tensor worst on the parameters)."""
+    same = all(torch.equal(got[k], ref[k]) for k in ref)
+    d = sum(float((got[k] - ref[k]).double().norm()) ** 2 for k in ref)
+    n = sum(float(ref[k].double().norm()) ** 2 for k in ref)
+    du = sum(float(((got[k] - start[k]) - (ref[k] - start[k])).double()
+                   .norm()) ** 2 for k in ref)
+    nu = sum(float((ref[k] - start[k]).double().norm()) ** 2 for k in ref)
+    worst = max(ref, key=lambda k: float((got[k] - ref[k]).norm())
+                / max(float(ref[k].norm()), 1e-30))
+    return same, (d / n) ** 0.5, (du / max(nu, 1e-30)) ** 0.5, worst
+
+
 def train_rank(torch, np, rank: int, port: int, out_dir: str) -> None:
-    """One of phase 13's two ranks, both on cuda:0 over gloo, the mesh
-    (dp, fsdp, tp) = (1, 2, 1): the 3B at full width and TRAIN_RANK_LAYERS
-    blocks, three steps against one rank's (rank 0 runs those too), a
-    checkpoint after step 2 restored onto the mesh and stepped again. Writes
-    rank<N>.json into out_dir and exits non-zero on a miss."""
+    """One of phase 13's two ranks, both on cuda:0 over gloo: the full 3B
+    on each of TRAIN_MESHES from one rank's start (the same seeded model,
+    batch and step draws), TRAIN_STEPS steps on the grouped plan held
+    against one rank's run (its losses and sampled parameters, which the
+    main process wrote to out_dir); on the tp mesh also
+    TRAIN_TP_UNIFORM_STEPS on the uniform plan from the start, held so
+    against one rank's state after as many steps; then the
+    3B's widths at TRAIN_RANK_LAYERS blocks at fsdp 2, a checkpoint after
+    step 2 restored onto the mesh and stepped again. Writes rank<N>.json
+    into out_dir and exits non-zero on a miss."""
+    import gc
+
     import torch.distributed as dist
 
     from seedvr2_tpu_torch.core.configs import DIT_3B
+    from seedvr2_tpu_torch.core.weights import read_safetensors
     from seedvr2_tpu_torch.models.dit import nadit
-    from seedvr2_tpu_torch.parallel import train
-    from seedvr2_tpu_torch.parallel.mesh import make_mesh, param_sharding
+    from seedvr2_tpu_torch.parallel import comm, train
+    from seedvr2_tpu_torch.parallel.mesh import make_mesh
     from seedvr2_tpu_torch.utils.text_embeds import load_text_embeddings
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=2, rank=rank)
-    mesh = make_mesh(2, ("dp", "fsdp", "tp"), (1, 2, 1), backend="gloo")
-    cfg = dataclasses.replace(DIT_3B, num_layers=TRAIN_RANK_LAYERS)
+    meshes = {name: make_mesh(2, ("dp", "fsdp", "tp"), shape,
+                              backend="gloo")
+              for name, shape in TRAIN_MESHES}
+    wrappers = kernel_wrappers()
+    ref = json.load(open(os.path.join(out_dir, "one_rank.json")))
+    cfg = DIT_3B
     embeds = load_text_embeddings(txt_dim=cfg.txt_in_dim)
     batch = train_batch(torch, cfg, device, embeds, 7)
-    plan = nadit.build_dit_plan(cfg, TRAIN_LATENT, TXT_LEN)
-    model = nadit.init_dit(cfg, device, torch.bfloat16,
+    dplan = nadit.upload_plan(nadit.build_dit_plan(
+        cfg, TRAIN_LATENT, TXT_LEN, uniform=True), cfg, device)
+    plans = {"grouped": dataclasses.replace(dplan, uniform=None),
+             "uniform": dplan}
+    report, bad = {"meshes": {}}, []
+
+    def start(mesh, plan):
+        model = nadit.init_dit(cfg, device, torch.bfloat16,
+                               torch.Generator(device).manual_seed(0))
+        init_state, step = train.make_train_step(cfg, plan, mesh,
+                                                 device=device)
+        state = init_state(model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return state, step
+
+    def steps(state, step, n):
+        losses, secs = [], []
+        for i in range(n):
+            t1 = time.perf_counter()
+            state, loss = step(state, batch, step_generator(torch, device, i))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            losses.append(loss.item())
+        return state, losses, secs
+
+    for name, shape in TRAIN_MESHES:
+        mesh = meshes[name]
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        state, step = start(mesh, plans["grouped"])
+        init_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated(device) / 2 ** 30
+        s0 = {k: v.reshape(-1)[::TRAIN_SAMPLE].cpu()
+              for k, v in state.params.items()}
+        reset_counts(wrappers)
+        wrappers["K1"].launches_lse = 0
+        whole_before = comm.gather_shards.calls
+        step.stats.reset()
+        state, losses, secs = steps(state, step, TRAIN_STEPS)
+        launches = {k: w.launches // TRAIN_STEPS for k, w in wrappers.items()
+                    if w.launches}
+        lse = wrappers["K1"].launches_lse
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        got = {k: v.reshape(-1)[::TRAIN_SAMPLE].cpu()
+               for k, v in state.params.items()}
+        want = read_safetensors(os.path.join(out_dir,
+                                             f"ref_{name}_{rank}.safetensors"))
+        same, p_rel, u_rel, worst = sample_errors(torch, got, want, s0)
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, ref["grouped"]))
+        ways = {k: int(np.prod([mesh.shape[a] for a in
+                                state.layout.specs[k] if a]))
+                for k in state.params}
+        sized = all(state.params[k].numel() * ways[k]
+                    == int(np.prod(state.shapes[k])) for k in state.params)
+        cut = sum(w == mesh.shape["fsdp"] * mesh.shape["tp"]
+                  for w in ways.values())
+        rec = dict(losses=losses, loss_rel=loss_rel, bit_equal=same,
+                   params_rel=p_rel, updates_rel=u_rel, worst=worst,
+                   step_seconds=secs, init_seconds=init_s,
+                   state_gib=held, peak_gib=peak, launches=launches,
+                   k1_lse=lse, heads=cfg.heads // mesh.shape["tp"],
+                   pieces=f"{cut} of {len(ways)} tensors at "
+                   f"1/{mesh.shape['fsdp'] * mesh.shape['tp']}",
+                   sized=sized, gathers=dict(step.stats.gathers),
+                   gathered_high_water_gib=step.stats.high_water / 2 ** 30,
+                   whole_gathers=comm.gather_shards.calls - whole_before)
+        rec["gathers"] = {str(k): v for k, v in rec["gathers"].items()}
+        if name == "fsdp2":
+            if not max(loss_rel, p_rel, u_rel) <= TRAIN_RANKS_REL:
+                bad.append(f"{name} against one rank: loss {loss_rel}, "
+                           f"params {p_rel}, updates {u_rel} beyond "
+                           f"{TRAIN_RANKS_REL}")
+        elif not (loss_rel <= TRAIN_TP_LOSS_REL
+                  and p_rel <= TRAIN_TP_PARAM_REL
+                  and u_rel <= TRAIN_TP_UPDATE_REL):
+            bad.append(f"{name} against one rank: loss {loss_rel} (bound "
+                       f"{TRAIN_TP_LOSS_REL}), params {p_rel} (bound "
+                       f"{TRAIN_TP_PARAM_REL}), updates {u_rel} (bound "
+                       f"{TRAIN_TP_UPDATE_REL})")
+        lo, hi = TRAIN_RANK_PEAK_GIB[name]
+        if peak > hi + TRAIN_RANK_PEAK_SLACK_GIB:
+            bad.append(f"{name} peak {peak:.2f} GiB beyond the reckoned "
+                       f"{lo}-{hi} GiB")
+        if not sized or not cut or rec["whole_gathers"]:
+            bad.append(f"{name}: pieces sized {sized}, {rec['pieces']}, "
+                       f"{rec['whole_gathers']} whole-parameter gathers")
+        need = ("K1", "K2", "K1bwd_dq", "K1bwd_dkdv", "K1bwd_prepass",
+                "K2bwd")
+        if any(not launches.get(k) for k in need) or lse == 0:
+            bad.append(f"{name}: the train path's kernels not all launched: "
+                       f"{launches}, K1 lse {lse}")
+        del state, step, got, want, s0
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name == "tp2":
+            # the uniform plan's step at the local heads (K9)
+            torch.cuda.reset_peak_memory_stats(device)
+            state, step = start(mesh, plans["uniform"])
+            s0 = {k: v.reshape(-1)[::TRAIN_SAMPLE].cpu()
+                  for k, v in state.params.items()}
+            reset_counts(wrappers)
+            wrappers["K9"].launches_lse = 0
+            state, u_losses, u_secs = steps(state, step,
+                                            TRAIN_TP_UNIFORM_STEPS)
+            u_launches = {k: w.launches for k, w in wrappers.items()
+                          if w.launches}
+            u_rel = max(abs(a - b) / abs(b)
+                        for a, b in zip(u_losses, ref["uniform"]))
+            got = {k: v.reshape(-1)[::TRAIN_SAMPLE].cpu()
+                   for k, v in state.params.items()}
+            want = read_safetensors(os.path.join(
+                out_dir, f"ref_{name}_uniform_{rank}.safetensors"))
+            _, up_rel, uu_rel, u_worst = sample_errors(torch, got, want, s0)
+            rec.update(uniform_losses=u_losses, uniform_loss_rel=u_rel,
+                       uniform_params_rel=up_rel, uniform_updates_rel=uu_rel,
+                       uniform_worst=u_worst,
+                       uniform_seconds=u_secs, uniform_launches=u_launches,
+                       uniform_k9_lse=wrappers["K9"].launches_lse,
+                       uniform_peak_gib=torch.cuda.max_memory_allocated(
+                           device) / 2 ** 30)
+            if not (u_rel <= TRAIN_TP_LOSS_REL
+                    and up_rel <= TRAIN_TP_PARAM_REL
+                    and uu_rel <= TRAIN_TP_UPDATE_REL):
+                bad.append(f"tp2 uniform plan against one rank: loss "
+                           f"{u_rel} (bound {TRAIN_TP_LOSS_REL}), params "
+                           f"{up_rel} (bound {TRAIN_TP_PARAM_REL}), updates "
+                           f"{uu_rel} (bound {TRAIN_TP_UPDATE_REL})")
+            if any(not u_launches.get(k) for k in TRAIN_UNIFORM_KERNELS) \
+                    or u_launches.get("K1") or u_launches.get("K2"):
+                bad.append(f"tp2 uniform plan's launches {u_launches}")
+            del state, step, got, want, s0
+            gc.collect()
+            torch.cuda.empty_cache()
+        if not all(np.isfinite(losses)):
+            bad.append(f"{name}: non-finite losses {losses}")
+        report["meshes"][name] = rec
+
+    # the checkpoint round trip at TRAIN_RANK_LAYERS blocks, fsdp 2
+    small = dataclasses.replace(DIT_3B, num_layers=TRAIN_RANK_LAYERS)
+    model = nadit.init_dit(small, device, torch.bfloat16,
                            torch.Generator(device).manual_seed(0))
-    init_state, step = train.make_train_step(cfg, plan, mesh, device=device)
+    init_state, step = train.make_train_step(small, plans["grouped"],
+                                             meshes["fsdp2"], device=device)
     state = init_state(model)
-    ref = None
-    if rank == 0:
-        init1, step1 = train.make_train_step(cfg, plan, None, device=device)
-        ref = init1(model)
     del model
-    report, bad = {"losses": []}, []
-    t0 = time.perf_counter()
+    losses = []
+    path = os.path.join(out_dir, "state.safetensors")
     for i in range(3):
         if i == 2:
-            path = os.path.join(out_dir, "state.safetensors")
             t1 = time.perf_counter()
             train.save_train_state(state, path)
             report["save_seconds"] = time.perf_counter() - t1
         state, loss = step(state, batch, step_generator(torch, device, i))
-        report["losses"].append(loss.item())
-    torch.cuda.synchronize()
-    report["mesh_seconds"] = time.perf_counter() - t0
-    whole = train.full_params(state)
+        losses.append(loss.item())
     t1 = time.perf_counter()
     back = train.restore_train_state(path, state)
     report["restore_seconds"] = time.perf_counter() - t1
     back, loss = step(back, batch, step_generator(torch, device, 2))
     same = all(torch.equal(back.params[k], state.params[k])
-               for k in state.params) and loss.item() == report["losses"][2]
+               for k in state.params) and loss.item() == losses[2]
     report["restored_bit_equal"] = bool(same)
     if not same:
         bad.append("the restored state's step 3 differs from the run that "
                    "never stopped")
-    sizes = all(state.params[k].numel() * int(np.prod(
-        [mesh.shape[a] for a in param_sharding(mesh, s) if a])) ==
-        int(np.prod(s)) for k, s in state.shapes.items())
-    cut = sum(any(param_sharding(mesh, s)) for s in state.shapes.values())
-    report["pieces"] = f"{cut} of {len(state.shapes)} tensors halved"
-    if not sizes or not cut:
-        bad.append(f"pieces not 1/(fsdp*tp): {report['pieces']}")
-    if rank == 0:
-        losses = []
-        for i in range(3):
-            ref, loss = step1(ref, batch, step_generator(torch, device, i))
-            losses.append(loss.item())
-        lerr = max(abs(a - b) / abs(b) for a, b in zip(report["losses"],
-                                                        losses))
-        perr = max(rel_l2(whole[k], ref.params[k]) for k in whole)
-        exact = all(torch.equal(whole[k], ref.params[k]) for k in whole) \
-            and losses == report["losses"]
-        report.update(one_rank_losses=losses, loss_rel=lerr, params_rel=perr,
-                      bit_equal=exact)
-        if not (lerr <= TRAIN_RANKS_REL and perr <= TRAIN_RANKS_REL):
-            bad.append(f"two ranks vs one: loss {lerr}, params {perr} beyond "
-                       f"{TRAIN_RANKS_REL}")
-    if not all(np.isfinite(report["losses"])):
-        bad.append(f"non-finite losses {report['losses']}")
     report["bad"] = bad
     with open(os.path.join(out_dir, f"train_rank{rank}.json"), "w") as f:
         json.dump(report, f)
@@ -4945,22 +5184,20 @@ def train_rank(torch, np, rank: int, port: int, out_dir: str) -> None:
         fail(f"train rank {rank}: {bad}")
 
 
-def train_ranks(here) -> dict:
-    """Phase 13's two ranks (train_rank) in two processes; their reports."""
-    out_dir = os.path.join(here, "build", "train_smoke")
-    os.makedirs(out_dir, exist_ok=True)
-    for name in os.listdir(out_dir):
-        os.remove(os.path.join(out_dir, name))
+def train_ranks(here, out_dir) -> dict:
+    """Phase 13's two ranks (train_rank) in two processes; their reports.
+    out_dir holds one rank's reference (written by the caller)."""
     port = free_port()
     procs = [subprocess.Popen([sys.executable, os.path.join(
         here, "chip_smoke.py"), "--train-rank", str(r), str(port), out_dir])
         for r in range(2)]
-    deadline = time.time() + PARALLEL_TIMEOUT
+    deadline = time.time() + TRAIN_WORLD_TIMEOUT
     try:
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.time()))
     except subprocess.TimeoutExpired:
-        fail(f"the two training ranks did not finish in {PARALLEL_TIMEOUT} s")
+        fail(f"the two training ranks did not finish in "
+             f"{TRAIN_WORLD_TIMEOUT} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -4971,7 +5208,7 @@ def train_ranks(here) -> dict:
              f"{[p.returncode for p in procs]}")
     reports = [json.load(open(os.path.join(out_dir, f"train_rank{r}.json")))
                for r in range(2)]
-    for name in os.listdir(out_dir):  # the checkpoint file
+    for name in os.listdir(out_dir):  # the references and the checkpoint
         os.remove(os.path.join(out_dir, name))
     return reports
 
@@ -4979,16 +5216,21 @@ def train_ranks(here) -> dict:
 def train_phase(torch, np, nadit, fa, gather, device, here, counts, embeds,
                 wrappers, k1_ms):
     """Phase 13: K1's, K2's and K9's backward against their plain
-    versions, the two-rank fsdp world, then the full 32-layer 3B on the
-    grouped and on the uniform window plan (the same parameters, batch and
-    draws): on each one backward with every gradient checked leaf by leaf
-    against the plain versions' and the two plans' losses against each
-    other, then three AdamW steps with the kernels (the path's launches,
-    none of the other plan's kernels, step times, peak memory) and the same
-    steps with the plain versions. Returns the backward kernels'
-    records."""
+    versions (K1's and K9's also at a tp 2 rank's heads), then the full
+    32-layer 3B on the grouped and on the uniform window plan (the same
+    parameters, batch and draws): on each one backward with every
+    gradient checked leaf by leaf against the plain versions' and the two
+    plans' losses against each other, then three AdamW steps with the
+    kernels (the path's launches, none of the other plan's kernels, step
+    times, peak memory) and the same steps with the plain versions; the
+    xla attention mode's steps against the flash mode's; then the two-rank
+    worlds on the full 3B at fsdp 2 and tp 2 against the one-rank run.
+    Returns the backward kernels' records."""
+    import gc
+
     from seedvr2_tpu_torch.core.configs import DIT_3B
     from seedvr2_tpu_torch.core.diffusion import logitnormal_timesteps
+    from seedvr2_tpu_torch.core.weights import write_safetensors
     from seedvr2_tpu_torch.parallel import train
 
     cfg = DIT_3B
@@ -4996,20 +5238,6 @@ def train_phase(torch, np, nadit, fa, gather, device, here, counts, embeds,
     recs["K2bwd"] = check_k2_backward(torch, gather, nadit, cfg, device)
     recs.update(check_k9_backward(torch, fa, nadit, cfg, device))
     torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    reports = train_ranks(here)
-    r0 = reports[0]
-    say(f"two ranks on cuda:0 over gloo, mesh (dp, fsdp, tp) = (1, 2, 1), "
-        f"the 3B's widths at {TRAIN_RANK_LAYERS} blocks: losses "
-        f"{r0['losses']} (one rank {r0['one_rank_losses']}; loss rel "
-        f"{r0['loss_rel']:.3g}, params rel {r0['params_rel']:.3g}, bound "
-        f"{TRAIN_RANKS_REL}; bit-equal {r0['bit_equal']}); {r0['pieces']} "
-        f"on each rank; checkpoint saved in {r0['save_seconds']:.2f} s, "
-        f"restored in {r0['restore_seconds']:.2f} s, its step bit-equal "
-        f"{r0['restored_bit_equal']} on both ranks; three mesh steps with "
-        f"the save {r0['mesh_seconds']:.2f} s (two ranks share one card: "
-        f"correctness, not speed); world {time.perf_counter() - t0:.1f} s")
 
     # the full 3B: every parameter's gradient from one backward
     t0 = time.perf_counter()
@@ -5088,9 +5316,9 @@ def train_phase(torch, np, nadit, fa, gather, device, here, counts, embeds,
         f"{torch.cuda.memory_allocated(device) / 2 ** 30:.2f} GiB on the card "
         "(fp32 parameters and both moments)")
 
-    def run_steps(pl, use_kernels):
-        """TRAIN_STEPS steps on plan `pl` from the start: (state, losses,
-        step seconds, peak GiB)."""
+    def run_steps(pl, use_kernels, mode="flash", n=TRAIN_STEPS, after=None):
+        """n steps on plan `pl` from the start, after(i) called after step
+        i: (losses, step seconds, peak GiB)."""
         nonlocal state
         for k, v in host.items():
             state.params[k].copy_(v)
@@ -5098,19 +5326,45 @@ def train_phase(torch, np, nadit, fa, gather, device, here, counts, embeds,
             state.opt_state["nu"][k].zero_()
         state = state._replace(step=0)
         _, step = train.make_train_step(cfg, pl, None, device=device,
-                                        use_kernels=use_kernels)
+                                        use_kernels=use_kernels,
+                                        attention_mode=mode)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         losses, secs = [], []
-        for i in range(TRAIN_STEPS):
+        for i in range(n):
             t1 = time.perf_counter()
             state, loss = step(state, batch, step_generator(torch, device, i))
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t1)
             losses.append(loss.item())
+            if after is not None:
+                after(i)
         return losses, secs, torch.cuda.max_memory_allocated(device) / 2 ** 30
 
+    out_dir = os.path.join(here, "build", "train_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    for name in os.listdir(out_dir):
+        os.remove(os.path.join(out_dir, name))
+    one_rank, one_rank_secs = {}, {}
     per_step = {}
+
+    def write_refs(mesh_name, shape):
+        """Each of the two ranks' sampled pieces of the state as it is now,
+        under mesh `shape`, for the two-rank worlds."""
+        t1 = time.perf_counter()
+        for r in range(2):
+            write_safetensors(
+                os.path.join(out_dir, f"ref_{mesh_name}_{r}.safetensors"),
+                piece_samples(torch, np, train, cfg, shape, r, state.params))
+        say(f"one rank's sampled pieces (every {TRAIN_SAMPLE}th element) "
+            f"for the two-rank {mesh_name} world written in "
+            f"{time.perf_counter() - t1:.1f} s")
+
+    tp_shape = dict(TRAIN_MESHES)["tp2"]
+
+    def uniform_refs(i):
+        if i == TRAIN_TP_UNIFORM_STEPS - 1:
+            write_refs("tp2_uniform", tp_shape)
     for name, path, needed, absent in (
             ("grouped", "train", TRAIN_KERNELS, ("K9",) + tuple(
                 k for k in TRAIN_UNIFORM_KERNELS if k != "K9")),
@@ -5119,7 +5373,9 @@ def train_phase(torch, np, nadit, fa, gather, device, here, counts, embeds,
         reset_counts(wrappers)
         fa.packed_window_attention.launches_lse = 0
         fa.flash_windowed_attention.launches_lse = 0
-        losses, secs, peak = run_steps(plans[name], True)
+        losses, secs, peak = run_steps(
+            plans[name], True, after=uniform_refs if name == "uniform"
+            else None)
         counts[path] = read_counts(wrappers, needed, path)
         mu = state.opt_state["mu"]
         dead = [k for k, v in mu.items() if not v.abs().sum().item() > 0]
@@ -5151,6 +5407,12 @@ def train_phase(torch, np, nadit, fa, gather, device, here, counts, embeds,
                  f"{stray} of the other plan, {short} not once a layer, "
                  f"{needed[0]} lse launches a step {lse_step} against "
                  f"{dq_step} dq launches")
+        one_rank[name] = losses
+        one_rank_secs[name] = secs
+        if name == "grouped":
+            # the two-rank worlds' reference after the grouped steps
+            for mesh_name, shape in TRAIN_MESHES:
+                write_refs(mesh_name, shape)
         plain, plain_secs, _ = run_steps(plans[name], False)
         errs = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
         say(f"3B train steps on the {name} plan with the plain versions: "
@@ -5160,12 +5422,88 @@ def train_phase(torch, np, nadit, fa, gather, device, here, counts, embeds,
         if not max(errs) <= TRAIN_LOSS_REL:
             fail(f"3B train steps ({name} plan): kernels vs plain losses "
                  f"{errs} beyond {TRAIN_LOSS_REL}")
-    del state, batch, dplan, plans, host
+    # the xla attention mode (SDPA and its autograd backward, K2 and its
+    # backward still) from the same start on the same draws
+    reset_counts(wrappers)
+    xla, xla_secs, xla_peak = run_steps(plans["grouped"], True, "xla",
+                                        TRAIN_XLA_STEPS)
+    xla_launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    errs = [abs(a - b) / abs(b) for a, b in zip(xla, one_rank["grouped"])]
+    say(f"3B train steps on the grouped plan under attention_mode=\"xla\": "
+        f"losses {xla} against the flash mode's "
+        f"{one_rank['grouped'][:TRAIN_XLA_STEPS]} (relative "
+        f"{[f'{e:.3g}' for e in errs]}, bound {TRAIN_LOSS_REL}); step "
+        f"seconds {[round(x, 3) for x in xla_secs]} against the flash "
+        f"mode's {[round(x, 3) for x in one_rank_secs['grouped']]} (the "
+        f"step's library baseline: SDPA and its backward in place of K1 "
+        f"and K1's backward); peak {xla_peak:.2f} GiB; launches "
+        f"{xla_launches}")
+    if (not max(errs) <= TRAIN_LOSS_REL or xla_launches.get("K1")
+            or any(xla_launches.get(k) for k in TRAIN_KERNELS[2:5])
+            or not xla_launches.get("K2") or not xla_launches.get("K2bwd")):
+        fail(f"3B train steps under xla: losses {errs} beyond "
+             f"{TRAIN_LOSS_REL}, or launches {xla_launches} (no K1 nor its "
+             "backward, K2 and its backward)")
+    del state, batch, dplan, plans, host, mu
+    gc.collect()
     torch.cuda.empty_cache()
     for key in TRAIN_KERNELS[2:]:
         recs[key]["launches_per_step"] = per_step["grouped"][key]
     for key in TRAIN_UNIFORM_KERNELS[1:]:
         recs[key]["launches_per_step"] = per_step["uniform"][key]
+
+    # two ranks on the full 3B at fsdp 2 and at tp 2
+    with open(os.path.join(out_dir, "one_rank.json"), "w") as f:
+        json.dump(one_rank, f)
+    say(f"device memory held before the two-rank worlds: "
+        f"{torch.cuda.memory_allocated(device) / 2 ** 30:.3f} GiB")
+    t0 = time.perf_counter()
+    reports = train_ranks(here, out_dir)
+    for name, shape in TRAIN_MESHES:
+        lo, hi = TRAIN_RANK_PEAK_GIB[name]
+        for r, rep in enumerate(reports):
+            m = rep["meshes"][name]
+            bound = (f"{TRAIN_RANKS_REL} on each" if name == "fsdp2" else
+                     f"loss {TRAIN_TP_LOSS_REL}, params {TRAIN_TP_PARAM_REL}, "
+                     f"updates {TRAIN_TP_UPDATE_REL}")
+            say(f"full 3B, two ranks on cuda:0 over gloo, mesh (dp, fsdp, "
+                f"tp) = {shape}, rank {r} ({m['heads']} heads): losses "
+                f"{m['losses']} against one rank's "
+                f"{one_rank['grouped']} (loss rel {m['loss_rel']:.3g}; "
+                f"sampled parameters rel {m['params_rel']:.3g}, their "
+                f"updates rel {m['updates_rel']:.3g}, worst tensor "
+                f"{m['worst']}; bound {bound}; bit-equal {m['bit_equal']}); "
+                f"step seconds {[round(x, 2) for x in m['step_seconds']]} "
+                f"(two ranks share one card over gloo: correctness, not "
+                f"speed); state built in {m['init_seconds']:.1f} s, "
+                f"{m['state_gib']:.2f} GiB; peak {m['peak_gib']:.2f} GiB "
+                f"allocated (reckoned {lo}-{hi} GiB); {m['pieces']}; "
+                f"gathers {m['gathers']}, gathered bytes alive at most "
+                f"{m['gathered_high_water_gib']:.3f} GiB; whole-parameter "
+                f"gathers in the steps {m['whole_gathers']}; launches a "
+                f"step {m['launches']}, K1 training (lse) launches "
+                f"{m['k1_lse']}")
+            if name == "tp2":
+                say(f"  tp 2 rank {r} on the uniform plan: losses "
+                    f"{m['uniform_losses']} against one rank's "
+                    f"{one_rank['uniform'][:TRAIN_TP_UNIFORM_STEPS]} (rel "
+                    f"{m['uniform_loss_rel']:.3g}, bound "
+                    f"{TRAIN_TP_LOSS_REL}); sampled parameters rel "
+                    f"{m['uniform_params_rel']:.3g} (bound "
+                    f"{TRAIN_TP_PARAM_REL}), their update rel "
+                    f"{m['uniform_updates_rel']:.3g} (bound "
+                    f"{TRAIN_TP_UPDATE_REL}), worst tensor "
+                    f"{m['uniform_worst']}; seconds "
+                    f"{[round(x, 2) for x in m['uniform_seconds']]}; peak "
+                    f"{m['uniform_peak_gib']:.2f} GiB; launches "
+                    f"{m['uniform_launches']}, K9 training (lse) launches "
+                    f"{m['uniform_k9_lse']}")
+    r0 = reports[0]
+    say(f"the 3B's widths at {TRAIN_RANK_LAYERS} blocks at fsdp 2: "
+        f"checkpoint saved in {r0['save_seconds']:.2f} s, restored in "
+        f"{r0['restore_seconds']:.2f} s, its step bit-equal "
+        f"{r0['restored_bit_equal']} on both ranks; two-rank worlds "
+        f"{time.perf_counter() - t0:.1f} s")
     return recs
 
 

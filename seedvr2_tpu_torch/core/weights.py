@@ -153,8 +153,10 @@ def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(raw)) + raw)
         for t in tensors.values():
-            t = t.detach().cpu().contiguous()
-            f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+            t = t.detach().cpu().reshape(-1)
+            if t.numel() and t.stride(0) != 1:  # a strided view, size 1 too
+                t = t.clone(memory_format=torch.contiguous_format)
+            f.write(t.view(torch.uint8).numpy().tobytes())
 
 
 def save_checkpoint(model_or_state, path: str, dtype=torch.float16) -> None:

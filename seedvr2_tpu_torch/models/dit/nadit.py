@@ -37,14 +37,22 @@ K1's backward returns. On the uniform plan K9 goes through its Function
 (`ops.flash_attention.flash_windowed_attention_grad`, reached through
 ops.attention.attention): its backward returns dq, dk and dv, the qk-norms
 and the text rope having run as plain torch ops before the windows are
-cut, and the per-window rope tables being plan constants.
+cut, and the per-window rope tables being plan constants. The trainer runs
+each block through `nadit_forward`'s `run_block`, which binds the block's
+weights just before it runs and holds its backward apart.
 
 Tensor parallelism (parallel/tp.py): after `tp_shard_dit` a rank holds its
 heads' slice of every qkv / proj_out and its hidden columns of every mlp;
-`nadit_forward(..., tp=reduce)` then runs the blocks on the local heads
+`nadit_forward(..., tp=comm)` then runs the blocks on the local heads
 (the attention kernels take the head count from the qkv width, as the JAX
 package's tp_axis does) and sums each row-sharded projection's fp32
-partials over the tp ranks with `reduce` (ops/layers.linear).
+partials over the tp ranks with `comm` (ops/layers.linear). Under
+autograd (the trainer) `comm.enter` marks what the local heads and hidden
+columns read: the inputs of the column-sharded projections and the
+qk-norm weights, which every head shares. Their gradients, each rank's
+part, are summed over the tp ranks there; everything else outside the
+sharded projections (norms, modulation tables, the out-projections'
+biases) already gets the same gradient on every rank.
 
 Replicated quirks of the released models: 3B blocks >= mm_layers share their
 vid/txt weights ("all"); the 3B last block has no txt mlp/ada branch; the
@@ -56,7 +64,7 @@ time embedding of a downscale factor.
 """
 
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -524,6 +532,12 @@ def _ada_out(x, gate_a, ada: _Ada, layer: str):
     return x * (gate_a[:, None, :].to(x.dtype) + gate_b)
 
 
+def _tp_enter(tp):
+    """The tp line's `enter` (parallel.comm.TPComm) of what the local heads
+    and hidden columns read; the identity without tensor parallelism."""
+    return (lambda x: x) if tp is None else tp.enter
+
+
 def _fold_norm_tables(cos_e: torch.Tensor, sin_e: torch.Tensor, wq_v, wq_t,
                       wk_v, wk_t, wlen: int, skv: int):
     """Fold the qk-norm weights into per-row rope tables:
@@ -569,16 +583,17 @@ def _window_attention(attn: _Attn, cfg: DiTConfig, xv, xt, dplan: DevicePlan,
         attend = (packed_window_attention_grad if use_kernels
                   else packed_window_attention_plain)
 
-    qkv_v = linear(xv, _pick(attn.proj_qkv, "vid"),
+    enter = _tp_enter(tp)
+    qkv_v = linear(enter(xv), _pick(attn.proj_qkv, "vid"),
                    use_kernels)                        # (B, L, 3HD)
-    qkv_t = linear(xt, _pick(attn.proj_qkv, "txt"),
+    qkv_t = linear(enter(xt), _pick(attn.proj_qkv, "txt"),
                    use_kernels)                        # (B, Lt, 3HD)
     # every head, or this rank's under tensor parallelism
     Hn = qkv_v.shape[-1] // (3 * Dh)
-    wq_v = _pick(attn.norm_q, "vid").weight
-    wk_v = _pick(attn.norm_k, "vid").weight
-    wq_t = _pick(attn.norm_q, "txt").weight
-    wk_t = _pick(attn.norm_k, "txt").weight
+    wq_v = enter(_pick(attn.norm_q, "vid").weight)
+    wk_v = enter(_pick(attn.norm_k, "vid").weight)
+    wq_t = enter(_pick(attn.norm_q, "txt").weight)
+    wk_t = enter(_pick(attn.norm_k, "txt").weight)
 
     vid_chunks = []
     txt_acc = torch.zeros((B, ltxt, Hn * Dh), dtype=torch.float32,
@@ -653,9 +668,10 @@ def _window_attention_uniform(attn: _Attn, cfg: DiTConfig, xv, xt,
     B, L = xv.shape[0], xv.shape[1]
     Dh = cfg.head_dim
     up = uplan.up
+    enter = _tp_enter(tp)
 
     def qkv(x, branch):
-        out = linear(x, _pick(attn.proj_qkv, branch), use_kernels)
+        out = linear(enter(x), _pick(attn.proj_qkv, branch), use_kernels)
         # the head count from the projection's width, as the JAX package
         # derives it (every weight layout has its own leaves)
         hn = out.shape[-1] // (3 * Dh)
@@ -666,10 +682,10 @@ def _window_attention_uniform(attn: _Attn, cfg: DiTConfig, xv, xt,
     qt, kt, vt = qkv(xt, "txt")
     Hn = qv.shape[-2]
     eps = cfg.norm_eps
-    qv = rms_norm(qv, eps, _pick(attn.norm_q, "vid").weight)
-    kv = rms_norm(kv, eps, _pick(attn.norm_k, "vid").weight)
-    qt = rms_norm(qt, eps, _pick(attn.norm_q, "txt").weight)
-    kt = rms_norm(kt, eps, _pick(attn.norm_k, "txt").weight)
+    qv = rms_norm(qv, eps, enter(_pick(attn.norm_q, "vid").weight))
+    kv = rms_norm(kv, eps, enter(_pick(attn.norm_k, "vid").weight))
+    qt = rms_norm(qt, eps, enter(_pick(attn.norm_q, "txt").weight))
+    kt = rms_norm(kt, eps, enter(_pick(attn.norm_k, "txt").weight))
     if dplan.txt_cos is not None:  # 3B mmrope: the text is roped too
         qt = rope_lib.apply_rope(qt, dplan.txt_cos, dplan.txt_sin)
         kt = rope_lib.apply_rope(kt, dplan.txt_cos, dplan.txt_sin)
@@ -739,11 +755,12 @@ def _block_forward(blk: _Block, cfg: DiTConfig, i: int, xv, xt, emb_attn,
     hv = _norm_mod(xv, ma_v, ms_v, ada_v, "mlp", eps,
                    getattr(mlp_v, "proj_in_gate", mlp_v.proj_in),
                    use_kernels)
-    hv = mlp_forward(hv, mlp_v, cfg.mlp_type, use_kernels, tp)
+    enter = _tp_enter(tp)
+    hv = mlp_forward(enter(hv), mlp_v, cfg.mlp_type, use_kernels, tp)
     xv = xv + _ada_out(hv, mg_v, ada_v, "mlp")
     if not vid_only:
         ht2 = _ada_in(rms_norm(xt, eps), ma_v, ms_v, ada_t, "mlp")
-        ht2 = mlp_forward(ht2, _pick(blk.mlp, "txt"), cfg.mlp_type,
+        ht2 = mlp_forward(enter(ht2), _pick(blk.mlp, "txt"), cfg.mlp_type,
                           use_kernels, tp)
         xt = xt + _ada_out(ht2, mg_v, ada_t, "mlp")
     return xv, xt, ("canonical" if uplan is not None else method)
@@ -783,7 +800,8 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
                   use_kernels: bool = True,
                   downscale: Optional[torch.Tensor] = None,
                   blocks: Optional[Iterable[nn.Module]] = None,
-                  attention_mode: str = "flash", tp=None) -> torch.Tensor:
+                  attention_mode: str = "flash", tp=None,
+                  run_block: Optional[Callable] = None) -> torch.Tensor:
     """Denoiser forward.
 
     Args:
@@ -809,10 +827,17 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
             lane, ops.attention), or an alias of either (the CLI's
             --attention_mode); the gathers (K2) run in both.
         tp: tensor parallelism, for a model whose blocks
-            parallel.tp.tp_shard_dit sharded: the reduce that sums a
-            row-sharded projection's fp32 partials over the tp ranks
-            (parallel.comm.tp_reducer). Every tp rank calls the forward
-            with the same inputs and gets the same output.
+            parallel.tp.tp_shard_dit sharded: the tp line's collectives
+            (parallel.comm.tp_reducer's TPComm), whose call sums a
+            row-sharded projection's fp32 partials over the tp ranks and
+            whose `enter` marks the column-sharded inputs. Every tp rank
+            calls the forward with the same inputs and gets the same
+            output.
+        run_block: how each block runs (default: in place);
+            run_block(i, fn, x, xt, emb_attn, emb_mlp) -> (x, xt), where
+            fn(x, xt, emb_attn, emb_mlp) runs block i's forward. The
+            trainer (parallel/train.py) passes one that binds the block's
+            weights first and holds its backward.
 
     Returns:
         (B, T, H, W, vid_out_channels) prediction (v_lerp velocity).
@@ -834,8 +859,17 @@ def nadit_forward(model: NaDiT, vid: torch.Tensor, txt: torch.Tensor,
 
     order = "canonical"
     for i, blk in enumerate(model.blocks if blocks is None else blocks):
-        x, xt, order = _block_forward(blk, cfg, i, x, xt, emb_attn, emb_mlp,
-                                      dplan, order, use_kernels, mode, tp)
+        if run_block is None:
+            x, xt, order = _block_forward(blk, cfg, i, x, xt, emb_attn,
+                                          emb_mlp, dplan, order, use_kernels,
+                                          mode, tp)
+            continue
+        x, xt = run_block(i, lambda *a, blk=blk, i=i, order=order:
+                          _block_forward(blk, cfg, i, *a, dplan, order,
+                                         use_kernels, mode, tp)[:2],
+                          x, xt, emb_attn, emb_mlp)
+        order = ("canonical" if dplan.uniform is not None
+                 else cfg.window_method(i))
     if order != "canonical":
         index = dplan.transitions[(order, "canonical")]
         x = (gather_rows_grad(x, index) if use_kernels

@@ -53,16 +53,40 @@ def group_norm(x: torch.Tensor, num_groups: int, eps: float = 1e-6,
 Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
+class _ProductF32(torch.autograd.Function):
+    """x @ w^T of half-precision operands on a card with an fp32 output
+    (cuBLAS's tensor-core GEMM through torch.mm's out_dtype), with its
+    gradient: the incoming fp32 gradient, which holds the values of the
+    rounded output's (bf16-exact), is taken in the operands' dtype for the
+    two products of the backward, each summed in fp32 and rounded once."""
+
+    @staticmethod
+    def forward(ctx, x2d, w):
+        ctx.save_for_backward(x2d, w)
+        return torch.mm(x2d, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x2d, w = ctx.saved_tensors
+        g = grad.to(x2d.dtype)
+        dx = torch.mm(g, w) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(g.t(), x2d) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def _matmul_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """x @ weight^T summed in fp32 and left unrounded. Half-precision
     operands on a card go to cuBLAS's tensor-core GEMM with an fp32 output
-    (torch.mm's out_dtype), as JAX's dot with preferred_element_type does;
-    elsewhere the fp32 matmul of the widened operands (bf16 x bf16
-    products are exact in fp32)."""
+    (torch.mm's out_dtype; `_ProductF32` when a gradient flows), as JAX's
+    dot with preferred_element_type does; elsewhere the fp32 matmul of the
+    widened operands (bf16 x bf16 products are exact in fp32)."""
     w = weight.to(x.dtype)
     if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
-                       out_dtype=torch.float32)
+        x2d = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            out = _ProductF32.apply(x2d, w)
+        else:
+            out = torch.mm(x2d, w.t(), out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[0])
     return torch.matmul(x.float(), w.float().t())
 
@@ -76,8 +100,10 @@ def linear(x, layer, use_kernels: bool = True,
 
     reduce: a row-sharded projection's tp sum (parallel/comm.tp_reducer):
     the local product is taken in fp32 (every layout's kernel writes fp32
-    then: K3, K6, K7), summed in place by `reduce`, rounded once to x's
-    dtype, and the replicated bias added once.
+    then: K3, K6, K7), summed by `reduce` (in place when serving; under
+    autograd into a new tensor, its gradient passed back to each rank's
+    partial), rounded once to x's dtype, and the replicated bias added
+    once.
 
     A W8A8Linear serves the int8 lane (ops/int8_matmul.w8a8_linear, kernel
     K3 unless use_kernels is False); x may then be a PreQuantized from a

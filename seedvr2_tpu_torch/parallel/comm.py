@@ -1,11 +1,16 @@
 """Every collective of the port's serving and training parallelism, in one
 place.
 
-Four kinds, on the tensors' own device:
+Five kinds, on the tensors' own device:
 
- - `all_reduce_sum_`: the fp32 sum of the partial products of a
-   row-sharded projection over the tp line (ops/layers.linear's `reduce`,
-   made by `tp_reducer`);
+ - the tp line of a NaDiT forward (`TPComm`, made by `tp_reducer`): the
+   fp32 sum of the partial products of a row-sharded projection
+   (ops/layers.linear's `reduce`), and its pair at the input of the
+   column-sharded projections, which passes the activations through and
+   sums their gradient over the line. Under autograd both are Functions
+   (`_TPSum`: sum forward, identity back; `_TPEnter`: identity forward,
+   sum back, out of place), so the trainer's backward runs on the local
+   heads and hidden columns as its forward does; serving sums in place;
  - `broadcast` / `share`: results of the dp and tile waves, each computed
    by one rank, handed to every rank of the mesh; `spread` runs those
    waves for the runner, the tiled VAE and (through `wave_width`) the
@@ -16,13 +21,20 @@ Four kinds, on the tensors' own device:
    `agreed` runs a step whose failure on one rank every rank must share
    before anything more is exchanged (a tiled call's blend buffers);
  - `gather_shards`: a tensor put back together from the pieces the ranks
-   hold under a sharding spec (parallel/mesh.py; the trainer's fsdp / tp
-   parameter pieces), bit-exact in any dtype.
+   hold under a sharding spec (parallel/mesh.py), bit-exact in any dtype;
+   the trainer's whole parameters for checkpoints (`gather_shards.calls`
+   counts them: a train step makes none);
+ - `all_gather_`: the equal pieces of every rank of a line side by side:
+   the trainer's gather of one block's fsdp pieces (parallel/train.py).
 
-All are built on torch.distributed's broadcast and all_reduce, the two
-collectives that NCCL takes and that gloo also takes on CUDA tensors (gloo
-stages them through the host itself), so one code path serves NCCL between
-cards, gloo on the CPU, and gloo for two ranks sharing one card. A
+`all_gather_` is built on torch.distributed's all_gather_into_tensor, in
+place (this rank's piece already in its row of the output), which NCCL
+takes and gloo takes too, on the CPU and on CUDA tensors (gloo stages
+these through the host itself; chip_smoke.py's phase 13 runs it so on the
+card). The rest is built on broadcast and all_reduce, which both backends
+take alike. gather_shards, which runs only for a checkpoint and may cut a
+tensor over several axes, writes each rank's piece into zeros and sums
+the bytes: twice the traffic of an all_gather, and bit-exact. A
 broadcast first sends a small header (dtype, shape), so receivers need not
 know what they receive, then the tensor's bytes as uint8: bit-exact for
 every dtype, whatever the backend's reductions support.
@@ -53,14 +65,90 @@ def all_reduce_sum_(t: torch.Tensor, mesh: Optional[Mesh],
     return t
 
 
-def tp_reducer(mesh: Optional[Mesh]
-               ) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+class _TPSum(torch.autograd.Function):
+    """The reduce of a row-sharded projection under autograd: the fp32
+    partials summed over the tp line into a new tensor (the input, which
+    autograd may hold, stays as it was); the gradient passes back
+    unchanged, as every rank of the line holds the same sum."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return all_reduce_sum_(t.clone(), mesh, "tp")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _TPEnter(torch.autograd.Function):
+    """The input of the column-sharded projections under autograd: passed
+    through unchanged; its gradient, each rank's part from its own heads or
+    hidden columns, summed over the tp line in fp32 (out of place) and
+    rounded once to the gradient's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = all_reduce_sum_(grad.to(torch.float32, copy=True), ctx.mesh,
+                                "tp")
+        return total.to(grad.dtype), None
+
+
+class TPComm:
+    """The tp line's collectives of a NaDiT forward (models/dit/nadit.py
+    `tp`). Called on a row-sharded projection's fp32 partials: their sum
+    over the line (in place when no gradient flows, else `_TPSum`).
+    `enter(x)`: the activation (or replicated weight) a column-sharded
+    projection or a local head reads, with `_TPEnter` on it when a
+    gradient flows; anything else (a PreQuantized, no gradient) as it
+    is."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _TPSum.apply(t, self.mesh)
+        return all_reduce_sum_(t, self.mesh, "tp")
+
+    def enter(self, x):
+        if (isinstance(x, torch.Tensor) and torch.is_grad_enabled()
+                and x.requires_grad):
+            return _TPEnter.apply(x, self.mesh)
+        return x
+
+
+def tp_reducer(mesh: Optional[Mesh]) -> Optional[TPComm]:
     """The `reduce` of the row-sharded projections under `mesh`'s tp axis
-    (fp32 partials summed in place over the tp line), or None without
+    (a TPComm: fp32 partials summed over the tp line), or None without
     tensor parallelism."""
     if mesh is None or mesh.shape.get("tp", 1) == 1:
         return None
-    return lambda t: all_reduce_sum_(t, mesh, "tp")
+    return TPComm(mesh)
+
+
+def all_gather_(rows: torch.Tensor, mesh: Optional[Mesh],
+                axis: str) -> torch.Tensor:
+    """`rows` ((n, m), contiguous; n the line's extent) with row i made the
+    row that the rank at index i of this rank's line of `axis` holds, every
+    rank having written its own row first; in place, bit for bit in any
+    dtype (the bytes are gathered)."""
+    group = None if mesh is None else mesh.group(axis)
+    if group is None:
+        return rows
+    line = mesh.line(axis)
+    if list(line) != sorted(line):
+        # a process group orders its ranks by their world rank
+        raise ValueError(f"the {axis} line {line} is not in world order")
+    raw = rows.view(-1).view(torch.uint8)
+    n = raw.numel() // rows.shape[0]
+    dist.all_gather_into_tensor(raw, raw[mesh.coords()[axis] * n:][:n],
+                                group=group)
+    return rows
 
 
 def agree_max(values: Sequence[int], mesh: Optional[Mesh], device
@@ -88,12 +176,16 @@ def gather_shards(local: torch.Tensor, spec: Sequence, shape: Sequence[int],
             and mesh.shape.get(a, 1) > 1]
     if not axes:
         return local
+    gather_shards.calls += 1
     full = torch.zeros(tuple(shape), dtype=local.dtype, device=local.device)
     shard(mesh, full, spec).copy_(local)
     raw = full.view(-1).view(torch.uint8)
     for axis in axes:
         dist.all_reduce(raw, op=dist.ReduceOp.SUM, group=mesh.group(axis))
     return full
+
+
+gather_shards.calls = 0
 
 
 def broadcast(t: Optional[torch.Tensor], src: int, mesh: Mesh,

@@ -8,12 +8,24 @@ reshapes its device list:
 
  - dp: data parallel, independent batches and VAE tiles; the trainer's
    batch rows (`batch_sharding`);
- - fsdp: parameter sharding, the trainer's (`param_sharding`,
-   `shard_params`): every tensor of rank >= 2 keeps 1/fsdp of its JAX
-   in-dim here, its optimizer moments with it;
+ - fsdp: parameter sharding, the trainer's: every parameter of rank >= 2
+   keeps 1/fsdp of one dim here, its optimizer moments and gradient with
+   it, and each block's weights are gathered only while that block runs
+   (parallel/train.py);
  - tp: tensor parallel, the DiT's attention heads and mlp hidden
-   (parallel/tp.py); in a training mesh a storage axis too, as in JAX's
-   `param_sharding`: 1/tp of each such tensor's JAX out-dim.
+   (parallel/tp.py), in serving and in training alike.
+
+Two parameter layouts. `param_sharding` is JAX's rule, pinned to it by
+test: fsdp over the JAX in-dim, tp over the JAX out-dim of every tensor of
+rank >= 2. The trainer lays its pieces out by `train_sharding` instead, the
+layout its compute reads: tp cuts the dims tp.py's slices cut (read from
+the shapes of its local_training_dit: the qkv and mlp in-projections' rows,
+the qkv rows permuted by head block; the out-projections' columns) and
+nothing else, and fsdp cuts
+the dim tp leaves whole (the JAX in-dim, or dim 0 where tp took it). So a
+rank stores exactly the pieces it computes with, and no collective moves
+weights for tp. Checkpoints hold whole tensors, so either layout restores
+onto any mesh.
 
 `Mesh` answers what the runner asks of JAX's mesh (`shape` as a dict,
 `axis_names`) and holds one process group a line of each axis, made with
@@ -193,6 +205,28 @@ def param_sharding(mesh: Mesh, shape: Sequence[int]) -> Tuple:
     return tuple(spec)
 
 
+def train_sharding(mesh: Mesh, shape: Sequence[int],
+                   local_shape: Sequence[int]) -> Tuple:
+    """The trainer's layout of a NaDiT parameter of torch shape `shape`
+    whose tp rank computes with `local_shape` (its shape in
+    tp.local_training_dit, the one owner of the tp cuts): tp over the dim
+    that shrank there, fsdp over torch dim 1 (JAX's in-dim) of a tensor of
+    rank >= 2, or dim 0 where tp took dim 1, where fsdp divides it;
+    everything else whole. A qkv's rows are cut in the order
+    tp.qkv_row_order gives them (parallel/train.py applies it). With
+    tp = 1 this is param_sharding on every NaDiT tensor."""
+    fsdp = mesh.shape.get("fsdp", 1)
+    spec = [None] * len(shape)
+    for dim, (n, m) in enumerate(zip(shape, local_shape)):
+        if m != n:
+            spec[dim] = "tp"
+    if fsdp > 1 and len(shape) >= 2:
+        dim = 0 if spec[1] == "tp" else 1
+        if shape[dim] % fsdp == 0:
+            spec[dim] = "fsdp"
+    return tuple(spec)
+
+
 def batch_sharding(mesh: Mesh, ndim: int) -> Tuple:
     """The leading batch axis over dp, everything else whole (every mesh
     lays its batch rows out so)."""
@@ -213,16 +247,6 @@ def shard(mesh: Mesh, t: torch.Tensor, spec: Sequence) -> torch.Tensor:
         size = t.shape[dim] // n
         t = t.narrow(dim, here[axis] * size, size)
     return t
-
-
-def shard_params(mesh: Mesh, params) -> Dict[str, torch.Tensor]:
-    """{name: this rank's piece under param_sharding, a contiguous copy} of
-    a {name: tensor} dict or of an nn.Module's parameters."""
-    if not isinstance(params, dict):
-        params = dict(params.named_parameters())
-    return {k: shard(mesh, v.detach(), param_sharding(mesh, v.shape))
-            .clone(memory_format=torch.contiguous_format)
-            for k, v in params.items()}
 
 
 def local_rank() -> int:

@@ -17,6 +17,11 @@ H/tp, Dh), so rank d's slice is its own heads' packed (3, Hloc, Dh) block
 and the packed kernel runs unchanged with Hloc heads. proj_out's K and the
 mlp hidden are head- / column-major and shard without permutation.
 
+The trainer (parallel/train.py) computes on the same slices:
+`local_training_dit` is a rank's NaDiT at those shapes on `meta`, whose
+weights the trainer binds from its pieces block by block; only nn.Linear
+trees train.
+
 Every serving layout shards: nn.Linear, W8A8Linear (its per-out scales with
 the rows it keeps), Q8Linear and AffineLinear (their per-32-group tables
 with the weight: along N for a column shard, along K for a row shard). The
@@ -57,6 +62,13 @@ def permute_qkv_cols(arr, heads: int, head_dim: int, tp: int):
     x = x.transpose(*order, len(lead) + 1, len(lead), len(lead) + 2,
                     len(lead) + 3)
     return x.reshape(*lead, 3 * heads * head_dim)
+
+
+def qkv_row_order(cfg, tp: int) -> np.ndarray:
+    """The order tp_shard_dit puts a qkv projection's rows (its out-dim)
+    in before cutting them tp ways."""
+    return permute_qkv_cols(np.arange(3 * cfg.heads * cfg.head_dim),
+                            cfg.heads, cfg.head_dim, tp)
 
 
 def _layout(layer: nn.Module):
@@ -179,9 +191,7 @@ def tp_shard_dit(model: NaDiT, mesh: Mesh) -> NaDiT:
     tp_compatible first. Returns the model."""
     tp = mesh.shape["tp"]
     index = mesh.coords()["tp"]
-    cfg = model.cfg
-    n_qkv = 3 * cfg.heads * cfg.head_dim
-    perm = permute_qkv_cols(np.arange(n_qkv), cfg.heads, cfg.head_dim, tp)
+    perm = qkv_row_order(model.cfg, tp)
     for blk in model.blocks:
         for b, layer in list(blk.attn.proj_qkv.items()):
             blk.attn.proj_qkv[b] = _shard(layer, index, tp, False, perm)
@@ -195,4 +205,23 @@ def tp_shard_dit(model: NaDiT, mesh: Mesh) -> NaDiT:
             if isinstance(gate, W8A8Linear) and isinstance(mlp.proj_in,
                                                            W8A8Linear):
                 fuse_gate_up(gate, mlp.proj_in)
+    return model
+
+
+def local_training_dit(cfg, mesh: Optional[Mesh],
+                       dtype=torch.bfloat16) -> NaDiT:
+    """A rank's NaDiT for the trainer, on `meta`: cfg's modules in `dtype`,
+    every block projection at this rank's tp slice shape (tp_shard_dit's
+    cut of a meta model, so no tensor is made). The trainer binds each
+    module's weights (views of its gathered buckets) before the module
+    runs. Raises when the mesh's tp does not divide the heads, the mlp
+    hidden and every sharded projection (tp_compatible)."""
+    with torch.device("meta"):
+        model = NaDiT(cfg, dtype=dtype)
+    tp = 1 if mesh is None else mesh.shape.get("tp", 1)
+    if tp > 1:
+        if not tp_compatible(model, tp, "meta"):
+            raise ValueError(f"{cfg.heads} heads and the mlp hidden of this "
+                             f"NaDiT do not split over {tp} tp ranks")
+        tp_shard_dit(model, mesh)
     return model

@@ -718,10 +718,10 @@ def jax_run(jax_runs):
 
 
 def _port_steps(tcfg, state_or_model, batch, draws, dtype=torch.bfloat16,
-                uniform=False):
+                uniform=False, attention_mode="flash"):
     init_state, step = ttrain.make_train_step(
         tcfg, tn.build_dit_plan(tcfg, SHAPE, TXT_LEN, uniform=uniform),
-        device="cpu", dtype=dtype)
+        device="cpu", dtype=dtype, attention_mode=attention_mode)
     state = init_state(state_or_model)
     losses, mus = [], []
     for noise, t in draws:
@@ -752,6 +752,69 @@ def test_three_steps_against_jax_train_step(setup, jax_runs, uniform):
     ref = np.concatenate([ref_mu[k].ravel() for k in names])
     assert rel_l2(got, ref) <= BF16_MU_REL
     assert state.step == int(j_states[-1].step) == 3
+
+
+class _JnpFp32:
+    """jax.numpy with bfloat16 read as float32: JAX's make_train_step, whose
+    loss_fn casts the DiT's inputs to jnp.bfloat16, then computes in fp32
+    on fp32 parameters."""
+
+    def __getattr__(self, name):
+        return jnp.float32 if name == "bfloat16" else getattr(jnp, name)
+
+
+@PLANS
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_xla_mode_steps_against_jax_xla_train_step(setup, monkeypatch,
+                                                   uniform, dtype):
+    """Training under the "xla" attention mode (the SDPA lane, which
+    autograd carries; K2's Function still on the grouped plan): three
+    steps of the port's make_train_step(..., attention_mode="xla") against
+    JAX's make_train_step traced after set_attention_mode("xla") ("flash"
+    restored after), fed the same draws, on both plans. fp32 (JAX's step
+    with its bf16 input cast read as fp32): losses, every leaf's first
+    moment after step 1 (0.1 * grad) and every parameter after step 3
+    within FP32_REL. bf16: as test_three_steps_against_jax_train_step.
+    On the CPU JAX's "xla" and "flash" modes both run its jnp composition.
+    No window of these plans is empty (each holds the text keys and at
+    least one video token), so the NaN that JAX's attention_xla gives a
+    row with no key to attend, and the port's SDPA lane copies, does not
+    arise in training."""
+    jcfg, tcfg, params, batch = setup
+    plan = tn.build_dit_plan(tcfg, SHAPE, TXT_LEN, uniform=True)
+    assert all(u.valid.any(axis=-1).all() for u in plan.uniform.values())
+    if dtype == "fp32":
+        monkeypatch.setattr(jtrain, "jnp", _JnpFp32())
+    keys = [jax.random.PRNGKey(200 + i) for i in range(3)]
+    jattn.set_attention_mode("xla")
+    try:
+        j_states, j_losses = _jax_steps(jcfg, params, batch, 3, keys,
+                                        uniform)
+    finally:
+        jattn.set_attention_mode("flash")
+    draws = [jax_draws(k, batch) for k in keys]
+    t_dtype = torch.float32 if dtype == "fp32" else torch.bfloat16
+    state, losses, mus = _port_steps(tcfg, port_model(tcfg, params), batch,
+                                     draws, t_dtype, uniform, "sdpa")
+    assert state.step == int(j_states[-1].step) == 3
+    ref_mu = grads_by_name(j_states[0].opt_state[0].mu)
+    if dtype == "bf16":
+        for got, ref in zip(losses, j_losses):
+            assert abs(got - ref) <= BF16_LOSS_REL * abs(ref)
+        names = sorted(ref_mu)
+        got = np.concatenate([mus[0][k].numpy().ravel() for k in names])
+        ref = np.concatenate([ref_mu[k].ravel() for k in names])
+        assert rel_l2(got, ref) <= BF16_MU_REL
+        return
+    for got, ref in zip(losses, j_losses):
+        assert abs(got - ref) <= FP32_REL * abs(ref), (losses, j_losses)
+    bad = {k: rel_l2(_np(mus[0][k]), r) for k, r in ref_mu.items()
+           if rel_l2(_np(mus[0][k]), r) > FP32_REL}
+    assert not bad, bad
+    ref_p = grads_by_name(j_states[-1].params)
+    bad = {k: rel_l2(_np(state.params[k]), r) for k, r in ref_p.items()
+           if rel_l2(_np(state.params[k]), r) > FP32_REL}
+    assert not bad, bad
 
 
 def test_adamw_matches_optax():
@@ -868,12 +931,31 @@ def test_shard_params_pieces():
     m = tmesh.Mesh(("dp", "fsdp", "tp"), {"dp": 1, "fsdp": 2, "tp": 2},
                    (0, 1, 2, 3), rank=3)
     w = torch.arange(24.0).reshape(4, 6)
-    piece = tmesh.shard_params(m, {"w": w, "b": torch.ones(4)})
+    b = torch.ones(4)
+    piece = {k: tmesh.shard(m, v, tmesh.param_sharding(m, v.shape))
+             for k, v in (("w", w), ("b", b))}
     # rank 3: fsdp index 1 (columns 3..5), tp index 1 (rows 2..3)
     assert torch.equal(piece["w"], w[2:4, 3:6])
-    assert torch.equal(piece["b"], torch.ones(4))
-    assert piece["w"].is_contiguous()
+    assert torch.equal(piece["b"], b)
     assert tmesh.batch_sharding(m, 3) == ("dp", None, None)
+
+
+def test_train_sharding_reads_the_local_shapes():
+    """The trainer's layout cuts over tp the dim in which the rank's local
+    shape shrank, over fsdp the dim tp leaves whole (torch dim 1, else
+    dim 0) where fsdp divides it; at tp 1 it is param_sharding."""
+    m = tmesh.Mesh(("dp", "fsdp", "tp"), {"dp": 1, "fsdp": 2, "tp": 2},
+                   (0, 1, 2, 3), rank=3)
+    assert tmesh.train_sharding(m, (12, 8), (6, 8)) == ("tp", "fsdp")
+    assert tmesh.train_sharding(m, (8, 12), (8, 6)) == ("fsdp", "tp")
+    assert tmesh.train_sharding(m, (8, 12), (8, 12)) == (None, "fsdp")
+    assert tmesh.train_sharding(m, (12,), (6,)) == ("tp",)
+    assert tmesh.train_sharding(m, (8, 7), (8, 7)) == (None, None)
+    m1 = tmesh.Mesh(("dp", "fsdp", "tp"), {"dp": 2, "fsdp": 2, "tp": 1},
+                    (0, 1, 2, 3), rank=1)
+    for shape in ((12, 8), (8, 7), (12,)):
+        assert tmesh.train_sharding(m1, shape, shape) == \
+            tmesh.param_sharding(m1, shape)
 
 
 def test_make_mesh_defaults_to_jax_axes():

@@ -5,16 +5,25 @@ The world runs in subprocesses that import neither JAX nor the JAX package
 DiT of tests/test_torch_train.py (seeded JAX-layout values carried across
 by the weight bridge) and a batch of 2, and each rank checks:
 
- - three fp32 steps on the (dp, fsdp, tp) meshes (2, 2, 1), (1, 4, 1) and
-   (1, 2, 2) against the same steps on one rank: losses and whole
-   parameters within 1e-6 (the dp sum of the gradients runs in another
-   order than one rank's whole-batch backward);
- - each rank holding 1 / (fsdp * tp) of every tensor param_sharding cuts,
-   its parameters and both moments alike;
- - three fp32 steps on the uniform window plan on (1, 2, 2) (fsdp 2,
-   dp 1) bit-equal to the same steps on one rank;
- - a checkpoint written by the world on (1, 2, 2) after two steps,
-   restored on one rank, stepping on bit-equal to the world's third step.
+ - three fp32 steps on the (dp, fsdp, tp) meshes (2, 2, 1), (1, 4, 1),
+   (1, 2, 2), (1, 1, 2) and (2, 1, 2), on the grouped and on the uniform
+   window plan, against the same steps on one rank: losses, whole
+   parameters and each rank's gradient piece of the first step against
+   its piece of one rank's whole gradient, within 1e-6 (the dp sum of the
+   gradients and the tp sums of the partials run in another order than
+   one rank's backward); each rank holding 1 / (fsdp * tp) of every
+   tensor cut both ways, its parameters and both moments alike;
+ - on (1, 4, 1), fsdp alone at dp 1: both plans bit-equal to one rank;
+ - on (1, 4, 1) and (1, 2, 2): each block's weights gathered twice a
+   step, the gathered bytes alive at once at most two blocks' and the
+   parameters outside the blocks (counted by their storage), and no
+   whole parameter gathered in a step;
+ - on (1, 1, 2) and (1, 2, 2): the local NaDiT's weights at the tp pieces'
+   shapes;
+ - a checkpoint written by the world on (1, 2, 2) after two steps:
+   restored onto the mesh it steps on bit-equal; restored on one rank its
+   parameters are the saved ones and its third step lies within 1e-6 of
+   the world's.
 
 Each check is reported per rank and read back by one test case each.
 """
@@ -40,8 +49,12 @@ from .test_torch_train import BATCH, SHAPE, TINY, TXT_LEN
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
-CHECKS = ["train_dp2_fsdp2", "train_fsdp4", "train_fsdp2_tp2",
-          "train_uniform_fsdp2_tp2", "checkpoint_4_ranks_to_1"]
+MESHES = ["dp2_fsdp2", "fsdp4", "fsdp2_tp2", "tp2", "dp2_tp2"]
+CHECKS = ([f"train_{m}" for m in MESHES]
+          + [f"train_uniform_{m}" for m in MESHES]
+          + ["bit_equal_fsdp4", "gathers_fsdp4", "gathers_fsdp2_tp2",
+             "local_shapes_tp2", "local_shapes_fsdp2_tp2",
+             "checkpoint_4_ranks_to_1"])
 
 _WORKER = r"""
 import os, sys
