@@ -757,6 +757,12 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
+def format_record(timings: dict) -> str:
+    """A request record on one line: spans in seconds, copies in bytes."""
+    from seedvr2_tpu_torch.utils.spans import format_record as fmt
+    return fmt(timings)
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2103,8 +2109,7 @@ def serve(torch, np, cli, runner, requests, device, embeds):
             f"range [{out.min():.4f}, {out.max():.4f}]; encode tiles "
             f"{grid_of(runner.vae.last_encode_tiles)}, decode tiles "
             f"{grid_of(runner.vae.last_decode_tiles)}; wall "
-            f"{wall:.3f} s phases " + ", ".join(
-                f"{k} {v:.4f} s" for k, v in timings.items())
+            f"{wall:.3f} s record " + format_record(timings)
             + f"; peak device memory {peak:.2f} GiB")
         if out.shape != expect or not finite:
             fail(f"request {name}: expected finite {expect}, got {out.shape}")
@@ -2374,8 +2379,8 @@ def check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, vae_cfg, device,
                 f"{dec_peak:.2f} GiB above the memory held before it, top "
                 "kernels " + "; ".join(f"{ms:.1f} ms {name[:90]}"
                                        for name, ms in top))
-        say(f"{form}, {label} (default 3B path): wall {wall:.3f} s, phases "
-            + ", ".join(f"{k} {v:.4f} s" for k, v in timings.items())
+        say(f"{form}, {label} (default 3B path): wall {wall:.3f} s, record "
+            + format_record(timings)
             + f"; request peak {peak:.2f} GiB ({held:.2f} held before it: "
             f"the runner's models)" + profiled)
     del base, default, vaes, encode, out
@@ -2481,8 +2486,7 @@ def check_request_surface(torch, np, cli, pipeline, nadit, runner, device,
         finite = bool(np.isfinite(out).all())
         say(f"request {label}: out {out.shape} finite={finite} rgb range "
             f"[{out[..., :3].min():.4f}, {out[..., :3].max():.4f}]; wall "
-            f"{wall:.3f} s phases " + ", ".join(
-                f"{k} {v:.4f} s" for k, v in timings.items())
+            f"{wall:.3f} s record " + format_record(timings)
             + f"; peak device memory {peak:.2f} GiB (postprocess "
             f"{post_peak[-1]:.2f} GiB above what it found)")
         if not finite or out.min() < 0.0 or out.max() > 1.0 \
@@ -3000,8 +3004,7 @@ def blockswap_phase(torch, np, cli, nadit, r7, device, embeds, wrappers,
             reserved = torch.cuda.max_memory_reserved(device)
             plans = dict(off._auto_tile_cache)
             say(f"(b) phase offload, {label}, auto tiles: wall {wall:.3f} s, "
-                "phases " + ", ".join(f"{k} {v:.4f} s"
-                                      for k, v in timings.items())
+                "record " + format_record(timings)
                 + f"; plans {plans}; peak {peak / 2 ** 30:.2f} GiB "
                 f"allocated, {reserved / 2 ** 30:.2f} GiB reserved (limit "
                 f"{limit / 2 ** 30:.2f}); OOM retries {off.oom_retries}; "
@@ -3339,8 +3342,7 @@ def auto_tile_phase(torch, np, cli, device, embeds, make_frames):
         peak = torch.cuda.max_memory_allocated(device)
         gap = torch.cuda.max_memory_reserved(device) - peak
         gaps[stage[0]].append((gap, peak))
-        say(f"{name}: wall {wall:.3f} s, phases " + ", ".join(
-            f"{k} {v:.4f} s" for k, v in timings.items())
+        say(f"{name}: wall {wall:.3f} s, record " + format_record(timings)
             + f"; encode tiles {grid_of(r.vae.last_encode_tiles)}, decode "
             f"tiles {grid_of(r.vae.last_decode_tiles)}; peak "
             f"{peak / 2 ** 30:.2f} GiB, reserved - allocated at the peak "
@@ -3703,8 +3705,7 @@ def cli_surface_phase(torch, np, cli, nadit, pipeline, runner, device,
             temporal_overlap=CLI_OVERLAP)
         wall_pf = time.perf_counter() - t0
         say(f"the same request through process_frames: {wall_pf:.3f} s "
-            "(phases " + ", ".join(f"{k} {v:.4f} s" for k, v in
-                                   timings.items())
+            "(record " + format_record(timings)
             + f"); the CLI's wall {wall_u:.3f} s, {wall_u - wall_pf:+.3f} s "
             "(reading, the runner from the cache, embeddings, writing)")
         held_to("cli unchunked against process_frames", whole, direct)

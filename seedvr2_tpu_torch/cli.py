@@ -103,7 +103,7 @@ from .core.runner import VAETiling, VideoDiffusionRunner
 from .models.vae.pipeline_vae import TILE_MODES
 from .parallel import multihost
 from .parallel.mesh import Mesh, make_mesh, rank_device
-from .utils import color_fix, video_io
+from .utils import color_fix, spans, video_io
 from .utils.debug import Debug
 from .utils.model_registry import DEFAULT_DIT, DEFAULT_VAE
 from .utils.text_embeds import load_text_embeddings
@@ -193,38 +193,42 @@ def process_frames(runner: VideoDiffusionRunner, frames: np.ndarray,
                    tile_debug: str = "false", debug: Optional[Debug] = None):
     """Run the 4 phases over one in-memory frame block (T, H, W, 3 or 4) in
     [0, 1], with the runner's VAE tiling. Returns (frames out (T, H', W',
-    3 or 4) in [0, 1], per-phase wall seconds). With a utils.debug.Debug,
-    each phase runs under its profiler trace and timer and is followed by a
-    memory checkpoint, as in the JAX CLI."""
-    if prepend_frames > 0:
-        frames = pipeline.pad_video_temporal(frames, count=prepend_frames,
-                                             prepend=True)
+    3 or 4) in [0, 1], the request record: the span `request` around the
+    phases, each phase's wall and host seconds, their steps' spans and the
+    copy counters, utils/spans.py). With a utils.debug.Debug, each phase
+    runs under its profiler trace and timer and is followed by a memory
+    checkpoint, as in the JAX CLI."""
     ctx = pipeline.setup_generation_context(runner.device,
                                             tile_debug=tile_debug)
     ctx["text_embeds"] = text_embeds
-    if debug is not None:
-        debug.checkpoint("pre_phase1")
-    with _debug_phase(debug, "phase1_encode", "phase1_encoding",
-                      "Phase 1: VAE encoding complete", "post_phase1"):
-        ctx = pipeline.encode_all_batches(
-            runner, ctx, frames, batch_size=batch_size,
-            uniform_batch_size=uniform_batch_size, seed=seed,
-            temporal_overlap=temporal_overlap, resolution=resolution,
-            max_resolution=max_resolution,
-            input_noise_scale=input_noise_scale)
-    with _debug_phase(debug, "phase2_upscale", "phase2_upscaling",
-                      "Phase 2: DiT upscaling complete", "post_phase2"):
-        ctx = pipeline.upscale_all_batches(
-            runner, ctx, seed=seed, latent_noise_scale=latent_noise_scale,
-            noise_override=noise_override)
-    with _debug_phase(debug, "phase3_decode", "phase3_decoding",
-                      "Phase 3: VAE decoding complete", "post_phase3"):
-        ctx = pipeline.decode_all_batches(runner, ctx)
-    with _debug_phase(debug, "phase4_postprocess", "phase4_postprocessing",
-                      "Phase 4: Post-processing complete", "post_phase4"):
-        ctx = pipeline.postprocess_all_batches(
-            ctx, color_correction=color_correction,
-            prepend_frames=prepend_frames)
+    with spans.recording(ctx["timings"]), spans.span("request"):
+        if prepend_frames > 0:
+            frames = pipeline.pad_video_temporal(
+                frames, count=prepend_frames, prepend=True)
+        if debug is not None:
+            debug.checkpoint("pre_phase1")
+        with _debug_phase(debug, "phase1_encode", "phase1_encoding",
+                          "Phase 1: VAE encoding complete", "post_phase1"):
+            ctx = pipeline.encode_all_batches(
+                runner, ctx, frames, batch_size=batch_size,
+                uniform_batch_size=uniform_batch_size, seed=seed,
+                temporal_overlap=temporal_overlap, resolution=resolution,
+                max_resolution=max_resolution,
+                input_noise_scale=input_noise_scale)
+        with _debug_phase(debug, "phase2_upscale", "phase2_upscaling",
+                          "Phase 2: DiT upscaling complete", "post_phase2"):
+            ctx = pipeline.upscale_all_batches(
+                runner, ctx, seed=seed, latent_noise_scale=latent_noise_scale,
+                noise_override=noise_override)
+        with _debug_phase(debug, "phase3_decode", "phase3_decoding",
+                          "Phase 3: VAE decoding complete", "post_phase3"):
+            ctx = pipeline.decode_all_batches(runner, ctx)
+        with _debug_phase(debug, "phase4_postprocess",
+                          "phase4_postprocessing",
+                          "Phase 4: Post-processing complete", "post_phase4"):
+            ctx = pipeline.postprocess_all_batches(
+                ctx, color_correction=color_correction,
+                prepend_frames=prepend_frames)
     if debug is not None:
         debug.summary(runner.streamed_dit.stats.summary()
                       if runner.streamed_dit is not None else None)
@@ -578,9 +582,8 @@ def _frames(runner, frames, embeds, args, debug, prepend_frames=0):
 
 
 def _report(runner, out_path, n_frames, timings):
-    print(f"wrote {out_path} ({n_frames} frames); phase seconds: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()),
-          file=sys.stderr)
+    print(f"wrote {out_path} ({n_frames} frames); request record: "
+          + spans.format_record(timings), file=sys.stderr)
     if runner.streamed_dit is not None:
         stats = runner.streamed_dit.stats
         print(f"BlockSwap (keep {runner.streamed_dit.keep_blocks}/"
@@ -643,7 +646,7 @@ def process_video(args, debug):
             runner, frames, embeds, args, debug,
             prepend_frames=args.prepend_frames if first_chunk else 0)
         for k, v in chunk_timings.items():
-            timings[k] = timings.get(k, 0.0) + v
+            timings[k] = timings.get(k, 0) + v
         if held is not None:
             # seam: blend the held previous tail with this chunk's re-decoded
             # head (same source frames) — Hann crossfade, then write once

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import spans
 from ..utils.transforms import resize_video
 
 _SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
@@ -110,8 +111,8 @@ def edge_guided_alpha_upscale(input_alpha: np.ndarray,
     flat = input_alpha.reshape(-1)
     binary_ratio = ((flat < 0.1).sum() + (flat > 0.9).sum()) / flat.size
     fn = _binary_path if binary_ratio > 0.95 else _gradient_path
-    alpha = torch.as_tensor(np.ascontiguousarray(input_alpha),
-                            dtype=torch.float32, device=rgb01.device)
+    alpha = spans.to_device(np.ascontiguousarray(input_alpha),
+                            rgb01.device, torch.float32)
     return fn(alpha, rgb01)
 
 

@@ -8,9 +8,17 @@ numpy; the step math runs on tensors in fp32 islands.
 import numpy as np
 import torch
 
+from ..utils import spans
+
 
 def _f32(t, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(t, dtype=torch.float32, device=like.device)
+    """t as an fp32 tensor on like's device. A Python number is filled
+    there: the upload's fp32 rounding without the upload, whose blocking
+    copy would wait for the stream (the DiT step's end would then hold the
+    host until the device finished)."""
+    if isinstance(t, (int, float)):
+        return torch.full((), t, dtype=torch.float32, device=like.device)
+    return spans.to_device(t, like.device, torch.float32)
 
 
 class LerpSchedule:

@@ -23,10 +23,15 @@ drops their results). Every draw is keyed by the batch index or the seed,
 never by the rank, so the frames are those of one rank; every rank holds
 them after decode and runs phase 4 on them; the caller writes them once.
 
-Every phase records its wall time, ended by a device synchronise, in
-ctx["timings"], and runs inside a profiler range `seedvr2.<phase>` that
-ends after that synchronise (profile_requests attributes device time to
-phases by it). The VAE phases release a phase-offloaded DiT at their entry
+Every phase is a span of utils/spans.py over ctx["timings"], the request
+record: it records its wall time, ended by a device synchronise, and
+`<phase>.host`, its seconds up to that synchronise, and runs inside a
+profiler range `seedvr2.<phase>` that ends after that synchronise
+(profile_requests attributes device time to phases by it). Inside a phase
+the steps are spans of their own (`encode.prepare`, `decode.write`, ...,
+the VAE's `*.vae.plan` / `tile` / `blend` / `slice`), and the copies
+between host arrays and the device count their bytes (`h2d_bytes`,
+`d2h_bytes`). The VAE phases release a phase-offloaded DiT at their entry
 (runner.release_dit); phase 2 adds the seconds of its restore
 ("dit_restore") and, for a streamed DiT, the blocks' total stall
 ("dit_swap_stall") to the timings, and logs the BlockSwap summary.
@@ -41,7 +46,7 @@ import numpy as np
 import torch
 
 from ..parallel.comm import wave_width
-from ..utils import color_fix, transforms
+from ..utils import color_fix, spans, transforms
 from ..utils.partition import partition_by_size
 from ..utils.seed import input_noise_generator, noise_generator
 from .alpha import process_alpha_for_batch
@@ -147,22 +152,26 @@ def _check_interrupt(ctx: Dict[str, Any]) -> None:
 
 @contextmanager
 def _phase(ctx: Dict[str, Any], name: str):
-    """Wall time of one phase, ended by a device synchronise, inside the
-    profiler range `seedvr2.<name>`."""
-    with torch.profiler.record_function(f"seedvr2.{name}"):
+    """One phase: the span `name` over the request record ctx["timings"],
+    ended by a device synchronise, and `<name>.host`, its seconds up to
+    that synchronise."""
+    record = ctx["timings"]
+    with spans.recording(record), spans.span(name):
         t0 = time.perf_counter()
         yield
+        record[f"{name}.host"] = (record.get(f"{name}.host", 0.0)
+                                  + time.perf_counter() - t0)
         if ctx["device"].type == "cuda":
             torch.cuda.synchronize(ctx["device"])
-        ctx["timings"][name] = time.perf_counter() - t0
 
 
 def _transform_batch(ctx: Dict[str, Any], rgb: np.ndarray) -> torch.Tensor:
     """Preprocess one padded batch: [0,1] THWC -> [-1,1] resized/padded."""
-    x = torch.as_tensor(np.ascontiguousarray(rgb), dtype=torch.float32,
-                        device=ctx["device"])
-    return transforms.prepare_video(x, ctx["resolution"],
-                                    ctx["max_resolution"])
+    with spans.span("upload"):
+        x = spans.to_device(np.ascontiguousarray(rgb), ctx["device"],
+                            torch.float32)
+        return transforms.prepare_video(x, ctx["resolution"],
+                                        ctx["max_resolution"])
 
 
 def _wave_width(runner: VideoDiffusionRunner, axis: Optional[str]) -> int:
@@ -222,23 +231,24 @@ def encode_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
             xs = []
             for bi in wave:
                 _check_interrupt(ctx)
-                start, end = batches[bi]
-                ori_length = end - start
-                uniform_pad = (batch_size - ori_length
-                               if uniform_batch_size
-                               and ori_length < batch_size else 0)
-                video = _prepare_batch(images, start, end, uniform_pad)
-                ctx["all_ori_lengths"].append(ori_length)
-                ctx["batch_metadata"].append((start, end, uniform_pad))
-                if ctx["is_rgba"]:
-                    ctx["all_alpha_channels"].append(video[..., 3:4].copy())
-                    video = video[..., :3]
+                with spans.span("prepare"):
+                    start, end = batches[bi]
+                    ori_length = end - start
+                    uniform_pad = (batch_size - ori_length
+                                   if uniform_batch_size
+                                   and ori_length < batch_size else 0)
+                    video = _prepare_batch(images, start, end, uniform_pad)
+                    ctx["all_ori_lengths"].append(ori_length)
+                    ctx["batch_metadata"].append((start, end, uniform_pad))
+                    if ctx["is_rgba"]:
+                        ctx["all_alpha_channels"].append(
+                            video[..., 3:4].copy())
+                        video = video[..., :3]
                 x = _transform_batch(ctx, video)
                 if input_noise_scale > 0:
                     if input_noise_override is not None:
-                        noise = torch.as_tensor(input_noise_override[bi],
-                                                dtype=torch.float32,
-                                                device=dev)
+                        noise = spans.to_device(input_noise_override[bi],
+                                                dev, torch.float32)
                     else:
                         noise = torch.randn(
                             x.shape, generator=input_noise_generator(
@@ -279,6 +289,7 @@ def upscale_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
         dev, dt = ctx["device"], runner.compute_dtype
         n = len(ctx["all_latents"])
 
+        @spans.span("condition")
         def condition(bi):
             latent = ctx["all_latents"][bi]
             gen = noise_generator(seed, dev)
@@ -286,13 +297,12 @@ def upscale_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
             base = torch.randn(latent.shape, generator=gen,
                                dtype=torch.float32, device=dev)
             if noise_override is not None:
-                base = torch.as_tensor(noise_override[bi],
-                                       dtype=torch.float32, device=dev)
+                base = spans.to_device(noise_override[bi], dev, torch.float32)
             blurred = latent
             if latent_noise_scale > 0:
                 if aug_noise_override is not None:
-                    extra = torch.as_tensor(aug_noise_override[bi],
-                                            dtype=torch.float32, device=dev)
+                    extra = spans.to_device(aug_noise_override[bi], dev,
+                                            torch.float32)
                 else:
                     extra = torch.randn(latent.shape, generator=gen,
                                         dtype=torch.float32, device=dev)
@@ -313,11 +323,12 @@ def upscale_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
             for wave in partition_by_size(idxs, _wave_width(runner, "dp")):
                 _check_interrupt(ctx)
                 noises, conds = zip(*(condition(bi) for bi in wave))
-                outs = runner.inference(
-                    noises=list(noises), conditions=list(conds),
-                    texts_pos=[ctx["text_embeds"]["pos"]],
-                    texts_neg=[ctx["text_embeds"]["neg"]],
-                    cfg_scale=1.0, steps=1)
+                with spans.span("forward"):
+                    outs = runner.inference(
+                        noises=list(noises), conditions=list(conds),
+                        texts_pos=[ctx["text_embeds"]["pos"]],
+                        texts_neg=[ctx["text_embeds"]["neg"]],
+                        cfg_scale=1.0, steps=1)
                 for bi, out in zip(wave, outs):
                     results[bi] = out
                     ctx["all_latents"][bi] = None
@@ -351,8 +362,9 @@ def decode_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
         runner.release_dit()  # VAE phase: the device belongs to the decoder
         true_h, true_w = ctx["true_target_dims"]
         channels = 4 if ctx["is_rgba"] else 3
-        final = np.zeros((ctx["total_frames"], true_h, true_w, channels),
-                         dtype=np.float32)
+        with spans.span("alloc"):
+            final = np.zeros((ctx["total_frames"], true_h, true_w, channels),
+                             dtype=np.float32)
         overlap = ctx.get("actual_temporal_overlap", 0)
         write_idx = 0
         ctx["decode_batch_info"] = []
@@ -364,16 +376,20 @@ def decode_all_batches(runner: VideoDiffusionRunner, ctx: Dict[str, Any],
                 [ctx["all_upscaled_latents"][bi] for bi in wave])
             for bi, sample in zip(wave, samples):
                 ori = ctx["all_ori_lengths"][bi]
-                sample = sample[:ori, :true_h, :true_w].float().cpu().numpy()
-                if bi > 0 and 0 < overlap < sample.shape[0] \
-                        and write_idx >= overlap:
-                    prev_tail = final[write_idx - overlap: write_idx, :, :, :3]
-                    final[write_idx - overlap: write_idx, :, :, :3] = \
-                        blend_overlapping_frames(prev_tail, sample[:overlap],
-                                                 overlap)
-                    sample = sample[overlap:]
-                end = write_idx + sample.shape[0]
-                final[write_idx:end, :, :, :3] = sample
+                with spans.span("to_host"):
+                    sample = spans.to_host(
+                        sample[:ori, :true_h, :true_w].float())
+                with spans.span("write"):
+                    if bi > 0 and 0 < overlap < sample.shape[0] \
+                            and write_idx >= overlap:
+                        prev_tail = final[write_idx - overlap: write_idx, :,
+                                          :, :3]
+                        final[write_idx - overlap: write_idx, :, :, :3] = \
+                            blend_overlapping_frames(
+                                prev_tail, sample[:overlap], overlap)
+                        sample = sample[overlap:]
+                    end = write_idx + sample.shape[0]
+                    final[write_idx:end, :, :, :3] = sample
                 ctx["decode_batch_info"].append((write_idx, end, bi, ori))
                 write_idx = end
                 ctx["all_upscaled_latents"][bi] = None
@@ -414,31 +430,40 @@ def postprocess_all_batches(ctx: Dict[str, Any],
         info = ctx["decode_batch_info"]
         for step, (ws, we, bi, _) in enumerate(info):
             _check_interrupt(ctx)
-            sample = torch.as_tensor(final[ws:we, :, :, :3], device=dev)
+            with spans.span("upload"):
+                sample = spans.to_device(final[ws:we, :, :, :3], dev)
             if ctx["is_rgba"]:
-                alpha = process_alpha_for_batch(
-                    sample, ctx["all_alpha_channels"][bi])
-                final[ws:we, :, :, 3:4] = alpha[:we - ws].cpu().numpy()
+                with spans.span("alpha"):
+                    alpha = spans.to_host(process_alpha_for_batch(
+                        sample, ctx["all_alpha_channels"][bi])[:we - ws])
+                with spans.span("write"):
+                    final[ws:we, :, :, 3:4] = alpha
             if color_correction != "none":
-                ref = _prepare_batch(ctx["input_images"],
-                                     *ctx["batch_metadata"][bi])
+                with spans.span("prepare"):
+                    ref = _prepare_batch(ctx["input_images"],
+                                         *ctx["batch_metadata"][bi])
                 ref = _transform_batch(ctx, ref[..., :3])
-                if bi > 0 and overlap > 0:
-                    ref = ref[overlap:]
-                ref = ref[: sample.shape[0], :true_h, :true_w]
-                sample = color_fix.apply_color_correction(color_correction,
-                                                          sample, ref)
-            final[ws:we, :, :, :3] = (torch.clamp(sample, -1.0, 1.0) * 0.5
-                                      + 0.5).cpu().numpy()
+                with spans.span("color"):
+                    if bi > 0 and overlap > 0:
+                        ref = ref[overlap:]
+                    ref = ref[: sample.shape[0], :true_h, :true_w]
+                    sample = color_fix.apply_color_correction(
+                        color_correction, sample, ref)
+            with spans.span("to_host"):
+                out = spans.to_host(torch.clamp(sample, -1.0, 1.0) * 0.5
+                                    + 0.5)
+            with spans.span("write"):
+                final[ws:we, :, :, :3] = out
             if progress_callback:
                 progress_callback(step + 1, len(info), 1,
                                   "Phase 4: Post-processing")
-        tile_debug = ctx["tile_debug"]
-        if tile_debug != "false":
-            draw_tile_boundaries(
-                final, ctx.get(f"{tile_debug}_tile_boundaries") or [],
-                np.array(_TILE_DEBUG_COLOR[tile_debug], np.float32))
-        if 0 < prepend_frames < final.shape[0]:
-            final = final[prepend_frames:]
+        with spans.span("write"):
+            tile_debug = ctx["tile_debug"]
+            if tile_debug != "false":
+                draw_tile_boundaries(
+                    final, ctx.get(f"{tile_debug}_tile_boundaries") or [],
+                    np.array(_TILE_DEBUG_COLOR[tile_debug], np.float32))
+            if 0 < prepend_frames < final.shape[0]:
+                final = final[prepend_frames:]
         ctx["final_video"] = final
     return ctx

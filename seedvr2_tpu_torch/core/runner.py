@@ -45,7 +45,7 @@ from ..ops.attention import resolve_attention_mode
 from ..ops.offload import HostCopy, StreamedNaDiT
 from ..parallel.comm import agree_max, spread, tp_reducer, wave_width
 from ..parallel.mesh import Mesh
-from ..utils import memplan
+from ..utils import memplan, spans
 from ..utils.dtypes import COMPUTE_DTYPE
 from . import diffusion
 from .configs import RunnerConfig
@@ -363,7 +363,8 @@ class VideoDiffusionRunner:
                 tile_mode=self.tiling.tile_mode, mesh=mesh)[0]
             return ((lat.float() - shift) * scale).to(self.compute_dtype)
 
-        return self._vae_waves("encode", samples, one)
+        with spans.span("vae"):
+            return self._vae_waves("encode", samples, one)
 
     @torch.no_grad()
     def vae_decode(self, latents: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -371,8 +372,6 @@ class VideoDiffusionRunner:
         dtype; spread over the mesh (_vae_waves)."""
         scale = self.config.vae.scaling_factor
         shift = self.config.vae.shifting_factor
-        zs = [(lat.float() / scale + shift).to(self.vae.dtype)
-              for lat in latents]
 
         def one(z, tiled, ts, mesh):
             return self.vae.decode(
@@ -380,7 +379,10 @@ class VideoDiffusionRunner:
                 tile_overlap=self.tiling.decode_tile_overlap,
                 tile_mode=self.tiling.tile_mode, mesh=mesh)[0]
 
-        return self._vae_waves("decode", zs, one)
+        with spans.span("vae"):
+            zs = [(lat.float() / scale + shift).to(self.vae.dtype)
+                  for lat in latents]
+            return self._vae_waves("decode", zs, one)
 
     # ----------------------------------------------------------- condition
 
@@ -459,8 +461,8 @@ class VideoDiffusionRunner:
         """inference's batched DiT call on this rank (its tp group)."""
         tl, h, w, _ = noises[0].shape
         dt = self.compute_dtype
-        txt_pos = torch.as_tensor(texts_pos[0], dtype=dt, device=self.device)
-        txt_neg = torch.as_tensor(texts_neg[0], dtype=dt, device=self.device)
+        txt_pos = spans.to_device(texts_pos[0], self.device, dt)
+        txt_neg = spans.to_device(texts_neg[0], self.device, dt)
         plan_pos = self.plan((tl, h, w), txt_pos.shape[0])
         plan_neg = (self.plan((tl, h, w), txt_neg.shape[0])
                     if cfg_scale != 1.0 else None)

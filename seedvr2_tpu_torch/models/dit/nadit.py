@@ -82,6 +82,7 @@ from ...ops.fused_quant import rms_ada_quantize, rms_ada_quantize_plain
 from ...ops.gather import RowIndex, gather_rows_grad, gather_rows_plain
 from ...ops.int8_matmul import W8A8Linear
 from ...ops.layers import linear, mlp_forward, rms_norm, silu, swiglu_hidden_dim
+from ...utils import spans
 from . import rope as rope_lib
 from .windows import UniformPlan, build_layer_plan, build_uniform_plan
 
@@ -494,7 +495,7 @@ def _time_embedding(emb: _TimeEmbedding, timestep: torch.Tensor,
     """Sinusoidal(256) -> SiLU MLP -> (B, 6*D). emb = [sin | cos], no flip."""
     half = 128
     exponent = -np.log(10000.0) * np.arange(half, dtype=np.float32) / half
-    freqs = torch.as_tensor(np.exp(exponent), device=timestep.device)
+    freqs = spans.to_device(np.exp(exponent), timestep.device)
     arg = timestep.float()[:, None] * freqs[None, :]
     x = torch.cat([torch.sin(arg), torch.cos(arg)], dim=-1).to(dtype)
     x = silu(linear(x, emb.proj_in, use_kernels))

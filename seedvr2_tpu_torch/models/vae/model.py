@@ -42,6 +42,7 @@ from torch import nn
 
 from ...core.configs import VAEConfig
 from ...ops import fused_norm, int8_conv
+from ...utils import spans
 
 State = Optional[Dict[str, torch.Tensor]]
 
@@ -329,8 +330,8 @@ def _int8_norm_silu_conv(norm: nn.GroupNorm, conv: nn.Conv3d, path: str,
     two frames) goes to new_state. Weights quantized at VideoVAE
     construction (`wq`, `ws` buffers), else here."""
     head = state.get(path) if state is not None else None
-    # a profiler range: profile_requests reports its device time
-    with torch.profiler.record_function("seedvr2.norm_silu_quantize"):
+    # a span: profile_requests reports its range's device time
+    with spans.span("norm_silu_quantize"):
         x_ext, scale, tail = int8_conv.norm_silu_quantize_cthw(
             x[0], norm.weight, norm.bias, norm.num_groups,
             head=None if head is None else head[0],

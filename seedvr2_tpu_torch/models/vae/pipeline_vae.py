@@ -21,6 +21,11 @@ waves, each wave's tiles shared with every rank and blended in input order
 (JAX's _tile_map, through parallel/comm.spread): the same sums in the same
 order, so bit-equal to one rank.
 
+Spans (utils/spans.py), named under the caller's (`decode.vae.plan` in the
+pipeline's decode): `plan` the host's tile plan, fades and count, `tile`
+each tile's call, `blend` each add into the blend buffer, `slice` each
+temporal slice; the masks' and 1 / count's uploads count as h2d_bytes.
+
 The VAE's opt-in lowerings are fixed at construction, as the JAX VideoVAE
 snapshots its lowering switches: with `cfg.conv_quant == "int8"` the
 decoder's resnet convs are quantized once to int8 (kernel K11's layout, as
@@ -47,6 +52,7 @@ from torch import nn
 from ...core.configs import VAEConfig
 from ...ops.int8_conv import conv_weight_int8
 from ...parallel.comm import agreed, spread
+from ...utils import spans
 from .model import Lowering, VideoAutoencoder, decoder_core, encoder_core
 
 
@@ -154,6 +160,12 @@ def _plan_ref(h: int, w: int, lt_h: int, lt_w: int, lo_h: int, lo_w: int):
     return [(y, y_end, x, x_end) for y, y_end in rows for x, x_end in cols]
 
 
+@spans.span("slice")
+def _slice(core, *args):
+    """One temporal slice: encoder_core or decoder_core."""
+    return core(*args)
+
+
 def _encode_slices(vae: VideoAutoencoder, x: torch.Tensor,
                    lowering: Lowering = Lowering()) -> torch.Tensor:
     """Temporally sliced encode; returns the (un-truncated) moments. Tails
@@ -161,16 +173,16 @@ def _encode_slices(vae: VideoAutoencoder, x: torch.Tensor,
     T = x.shape[1]
     split = vae.cfg.slicing_sample_min_size
     if (T - 1) <= split:
-        return encoder_core(vae, x, None, False, lowering)[0]
+        return _slice(encoder_core, vae, x, None, False, lowering)[0]
     outs = []
-    moments, state = encoder_core(vae, x[:, : split + 1], None, True,
-                                  lowering)
+    moments, state = _slice(encoder_core, vae, x[:, : split + 1], None, True,
+                            lowering)
     outs.append(moments)
     pos = split + 1
     while pos < T:
         last = pos + split >= T
-        moments, state = encoder_core(vae, x[:, pos: pos + split], state,
-                                      not last, lowering)
+        moments, state = _slice(encoder_core, vae, x[:, pos: pos + split],
+                                state, not last, lowering)
         outs.append(moments)
         pos += split
     return torch.cat(outs, dim=1)
@@ -182,15 +194,16 @@ def _decode_slices(vae: VideoAutoencoder, z: torch.Tensor,
     Tl = z.shape[1]
     split = vae.cfg.slicing_latent_min_size
     if (Tl - 1) <= split:
-        return decoder_core(vae, z, None, False, lowering)[0]
+        return _slice(decoder_core, vae, z, None, False, lowering)[0]
     outs = []
-    out, state = decoder_core(vae, z[:, : split + 1], None, True, lowering)
+    out, state = _slice(decoder_core, vae, z[:, : split + 1], None, True,
+                        lowering)
     outs.append(out)
     pos = split + 1
     while pos < Tl:
         last = pos + split >= Tl
-        out, state = decoder_core(vae, z[:, pos: pos + split], state,
-                                  not last, lowering)
+        out, state = _slice(decoder_core, vae, z[:, pos: pos + split], state,
+                            not last, lowering)
         outs.append(out)
         pos += split
     return torch.cat(outs, dim=1)
@@ -213,7 +226,8 @@ def _blend_tiles(tiles, steps, finish, mesh, device):
         tile = next(tiles)
         if err is None:
             try:
-                step(tile)
+                with spans.span("blend"):
+                    step(tile)
             except Exception as e:  # noqa: BLE001 - re-raised once agreed
                 err = e
         del tile
@@ -275,8 +289,12 @@ class VideoVAE:
         more than one rank the crops go one a rank in waves of the mesh's
         size (the VAE has no tensor parallelism: the dp and tp ranks all
         take tiles), each wave's results shared with every rank. A lone
-        crop runs on every rank."""
-        return spread(crops, run, None if len(crops) == 1 else mesh, None,
+        crop runs on every rank. Each run is the span `tile`."""
+        def tile(crop):
+            with spans.span("tile"):
+                return run(crop)
+
+        return spread(crops, tile, None if len(crops) == 1 else mesh, None,
                       crops[0].device)
 
     @torch.no_grad()
@@ -311,27 +329,28 @@ class VideoVAE:
         W_lat = (W + sf - 1) // sf
         Tl = (T - 1) // self.cfg.temporal_downsample_factor + 1
 
-        if tile_mode == "ref":
-            rects = _plan_ref(H_lat, W_lat, lt_h, lt_w, lo_h, lo_w)
-            fade_h, fade_w = lo_h, lo_w
-        else:
-            ys, th, xs, tw = _plan_grid(H_lat, W_lat, lt_h * lt_w, lo_h,
-                                        lo_w, force_grid=tile_grid)
-            fade_h = min(lo_h, _min_overlap(ys, th)) or lo_h
-            fade_w = min(lo_w, _min_overlap(xs, tw)) or lo_w
-            rects = [(y, y + th, xx, xx + tw) for y in ys for xx in xs]
-        self.last_encode_tiles = [
-            (y * sf, xx * sf, (y_end - y) * sf, (x_end - xx) * sf)
-            for (y, y_end, xx, x_end) in rects]
+        with spans.span("plan"):
+            if tile_mode == "ref":
+                rects = _plan_ref(H_lat, W_lat, lt_h, lt_w, lo_h, lo_w)
+                fade_h, fade_w = lo_h, lo_w
+            else:
+                ys, th, xs, tw = _plan_grid(H_lat, W_lat, lt_h * lt_w, lo_h,
+                                            lo_w, force_grid=tile_grid)
+                fade_h = min(lo_h, _min_overlap(ys, th)) or lo_h
+                fade_w = min(lo_w, _min_overlap(xs, tw)) or lo_w
+                rects = [(y, y + th, xx, xx + tw) for y in ys for xx in xs]
+            self.last_encode_tiles = [
+                (y * sf, xx * sf, (y_end - y) * sf, (x_end - xx) * sf)
+                for (y, y_end, xx, x_end) in rects]
+            count = np.zeros((H_lat, W_lat), np.float32)
+            crops = [x[:, :, y * sf: min(y_end * sf, H),
+                       xx * sf: min(x_end * sf, W)]
+                     for (y, y_end, xx, x_end) in rects]
 
         # the blend buffer's allocation agreed before any tile is shared
         result = agreed(lambda: _blend_buffer((B, Tl, H_lat, W_lat, lat),
                                               x.device), mesh, x.device,
                         "tiled encode's blend buffer")
-        count = np.zeros((H_lat, W_lat), np.float32)
-        crops = [x[:, :, y * sf: min(y_end * sf, H),
-                   xx * sf: min(x_end * sf, W)]
-                 for (y, y_end, xx, x_end) in rects]
         # next() in the loop: a zip over the tiles would hold the last tile
         # while the next one encodes
         tiles = self._tile_map(
@@ -347,12 +366,11 @@ class VideoVAE:
                             _fade_weights(ew, fade_w, xx > 0, x_end < W_lat))
             result[:, :, y: y + eh, xx: xx + ew] += (
                 tile[:, :Tl, :eh, :ew]
-                * torch.as_tensor(mask, device=x.device)[None, None, :, :,
-                                                         None])
+                * spans.to_device(mask, x.device)[None, None, :, :, None])
             count[y: y + eh, xx: xx + ew] += mask
 
         def finish():
-            c = torch.as_tensor(np.clip(count, 1e-6, None), device=x.device)
+            c = spans.to_device(np.clip(count, 1e-6, None), x.device)
             return (result / c[None, None, :, :, None]).to(self.dtype)
 
         return _blend_tiles(tiles, [partial(add, r) for r in rects], finish,
@@ -387,34 +405,36 @@ class VideoVAE:
         T = (Tl - 1) * self.cfg.temporal_downsample_factor + 1
         H, W = h * sf, w * sf
 
-        if tile_mode == "ref":
-            rects = _plan_ref(h, w, lt_h, lt_w, lo_h, lo_w)
-            fade_h, fade_w = tile_overlap
-        else:
-            ys, th, xs, tw = _plan_grid(h, w, lt_h * lt_w, lo_h, lo_w,
-                                        force_grid=tile_grid, cost="aspect")
-            fade_h = min(tile_overlap[0], _min_overlap(ys, th) * sf) \
-                or tile_overlap[0]
-            fade_w = min(tile_overlap[1], _min_overlap(xs, tw) * sf) \
-                or tile_overlap[1]
-            rects = [(y, y + th, xx, xx + tw) for y in ys for xx in xs]
-        self.last_decode_tiles = [
-            (y * sf, xx * sf, (y_end - y) * sf, (x_end - xx) * sf)
-            for (y, y_end, xx, x_end) in rects]
+        with spans.span("plan"):
+            if tile_mode == "ref":
+                rects = _plan_ref(h, w, lt_h, lt_w, lo_h, lo_w)
+                fade_h, fade_w = tile_overlap
+            else:
+                ys, th, xs, tw = _plan_grid(h, w, lt_h * lt_w, lo_h, lo_w,
+                                            force_grid=tile_grid,
+                                            cost="aspect")
+                fade_h = min(tile_overlap[0], _min_overlap(ys, th) * sf) \
+                    or tile_overlap[0]
+                fade_w = min(tile_overlap[1], _min_overlap(xs, tw) * sf) \
+                    or tile_overlap[1]
+                rects = [(y, y + th, xx, xx + tw) for y in ys for xx in xs]
+            self.last_decode_tiles = [
+                (y * sf, xx * sf, (y_end - y) * sf, (x_end - xx) * sf)
+                for (y, y_end, xx, x_end) in rects]
 
-        masks, count = [], np.zeros((H, W), np.float32)
-        for (y, y_end, xx, x_end) in rects:
-            m = np.outer(_fade_weights((y_end - y) * sf, fade_h, y > 0,
-                                       y_end < h),
-                         _fade_weights((x_end - xx) * sf, fade_w, xx > 0,
-                                       x_end < w)).astype(np.float32)
-            masks.append(m)
-            count[y * sf: y_end * sf, xx * sf: x_end * sf] += m
+            masks, count = [], np.zeros((H, W), np.float32)
+            for (y, y_end, xx, x_end) in rects:
+                m = np.outer(_fade_weights((y_end - y) * sf, fade_h, y > 0,
+                                           y_end < h),
+                             _fade_weights((x_end - xx) * sf, fade_w, xx > 0,
+                                           x_end < w)).astype(np.float32)
+                masks.append(m)
+                count[y * sf: y_end * sf, xx * sf: x_end * sf] += m
+            inv = 1.0 / np.clip(count, 1e-6, None)
         # the blend buffers' allocation agreed before any tile is shared
         result, inv_count = agreed(
             lambda: (_blend_buffer((B, T, H, W, 3), z.device),
-                     torch.as_tensor(1.0 / np.clip(count, 1e-6, None),
-                                     device=z.device)),
+                     spans.to_device(inv, z.device)),
             mesh, z.device, "tiled decode's blend buffers")
         tiles = self._tile_map(
             lambda c: _decode_slices(self.model, c, self.lowering),
@@ -425,7 +445,7 @@ class VideoVAE:
             y, y_end, xx, x_end = rect
             result[:, :, y * sf: y_end * sf, xx * sf: x_end * sf] += (
                 tile.float()
-                * torch.as_tensor(m, device=z.device)[None, None, :, :, None])
+                * spans.to_device(m, z.device)[None, None, :, :, None])
 
         return _blend_tiles(
             tiles, [partial(add, r, m) for r, m in zip(rects, masks)],

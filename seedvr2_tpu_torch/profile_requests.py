@@ -12,18 +12,24 @@ the CLI does, and wins over the preset; --vae_quant int8 serves the VAE
 decoder's resnet convs in int8, and SEEDVR2_FUSED_NORM=1 turns on the fused
 norm pass, as in the CLI), then for each request:
 one warm-up, `--reps` timed repetitions (request wall seconds and the
-pipeline's phase seconds, host clock, each phase ended by a device
-synchronize), and one repetition under torch.profiler (CPU + CUDA). From
-the profile it prints the device busy time (the summed device time of the
-device-side events: kernels, copies and memsets, all on one stream), the
-profiled wall time, the device events that took the most time, the
-device time of the port's named ranges (the pipeline's phases
-seedvr2.encode / dit / decode / postprocess, and seedvr2.norm_silu_quantize:
-the int8 lane's norm + SiLU + quantize passes), and for each phase the
-device events that took the most of its time. Needs a CUDA device.
+request record: the pipeline's spans in host seconds, each phase ended by
+a device synchronize, and its copy counters in bytes; utils/spans.py), and
+one repetition under torch.profiler (CPU + CUDA). From the profile it
+prints the profiled wall time, the spans the request opened, the device
+events that took the most time (as shares of the summed device time, which
+counts overlapping streams twice: the benchmark's traced run gives the
+device's busy union), the device time of the port's named ranges (the
+phases seedvr2.encode / dit / decode / postprocess, their steps, and
+norm_silu_quantize: the int8 lane's norm + SiLU + quantize passes), and
+for each phase the device events that took the most of its time. With
+--trace it also sums the bytes of the trace's host-device copies (Memcpy
+HtoD / DtoH) beside the record's h2d_bytes / d2h_bytes. First it prints
+what one span costs on the host, without the profiler and under it. Needs
+a CUDA device.
 """
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -32,6 +38,7 @@ from torch.autograd import DeviceType
 
 from . import cli
 from .core.configs import dit_config_for
+from .utils import spans
 from .utils.text_embeds import load_text_embeddings
 
 # name -> (frames, height, width, target short side)
@@ -54,21 +61,46 @@ def make_frames(t: int, h: int, w: int, seed: int) -> np.ndarray:
     return np.clip(frames, 0, 1).astype(np.float32)
 
 
-RANGE_PREFIX = "seedvr2."  # the port's named profiler ranges
-
-
 def _device_us(evt) -> float:
     """Device microseconds of a device-side event (kernel, copy, memset);
     0 for host-side events, whose device time is their kernels', and for
     the device-side span of a named range, which would count its kernels
     twice."""
     if (getattr(evt, "device_type", None) != DeviceType.CUDA
-            or evt.key.startswith(RANGE_PREFIX)):
+            or evt.key.startswith(spans.PREFIX)):
         return 0.0
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def span_cost_us(n: int = 20000) -> float:
+    """Host microseconds of one span's enter and exit inside a record."""
+    with spans.recording({}):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with spans.span("cost"):
+                pass
+        return (time.perf_counter() - t0) / n * 1e6
+
+
+def memcpy_bytes(trace_path: str) -> dict:
+    """{"HtoD" / "DtoH": [copies, bytes]} of a chrome trace's host-device
+    copies (the device's `Memcpy HtoD (...)` / `Memcpy DtoH (...)`
+    events and their `bytes`)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {"HtoD": [0, 0], "DtoH": [0, 0]}
+    for e in events:
+        name = e.get("name", "")
+        if not name.startswith("Memcpy "):
+            continue
+        for kind in out:
+            if kind in name:
+                out[kind][0] += 1
+                out[kind][1] += int(e.get("args", {}).get("bytes", 0))
+    return out
 
 
 PHASES = ("encode", "dit", "decode", "postprocess")
@@ -81,17 +113,17 @@ def phase_breakdown(events, device_us=_device_us):
     (`prof.events()`); the pipeline's phase ranges end after a device
     synchronise and the phases run one after another, so a phase's kernels
     start and end inside its range on the profile's common clock."""
-    spans = [(e.key[len(RANGE_PREFIX):], e.time_range.start,
-              e.time_range.end) for e in events
-             if e.key.startswith(RANGE_PREFIX)
-             and getattr(e, "device_type", None) != DeviceType.CUDA
-             and e.key[len(RANGE_PREFIX):] in PHASES]
-    out = {name: {} for name, _, _ in spans}
+    ranges = [(e.key[len(spans.PREFIX):], e.time_range.start,
+               e.time_range.end) for e in events
+              if e.key.startswith(spans.PREFIX)
+              and getattr(e, "device_type", None) != DeviceType.CUDA
+              and e.key[len(spans.PREFIX):] in PHASES]
+    out = {name: {} for name, _, _ in ranges}
     for e in events:
         us = device_us(e)
         if us <= 0:
             continue
-        for name, a, b in spans:
+        for name, a, b in ranges:
             if a <= e.time_range.start <= b:
                 out[name][e.key] = out[name].get(e.key, 0.0) + us
                 break
@@ -132,6 +164,14 @@ def main(argv=None) -> None:
           f"quant {cargs.quant}; "
           f"vae_quant {args.vae_quant}; {runner.vae.lowering}; {tiling}",
           flush=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    span_cost_us(2000)  # warm-up
+    bare = span_cost_us()
+    with torch.profiler.profile(activities=acts):
+        traced = span_cost_us()
+    print(f"one span: {bare:.2f} us on the host, {traced:.2f} us under "
+          "torch.profiler", flush=True)
 
     for i, name in enumerate(names):
         t, h, w, res = REQUESTS[name]
@@ -148,31 +188,32 @@ def main(argv=None) -> None:
         torch.cuda.reset_peak_memory_stats(device)
         for r in range(args.reps):
             wall, timings = once()
-            print(f"{name} rep {r}: wall {wall:.3f} s; " + ", ".join(
-                f"{k} {v:.4f} s" for k, v in timings.items()), flush=True)
+            print(f"{name} rep {r}: wall {wall:.3f} s; "
+                  + spans.format_record(timings), flush=True)
         peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             wall, timings = once()
         events = prof.key_averages()
-        busy = sum(_device_us(e) for e in events) / 1e6
-        print(f"{name} profiled: wall {wall:.3f} s, device busy {busy:.3f} s "
-              f"(idle <= {100 * (1 - busy / wall):.0f} %), peak device "
-              f"memory {peak:.2f} GiB", flush=True)
+        summed = sum(_device_us(e) for e in events) / 1e6
+        opened = sum(e.count for e in events
+                     if e.key.startswith(spans.PREFIX)
+                     and getattr(e, "device_type", None) != DeviceType.CUDA)
+        print(f"{name} profiled: wall {wall:.3f} s, {opened} spans opened, "
+              f"peak device memory {peak:.2f} GiB; "
+              + spans.format_record(timings), flush=True)
         top = sorted(events, key=_device_us, reverse=True)[:args.top]
         for e in top:
             us = _device_us(e)
             if us <= 0:
                 break
-            print(f"  {us / 1e3:10.2f} ms {100 * us / 1e6 / busy:5.1f} % "
+            print(f"  {us / 1e3:10.2f} ms {100 * us / 1e6 / summed:5.1f} % "
                   f"x{e.count:<6d} {e.key[:110]}", flush=True)
         for e in events:  # the port's named ranges: their kernels' time
-            if (e.key.startswith(RANGE_PREFIX)
+            if (e.key.startswith(spans.PREFIX)
                     and getattr(e, "device_type", None) != DeviceType.CUDA):
                 us = float(getattr(e, "device_time_total", 0.0))
                 print(f"  range {e.key}: {us / 1e3:.2f} ms of device time "
-                      f"({100 * us / 1e6 / busy:.1f} %), x{e.count}",
+                      f"({100 * us / 1e6 / summed:.1f} %), x{e.count}",
                       flush=True)
         for phase, by_name in phase_breakdown(prof.events()).items():
             total = sum(by_name.values())
@@ -183,9 +224,18 @@ def main(argv=None) -> None:
                 print(f"    {us / 1e3:10.2f} ms {100 * us / total:5.1f} % "
                       f"{key[:110]}", flush=True)
         if args.trace:
-            prof.export_chrome_trace(f"{args.trace}/{name}_{args.family}_"
-                                     f"{args.preset or 'default'}_"
-                                     f"{cargs.quant}_{args.vae_quant}.json")
+            path = (f"{args.trace}/{name}_{args.family}_"
+                    f"{args.preset or 'default'}_{cargs.quant}_"
+                    f"{args.vae_quant}.json")
+            prof.export_chrome_trace(path)
+            copies = memcpy_bytes(path)
+            for kind, key in (("HtoD", spans.H2D), ("DtoH", spans.D2H)):
+                n, nbytes = copies[kind]
+                counted = timings.get(key, 0)
+                print(f"  trace Memcpy {kind}: {n} copies, {nbytes} B; "
+                      f"{key} {counted} B "
+                      f"({100 * (counted - nbytes) / max(nbytes, 1):+.3f} %)",
+                      flush=True)
 
 
 if __name__ == "__main__":

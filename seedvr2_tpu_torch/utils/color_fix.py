@@ -14,6 +14,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from . import spans
+
 METHODS = ("lab", "wavelet", "wavelet_adaptive", "hsv", "adain", "none")
 
 
@@ -93,7 +95,7 @@ def _rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
     """(T, H, W, 3) in [0, 1] -> LAB channels stacked on the last axis."""
     lin = torch.where(rgb > 0.04045, ((rgb + 0.055) / 1.055) ** 2.4,
                       rgb / 12.92)
-    xyz = _mat3(lin, _RGB2XYZ) / torch.tensor(_D65, device=rgb.device)
+    xyz = _mat3(lin, _RGB2XYZ) / spans.to_device(_D65, rgb.device)
     f = torch.where(xyz > _EPS ** 3, torch.sign(xyz) * xyz.abs() ** (1 / 3),
                     (xyz * _KAPPA + 16.0) / 116.0)
     L = f[..., 1] * 116.0 - 16.0
@@ -111,8 +113,8 @@ def _lab_to_rgb(lab: torch.Tensor) -> torch.Tensor:
     def inv(f):
         return torch.where(f > _EPS, f ** 3, (f * 116.0 - 16.0) / _KAPPA)
 
-    xyz = torch.stack([inv(fx), inv(fy), inv(fz)], dim=-1) * torch.tensor(
-        _D65, device=lab.device)
+    xyz = torch.stack([inv(fx), inv(fy), inv(fz)], dim=-1) * spans.to_device(
+        _D65, lab.device)
     lin = _mat3(xyz, _XYZ2RGB)
     rgb = torch.where(lin > 0.0031308,
                       torch.clamp(lin, min=0.0) ** (1.0 / 2.4) * 1.055 - 0.055,

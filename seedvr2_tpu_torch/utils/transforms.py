@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import spans
+
 
 def side_resize_dims(h: int, w: int, size: int,
                      max_size: int = 0) -> Tuple[int, int]:
@@ -65,8 +67,8 @@ def resize_video(x: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
     x32 = x.float()
     if (h, w) == (nh, nw):
         return x32
-    mh = torch.as_tensor(resize_matrix(h, nh), device=x.device)
-    mw = torch.as_tensor(resize_matrix(w, nw), device=x.device)
+    mh = spans.to_device(resize_matrix(h, nh), x.device)
+    mw = spans.to_device(resize_matrix(w, nw), x.device)
     tmp = torch.einsum("oh,thwc->towc", mh, x32)
     return torch.einsum("pw,towc->topc", mw, tmp)
 
