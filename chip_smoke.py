@@ -29,10 +29,14 @@ network. In order it:
     fused-norm encode and decode, its two kernels held apart (the apply
     kernel on the plain moments within one ulp, head frames equal; the
     moments kernel's A and Bc against fp64 moments) and together (one ulp
-    almost everywhere, a few at most), each kernel's device time apart; times
+    almost everywhere, a few at most), each kernel's device time apart, and
+    the port-only upsample kernel (UP: the decoder's widening conv, bias,
+    pixel shuffle, frame drop and head frames) within one bf16 step at the
+    1080p clip's three upsamplers; times
     each with CUDA events after an L2 flush, beside its plain version, the
     one PyTorch call that computes the same function where there is one
-    (for K11 cuDNN's bf16 conv at the same shape), and its bound;
+    (for K11 cuDNN's bf16 conv at the same shape, for UP cuDNN's
+    transposed conv and the plain matmul + shuffle form), and its bound;
  2b. serving parallelism on the one card (nothing beyond one card is
     measured): K3, K6 and K7 with their fp32 epilogue (and K6 / K7's fp32
     split-K reduction) against their plain versions at every row shard of
@@ -133,11 +137,14 @@ network. In order it:
  10. the VAE's lowering switches: VideoVAEs built under
     SEEDVR2_UPSAMPLE_CONVT=0, SEEDVR2_HEAD_CORRECTION=1 and
     SEEDVR2_CONV_IM2COL=1, each alone, encode and decode the 720p clip
-    against the default lowering and the fp32 VAE; then the default 3B
-    path serves the 5-frame 540x960 clip to 1080p under the pixel-shuffle
-    upsample: wall, phases, peak memory, a profiled decode's device time,
-    peak memory and top kernels (the same request under the transposed
-    conv, whose rows PERF.md keeps, is left out to make room for 10b-10c);
+    against the default lowering and the fp32 VAE (on the card both
+    upsample through UP, so SEEDVR2_UPSAMPLE_CONVT=0 is checked to reach
+    the lowering and its decode repeats the default's); then the 5-frame
+    540x960 -> 1080p clip's latent decoded by a random VAE_V3 in each
+    upsample form (UP, the plain form, cuDNN's transposed conv):
+    seconds, peaks, UP's launches and top kernels (no dgrad kernel). The
+    row and the decodes alone: `python3 -c 'import chip_smoke;
+    chip_smoke.upsample_phase()'`;
  10b. the legacy VAE family at VAE_V3's widths (conv2 (1, 3, 3), no mid
     attention, quant convs; random, written as an fp16 .safetensors and
     loaded through `load_vae_checkpoint`, its sniffed config checked): the
@@ -236,6 +243,7 @@ nothing of JAX.
 """
 
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import json
@@ -310,7 +318,8 @@ K12_FOLD_RATIO, K12_FOLD_ULPS = 2, 4
 # bf16 ulp, none beyond 8, relative L2 <= 1e-3; head frames exact.
 K12_ULP_SHARE, K12_WHOLE_MAX_ULPS, K12_REL_L2 = 0.999, 8, 1e-3
 # whole int8 VAE decode of the 720p clip latent, kernels vs plain versions:
-# K11 is exact and everything else runs the same code, so any difference is
+# K11 is exact and everything else runs the same code (the upsample held on
+# its kernel on both sides, `upsample_held`), so any difference is
 # nondeterminism that later quantizations amplify. Its own limit sits below
 # the int8-vs-bf16 gap on the same weights (checked), and the kernels'
 # output must lie closer to the plain int8 decode than to the bf16 one.
@@ -358,8 +367,6 @@ AUTO_EMULATED_BYTES = 24 << 30
 # configure_runner stream
 BLOCKSWAP_KEEPS = (24, 0)
 STREAM_EMULATED_BYTES = 16 << 30
-# the 1080p clip served under both upsample forms (default 3B path)
-UPSAMPLE_AB_REQUEST = ("clip 5x540x960 -> 1080", 5, 540, 960, 1080)
 # the 7B's requests: the default path (bf16) and its throughput and GGUF
 # lanes: (label, frames, height, width, short side)
 DIT7B_REQUESTS = (("clip 5x360x640 -> 720", 5, 360, 640, 720),
@@ -374,6 +381,16 @@ GGUF_7B_FREE_BYTES = 14 << 30
 K11_SHAPES = ((512, 512, 2, 90, 160), (512, 512, 3, 180, 320),
               (512, 256, 5, 360, 640), (256, 256, 5, 360, 640),
               (256, 128, 5, 720, 1280), (128, 128, 5, 720, 1280))
+# the decoder's upsamplers of the 1080p clip (the 3B cell's request; 2
+# latent frames of 135 x 240), each a first slice: (Ci, C, T, H, W, tr,
+# drop); the kernel against its plain version within one bf16 step (both
+# round one fp32 value, summed in another order) or 1e-4 near 0
+UPSAMPLE_SHAPES = ((512, 512, 2, 135, 240, 2, True),
+                   (512, 512, 3, 270, 480, 2, True),
+                   (256, 256, 5, 540, 960, 1, False))
+UPSAMPLE_TOL = dict(rtol=2 ** -7, atol=1e-4)
+# the 1080p clip's latent, decoded in each upsample form
+UPSAMPLE_LATENT = (1, 2, 135, 240, 16)
 # the (C, T, H, W) of every fused norm of the 720p clip's encode (first
 # slice of 5 frames at 720 x 1280) and decode
 K12_SHAPES = ((128, 5, 720, 1280), (128, 5, 360, 640), (256, 5, 360, 640),
@@ -644,6 +661,10 @@ KERNELS = {
             "comfyui-seedvr2_tpu/ops/int8_conv.py:40"),
     "K12": ("norm_silu_head", "seedvr2_tpu_torch/csrc/fused_norm.cu",
             "comfyui-seedvr2_tpu/ops/fused_norm.py:28"),
+    # port-only: the JAX package lowers the decoder's upsample as
+    # lax.conv_transpose (models/vae/model.py), with no Pallas kernel
+    "UP": ("upsample_shuffle", "seedvr2_tpu_torch/csrc/upsample_shuffle.cu",
+           "none (port-only; JAX: lax.conv_transpose)"),
     # the fp32-output variants of the row-sharded projections under tensor
     # parallelism (the same Pallas kernels with out_dtype=float32)
     "K3f32": ("int8_matmul (fp32 out)",
@@ -706,6 +727,12 @@ DESIGN = {
     "K12": "moments kernel (one read in 64 KB pieces, partials folded by "
            "each group's last block in fixed order) + the earlier apply "
            "pass, 16 KB pieces from the plan",
+    "UP": "GEMM, persistent: a unit's x (256 or 128 positions, every "
+          "input channel) resident in shared memory, read in place as "
+          "MN-major boxes; a TMA ring of the weight's two yi-phase row "
+          "blocks; wgmma m64n256k16 / m64n128k16 (64 channels x 2 phases a "
+          "tile); bias in fp32; both phases staged as the output rows lie, "
+          "bulk-copied by the TMA engine (head frames too)",
     "K3f32": "K3 with an fp32 epilogue store of the same accumulator",
     "K6f32": "K6 with an fp32 epilogue (TMA store of fp32 rows) and an fp32 "
              "split-K reduction",
@@ -740,7 +767,8 @@ DENSE_PATH, OP_PATH = "dense (no product caller)", "op (no product caller)"
 MAIN_PATH = {"K1": "default", "K2": "default", "K3": "throughput",
              "K4": "throughput", "K5": "throughput", "K6": "q8", "K7": "q4",
              "K8": DENSE_PATH, "K9": "uniform", "K10": OP_PATH,
-             "K11": "vae_int8", "K12": "fused_norm", "K3f32": "tp2",
+             "K11": "vae_int8", "K12": "fused_norm", "UP": "default",
+             "K3f32": "tp2",
              "K6f32": "tp2", "K7f32": "tp2", "K1bwd_dq": "train",
              "K1bwd_dkdv": "train", "K1bwd_prepass": "train",
              "K2bwd": "train", "K9bwd_dq": "train_uniform",
@@ -1769,6 +1797,172 @@ def check_k11(torch, ic, device):
             "by_shape": by_shape}
 
 
+def check_upsample(torch, up, device):
+    """The decoder's upsample kernel (port-only: the JAX package lowers the
+    step as lax.conv_transpose, no Pallas kernel) against its plain version
+    at the 1080p clip's three upsamplers, a first slice with its two head
+    frames (UPSAMPLE_TOL, frame by frame); each timed alone after the
+    L2-evicting write beside its bound, the plain form the CPU serves (the
+    matmul + pixel shuffle, the frame drop and the head concatenation:
+    what SEEDVR2_UPSAMPLE_CONVT=0 ran on the card before) and the library
+    form (cuDNN's F.conv_transpose3d alone, the transposed conv the card
+    ran by default; its int64 kernel at the last upsampler takes seconds,
+    so it is timed once there). The record holds the last upsampler."""
+    import torch.nn.functional as F
+
+    from seedvr2_tpu_torch.models.vae import model as tm
+
+    gen = torch.Generator(device).manual_seed(25)
+    by_shape, rec = [], None
+    for ci, c, t, h, w, tr, drop in UPSAMPLE_SHAPES:
+        x = torch.randn(1, ci, t, h, w, generator=gen, device=device).to(
+            torch.bfloat16)
+        conv = torch.nn.Conv3d(ci, 4 * tr * c, 1, device=device,
+                               dtype=torch.bfloat16)
+        with torch.no_grad():
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen,
+                                          device=device) * ci ** -0.5)
+            conv.bias.copy_(0.1 * torch.randn(conv.bias.shape, generator=gen,
+                                              device=device))
+        wt, b = conv.weight.detach()[:, :, 0, 0, 0], conv.bias.detach()
+        out = up.upsample_shuffle(x, wt, b, tr, drop, 2)
+        torch.cuda.synchronize()
+        ref = up.upsample_shuffle_plain(x, wt, b, tr, drop, 2)
+        worst, equal = 0.0, 0
+        for f in range(out.shape[2]):
+            a, r = out[:, :, f].float(), ref[:, :, f].float()
+            over = ((a - r).abs() - UPSAMPLE_TOL["atol"]
+                    - UPSAMPLE_TOL["rtol"] * r.abs()).max().item()
+            worst = max(worst, (a - r).abs().max().item())
+            equal += (a == r).sum().item()
+            if not torch.isfinite(a).all() or over > 0:
+                fail(f"upsample {ci}x{t}x{h}x{w} tr={tr}: frame {f} beyond "
+                     f"one bf16 step of the plain version")
+        del ref, a, r
+        name = f"Ci={ci} C={c} T={t} {h}x{w} tr={tr}"
+        ms = kernel_ms(torch, lambda: up.upsample_shuffle(x, wt, b, tr, drop,
+                                                          2), 10)
+
+        def plain_form():
+            y = tm._upsample_pixel_shuffle(conv, x, 2, tr)
+            if drop:
+                y = torch.cat([y[:, :, :1], y[:, :, 2:]], dim=2)
+            return torch.cat([y[:, :, :1].expand(-1, -1, 2, -1, -1), y],
+                             dim=2)
+
+        with torch.no_grad():
+            plain_ms = kernel_ms(torch, plain_form, 3, warmup=1)
+            k = wt.reshape(2, 2, tr, c, ci).permute(4, 3, 2, 0, 1)
+            big = 4 * c * t * tr * h * w >= 2 ** 31  # cuDNN's int64 kernel
+            lib_ms = kernel_ms(torch, lambda: F.conv_transpose3d(
+                x, k, stride=(tr, 2, 2)), 1 if big else 5, warmup=1)
+        ops = 2 * ci * 4 * c * h * w * (t * tr - drop)
+        nbytes = 2 * (x.numel() + wt.numel() + b.numel() + out.numel())
+        bound, by = bound_ms(ops, PEAK_BF16, nbytes)
+        nt, _, units = up.plan_units(1, t, h, w, ci)
+        say(f"upsample {name}: within one bf16 step of the plain version "
+            f"(max |diff| {worst:.3g}, {equal / out.numel() * 100:.3f} % "
+            f"equal); kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s, "
+            f"{nbytes / ms / 1e6:.1f} GB/s; {units} units of {nt} "
+            f"positions), bound {bound:.4f} ms ({by}; "
+            f"{bound / ms * 100:.1f} % of it); plain form (matmul + "
+            f"shuffle + drop + head cat) {plain_ms:.4f} ms; "
+            f"cuDNN F.conv_transpose3d {lib_ms:.4f} ms")
+        rec = dict(shape=name, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                   roofline_pct=bound / ms * 100)
+        by_shape.append(rec)
+        del x, conv, wt, b, out, k
+        torch.cuda.empty_cache()
+    return {**{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by")},
+            "by_shape": by_shape}
+
+
+def upsample_decode(torch, vae_cfg, VideoVAE, device):
+    """The 1080p clip's latent (UPSAMPLE_LATENT) decoded by a random VAE_V3
+    in each upsample form: the kernel (the card's default), the plain form
+    (use_kernels off, SEEDVR2_UPSAMPLE_CONVT=0) and the library form
+    (use_kernels off, the transposed conv): decode seconds and peak, the
+    kernel's decode profiled (device seconds, top kernels), the forms
+    against the kernel's output."""
+    from seedvr2_tpu_torch.models.vae.pipeline_vae import init_vae_params
+    from seedvr2_tpu_torch.ops.upsample import upsample_shuffle
+
+    gen = torch.Generator(device).manual_seed(26)
+    vae = VideoVAE(init_vae_params(vae_cfg, device, torch.bfloat16,
+                                   generator=gen))
+    z = torch.randn(UPSAMPLE_LATENT, generator=gen, device=device)
+    default = vae.lowering
+    outs = {}
+    for name, lowering in (
+            ("kernel", default),
+            ("plain form", dataclasses.replace(default, use_kernels=False,
+                                               upsample_convt=False)),
+            ("library form", dataclasses.replace(default,
+                                                 use_kernels=False))):
+        vae.lowering = lowering
+        with torch.no_grad():
+            vae.decode(z)  # cuDNN's plans and the workspaces of the shapes
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        before = upsample_shuffle.launches
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = vae.decode(z)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated(device) - held) / 2 ** 30
+        launched = upsample_shuffle.launches - before
+        prof = ""
+        if name == "kernel":
+            busy, _, top = top_device_kernels(torch, lambda: vae.decode(z), 6)
+            prof = (f"; profiled: device {busy:.3f} s, top kernels "
+                    + "; ".join(f"{ms:.1f} ms {k[:80]}" for k, ms in top))
+            if any("dgrad" in k for k, _ in top):
+                fail("the kernel's 1080p decode still runs a dgrad kernel")
+            outs[name] = out
+        else:
+            prof = ("; relative L2 to the kernel's "
+                    f"{rel_l2(out, outs['kernel']):.6g}")
+        say(f"1080p clip decode ({UPSAMPLE_LATENT} latent), {name}: "
+            f"{wall:.3f} s, peak {peak:.2f} GiB above the model, upsample "
+            f"kernel launches {launched}{prof}")
+        del out
+    vae.lowering = default
+    del vae, outs
+    torch.cuda.empty_cache()
+
+
+def upsample_phase() -> None:
+    """The upsample kernel's phase-2 row and its 1080p decode alone:
+    python3 -c 'import chip_smoke; chip_smoke.upsample_phase()'."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from seedvr2_tpu_torch.core.configs import VAE_V3
+    from seedvr2_tpu_torch.models.vae.pipeline_vae import VideoVAE
+    from seedvr2_tpu_torch.ops import _build
+    from seedvr2_tpu_torch.ops import upsample as up
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"card: {card_line()}")
+    lib = _build.kernel_library()
+    say(f"kernels built in {lib.build_seconds:.2f} s")
+    lines = lib.ptxas_log.splitlines()
+    for i, line in enumerate(lines):  # the kernel's resource report
+        if "Compiling entry" in line and "upsample" in line:
+            for rest in lines[i:i + 4]:
+                say(f"  {rest.strip()}")
+    device = torch.device("cuda", 0)
+    say(json.dumps({"upsample": check_upsample(torch, up, device)}))
+    upsample_decode(torch, VAE_V3, VideoVAE, device)
+    say(f"card: {card_line()}")
+
+
 def k12_moments_error(torch, got, fold, truth):
     """(max |got - truth|, its limit): K12_FOLD_RATIO times the plain
     `_fold`'s own distance from the fp64 truth plus K12_FOLD_ULPS fp32 ulps
@@ -2262,22 +2456,46 @@ def top_device_kernels(torch, fn, n=3):
     return busy, peak, [(e.key, _device_us(e) / 1e3) for e in top]
 
 
-def check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, vae_cfg, device,
-                        embeds, clip):
+def fp32_vae(torch, VideoVAE, model):
+    """An fp32 copy of the VAE `model`, the plain reference the bf16 lanes
+    are held to: use_kernels off, since the kernels (the upsample's among
+    them) take bf16 only."""
+    vae = VideoVAE(copy.deepcopy(model).float(), torch.float32)
+    vae.lowering = dataclasses.replace(vae.lowering, use_kernels=False)
+    return vae
+
+
+def upsample_held():
+    """A context in which the decoder's upsample takes its kernel on the
+    card whatever use_kernels says: a whole decode with K11 against its
+    plain versions then differs in K11 alone. (The upsample's plain forms
+    round at other points, and a random int8 decoder spreads one flipped
+    level over the whole output: 0.26 relative L2 where K11 is exact.)"""
+    from seedvr2_tpu_torch.models.vae import model as tm
+
+    real = tm._upsample_kernel
+
+    @contextlib.contextmanager
+    def held():
+        tm._upsample_kernel = lambda x, lowering: x.is_cuda
+        try:
+            yield
+        finally:
+            tm._upsample_kernel = real
+
+    return held()
+
+
+def check_vae_lowerings(torch, cli, pipeline, VideoVAE, vae_cfg, device,
+                        clip):
     """Phase 10. VideoVAEs built under each lowering switch alone (the
     environment read at construction, over the default runner's VAE
     weights): encode and decode of the 720p clip against the default
-    lowering and against the fp32 VAE (LOWERING_SWITCHES' bounds). Then the
-    default 3B path serves the 1080p clip under SEEDVR2_UPSAMPLE_CONVT=0:
-    request wall and phases, the request's peak memory, and a profiled
-    decode of its latent (device seconds, the decode's peak memory, its
-    top device kernels). The same request under the transposed conv (10 s
-    of one int64 cuDNN kernel, rows kept in PERF.md) is left out to
-    make room for phases 10b-10c."""
-    import copy
-
-    from seedvr2_tpu_torch.profile_requests import make_frames
-
+    lowering and against the fp32 VAE (LOWERING_SWITCHES' bounds). On the
+    card both take the upsample kernel, so SEEDVR2_UPSAMPLE_CONVT=0 is
+    checked to reach the lowering and its decode compares identical
+    computations. Then `upsample_decode`: the 1080p clip's latent in each
+    upsample form (the kernel, the plain form, cuDNN's transposed conv)."""
     t0 = time.perf_counter()
     base = cli.make_runner(device, seed=0)
     model = base.vae.model
@@ -2309,7 +2527,7 @@ def check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, vae_cfg, device,
         return enc, dec, t2 - t1, time.perf_counter() - t2
 
     ref = both(default)
-    vae32 = VideoVAE(copy.deepcopy(model).float(), torch.float32)
+    vae32 = fp32_vae(torch, VideoVAE, model)
     truth = both(vae32, torch.float32)[:2]
     del vae32
     err_default = [rel_l2(ref[i], truth[i]) for i in range(2)]
@@ -2317,7 +2535,6 @@ def check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, vae_cfg, device,
         f"{default.lowering}: encode {ref[2]:.3f} s, decode {ref[3]:.3f} s "
         f"(720p clip), relative L2 to the fp32 VAE {err_default[0]:.6g} / "
         f"{err_default[1]:.6g}")
-    vaes = {}
     for env, value, field in LOWERING_SWITCHES:
         old = env_set(env, value)
         try:
@@ -2328,7 +2545,6 @@ def check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, vae_cfg, device,
             fail(f"{env}={value} did not reach the VAE built under it")
         if VideoVAE(model, torch.bfloat16).lowering != default.lowering:
             fail(f"{env} leaked into a VAE built after it was cleared")
-        vaes[env] = vae
         out = both(vae)
         bad = False
         for i, what in enumerate(("encode", "decode")):
@@ -2337,54 +2553,19 @@ def check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, vae_cfg, device,
                 f"default lowering {rel:.6g} (bound {FUSED_VAE_REL_L2}), to "
                 f"the fp32 VAE {err:.6g} (bound {FUSED_FP32_RATIO}x the "
                 f"default's {err_default[i]:.6g}); {out[2 + i]:.3f} s "
-                f"(default {ref[2 + i]:.3f} s)")
+                f"(default {ref[2 + i]:.3f} s)"
+                + ("; on the card the same computation as the default "
+                   "(both upsample through UP)"
+                   if field == "upsample_convt" else ""))
             bad |= (not torch.isfinite(out[i]).all()
                     or rel > FUSED_VAE_REL_L2
                     or err > FUSED_FP32_RATIO * err_default[i])
         if bad:
             fail(f"{env}={value}: the VAE beyond the limits above")
         del out
-    del ref, truth, x_in, z
+    del ref, truth, x_in, z, base, default, encode
     torch.cuda.empty_cache()
-
-    label, t, h, w, res = UPSAMPLE_AB_REQUEST
-    frames = make_frames(t, h, w, seed=40)
-    expect = (t, res, res * w // h, 3)
-    for form, vae in (("SEEDVR2_UPSAMPLE_CONVT=0 (matmul + pixel shuffle)",
-                       vaes["SEEDVR2_UPSAMPLE_CONVT"]),):
-        base.vae = vae
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(device)
-        held = torch.cuda.memory_allocated(device) / 2 ** 30
-        t1 = time.perf_counter()
-        out, timings = cli.process_frames(base, frames, embeds,
-                                          resolution=res, seed=42)
-        wall = time.perf_counter() - t1
-        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-        if out.shape != expect or not np.isfinite(out).all():
-            fail(f"{form} {label}: expected finite {expect}, got "
-                 f"{out.shape}")
-        profiled = ""
-        if vae is not default:
-            ctx = pipeline.encode_all_batches(
-                base, pipeline.setup_generation_context(device), frames,
-                resolution=res)
-            lat = ctx["all_latents"][0]
-            del ctx
-            busy, dec_peak, top = top_device_kernels(
-                torch, lambda: base.vae_decode([lat]))
-            del lat
-            profiled = (
-                f"; profiled decode: device {busy:.3f} s, decode peak "
-                f"{dec_peak:.2f} GiB above the memory held before it, top "
-                "kernels " + "; ".join(f"{ms:.1f} ms {name[:90]}"
-                                       for name, ms in top))
-        say(f"{form}, {label} (default 3B path): wall {wall:.3f} s, record "
-            + format_record(timings)
-            + f"; request peak {peak:.2f} GiB ({held:.2f} held before it: "
-            f"the runner's models)" + profiled)
-    del base, default, vaes, encode, out
-    torch.cuda.empty_cache()
+    upsample_decode(torch, vae_cfg, VideoVAE, device)
 
 
 def check_7b_kernels(torch, fa, gather, im, fq, qm, nadit, device):
@@ -3208,7 +3389,7 @@ def legacy_vae_lanes(torch, np, cli, VideoVAE, vae_cfg, device, embeds,
              "prediction")
     lanes["int8"].lowering = dataclasses.replace(lanes["int8"].lowering,
                                                  use_kernels=False)
-    with torch.no_grad():
+    with torch.no_grad(), upsample_held():
         dec_plain = lanes["int8"].decode(z)
     lanes["int8"].lowering = dataclasses.replace(lanes["int8"].lowering,
                                                  use_kernels=True)
@@ -3221,7 +3402,7 @@ def legacy_vae_lanes(torch, np, cli, VideoVAE, vae_cfg, device, embeds,
     if not torch.isfinite(dec_k).all() or rel > INT8_DECODE_REL_L2 \
             or not INT8_DECODE_REL_L2 < gap or not rel < to_bf16:
         fail("legacy int8 decode beyond the limits above")
-    vae32 = VideoVAE(copy.deepcopy(model).float(), torch.float32)
+    vae32 = fp32_vae(torch, VideoVAE, model)
     with torch.no_grad():
         truth = (vae32.encode(x_in.float()), vae32.decode(z.float()))
     del vae32
@@ -3632,7 +3813,6 @@ def cli_surface_phase(torch, np, cli, nadit, pipeline, runner, device,
     against the unchunked output; an mp4 through the chunk loop where
     OpenCV imports, beside --doctor in a subprocess. Fails on any check;
     clears the model cache at its end."""
-    import contextlib
     import io
     import tempfile
 
@@ -5517,6 +5697,7 @@ def kernel_wrappers():
     from seedvr2_tpu_torch.ops import int8_conv as ic
     from seedvr2_tpu_torch.ops import int8_matmul as im
     from seedvr2_tpu_torch.ops import quant_matmul as qm
+    from seedvr2_tpu_torch.ops import upsample as up
 
     return {"K1": fa.packed_window_attention, "K2": gather.gather_rows,
             "K3": im.int8_matmul, "K4": fq.rms_ada_quantize,
@@ -5524,6 +5705,7 @@ def kernel_wrappers():
             "K7": qm.quant_matmul_affine, "K8": fa.flash_attention,
             "K9": fa.flash_windowed_attention, "K10": im.int8_matmul_qx,
             "K11": ic.int8_conv3d, "K12": fn.norm_silu_head,
+            "UP": up.upsample_shuffle,
             "K1bwd_dq": fa.attention_backward_dq,
             "K1bwd_dkdv": fa.attention_backward_dkdv,
             "K1bwd_prepass": fa.prepass_backward, "K2bwd": gather.GatherRows,
@@ -5577,6 +5759,7 @@ def main() -> None:
     from seedvr2_tpu_torch.ops import int8_conv as ic
     from seedvr2_tpu_torch.ops import int8_matmul as im
     from seedvr2_tpu_torch.ops import quant_matmul as qm
+    from seedvr2_tpu_torch.ops import upsample as up
     from seedvr2_tpu_torch.profile_requests import make_frames
     from seedvr2_tpu_torch.utils.text_embeds import load_text_embeddings
 
@@ -5648,6 +5831,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     recs["K11"] = check_k11(torch, ic, device)
     recs["K12"] = check_k12(torch, fn, device)
+    recs["UP"] = check_upsample(torch, up, device)
     phase_done("2 (kernels against plain versions)")
 
     # 2b. serving parallelism on the one card: the fp32 variants, two
@@ -5676,7 +5860,7 @@ def main() -> None:
         ("image 1x360x640 -> 720", image, 720, (1, 720, 1280, 3)),
         ("clip 5x360x640 -> 720", clip, 720, (5, 720, 1280, 3)),
         ("clip again", clip, 720, (5, 720, 1280, 3))), device, embeds)
-    counts["default"] = read_counts(wrappers, ("K1", "K2"), "default")
+    counts["default"] = read_counts(wrappers, ("K1", "K2", "UP"), "default")
     phase_done("3 (default path)")
 
     # 3b. the CLI surface on those models
@@ -5947,7 +6131,8 @@ def main() -> None:
                                              use_kernels=use_kernels)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        out = r.vae_decode([latent])[0]
+        with upsample_held():
+            out = r.vae_decode([latent])[0]
         torch.cuda.synchronize()
         r.vae.lowering = dataclasses.replace(r.vae.lowering, use_kernels=True)
         return out, time.perf_counter() - t1
@@ -5996,7 +6181,7 @@ def main() -> None:
         fail("SEEDVR2_FUSED_NORM=1 did not reach the VAE built under it")
     x_in = samples[0][None]
     z = (latent.float() / VAE_V3.scaling_factor + VAE_V3.shifting_factor)[None]
-    vae32 = VideoVAE(copy.deepcopy(base.vae.model).float(), torch.float32)
+    vae32 = fp32_vae(torch, VideoVAE, base.vae.model)
     reset_counts(wrappers)
     k12_shapes = {}  # (C, T, H, W) -> [encode, decode] launches
     k12_call, stage = fn.norm_silu_head_ncdhw, [0]
@@ -6041,8 +6226,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 10. the VAE's lowering switches, each set alone, against the default
-    check_vae_lowerings(torch, np, cli, pipeline, VideoVAE, VAE_V3, device,
-                        embeds, clip)
+    check_vae_lowerings(torch, cli, pipeline, VideoVAE, VAE_V3, device,
+                        clip)
     phase_done("10 (VAE lowering switches)")
 
     # 10b. the legacy VAE family at full width, beside the 3B DiT

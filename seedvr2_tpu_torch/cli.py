@@ -68,7 +68,10 @@ ops/attention.py. `--preset throughput` is the JAX serving bundle (w8a8
 DiT, uniform tiled VAE; explicit flags win), `--preset quality` the
 defaults. --vae_quant int8 and SEEDVR2_FUSED_NORM=1 take the VAE's kernel
 lanes; SEEDVR2_UPSAMPLE_CONVT, SEEDVR2_HEAD_CORRECTION and
-SEEDVR2_CONV_IM2COL are read once when the VAE is built. A tile size of
+SEEDVR2_CONV_IM2COL are read once when the VAE is built. On the card the
+decoder's upsample runs one hand-written kernel (ops/upsample.py) whatever
+SEEDVR2_UPSAMPLE_CONVT says; the switch picks only the plain form (CPU
+runs). A tile size of
 `auto` plans tiles from memory probes run on the card
 (utils/memplan.py, cached in ~/.cache/seedvr2_tpu_torch/memprobe.json or
 $SEEDVR2_MEMPROBE_CACHE).

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels:
 // K1/K8/K9's attention step (packed_attention.cu, attention_step.cuh) and
 // K1's backward (attention_backward.cu), K6/K7's dequantizing
-// GEMMs (quant_matmul.cu), K3/K10's s8 GEMM (int8_matmul.cu) and K11's
-// implicit-GEMM conv (int8_conv.cu).
+// GEMMs (quant_matmul.cu), K3/K10's s8 GEMM (int8_matmul.cu), K11's
+// implicit-GEMM conv (int8_conv.cu) and the decoder's upsample GEMM
+// (upsample_shuffle.cu).
 // Shared-memory addresses are 32-bit `.shared` addresses (smem_u32).
 
 #pragma once
@@ -209,6 +210,18 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// The same for N = 128; d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SEEDVR2_D64
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : SEEDVR2_F8(0), SEEDVR2_F8(8), SEEDVR2_F8(16), SEEDVR2_F8(24),
+        SEEDVR2_F8(32), SEEDVR2_F8(40), SEEDVR2_F8(48), SEEDVR2_F8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d(64 x N, fp32) (+)= A(64 x 16, bf16 registers, the m16k16 A fragment of
 // mma.sync per warp) B(16 x N, bf16 in shared memory), N = 8, 64 or 128.
 // TRANS_B = 1: B MN-major (transposed); 0: K-major. d is overwritten when
@@ -298,6 +311,21 @@ __device__ __forceinline__ void wgmma_s8(uint32_t (&d)[128], uint64_t da,
         SEEDVR2_R8(32), SEEDVR2_R8(40), SEEDVR2_R8(48), SEEDVR2_R8(56),
         SEEDVR2_R8(64), SEEDVR2_R8(72), SEEDVR2_R8(80), SEEDVR2_R8(88),
         SEEDVR2_R8(96), SEEDVR2_R8(104), SEEDVR2_R8(112), SEEDVR2_R8(120)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The MN-major product of wgmma_ss_mn for N = 256; d is overwritten when
+// `accumulate` is 0.
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[128], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" SEEDVR2_D128
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : SEEDVR2_F8(0), SEEDVR2_F8(8), SEEDVR2_F8(16), SEEDVR2_F8(24),
+        SEEDVR2_F8(32), SEEDVR2_F8(40), SEEDVR2_F8(48), SEEDVR2_F8(56),
+        SEEDVR2_F8(64), SEEDVR2_F8(72), SEEDVR2_F8(80), SEEDVR2_F8(88),
+        SEEDVR2_F8(96), SEEDVR2_F8(104), SEEDVR2_F8(112), SEEDVR2_F8(120)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

@@ -9,7 +9,11 @@ per-frame group norm with fp32 statistics, the mid-block spatial attention
 as a plain matmul/softmax composition; the JAX package's three lowering
 switches (`Lowering`: the decoder upsample as a transposed conv, the
 default, or as a matmul plus pixel shuffle; the causal head as a
-correction conv; small convs as an im2col matmul); and the two opt-in
+correction conv; small convs as an im2col matmul); on the card every
+decoder upsample is one hand-written kernel instead, whatever the switch
+says (ops/upsample.py: the widening conv, its bias, the pixel
+shuffle, the first slice's frame drop and the next conv's causal head in
+one launch); and the two opt-in
 lowerings of norm -> SiLU -> conv, in the JAX order:
  - `conv_quant="int8"` (--vae_quant int8): the decoder's resnet convs run
    as int8 convs (ops/int8_conv.py, kernel K11) on a fused
@@ -41,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.configs import VAEConfig
-from ...ops import fused_norm, int8_conv
+from ...ops import fused_norm, int8_conv, upsample
 from ...utils import spans
 
 State = Optional[Dict[str, torch.Tensor]]
@@ -54,10 +58,15 @@ class Lowering:
 
     fused_norm: a first slice's norm -> SiLU -> 3x3x3 conv takes K12's fused
     pass (SEEDVR2_FUSED_NORM=1). use_kernels: False runs the plain versions
-    of K11 and K12 on any device, to hold the kernels against them.
+    of K11 and K12, and the upsample's plain forms, on any device, to hold
+    the kernels against them (and for an fp32 VAE on the card).
     upsample_convt: the decoder upsample as one transposed conv
     (SEEDVR2_UPSAMPLE_CONVT, on by default); off, a 1x1x1 conv as a matmul
-    plus the pixel shuffle. head_correction: a causal conv whose head frames
+    plus the pixel shuffle. On the card every decode's upsample takes the
+    upsample kernel (ops/upsample.py) under use_kernels whatever this
+    says (it raises on a tensor it cannot take, e.g. not bf16); the switch
+    picks only the plain form (the CPU, use_kernels False).
+    head_correction: a causal conv whose head frames
     come from the state or the first frame runs over x zero-padded at the
     front of T, plus a conv over the head added onto the first kt - 1
     output frames (SEEDVR2_HEAD_CORRECTION=1). im2col_max_k: stride-1 convs
@@ -239,6 +248,24 @@ def _conv3d_im2col(x_ext: torch.Tensor, w: torch.Tensor,
     return torch.matmul(m, wk).permute(0, 4, 1, 2, 3)
 
 
+def head_frames(state: State, path: str, t_pad: int) -> int:
+    """The causal head's frames of the conv at `path`: the carried tail's,
+    or 2 * t_pad copies of frame 0 on a first slice."""
+    if state is not None and path in state:
+        return state[path].shape[2]
+    return 2 * t_pad
+
+
+def corrects_head(lowering: Lowering, kt: int, stride, t: int,
+                  n_head: int) -> bool:
+    """Whether causal_conv3d runs a conv of depth kt over t frames with an
+    n_head-frame head as the head correction (a conv over x plus one over
+    the head) rather than over the head frames concatenated in front of x.
+    The decoder's upsample asks too, to write its output extended or not."""
+    return (lowering.head_correction and tuple(stride) == (1, 1, 1)
+            and kt > 1 and t >= kt - stride[0] and n_head == kt - 1)
+
+
 def causal_conv3d(conv: nn.Conv3d, path: str, x: torch.Tensor, state: State,
                   new_state: State = None,
                   stride: Tuple[int, int, int] = (1, 1, 1), t_pad: int = 0,
@@ -250,40 +277,37 @@ def causal_conv3d(conv: nn.Conv3d, path: str, x: torch.Tensor, state: State,
     x: (B, C, T, H, W). `state` holds the previous slice's tails (None for a
     first or unsliced call); `new_state`, if a dict, receives this slice's
     tail under `path` for the next call. pre_extended: the caller already
-    prepended the causal head frames (K12's fused pass), so the head
-    correction never applies. `lowering` picks the head correction and the
-    im2col form, in the JAX order."""
+    prepended the causal head frames (K12's fused pass, the upsample
+    kernel), so the head correction never applies. `lowering` picks the
+    head correction and the im2col form, in the JAX order."""
     w = conv.weight.to(x.dtype)
     kt = w.shape[2]
     cache = kt - stride[0]
     bias = conv.bias.to(x.dtype).view(1, -1, 1, 1, 1)
-    if (lowering.head_correction and not pre_extended
-            and tuple(stride) == (1, 1, 1) and kt > 1
-            and x.shape[2] >= cache):
-        head = None
-        if state is not None and path in state:
-            head = state[path].to(x.dtype)
-        elif t_pad > 0:
-            head = x[:, :, :1].expand(-1, -1, 2 * t_pad, -1, -1)
-        if head is not None and head.shape[2] == kt - 1:
-            if new_state is not None and cache > 0:
-                new_state[path] = x[:, :, -cache:].clone()
-            # JAX's conv over x zero-padded at the front of T, without the
-            # padded copy of x: frames kt - 1 on are a conv over x unpadded,
-            # the first kt - 1 one over x's first kt - 1 frames padded at
-            # the front, onto which the conv over the head alone, padded at
-            # the back so its taps line up, is added; both written with
-            # the bias into one output
-            n = kt - 1
-            first = (_conv3d(x[:, :, :n], w, stride, s_pad, (n, 0))
-                     + _conv3d(head, w, stride, s_pad, (0, n)))
-            out = first.new_empty(first.shape[:2] + (x.shape[2],)
-                                  + first.shape[3:])
-            torch.add(first, bias, out=out[:, :, :n])
-            if x.shape[2] > n:
-                torch.add(_conv3d(x, w, stride, s_pad), bias,
-                          out=out[:, :, n:])
-            return out
+    n_head = head_frames(state, path, t_pad)
+    if not pre_extended and corrects_head(lowering, kt, stride, x.shape[2],
+                                          n_head):
+        carried = state is not None and path in state
+        head = (state[path].to(x.dtype) if carried
+                else x[:, :, :1].expand(-1, -1, n_head, -1, -1))
+        if new_state is not None and cache > 0:
+            new_state[path] = x[:, :, -cache:].clone()
+        # JAX's conv over x zero-padded at the front of T, without the
+        # padded copy of x: frames kt - 1 on are a conv over x unpadded,
+        # the first kt - 1 one over x's first kt - 1 frames padded at
+        # the front, onto which the conv over the head alone, padded at
+        # the back so its taps line up, is added; both written with
+        # the bias into one output
+        n = kt - 1
+        first = (_conv3d(x[:, :, :n], w, stride, s_pad, (n, 0))
+                 + _conv3d(head, w, stride, s_pad, (0, n)))
+        out = first.new_empty(first.shape[:2] + (x.shape[2],)
+                              + first.shape[3:])
+        torch.add(first, bias, out=out[:, :, :n])
+        if x.shape[2] > n:
+            torch.add(_conv3d(x, w, stride, s_pad), bias,
+                      out=out[:, :, n:])
+        return out
     if pre_extended:
         x_ext = x
     elif state is not None and path in state:
@@ -478,18 +502,42 @@ def _upsample_pixel_shuffle(conv: nn.Conv3d, x: torch.Tensor, sr: int,
     return y.reshape(b, c, t * tr, h * sr, wd * sr)
 
 
+def _upsample_kernel(x: torch.Tensor, lowering: Lowering) -> bool:
+    """Whether the decoder's upsample takes the upsample kernel
+    (ops/upsample.py): a tensor on the card under use_kernels. The CPU and
+    use_kernels False keep the two plain forms, chosen by upsample_convt."""
+    return lowering.use_kernels and x.is_cuda
+
+
 def _upsample3d(up: _ConvHolder, path: str, x, state, new_state,
                 temporal_up: bool, first_slice: bool,
                 lowering: Lowering = Lowering()):
     tr = 2 if temporal_up else 1
+    # remove_head: a first slice drops the duplicated frame 1
+    drop = temporal_up and first_slice
+    conv_path, s_pad = f"{path}.conv", ((1, 1), (1, 1))
+    if _upsample_kernel(x, lowering):
+        # one launch writes the conv's input, extended by its causal head
+        # unless the conv corrects the head itself
+        n_head = head_frames(state, conv_path, 1)
+        t_out = x.shape[2] * tr - drop
+        extend = not corrects_head(lowering, up.conv.weight.shape[2],
+                                   (1, 1, 1), t_out, n_head)
+        head = (state.get(conv_path) if extend and state is not None
+                else None)
+        y = upsample.upsample_shuffle(
+            x, up.upscale_conv.weight, up.upscale_conv.bias, tr, drop,
+            n_head if extend else 0, head)
+        return causal_conv3d(up.conv, conv_path, y, state, new_state,
+                             t_pad=1, s_pad=s_pad, pre_extended=extend,
+                             lowering=lowering)
     form = (_upsample_conv_transpose if lowering.upsample_convt
             else _upsample_pixel_shuffle)
     y = form(up.upscale_conv, x, 2, tr)
-    if temporal_up and first_slice:
-        # remove_head: drop the duplicated frame 1
+    if drop:
         y = torch.cat([y[:, :, :1], y[:, :, 2:]], dim=2)
-    return causal_conv3d(up.conv, f"{path}.conv", y, state, new_state,
-                         t_pad=1, s_pad=((1, 1), (1, 1)), lowering=lowering)
+    return causal_conv3d(up.conv, conv_path, y, state, new_state,
+                         t_pad=1, s_pad=s_pad, lowering=lowering)
 
 
 # --------------------------------------------------------------------------

@@ -33,7 +33,9 @@ non-persistent buffers, so checkpoints still load strictly under the
 reference key names), and the environment's switches, read once here,
 set the `Lowering`: SEEDVR2_FUSED_NORM=1 the fused norm+SiLU+head pass
 (kernel K12), SEEDVR2_UPSAMPLE_CONVT=0 the matmul + pixel-shuffle
-upsample, SEEDVR2_HEAD_CORRECTION=1 the causal head as a correction conv,
+upsample (the plain form only: on the card every decode's upsample takes
+the upsample kernel, ops/upsample.py, whatever the switch says),
+SEEDVR2_HEAD_CORRECTION=1 the causal head as a correction conv,
 SEEDVR2_CONV_IM2COL=1 the im2col form of convs with K <= 128.
 
 Layout is channels-last: video (B, T, H, W, 3) in [-1, 1], latent

@@ -98,6 +98,9 @@ _SIGNATURES = {
                            + [_L, _I, _L, _F, _P],
     # x, A, Bc, out, B, C, T, H*W, head frames, pieces, piece, stream
     "seedvr2_k12_apply": [_P] * 4 + [_I] * 3 + [_L, _I, _I, _L, _P],
+    # x, w, bias, out, B, Ci, T, H, W, frame stride, C, tr, drop, head
+    # frames, repeat frame 0 into them, stream
+    "seedvr2_upsample_shuffle": [_P] * 4 + [_I] * 5 + [_L] + [_I] * 5 + [_P],
 }
 
 

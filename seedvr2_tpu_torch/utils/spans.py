@@ -94,7 +94,8 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 
 
 def format_record(record: dict) -> str:
-    """A request record on one line: byte counts in bytes, spans in
-    seconds."""
+    """A request record on one line: byte counts in bytes, launch counts
+    as counts, spans in seconds."""
     return ", ".join(f"{k} {int(v)} B" if k.endswith("_bytes")
+                     else f"{k} {int(v)}" if k.endswith("_launches")
                      else f"{k} {v:.4f} s" for k, v in record.items())

@@ -21,6 +21,7 @@ from seedvr2_tpu_torch.ops import gather as tg
 from seedvr2_tpu_torch.ops import int8_conv as tic
 from seedvr2_tpu_torch.ops import int8_matmul as tim
 from seedvr2_tpu_torch.ops import quant_matmul as tqm
+from seedvr2_tpu_torch.ops import upsample as tup
 
 
 def _tables(rng, s, d, device):
@@ -859,11 +860,15 @@ def test_k12_kernel_is_deterministic_on_gpu(cuda_device, shape):
 
 
 @pytest.mark.cuda
-def test_vae_lanes_with_kernels_match_plain_on_gpu(cuda_device):
+def test_vae_lanes_with_kernels_match_plain_on_gpu(cuda_device, monkeypatch):
     """A 128-channel VAE in bf16: the int8 decode (K11) and the fused-norm
     encode and decode (K12) with kernels against the same lowering with the
-    plain versions: K11 is exact, K12 within an ulp, so bf16-class."""
+    plain versions: K11 is exact, K12 within an ulp, so bf16-class. The
+    decoder's upsample takes its kernel on both sides (use_kernels off
+    would give it the transposed conv, rounded elsewhere, whose flips the
+    int8 levels spread), so only K11 and K12 differ."""
     from seedvr2_tpu_torch.core.configs import VAEConfig
+    from seedvr2_tpu_torch.models.vae import model as tm
     from seedvr2_tpu_torch.models.vae.model import Lowering
     from seedvr2_tpu_torch.models.vae.pipeline_vae import (VideoVAE,
                                                            init_vae_params)
@@ -879,6 +884,7 @@ def test_vae_lanes_with_kernels_match_plain_on_gpu(cuda_device):
         vae.lowering = lowering
         return vae.decode(z).float(), vae.encode(x).float()
 
+    monkeypatch.setattr(tm, "_upsample_kernel", lambda x, lowering: True)
     before = (tic.int8_conv3d.launches, tfn.norm_silu_head.launches)
     dec_k, enc_k = run(Lowering(fused_norm=True))
     assert tic.int8_conv3d.launches > before[0]
@@ -887,6 +893,169 @@ def test_vae_lanes_with_kernels_match_plain_on_gpu(cuda_device):
     for a, b in ((dec_k, dec_p), (enc_k, enc_p)):
         assert torch.isfinite(a).all()
         assert ((a - b).norm() / b.norm()).item() < 2e-2
+
+
+# the decoder's upsamplers (Ci, C, T, H, W, tr): the 1080p clip's three
+# (3B cell, 135 x 240 latent, 2 frames) and a 7B 568 x 1920 decode tile's
+# three (T = 1: a still)
+UPSAMPLE_SHAPES = [(512, 512, 2, 135, 240, 2), (512, 512, 3, 270, 480, 2),
+                   (256, 256, 5, 540, 960, 1), (512, 512, 1, 71, 240, 2),
+                   (512, 512, 1, 142, 480, 2), (256, 256, 1, 284, 960, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first", [True, False], ids=["first", "later"])
+@pytest.mark.parametrize("ci,c,t,h,w,tr", UPSAMPLE_SHAPES,
+                         ids=[f"{s[0]}-{s[2]}x{s[3]}x{s[4]}"
+                              for s in UPSAMPLE_SHAPES])
+def test_upsample_kernel_matches_plain_on_gpu(cuda_device, ci, c, t, h, w,
+                                              tr, first):
+    """The upsample kernel against its plain version (fp32 sums and bias,
+    rounded once to bf16) on the same bf16 operands, head frames included:
+    a first slice (frame 0 repeated, frame 1 dropped at tr = 2) and a later
+    one (a carried tail copied in front). Tolerance: both round one fp32
+    value to bf16, summed in another order, so a value may land one bf16
+    step away (at most 2^-7 of it); the fp32 sums of Ci products of unit
+    size differ by far less than 1e-4 (atol, for values near 0)."""
+    gen = torch.Generator(cuda_device).manual_seed(ci + t + h)
+    x = torch.randn(1, ci, t, h, w, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    wt = (torch.randn(4 * tr * c, ci, generator=gen, device=cuda_device)
+          * ci ** -0.5).to(torch.bfloat16)
+    bias = (0.1 * torch.randn(4 * tr * c, generator=gen,
+                              device=cuda_device)).to(torch.bfloat16)
+    drop = first and tr == 2
+    head = None if first else torch.randn(
+        1, c, 2, 2 * h, 2 * w, generator=gen, device=cuda_device).to(
+            torch.bfloat16)
+    before = tup.upsample_shuffle.launches
+    out = tup.upsample_shuffle(x, wt, bias, tr, drop, 2, head)
+    torch.cuda.synchronize()
+    assert tup.upsample_shuffle.launches == before + 1
+    ref = tup.upsample_shuffle_plain(x, wt, bias, tr, drop, 2, head)
+    assert out.shape == ref.shape == (1, c, 2 + t * tr - drop, 2 * h, 2 * w)
+    equal = 0
+    for f in range(out.shape[2]):  # a frame at a time: 7 GB at 1080p
+        a, b = out[:, :, f].float(), ref[:, :, f].float()
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=2 ** -7, atol=1e-4)
+        equal += (a == b).sum().item()
+    assert equal >= 0.99 * out.numel()
+
+
+@pytest.mark.cuda
+def test_upsample_kernel_shapes_and_refusals_on_gpu(cuda_device):
+    """Widths that leave a row inside 4 positions (W % 4 != 0: 4-byte
+    pair stores) and frames whose H * W is not a multiple of 8 (x padded
+    for TMA), two batch elements, a non-contiguous x: equal to the plain
+    version as above. fp32, or channels that are not multiples of 64,
+    raise."""
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    for b, ci, c, t, h, w, tr, drop in ((2, 128, 64, 3, 7, 9, 2, True),
+                                        (1, 64, 128, 2, 5, 12, 1, False),
+                                        (2, 192, 64, 1, 33, 70, 2, True)):
+        x = torch.randn(b, ci, t, h, w + 1, generator=gen,
+                        device=cuda_device).to(torch.bfloat16)[..., :w]
+        wt = (torch.randn(4 * tr * c, ci, generator=gen, device=cuda_device)
+              * ci ** -0.5).to(torch.bfloat16)
+        bias = torch.randn(4 * tr * c, generator=gen,
+                           device=cuda_device).to(torch.bfloat16)
+        out = tup.upsample_shuffle(x, wt, bias, tr, drop, 2)
+        ref = tup.upsample_shuffle_plain(x, wt, bias, tr, drop, 2)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,
+                                   atol=1e-4)
+    x = torch.randn(1, 64, 1, 4, 8, device=cuda_device)
+    wt = torch.randn(256, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        tup.upsample_shuffle(x, wt, wt[:, 0], 1)
+    with pytest.raises(ValueError):
+        tup.upsample_shuffle(x.bfloat16()[:, :48], wt[:, :48].bfloat16(),
+                             wt[:, 0].bfloat16(), 1)
+
+
+def _vae_v3(device, seed=0):
+    from seedvr2_tpu_torch.core.configs import VAE_V3
+    from seedvr2_tpu_torch.models.vae.pipeline_vae import (VideoVAE,
+                                                           init_vae_params)
+
+    gen = torch.Generator(device).manual_seed(seed)
+    return VideoVAE(init_vae_params(VAE_V3, device, torch.bfloat16,
+                                    generator=gen))
+
+
+@pytest.mark.cuda
+def test_upsample_kernel_launches_per_decode_on_gpu(cuda_device):
+    """One 3B decode call (VAE_V3, one slice) launches the kernel once an
+    upsampler, 3 in all, counted in the request record too. Against the
+    plain form (use_kernels off), held as chip_smoke.py holds a VAE
+    lowering against the default: within 5e-2 relative L2 (one rounding
+    moved, then spread by every later bf16 rounding of a random decoder:
+    0.024-0.026 on an H100), and no farther from the fp32 VAE than 1.5x
+    the plain form is. An fp32 VAE with the kernels on raises in the
+    kernel's wrapper."""
+    import copy
+
+    from seedvr2_tpu_torch.models.vae.pipeline_vae import VideoVAE
+    from seedvr2_tpu_torch.utils import spans
+
+    vae = _vae_v3(cuda_device)
+    z = torch.randn(1, 2, 12, 16, 16, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1))
+    record = {}
+    before = tup.upsample_shuffle.launches
+    with spans.recording(record):
+        out = vae.decode(z)
+    assert tup.upsample_shuffle.launches - before == 3
+    assert record["upsample_kernel_launches"] == 3
+    assert "upsample_kernel_launches 3" in spans.format_record(record)
+    vae.lowering = dataclasses.replace(vae.lowering, use_kernels=False)
+    plain = vae.decode(z)
+    truth = VideoVAE(copy.deepcopy(vae.model).float(), torch.float32)
+    # the plain fp32 reference: the kernels take bf16 only
+    truth.lowering = dataclasses.replace(truth.lowering, use_kernels=False)
+    truth = truth.decode(z)
+    assert _rel(out, plain) < 5e-2
+    # a tensor the kernel cannot take raises: no silent plain form
+    with pytest.raises(ValueError):
+        VideoVAE(copy.deepcopy(vae.model).float(), torch.float32).decode(z)
+    assert _rel(out, truth) <= 1.5 * _rel(plain, truth)
+
+
+@pytest.mark.cuda
+def test_upsample_kernel_decode_1080p_on_gpu(cuda_device):
+    """The 1080p 5-frame clip's decode (VAE_V3, 2 x 135 x 240 latent):
+    profiled, no cuDNN dgrad (transposed conv) kernel runs; its peak is no
+    higher than the plain matmul + pixel-shuffle form's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    vae = _vae_v3(cuda_device)
+    z = torch.randn(1, 2, 135, 240, 16, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(2))
+    vae.decode(z[:, :, :16, :16])  # libraries' workspaces
+    peaks = {}
+    for name, lowering in (
+            ("kernel", vae.lowering),
+            ("plain", dataclasses.replace(vae.lowering, use_kernels=False,
+                                          upsample_convt=False))):
+        vae.lowering = lowering
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        held = torch.cuda.memory_allocated(cuda_device)
+        if name == "kernel":
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = vae.decode(z)
+                torch.cuda.synchronize()
+            names = [e.key for e in prof.key_averages()]
+            assert any("upsample_shuffle_kernel" in n for n in names), names
+            assert not any("dgrad" in n for n in names), names
+        else:
+            out = vae.decode(z)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated(cuda_device) - held
+        assert out.shape == (1, 5, 1080, 1920, 3)
+        del out
+    assert peaks["kernel"] <= peaks["plain"], peaks
 
 
 def _attention_operands(gen, b, sq, h, d, device, sk=None):
@@ -1587,7 +1756,8 @@ def test_legacy_vae_on_gpu_matches_cpu(cuda_device, monkeypatch):
 def test_legacy_int8_vae_on_gpu_matches_cpu(cuda_device, monkeypatch):
     """The legacy VAE under --vae_quant int8: K11 serves each decoder
     conv1 once a slice and no (1, 3, 3) conv2; the card's decode with K11
-    against its plain versions on the card (K11 exact: bf16 class); and
+    against its plain versions on the card (K11 exact: bf16 class; the
+    upsample kernel on both sides, as in the test above); and
     every int8 layer the card ran, rerun on the CPU (plain K11) on the
     same input and carried head, within relative L2 5e-3 (the group-norm
     moments summed in another order flip a few int8 steps; the whole
@@ -1614,6 +1784,7 @@ def test_legacy_int8_vae_on_gpu_matches_cpu(cuda_device, monkeypatch):
     out = card.decode(z)
     assert tic.int8_conv3d.launches - before == len(calls) == 2 * len(served)
     card.lowering = dataclasses.replace(card.lowering, use_kernels=False)
+    monkeypatch.setattr(tm, "_upsample_kernel", lambda x, lowering: True)
     assert torch.isfinite(out).all() and _rel(out, card.decode(z)) < 2e-2
     mods = dict(cpu.model.named_modules())
     for path, x, head, got in calls:

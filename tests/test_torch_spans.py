@@ -219,13 +219,14 @@ def test_a_request_synchronises_once_a_phase(runners, monkeypatch):
 
 
 def test_record_printed_with_bytes_as_bytes(runners, capsys):
-    """One formatter: spans in seconds, counters in whole bytes, in the
-    CLI's report too."""
+    """One formatter: spans in seconds, counters in whole bytes, launch
+    counts as counts, in the CLI's report too."""
     rec = {"decode": 0.5, "decode.write": 0.25, spans.H2D: 1024,
-           spans.D2H: 2048.0}
+           spans.D2H: 2048.0, "upsample_kernel_launches": 3}
     line = spans.format_record(rec)
     assert line == ("decode 0.5000 s, decode.write 0.2500 s, "
-                    "h2d_bytes 1024 B, d2h_bytes 2048 B")
+                    "h2d_bytes 1024 B, d2h_bytes 2048 B, "
+                    "upsample_kernel_launches 3")
     cli._report(runners[False], "out.npy", 5, rec)
     assert capsys.readouterr().err.startswith(
         "wrote out.npy (5 frames); request record: " + line)
